@@ -9,18 +9,37 @@ toolkit:
 Phases (each raises on failure, so the script exits non-zero):
 
 1. device: the ``nvidia-smi`` name and power-limit line;
-2. build: every kernel under ``client_tpu_torch/csrc`` built from source
-   with nvcc into ``build/torch_kernels/``;
+2. build: every kernel under ``client_tpu_torch/csrc`` (decode_attention,
+   flash_attention, quantize_int8) built from source with nvcc into
+   ``build/torch_kernels/``, one compiler per source, with ptxas's lines;
 3. kernels: each kernel wrapper against its plain PyTorch version on the
-   card at the reference test shapes, the decoder's shape and large cache
-   shapes, with the kernel, the plain version and one PyTorch library call
-   timed by CUDA events beside the least time the card could take;
-4. server: the port's HTTP server with its model zoo on the GPU, driven by
-   the port's client — ``simple`` over the wire; ``identity_fp32`` at 4 MiB
-   and 64 MiB over the wire, system shared memory and colocated cuda shared
-   memory; ``decoder_lm`` over the sequence API and ``tiny_lm_generate``
-   over ``generate_stream``, checked against a CPU run of the port with the
-   same weights, with the kernels' launches counted on this path alone.
+   card, with the kernel, the plain version and one PyTorch library call
+   (where one computes the same function) timed by CUDA events beside the
+   least time the card could take:
+   - decode_attention at the reference test shapes, the decoder's shape and
+     large cache shapes;
+   - flash_attention in fp32 at the JAX tests' shapes, block pairs and
+     causal settings (the result must not depend on the blocks), in bf16 at
+     the JAX chip benchmark's (4, 2048, 8, 128), and at the served
+     long_context_encoder shape (1, S, 4, 16) for S = 100, 4096, 8192;
+   - quantize_int8 element-exact (exact half-steps, values past the clip)
+     and dequantize_int8 exact, at (1, 8192), a ragged length and 64 MiB;
+4. server: the port's HTTP server with its model zoo and
+   ``long_context_encoder`` on the GPU, driven by the port's client, each
+   path with every launch count set to 0 just before it and read just
+   after:
+   - ``simple`` over the wire; ``identity_fp32`` at 4 MiB and 64 MiB over
+     the wire, system shared memory and colocated cuda shared memory;
+     ``decoder_lm`` over the sequence API and ``tiny_lm_generate`` over
+     ``generate_stream``, checked against a CPU run of the port with the
+     same weights (decode_attention launches = tokens x layers);
+   - ``long_context_encoder`` (flash, dim 64, heads 4) at S = 100, 4096 and
+     8192 over the wire and colocated cuda shared memory, checked against a
+     CPU run of the port with the same weights (flash_attention launches =
+     requests), with its request p50 by data plane;
+   - the int8 wire path of ``examples/quantized_wire_client.py``: quantize
+     on the card, INT8 through ``identity_int8``, dequantize, error within
+     half a step (one quantize and one dequantize launch per round trip).
 
 It then prints one ``{"kernels": [...]}`` line and, last, one line
 ``{"ok": true, "device": {...}}``. Details go to ``build/chip_smoke.json``.
@@ -45,21 +64,60 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
 
 import client_tpu_torch.http as httpclient  # noqa: E402
-from client_tpu_torch.models import default_model_zoo  # noqa: E402
+import client_tpu_torch.ops.quantize as qz  # noqa: E402
+from client_tpu_torch.models import LongContextEncoderModel, default_model_zoo  # noqa: E402
+from client_tpu_torch.models.long_context import WEIGHTS, load_jax_params  # noqa: E402
 from client_tpu_torch.models.decoder import TinyDecoderModel  # noqa: E402
 from client_tpu_torch.models.generate import TinyGenerateModel  # noqa: E402
 from client_tpu_torch.ops import _kernels  # noqa: E402
 from client_tpu_torch.ops import decode_attention as da  # noqa: E402
+# the module's names (ops.flash_attention itself is the function)
+from client_tpu_torch.ops.flash_attention import LAUNCHES as FLASH_LAUNCHES  # noqa: E402
+from client_tpu_torch.ops.flash_attention import (  # noqa: E402
+    flash_attention,
+    flash_attention_reference,
+)
 from client_tpu_torch.server import HttpInferenceServer, ServerCore  # noqa: E402
 from client_tpu_torch.utils import cuda_shared_memory as cudashm  # noqa: E402
+from client_tpu_torch.utils import numpy_to_tensor  # noqa: E402
 from client_tpu_torch.utils import shared_memory as shm  # noqa: E402
 
 # H100 SXM (NVIDIA data sheet): HBM bandwidth and dense peaks, per dtype
+# (float32 outside the tensor cores: the port's fp32 kernels use no TF32)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
-TOLERANCE = {"float32": 1e-5, "bfloat16": 2e-2}  # tests/test_decode_attention.py
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# kernel against its plain version, per kernel and dtype:
+# - decode_attention: max |out - ref| < tol (tests/test_decode_attention.py);
+# - flash_attention: |out - ref| <= tol + tol * |ref| elementwise, the JAX
+#   tests' atol = rtol (tests/test_utils.py: 2e-5 in fp32); in bf16 2e-2, as
+#   the kernel rounds p to bf16 before PV and the output to bf16, where the
+#   plain version keeps fp32;
+# - quantize_int8 / dequantize_int8: element exact.
+TOLERANCE = {
+    "decode_attention": {"float32": 1e-5, "bfloat16": 2e-2},
+    "flash_attention": {"float32": 2e-5, "bfloat16": 2e-2},
+    "quantize_int8": 0.0,
+    "dequantize_int8": 0.0,
+}
+# launch counters of the kernel wrappers, by kernel name
+COUNTERS = {
+    "decode_attention": da.LAUNCHES,
+    "flash_attention": FLASH_LAUNCHES,
+    "quantize_int8": qz.QUANTIZE_LAUNCHES,
+    "dequantize_int8": qz.DEQUANTIZE_LAUNCHES,
+}
 
 MIB = 1 << 20
+
+
+def reset_counts() -> None:
+    for counter in COUNTERS.values():
+        counter.reset()
+
+
+def read_counts():
+    return {name: counter.count for name, counter in COUNTERS.items()}
 
 
 def log(*parts) -> None:
@@ -82,8 +140,8 @@ def build_kernels():
     t0 = time.perf_counter()
     logs = _kernels.build_all()
     seconds = time.perf_counter() - t0
-    ptxas = [line.strip() for text in logs.values() for line in text.splitlines()
-             if "registers" in line or "spill" in line]
+    ptxas = [f"{name}: {line.strip()}" for name, text in logs.items()
+             for line in text.splitlines() if "registers" in line or "spill" in line]
     return seconds, ptxas
 
 
@@ -125,7 +183,8 @@ def attention_bound_ms(batch, heads, max_len, dim, positions, itemsize, dtype_na
 
 def check_decode_attention():
     """Every case: the kernel against the plain version on the same inputs."""
-    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    dtypes = DTYPES
+    tol = TOLERANCE["decode_attention"]
     cases = []
     for (b, h, m, d) in ((1, 4, 128, 32), (3, 2, 200, 64), (2, 8, 384, 128)):
         for p in (0, m - 1):
@@ -148,9 +207,9 @@ def check_decode_attention():
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
         rows.append({"case": kind, "shape": [b, h, m, d], "pos": positions,
-                     "dtype": name, "max_abs_err": err, "tol": TOLERANCE[name]})
+                     "dtype": name, "max_abs_err": err, "tol": tol[name]})
         worst[name] = max(worst.get(name, 0.0), err)
-        if not err < TOLERANCE[name] or out.dtype != q.dtype:
+        if not err < tol[name] or out.dtype != q.dtype:
             raise AssertionError(f"decode_attention disagrees with its plain version: {rows[-1]}")
 
     # junk in the unwritten tail (slots > pos) must not leak into the output
@@ -170,8 +229,8 @@ def check_decode_attention():
         zero = da.decode_attention(q, k, v, torch.zeros(1, dtype=torch.int32, device="cuda"))
         err = (zero.float() - v[:, :, 0].float()).abs().max().item()
         rows.append({"case": "pos_zero", "shape": [1, 2, 96, 32], "pos": [0],
-                     "dtype": name, "max_abs_err": err, "tol": TOLERANCE[name]})
-        if not err < TOLERANCE[name]:
+                     "dtype": name, "max_abs_err": err, "tol": tol[name]})
+        if not err < tol[name]:
             raise AssertionError(f"pos 0 is not v[:, :, 0]: {rows[-1]}")
     return rows, worst
 
@@ -184,7 +243,7 @@ def time_decode_attention(shape, positions, iters):
     out = da.decode_attention(q, k, v, pos)
     ref = da.decode_attention_reference(q, k, v, pos)
     err = (out.float() - ref.float()).abs().max().item()
-    if not err < TOLERANCE["bfloat16"]:
+    if not err < TOLERANCE["decode_attention"]["bfloat16"]:
         raise AssertionError(f"decode_attention {shape} pos {positions}: error {err}")
     mask = (torch.arange(m, device="cuda")[None, :] <= pos[:, None])[:, None, None, :]
     q4 = q[:, :, None, :]
@@ -199,6 +258,172 @@ def time_decode_attention(shape, positions, iters):
         "bound_ms": attention_bound_ms(b, h, m, d, positions, 2, "bfloat16"),
     }
     return row
+
+
+def flash_inputs(shape, dtype, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return tuple(torch.randn(shape, generator=gen, device="cuda").to(dtype) for _ in range(3))
+
+
+def flash_agrees(out, ref, tol):
+    """(max |out - ref|, every element within tol + tol * |ref|)."""
+    diff = (out.float() - ref.float()).abs()
+    return diff.max().item(), bool((diff <= tol + tol * ref.float().abs()).all())
+
+
+def flash_bound(shape, causal, dtype_name):
+    """Least time and what sets it: q, k, v read once and the output written
+    once over the HBM rate, or 4*B*H*D flops per live (query, key) pair over
+    the dtype's peak (S(S+1)/2 pairs when causal), whichever is larger."""
+    b, s, h, d = shape
+    pairs = s * (s + 1) // 2 if causal else s * s
+    flops = 4 * b * h * pairs * d
+    nbytes = 4 * b * s * h * d * DTYPES[dtype_name].itemsize
+    by_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    by_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    return max(by_bytes, by_ops), ("operations" if by_ops >= by_bytes else "bytes")
+
+
+def check_flash_attention():
+    """The kernel against the plain version at every listed shape and mode;
+    one input per (shape, dtype, causal), so the block pairs must give the
+    very same output."""
+    cases = [("reference", (2, 128, 2, 32), "float32", causal, blocks)
+             for causal in (False, True) for blocks in ((128, 128), (64, 32), (32, 64))]
+    cases += [("ragged", (1, 100, 2, 16), "float32", causal, (64, 64)) for causal in (False, True)]
+    cases += [("chip_bench", (4, 2048, 8, 128), "bfloat16", causal, (128, 128))
+              for causal in (False, True)]
+    cases += [("served", (1, s, 4, 16), "float32", False, (128, 128)) for s in (100, 4096, 8192)]
+    rows = []
+    first = {}
+    for kind, shape, name, causal, (bq, bk) in cases:
+        q, k, v = flash_inputs(shape, DTYPES[name], seed=shape[1] + causal)
+        out = flash_attention(q, k, v, causal=causal, block_q=bq, block_k=bk)
+        ref = flash_attention_reference(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        tol = TOLERANCE["flash_attention"][name]
+        err, ok = flash_agrees(out, ref, tol)
+        rows.append({"case": kind, "shape": list(shape), "dtype": name, "causal": causal,
+                     "blocks": [bq, bk], "max_abs_err": err, "tol": tol})
+        if not ok or out.dtype != q.dtype or not torch.isfinite(out).all():
+            raise AssertionError(f"flash_attention disagrees with its plain version: {rows[-1]}")
+        key = (shape, name, causal)
+        if key in first and not torch.equal(first[key], out):
+            raise AssertionError(f"flash_attention depends on its block arguments: {rows[-1]}")
+        first.setdefault(key, out)
+    return rows
+
+
+def time_flash_attention(shape, name, causal, iters):
+    """Kernel, plain version and the SDPA yardstick on the same inputs."""
+    q, k, v = flash_inputs(shape, DTYPES[name], seed=99)
+    out = flash_attention(q, k, v, causal=causal)
+    ref = flash_attention_reference(q, k, v, causal=causal)
+    err, ok = flash_agrees(out, ref, TOLERANCE["flash_attention"][name])
+    if not ok:
+        raise AssertionError(f"flash_attention {shape} {name} causal={causal}: error {err}")
+    # SDPA takes [B,H,S,D]: the transposes are views of the same inputs
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    bound_ms, bound_by = flash_bound(shape, causal, name)
+    return {
+        "shape": list(shape), "dtype": name, "causal": causal, "max_abs_err": err,
+        "ms": cuda_ms(lambda: flash_attention(q, k, v, causal=causal), iters),
+        "plain_ms": cuda_ms(lambda: flash_attention_reference(q, k, v, causal=causal),
+                            max(iters // 4, 3)),
+        "library_ms": cuda_ms(
+            lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal), iters),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+    }
+
+
+def quantize_inputs(n, dtype, scale, seed):
+    """Seeded normals spread past the clip range, with exact half-steps
+    (k + 0.5) * scale, +-127.5 * scale and far-out values mixed in."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(n, generator=gen, device="cuda") * (60 * scale)
+    special = torch.cat([
+        torch.arange(-130, 130, device="cuda", dtype=torch.float32) + 0.5,
+        torch.tensor([127.5, -127.5, 1e4, -1e4, 0.0], device="cuda"),
+    ]) * scale
+    m = min(n, special.numel())
+    x[torch.randperm(n, generator=gen, device="cuda")[:m]] = special[:m]
+    return x.to(dtype)
+
+
+def check_quantize():
+    """quantize_int8 element-exact and dequantize_int8 exact against their
+    plain versions: fp32 and bf16, a power-of-two scale (exact half-steps
+    after the multiply) and the example's max/127 scale; the wire shape, a
+    ragged length (the kernels' scalar tail) and 64 MiB of fp32."""
+    rows = []
+    for name, dtype in DTYPES.items():
+        for n in (8192, 8195, 16 * MIB):
+            for scale_kind in ("pow2", "fit"):
+                x = quantize_inputs(n, dtype, 2.0 ** -5, seed=n)
+                scale = 2.0 ** -5 if scale_kind == "pow2" else x.float().abs().max().item() / 127
+                q = qz.quantize_int8(x, scale)
+                q_ref = qz.quantize_int8_reference(x, scale)
+                back = qz.dequantize_int8(q, scale, dtype)
+                back_ref = qz.dequantize_int8_reference(q, scale, dtype)
+                torch.cuda.synchronize()
+                row = {"n": n, "dtype": name, "scale": scale,
+                       "quantize_mismatches": int((q != q_ref).sum().item()),
+                       "dequantize_mismatches": int((back != back_ref).sum().item())}
+                rows.append(row)
+                if row["quantize_mismatches"] or row["dequantize_mismatches"]:
+                    raise AssertionError(f"int8 kernels disagree with their plain versions: {row}")
+    # every int8 value, -128 included, through dequantize
+    q = torch.arange(-128, 128, dtype=torch.int8, device="cuda").repeat(33)
+    for name, dtype in DTYPES.items():
+        if not torch.equal(qz.dequantize_int8(q, 0.37, dtype),
+                           qz.dequantize_int8_reference(q, 0.37, dtype)):
+            raise AssertionError(f"dequantize_int8 {name} differs over the int8 range")
+    return rows
+
+
+def time_quantize(n, iters):
+    """Both kernels and their plain versions on n fp32 elements, beside the
+    bytes bound; the yardstick for dequantize is ``q * scale`` (no single
+    PyTorch call computes quantize's multiply, round, clip and cast)."""
+    x = quantize_inputs(n, torch.float32, 0.03, seed=5)
+    scale = x.abs().max().item() / 127
+    q = qz.quantize_int8(x, scale)
+    q_err = (q.int() - qz.quantize_int8_reference(x, scale).int()).abs().max().item()
+    d_err = (qz.dequantize_int8(q, scale)
+             - qz.dequantize_int8_reference(q, scale)).abs().max().item()
+    if q_err or d_err:
+        raise AssertionError(f"int8 kernels disagree at n = {n}: {q_err}, {d_err}")
+    bound_ms = (4 * n + n) / PEAK_BYTES_PER_S * 1e3  # fp32 in/out, int8 out/in
+    return {
+        "n": n, "bytes_fp32": 4 * n, "scale": scale,
+        "quantize": {
+            "ms": cuda_ms(lambda: qz.quantize_int8(x, scale), iters),
+            "device_ms": device_ms_per_launch(lambda: qz.quantize_int8(x, scale),
+                                              "::quantize_kernel", 20),
+            "plain_ms": cuda_ms(lambda: qz.quantize_int8_reference(x, scale), iters),
+            "library_ms": None, "bound_ms": bound_ms, "max_abs_err": q_err},
+        "dequantize": {
+            "ms": cuda_ms(lambda: qz.dequantize_int8(q, scale), iters),
+            "device_ms": device_ms_per_launch(lambda: qz.dequantize_int8(q, scale),
+                                              "::dequantize_kernel", 20),
+            "plain_ms": cuda_ms(lambda: qz.dequantize_int8_reference(q, scale), iters),
+            "library_ms": cuda_ms(lambda: q * scale, iters),
+            "bound_ms": bound_ms, "max_abs_err": d_err},
+    }
+
+
+def device_ms_per_launch(fn, kernel_name, runs):
+    """Device time alone per launch of the kernel named ``kernel_name``
+    over ``runs`` calls of ``fn``, from a torch.profiler trace (the CUDA
+    event time of back-to-back wrapper calls includes the host's launch
+    cost, which dominates at small sizes); None if the trace has none."""
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    hits = [k for k in device_kernels(prof) if kernel_name in k["name"]]
+    launches = sum(k["count"] for k in hits)
+    return sum(k["total_ms"] for k in hits) / launches if launches else None
 
 
 # ---------------------------------------------------------------------------
@@ -284,6 +509,104 @@ def drive_identity(client, nbytes: int, iters: int):
     return row
 
 
+def drive_long_context(client, cpu_model, seqs, iters):
+    """long_context_encoder over the wire and colocated cuda shm at each
+    sequence length, every output against the CPU run of the port with the
+    same weights (flash_attention's fp32 tolerance). Returns the rows and
+    the number of requests made."""
+    dim = cpu_model.encoder.dim
+    tol = TOLERANCE["flash_attention"]["float32"]
+    tag = os.urandom(4).hex()
+    rows, requests = [], 0
+    for seq in seqs:
+        gen = torch.Generator(device="cuda").manual_seed(seq)
+        x = torch.randn((seq, dim), generator=gen, device="cuda")
+        x_host = x.cpu().numpy()
+        want = cpu_model.execute({"sequence": x_host}, {})["encoded"].numpy()
+        nbytes = seq * dim * 4
+        row = {"seq": seq, "dim": dim, "heads": cpu_model.encoder.heads}
+
+        def check(got, plane):
+            ok = (got.shape == want.shape and np.isfinite(got).all()
+                  and np.allclose(got, want, atol=tol, rtol=tol))
+            row[f"{plane}_max_abs_diff_vs_cpu"] = float(np.abs(got - want).max())
+            if not ok:
+                raise AssertionError(f"long_context_encoder over {plane} differs from the "
+                                     f"CPU run: {row}")
+
+        def wire():
+            inp = httpclient.InferInput("sequence", [seq, dim], "FP32").set_data_from_numpy(x_host)
+            return client.infer("long_context_encoder", [inp]).as_numpy("encoded")
+
+        check(wire(), "wire")
+        row["wire_p50_ms"] = p50_ms(wire, iters)
+        requests += 1 + iters
+
+        names = (f"lcin{tag}{seq}", f"lcout{tag}{seq}")
+        cu_in, cu_out = (cudashm.create_shared_memory_region(n, nbytes, colocated=True)
+                         for n in names)
+        try:
+            for name, region in zip(names, (cu_in, cu_out)):
+                client.register_cuda_shared_memory(name, cudashm.get_raw_handle(region), 0,
+                                                   nbytes)
+
+            def cuda():
+                cudashm.set_shared_memory_region_from_torch(cu_in, x)
+                inp = httpclient.InferInput("sequence", [seq, dim], "FP32").set_shared_memory(
+                    names[0], nbytes)
+                out = httpclient.InferRequestedOutput("encoded")
+                out.set_shared_memory(names[1], nbytes)
+                client.infer("long_context_encoder", [inp], outputs=[out])
+                y = cudashm.get_contents_as_torch(cu_out, "FP32", [seq, dim])
+                torch.cuda.synchronize()  # the output is ready to use
+                return y
+
+            y = cuda()
+            if not y.is_cuda:
+                raise AssertionError("long_context_encoder's cuda shm output left the card")
+            check(y.cpu().numpy(), "cuda_shm")
+            row["cuda_shm_p50_ms"] = p50_ms(cuda, iters)
+            requests += 1 + iters
+            for region in (cu_in, cu_out):
+                if np.frombuffer(region.host_buffer(), dtype=np.uint8).any():
+                    raise AssertionError(f"cuda shm region {region.name} was mirrored to the host")
+        finally:
+            client.unregister_cuda_shared_memory()
+            cudashm.destroy_shared_memory_region(cu_in)
+            cudashm.destroy_shared_memory_region(cu_out)
+        rows.append(row)
+    return rows, requests
+
+
+def drive_int8(client, rounds):
+    """examples/quantized_wire_client.py with the port: quantize on the
+    card, INT8 over the wire through identity_int8, dequantize on the card;
+    the error must be within half a step. Returns the row and the number of
+    round trips made."""
+    x_host = np.random.default_rng(11).standard_normal((1, 8192)).astype(np.float32)
+    scale = float(np.abs(x_host).max() / 127.0)
+    x = torch.from_numpy(x_host).to("cuda")
+
+    def round_trip():
+        q = qz.quantize_int8(x, scale)
+        inp = httpclient.InferInput("INPUT0", list(q.shape), "INT8")
+        inp.set_data_from_numpy(q.cpu().numpy())
+        q_back = client.infer("identity_int8", [inp]).as_numpy("OUTPUT0")
+        restored = qz.dequantize_int8(numpy_to_tensor(q_back, "cuda"), scale)
+        torch.cuda.synchronize()
+        return q, q_back, restored
+
+    q, q_back, restored = round_trip()
+    err = (restored - x).abs().max().item()
+    row = {"shape": list(x.shape), "scale": scale, "max_abs_err": err, "bound": scale / 2,
+           "wire_bytes": int(q.numel()), "fp32_bytes": int(x.numel() * 4)}
+    if (q_back.dtype != np.int8 or not np.array_equal(q_back, q.cpu().numpy())
+            or not err <= scale / 2 + 1e-6):
+        raise AssertionError(f"int8 wire path failed: {row}")
+    row["p50_ms"] = p50_ms(round_trip, rounds)
+    return row, rounds + 1
+
+
 def drive_decoder(run, prompt, steps):
     """decoder_lm: the prompt as the sequence start, then ``steps`` greedy
     continuations; ``run(tokens, start, end)`` -> (logits, next_token)."""
@@ -299,7 +622,8 @@ def drive_decoder(run, prompt, steps):
 def serve_and_check():
     prompt, steps, max_tokens = [1, 2, 3, 4], 8, 8
     result = {}
-    server = HttpInferenceServer(ServerCore(default_model_zoo("cuda"))).start()
+    encoder = LongContextEncoderModel(device="cuda")
+    server = HttpInferenceServer(ServerCore(default_model_zoo("cuda") + [encoder])).start()
     client = httpclient.InferenceServerClient(server.url, network_timeout=600.0)
     try:
         decoder = server.core.model("decoder_lm")
@@ -309,7 +633,7 @@ def serve_and_check():
         warm.set_data_from_numpy(np.array([[1]], dtype=np.int32))
         client.infer("decoder_lm", [warm], sequence_id=16, sequence_start=True,
                      sequence_end=True)
-        da.LAUNCHES.reset()
+        reset_counts()
 
         a = np.arange(16, dtype=np.int32).reshape(1, 16)
         inputs = [httpclient.InferInput(n, [1, 16], "INT32").set_data_from_numpy(a)
@@ -340,7 +664,25 @@ def serve_and_check():
         events = list(client.generate_stream(
             "tiny_lm_generate", {"TOKENS": prompt, "MAX_TOKENS": max_tokens}))
         generate_s = time.perf_counter() - t0
-        launches = da.LAUNCHES.count
+        decoder_counts = read_counts()
+        launches = decoder_counts["decode_attention"]
+
+        # long_context_encoder: one request first (cuBLAS set-up, the kernel
+        # library loaded) outside the counts; the CPU run gets the same weights
+        warm = httpclient.InferInput("sequence", [8, encoder.encoder.dim], "FP32")
+        warm.set_data_from_numpy(np.zeros((8, encoder.encoder.dim), np.float32))
+        client.infer("long_context_encoder", [warm])
+        cpu_encoder = LongContextEncoderModel(device="cpu")
+        load_jax_params(cpu_encoder, {name: getattr(encoder.encoder, name).cpu().numpy()
+                                      for name in WEIGHTS})
+        reset_counts()
+        result["long_context"], lc_requests = drive_long_context(
+            client, cpu_encoder, (100, 4096, 8192), 10)
+        lc_counts = read_counts()
+
+        reset_counts()
+        result["int8"], round_trips = drive_int8(client, 20)
+        int8_counts = read_counts()
     finally:
         client.close()
         server.stop()
@@ -351,10 +693,17 @@ def serve_and_check():
     # tokens through the decode step: prompt + continuations, and for the
     # stream the prompt + every emitted token but the last
     stepped = (len(prompt) + steps) + (len(prompt) + max_tokens - 1)
-    if launches != stepped * layers:
-        raise AssertionError(
-            f"decode_attention launched {launches} times on the served path, "
-            f"expected {stepped} tokens x {layers} layers")
+    # each path launched its own kernels, once per token x layer, request or
+    # round trip, and no other kernel
+    expected = {
+        "decoder": (decoder_counts, {"decode_attention": stepped * layers}),
+        "long_context_encoder": (lc_counts, {"flash_attention": lc_requests}),
+        "int8 wire": (int8_counts, {"quantize_int8": round_trips, "dequantize_int8": round_trips}),
+    }
+    for path, (counts, want) in expected.items():
+        if counts != {name: want.get(name, 0) for name in COUNTERS}:
+            raise AssertionError(f"launches on the {path} path: {counts}, expected {want}")
+    result["launch_counts"] = {path: counts for path, (counts, _) in expected.items()}
 
     # the same weights on the CPU, through the plain attention version
     cpu = TinyDecoderModel(device="cpu")
@@ -389,9 +738,53 @@ def serve_and_check():
             f"margins {(sorted_logits[:, -1] - sorted_logits[:, -2]).tolist()}")
     if not np.isfinite(gpu_logits).all() or logit_err > 5e-2:
         raise AssertionError(f"logits differ from the CPU run by {logit_err}")
-    # after the launch count was read: where a served decode step's time goes
+    # after the launch counts were read: where a served request's time goes
     result["profile"] = profile_decode(decoder, prompt, steps)
-    return result, launches
+    result["long_context_profile"] = profile_long_context(encoder, 8192, 5)
+    return result, {"decode_attention": launches, "flash_attention": lc_counts["flash_attention"],
+                    "quantize_int8": int8_counts["quantize_int8"],
+                    "dequantize_int8": int8_counts["dequantize_int8"]}
+
+
+def device_kernels(prof):
+    """Device time by kernel in a torch.profiler trace, largest first."""
+    kernels = []
+    for event in prof.key_averages():
+        device_us = getattr(event, "self_device_time_total", 0)
+        if device_us > 0 and event.device_type == torch.autograd.DeviceType.CUDA:
+            kernels.append({"name": event.key[:80], "count": event.count,
+                            "total_ms": device_us / 1e3})
+    kernels.sort(key=lambda k: -k["total_ms"])
+    return kernels
+
+
+def profile_long_context(model, seq, runs):
+    """Device kernel time against wall time for ``runs`` long_context_encoder
+    executes at ``seq`` on a device input, in process (no HTTP)."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn((seq, model.encoder.dim), generator=gen, device="cuda")
+
+    def run():
+        for _ in range(runs):
+            model.execute({"sequence": x}, {})
+        torch.cuda.synchronize()
+
+    run()  # warm
+    t0 = time.perf_counter()
+    run()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / runs
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+    kernels = device_kernels(prof)
+    device_ms = sum(k["total_ms"] for k in kernels) / runs
+    flash_ms = sum(k["total_ms"] for k in kernels if "flash_attention" in k["name"]) / runs
+    return {
+        "seq": seq, "runs": runs, "wall_ms": wall_ms,
+        "device_ms": device_ms if kernels else None,
+        "device_idle_share": 1 - device_ms / wall_ms if kernels else None,
+        "flash_attention_ms": flash_ms if kernels else None,
+        "top_kernels": kernels[:6],
+    }
 
 
 def profile_decode(decoder, prompt, steps):
@@ -414,13 +807,7 @@ def profile_decode(decoder, prompt, steps):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     tokens = len(prompt) + steps
-    kernels = []
-    for event in prof.key_averages():
-        device_us = getattr(event, "self_device_time_total", 0)
-        if device_us > 0 and event.device_type == torch.autograd.DeviceType.CUDA:
-            kernels.append({"name": event.key[:80], "count": event.count,
-                            "total_ms": device_us / 1e3})
-    kernels.sort(key=lambda k: -k["total_ms"])
+    kernels = device_kernels(prof)
     device_ms = sum(k["total_ms"] for k in kernels)
     attention = [k for k in kernels if "decode_attention" in k["name"]]
     attention_ms = sum(k["total_ms"] for k in attention)
@@ -468,6 +855,37 @@ def main() -> int:
             f"sdpa {row['library_ms']:.4f} ms, bound {row['bound_ms']:.5f} ms "
             f"({row['bound_ms'] / row['ms']:.1%} of bound)")
 
+    flash_rows = check_flash_attention()
+    for row in flash_rows:
+        log(f"kernel flash_attention {row['case']} {row['shape']} {row['dtype']} "
+            f"causal={row['causal']} blocks {row['blocks']}: max_abs_err "
+            f"{row['max_abs_err']:.3g} (atol = rtol = {row['tol']})")
+    # the served shape at its largest length first: the row of the kernels line
+    flash_timed = [time_flash_attention((1, s, 4, 16), "float32", False, iters)
+                   for s, iters in ((8192, 20), (4096, 50), (100, 200))]
+    flash_timed += [time_flash_attention((4, 2048, 8, 128), "bfloat16", causal, 10)
+                    for causal in (False, True)]
+    for row in flash_timed:
+        log(f"time flash_attention {row['shape']} {row['dtype']} causal={row['causal']}: "
+            f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+            f"sdpa {row['library_ms']:.4f} ms, bound {row['bound_ms']:.5f} ms "
+            f"({row['bound_by']}; {row['bound_ms'] / row['ms']:.1%} of bound)")
+
+    quant_rows = check_quantize()
+    log(f"kernel quantize_int8 / dequantize_int8: element exact in all {len(quant_rows)} "
+        "cases (fp32 and bf16; n = 8192, 8195, 16 Mi; half-steps and clipping) and over "
+        "every int8 value")
+    quant_timed = [time_quantize(8192, 200), time_quantize(16 * MIB, 20)]
+    for row in quant_timed:
+        for name in ("quantize", "dequantize"):
+            t = row[name]
+            library = "none" if t["library_ms"] is None else f"{t['library_ms']:.4f} ms"
+            device = "not measured" if t["device_ms"] is None else f"{t['device_ms']:.4f} ms"
+            log(f"time {name}_int8 n={row['n']} fp32: kernel {t['ms']:.4f} ms "
+                f"({device} on the device), plain "
+                f"{t['plain_ms']:.4f} ms, library {library}, bound {t['bound_ms']:.5f} ms "
+                f"(bytes; {t['bound_ms'] / t['ms']:.1%} of bound)")
+
     served, launches = serve_and_check()
     for row in served["identity"]:
         log(f"identity_fp32 {row['bytes'] // MIB} MiB p50: wire {row['wire_p50_ms']:.3f} ms, "
@@ -489,8 +907,30 @@ def main() -> int:
         f"{req['send']:.3f} ms send to response headers, {req['receive']:.3f} ms body read")
     log(f"decoder_lm tokens {dec['gpu_tokens']} (cpu {dec['cpu_tokens']}), max logit diff "
         f"{dec['max_abs_logit_diff']:.4g}; tiny_lm_generate {dec['generate_tokens']}; "
-        f"decode_attention launches {launches} = {dec['tokens_stepped']} tokens x "
-        f"{dec['layers']} layers")
+        f"decode_attention launches {launches['decode_attention']} = "
+        f"{dec['tokens_stepped']} tokens x {dec['layers']} layers")
+    for row in served["long_context"]:
+        log(f"long_context_encoder S={row['seq']} p50: wire {row['wire_p50_ms']:.3f} ms, "
+            f"cuda shm {row['cuda_shm_p50_ms']:.3f} ms; max diff vs CPU run "
+            f"{row['wire_max_abs_diff_vs_cpu']:.3g} (wire), "
+            f"{row['cuda_shm_max_abs_diff_vs_cpu']:.3g} (cuda shm)")
+    log(f"long_context_encoder flash_attention launches {launches['flash_attention']} = "
+        "requests")
+    lc_prof = served["long_context_profile"]
+    if lc_prof["device_ms"] is None:
+        log("profile long_context_encoder: the profiler recorded no device time (not measured)")
+    else:
+        log(f"profile long_context_encoder S={lc_prof['seq']} in process: "
+            f"{lc_prof['wall_ms']:.3f} ms wall, {lc_prof['device_ms']:.3f} ms on the device "
+            f"(idle {lc_prof['device_idle_share']:.1%}), flash_attention "
+            f"{lc_prof['flash_attention_ms']:.3f} ms; top kernels "
+            + ", ".join(f"{k['name'][:40]} {k['total_ms']:.3f} ms/{k['count']}"
+                        for k in lc_prof["top_kernels"][:4]))
+    int8 = served["int8"]
+    log(f"int8 wire path {int8['shape']}: {int8['wire_bytes']} B on the wire vs "
+        f"{int8['fp32_bytes']} B fp32, max error {int8['max_abs_err']:.6f} <= half step "
+        f"{int8['bound']:.6f}, round trip p50 {int8['p50_ms']:.3f} ms; launches quantize "
+        f"{launches['quantize_int8']}, dequantize {launches['dequantize_int8']} = round trips")
 
     main_row = timed[0]
     kernels = [{
@@ -498,7 +938,7 @@ def main() -> int:
         "route": "cuda",
         "source": "client_tpu_torch/csrc/decode_attention.cu",
         "replaces": "client_tpu/ops/decode_attention.py:121",
-        "launches": launches,
+        "launches": launches["decode_attention"],
         "max_abs_err": main_row["max_abs_err"],
         "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"],
@@ -512,10 +952,57 @@ def main() -> int:
         "pos": main_row["pos"],
         "at_shapes": timed[1:],
     }]
+    flash_row = flash_timed[0]
+    kernels.append({
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "client_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "client_tpu/ops/flash_attention.py:142",
+        "launches": launches["flash_attention"],
+        "max_abs_err": flash_row["max_abs_err"],
+        "ms": flash_row["ms"],
+        "plain_ms": flash_row["plain_ms"],
+        "bound_ms": flash_row["bound_ms"],
+        "bound_by": flash_row["bound_by"],
+        "library_ms": flash_row["library_ms"],
+        "shape": flash_row["shape"],
+        "dtype": flash_row["dtype"],
+        "at_shapes": flash_timed[1:],
+    })
+    wire_row = quant_timed[0]
+    for name, replaces, note in (
+            ("quantize_int8", "client_tpu/ops/__init__.py:170",
+             "no single PyTorch call computes multiply, round half to even, clip to "
+             "[-127, 127] and cast to int8"),
+            ("dequantize_int8", "client_tpu/ops/__init__.py:183",
+             "library_ms is q * scale (int8 times a Python float gives float32)")):
+        t = wire_row[name.split("_")[0]]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "client_tpu_torch/csrc/quantize_int8.cu",
+            "replaces": replaces,
+            "launches": launches[name],
+            "max_abs_err": t["max_abs_err"],
+            "ms": t["ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": t["library_ms"],
+            "library_note": note,
+            # device time alone per launch (profiler); "ms" is a wrapper call
+            # back to back, host launch cost included
+            "device_ms": t["device_ms"],
+            "n": wire_row["n"],
+            "at_shapes": [{"n": row["n"], **row[name.split("_")[0]]}
+                          for row in quant_timed[1:]],
+        })
     os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
     with open(os.path.join(REPO, "build", "chip_smoke.json"), "w") as f:
         json.dump({"device": smi, "build_seconds": seconds, "ptxas": ptxas,
                    "checks": rows, "worst_err": worst, "timed": timed,
+                   "flash_checks": flash_rows, "flash_timed": flash_timed,
+                   "quantize_checks": quant_rows, "quantize_timed": quant_timed,
                    "served": served, "kernels": kernels}, f, indent=1)
     log(smi)
     log(json.dumps({"kernels": kernels}))

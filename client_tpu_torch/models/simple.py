@@ -48,7 +48,8 @@ class AddSubModel(Model):
 
 
 class IdentityModel(Model):
-    """Passthrough INPUT0 -> OUTPUT0 (``identity_fp32``, ``identity_bf16``).
+    """Passthrough INPUT0 -> OUTPUT0 (``identity_fp32``, ``identity_bf16``,
+    ``identity_int8``).
 
     Fixed-width inputs go to the model's device (a cuda shared-memory input
     already there is returned as the very same tensor); BYTES pass through
@@ -84,6 +85,7 @@ def default_model_zoo(device="cuda") -> List[Model]:
         AddSubModel(device=device),
         IdentityModel("identity_fp32", "FP32", device=device),
         IdentityModel("identity_bf16", "BF16", device=device),
+        IdentityModel("identity_int8", "INT8", device=device),
         decoder,
         TinyGenerateModel(decoder=decoder),
     ]

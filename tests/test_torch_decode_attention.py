@@ -205,10 +205,12 @@ def test_build_all_runs_one_compiler_per_source(tmp_path, monkeypatch):
     monkeypatch.setattr(_kernels, "BUILD_DIR", tmp_path / "build")
     monkeypatch.setattr(_kernels, "nvcc", lambda: fake)
     logs = _kernels.build_all()
-    assert set(logs) == set(_kernels.sources()) == {"decode_attention"}
-    assert "registers" in logs["decode_attention"]
-    target = _kernels.library_path("decode_attention")
-    assert target.exists() and target.parent == tmp_path / "build"
+    assert set(logs) == set(_kernels.sources()) == {
+        "decode_attention", "flash_attention", "quantize_int8"}
+    for name in logs:
+        assert "registers" in logs[name]
+        target = _kernels.library_path(name)
+        assert target.exists() and target.parent == tmp_path / "build"
     assert "sm_90a" in " ".join(_kernels.NVCC_FLAGS)
     assert _kernels.build_all() == {}  # up to date: nothing rebuilds
 

@@ -37,7 +37,8 @@ def _forbidden(module: str) -> bool:
 
 def test_port_has_files():
     assert len(PORT_FILES) > 10
-    assert (REPO / "client_tpu_torch" / "csrc" / "decode_attention.cu").exists()
+    for name in ("decode_attention", "flash_attention", "quantize_int8"):
+        assert (REPO / "client_tpu_torch" / "csrc" / f"{name}.cu").exists()
 
 
 @pytest.mark.parametrize(
