@@ -10,8 +10,9 @@ Phases (each raises on failure, so the script exits non-zero):
 
 1. device: the ``nvidia-smi`` name and power-limit line;
 2. build: every kernel under ``client_tpu_torch/csrc`` (decode_attention,
-   flash_attention, quantize_int8) built from source with nvcc into
-   ``build/torch_kernels/``, one compiler per source, with ptxas's lines;
+   flash_attention, normalize_image, quantize_int8, softmax) built from
+   source with nvcc into ``build/torch_kernels/``, one compiler per source,
+   with ptxas's lines;
 3. kernels: each kernel wrapper against its plain PyTorch version on the
    card, with the kernel, the plain version and one PyTorch library call
    (where one computes the same function) timed by CUDA events beside the
@@ -24,6 +25,11 @@ Phases (each raises on failure, so the script exits non-zero):
      long_context_encoder shape (1, S, 4, 16) for S = 100, 4096, 8192;
    - quantize_int8 element-exact (exact half-steps, values past the clip)
      and dequantize_int8 exact, at (1, 8192), a ragged length and 64 MiB;
+   - normalize_image element-exact (fp32, uint8 and bf16 in; fp32 and bf16
+     out; INCEPTION and NONE) at (224, 224, 3), (7, 13, 3), 64 MiB of fp32
+     and an unaligned view; softmax_probabilities within rtol 1e-5 at the
+     served (1, 1000) and at (8, 1000), (3, 50) x 30, (1000,), bf16, a long
+     row and (16384, 1000);
 4. server: the port's HTTP server with its model zoo and
    ``long_context_encoder`` on the GPU, driven by the port's client, each
    path with every launch count set to 0 just before it and read just
@@ -39,7 +45,15 @@ Phases (each raises on failure, so the script exits non-zero):
      requests), with its request p50 by data plane;
    - the int8 wire path of ``examples/quantized_wire_client.py``: quantize
      on the card, INT8 through ``identity_int8``, dequantize, error within
-     half a step (one quantize and one dequantize launch per round trip).
+     half a step (one quantize and one dequantize launch per round trip);
+   - the vision path, ``build_image_ensemble`` at width 96 / 1000 classes
+     (weights from seed 0) in a server of its own: the image_client flow
+     (normalize on the card, ``densenet_onnx`` over the wire and colocated
+     cuda shm, softmax of the logits in the output region) and the
+     ensemble_image flow (raw UINT8 over the wire), each checked against a
+     CPU run of the port with the same weights (top-1 equal, logits within
+     5e-2; normalize launches = requests, softmax launches = calls), with
+     the p50 of each plane and an in-process profile of densenet_onnx.
 
 It then prints one ``{"kernels": [...]}`` line and, last, one line
 ``{"ok": true, "device": {...}}``. Details go to ``build/chip_smoke.json``.
@@ -65,7 +79,13 @@ sys.path.insert(0, REPO)
 
 import client_tpu_torch.http as httpclient  # noqa: E402
 import client_tpu_torch.ops.quantize as qz  # noqa: E402
+from client_tpu_torch import ops  # noqa: E402
+from client_tpu_torch.models import DenseNetModel, ImagePreprocessModel  # noqa: E402
 from client_tpu_torch.models import LongContextEncoderModel, default_model_zoo  # noqa: E402
+from client_tpu_torch.models import build_image_ensemble  # noqa: E402
+from client_tpu_torch.models.vision import flops_per_image  # noqa: E402
+from client_tpu_torch.ops import normalize as nz  # noqa: E402
+from client_tpu_torch.ops import softmax as sm  # noqa: E402
 from client_tpu_torch.models.long_context import WEIGHTS, load_jax_params  # noqa: E402
 from client_tpu_torch.models.decoder import TinyDecoderModel  # noqa: E402
 from client_tpu_torch.models.generate import TinyGenerateModel  # noqa: E402
@@ -93,12 +113,17 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 #   tests' atol = rtol (tests/test_utils.py: 2e-5 in fp32); in bf16 2e-2, as
 #   the kernel rounds p to bf16 before PV and the output to bf16, where the
 #   plain version keeps fp32;
-# - quantize_int8 / dequantize_int8: element exact.
+# - quantize_int8 / dequantize_int8: element exact;
+# - normalize_image: element exact (both round f32(x)*scale+shift once);
+# - softmax_probabilities: rtol 1e-5, atol 1e-30 (tests/test_utils.py's
+#   bound against JAX; exp and the sums differ in the last bits).
 TOLERANCE = {
     "decode_attention": {"float32": 1e-5, "bfloat16": 2e-2},
     "flash_attention": {"float32": 2e-5, "bfloat16": 2e-2},
     "quantize_int8": 0.0,
     "dequantize_int8": 0.0,
+    "normalize_image": 0.0,
+    "softmax_probabilities": {"rtol": 1e-5, "atol": 1e-30},
 }
 # launch counters of the kernel wrappers, by kernel name
 COUNTERS = {
@@ -106,6 +131,8 @@ COUNTERS = {
     "flash_attention": FLASH_LAUNCHES,
     "quantize_int8": qz.QUANTIZE_LAUNCHES,
     "dequantize_int8": qz.DEQUANTIZE_LAUNCHES,
+    "normalize_image": nz.LAUNCHES,
+    "softmax_probabilities": sm.LAUNCHES,
 }
 
 MIB = 1 << 20
@@ -412,6 +439,141 @@ def time_quantize(n, iters):
     }
 
 
+INCEPTION = (2.0 / 255.0, -1.0)
+NORMALIZE_IN = {"float32": torch.float32, "uint8": torch.uint8, "bfloat16": torch.bfloat16}
+
+
+def image_input(shape, dtype, seed):
+    """Seeded pixel values 0..255 (uniform reals, truncated for uint8)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.rand(shape, generator=gen, device="cuda") * 255
+    return x.to(torch.uint8) if dtype == torch.uint8 else x.to(dtype)
+
+
+def bit_mismatches(a, b) -> int:
+    """Elements whose bits differ (same dtype and shape)."""
+    ints = {4: torch.int32, 2: torch.int16}[a.element_size()]
+    return int((a.view(ints) != b.view(ints)).sum().item())
+
+
+def check_normalize():
+    """normalize_image element-exact against its plain version: fp32, uint8
+    and bf16 in x fp32 and bf16 out, INCEPTION and NONE scaling, at the
+    image_client's (224, 224, 3), a ragged (7, 13, 3), 64 MiB of fp32 and
+    an input 4 bytes off 16-byte alignment (the kernel's scalar path)."""
+    rows = []
+    for in_name, in_dtype in NORMALIZE_IN.items():
+        for shape in ((224, 224, 3), (7, 13, 3), (16 * MIB,), "unaligned"):
+            base = image_input((4099,) if shape == "unaligned" else shape, in_dtype,
+                               seed=len(rows))
+            x = base[1:] if shape == "unaligned" else base
+            for out_name, out_dtype in (("float32", torch.float32),
+                                        ("bfloat16", torch.bfloat16)):
+                for mode, (scale, shift) in (("INCEPTION", INCEPTION), ("NONE", (1.0, 0.0))):
+                    out = ops.normalize_image(x, scale, shift, out_dtype)
+                    ref = nz.normalize_image_reference(x, scale, shift, out_dtype)
+                    torch.cuda.synchronize()
+                    row = {"shape": shape if isinstance(shape, str) else list(shape),
+                           "in": in_name, "out": out_name, "mode": mode,
+                           "mismatches": bit_mismatches(out, ref)}
+                    rows.append(row)
+                    if row["mismatches"] or out.dtype != out_dtype or out.shape != x.shape:
+                        raise AssertionError(
+                            f"normalize_image disagrees with its plain version: {row}")
+    return rows
+
+
+def time_normalize(shape, in_dtype, iters):
+    """Kernel and plain version (INCEPTION, fp32 out) beside the bytes bound.
+    The yardstick ``torch.add(shift, x, alpha=scale)`` computes x * scale +
+    shift in one call (the 0-dim fp32 ``shift`` makes a uint8 ``x`` give
+    float32 too); whether it gives the kernel's single rounding is counted,
+    not assumed."""
+    x = image_input(shape, in_dtype, seed=3)
+    scale, shift = INCEPTION
+    out = ops.normalize_image(x, scale, shift, torch.float32)
+    err = bit_mismatches(out, nz.normalize_image_reference(x, scale, shift, torch.float32))
+    if err:
+        raise AssertionError(f"normalize_image {shape} {in_dtype}: {err} mismatches")
+    n = x.numel()
+    row = {
+        "shape": list(shape), "in": str(in_dtype).replace("torch.", ""), "out": "float32",
+        "max_abs_err": 0.0,
+        "ms": cuda_ms(lambda: ops.normalize_image(x, scale, shift, torch.float32), iters),
+        "device_ms": device_ms_per_launch(
+            lambda: ops.normalize_image(x, scale, shift, torch.float32),
+            "normalize_kernel", 20),
+        "plain_ms": cuda_ms(lambda: nz.normalize_image_reference(x, scale, shift,
+                                                                 torch.float32), iters),
+        "bound_ms": n * (x.element_size() + 4) / PEAK_BYTES_PER_S * 1e3,
+        "bound_by": "bytes", "library_ms": None,
+    }
+    shift_t = torch.tensor(shift, device="cuda")
+    lib = torch.add(shift_t, x, alpha=scale)
+    if lib.dtype != torch.float32:
+        raise AssertionError(f"torch.add(shift, x, alpha=scale) gave {lib.dtype} for {in_dtype}")
+    row["library_mismatches"] = bit_mismatches(lib, out)
+    row["library_candidate_ms"] = cuda_ms(lambda: torch.add(shift_t, x, alpha=scale), iters)
+    if row["library_mismatches"] == 0:
+        row["library_ms"] = row["library_candidate_ms"]
+    return row
+
+
+def check_softmax():
+    """softmax_probabilities against its plain version within rtol 1e-5
+    (atol 1e-30) at the served (1, 1000), a batch (8, 1000), tests/
+    test_utils.py's (3, 50) x 30, 1-D (1000,), bf16 (8, 1000), a long row
+    (4, 5000) (one block per row), a bytes-sized (16384, 1000), and a row of
+    -inf (NaN, as in JAX)."""
+    tol = TOLERANCE["softmax_probabilities"]
+    rows = []
+    cases = [((1, 1000), "float32", 1.0), ((8, 1000), "float32", 1.0),
+             ((3, 50), "float32", 30.0), ((1000,), "float32", 1.0),
+             ((8, 1000), "bfloat16", 1.0), ((4, 5000), "float32", 1.0),
+             ((16384, 1000), "float32", 1.0)]
+    for i, (shape, name, stretch) in enumerate(cases):
+        gen = torch.Generator(device="cuda").manual_seed(i)
+        x = (torch.randn(shape, generator=gen, device="cuda") * stretch).to(DTYPES[name])
+        out = ops.softmax_probabilities(x)
+        ref = sm.softmax_probabilities_reference(x)
+        torch.cuda.synchronize()
+        rel = ((out - ref).abs() / ref.abs().clamp_min(tol["atol"])).max().item()
+        row = {"shape": list(shape), "dtype": name, "scale": stretch, "max_rel_err": rel,
+               "max_abs_err": (out - ref).abs().max().item(), "rtol": tol["rtol"]}
+        rows.append(row)
+        if (out.dtype != torch.float32 or out.shape != x.shape
+                or not torch.allclose(out, ref, rtol=tol["rtol"], atol=tol["atol"])):
+            raise AssertionError(f"softmax_probabilities disagrees with its plain version: {row}")
+    x = torch.tensor([[float("-inf")] * 8, list(range(8))], device="cuda")
+    out = ops.softmax_probabilities(x)
+    if not (out[0].isnan().all() and torch.allclose(out[1], sm.softmax_probabilities_reference(
+            x[1]), rtol=tol["rtol"], atol=tol["atol"])):
+        raise AssertionError(f"softmax_probabilities of a -inf row is not NaN: {out}")
+    return rows
+
+
+def time_softmax(shape, iters):
+    """Kernel, plain version and ``torch.softmax(x, -1, dtype=float32)``
+    beside the bytes bound (each logit read once, each probability written
+    once, fp32)."""
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    x = torch.randn(shape, generator=gen, device="cuda") * 4
+    out = ops.softmax_probabilities(x)
+    ref = sm.softmax_probabilities_reference(x)
+    tol = TOLERANCE["softmax_probabilities"]
+    if not torch.allclose(out, ref, rtol=tol["rtol"], atol=tol["atol"]):
+        raise AssertionError(f"softmax_probabilities {shape} disagrees with its plain version")
+    return {
+        "shape": list(shape), "dtype": "float32",
+        "max_abs_err": (out - ref).abs().max().item(),
+        "ms": cuda_ms(lambda: ops.softmax_probabilities(x), iters),
+        "device_ms": device_ms_per_launch(lambda: ops.softmax_probabilities(x), "softmax_", 20),
+        "plain_ms": cuda_ms(lambda: sm.softmax_probabilities_reference(x), iters),
+        "library_ms": cuda_ms(lambda: torch.softmax(x, -1, dtype=torch.float32), iters),
+        "bound_ms": 8 * x.numel() / PEAK_BYTES_PER_S * 1e3, "bound_by": "bytes",
+    }
+
+
 def device_ms_per_launch(fn, kernel_name, runs):
     """Device time alone per launch of the kernel named ``kernel_name``
     over ``runs`` calls of ``fn``, from a torch.profiler trace (the CUDA
@@ -607,6 +769,160 @@ def drive_int8(client, rounds):
     return row, rounds + 1
 
 
+VISION_CLASSES, VISION_WIDTH = 1000, 96
+
+
+def top_entries(result, name):
+    """The classification extension's "value:index:label" entries."""
+    return [e.decode().split(":") for e in result.as_numpy(name).reshape(-1)]
+
+
+def serve_vision(iters):
+    """The vision path on the card: ``build_image_ensemble`` at width 96 /
+    1000 classes (weights from seed 0) behind the port's HTTP server, driven
+    by the port's client, against a CPU run of the port with the same
+    weights. Each flow runs with every launch count set to 0 just before it
+    and read just after:
+
+    - image_client: the noise image to the card, ``ops.normalize_image``
+      (INCEPTION), CHW, ``densenet_onnx`` (a) over the wire and (b) through
+      colocated cuda shm for data_0 and fc6_1, then
+      ``ops.softmax_probabilities`` on the logits in the output region;
+    - ensemble_image: (300, 400, 3) UINT8 noise over the wire.
+    """
+    models = build_image_ensemble(VISION_CLASSES, VISION_WIDTH, device="cuda")
+    densenet = models[1]
+    cpu_densenet = DenseNetModel(VISION_CLASSES, VISION_WIDTH, seed=0, device="cpu")
+    server = HttpInferenceServer(ServerCore(models)).start()
+    client = httpclient.InferenceServerClient(server.url, network_timeout=600.0)
+    img = np.random.default_rng(0).uniform(0, 255, (224, 224, 3)).astype(np.float32)
+    raw = np.random.default_rng(0).integers(0, 256, (300, 400, 3)).astype(np.uint8)
+    scale, shift = INCEPTION
+    in_bytes, out_bytes = 3 * 224 * 224 * 4, VISION_CLASSES * 4
+    calls = {"image_client": 0, "ensemble": 0, "softmax": 0}
+    result = {"classes": VISION_CLASSES, "width": VISION_WIDTH,
+              "flops_per_image": flops_per_image(VISION_CLASSES, VISION_WIDTH, (2, 2, 2))}
+
+    def data_0():
+        """image_client's preprocess on the card: HWC -> INCEPTION -> CHW."""
+        calls["image_client"] += 1
+        x = torch.from_numpy(img).to("cuda")
+        return ops.normalize_image(x, scale, shift, torch.float32).permute(2, 0, 1).contiguous()
+
+    def wire(class_count=0):
+        inp = httpclient.InferInput("data_0", [3, 224, 224], "FP32").set_data_from_numpy(data_0())
+        out = httpclient.InferRequestedOutput("fc6_1", class_count=class_count)
+        return client.infer("densenet_onnx", [inp], outputs=[out])
+
+    def ensemble(class_count=0):
+        calls["ensemble"] += 1
+        inp = httpclient.InferInput("IMAGE", list(raw.shape), "UINT8").set_data_from_numpy(raw)
+        out = httpclient.InferRequestedOutput("CLASSIFICATION", class_count=class_count)
+        return client.infer("ensemble_image", [inp], outputs=[out])
+
+    # the CPU reference: the same seed-0 weights, the plain normalize
+    want = cpu_densenet.execute({"data_0": nz.normalize_image_reference(
+        torch.from_numpy(img), scale, shift, torch.float32).permute(2, 0, 1).contiguous()},
+        {})["fc6_1"].numpy().reshape(-1)
+    stage0 =ImagePreprocessModel(device="cpu").execute({"raw_image": raw}, {})["preprocessed"]
+    want_ens = cpu_densenet.execute({"data_0": stage0}, {})["fc6_1"].numpy().reshape(-1)
+
+    def check(logits, reference, what):
+        diff = float(np.abs(logits - reference).max())
+        result[f"{what}_max_abs_logit_diff_vs_cpu"] = diff
+        if (logits.shape != reference.shape or not np.isfinite(logits).all() or diff > 5e-2
+                or logits.argmax() != reference.argmax()):
+            raise AssertionError(f"{what}: logits differ from the CPU run by {diff} (top-1 "
+                                 f"{logits.argmax()} vs {reference.argmax()})")
+
+    def check_top(entries, reference, what):
+        result[f"{what}_top3"] = entries
+        if (len(entries) != 3 or int(entries[0][1]) != int(reference.argmax())
+                or entries[0][2] != f"class_{entries[0][1]}"):
+            raise AssertionError(f"{what}: top-3 {entries}, CPU top-1 {reference.argmax()}")
+
+    tag = os.urandom(4).hex()
+    names = (f"dnin{tag}", f"dnout{tag}")
+    cu_in = cudashm.create_shared_memory_region(names[0], in_bytes, colocated=True)
+    cu_out = cudashm.create_shared_memory_region(names[1], out_bytes, colocated=True)
+    try:
+        client.register_cuda_shared_memory(names[0], cudashm.get_raw_handle(cu_in), 0, in_bytes)
+        client.register_cuda_shared_memory(names[1], cudashm.get_raw_handle(cu_out), 0,
+                                           out_bytes)
+
+        def cuda():
+            cudashm.set_shared_memory_region_from_torch(cu_in, data_0())
+            inp = httpclient.InferInput("data_0", [3, 224, 224], "FP32").set_shared_memory(
+                names[0], in_bytes)
+            out = httpclient.InferRequestedOutput("fc6_1")
+            out.set_shared_memory(names[1], out_bytes)
+            client.infer("densenet_onnx", [inp], outputs=[out])
+            logits = cudashm.get_contents_as_torch(cu_out, "FP32", [VISION_CLASSES, 1, 1])
+            calls["softmax"] += 1
+            probs = ops.softmax_probabilities(logits.reshape(1, VISION_CLASSES))
+            torch.cuda.synchronize()  # the probabilities are ready to use
+            return logits, probs
+
+        # one request of each flow first (cuDNN and library set-up, the kernel
+        # libraries loaded), outside the counts
+        wire(), cuda(), ensemble()
+        reset_counts()
+        calls.update(image_client=0, softmax=0)
+        check(wire().as_numpy("fc6_1").reshape(-1), want, "wire")
+        check_top(top_entries(wire(3), "fc6_1"), want, "wire")
+        result["wire_p50_ms"] = p50_ms(wire, iters)
+        logits, probs = cuda()
+        if not (logits.is_cuda and probs.is_cuda):
+            raise AssertionError("densenet_onnx's cuda shm output or its softmax left the card")
+        check(logits.reshape(-1).cpu().numpy(), want, "cuda_shm")
+        total = probs.sum().item()
+        result["probabilities_sum"] = total
+        result["probabilities_top1"] = int(probs.argmax().item())
+        if abs(total - 1.0) > 1e-5 or result["probabilities_top1"] != int(want.argmax()):
+            raise AssertionError(f"softmax of the served logits: sum {total}, top-1 "
+                                 f"{result['probabilities_top1']}")
+        result["cuda_shm_p50_ms"] = p50_ms(cuda, iters)
+        for region in (cu_in, cu_out):
+            if np.frombuffer(region.host_buffer(), dtype=np.uint8).any():
+                raise AssertionError(f"cuda shm region {region.name} was mirrored to the host")
+        image_client_counts = read_counts()
+        image_client_calls = dict(calls)
+
+        reset_counts()
+        calls.update(ensemble=0)
+        check(ensemble().as_numpy("CLASSIFICATION").reshape(-1), want_ens, "ensemble")
+        check_top(top_entries(ensemble(3), "CLASSIFICATION"), want_ens, "ensemble")
+        result["ensemble_p50_ms"] = p50_ms(ensemble, iters)
+        ensemble_counts = read_counts()
+    finally:
+        client.unregister_cuda_shared_memory()
+        cudashm.destroy_shared_memory_region(cu_in)
+        cudashm.destroy_shared_memory_region(cu_out)
+        client.close()
+        server.stop()
+
+    expected = {
+        "image_client": (image_client_counts, {
+            "normalize_image": image_client_calls["image_client"],
+            "softmax_probabilities": image_client_calls["softmax"]}),
+        "ensemble_image": (ensemble_counts, {"normalize_image": calls["ensemble"]}),
+    }
+    for path, (counts, wanted) in expected.items():
+        if counts != {name: wanted.get(name, 0) for name in COUNTERS}:
+            raise AssertionError(f"launches on the {path} path: {counts}, expected {wanted}")
+    result["launch_counts"] = {path: counts for path, (counts, _) in expected.items()}
+    result["requests"] = {"image_client": image_client_calls["image_client"],
+                          "ensemble_image": calls["ensemble"],
+                          "softmax_calls": image_client_calls["softmax"]}
+    result["profile"] = profile_densenet(densenet, 5)
+    launches = {
+        "normalize_image": (image_client_counts["normalize_image"]
+                            + ensemble_counts["normalize_image"]),
+        "softmax_probabilities": image_client_counts["softmax_probabilities"],
+    }
+    return result, launches
+
+
 def drive_decoder(run, prompt, steps):
     """decoder_lm: the prompt as the sequence start, then ``steps`` greedy
     continuations; ``run(tokens, start, end)`` -> (logits, next_token)."""
@@ -787,6 +1103,35 @@ def profile_long_context(model, seq, runs):
     }
 
 
+def profile_densenet(model, runs):
+    """Device kernel time against wall time for ``runs`` densenet_onnx
+    executes on a device image, in process (no HTTP)."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    x = torch.randn((3, 224, 224), generator=gen, device="cuda")
+
+    def run():
+        for _ in range(runs):
+            model.execute({"data_0": x}, {})
+        torch.cuda.synchronize()
+
+    run()  # warm
+    t0 = time.perf_counter()
+    run()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / runs
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+    kernels = device_kernels(prof)
+    device_ms = sum(k["total_ms"] for k in kernels) / runs
+    return {
+        "runs": runs, "wall_ms": wall_ms,
+        "device_ms": device_ms if kernels else None,
+        "device_idle_share": 1 - device_ms / wall_ms if kernels else None,
+        "kernel_launches_per_request": (sum(k["count"] for k in kernels) / runs
+                                        if kernels else None),
+        "top_kernels": kernels[:8],
+    }
+
+
 def profile_decode(decoder, prompt, steps):
     """Device kernel time against wall time for the decoder_lm request loop,
     run in process (no HTTP), from a torch.profiler trace."""
@@ -886,7 +1231,38 @@ def main() -> int:
                 f"{t['plain_ms']:.4f} ms, library {library}, bound {t['bound_ms']:.5f} ms "
                 f"(bytes; {t['bound_ms'] / t['ms']:.1%} of bound)")
 
+    norm_rows = check_normalize()
+    log(f"kernel normalize_image: element exact in all {len(norm_rows)} cases (fp32, uint8 "
+        "and bf16 in; fp32 and bf16 out; INCEPTION and NONE; (224,224,3), (7,13,3), 16 Mi, "
+        "unaligned)")
+    # the image_client's input first: the row of the kernels line
+    norm_timed = [time_normalize((224, 224, 3), torch.float32, 200),
+                  time_normalize((224, 224, 3), torch.uint8, 200),
+                  time_normalize((16 * MIB,), torch.float32, 20)]
+    softmax_rows = check_softmax()
+    for row in softmax_rows:
+        log(f"kernel softmax_probabilities {row['shape']} {row['dtype']} x{row['scale']:g}: "
+            f"max_rel_err {row['max_rel_err']:.3g} (rtol {row['rtol']})")
+    softmax_timed = [time_softmax((1, VISION_CLASSES), 200),
+                     time_softmax((16384, VISION_CLASSES), 20)]
+    for name, timed_rows in (("normalize_image", norm_timed),
+                             ("softmax_probabilities", softmax_timed)):
+        for row in timed_rows:
+            library = "none" if row["library_ms"] is None else f"{row['library_ms']:.4f} ms"
+            device = ("not measured" if row["device_ms"] is None
+                      else f"{row['device_ms']:.4f} ms")
+            extra = ""
+            if "library_mismatches" in row:
+                extra = (f" (torch.add(shift, x, alpha=scale) {row['library_candidate_ms']:.4f} "
+                         f"ms, {row['library_mismatches']} bit mismatches)")
+            log(f"time {name} {row['shape']} {row.get('in', row.get('dtype'))}: kernel "
+                f"{row['ms']:.4f} ms ({device} on the device), plain {row['plain_ms']:.4f} ms, "
+                f"library {library}{extra}, bound {row['bound_ms']:.5f} ms "
+                f"(bytes; {row['bound_ms'] / row['ms']:.1%} of bound)")
+
     served, launches = serve_and_check()
+    vision, vision_launches = serve_vision(20)
+    launches.update(vision_launches)
     for row in served["identity"]:
         log(f"identity_fp32 {row['bytes'] // MIB} MiB p50: wire {row['wire_p50_ms']:.3f} ms, "
             f"system shm {row['system_shm_p50_ms']:.3f} ms, "
@@ -931,6 +1307,30 @@ def main() -> int:
         f"{int8['fp32_bytes']} B fp32, max error {int8['max_abs_err']:.6f} <= half step "
         f"{int8['bound']:.6f}, round trip p50 {int8['p50_ms']:.3f} ms; launches quantize "
         f"{launches['quantize_int8']}, dequantize {launches['dequantize_int8']} = round trips")
+    req = vision["requests"]
+    log(f"densenet_onnx width {VISION_WIDTH} / {VISION_CLASSES} classes "
+        f"({vision['flops_per_image'] / 1e9:.3f} GFLOP per image) p50: wire "
+        f"{vision['wire_p50_ms']:.3f} ms, cuda shm {vision['cuda_shm_p50_ms']:.3f} ms; "
+        f"ensemble_image p50 {vision['ensemble_p50_ms']:.3f} ms; max logit diff vs CPU run "
+        f"{vision['wire_max_abs_logit_diff_vs_cpu']:.4g} (wire), "
+        f"{vision['cuda_shm_max_abs_logit_diff_vs_cpu']:.4g} (cuda shm), "
+        f"{vision['ensemble_max_abs_logit_diff_vs_cpu']:.4g} (ensemble); top-3 "
+        f"{vision['wire_top3']} (image_client), {vision['ensemble_top3']} (ensemble); "
+        f"probabilities sum {vision['probabilities_sum']:.7f}")
+    log(f"vision launches: normalize_image {launches['normalize_image']} = "
+        f"{req['image_client']} image_client + {req['ensemble_image']} ensemble requests; "
+        f"softmax_probabilities {launches['softmax_probabilities']} = {req['softmax_calls']} "
+        "calls")
+    dn_prof = vision["profile"]
+    if dn_prof["device_ms"] is None:
+        log("profile densenet_onnx: the profiler recorded no device time (not measured)")
+    else:
+        log(f"profile densenet_onnx in process: {dn_prof['wall_ms']:.3f} ms wall, "
+            f"{dn_prof['device_ms']:.3f} ms on the device (idle "
+            f"{dn_prof['device_idle_share']:.1%}), {dn_prof['kernel_launches_per_request']:.0f} "
+            "kernels per request; top kernels "
+            + ", ".join(f"{k['name'][:40]} {k['total_ms']:.3f} ms/{k['count']}"
+                        for k in dn_prof["top_kernels"][:4]))
 
     main_row = timed[0]
     kernels = [{
@@ -997,13 +1397,43 @@ def main() -> int:
             "at_shapes": [{"n": row["n"], **row[name.split("_")[0]]}
                           for row in quant_timed[1:]],
         })
+    for name, source, replaces, timed_rows, note in (
+            ("normalize_image", "normalize_image.cu", "client_tpu/ops/__init__.py:44",
+             norm_timed,
+             "library_ms is torch.add(shift, x, alpha=scale) (a 0-dim fp32 shift; fp32 or "
+             "uint8 x) where it gave the kernel's bits, else null with library_mismatches "
+             "the count of elements whose bits differ"),
+            ("softmax_probabilities", "softmax.cu", "client_tpu/ops/__init__.py:138",
+             softmax_timed, "library_ms is torch.softmax(x, -1, dtype=torch.float32)")):
+        row = timed_rows[0]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"client_tpu_torch/csrc/{source}",
+            "replaces": replaces,
+            "launches": launches[name],
+            "max_abs_err": row["max_abs_err"],
+            "ms": row["ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+            "library_note": note,
+            **({"library_mismatches": row["library_mismatches"]}
+               if "library_mismatches" in row else {}),
+            "device_ms": row["device_ms"],
+            "shape": row["shape"],
+            "at_shapes": timed_rows[1:],
+        })
     os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
     with open(os.path.join(REPO, "build", "chip_smoke.json"), "w") as f:
         json.dump({"device": smi, "build_seconds": seconds, "ptxas": ptxas,
                    "checks": rows, "worst_err": worst, "timed": timed,
                    "flash_checks": flash_rows, "flash_timed": flash_timed,
                    "quantize_checks": quant_rows, "quantize_timed": quant_timed,
-                   "served": served, "kernels": kernels}, f, indent=1)
+                   "normalize_checks": norm_rows, "normalize_timed": norm_timed,
+                   "softmax_checks": softmax_rows, "softmax_timed": softmax_timed,
+                   "served": served, "vision": vision, "kernels": kernels}, f, indent=1)
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,24 +1,35 @@
 """The model zoo of the PyTorch port (the counterpart of ``client_tpu.models``):
-the fixture contracts, the decoder family and the long-context encoder, on a
-torch device. ``long_context_encoder`` is not in :func:`default_model_zoo`
-(as in the JAX package); add a :class:`LongContextEncoderModel` to a
-``ServerCore`` to serve it."""
+the fixture contracts, the decoder family, the long-context encoder and the
+vision path, on a torch device. ``long_context_encoder`` and the vision
+models are not in :func:`default_model_zoo` (as in the JAX package): add a
+:class:`LongContextEncoderModel`, or the three models of
+:func:`build_image_ensemble` (``preprocess``, ``densenet_onnx``,
+``ensemble_image``), to a ``ServerCore`` to serve them. ``draw_params`` and
+``load_jax_params`` here are the decoder's; the other models' live in their
+modules."""
 
 from .base import Model, TensorSpec
 from .decoder import TinyDecoderModel, draw_params, load_jax_params
+from .ensemble import EnsembleModel, EnsembleStep, build_image_ensemble
 from .generate import TinyGenerateModel
 from .long_context import LongContextEncoder, LongContextEncoderModel
 from .simple import AddSubModel, IdentityModel, default_model_zoo
+from .vision import DenseNetModel, ImagePreprocessModel
 
 __all__ = [
     "AddSubModel",
+    "DenseNetModel",
+    "EnsembleModel",
+    "EnsembleStep",
     "IdentityModel",
+    "ImagePreprocessModel",
     "LongContextEncoder",
     "LongContextEncoderModel",
     "Model",
     "TensorSpec",
     "TinyDecoderModel",
     "TinyGenerateModel",
+    "build_image_ensemble",
     "default_model_zoo",
     "draw_params",
     "load_jax_params",

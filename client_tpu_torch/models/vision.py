@@ -1,0 +1,307 @@
+"""Vision classifier with the ``densenet_onnx`` fixture contract, in PyTorch.
+
+The counterpart of ``client_tpu.models.vision``: input ``data_0`` FP32
+[3,224,224] (CHW), output ``fc6_1`` FP32 [num_classes,1,1], classification
+labels ``class_i``; and the ensemble's front stage ``preprocess`` (raw UINT8
+HWC image -> normalised FP32 CHW [3,224,224] through the normalize kernel).
+
+:class:`DenseNetish` computes what the flax module computes, in NCHW (the
+wire's own CHW order, so no transpose; channels concatenate in the same
+order either way):
+
+- bfloat16 activations, convolutions and the dense layer; float32 params
+  cast to bfloat16 once when loaded (flax casts them at each use: the same
+  values);
+- GroupNorm over 8 groups of contiguous channels with float32 statistics,
+  epsilon 1e-6 (flax's, not torch's 1e-5), output bfloat16;
+- flax's SAME padding, which is asymmetric: ``total = max((ceil(n/s)-1)*s
+  + k - n, 0)``, ``total // 2`` before and the rest after (the 7x7 stride-2
+  stem pads 224 by (2, 3); the 3x3 stride-2 max pool pads 112 by (0, 1)
+  with -inf); average pools are VALID and floor;
+- the global mean accumulates in float32 and rounds to bfloat16.
+
+Convolutions, GroupNorm, the pools and the dense layer are PyTorch library
+calls (cuDNN / cuBLAS on the card), as the JAX package leaves them to XLA
+outside any Pallas kernel.
+
+Weights: flax draws its init with ``jax.random``, which torch cannot
+reproduce. :func:`draw_params` is the port's own seeded numpy draw in the
+flax tree's names and shapes, and :func:`load_jax_params` loads that tree or
+the JAX model's own params (exported to numpy), so both packages can run on
+the same weights.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops import preprocess_image
+from ..utils import as_device_tensor
+from .base import Model, TensorSpec
+
+GROUPS = 8
+EPSILON = 1e-6
+
+
+def _same_pads(size: int, kernel: int, stride: int) -> Tuple[int, int]:
+    """flax/XLA SAME padding of one axis: (before, after)."""
+    total = max((math.ceil(size / stride) - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
+
+
+def _pad_same(x: torch.Tensor, kernel: int, stride: int, value: float = 0.0) -> torch.Tensor:
+    top, bottom = _same_pads(x.shape[-2], kernel, stride)
+    left, right = _same_pads(x.shape[-1], kernel, stride)
+    if top == bottom == left == right == 0:
+        return x
+    return F.pad(x, (left, right, top, bottom), value=value)
+
+
+def _frozen(shape: Sequence[int], dtype, device) -> nn.Parameter:
+    return nn.Parameter(torch.zeros(tuple(shape), dtype=dtype, device=device),
+                        requires_grad=False)
+
+
+class ConvBlock(nn.Module):
+    """3x3 SAME convolution without bias -> GroupNorm(8) -> relu."""
+
+    def __init__(self, in_channels: int, features: int, device="cuda"):
+        super().__init__()
+        self.weight = _frozen((features, in_channels, 3, 3), torch.bfloat16, device)
+        self.scale = _frozen((features,), torch.float32, device)
+        self.bias = _frozen((features,), torch.float32, device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = F.conv2d(_pad_same(x, 3, 1), self.weight)
+        x = F.group_norm(x.float(), GROUPS, self.scale, self.bias, eps=EPSILON)
+        return F.relu(x.to(torch.bfloat16))
+
+    def load(self, tree: Mapping[str, Any]) -> None:
+        _copy(self.weight, tree["Conv_0"]["kernel"], hwio=True)
+        _copy(self.scale, tree["GroupNorm_0"]["scale"])
+        _copy(self.bias, tree["GroupNorm_0"]["bias"])
+
+
+class DenseStage(nn.Module):
+    """Dense-block flavour: each layer sees the concat of all prior maps."""
+
+    def __init__(self, in_channels: int, growth: int, layers: int, device="cuda"):
+        super().__init__()
+        self.blocks = nn.ModuleList(
+            ConvBlock(in_channels + i * growth, growth, device) for i in range(layers))
+        self.out_channels = in_channels + layers * growth
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for block in self.blocks:
+            x = torch.cat([x, block(x)], dim=1)
+        return x
+
+    def load(self, tree: Mapping[str, Any]) -> None:
+        for i, block in enumerate(self.blocks):
+            block.load(tree[f"ConvBlock_{i}"])
+
+
+class DenseNetish(nn.Module):
+    """x [N, 3, H, W] (any H, W) -> logits [N, num_classes] float32."""
+
+    def __init__(self, num_classes: int, width: int, stages: Sequence[int] = (2, 2, 2),
+                 device="cuda"):
+        super().__init__()
+        self.num_classes = num_classes
+        self.width = width
+        self.stages = tuple(stages)
+        self.stem = _frozen((width, 3, 7, 7), torch.bfloat16, device)
+        channels = width
+        dense, transitions = [], []
+        for i, layers in enumerate(self.stages):
+            growth = width * 2 ** min(i, 2)
+            dense.append(DenseStage(channels, growth, layers, device))
+            # transition: a ConvBlock to ``growth`` features, then a stride-2 pool
+            transitions.append(ConvBlock(dense[-1].out_channels, growth, device))
+            channels = growth
+        self.dense = nn.ModuleList(dense)
+        self.transitions = nn.ModuleList(transitions)
+        self.fc_weight = _frozen((num_classes, channels), torch.bfloat16, device)
+        self.fc_bias = _frozen((num_classes,), torch.bfloat16, device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = F.conv2d(_pad_same(x.to(torch.bfloat16), 7, 2), self.stem, stride=2)
+        x = F.max_pool2d(_pad_same(x, 3, 2, float("-inf")), 3, stride=2)
+        for stage, transition in zip(self.dense, self.transitions):
+            x = F.avg_pool2d(transition(stage(x)), 2, stride=2)
+        x = x.float().mean(dim=(2, 3)).to(torch.bfloat16)  # global average pool
+        return F.linear(x, self.fc_weight, self.fc_bias).float()
+
+    def load(self, params: Mapping[str, Any]) -> None:
+        """Copy a flax param tree (``{"params": {...}}`` or its inner dict,
+        numpy leaves) into the module."""
+        tree = params.get("params", params)
+        _copy(self.stem, tree["Conv_0"]["kernel"], hwio=True)
+        for i, (stage, transition) in enumerate(zip(self.dense, self.transitions)):
+            stage.load(tree[f"DenseStage_{i}"])
+            transition.load(tree[f"ConvBlock_{i}"])
+        _copy(self.fc_weight, np.asarray(tree["Dense_0"]["kernel"]).T)
+        _copy(self.fc_bias, tree["Dense_0"]["bias"])
+
+
+def _copy(param: nn.Parameter, value, hwio: bool = False) -> None:
+    """Load one float32 array into ``param`` (HWIO conv kernels go to OIHW)."""
+    arr = np.asarray(value)
+    if hwio:
+        arr = arr.transpose(3, 2, 0, 1)
+    if arr.dtype != np.float32 or arr.shape != tuple(param.shape):
+        raise ValueError(f"expected float32 {list(param.shape)} (torch layout), got "
+                         f"{arr.dtype} {list(arr.shape)}")
+    param.copy_(torch.from_numpy(np.array(arr, order="C")))  # a writable copy
+
+
+def _flax_shapes(num_classes: int, width: int, stages: Sequence[int]):
+    """(path, shape, kind) of every leaf of the flax tree, in init order."""
+    leaves = [(("Conv_0", "kernel"), (7, 7, 3, width), "conv")]
+    channels = width
+    for i, layers in enumerate(stages):
+        growth = width * 2 ** min(i, 2)
+        for j in range(layers):
+            prefix = (f"DenseStage_{i}", f"ConvBlock_{j}")
+            leaves += _block_shapes(prefix, channels + j * growth, growth)
+        leaves += _block_shapes((f"ConvBlock_{i}",), channels + layers * growth, growth)
+        channels = growth
+    leaves += [(("Dense_0", "kernel"), (channels, num_classes), "dense"),
+               (("Dense_0", "bias"), (num_classes,), "zeros")]
+    return leaves
+
+
+def _block_shapes(prefix, in_channels, features):
+    return [(prefix + ("Conv_0", "kernel"), (3, 3, in_channels, features), "conv"),
+            (prefix + ("GroupNorm_0", "scale"), (features,), "ones"),
+            (prefix + ("GroupNorm_0", "bias"), (features,), "zeros")]
+
+
+def draw_params(num_classes: int = 1000, width: int = 32, stages: Sequence[int] = (2, 2, 2),
+                seed: int = 0) -> Dict[str, Any]:
+    """The port's default weights: a flax-shaped tree ``{"params": {...}}``
+    of float32 numpy arrays. Conv and dense kernels are normal draws from
+    ``np.random.default_rng(seed)`` with variance 1/fan_in (flax's
+    lecun_normal scale, not its truncation), in the order of the flax tree;
+    GroupNorm scales are ones and biases zeros, as flax initialises them."""
+    rng = np.random.default_rng(seed)
+    tree: Dict[str, Any] = {}
+    for path, shape, kind in _flax_shapes(num_classes, width, stages):
+        if kind == "ones":
+            value = np.ones(shape, np.float32)
+        elif kind == "zeros":
+            value = np.zeros(shape, np.float32)
+        else:
+            fan_in = int(np.prod(shape[:-1]))
+            value = (rng.standard_normal(shape) * fan_in ** -0.5).astype(np.float32)
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = value
+    return {"params": tree}
+
+
+def flops_per_image(num_classes: int, width: int, stages: Sequence[int], size: int = 224) -> int:
+    """Multiply-adds x 2 of the convolutions and the dense layer for one
+    ``size`` x ``size`` image (norms, pools and the mean left out)."""
+    def conv(hw, k, cin, cout):
+        return 2 * hw * hw * k * k * cin * cout
+
+    out = (size + 1) // 2          # the stem: 7x7 stride 2, SAME
+    total = conv(out, 7, 3, width)
+    hw = (out + 1) // 2            # the max pool: stride 2, SAME
+    channels = width
+    for i, layers in enumerate(stages):
+        growth = width * 2 ** min(i, 2)
+        for j in range(layers):
+            total += conv(hw, 3, channels + j * growth, growth)
+        total += conv(hw, 3, channels + layers * growth, growth)
+        channels = growth
+        hw //= 2                   # the average pool: VALID
+    return total + 2 * channels * num_classes
+
+
+class ImagePreprocessModel(Model):
+    """``preprocess``: raw UINT8 HWC image -> normalised FP32 CHW [3,224,224].
+
+    The ensemble's front stage: nearest resize, INCEPTION scaling through
+    the normalize kernel, CHW layout. The output stays a tensor on the
+    model's device, so an ensemble hands it to the next stage without a
+    host copy."""
+
+    name = "preprocess"
+
+    def __init__(self, device="cuda"):
+        super().__init__()
+        self._device = torch.device(device)
+
+    def inputs(self) -> List[TensorSpec]:
+        return [TensorSpec("raw_image", "UINT8", [-1, -1, 3])]
+
+    def outputs(self) -> List[TensorSpec]:
+        return [TensorSpec("preprocessed", "FP32", [3, 224, 224])]
+
+    def execute(self, inputs: Dict[str, Any], parameters: Dict[str, Any]):
+        img = as_device_tensor(inputs["raw_image"], self._device)
+        return {"preprocessed": preprocess_image(img, 224, 224, scale=2.0 / 255.0, shift=-1.0)}
+
+
+class DenseNetModel(Model):
+    """``densenet_onnx``: FP32 CHW image -> FP32 logits [num_classes,1,1]."""
+
+    name = "densenet_onnx"
+    platform = "pytorch_densenet"
+    max_batch_size = 0  # fixture contract: one CHW image per request
+
+    # stage depths: "lite" is the default; "121" the densenet-121 layout
+    ARCHS = {"lite": (2, 2, 2), "121": (6, 12, 24, 16)}
+
+    def __init__(self, num_classes: int = 1000, width: int = 32, seed: int = 0,
+                 tensor_parallel: int = 1, arch: str = "lite", device="cuda"):
+        """Weights come from :func:`draw_params` with ``seed`` until
+        :func:`load_jax_params` replaces them. ``tensor_parallel > 1`` (the
+        JAX model's sharding over a device mesh) raises
+        ``NotImplementedError``: the port has no ``parallel/`` yet."""
+        super().__init__()
+        if arch not in self.ARCHS:
+            raise ValueError(f"arch must be one of {sorted(self.ARCHS)}")
+        if tensor_parallel > 1:
+            raise NotImplementedError(
+                "tensor_parallel > 1 shards over a device mesh, which the port does not "
+                "have yet (ROADMAP A10)")
+        self._num_classes = num_classes
+        self._device = torch.device(device)
+        self.net = DenseNetish(num_classes, width, self.ARCHS[arch], self._device)
+        self.net.load(draw_params(num_classes, width, self.ARCHS[arch], seed))
+        self._labels = [f"class_{i}" for i in range(num_classes)]
+
+    def inputs(self) -> List[TensorSpec]:
+        return [TensorSpec("data_0", "FP32", [3, 224, 224])]
+
+    def outputs(self) -> List[TensorSpec]:
+        return [TensorSpec("fc6_1", "FP32", [self._num_classes, 1, 1])]
+
+    def labels(self) -> Optional[List[str]]:
+        return self._labels
+
+    def execute(self, inputs: Dict[str, Any], parameters: Dict[str, Any]):
+        # a cuda shared-memory input (or an ensemble's device tensor) is used
+        # in place; a host array goes to the device once
+        x = as_device_tensor(inputs["data_0"], self._device)
+        logits = self.net(x.reshape((1, 3) + tuple(x.shape[-2:])))
+        # the output stays a device tensor (pinned in a cuda shm region, or
+        # brought to the host when the response is encoded)
+        return {"fc6_1": logits.reshape(self._num_classes, 1, 1)}
+
+
+def load_jax_params(model: DenseNetModel, params: Mapping[str, Any]) -> None:
+    """Copy the flax param tree (``{"params": {...}}`` with numpy leaves,
+    e.g. ``jax.tree_util.tree_map(np.asarray, DenseNetModel(...).forward_fn()[1])``
+    of the JAX package) into ``model``."""
+    model.net.load(params)

@@ -4,10 +4,16 @@ plain PyTorch versions.
 Each kernel wrapper launches its CUDA kernel for CUDA tensors (or raises),
 takes the plain version only for CPU tensors, and counts its launches in a
 :class:`LaunchCounter`, so a run can show that its main path went through the
-kernel. As ``client_tpu.ops`` does, the package exposes ``flash_attention``,
-``quantize_int8`` and ``dequantize_int8`` by name (so ``ops.flash_attention``
-is the function; its module, with the counter and the plain version, is
-imported as ``client_tpu_torch.ops.flash_attention``).
+kernel. As ``client_tpu.ops`` does, the package exposes its ops by name:
+``flash_attention``, ``normalize_image``, ``softmax_probabilities``,
+``quantize_int8`` / ``dequantize_int8``, and the image and classification
+ops of :mod:`.image` (``resize_nearest``, ``preprocess_image``,
+``topk_classification``, ``to_bf16`` / ``from_bf16``, ``stage_to_device``).
+So ``ops.flash_attention`` is the function; its module, with the counter
+and the plain version, is imported as ``client_tpu_torch.ops.flash_attention``.
+The launch counters of the other kernels are ``ops.normalize.LAUNCHES``,
+``ops.softmax.LAUNCHES`` and ``ops.quantize.QUANTIZE_LAUNCHES`` /
+``DEQUANTIZE_LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -38,6 +44,29 @@ class LaunchCounter:
 
 # after LaunchCounter, which these modules import from the package
 from .flash_attention import flash_attention  # noqa: E402
+from .image import (  # noqa: E402
+    from_bf16,
+    preprocess_image,
+    resize_nearest,
+    stage_to_device,
+    to_bf16,
+    topk_classification,
+)
+from .normalize import normalize_image  # noqa: E402
 from .quantize import dequantize_int8, quantize_int8  # noqa: E402
+from .softmax import softmax_probabilities  # noqa: E402
 
-__all__ = ["LaunchCounter", "dequantize_int8", "flash_attention", "quantize_int8"]
+__all__ = [
+    "LaunchCounter",
+    "dequantize_int8",
+    "flash_attention",
+    "from_bf16",
+    "normalize_image",
+    "preprocess_image",
+    "quantize_int8",
+    "resize_nearest",
+    "softmax_probabilities",
+    "stage_to_device",
+    "to_bf16",
+    "topk_classification",
+]

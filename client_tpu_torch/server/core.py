@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ..models.base import Model
+from ..ops import topk_classification
 from ..utils import (
     deserialize_bf16_tensor,
     deserialize_bytes_tensor,
@@ -194,6 +195,8 @@ class ServerCore:
     def add_model(self, model: Model) -> None:
         with self._lock:
             self._models[model.name] = model
+        if hasattr(model, "bind"):  # ensembles resolve members at execute time
+            model.bind(self.model)
 
     def model(self, name: str, version: str = "") -> Model:
         m = self._models.get(name)
@@ -443,13 +446,13 @@ def _classification(arr, k: int, labels: Optional[List[str]], batched: bool = Fa
     For batched models the first dim is the batch and each element's
     (flattened) remainder is its class vector; for non-batched models the
     whole (flattened) tensor is one class vector. Ranking runs on the
-    tensor's device with ``torch.topk``; only the k winners cross to the
-    host.
+    tensor's device through ``ops.topk_classification``; only the k winners
+    cross to the host.
     """
     t = arr if isinstance(arr, torch.Tensor) else torch.from_numpy(np.array(arr))
     flat = t.reshape(t.shape[0], -1) if batched and t.dim() >= 1 else t.reshape(1, -1)
     k = min(k, flat.shape[-1])
-    values, indices = torch.topk(flat, k, dim=-1)
+    values, indices = topk_classification(flat, k)
     values, indices = _to_host(values), _to_host(indices)
     rows = []
     for row_values, row_indices in zip(values, indices):

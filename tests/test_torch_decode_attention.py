@@ -206,7 +206,7 @@ def test_build_all_runs_one_compiler_per_source(tmp_path, monkeypatch):
     monkeypatch.setattr(_kernels, "nvcc", lambda: fake)
     logs = _kernels.build_all()
     assert set(logs) == set(_kernels.sources()) == {
-        "decode_attention", "flash_attention", "quantize_int8"}
+        "decode_attention", "flash_attention", "normalize_image", "quantize_int8", "softmax"}
     for name in logs:
         assert "registers" in logs[name]
         target = _kernels.library_path(name)

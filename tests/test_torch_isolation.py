@@ -37,7 +37,8 @@ def _forbidden(module: str) -> bool:
 
 def test_port_has_files():
     assert len(PORT_FILES) > 10
-    for name in ("decode_attention", "flash_attention", "quantize_int8"):
+    for name in ("decode_attention", "flash_attention", "normalize_image", "quantize_int8",
+                 "softmax"):
         assert (REPO / "client_tpu_torch" / "csrc" / f"{name}.cu").exists()
 
 
