@@ -12,19 +12,30 @@ Phases (each raises on failure, so the script exits non-zero):
 2. build: every kernel under ``client_tpu_torch/csrc`` (decode_attention,
    flash_attention, normalize_image, quantize_int8, softmax) built from
    source with nvcc into ``build/torch_kernels/``, one compiler per source,
-   with ptxas's lines;
+   with ptxas's lines (registers, static shared memory and spills) for each
+   entry function, and the flash kernels' dynamic shared memory;
 3. kernels: each kernel wrapper against its plain PyTorch version on the
    card, with the kernel, the plain version and one PyTorch library call
    (where one computes the same function) timed by CUDA events beside the
    least time the card could take:
    - decode_attention at the reference test shapes, the decoder's shape and
-     large cache shapes;
+     large cache shapes; split-K cases (positions on a split boundary, a
+     position inside the first of many splits so the rest are empty, a
+     cache length that splits unevenly) and a short cache in fp32 and bf16
+     at D = 32, 64 and 128; the device time (profiler) of the large shapes beside the
+     per-call time;
    - flash_attention in fp32 at the JAX tests' shapes, block pairs and
      causal settings (the result must not depend on the blocks), in bf16 at
      the JAX chip benchmark's (4, 2048, 8, 128), and at the served
-     long_context_encoder shape (1, S, 4, 16) for S = 100, 4096, 8192;
+     long_context_encoder shape (1, S, 4, 16) for S = 100, 4096, 8192, and
+     at ragged lengths S = 1, 63, 65, 130 for every D, both dtypes and both
+     causal settings (the bf16 tensor-core kernel and the fp32 kernels);
+     in bf16 also against the tiled plain version (p rounded before PV), at
+     one bf16 ulp;
    - quantize_int8 element-exact (exact half-steps, values past the clip)
      and dequantize_int8 exact, at (1, 8192), a ragged length and 64 MiB;
+     ``torch.quantize_per_tensor`` timed as quantize's library call, with
+     the count of its int8 values that differ from the kernel's;
    - normalize_image element-exact (fp32, uint8 and bf16 in; fp32 and bf16
      out; INCEPTION and NONE) at (224, 224, 3), (7, 13, 3), 64 MiB of fp32
      and an unaligned view; softmax_probabilities within rtol 1e-5 at the
@@ -62,8 +73,10 @@ Without a CUDA device it fails.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -96,6 +109,7 @@ from client_tpu_torch.ops.flash_attention import LAUNCHES as FLASH_LAUNCHES  # n
 from client_tpu_torch.ops.flash_attention import (  # noqa: E402
     flash_attention,
     flash_attention_reference,
+    flash_attention_tiled_reference,
 )
 from client_tpu_torch.server import HttpInferenceServer, ServerCore  # noqa: E402
 from client_tpu_torch.utils import cuda_shared_memory as cudashm  # noqa: E402
@@ -125,6 +139,15 @@ TOLERANCE = {
     "normalize_image": 0.0,
     "softmax_probabilities": {"rtol": 1e-5, "atol": 1e-30},
 }
+# flash_attention in bf16 against its tiled plain version (the same 64-key
+# tiles, p rounded to bf16 before PV), elementwise |out - ref| <= atol +
+# rtol * |ref|: rtol one bf16 ulp (2^-7, as the CPU tests hold the tiled
+# version against the Pallas kernel), atol 2^-9, the largest difference
+# seen on the card over every bf16 case (PERF.md): the two differ only in
+# fp32 rounding, which flips a few p or outputs by one bf16 ulp
+TILED_TOLERANCE = {"atol": 2.0 ** -9, "rtol": 2.0 ** -7}
+# the two kernels redesigned in PR 4 (their earlier times are in PERF.md)
+REDESIGNED = "PR 4"
 # launch counters of the kernel wrappers, by kernel name
 COUNTERS = {
     "decode_attention": da.LAUNCHES,
@@ -163,12 +186,37 @@ def device_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def demangle(names):
+    """Readable names of mangled entry functions, by the CUDA toolkit's
+    ``cu++filt -p``; the mangled names where it is missing."""
+    tool = os.path.join(os.path.dirname(_kernels.nvcc()), "cu++filt")
+    if not names or not os.path.exists(tool):
+        return list(names)
+    out = subprocess.run([tool, "-p", *names], capture_output=True, text=True, timeout=60,
+                         check=True).stdout.splitlines()
+    return out if len(out) == len(names) else list(names)
+
+
+def ptxas_lines(name: str, log: str):
+    """ptxas's registers / static shared memory line and its stack and
+    spill line, per entry function of one source."""
+    lines, entry = [], "?"
+    for line in log.splitlines():
+        found = re.search(r"Compiling entry function '(\S+)'", line)
+        if found:
+            entry = found.group(1)
+        elif "registers" in line or "spill" in line:
+            lines.append((entry, line.strip()))
+    entries = sorted({entry for entry, _ in lines})
+    readable = dict(zip(entries, demangle(entries)))
+    return [f"{name}: {readable[entry]}: {text}" for entry, text in lines]
+
+
 def build_kernels():
     t0 = time.perf_counter()
     logs = _kernels.build_all()
     seconds = time.perf_counter() - t0
-    ptxas = [f"{name}: {line.strip()}" for name, text in logs.items()
-             for line in text.splitlines() if "registers" in line or "spill" in line]
+    ptxas = [line for name, text in logs.items() for line in ptxas_lines(name, text)]
     return seconds, ptxas
 
 
@@ -189,6 +237,11 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def sms() -> int:
+    """The card's SM count (what the decode wrapper plans its splits for)."""
+    return torch.cuda.get_device_properties(0).multi_processor_count
 
 
 def attention_inputs(batch, heads, max_len, dim, dtype, seed):
@@ -224,19 +277,38 @@ def check_decode_attention():
             cases.append(("reference", shape, positions, name))
     # the decoder's own shape at a mid-run position
     cases.append(("decoder", (1, 4, 128, 32), [11], "bfloat16"))
+    # one split over a cache so short that the kernel unrolls less: at M = 24
+    # a lane group loads 1, 2 or 4 slots at a time, by D and dtype
+    for d in (32, 64, 128):
+        for name in dtypes:
+            cases.append(("short_cache", (2, 2, 24, d), [23, 5], name))
+    # split-K: 4099 slots (prime: every split boundary is ragged) with the
+    # two sequences' last slots on either side of the first boundary, or one
+    # at the end and one mid-way; 65536 slots in as many splits as the plan
+    # allows with pos inside the first, so every other partial is empty
+    for d in (32, 64, 128):
+        for name in dtypes:
+            first = da.split_bounds(4099, da.split_plan(2, 2, 4099, sms()))[1][0]
+            cases.append(("split_boundary", (2, 2, 4099, d), [first - 1, first], name))
+            cases.append(("split_ragged", (2, 2, 4099, d), [4098, 1366], name))
+            cases.append(("split_first_of_many", (1, 1, 65536, d), [5], name))
     rows = []
     worst = {}
     for i, (kind, (b, h, m, d), positions, name) in enumerate(cases):
         q, k, v = attention_inputs(b, h, m, d, dtypes[name], seed=i)
         pos = torch.tensor(positions, dtype=torch.int32, device="cuda")
+        splits = da.split_plan(b, h, m, sms())
         out = da.decode_attention(q, k, v, pos)
         ref = da.decode_attention_reference(q, k, v, pos)
+        split_ref = da.decode_attention_split_reference(q, k, v, pos, splits)
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
-        rows.append({"case": kind, "shape": [b, h, m, d], "pos": positions,
-                     "dtype": name, "max_abs_err": err, "tol": tol[name]})
+        split_err = (out.float() - split_ref.float()).abs().max().item()
+        rows.append({"case": kind, "shape": [b, h, m, d], "pos": positions, "splits": splits,
+                     "dtype": name, "max_abs_err": err, "max_abs_err_vs_split_plain": split_err,
+                     "tol": tol[name]})
         worst[name] = max(worst.get(name, 0.0), err)
-        if not err < tol[name] or out.dtype != q.dtype:
+        if not (err < tol[name] and split_err < tol[name]) or out.dtype != q.dtype:
             raise AssertionError(f"decode_attention disagrees with its plain version: {rows[-1]}")
 
     # junk in the unwritten tail (slots > pos) must not leak into the output
@@ -276,8 +348,12 @@ def time_decode_attention(shape, positions, iters):
     q4 = q[:, :, None, :]
     row = {
         "shape": list(shape), "pos": positions, "dtype": "bfloat16",
+        "splits": da.split_plan(b, h, m, sms()),
         "max_abs_err": err,
         "ms": cuda_ms(lambda: da.decode_attention(q, k, v, pos), iters),
+        # both phases' device time per call (profiler)
+        "device_ms": device_ms_per_call(lambda: da.decode_attention(q, k, v, pos),
+                                        "decode_attention_", 20),
         "plain_ms": cuda_ms(lambda: da.decode_attention_reference(q, k, v, pos),
                             max(iters // 4, 3)),
         "library_ms": cuda_ms(
@@ -292,10 +368,12 @@ def flash_inputs(shape, dtype, seed):
     return tuple(torch.randn(shape, generator=gen, device="cuda").to(dtype) for _ in range(3))
 
 
-def flash_agrees(out, ref, tol):
-    """(max |out - ref|, every element within tol + tol * |ref|)."""
+def flash_agrees(out, ref, atol, rtol=None):
+    """(max |out - ref|, every element within atol + rtol * |ref|; rtol =
+    atol unless given)."""
+    rtol = atol if rtol is None else rtol
     diff = (out.float() - ref.float()).abs()
-    return diff.max().item(), bool((diff <= tol + tol * ref.float().abs()).all())
+    return diff.max().item(), bool((diff <= atol + rtol * ref.float().abs()).all())
 
 
 def flash_bound(shape, causal, dtype_name):
@@ -321,17 +399,31 @@ def check_flash_attention():
     cases += [("chip_bench", (4, 2048, 8, 128), "bfloat16", causal, (128, 128))
               for causal in (False, True)]
     cases += [("served", (1, s, 4, 16), "float32", False, (128, 128)) for s in (100, 4096, 8192)]
+    # ragged lengths around the 64-row tiles, every D, both dtypes (the bf16
+    # tensor-core kernel, the fp32 kernels for D <= 32 and D >= 64)
+    cases += [("ragged_tiles", (2, s, 3, d), name, causal, (128, 128))
+              for name in ("bfloat16", "float32") for d in (16, 32, 64, 128)
+              for s in (1, 63, 65, 130) for causal in (False, True)]
     rows = []
     first = {}
     for kind, shape, name, causal, (bq, bk) in cases:
         q, k, v = flash_inputs(shape, DTYPES[name], seed=shape[1] + causal)
         out = flash_attention(q, k, v, causal=causal, block_q=bq, block_k=bk)
         ref = flash_attention_reference(q, k, v, causal=causal)
+        tiled = flash_attention_tiled_reference(q, k, v, causal=causal)
         torch.cuda.synchronize()
         tol = TOLERANCE["flash_attention"][name]
         err, ok = flash_agrees(out, ref, tol)
+        # against the plain form of the kernel's loop (p rounded to v's dtype
+        # before PV): in bf16 a gate of its own, far tighter than 2e-2
+        tiled_err, tiled_ok = flash_agrees(out, tiled, TILED_TOLERANCE["atol"],
+                                           TILED_TOLERANCE["rtol"])
         rows.append({"case": kind, "shape": list(shape), "dtype": name, "causal": causal,
-                     "blocks": [bq, bk], "max_abs_err": err, "tol": tol})
+                     "blocks": [bq, bk], "max_abs_err": err, "tol": tol,
+                     "max_abs_err_vs_tiled_plain": tiled_err})
+        if name == "bfloat16" and not tiled_ok:
+            raise AssertionError(
+                f"flash_attention disagrees with its tiled plain version: {rows[-1]}")
         if not ok or out.dtype != q.dtype or not torch.isfinite(out).all():
             raise AssertionError(f"flash_attention disagrees with its plain version: {rows[-1]}")
         key = (shape, name, causal)
@@ -408,10 +500,26 @@ def check_quantize():
     return rows
 
 
+def quantize_library(x, scale, q):
+    """``torch.quantize_per_tensor(x, scale, 0, torch.qint8)`` against the
+    kernel's output ``q``: the count of int8 values that differ, and up to 8
+    (kernel, library, x / scale) triples where they do. Its range is
+    [-128, 127] where the kernel clips to +-127, and it may round x / scale
+    where the kernel rounds x * f32(1 / scale)."""
+    lib = torch.quantize_per_tensor(x, scale, 0, torch.qint8).int_repr()
+    differ = (lib != q).nonzero().flatten()
+    where = [(int(q.flatten()[i]), int(lib.flatten()[i]), x.flatten()[i].item() / scale)
+             for i in differ[:8].tolist()]
+    return int(differ.numel()), where
+
+
 def time_quantize(n, iters):
     """Both kernels and their plain versions on n fp32 elements, beside the
-    bytes bound; the yardstick for dequantize is ``q * scale`` (no single
-    PyTorch call computes quantize's multiply, round, clip and cast)."""
+    bytes bound. The yardstick for dequantize is ``q * scale``; for quantize
+    ``torch.quantize_per_tensor(x, scale, 0, torch.qint8)``, whose int8
+    values are counted against the kernel's on the timed input and, at n =
+    8192, on the int8 wire path's own input: its time is ``library_ms``
+    only where both give 0 mismatches."""
     x = quantize_inputs(n, torch.float32, 0.03, seed=5)
     scale = x.abs().max().item() / 127
     q = qz.quantize_int8(x, scale)
@@ -421,6 +529,17 @@ def time_quantize(n, iters):
     if q_err or d_err:
         raise AssertionError(f"int8 kernels disagree at n = {n}: {q_err}, {d_err}")
     bound_ms = (4 * n + n) / PEAK_BYTES_PER_S * 1e3  # fp32 in/out, int8 out/in
+    mismatches, where = quantize_library(x, scale, q)
+    library = {"library_mismatches": mismatches, "library_mismatch_at": where}
+    if n == 8192:
+        wire = torch.from_numpy(np.random.default_rng(11).standard_normal((1, n)).astype(
+            np.float32)).to("cuda")
+        wire_scale = wire.abs().max().item() / 127
+        library["library_mismatches_wire"], library["library_mismatch_at_wire"] = (
+            quantize_library(wire, wire_scale, qz.quantize_int8(wire, wire_scale)))
+    library["library_candidate_ms"] = cuda_ms(
+        lambda: torch.quantize_per_tensor(x, scale, 0, torch.qint8), iters)
+    exact = mismatches == 0 and library.get("library_mismatches_wire", 0) == 0
     return {
         "n": n, "bytes_fp32": 4 * n, "scale": scale,
         "quantize": {
@@ -428,7 +547,8 @@ def time_quantize(n, iters):
             "device_ms": device_ms_per_launch(lambda: qz.quantize_int8(x, scale),
                                               "::quantize_kernel", 20),
             "plain_ms": cuda_ms(lambda: qz.quantize_int8_reference(x, scale), iters),
-            "library_ms": None, "bound_ms": bound_ms, "max_abs_err": q_err},
+            "library_ms": library["library_candidate_ms"] if exact else None,
+            **library, "bound_ms": bound_ms, "max_abs_err": q_err},
         "dequantize": {
             "ms": cuda_ms(lambda: qz.dequantize_int8(q, scale), iters),
             "device_ms": device_ms_per_launch(lambda: qz.dequantize_int8(q, scale),
@@ -574,16 +694,29 @@ def time_softmax(shape, iters):
     }
 
 
-def device_ms_per_launch(fn, kernel_name, runs):
-    """Device time alone per launch of the kernel named ``kernel_name``
-    over ``runs`` calls of ``fn``, from a torch.profiler trace (the CUDA
-    event time of back-to-back wrapper calls includes the host's launch
-    cost, which dominates at small sizes); None if the trace has none."""
+def profiled_kernels(fn, kernel_name, runs):
+    """The kernels whose names hold ``kernel_name`` in a torch.profiler
+    trace of ``runs`` calls of ``fn``."""
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(runs):
             fn()
         torch.cuda.synchronize()
-    hits = [k for k in device_kernels(prof) if kernel_name in k["name"]]
+    return [k for k in device_kernels(prof) if kernel_name in k["name"]]
+
+
+def device_ms_per_call(fn, kernel_name, runs):
+    """Device time per call of ``fn`` in the kernels named ``kernel_name``
+    (every phase a call launches); None if the trace has none."""
+    hits = profiled_kernels(fn, kernel_name, runs)
+    return sum(k["total_ms"] for k in hits) / runs if hits else None
+
+
+def device_ms_per_launch(fn, kernel_name, runs):
+    """Device time alone per launch of the kernel named ``kernel_name``
+    over ``runs`` calls of ``fn`` (the CUDA event time of back-to-back
+    wrapper calls includes the host's launch cost, which dominates at small
+    sizes); None if the trace has none."""
+    hits = profiled_kernels(fn, kernel_name, runs)
     launches = sum(k["count"] for k in hits)
     return sum(k["total_ms"] for k in hits) / launches if launches else None
 
@@ -1185,18 +1318,29 @@ def main() -> int:
     log(f"build: {seconds:.2f} s")
     for line in ptxas:
         log(f"  ptxas: {line}")
+    smem = _kernels.function("flash_attention", "flash_attention_smem_bytes",
+                             (ctypes.c_int, ctypes.c_int))
+    log("  flash_attention dynamic shared memory per block (bytes): "
+        + ", ".join(f"{name} D={dim} {smem(code, dim)}"
+                    for name, code in (("bf16", 1), ("fp32", 0)) for dim in (16, 32, 64, 128)))
 
     rows, worst = check_decode_attention()
     for row in rows:
+        split = (f" splits {row['splits']}; vs the split plain version "
+                 f"{row['max_abs_err_vs_split_plain']:.3g}" if "splits" in row else "")
         log(f"kernel decode_attention {row['case']} {row['shape']} pos {row['pos']} "
-            f"{row['dtype']}: max_abs_err {row['max_abs_err']:.3g} (tol {row['tol']})")
-    timed = [time_decode_attention((1, 4, 128, 32), [11], 200)]
+            f"{row['dtype']}: max_abs_err {row['max_abs_err']:.3g} (tol {row['tol']}{split})")
+    # the decoder's shape mid-run (the kernels line's row) and at a full cache
+    timed = [time_decode_attention((1, 4, 128, 32), pos, 200) for pos in ([11], [127])]
     for shape, iters in (((8, 8, 2048, 128), 50), ((8, 8, 8192, 128), 20),
                          ((16, 8, 4096, 128), 20)):
         timed.append(time_decode_attention(shape, [shape[2] - 1] * shape[0], iters))
     for row in timed:
-        log(f"time decode_attention {row['shape']} pos {row['pos'][0]} bf16: "
-            f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+        device = ("not measured" if row["device_ms"] is None
+                  else f"{row['device_ms']:.4f} ms")
+        log(f"time decode_attention {row['shape']} pos {row['pos'][0]} bf16 splits "
+            f"{row['splits']}: kernel {row['ms']:.4f} ms per call ({device} on the "
+            f"device), plain {row['plain_ms']:.4f} ms, "
             f"sdpa {row['library_ms']:.4f} ms, bound {row['bound_ms']:.5f} ms "
             f"({row['bound_ms'] / row['ms']:.1%} of bound)")
 
@@ -1204,7 +1348,10 @@ def main() -> int:
     for row in flash_rows:
         log(f"kernel flash_attention {row['case']} {row['shape']} {row['dtype']} "
             f"causal={row['causal']} blocks {row['blocks']}: max_abs_err "
-            f"{row['max_abs_err']:.3g} (atol = rtol = {row['tol']})")
+            f"{row['max_abs_err']:.3g} (atol = rtol = {row['tol']}; vs the tiled plain "
+            f"version {row['max_abs_err_vs_tiled_plain']:.3g})"
+            + ("" if row["dtype"] != "bfloat16" else
+               f" (atol {TILED_TOLERANCE['atol']:g}, rtol {TILED_TOLERANCE['rtol']:g})"))
     # the served shape at its largest length first: the row of the kernels line
     flash_timed = [time_flash_attention((1, s, 4, 16), "float32", False, iters)
                    for s, iters in ((8192, 20), (4096, 50), (100, 200))]
@@ -1226,10 +1373,17 @@ def main() -> int:
             t = row[name]
             library = "none" if t["library_ms"] is None else f"{t['library_ms']:.4f} ms"
             device = "not measured" if t["device_ms"] is None else f"{t['device_ms']:.4f} ms"
+            extra = ""
+            if "library_candidate_ms" in t:
+                extra = (f" (torch.quantize_per_tensor {t['library_candidate_ms']:.4f} ms, "
+                         f"{t['library_mismatches']} int8 mismatches"
+                         + (f", {t['library_mismatches_wire']} on the wire input"
+                            if "library_mismatches_wire" in t else "")
+                         + f"; at {t['library_mismatch_at'][:3]})")
             log(f"time {name}_int8 n={row['n']} fp32: kernel {t['ms']:.4f} ms "
                 f"({device} on the device), plain "
-                f"{t['plain_ms']:.4f} ms, library {library}, bound {t['bound_ms']:.5f} ms "
-                f"(bytes; {t['bound_ms'] / t['ms']:.1%} of bound)")
+                f"{t['plain_ms']:.4f} ms, library {library}{extra}, bound "
+                f"{t['bound_ms']:.5f} ms (bytes; {t['bound_ms'] / t['ms']:.1%} of bound)")
 
     norm_rows = check_normalize()
     log(f"kernel normalize_image: element exact in all {len(norm_rows)} cases (fp32, uint8 "
@@ -1348,8 +1502,10 @@ def main() -> int:
         # device time alone per launch on the served decode step (profiler);
         # "ms" above is a wrapper call back to back, host launch cost included
         "device_ms": served["profile"]["decode_attention_ms_per_launch"],
+        "redesigned": REDESIGNED,
         "shape": main_row["shape"],
         "pos": main_row["pos"],
+        "splits": main_row["splits"],
         "at_shapes": timed[1:],
     }]
     flash_row = flash_timed[0]
@@ -1365,6 +1521,7 @@ def main() -> int:
         "bound_ms": flash_row["bound_ms"],
         "bound_by": flash_row["bound_by"],
         "library_ms": flash_row["library_ms"],
+        "redesigned": REDESIGNED,
         "shape": flash_row["shape"],
         "dtype": flash_row["dtype"],
         "at_shapes": flash_timed[1:],
@@ -1372,8 +1529,11 @@ def main() -> int:
     wire_row = quant_timed[0]
     for name, replaces, note in (
             ("quantize_int8", "client_tpu/ops/__init__.py:170",
-             "no single PyTorch call computes multiply, round half to even, clip to "
-             "[-127, 127] and cast to int8"),
+             "library_ms is torch.quantize_per_tensor(x, scale, 0, torch.qint8) where its "
+             "int_repr() gave the kernel's int8 values on the timed input and on the int8 "
+             "wire path's input, else null with library_mismatches (and _wire) the count "
+             "of values that differ and library_mismatch_at (kernel, library, x / scale) "
+             "where"),
             ("dequantize_int8", "client_tpu/ops/__init__.py:183",
              "library_ms is q * scale (int8 times a Python float gives float32)")):
         t = wire_row[name.split("_")[0]]
@@ -1390,6 +1550,9 @@ def main() -> int:
             "bound_by": "bytes",
             "library_ms": t["library_ms"],
             "library_note": note,
+            **{key: t[key] for key in ("library_mismatches", "library_mismatches_wire",
+                                       "library_mismatch_at", "library_candidate_ms")
+               if key in t},
             # device time alone per launch (profiler); "ms" is a wrapper call
             # back to back, host launch cost included
             "device_ms": t["device_ms"],

@@ -6,6 +6,11 @@ Every ``client_tpu_torch/csrc/*.cu`` source is compiled by ``nvcc`` for
 ``build/torch_kernels/`` at the repository root, named by a hash of their
 source and flags, at first use (or by :func:`build_all`). Nothing builds when
 a module is imported, so the package imports on machines with no ``nvcc``.
+
+A wrapper reaches its entry point through :func:`function`, which sets the
+ctypes signature once, and launches inside :func:`on_device`, which makes
+the tensor's device current only when it is not already, so a call pays
+for neither on the host.
 """
 
 from __future__ import annotations
@@ -16,8 +21,11 @@ import os
 import shutil
 import subprocess
 import threading
+from contextlib import nullcontext
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Sequence, Tuple
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -29,6 +37,7 @@ NVCC_FLAGS = [
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_functions: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}
 
 
 def nvcc() -> str:
@@ -103,6 +112,28 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(path))
             _libs[name] = lib
         return lib
+
+
+def function(name: str, symbol: str, argtypes: Sequence) -> ctypes._CFuncPtr:
+    """Entry point ``symbol`` of kernel library ``name`` (built and loaded
+    on first use), its ``argtypes`` set and ``restype`` int (a
+    ``cudaError_t``) the first time it is asked for."""
+    key = (name, symbol)
+    fn = _functions.get(key)
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _functions[key] = fn
+    return fn
+
+
+def on_device(device: torch.device):
+    """A context in which ``device`` is the current CUDA device: nothing to
+    enter when it already is."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return nullcontext()
+    return torch.cuda.device(device)
 
 
 def loaded() -> List[str]:

@@ -17,6 +17,14 @@ cache (plus q and the output), at the card's 3.35 TB/s; the arithmetic is
 kernel reads only the live slots (its loop ends at ``pos[b]``, read on the
 device), so its traffic is what the data needs, not the whole cache.
 
+The kernel splits the cache axis across blocks (split-K) so that a small
+B*H still fills the card: :func:`split_plan` picks the split count from the
+shapes alone, split i covers the slots of :func:`split_bounds`, and a
+second small kernel merges the splits' partial softmax states by
+log-sum-exp. :func:`decode_attention_split_reference` is the plain form of
+exactly that computation. One split (the decoder's served shape) is a
+single launch with no scratch.
+
 ``decode_attention`` launches the kernel for CUDA tensors on the current
 stream and raises if the launch fails; for CPU tensors it computes
 ``decode_attention_reference``, the plain PyTorch version beside it. There is
@@ -33,6 +41,17 @@ from . import LaunchCounter, _kernels
 
 SUPPORTED_DIMS = (32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# decode_attention_launch(q, k, v, pos, out, partial, batch, heads, max_len,
+#                         dim, dtype, splits, scale, stream)
+_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+             + [ctypes.c_float, ctypes.c_void_p])
+
+# split_plan: the H100's SM count, the blocks aimed at (about two per SM)
+# and the fewest cache slots a split walks (shorter splits cost more in
+# partials and merging than they add in bytes in flight)
+H100_SMS = 132
+BLOCKS_PER_SM = 2
+MIN_SPLIT = 256
 
 # kernel launches made by decode_attention (CPU calls do not count)
 LAUNCHES = LaunchCounter()
@@ -50,6 +69,54 @@ def decode_attention_reference(q, k, v, pos):
     s = s.masked_fill(~mask[:, None, :], float("-inf"))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhm,bhmd->bhd", p, vf).to(q.dtype)
+
+
+def split_plan(batch: int, heads: int, max_len: int, sms: int = H100_SMS) -> int:
+    """How many splits of the cache axis the kernel runs, from the shapes
+    alone (``pos`` stays on the device): enough (b, h, split) blocks to give
+    ``sms`` SMs about ``BLOCKS_PER_SM`` blocks each, and no split shorter
+    than ``MIN_SPLIT`` slots. One split when B*H alone fills the card or the
+    cache is short."""
+    if min(batch, heads, max_len, sms) < 1:
+        raise ValueError(f"split_plan needs positive sizes, got {(batch, heads, max_len, sms)}")
+    wanted = -(-BLOCKS_PER_SM * sms // (batch * heads))
+    return max(1, min(wanted, max_len // MIN_SPLIT))
+
+
+def split_bounds(max_len: int, splits: int):
+    """The kernel's slot ranges: split i covers
+    ``[i * max_len // splits, (i + 1) * max_len // splits)``."""
+    return [(i * max_len // splits, (i + 1) * max_len // splits) for i in range(splits)]
+
+
+def decode_attention_split_reference(q, k, v, pos, splits: int):
+    """The plain form of the kernel's two phases: per split of
+    :func:`split_bounds`, the partial softmax state (m, l, acc) over its
+    slots ``<= pos[b]`` in fp32 (m = -inf, l = 0, acc = 0 when the split
+    starts past pos), then the log-sum-exp merge in which an empty split
+    weighs 0 and the sum is divided by ``max(l, 1e-30)``. Returns
+    [B,H,D] in q's dtype."""
+    qf, kf, vf = q.float(), k.float(), v.float()
+    batch, heads, dim = q.shape
+    max_len = k.shape[2]
+    s = torch.einsum("bhd,bhmd->bhm", qf, kf) * dim ** -0.5
+    slots = torch.arange(max_len, device=k.device)
+    live = (slots[None, :] <= pos.to(slots.dtype)[:, None])[:, None, :]  # [b, 1, m]
+    ms, ls, accs = [], [], []
+    for lo, hi in split_bounds(max_len, splits):
+        part = s[:, :, lo:hi].masked_fill(~live[:, :, lo:hi], float("-inf"))
+        m = part.amax(dim=-1)  # [b, h]; -inf for an empty split
+        p = torch.exp(part - torch.where(m == float("-inf"), 0.0, m)[..., None])
+        ms.append(m)
+        ls.append(p.sum(-1))
+        accs.append(torch.einsum("bhm,bhmd->bhd", p, vf[:, :, lo:hi]))
+    m_all = torch.stack(ms)  # [splits, b, h]
+    merged = m_all.amax(dim=0)
+    weight = torch.where(m_all == float("-inf"), 0.0,
+                         torch.exp(m_all - torch.where(merged == float("-inf"), 0.0, merged)))
+    total = (torch.stack(ls) * weight).sum(0)
+    out = (torch.stack(accs) * weight[..., None]).sum(0)
+    return (out / total.clamp_min(1e-30)[..., None]).to(q.dtype)
 
 
 def _check(q, k, v, pos) -> None:
@@ -82,21 +149,33 @@ def _check(q, k, v, pos) -> None:
         raise ValueError("decode_attention takes contiguous tensors")
 
 
+_sm_counts = {}
+
+
+def _sms(device: torch.device) -> int:
+    """The SM count of a CUDA device (what split_plan fills)."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _sm_counts:
+        _sm_counts[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return _sm_counts[index]
+
+
 def _launch(q, k, v, pos) -> torch.Tensor:
     for t in (q, k, v):
         if t.data_ptr() % 16:
             raise ValueError("decode_attention needs 16-byte-aligned q, k and v")
-    lib = _kernels.load("decode_attention")
-    fn = lib.decode_attention_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _kernels.function("decode_attention", "decode_attention_launch", _ARGTYPES)
     batch, heads, dim = q.shape
+    max_len = k.shape[2]
+    splits = split_plan(batch, heads, max_len, _sms(q.device))
     out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
-                 out.data_ptr(), batch, heads, k.shape[2], dim,
-                 _DTYPE_CODES[q.dtype], dim ** -0.5, stream)
+    partial = (torch.empty(batch * heads * splits * (dim + 2), dtype=torch.float32,
+                           device=q.device) if splits > 1 else None)
+    with _kernels.on_device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(), out.data_ptr(),
+                 None if partial is None else partial.data_ptr(), batch, heads, max_len,
+                 dim, _DTYPE_CODES[q.dtype], splits, dim ** -0.5,
+                 torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: cudaError_t {err}")
     LAUNCHES.add()

@@ -15,7 +15,16 @@ with strides (no transpose copies around it).
 
 Bound on the H100: operations (4*B*H*S^2*D flops, about half when causal,
 against 4*B*S*H*D elements moved). The kernel keeps the S x S scores out of
-device memory, as the Pallas kernel keeps them out of HBM.
+device memory, as the Pallas kernel keeps them out of HBM. bf16 runs on the
+tensor cores (``mma.sync``, FlashAttention-2 layout: Q fragments and the
+probabilities stay in registers, K/V tiles double-buffered with
+``cp.async``); fp32 runs in full fp32 on the CUDA cores (no TF32, which the
+2e-5 tolerance rules out).
+
+``flash_attention_tiled_reference`` is the plain form of the kernel's loop
+(64-key tiles, online softmax, p rounded to v's dtype before PV, as the
+bf16 kernel and the Pallas kernel do); ``flash_attention_reference`` is the
+dense version the kernel is held against.
 
 ``flash_attention`` launches the kernel for CUDA tensors on the current
 stream and raises if the launch fails; for CPU tensors it computes
@@ -33,6 +42,12 @@ from . import LaunchCounter, _kernels
 
 SUPPORTED_DIMS = (16, 32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# flash_attention_launch(q, k, v, out, batch, seq, heads, dim, stride_b,
+#                        stride_s, stride_h, dtype, scale, causal, stream)
+_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 3
+             + [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+# keys per tile of the kernel (and of the tiled plain version)
+BLOCK_K = 64
 
 # kernel launches made by flash_attention (CPU calls do not count)
 LAUNCHES = LaunchCounter()
@@ -51,6 +66,39 @@ def flash_attention_reference(q, k, v, causal: bool = False):
         s = s.masked_fill(~keep, float("-inf"))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", p, vf).to(q.dtype)
+
+
+def flash_attention_tiled_reference(q, k, v, causal: bool = False, block_k: int = BLOCK_K):
+    """The kernel's loop in plain PyTorch: key tiles of ``block_k`` walked in
+    order with a running (max, sum, acc) per query row in fp32, scores in
+    fp32 from the operands in their own dtype, the probabilities rounded to
+    v's dtype before the PV product (``p.astype(v.dtype)`` in the Pallas
+    kernel; a no-op in fp32), a row with no live key yet kept at p = 0 with
+    a correction of 0, and the final divide by ``max(l, 1e-30)``. Returns
+    q's dtype."""
+    batch, seq, heads, dim = q.shape
+    qf, kf, vf = q.float(), k.float(), v.float()
+    scale = dim ** -0.5
+    rows = torch.arange(seq, device=q.device)
+    m = torch.full((batch, heads, seq), float("-inf"), device=q.device)
+    l = torch.zeros((batch, heads, seq), device=q.device)
+    acc = torch.zeros((batch, heads, seq, dim), device=q.device)
+    for k0 in range(0, seq, block_k):
+        k1 = min(seq, k0 + block_k)
+        s = torch.einsum("bqhd,bkhd->bhqk", qf, kf[:, k0:k1]) * scale
+        if causal:
+            keys = torch.arange(k0, k1, device=q.device)
+            s = s.masked_fill(keys[None, :] > rows[:, None], float("-inf"))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        m_use = torch.where(m_new == float("-inf"), 0.0, m_new)
+        p = torch.exp(s - m_use[..., None])
+        corr = torch.exp(m - m_use)
+        l = l * corr + p.sum(-1)
+        pv = torch.einsum("bhqk,bkhd->bhqd", p.to(v.dtype).float(), vf[:, k0:k1])
+        acc = acc * corr[..., None] + pv
+        m = m_new
+    out = acc / l.clamp_min(1e-30)[..., None]
+    return out.permute(0, 2, 1, 3).to(q.dtype)
 
 
 def _check(q, k, v, block_q, block_k) -> None:
@@ -84,19 +132,15 @@ def _launch(q, k, v, causal: bool) -> torch.Tensor:
     for t in (q, k, v):
         if t.data_ptr() % 16:
             raise ValueError("flash_attention needs 16-byte-aligned q, k and v")
-    lib = _kernels.load("flash_attention")
-    fn = lib.flash_attention_launch
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 3
-                   + [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    fn = _kernels.function("flash_attention", "flash_attention_launch", _ARGTYPES)
     batch, seq, heads, dim = q.shape
     out = torch.empty_like(q)
     stride_b, stride_s, stride_h, _ = q.stride()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
+    with _kernels.on_device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  batch, seq, heads, dim, stride_b, stride_s, stride_h,
-                 _DTYPE_CODES[q.dtype], dim ** -0.5, int(causal), stream)
+                 _DTYPE_CODES[q.dtype], dim ** -0.5, int(causal),
+                 torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: cudaError_t {err}")
     LAUNCHES.add()
@@ -108,10 +152,11 @@ def flash_attention(q, k, v, causal: bool = False, block_q: int = 128, block_k: 
     shape, in q's dtype.
 
     ``block_q`` and ``block_k`` keep the JAX signature and are checked, but
-    the result does not depend on them: the Hopper kernel tiles by 64 x 64
-    (the TPU's block sizes follow its VMEM and its 128-wide MXU), and the
-    plain version is dense. CUDA tensors run the Hopper kernel; CPU tensors
-    the plain version."""
+    the result does not depend on them: the Hopper kernel tiles keys by 64
+    and queries by 64 (fp32 at D <= 32: keys by 128, queries by 64 / 32);
+    the TPU's block sizes follow its VMEM and its 128-wide MXU. The plain
+    version is dense. CUDA tensors run the Hopper kernel; CPU tensors the
+    plain version."""
     _check(q, k, v, block_q, block_k)
     device = q.device.type
     if device == "cuda":

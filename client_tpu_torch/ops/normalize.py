@@ -30,6 +30,9 @@ from . import LaunchCounter, _kernels
 
 _IN_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.uint8: 2}
 _OUT_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# normalize_image_launch(x, out, n, in_code, out_code, scale, shift, stream)
+_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+             ctypes.c_float, ctypes.c_float, ctypes.c_void_p)
 
 # kernel launches made by normalize_image (CPU calls do not count)
 LAUNCHES = LaunchCounter()
@@ -90,14 +93,11 @@ def normalize_image(x, scale: float = 1.0, shift: float = 0.0, out_dtype=torch.b
     out = torch.empty(x.shape, dtype=out_dtype, device=x.device)
     if x.numel() == 0:
         return out
-    fn = _kernels.load("normalize_image").normalize_image_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
+    fn = _kernels.function("normalize_image", "normalize_image_launch", _ARGTYPES)
+    with _kernels.on_device(x.device):
         err = fn(x.data_ptr(), out.data_ptr(), x.numel(), _IN_CODES[x.dtype],
-                 _OUT_CODES[out_dtype], _f32(scale), _f32(shift), stream)
+                 _OUT_CODES[out_dtype], _f32(scale), _f32(shift),
+                 torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"normalize_image kernel launch failed: cudaError_t {err}")
     LAUNCHES.add()

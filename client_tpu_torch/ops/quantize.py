@@ -29,6 +29,9 @@ import torch
 from . import LaunchCounter, _kernels
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# {quantize,dequantize}_int8_launch(src, out, n, dtype_code, factor, stream)
+_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+             ctypes.c_float, ctypes.c_void_p)
 
 # kernel launches made by quantize_int8 / dequantize_int8 (CPU calls do not count)
 QUANTIZE_LAUNCHES = LaunchCounter()
@@ -68,13 +71,10 @@ def _check_tensor(t, what: str) -> None:
 def _launch(name: str, src, out, code: int, factor: float, counter: LaunchCounter):
     if src.data_ptr() % 16 or out.data_ptr() % 16:
         raise ValueError(f"{name} needs 16-byte-aligned input and output")
-    fn = getattr(_kernels.load("quantize_int8"), f"{name}_launch")
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                   ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(src.device):
-        stream = torch.cuda.current_stream(src.device).cuda_stream
-        err = fn(src.data_ptr(), out.data_ptr(), src.numel(), code, factor, stream)
+    fn = _kernels.function("quantize_int8", f"{name}_launch", _ARGTYPES)
+    with _kernels.on_device(src.device):
+        err = fn(src.data_ptr(), out.data_ptr(), src.numel(), code, factor,
+                 torch.cuda.current_stream(src.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
     counter.add()

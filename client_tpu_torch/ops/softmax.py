@@ -26,6 +26,9 @@ import torch
 from . import LaunchCounter, _kernels
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# softmax_launch(x, out, rows, cols, dtype_code, stream)
+_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+             ctypes.c_int, ctypes.c_void_p)
 
 # kernel launches made by softmax_probabilities (CPU calls do not count)
 LAUNCHES = LaunchCounter()
@@ -60,14 +63,10 @@ def softmax_probabilities(logits):
     rows = logits.numel() // cols
     if rows == 0:
         return out
-    fn = _kernels.load("softmax").softmax_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
-                   ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(logits.device):
-        stream = torch.cuda.current_stream(logits.device).cuda_stream
+    fn = _kernels.function("softmax", "softmax_launch", _ARGTYPES)
+    with _kernels.on_device(logits.device):
         err = fn(logits.data_ptr(), out.data_ptr(), rows, cols, _DTYPE_CODES[logits.dtype],
-                 stream)
+                 torch.cuda.current_stream(logits.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"softmax_probabilities kernel launch failed: cudaError_t {err}")
     LAUNCHES.add()

@@ -10,6 +10,8 @@ card only (chip_smoke.py). The wrapper's argument checks, the build step
 and the import without a compiler are tested here too.
 """
 
+import contextlib
+import ctypes
 import os
 import stat
 import subprocess
@@ -222,3 +224,144 @@ def test_build_all_raises_on_a_failed_compile(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="no such intrinsic"):
         _kernels.build_all()
     assert list((tmp_path / "build").iterdir()) == []
+
+
+# ---------------------------------------------------------------------------
+# split-K: the plain form of the kernel's two phases, and the split plan
+# ---------------------------------------------------------------------------
+
+SPLITS = (1, 2, 3, 8)
+
+
+def _positions(which, batch, max_len, splits, mixed):
+    """zero, mid, the last slot of the second-to-last split (so the last
+    split is empty; the middle slot with one split), the last slot, and the
+    reference test's mixed positions."""
+    bounds = da.split_bounds(max_len, splits)
+    edge = bounds[-1][0] - 1 if splits > 1 else max_len // 2
+    return {"zero": [0] * batch, "mid": [max_len // 2] * batch, "edge": [edge] * batch,
+            "last": [max_len - 1] * batch, "mixed": mixed}[which]
+
+
+_PALLAS = {}
+
+
+def _pallas(q, k, v, pos):
+    """The Pallas kernel in interpret mode, once per input and positions."""
+    key = (q.dtype.name, q.shape, k.shape, tuple(pos.tolist()))
+    if key not in _PALLAS:
+        _PALLAS[key] = _f32(jax_decode_attention(*(jnp.asarray(a) for a in (q, k, v, pos))))
+    return _PALLAS[key]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("splits", SPLITS)
+@pytest.mark.parametrize("which", ["zero", "mid", "edge", "last", "mixed"])
+@pytest.mark.parametrize("batch,heads,max_len,dim,mixed", SHAPES,
+                         ids=["fixture", "ragged", "multiblock"])
+def test_split_reference_matches_pallas_and_dense(batch, heads, max_len, dim, mixed, which,
+                                                  splits, dtype):
+    """Per-split partials (empty ones included) merged by log-sum-exp give
+    the dense plain version and the Pallas kernel, at the reference test's
+    tolerances."""
+    positions = _positions(which, batch, max_len, splits, mixed)
+    q, k, v = _inputs(batch, heads, max_len, dim, dtype, seed=max_len)
+    pos = np.asarray(positions, np.int32)
+    tq, tk, tv = (numpy_to_tensor(a, "cpu") for a in (q, k, v))
+    out = da.decode_attention_split_reference(tq, tk, tv, torch.from_numpy(pos), splits)
+    assert out.dtype == tq.dtype and out.shape == (batch, heads, dim)
+    dense = da.decode_attention_reference(tq, tk, tv, torch.from_numpy(pos))
+    assert np.max(np.abs(_f32(out) - _f32(dense))) < TOL[dtype]
+    assert np.max(np.abs(_f32(out) - _pallas(q, k, v, pos))) < TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("splits", [1, 5, 96])
+def test_split_reference_empty_splits_weigh_nothing(splits, dtype):
+    """pos inside the first split: every later partial is empty (m = -inf,
+    l = 0) and the output is the first slots' attention, exactly as with
+    one split; pos 0 gives v[:, :, 0]."""
+    q, k, v = (numpy_to_tensor(a, "cpu") for a in _inputs(2, 2, 96, 32, dtype, seed=4))
+    for positions in ([0, 0], [0, 1]):
+        pos = torch.tensor(positions, dtype=torch.int32)
+        out = da.decode_attention_split_reference(q, k, v, pos, splits)
+        assert torch.isfinite(out.float()).all()
+        np.testing.assert_allclose(
+            _f32(out), _f32(da.decode_attention_split_reference(q, k, v, pos, 1)),
+            rtol=1e-6, atol=1e-6)
+    out = da.decode_attention_split_reference(q, k, v, torch.zeros(2, dtype=torch.int32), splits)
+    np.testing.assert_allclose(_f32(out), _f32(v[:, :, 0]), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("splits", [2, 3, 8])
+def test_split_reference_ignores_the_cache_tail(splits):
+    """Junk past pos, in the live split and in the empty ones, changes
+    nothing."""
+    q, k, v = (numpy_to_tensor(a, "cpu") for a in _inputs(1, 2, 96, 32, "float32", seed=3))
+    pos = torch.tensor([40], dtype=torch.int32)
+    base = da.decode_attention_split_reference(q, k, v, pos, splits)
+    k_junk, v_junk = k.clone(), v.clone()
+    k_junk[:, :, 41:] = 1e6
+    v_junk[:, :, 41:] = -1e6
+    assert torch.equal(base, da.decode_attention_split_reference(q, k_junk, v_junk, pos, splits))
+
+
+def test_split_plan_is_one_split_at_the_decoder_shape():
+    assert da.split_plan(1, 4, 128) == 1
+
+
+@pytest.mark.parametrize("batch,heads", [(33, 8), (64, 16), (132, 2)])
+def test_split_plan_is_one_split_when_batch_and_heads_fill_the_card(batch, heads):
+    assert da.split_plan(batch, heads, 8192) == 1
+
+
+@pytest.mark.parametrize("batch,heads,max_len", [
+    (8, 8, 8192), (16, 8, 4096), (8, 8, 2048), (1, 1, 1 << 17), (2, 4, 32768), (4, 8, 16384)])
+def test_split_plan_fills_the_card_at_large_shapes(batch, heads, max_len):
+    splits = da.split_plan(batch, heads, max_len)
+    assert batch * heads * splits >= da.BLOCKS_PER_SM * da.H100_SMS
+    # and not far past it: at most one split more than that needs
+    assert batch * heads * (splits - 1) < da.BLOCKS_PER_SM * da.H100_SMS
+
+
+@pytest.mark.parametrize("max_len", [1, 7, 128, 255, 256, 257, 1000, 4099, 8192, 70000])
+@pytest.mark.parametrize("batch,heads", [(1, 1), (1, 4), (8, 8), (64, 8)])
+def test_split_plan_covers_every_slot_once_and_no_split_is_short(batch, heads, max_len):
+    splits = da.split_plan(batch, heads, max_len)
+    assert 1 <= splits <= 65535
+    bounds = da.split_bounds(max_len, splits)
+    covered = [j for lo, hi in bounds for j in range(lo, hi)]
+    assert covered == list(range(max_len))
+    if splits > 1:
+        assert min(hi - lo for lo, hi in bounds) >= da.MIN_SPLIT
+
+
+@pytest.mark.parametrize("sms", [1, 66, 132, 264])
+def test_split_plan_follows_the_sm_count(sms):
+    splits = da.split_plan(2, 2, 1 << 20, sms)
+    assert splits == -(-da.BLOCKS_PER_SM * sms // 4)
+
+
+@pytest.mark.parametrize("args", [(0, 1, 8), (1, 0, 8), (1, 1, 0), (1, 1, 8, 0)])
+def test_split_plan_rejects_empty_sizes(args):
+    with pytest.raises(ValueError):
+        da.split_plan(*args)
+
+
+def test_function_sets_the_signature_once(monkeypatch):
+    """Wrappers reach their entry point through _kernels.function: the
+    library is loaded and the ctypes signature set on the first call only."""
+    libc = ctypes.CDLL(None)
+    loads = []
+    monkeypatch.setattr(_kernels, "load", lambda name: loads.append(name) or libc)
+    monkeypatch.setattr(_kernels, "_functions", {})
+    fn = _kernels.function("libc", "abs", (ctypes.c_int,))
+    assert fn.argtypes == [ctypes.c_int] and fn.restype is ctypes.c_int
+    assert fn(-3) == 3
+    assert _kernels.function("libc", "abs", (ctypes.c_int,)) is fn
+    assert loads == ["libc"]
+
+
+def test_on_device_enters_nothing_for_the_current_device():
+    """A device with no index is the current one: no device switch."""
+    assert isinstance(_kernels.on_device(torch.device("cuda")), contextlib.nullcontext)

@@ -29,6 +29,7 @@ from client_tpu_torch.ops.flash_attention import (
     SUPPORTED_DIMS,
     flash_attention,
     flash_attention_reference,
+    flash_attention_tiled_reference,
 )
 from client_tpu_torch.utils import numpy_to_tensor
 
@@ -185,3 +186,64 @@ def test_ops_package_exposes_the_function():
     """As client_tpu.ops does: ops.flash_attention is the function."""
     assert ops.flash_attention is flash_attention is fa_function
     assert "flash_attention" in _kernels.sources()
+
+
+# ---------------------------------------------------------------------------
+# the plain tiled version: the kernel's loop
+# ---------------------------------------------------------------------------
+
+# one bf16 ulp of the output, relative (2^-7): the tiled version and the
+# Pallas kernel both round p to bf16 against a running max and round the
+# output to bf16, so an output may land one ulp apart
+TILED_BF16_TOL = 2.0 ** -7
+TILE_SEQS = [1, 63, 64, 65, 130]
+
+
+def _bf16_tensors(arrays):
+    return [numpy_to_tensor(a, "cpu") for a in arrays]
+
+
+@pytest.mark.parametrize("dim", SUPPORTED_DIMS)
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("seq", TILE_SEQS)
+def test_tiled_reference_matches_pallas_in_bf16(seq, causal, dim):
+    """64-key tiles with p rounded to bf16 before PV, as the Pallas kernel
+    at 64 x 64 blocks: within one bf16 ulp (tighter than the 2e-2 that the
+    dense fp32 version needs)."""
+    arrays = _inputs((1, seq, 2, dim), "bfloat16", seed=seq + dim)
+    out = flash_attention_tiled_reference(*_bf16_tensors(arrays), causal=causal)
+    assert out.dtype == torch.bfloat16 and out.shape == (1, seq, 2, dim)
+    pallas = jax_flash_attention(*(jnp.asarray(a) for a in arrays), causal=causal,
+                                 block_q=64, block_k=64)
+    np.testing.assert_allclose(_f32(out), _f32(pallas), atol=TILED_BF16_TOL,
+                               rtol=TILED_BF16_TOL)
+
+
+@pytest.mark.parametrize("dim", SUPPORTED_DIMS)
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("seq", TILE_SEQS)
+def test_tiled_reference_matches_dense_in_fp32(seq, causal, dim):
+    """In fp32 the rounding of p is a no-op: the tiled loop is the dense
+    softmax within the JAX tests' 2e-5."""
+    arrays = _inputs((2, seq, 2, dim), "float32", seed=seq * dim)
+    tq, tk, tv = (numpy_to_tensor(a, "cpu") for a in arrays)
+    out = flash_attention_tiled_reference(tq, tk, tv, causal=causal)
+    assert out.dtype == torch.float32
+    np.testing.assert_allclose(_f32(out), _f32(flash_attention_reference(tq, tk, tv, causal)),
+                               atol=TOL["float32"], rtol=TOL["float32"])
+    jq, jk, jv = (jnp.asarray(a) for a in arrays)
+    np.testing.assert_allclose(_f32(out), _f32(full_attention(jq, jk, jv, causal=causal)),
+                               atol=TOL["float32"], rtol=TOL["float32"])
+
+
+@pytest.mark.parametrize("block_k", [1, 16, 64, 200])
+def test_tiled_reference_does_not_depend_on_the_tile(block_k):
+    """Any key tile gives the dense result in fp32 (the kernel's 64 is a
+    choice of speed, not of numbers)."""
+    arrays = _inputs((1, 130, 2, 16), "float32", seed=block_k)
+    tq, tk, tv = (numpy_to_tensor(a, "cpu") for a in arrays)
+    for causal in (False, True):
+        np.testing.assert_allclose(
+            _f32(flash_attention_tiled_reference(tq, tk, tv, causal, block_k=block_k)),
+            _f32(flash_attention_reference(tq, tk, tv, causal)),
+            atol=TOL["float32"], rtol=TOL["float32"])
