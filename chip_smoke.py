@@ -38,9 +38,19 @@ Phases (each raises on failure, so the script exits non-zero):
      the count of its int8 values that differ from the kernel's;
    - normalize_image element-exact (fp32, uint8 and bf16 in; fp32 and bf16
      out; INCEPTION and NONE) at (224, 224, 3), (7, 13, 3), 64 MiB of fp32
-     and an unaligned view; softmax_probabilities within rtol 1e-5 at the
-     served (1, 1000) and at (8, 1000), (3, 50) x 30, (1000,), bf16, a long
-     row and (16384, 1000);
+     and an unaligned view, and every path one below and one above a whole
+     vector and a whole grid step; softmax_probabilities within rtol 1e-5
+     at the served (1, 1000) and at (8, 1000), (3, 50) x 30, (1000,), bf16,
+     a long row and (16384, 1000), then at widths from 1 to 8200 columns at
+     1, 8 and 16384 rows in fp32 and bf16 (every variant, warps and vectors
+     count of ``softmax_plan`` must occur), an unaligned row and rows of
+     -inf, NaN and +inf;
+   - the small kernels (normalize, softmax, quantize, dequantize) and their
+     library calls each timed per call, on the device (profiler) and, at
+     the served shapes, on the host per call (enqueue, no sync), beside the
+     card's write ceiling (``fill_`` of 64 MiB); the host time of one
+     normalize_image call split into its pieces, before and after the
+     wrappers shared one launch path;
 4. server: the port's HTTP server with its model zoo and
    ``long_context_encoder`` on the GPU, driven by the port's client, each
    path with every launch count set to 0 just before it and read just
@@ -68,7 +78,14 @@ Phases (each raises on failure, so the script exits non-zero):
 
 It then prints one ``{"kernels": [...]}`` line and, last, one line
 ``{"ok": true, "device": {...}}``. Details go to ``build/chip_smoke.json``.
-Without a CUDA device it fails.
+Without a CUDA device it fails. The build fails if ptxas reports a spill in
+the softmax or normalize kernels.
+
+``python3 chip_smoke.py --kernel-times`` builds the kernels and times the
+small kernels and the wrappers' host cost alone (the same rows as phase
+3), ending with one ``{"kernel_times": ...}`` line. It calls only the
+port's public wrappers, so a copy of this file placed in an earlier tree of
+the port times that tree, for a comparison inside one run.
 """
 
 from __future__ import annotations
@@ -81,6 +98,7 @@ import statistics
 import subprocess
 import sys
 import time
+from contextlib import nullcontext
 
 import numpy as np
 import torch
@@ -146,8 +164,12 @@ TOLERANCE = {
 # seen on the card over every bf16 case (PERF.md): the two differ only in
 # fp32 rounding, which flips a few p or outputs by one bf16 ulp
 TILED_TOLERANCE = {"atol": 2.0 ** -9, "rtol": 2.0 ** -7}
-# the two kernels redesigned in PR 4 (their earlier times are in PERF.md)
-REDESIGNED = "PR 4"
+# the kernels redesigned since their port, and how (their earlier times
+# are in PERF.md)
+REDESIGNED = {"decode_attention": "split-K over the cache",
+              "flash_attention": "bf16 on the tensor cores",
+              "normalize_image": "a lane per 16-byte output word",
+              "softmax_probabilities": "rows held in registers"}
 # launch counters of the kernel wrappers, by kernel name
 COUNTERS = {
     "decode_attention": da.LAUNCHES,
@@ -217,6 +239,10 @@ def build_kernels():
     logs = _kernels.build_all()
     seconds = time.perf_counter() - t0
     ptxas = [line for name, text in logs.items() for line in ptxas_lines(name, text)]
+    spills = [line for line in ptxas if line.startswith(("softmax:", "normalize_image:"))
+              and re.search(r"[1-9]\d* bytes spill", line)]
+    if spills:
+        raise AssertionError(f"ptxas spills in the softmax or normalize kernels: {spills}")
     return seconds, ptxas
 
 
@@ -237,6 +263,24 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_us(fn, calls: int = 10000, batch: int = 100) -> float:
+    """Median host time in microseconds to enqueue one call of ``fn`` (no
+    synchronisation inside the timed call), over ``calls`` calls made in
+    batches of ``batch``; the device is drained between batches, untimed,
+    so the launch queue never fills."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(calls // batch):
+        for _ in range(batch):
+            t0 = time.perf_counter_ns()
+            fn()
+            times.append(time.perf_counter_ns() - t0)
+        torch.cuda.synchronize()
+    return statistics.median(times) / 1e3
 
 
 def sms() -> int:
@@ -519,7 +563,11 @@ def time_quantize(n, iters):
     ``torch.quantize_per_tensor(x, scale, 0, torch.qint8)``, whose int8
     values are counted against the kernel's on the timed input and, at n =
     8192, on the int8 wire path's own input: its time is ``library_ms``
-    only where both give 0 mismatches."""
+    only where both give 0 mismatches. Each kernel and library call also
+    has its device time (profiler) and, at n = 8192, its host time per
+    call (enqueue, no sync). Beside dequantize at 16 Mi: the card's write
+    ceiling, ``out.fill_(1.0)`` on as many fp32 elements (never called by
+    the port)."""
     x = quantize_inputs(n, torch.float32, 0.03, seed=5)
     scale = x.abs().max().item() / 127
     q = qz.quantize_int8(x, scale)
@@ -540,23 +588,35 @@ def time_quantize(n, iters):
     library["library_candidate_ms"] = cuda_ms(
         lambda: torch.quantize_per_tensor(x, scale, 0, torch.qint8), iters)
     exact = mismatches == 0 and library.get("library_mismatches_wire", 0) == 0
-    return {
-        "n": n, "bytes_fp32": 4 * n, "scale": scale,
-        "quantize": {
-            "ms": cuda_ms(lambda: qz.quantize_int8(x, scale), iters),
-            "device_ms": device_ms_per_launch(lambda: qz.quantize_int8(x, scale),
-                                              "::quantize_kernel", 20),
-            "plain_ms": cuda_ms(lambda: qz.quantize_int8_reference(x, scale), iters),
-            "library_ms": library["library_candidate_ms"] if exact else None,
-            **library, "bound_ms": bound_ms, "max_abs_err": q_err},
-        "dequantize": {
-            "ms": cuda_ms(lambda: qz.dequantize_int8(q, scale), iters),
-            "device_ms": device_ms_per_launch(lambda: qz.dequantize_int8(q, scale),
-                                              "::dequantize_kernel", 20),
-            "plain_ms": cuda_ms(lambda: qz.dequantize_int8_reference(q, scale), iters),
-            "library_ms": cuda_ms(lambda: q * scale, iters),
-            "bound_ms": bound_ms, "max_abs_err": d_err},
+    calls = {  # kernel, its name in the profiler, plain version, library call, error
+        "quantize": (lambda: qz.quantize_int8(x, scale), "::quantize_kernel",
+                     lambda: qz.quantize_int8_reference(x, scale),
+                     lambda: torch.quantize_per_tensor(x, scale, 0, torch.qint8), q_err),
+        "dequantize": (lambda: qz.dequantize_int8(q, scale), "::dequantize_kernel",
+                       lambda: qz.dequantize_int8_reference(q, scale), lambda: q * scale,
+                       d_err),
     }
+    row = {"n": n, "bytes_fp32": 4 * n, "scale": scale}
+    for name, (kernel, kernel_name, plain, lib, err) in calls.items():
+        row[name] = {
+            "ms": cuda_ms(kernel, iters),
+            "device_ms": device_ms_per_launch(kernel, kernel_name, 20),
+            "plain_ms": cuda_ms(plain, iters),
+            "library_device_ms": device_ms_per_call(lib, "", 20),
+            "bound_ms": bound_ms, "max_abs_err": err}
+        if n == 8192:
+            row[name]["host_us"] = host_us(kernel)
+            row[name]["library_host_us"] = host_us(lib)
+    row["quantize"].update(library, library_ms=library["library_candidate_ms"] if exact else None)
+    row["dequantize"]["library_ms"] = cuda_ms(lambda: q * scale, iters)
+    if n >= 16 * MIB:
+        out = torch.empty(n, dtype=torch.float32, device="cuda")
+        row["dequantize"]["write_ceiling"] = {
+            "call": "out.fill_(1.0), fp32", "n": n,
+            "ms": cuda_ms(lambda: out.fill_(1.0), iters),
+            "device_ms": device_ms_per_call(lambda: out.fill_(1.0), "", 20),
+            "bound_ms": 4 * n / PEAK_BYTES_PER_S * 1e3}
+    return row
 
 
 INCEPTION = (2.0 / 255.0, -1.0)
@@ -580,7 +640,12 @@ def check_normalize():
     """normalize_image element-exact against its plain version: fp32, uint8
     and bf16 in x fp32 and bf16 out, INCEPTION and NONE scaling, at the
     image_client's (224, 224, 3), a ragged (7, 13, 3), 64 MiB of fp32 and
-    an input 4 bytes off 16-byte alignment (the kernel's scalar path)."""
+    an input 4 bytes off 16-byte alignment (the kernel's scalar path); then,
+    for every path (the widening uint8 -> fp32 / bf16 and bf16 -> fp32
+    among them), at lengths one below and one above a whole vector (the
+    word a thread takes at a time) and a whole step of the largest grid (a
+    word for every thread), where the word loop, its grid-stride step and
+    the scalar tail meet."""
     rows = []
     for in_name, in_dtype in NORMALIZE_IN.items():
         for shape in ((224, 224, 3), (7, 13, 3), (16 * MIB,), "unaligned"):
@@ -590,17 +655,32 @@ def check_normalize():
             for out_name, out_dtype in (("float32", torch.float32),
                                         ("bfloat16", torch.bfloat16)):
                 for mode, (scale, shift) in (("INCEPTION", INCEPTION), ("NONE", (1.0, 0.0))):
-                    out = ops.normalize_image(x, scale, shift, out_dtype)
-                    ref = nz.normalize_image_reference(x, scale, shift, out_dtype)
-                    torch.cuda.synchronize()
-                    row = {"shape": shape if isinstance(shape, str) else list(shape),
-                           "in": in_name, "out": out_name, "mode": mode,
-                           "mismatches": bit_mismatches(out, ref)}
-                    rows.append(row)
-                    if row["mismatches"] or out.dtype != out_dtype or out.shape != x.shape:
-                        raise AssertionError(
-                            f"normalize_image disagrees with its plain version: {row}")
+                    rows.append(normalize_case(x, shape, in_name, out_name, mode, scale,
+                                               shift))
+    plan = nz.normalize_plan
+    for in_name, in_dtype in NORMALIZE_IN.items():
+        for out_name, out_dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            vector = plan(1, in_dtype, out_dtype, True).elements
+            step = vector * nz.THREADS * plan(1 << 40, in_dtype, out_dtype, True, sms()).blocks
+            for n in (vector - 1, vector + 1, step - 1, step + 1):
+                x = image_input((n,), in_dtype, seed=n)
+                rows.append(normalize_case(x, (n,), in_name, out_name, "INCEPTION",
+                                           *INCEPTION))
     return rows
+
+
+def normalize_case(x, shape, in_name, out_name, mode, scale, shift):
+    """One normalize_image call against its plain version; raises unless
+    every element's bits agree."""
+    out_dtype = DTYPES[out_name]
+    out = ops.normalize_image(x, scale, shift, out_dtype)
+    ref = nz.normalize_image_reference(x, scale, shift, out_dtype)
+    torch.cuda.synchronize()
+    row = {"shape": shape if isinstance(shape, str) else list(shape), "in": in_name,
+           "out": out_name, "mode": mode, "mismatches": bit_mismatches(out, ref)}
+    if row["mismatches"] or out.dtype != out_dtype or out.shape != x.shape:
+        raise AssertionError(f"normalize_image disagrees with its plain version: {row}")
+    return row
 
 
 def time_normalize(shape, in_dtype, iters):
@@ -608,7 +688,9 @@ def time_normalize(shape, in_dtype, iters):
     The yardstick ``torch.add(shift, x, alpha=scale)`` computes x * scale +
     shift in one call (the 0-dim fp32 ``shift`` makes a uint8 ``x`` give
     float32 too); whether it gives the kernel's single rounding is counted,
-    not assumed."""
+    not assumed. Kernel and yardstick each have their device time
+    (profiler) and, below 1 Mi elements, their host time per call (enqueue,
+    no sync)."""
     x = image_input(shape, in_dtype, seed=3)
     scale, shift = INCEPTION
     out = ops.normalize_image(x, scale, shift, torch.float32)
@@ -616,66 +698,129 @@ def time_normalize(shape, in_dtype, iters):
     if err:
         raise AssertionError(f"normalize_image {shape} {in_dtype}: {err} mismatches")
     n = x.numel()
+    shift_t = torch.tensor(shift, device="cuda")
+
+    def kernel():
+        return ops.normalize_image(x, scale, shift, torch.float32)
+
+    def library():
+        return torch.add(shift_t, x, alpha=scale)
+
     row = {
         "shape": list(shape), "in": str(in_dtype).replace("torch.", ""), "out": "float32",
         "max_abs_err": 0.0,
-        "ms": cuda_ms(lambda: ops.normalize_image(x, scale, shift, torch.float32), iters),
-        "device_ms": device_ms_per_launch(
-            lambda: ops.normalize_image(x, scale, shift, torch.float32),
-            "normalize_kernel", 20),
+        "ms": cuda_ms(kernel, iters),
+        "device_ms": device_ms_per_launch(kernel, "normalize_kernel", 20),
         "plain_ms": cuda_ms(lambda: nz.normalize_image_reference(x, scale, shift,
                                                                  torch.float32), iters),
         "bound_ms": n * (x.element_size() + 4) / PEAK_BYTES_PER_S * 1e3,
         "bound_by": "bytes", "library_ms": None,
     }
-    shift_t = torch.tensor(shift, device="cuda")
-    lib = torch.add(shift_t, x, alpha=scale)
+    lib = library()
     if lib.dtype != torch.float32:
         raise AssertionError(f"torch.add(shift, x, alpha=scale) gave {lib.dtype} for {in_dtype}")
     row["library_mismatches"] = bit_mismatches(lib, out)
-    row["library_candidate_ms"] = cuda_ms(lambda: torch.add(shift_t, x, alpha=scale), iters)
+    row["library_candidate_ms"] = cuda_ms(library, iters)
+    row["library_device_ms"] = device_ms_per_call(library, "", 20)
     if row["library_mismatches"] == 0:
         row["library_ms"] = row["library_candidate_ms"]
+    if n < MIB:
+        row["host_us"] = host_us(kernel)
+        row["library_host_us"] = host_us(library)
     return row
 
 
 def check_softmax():
     """softmax_probabilities against its plain version within rtol 1e-5
-    (atol 1e-30) at the served (1, 1000), a batch (8, 1000), tests/
+    (atol 1e-30): the served (1, 1000), a batch (8, 1000), tests/
     test_utils.py's (3, 50) x 30, 1-D (1000,), bf16 (8, 1000), a long row
-    (4, 5000) (one block per row), a bytes-sized (16384, 1000), and a row of
-    -inf (NaN, as in JAX)."""
-    tol = TOLERANCE["softmax_probabilities"]
+    (4, 5000), a bytes-sized (16384, 1000); then every width in
+    SOFTMAX_COLS at 1, 8 and 16384 rows in fp32 and bf16 (every variant of
+    softmax_plan and every warps and vectors count it picks, which must all
+    occur), and a row 4 bytes off 16-byte alignment. Special rows (all -inf,
+    a -inf prefix, a NaN, a +inf) in each variant must give what the plain
+    version gives (NaN where it does)."""
+    from client_tpu_torch.ops.softmax import softmax_plan
+
     rows = []
     cases = [((1, 1000), "float32", 1.0), ((8, 1000), "float32", 1.0),
              ((3, 50), "float32", 30.0), ((1000,), "float32", 1.0),
              ((8, 1000), "bfloat16", 1.0), ((4, 5000), "float32", 1.0),
              ((16384, 1000), "float32", 1.0)]
+    cases += [((r, c), name, 4.0) for name in DTYPES for r in (1, 8, 16384)
+              for c in SOFTMAX_COLS]
+    cases.append(("unaligned", "float32", 4.0))
+    seen = set()
     for i, (shape, name, stretch) in enumerate(cases):
         gen = torch.Generator(device="cuda").manual_seed(i)
-        x = (torch.randn(shape, generator=gen, device="cuda") * stretch).to(DTYPES[name])
+        if shape == "unaligned":
+            x = (torch.randn(8 * 1000 + 1, generator=gen, device="cuda") * stretch)[1:]
+            x = x.view(8, 1000)
+        else:
+            x = (torch.randn(shape, generator=gen, device="cuda") * stretch).to(DTYPES[name])
+        cols = x.shape[-1]
+        plan = softmax_plan(x.numel() // cols, cols, x.dtype, x.data_ptr() % 16 == 0, sms())
+        seen.update({("variant", plan.variant), ("warps", plan.warps),
+                     (f"vectors {name}", plan.vectors if plan.variant == "registers" else 0)})
+        rows.append(softmax_case(x, shape, name, stretch, plan))
+    want = ({("variant", v) for v in ("registers", "two_pass", "scalar")}
+            | {("warps", w) for w in (1, 2, 4, 8)}
+            | {("vectors float32", v) for v in (1, 2, 4, 8)}
+            | {("vectors bfloat16", v) for v in (1, 2, 4)})
+    if want - seen:
+        raise AssertionError(f"softmax checks never ran {sorted(want - seen)}")
+    inf, nan = float("inf"), float("nan")
+    for cols in (8, SOFTMAX_COLS[-1], SOFTMAX_COLS[-3]):  # registers, two_pass, scalar
+        x = torch.randn((5, cols), generator=torch.Generator().manual_seed(cols))
+        x[0] = -inf
+        x[1, : cols // 2 + 1] = -inf
+        x[2, cols // 3] = nan
+        x[3, cols - 1] = inf
+        x = x.to("cuda")
+        plan = softmax_plan(5, cols, x.dtype, True, sms())
         out = ops.softmax_probabilities(x)
         ref = sm.softmax_probabilities_reference(x)
-        torch.cuda.synchronize()
-        rel = ((out - ref).abs() / ref.abs().clamp_min(tol["atol"])).max().item()
-        row = {"shape": list(shape), "dtype": name, "scale": stretch, "max_rel_err": rel,
-               "max_abs_err": (out - ref).abs().max().item(), "rtol": tol["rtol"]}
-        rows.append(row)
-        if (out.dtype != torch.float32 or out.shape != x.shape
-                or not torch.allclose(out, ref, rtol=tol["rtol"], atol=tol["atol"])):
-            raise AssertionError(f"softmax_probabilities disagrees with its plain version: {row}")
-    x = torch.tensor([[float("-inf")] * 8, list(range(8))], device="cuda")
-    out = ops.softmax_probabilities(x)
-    if not (out[0].isnan().all() and torch.allclose(out[1], sm.softmax_probabilities_reference(
-            x[1]), rtol=tol["rtol"], atol=tol["atol"])):
-        raise AssertionError(f"softmax_probabilities of a -inf row is not NaN: {out}")
+        tol = TOLERANCE["softmax_probabilities"]
+        if not torch.allclose(out, ref, rtol=tol["rtol"], atol=tol["atol"], equal_nan=True):
+            raise AssertionError(f"softmax_probabilities of special rows ({plan}) differs: "
+                                 f"{out[:, :4]} vs {ref[:, :4]}")
+        rows.append({"shape": [5, cols], "dtype": "float32", "scale": 1.0,
+                     "case": "special rows: -inf, a -inf prefix, NaN, +inf",
+                     "variant": plan.variant, "warps": plan.warps, "vectors": plan.vectors,
+                     "nan_rows": int(out.isnan().all(-1).sum().item())})
     return rows
+
+
+# softmax widths that reach every variant: whole rows in registers up to
+# REGISTER_COLS (8192; one warp or several, 1-8 vectors a thread), scalar
+# where a row is not a whole number of 16-byte vectors (1, 3, 2049, 8193;
+# in bf16 also 8196), two passes one bf16 vector past the register width
+SOFTMAX_COLS = (1, 3, 8, 1000, 1024, 2048, 2049, 4096, 5000, 8192, 8193, 8196, 8200)
+
+
+def softmax_case(x, shape, name, stretch, plan):
+    """One softmax_probabilities call against its plain version; raises
+    unless every probability is within rtol 1e-5 (atol 1e-30)."""
+    tol = TOLERANCE["softmax_probabilities"]
+    out = ops.softmax_probabilities(x)
+    ref = sm.softmax_probabilities_reference(x)
+    torch.cuda.synchronize()
+    rel = ((out - ref).abs() / ref.abs().clamp_min(tol["atol"])).max().item()
+    row = {"shape": shape if isinstance(shape, str) else list(shape), "dtype": name,
+           "scale": stretch, "variant": plan.variant, "warps": plan.warps,
+           "vectors": plan.vectors, "max_rel_err": rel,
+           "max_abs_err": (out - ref).abs().max().item(), "rtol": tol["rtol"]}
+    if (out.dtype != torch.float32 or out.shape != x.shape
+            or not torch.allclose(out, ref, rtol=tol["rtol"], atol=tol["atol"])):
+        raise AssertionError(f"softmax_probabilities disagrees with its plain version: {row}")
+    return row
 
 
 def time_softmax(shape, iters):
     """Kernel, plain version and ``torch.softmax(x, -1, dtype=float32)``
     beside the bytes bound (each logit read once, each probability written
-    once, fp32)."""
+    once, fp32): per call (CUDA events), on the device (profiler) and, at
+    one row, on the host per call (enqueue, no sync)."""
     gen = torch.Generator(device="cuda").manual_seed(21)
     x = torch.randn(shape, generator=gen, device="cuda") * 4
     out = ops.softmax_probabilities(x)
@@ -683,15 +828,27 @@ def time_softmax(shape, iters):
     tol = TOLERANCE["softmax_probabilities"]
     if not torch.allclose(out, ref, rtol=tol["rtol"], atol=tol["atol"]):
         raise AssertionError(f"softmax_probabilities {shape} disagrees with its plain version")
-    return {
+
+    def kernel():
+        return ops.softmax_probabilities(x)
+
+    def library():
+        return torch.softmax(x, -1, dtype=torch.float32)
+
+    row = {
         "shape": list(shape), "dtype": "float32",
         "max_abs_err": (out - ref).abs().max().item(),
-        "ms": cuda_ms(lambda: ops.softmax_probabilities(x), iters),
-        "device_ms": device_ms_per_launch(lambda: ops.softmax_probabilities(x), "softmax_", 20),
+        "ms": cuda_ms(kernel, iters),
+        "device_ms": device_ms_per_launch(kernel, "softmax_", 20),
         "plain_ms": cuda_ms(lambda: sm.softmax_probabilities_reference(x), iters),
-        "library_ms": cuda_ms(lambda: torch.softmax(x, -1, dtype=torch.float32), iters),
+        "library_ms": cuda_ms(library, iters),
+        "library_device_ms": device_ms_per_call(library, "", 20),
         "bound_ms": 8 * x.numel() / PEAK_BYTES_PER_S * 1e3, "bound_by": "bytes",
     }
+    if shape[0] == 1:
+        row["host_us"] = host_us(kernel)
+        row["library_host_us"] = host_us(library)
+    return row
 
 
 def profiled_kernels(fn, kernel_name, runs):
@@ -1304,7 +1461,145 @@ def profile_decode(decoder, prompt, steps):
     }
 
 
-def main() -> int:
+def small_kernel_times():
+    """The four small kernels timed at the served and the large shapes
+    (per call, on the device, plain, library, bound, and at the served
+    shapes the host time per call), and the host time per call of the two
+    attention wrappers at their served shapes; each row logged. Only the
+    public wrappers and plain versions are called, so the same function
+    times an earlier tree of the port (``--kernel-times``)."""
+    quant_timed = [time_quantize(8192, 200), time_quantize(16 * MIB, 20)]
+    for row in quant_timed:
+        for name in ("quantize", "dequantize"):
+            t = row[name]
+            library = "none" if t["library_ms"] is None else f"{t['library_ms']:.4f} ms"
+            extra = ""
+            if "library_candidate_ms" in t:
+                extra = (f" (torch.quantize_per_tensor {t['library_candidate_ms']:.4f} ms, "
+                         f"{t['library_mismatches']} int8 mismatches"
+                         + (f", {t['library_mismatches_wire']} on the wire input"
+                            if "library_mismatches_wire" in t else "")
+                         + f"; at {t['library_mismatch_at'][:3]})")
+            log(f"time {name}_int8 n={row['n']} fp32: kernel {t['ms']:.4f} ms "
+                f"({ms_text(t['device_ms'])} on the device{host_text(t, 'host_us')}), plain "
+                f"{t['plain_ms']:.4f} ms, library {library}{extra} "
+                f"({ms_text(t['library_device_ms'])} on the device"
+                f"{host_text(t, 'library_host_us')}), bound "
+                f"{t['bound_ms']:.5f} ms (bytes; {t['bound_ms'] / t['ms']:.1%} of bound)")
+        ceiling = row["dequantize"].get("write_ceiling")
+        if ceiling:
+            log(f"time write ceiling {ceiling['call']} n={ceiling['n']}: {ceiling['ms']:.4f} "
+                f"ms ({ms_text(ceiling['device_ms'])} on the device), bound "
+                f"{ceiling['bound_ms']:.5f} ms (bytes; "
+                f"{ceiling['bound_ms'] / ceiling['ms']:.1%} of bound)")
+    # the image_client's input first: the row of the kernels line
+    norm_timed = [time_normalize((224, 224, 3), torch.float32, 200),
+                  time_normalize((224, 224, 3), torch.uint8, 200),
+                  time_normalize((16 * MIB,), torch.float32, 20),
+                  time_normalize((16 * MIB,), torch.uint8, 20)]
+    softmax_timed = [time_softmax((1, VISION_CLASSES), 200),
+                     time_softmax((16384, VISION_CLASSES), 20)]
+    for name, timed_rows in (("normalize_image", norm_timed),
+                             ("softmax_probabilities", softmax_timed)):
+        for row in timed_rows:
+            library = "none" if row["library_ms"] is None else f"{row['library_ms']:.4f} ms"
+            extra = ""
+            if "library_mismatches" in row:
+                extra = (f" (torch.add(shift, x, alpha=scale) {row['library_candidate_ms']:.4f} "
+                         f"ms, {row['library_mismatches']} bit mismatches)")
+            log(f"time {name} {row['shape']} {row.get('in', row.get('dtype'))}: kernel "
+                f"{row['ms']:.4f} ms ({ms_text(row['device_ms'])} on the device"
+                f"{host_text(row, 'host_us')}), plain {row['plain_ms']:.4f} ms, "
+                f"library {library}{extra} ({ms_text(row['library_device_ms'])} on the device"
+                f"{host_text(row, 'library_host_us')}), bound {row['bound_ms']:.5f} ms "
+                f"(bytes; {row['bound_ms'] / row['ms']:.1%} of bound)")
+    attention = attention_host_us()
+    for name, us in attention.items():
+        log(f"host {name} at its served shape: {us:.3f} us per call")
+    return {"quantize": quant_timed, "normalize": norm_timed, "softmax": softmax_timed,
+            "attention_host_us": attention}
+
+
+def ms_text(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
+def host_text(row, key) -> str:
+    return f", {row[key]:.2f} us on the host" if key in row else ""
+
+
+def attention_host_us():
+    """Host time per call (enqueue, no sync) of the decode and flash
+    wrappers at their served shapes: the decoder's step (1, 4, 128, 32) bf16
+    at pos 11 and the encoder's (1, 100, 4, 16) fp32."""
+    q, k, v = attention_inputs(1, 4, 128, 32, torch.bfloat16, seed=7)
+    pos = torch.tensor([11], dtype=torch.int32, device="cuda")
+    fq, fk, fv = flash_inputs((1, 100, 4, 16), torch.float32, seed=99)
+    return {"decode_attention": host_us(lambda: da.decode_attention(q, k, v, pos)),
+            "flash_attention": host_us(lambda: flash_attention(fq, fk, fv))}
+
+
+def host_breakdown(calls: int = 10000):
+    """Host time of each piece of one normalize_image call at the
+    image_client's (224, 224, 3) uint8 -> fp32, median over ``calls`` calls
+    each: the pieces of the launch path the five wrappers had before they
+    shared ``_kernels.launch`` ("before", rebuilt here call for call) and
+    those of the shared path ("after"), then the whole wrapper."""
+    x = image_input((224, 224, 3), torch.uint8, seed=3)
+    scale, shift = INCEPTION
+    out = ops.normalize_image(x, scale, shift, torch.float32)
+    dev = x.device
+    index = x.get_device()
+    n = x.numel()
+    fn = _kernels.function("normalize_image", "normalize_image_launch", nz._ARGTYPES)
+    blocks = nz.normalize_plan(n, x.dtype, torch.float32, True, sms()).blocks
+    counter = type(nz.LAUNCHES)()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    in_codes, out_codes = {torch.float32: 0, torch.bfloat16: 1, torch.uint8: 2}, {
+        torch.float32: 0, torch.bfloat16: 1}
+
+    def before_device_check():
+        with (nullcontext() if dev.index is None or dev.index == torch.cuda.current_device()
+              else torch.cuda.device(dev)):
+            pass
+
+    pieces = [
+        ("before", "checks (dtype, out dtype, contiguity, x.device.type)",
+         lambda: (x.dtype not in in_codes, torch.float32 not in out_codes,
+                  x.is_contiguous(), x.device.type)),
+        ("before", "torch.empty(x.shape, dtype, device=x.device)",
+         lambda: torch.empty(x.shape, dtype=torch.float32, device=x.device)),
+        ("before", "_kernels.function lookup",
+         lambda: _kernels.function("normalize_image", "normalize_image_launch",
+                                   nz._ARGTYPES)),
+        ("before", "device check: x.device, current_device, nullcontext",
+         before_device_check),
+        ("before", "scale and shift rounded by np.float32",
+         lambda: (float(np.float32(scale)), float(np.float32(shift)))),
+        ("before", "torch.cuda.current_stream(x.device).cuda_stream",
+         lambda: torch.cuda.current_stream(x.device).cuda_stream),
+        ("both", "ctypes call (launches the kernel)",
+         lambda: fn(x.data_ptr(), out.data_ptr(), n, 2, 0, scale, shift, blocks, stream)),
+        ("both", "launch counter (a lock)", counter.add),
+        ("after", "checks (dict.get x2, contiguity, is_cuda)",
+         lambda: (in_codes.get(x.dtype), out_codes.get(torch.float32), x.is_contiguous(),
+                  x.is_cuda)),
+        ("after", "torch.empty_like(x, dtype)", lambda: torch.empty_like(x, dtype=torch.float32)),
+        ("after", "x.get_device()", x.get_device),
+        ("after", "normalize_plan + sm_count",
+         lambda: nz.normalize_plan(n, x.dtype, torch.float32, True, _kernels.sm_count(index))),
+        ("after", "raw stream: torch._C._cuda_getCurrentRawStream(index)",
+         lambda: torch._C._cuda_getCurrentRawStream(index)),
+        ("after", "device check: index == current_device()",
+         lambda: index == torch.cuda.current_device()),
+        ("after", "the whole wrapper (ops.normalize_image)",
+         lambda: ops.normalize_image(x, scale, shift, torch.float32)),
+    ]
+    return [{"side": side, "piece": piece, "calls": calls, "us": host_us(call, calls)}
+            for side, piece, call in pieces]
+
+
+def main(argv) -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device; this script runs only on a GPU")
         return 1
@@ -1318,6 +1613,16 @@ def main() -> int:
     log(f"build: {seconds:.2f} s")
     for line in ptxas:
         log(f"  ptxas: {line}")
+    if argv == ["--kernel-times"]:
+        # the small kernels' timings alone, for the tree this file sits in
+        # (copied into another tree of the port, it times that one)
+        small = small_kernel_times()
+        log(smi)
+        log(json.dumps({"kernel_times": small, "device": kind}))
+        return 0
+    if argv:
+        log(f"chip_smoke: unknown arguments {argv} (none, or --kernel-times)")
+        return 2
     smem = _kernels.function("flash_attention", "flash_attention_smem_bytes",
                              (ctypes.c_int, ctypes.c_int))
     log("  flash_attention dynamic shared memory per block (bytes): "
@@ -1367,52 +1672,27 @@ def main() -> int:
     log(f"kernel quantize_int8 / dequantize_int8: element exact in all {len(quant_rows)} "
         "cases (fp32 and bf16; n = 8192, 8195, 16 Mi; half-steps and clipping) and over "
         "every int8 value")
-    quant_timed = [time_quantize(8192, 200), time_quantize(16 * MIB, 20)]
-    for row in quant_timed:
-        for name in ("quantize", "dequantize"):
-            t = row[name]
-            library = "none" if t["library_ms"] is None else f"{t['library_ms']:.4f} ms"
-            device = "not measured" if t["device_ms"] is None else f"{t['device_ms']:.4f} ms"
-            extra = ""
-            if "library_candidate_ms" in t:
-                extra = (f" (torch.quantize_per_tensor {t['library_candidate_ms']:.4f} ms, "
-                         f"{t['library_mismatches']} int8 mismatches"
-                         + (f", {t['library_mismatches_wire']} on the wire input"
-                            if "library_mismatches_wire" in t else "")
-                         + f"; at {t['library_mismatch_at'][:3]})")
-            log(f"time {name}_int8 n={row['n']} fp32: kernel {t['ms']:.4f} ms "
-                f"({device} on the device), plain "
-                f"{t['plain_ms']:.4f} ms, library {library}{extra}, bound "
-                f"{t['bound_ms']:.5f} ms (bytes; {t['bound_ms'] / t['ms']:.1%} of bound)")
-
     norm_rows = check_normalize()
     log(f"kernel normalize_image: element exact in all {len(norm_rows)} cases (fp32, uint8 "
         "and bf16 in; fp32 and bf16 out; INCEPTION and NONE; (224,224,3), (7,13,3), 16 Mi, "
-        "unaligned)")
-    # the image_client's input first: the row of the kernels line
-    norm_timed = [time_normalize((224, 224, 3), torch.float32, 200),
-                  time_normalize((224, 224, 3), torch.uint8, 200),
-                  time_normalize((16 * MIB,), torch.float32, 20)]
+        "unaligned; every path one below and one above a whole vector and a whole grid "
+        "step)")
     softmax_rows = check_softmax()
     for row in softmax_rows:
-        log(f"kernel softmax_probabilities {row['shape']} {row['dtype']} x{row['scale']:g}: "
-            f"max_rel_err {row['max_rel_err']:.3g} (rtol {row['rtol']})")
-    softmax_timed = [time_softmax((1, VISION_CLASSES), 200),
-                     time_softmax((16384, VISION_CLASSES), 20)]
-    for name, timed_rows in (("normalize_image", norm_timed),
-                             ("softmax_probabilities", softmax_timed)):
-        for row in timed_rows:
-            library = "none" if row["library_ms"] is None else f"{row['library_ms']:.4f} ms"
-            device = ("not measured" if row["device_ms"] is None
-                      else f"{row['device_ms']:.4f} ms")
-            extra = ""
-            if "library_mismatches" in row:
-                extra = (f" (torch.add(shift, x, alpha=scale) {row['library_candidate_ms']:.4f} "
-                         f"ms, {row['library_mismatches']} bit mismatches)")
-            log(f"time {name} {row['shape']} {row.get('in', row.get('dtype'))}: kernel "
-                f"{row['ms']:.4f} ms ({device} on the device), plain {row['plain_ms']:.4f} ms, "
-                f"library {library}{extra}, bound {row['bound_ms']:.5f} ms "
-                f"(bytes; {row['bound_ms'] / row['ms']:.1%} of bound)")
+        if "max_rel_err" in row:
+            log(f"kernel softmax_probabilities {row['shape']} {row['dtype']} "
+                f"x{row['scale']:g} ({row['variant']}, {row['warps']} warps, {row['vectors']} "
+                f"vectors): max_rel_err {row['max_rel_err']:.3g} (rtol {row['rtol']})")
+        else:
+            log(f"kernel softmax_probabilities {row['shape']} {row['case']} "
+                f"({row['variant']}): as the plain version, {row['nan_rows']} NaN rows")
+    small = small_kernel_times()
+    quant_timed, norm_timed, softmax_timed = (small["quantize"], small["normalize"],
+                                              small["softmax"])
+    breakdown = host_breakdown()
+    for piece in breakdown:
+        log(f"host normalize_image (224,224,3) uint8: {piece['side']} {piece['piece']}: "
+            f"{piece['us']:.3f} us per call (median of {piece['calls']})")
 
     served, launches = serve_and_check()
     vision, vision_launches = serve_vision(20)
@@ -1502,7 +1782,8 @@ def main() -> int:
         # device time alone per launch on the served decode step (profiler);
         # "ms" above is a wrapper call back to back, host launch cost included
         "device_ms": served["profile"]["decode_attention_ms_per_launch"],
-        "redesigned": REDESIGNED,
+        "redesigned": REDESIGNED["decode_attention"],
+        "host_us": small["attention_host_us"]["decode_attention"],
         "shape": main_row["shape"],
         "pos": main_row["pos"],
         "splits": main_row["splits"],
@@ -1521,7 +1802,8 @@ def main() -> int:
         "bound_ms": flash_row["bound_ms"],
         "bound_by": flash_row["bound_by"],
         "library_ms": flash_row["library_ms"],
-        "redesigned": REDESIGNED,
+        "redesigned": REDESIGNED["flash_attention"],
+        "host_us": small["attention_host_us"]["flash_attention"],
         "shape": flash_row["shape"],
         "dtype": flash_row["dtype"],
         "at_shapes": flash_timed[1:],
@@ -1551,7 +1833,8 @@ def main() -> int:
             "library_ms": t["library_ms"],
             "library_note": note,
             **{key: t[key] for key in ("library_mismatches", "library_mismatches_wire",
-                                       "library_mismatch_at", "library_candidate_ms")
+                                       "library_mismatch_at", "library_candidate_ms",
+                                       "library_device_ms", "host_us", "library_host_us")
                if key in t},
             # device time alone per launch (profiler); "ms" is a wrapper call
             # back to back, host launch cost included
@@ -1582,9 +1865,10 @@ def main() -> int:
             "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
             "library_note": note,
-            **({"library_mismatches": row["library_mismatches"]}
-               if "library_mismatches" in row else {}),
+            **{key: row[key] for key in ("library_mismatches", "library_device_ms",
+                                         "host_us", "library_host_us") if key in row},
             "device_ms": row["device_ms"],
+            "redesigned": REDESIGNED[name],
             "shape": row["shape"],
             "at_shapes": timed_rows[1:],
         })
@@ -1596,6 +1880,8 @@ def main() -> int:
                    "quantize_checks": quant_rows, "quantize_timed": quant_timed,
                    "normalize_checks": norm_rows, "normalize_timed": norm_timed,
                    "softmax_checks": softmax_rows, "softmax_timed": softmax_timed,
+                   "attention_host_us": small["attention_host_us"],
+                   "host_breakdown": breakdown,
                    "served": served, "vision": vision, "kernels": kernels}, f, indent=1)
     log(smi)
     log(json.dumps({"kernels": kernels}))
@@ -1605,4 +1891,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

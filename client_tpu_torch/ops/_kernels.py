@@ -8,9 +8,11 @@ source and flags, at first use (or by :func:`build_all`). Nothing builds when
 a module is imported, so the package imports on machines with no ``nvcc``.
 
 A wrapper reaches its entry point through :func:`function`, which sets the
-ctypes signature once, and launches inside :func:`on_device`, which makes
-the tensor's device current only when it is not already, so a call pays
-for neither on the host.
+ctypes signature once, and calls it through :func:`launch`, the one launch
+path of every wrapper: it passes the tensor's device's current stream as a
+raw handle, makes the device current only when it is not already, raises
+on a launch error and counts the launch. :func:`sm_count` reads a device's
+SM count once, for the wrappers that size their grids from it.
 """
 
 from __future__ import annotations
@@ -21,7 +23,6 @@ import os
 import shutil
 import subprocess
 import threading
-from contextlib import nullcontext
 from pathlib import Path
 from typing import Dict, List, Sequence, Tuple
 
@@ -35,9 +36,14 @@ NVCC_FLAGS = [
     "-Xptxas", "-v",  # per-kernel registers / shared memory / spills in the log
 ]
 
+# the H100's SM count: the default of the grid and split plans, which take
+# the card's own count from sm_count on the card
+H100_SMS = 132
+
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 _functions: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}
+_sm_counts: Dict[int, int] = {}
 
 
 def nvcc() -> str:
@@ -128,12 +134,34 @@ def function(name: str, symbol: str, argtypes: Sequence) -> ctypes._CFuncPtr:
     return fn
 
 
-def on_device(device: torch.device):
-    """A context in which ``device`` is the current CUDA device: nothing to
-    enter when it already is."""
-    if device.index is None or device.index == torch.cuda.current_device():
-        return nullcontext()
-    return torch.cuda.device(device)
+def launch(fn: ctypes._CFuncPtr, counter, tensor: torch.Tensor, *args) -> None:
+    """Launch a kernel: ``fn(*args, stream)`` on the CUDA device of
+    ``tensor``, with that device's current stream, then add one to
+    ``counter``. The device is made current only when it is not already.
+    Raises if ``fn`` returns a ``cudaError_t`` other than 0 (nothing is
+    counted then)."""
+    index = tensor.get_device()
+    # torch.cuda.current_stream(index).cuda_stream builds a torch.cuda.Stream
+    # object on every call to hand out this integer; the private
+    # _cuda_getCurrentRawStream returns the raw handle alone (PyTorch's own
+    # generated kernels launch with it), and no public call does
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    if index == torch.cuda.current_device():
+        err = fn(*args, stream)
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{fn.__name__} failed: cudaError_t {err}")
+    counter.add()
+
+
+def sm_count(index: int) -> int:
+    """The SM count of CUDA device ``index``, read once per device."""
+    count = _sm_counts.get(index)
+    if count is None:
+        count = _sm_counts[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return count
 
 
 def loaded() -> List[str]:

@@ -49,7 +49,7 @@ _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
 # split_plan: the H100's SM count, the blocks aimed at (about two per SM)
 # and the fewest cache slots a split walks (shorter splits cost more in
 # partials and merging than they add in bytes in flight)
-H100_SMS = 132
+H100_SMS = _kernels.H100_SMS
 BLOCKS_PER_SM = 2
 MIN_SPLIT = 256
 
@@ -149,36 +149,21 @@ def _check(q, k, v, pos) -> None:
         raise ValueError("decode_attention takes contiguous tensors")
 
 
-_sm_counts = {}
-
-
-def _sms(device: torch.device) -> int:
-    """The SM count of a CUDA device (what split_plan fills)."""
-    index = device.index if device.index is not None else torch.cuda.current_device()
-    if index not in _sm_counts:
-        _sm_counts[index] = torch.cuda.get_device_properties(index).multi_processor_count
-    return _sm_counts[index]
-
-
 def _launch(q, k, v, pos) -> torch.Tensor:
     for t in (q, k, v):
         if t.data_ptr() % 16:
             raise ValueError("decode_attention needs 16-byte-aligned q, k and v")
-    fn = _kernels.function("decode_attention", "decode_attention_launch", _ARGTYPES)
     batch, heads, dim = q.shape
     max_len = k.shape[2]
-    splits = split_plan(batch, heads, max_len, _sms(q.device))
+    splits = split_plan(batch, heads, max_len, _kernels.sm_count(q.get_device()))
     out = torch.empty_like(q)
     partial = (torch.empty(batch * heads * splits * (dim + 2), dtype=torch.float32,
                            device=q.device) if splits > 1 else None)
-    with _kernels.on_device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(), out.data_ptr(),
-                 None if partial is None else partial.data_ptr(), batch, heads, max_len,
-                 dim, _DTYPE_CODES[q.dtype], splits, dim ** -0.5,
-                 torch.cuda.current_stream(q.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"decode_attention kernel launch failed: cudaError_t {err}")
-    LAUNCHES.add()
+    _kernels.launch(
+        _kernels.function("decode_attention", "decode_attention_launch", _ARGTYPES), LAUNCHES,
+        q, q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(), out.data_ptr(),
+        None if partial is None else partial.data_ptr(), batch, heads, max_len, dim,
+        _DTYPE_CODES[q.dtype], splits, dim ** -0.5)
     return out
 
 

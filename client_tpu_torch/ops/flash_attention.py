@@ -132,18 +132,13 @@ def _launch(q, k, v, causal: bool) -> torch.Tensor:
     for t in (q, k, v):
         if t.data_ptr() % 16:
             raise ValueError("flash_attention needs 16-byte-aligned q, k and v")
-    fn = _kernels.function("flash_attention", "flash_attention_launch", _ARGTYPES)
     batch, seq, heads, dim = q.shape
     out = torch.empty_like(q)
     stride_b, stride_s, stride_h, _ = q.stride()
-    with _kernels.on_device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 batch, seq, heads, dim, stride_b, stride_s, stride_h,
-                 _DTYPE_CODES[q.dtype], dim ** -0.5, int(causal),
-                 torch.cuda.current_stream(q.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: cudaError_t {err}")
-    LAUNCHES.add()
+    _kernels.launch(
+        _kernels.function("flash_attention", "flash_attention_launch", _ARGTYPES), LAUNCHES,
+        q, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), batch, seq, heads, dim,
+        stride_b, stride_s, stride_h, _DTYPE_CODES[q.dtype], dim ** -0.5, int(causal))
     return out
 
 

@@ -12,7 +12,10 @@ ONCE to float32 (a fused multiply-add, as XLA computes the JAX kernel), then,
 for bfloat16 output, rounded to nearest even. A separate multiply and add in
 float32 would round twice and miss the JAX result by an ulp.
 
-Bound on the H100: bytes (each element read once and written once). The
+Bound on the H100: bytes (each element read once and written once). A
+thread of the kernel takes ``16 / max(in size, out size)`` elements at a
+time, so the wider side moves whole 16-byte words; :func:`normalize_plan`
+sizes its grid from the element count and the card's SM count. The
 wrapper launches the kernel for CUDA tensors on the current stream and
 raises if the launch fails; for CPU tensors it computes
 ``normalize_image_reference``, the plain version beside it. There is no
@@ -22,6 +25,8 @@ fallback from the one to the other.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -30,12 +35,41 @@ from . import LaunchCounter, _kernels
 
 _IN_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.uint8: 2}
 _OUT_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# normalize_image_launch(x, out, n, in_code, out_code, scale, shift, stream)
+# normalize_image_launch(x, out, n, in_code, out_code, scale, shift, blocks,
+# stream); ctypes rounds scale and shift to float32 (to nearest, as
+# np.float32 does)
 _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-             ctypes.c_float, ctypes.c_float, ctypes.c_void_p)
+             ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p)
+
+# the kernel's block size (kThreads in the source), and the most blocks a
+# grid has per SM (a thread per word up to 64 MiB of fp32 on the H100)
+THREADS = 256
+BLOCKS_PER_SM = 128
 
 # kernel launches made by normalize_image (CPU calls do not count)
 LAUNCHES = LaunchCounter()
+
+
+class NormalizePlan(NamedTuple):
+    elements: int  # elements a thread takes at a time (1: the scalar path)
+    blocks: int  # blocks of THREADS threads
+
+
+# a pure function of its arguments, called on every launch: cached, so a
+# call at a shape seen before costs a lookup
+@functools.lru_cache(maxsize=256)
+def normalize_plan(n: int, in_dtype, out_dtype, aligned: bool,
+                   sms: int = _kernels.H100_SMS) -> NormalizePlan:
+    """The kernel's grid for ``n`` elements: one thread per
+    ``16 / max(in size, out size)`` elements (one element when input or
+    output is not 16-byte ``aligned``), as many blocks as that takes, at
+    most ``BLOCKS_PER_SM`` per SM (the threads then walk the rest
+    grid-stride)."""
+    if min(n, sms) < 1:
+        raise ValueError(f"normalize_plan needs n >= 1 and sms >= 1, got {n}, {sms}")
+    elements = 16 // max(in_dtype.itemsize, out_dtype.itemsize) if aligned else 1
+    work = -(-n // elements)
+    return NormalizePlan(elements, min(-(-work // THREADS), BLOCKS_PER_SM * sms))
 
 
 def _f32(value: float) -> float:
@@ -79,26 +113,25 @@ def normalize_image(x, scale: float = 1.0, shift: float = 0.0, out_dtype=torch.b
     image_client scaling modes map directly: INCEPTION => scale=2/255,
     shift=-1; NONE => scale=1, shift=0 (a pure cast). CUDA tensors run the
     Hopper kernel; CPU tensors the plain version."""
-    if x.dtype not in _IN_CODES:
+    in_code = _IN_CODES.get(x.dtype)
+    if in_code is None:
         raise TypeError(f"normalize_image takes float32, bfloat16 or uint8, got {x.dtype}")
-    if out_dtype not in _OUT_CODES:
+    out_code = _OUT_CODES.get(out_dtype)
+    if out_code is None:
         raise TypeError(f"normalize_image writes float32 or bfloat16, not {out_dtype}")
     if not x.is_contiguous():
         raise ValueError("normalize_image takes a contiguous tensor")
-    device = x.device.type
-    if device == "cpu":
-        return normalize_image_reference(x, scale, shift, out_dtype)
-    if device != "cuda":
-        raise ValueError(f"normalize_image runs on cuda or cpu tensors, not {device}")
-    out = torch.empty(x.shape, dtype=out_dtype, device=x.device)
-    if x.numel() == 0:
+    if not x.is_cuda:
+        if x.device.type == "cpu":
+            return normalize_image_reference(x, scale, shift, out_dtype)
+        raise ValueError(f"normalize_image runs on cuda or cpu tensors, not {x.device.type}")
+    out = torch.empty_like(x, dtype=out_dtype)
+    n = x.numel()
+    if n == 0:
         return out
-    fn = _kernels.function("normalize_image", "normalize_image_launch", _ARGTYPES)
-    with _kernels.on_device(x.device):
-        err = fn(x.data_ptr(), out.data_ptr(), x.numel(), _IN_CODES[x.dtype],
-                 _OUT_CODES[out_dtype], _f32(scale), _f32(shift),
-                 torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"normalize_image kernel launch failed: cudaError_t {err}")
-    LAUNCHES.add()
+    src, dst = x.data_ptr(), out.data_ptr()
+    plan = normalize_plan(n, x.dtype, out_dtype, (src | dst) % 16 == 0,
+                          _kernels.sm_count(x.get_device()))
+    _kernels.launch(_kernels.function("normalize_image", "normalize_image_launch", _ARGTYPES),
+                    LAUNCHES, x, src, dst, n, in_code, out_code, scale, shift, plan.blocks)
     return out

@@ -29,7 +29,8 @@ import torch
 from . import LaunchCounter, _kernels
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# {quantize,dequantize}_int8_launch(src, out, n, dtype_code, factor, stream)
+# {quantize,dequantize}_int8_launch(src, out, n, dtype_code, factor, stream);
+# ctypes rounds factor to float32 (to nearest, as np.float32 does)
 _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
              ctypes.c_float, ctypes.c_void_p)
 
@@ -71,13 +72,8 @@ def _check_tensor(t, what: str) -> None:
 def _launch(name: str, src, out, code: int, factor: float, counter: LaunchCounter):
     if src.data_ptr() % 16 or out.data_ptr() % 16:
         raise ValueError(f"{name} needs 16-byte-aligned input and output")
-    fn = _kernels.function("quantize_int8", f"{name}_launch", _ARGTYPES)
-    with _kernels.on_device(src.device):
-        err = fn(src.data_ptr(), out.data_ptr(), src.numel(), code, factor,
-                 torch.cuda.current_stream(src.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
-    counter.add()
+    _kernels.launch(_kernels.function("quantize_int8", f"{name}_launch", _ARGTYPES), counter,
+                    src, src.data_ptr(), out.data_ptr(), src.numel(), code, factor)
     return out
 
 
@@ -89,12 +85,12 @@ def quantize_int8(x, scale: float):
         raise TypeError(f"quantize_int8 takes float32 or bfloat16, got {x.dtype}")
     scale = _check_scale(scale)
     _check_tensor(x, "quantize_int8")
-    if x.device.type == "cpu":
+    if not x.is_cuda:
         return quantize_int8_reference(x, scale)
-    out = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    out = torch.empty_like(x, dtype=torch.int8)
     if x.numel() == 0:
         return out
-    return _launch("quantize_int8", x, out, _DTYPE_CODES[x.dtype], _f32(1.0 / scale),
+    return _launch("quantize_int8", x, out, _DTYPE_CODES[x.dtype], 1.0 / scale,
                    QUANTIZE_LAUNCHES)
 
 
@@ -108,10 +104,10 @@ def dequantize_int8(q, scale: float, out_dtype=torch.float32):
         raise TypeError(f"dequantize_int8 writes float32 or bfloat16, not {out_dtype}")
     scale = _check_scale(scale)
     _check_tensor(q, "dequantize_int8")
-    if q.device.type == "cpu":
+    if not q.is_cuda:
         return dequantize_int8_reference(q, scale, out_dtype)
-    out = torch.empty(q.shape, dtype=out_dtype, device=q.device)
+    out = torch.empty_like(q, dtype=out_dtype)
     if q.numel() == 0:
         return out
-    return _launch("dequantize_int8", q, out, _DTYPE_CODES[out_dtype], _f32(scale),
+    return _launch("dequantize_int8", q, out, _DTYPE_CODES[out_dtype], scale,
                    DEQUANTIZE_LAUNCHES)

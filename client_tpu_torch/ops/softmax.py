@@ -11,27 +11,99 @@ returned as float32. Leading axes are rows; 1-D logits are one row and come
 back 1-D, as in JAX.
 
 Bound on the H100: bytes (each logit read once, each probability written
-once). The wrapper launches the kernel for CUDA tensors on the current
-stream and raises if the launch fails; for CPU tensors it computes
-``softmax_probabilities_reference``, the plain version beside it. There is
-no fallback from the one to the other.
+once). The kernel reads a row once where it can: :func:`softmax_plan`
+picks, from the shapes alone, whether a row is held in registers (up to
+``REGISTER_COLS`` columns, 16-byte loads), walked in two passes (longer
+rows) or read element by element (rows that are not 16-byte aligned), and
+how many warps share a row: one when the rows fill the card, up to a
+block of 8 when they are few. The wrapper launches the kernel for CUDA
+tensors on the current stream and raises if the launch fails; for CPU
+tensors it computes ``softmax_probabilities_reference``, the plain version
+beside it. There is no fallback from the one to the other.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
 from . import LaunchCounter, _kernels
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# softmax_launch(x, out, rows, cols, dtype_code, stream)
+# softmax_launch(x, out, rows, cols, dtype_code, variant, warps, vectors,
+#                blocks, stream)
 _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
-             ctypes.c_int, ctypes.c_void_p)
+             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             ctypes.c_void_p)
+
+# the kernel's variants (their codes in the source), block size (kThreads),
+# the 16-byte vectors a thread may hold (the instantiated V) and the fp32
+# values it holds at most (8 float4, or 4 vectors of 8 bf16: 0 spills)
+VARIANTS = ("registers", "two_pass", "scalar")
+THREADS = 256
+WARPS_PER_BLOCK = THREADS // 32
+VECTORS = (1, 2, 4, 8)
+MAX_VALUES = 32
+# the widest row held in registers, in either dtype: 256 threads x 32 values
+REGISTER_COLS = THREADS * MAX_VALUES
+# the rows fill the card when they give each SM this many warps; a grid
+# holds at most MAX_BLOCKS_PER_SM blocks per SM (the rest walk grid-stride)
+WARPS_PER_SM = 8
+MAX_BLOCKS_PER_SM = 32
 
 # kernel launches made by softmax_probabilities (CPU calls do not count)
 LAUNCHES = LaunchCounter()
+
+
+class SoftmaxPlan(NamedTuple):
+    variant: str  # one of VARIANTS
+    warps: int  # warps that share a row: 1, 2, 4 or 8
+    vectors: int  # 16-byte vectors a thread holds (registers; else 1)
+    blocks: int  # blocks of THREADS threads, WARPS_PER_BLOCK // warps rows each
+
+
+# a pure function of its arguments, called on every launch: cached, so a
+# call at a shape seen before costs a lookup (a few microseconds less of host
+# time per call)
+@functools.lru_cache(maxsize=256)
+def softmax_plan(rows: int, cols: int, dtype, aligned: bool,
+                 sms: int = _kernels.H100_SMS) -> SoftmaxPlan:
+    """How the kernel takes ``rows`` rows of ``cols`` logits of ``dtype``
+    (``aligned``: input and output start on 16 bytes), from the shapes
+    alone:
+
+    - the variant: "registers" when the rows are 16-byte aligned (the base
+      addresses and ``cols`` times the element size) and a block's
+      registers hold a row (``cols <= REGISTER_COLS``), "two_pass" when
+      they are aligned and longer, "scalar" when they are not aligned;
+    - the warps per row: the fewest (1, 2, 4, 8) that give the card
+      ``WARPS_PER_SM`` warps per SM, no more than the row has vectors (or
+      elements) for 32 threads each, and enough for the registers to hold
+      the row;
+    - the vectors a thread holds: the fewest of ``VECTORS`` that cover the
+      row."""
+    if min(rows, cols, sms) < 1:
+        raise ValueError(f"softmax_plan needs rows, cols and sms >= 1, got {rows}, {cols}, {sms}")
+    elements = 16 // dtype.itemsize
+    if aligned and cols % elements == 0:
+        units = cols // elements
+        variant = "registers" if cols <= REGISTER_COLS else "two_pass"
+    else:
+        units, variant = cols, "scalar"
+    warps = 1
+    while warps < WARPS_PER_BLOCK and 32 * warps < units and rows * warps < WARPS_PER_SM * sms:
+        warps *= 2
+    vectors = 1
+    if variant == "registers":
+        max_vectors = MAX_VALUES // elements
+        while 32 * warps * max_vectors < units:
+            warps *= 2
+        vectors = next(v for v in VECTORS if 32 * warps * v >= units)
+    per_block = WARPS_PER_BLOCK // warps
+    return SoftmaxPlan(variant, warps, vectors, min(-(-rows // per_block), MAX_BLOCKS_PER_SM * sms))
 
 
 def softmax_probabilities_reference(logits):
@@ -45,7 +117,8 @@ def softmax_probabilities_reference(logits):
 def softmax_probabilities(logits):
     """Numerically stable softmax over the last axis, float32 out. CUDA
     tensors run the Hopper kernel; CPU tensors the plain version."""
-    if logits.dtype not in _DTYPE_CODES:
+    code = _DTYPE_CODES.get(logits.dtype)
+    if code is None:
         raise TypeError(
             f"softmax_probabilities takes float32 or bfloat16, got {logits.dtype}")
     if logits.dim() == 0 or logits.shape[-1] == 0:
@@ -53,21 +126,20 @@ def softmax_probabilities(logits):
             f"softmax_probabilities needs a non-empty last axis, got {list(logits.shape)}")
     if not logits.is_contiguous():
         raise ValueError("softmax_probabilities takes a contiguous tensor")
-    device = logits.device.type
-    if device == "cpu":
-        return softmax_probabilities_reference(logits)
-    if device != "cuda":
-        raise ValueError(f"softmax_probabilities runs on cuda or cpu tensors, not {device}")
-    out = torch.empty(logits.shape, dtype=torch.float32, device=logits.device)
+    if not logits.is_cuda:
+        if logits.device.type == "cpu":
+            return softmax_probabilities_reference(logits)
+        raise ValueError(
+            f"softmax_probabilities runs on cuda or cpu tensors, not {logits.device.type}")
+    out = torch.empty_like(logits, dtype=torch.float32)
     cols = logits.shape[-1]
     rows = logits.numel() // cols
     if rows == 0:
         return out
-    fn = _kernels.function("softmax", "softmax_launch", _ARGTYPES)
-    with _kernels.on_device(logits.device):
-        err = fn(logits.data_ptr(), out.data_ptr(), rows, cols, _DTYPE_CODES[logits.dtype],
-                 torch.cuda.current_stream(logits.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"softmax_probabilities kernel launch failed: cudaError_t {err}")
-    LAUNCHES.add()
+    src, dst = logits.data_ptr(), out.data_ptr()
+    plan = softmax_plan(rows, cols, logits.dtype, (src | dst) % 16 == 0,
+                        _kernels.sm_count(logits.get_device()))
+    _kernels.launch(_kernels.function("softmax", "softmax_launch", _ARGTYPES), LAUNCHES, logits,
+                    src, dst, rows, cols, code, VARIANTS.index(plan.variant), plan.warps,
+                    plan.vectors, plan.blocks)
     return out

@@ -10,7 +10,6 @@ card only (chip_smoke.py). The wrapper's argument checks, the build step
 and the import without a compiler are tested here too.
 """
 
-import contextlib
 import ctypes
 import os
 import stat
@@ -28,7 +27,7 @@ from client_tpu.ops.decode_attention import (
     decode_attention as jax_decode_attention,
     decode_attention_reference as jax_reference,
 )
-from client_tpu_torch.ops import _kernels
+from client_tpu_torch.ops import LaunchCounter, _kernels
 from client_tpu_torch.ops import decode_attention as da
 from client_tpu_torch.utils import numpy_to_tensor
 
@@ -362,6 +361,85 @@ def test_function_sets_the_signature_once(monkeypatch):
     assert loads == ["libc"]
 
 
-def test_on_device_enters_nothing_for_the_current_device():
-    """A device with no index is the current one: no device switch."""
-    assert isinstance(_kernels.on_device(torch.device("cuda")), contextlib.nullcontext)
+class _OnDevice:
+    """A stand-in for a CUDA tensor on device ``index``."""
+
+    def __init__(self, index):
+        self.index = index
+
+    def get_device(self):
+        return self.index
+
+
+def _fake_cuda(monkeypatch, current=0):
+    """torch.cuda as the launch path sees it, on a machine with no card:
+    device ``current`` is current, raw streams are 1000 + the device index,
+    and entering a device is recorded."""
+    entered = []
+
+    class _Device:
+        def __init__(self, index):
+            self.index = index
+
+        def __enter__(self):
+            entered.append(self.index)
+
+        def __exit__(self, *exc):
+            return False
+
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: current)
+    monkeypatch.setattr(torch.cuda, "device", _Device)
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", lambda i: 1000 + i,
+                        raising=False)
+    return entered
+
+
+def _entry(result=0):
+    calls = []
+
+    def fn(*args):
+        calls.append(args)
+        return result
+
+    fn.__name__ = "fake_launch"
+    return fn, calls
+
+
+def test_on_device_enters_nothing_for_the_current_device(monkeypatch):
+    """A tensor on the current device: launch calls the entry point with
+    the device's raw stream last, enters no device, counts one launch."""
+    entered = _fake_cuda(monkeypatch, current=0)
+    fn, calls = _entry()
+    counter = LaunchCounter()
+    _kernels.launch(fn, counter, _OnDevice(0), 7, 8.5)
+    assert calls == [(7, 8.5, 1000)] and entered == [] and counter.count == 1
+
+
+def test_launch_enters_the_device_of_the_tensor(monkeypatch):
+    entered = _fake_cuda(monkeypatch, current=0)
+    fn, calls = _entry()
+    counter = LaunchCounter()
+    _kernels.launch(fn, counter, _OnDevice(1), 3)
+    assert calls == [(3, 1001)] and entered == [1] and counter.count == 1
+
+
+def test_launch_raises_on_an_error_and_counts_nothing(monkeypatch):
+    _fake_cuda(monkeypatch)
+    fn, _ = _entry(result=700)
+    counter = LaunchCounter()
+    with pytest.raises(RuntimeError, match="fake_launch failed: cudaError_t 700"):
+        _kernels.launch(fn, counter, _OnDevice(0))
+    assert counter.count == 0
+
+
+def test_sm_count_reads_each_device_once(monkeypatch):
+    reads = []
+
+    class _Props:
+        multi_processor_count = 132
+
+    monkeypatch.setattr(_kernels, "_sm_counts", {})
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda i: reads.append(i) or _Props())
+    assert [_kernels.sm_count(i) for i in (0, 0, 1, 0)] == [132] * 4
+    assert reads == [0, 1]

@@ -124,6 +124,77 @@ def test_normalize_special_values():
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+# -- normalize_plan: the kernel's grid -----------------------------------------
+
+
+PATHS = [(torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+         (torch.bfloat16, torch.float32), (torch.bfloat16, torch.bfloat16),
+         (torch.uint8, torch.float32), (torch.uint8, torch.bfloat16)]
+PATH_IDS = [f"{str(a)[6:]}_to_{str(b)[6:]}" for a, b in PATHS]
+
+
+@pytest.mark.parametrize("path", PATHS, ids=PATH_IDS)
+def test_normalize_plan_moves_whole_words_on_the_wider_side(path):
+    """A thread takes 16 / max(in size, out size) elements: the widening
+    paths store one 16-byte word per step."""
+    in_dtype, out_dtype = path
+    elements = normalize_module.normalize_plan(1000, in_dtype, out_dtype, True).elements
+    assert elements * max(in_dtype.itemsize, out_dtype.itemsize) == 16
+    assert normalize_module.normalize_plan(1000, in_dtype, out_dtype, False).elements == 1
+
+
+@pytest.mark.parametrize("in_dtype", [torch.uint8, torch.float32], ids=["uint8", "float32"])
+def test_normalize_plan_fills_the_card_at_the_served_image(in_dtype):
+    """The image_client's and the ensemble's (224, 224, 3) -> fp32 launch
+    gives every one of the H100's 132 SMs a block."""
+    plan = normalize_module.normalize_plan(224 * 224 * 3, in_dtype, torch.float32, True, 132)
+    assert plan.blocks >= 132
+
+
+@pytest.mark.parametrize("n", [1, 3, 15, 16, 17, 4 * 256 + 1, 150528, 1 << 24, 1 << 34])
+@pytest.mark.parametrize("path", [PATHS[0], PATHS[4]], ids=[PATH_IDS[0], PATH_IDS[4]])
+def test_normalize_plan_covers_every_element(n, path):
+    """Enough threads for one step each, or the most blocks the card holds
+    (the grid-stride loop takes the rest); never more blocks than work."""
+    plan = normalize_module.normalize_plan(n, *path, True, 132)
+    cap = normalize_module.BLOCKS_PER_SM * 132
+    assert 1 <= plan.blocks <= cap
+    assert plan.blocks == cap or plan.blocks * normalize_module.THREADS * plan.elements >= n
+    assert (plan.blocks - 1) * normalize_module.THREADS * plan.elements < n
+
+
+@pytest.mark.parametrize("sms", [1, 66, 132, 264])
+def test_normalize_plan_follows_the_sm_count(sms):
+    plan = normalize_module.normalize_plan(1 << 30, torch.uint8, torch.float32, True, sms)
+    assert plan.blocks == normalize_module.BLOCKS_PER_SM * sms
+
+
+@pytest.mark.parametrize("args", [(0,), (16, 0)])
+def test_normalize_plan_rejects_empty_sizes(args):
+    n, *sms = args
+    with pytest.raises(ValueError):
+        normalize_module.normalize_plan(n, torch.uint8, torch.float32, True, *sms)
+
+
+@pytest.mark.parametrize("words", [1, 2])
+@pytest.mark.parametrize("delta", [-1, 1])
+@pytest.mark.parametrize("path", [PATHS[0], PATHS[1], PATHS[4], PATHS[5]],
+                         ids=[PATH_IDS[0], PATH_IDS[1], PATH_IDS[4], PATH_IDS[5]])
+def test_normalize_is_element_exact_around_whole_words(path, delta, words):
+    """Lengths one below and one above whole words of the kernel's threads,
+    where its word loop meets the scalar tail."""
+    in_dtype, out_dtype = path
+    n = normalize_module.normalize_plan(1, in_dtype, out_dtype, True).elements * words + delta
+    in_name = "uint8" if in_dtype == torch.uint8 else "float32"
+    x = _image((n,), in_name, seed=n)
+    scale, shift = MODES["INCEPTION"]
+    out_name = "float32" if out_dtype == torch.float32 else "bfloat16"
+    got = ops.normalize_image(torch.from_numpy(x), scale=scale, shift=shift, out_dtype=out_dtype)
+    want = np.asarray(jax_ops.normalize_image(x, scale=scale, shift=shift,
+                                              out_dtype=OUT[out_name][1]))
+    assert _bits(got) == want.tobytes()
+
+
 # -- softmax_probabilities ---------------------------------------------------
 
 
