@@ -32,23 +32,39 @@ Phases (each raises on failure, so the script exits non-zero):
      causal settings (the bf16 tensor-core kernel and the fp32 kernels);
      in bf16 also against the tiled plain version (p rounded before PV), at
      one bf16 ulp;
-   - quantize_int8 element-exact (exact half-steps, values past the clip)
-     and dequantize_int8 exact, at (1, 8192), a ragged length and 64 MiB;
-     ``torch.quantize_per_tensor`` timed as quantize's library call, with
-     the count of its int8 values that differ from the kernel's;
-   - normalize_image element-exact (fp32, uint8 and bf16 in; fp32 and bf16
-     out; INCEPTION and NONE) at (224, 224, 3), (7, 13, 3), 64 MiB of fp32
-     and an unaligned view, and every path one below and one above a whole
-     vector and a whole grid step; softmax_probabilities within rtol 1e-5
-     at the served (1, 1000) and at (8, 1000), (3, 50) x 30, (1000,), bf16,
-     a long row and (16384, 1000), then at widths from 1 to 8200 columns at
-     1, 8 and 16384 rows in fp32 and bf16 (every variant, warps and vectors
-     count of ``softmax_plan`` must occur), an unaligned row and rows of
-     -inf, NaN and +inf;
-   - the small kernels (normalize, softmax, quantize, dequantize) and their
-     library calls each timed per call, on the device (profiler) and, at
-     the served shapes, on the host per call (enqueue, no sync), beside the
-     card's write ceiling (``fill_`` of 64 MiB); the host time of one
+   - quantize_int8 element-exact (exact half-steps, values past the clip;
+     fp32, bf16 and fp16 in) at (1, 8192), a ragged length, 64 MiB and an
+     unaligned view; dequantize_int8 element-exact to fp32, bf16 and fp16
+     over every int8 value, at (1, 8192), a ragged length, one below and
+     one above a whole word and a whole grid step, 64 MiB, and with the
+     input off 16-byte alignment; ``torch.quantize_per_tensor`` timed as quantize's library
+     call, with the count of its int8 values that differ from the kernel's;
+   - normalize_image element-exact (fp32, uint8, bf16, fp16 and int32 in;
+     fp32, bf16 and fp16 out; INCEPTION and NONE) at (224, 224, 3), (7, 13,
+     3), 64 MiB of fp32 and an unaligned view, int32 past 2**24, and every
+     path one below and one above a whole vector and a whole grid step;
+     softmax_probabilities within rtol 1e-5 at the served (1, 1000) and at
+     (8, 1000), (3, 50) x 30, (1000,), bf16, a long row and (16384, 1000),
+     then at widths from 1 to 8200 columns at 1, 8 and 16384 rows in fp32,
+     bf16 and fp16 (every variant, warps and vectors count of
+     ``softmax_plan`` must occur), an unaligned row and rows of -inf, NaN
+     and +inf;
+   - classification ties on the card: ``ops.topk_classification`` and the
+     server's classification extension on tied rows (int32, float, all
+     equal, bf16-rounded logits) and on rows without ties give the CPU's
+     order, lowest index first (how ``torch.topk`` orders the same ties on
+     the card is recorded); then ``ops.topk_classification`` (a stable
+     sort) and ``torch.topk``, each alone and with its copies to the host,
+     timed at (1, 1000), (64, 1000) and (16384, 1000): wall per call in
+     interleaved rounds, and on the device (profiler);
+   - no fallback: a CUDA tensor of a dtype or head dim a kernel has no code
+     for raises and launches nothing; decode and flash views off 16-byte
+     alignment run on aligned copies and agree with the plain versions;
+   - the small kernels (normalize, softmax, quantize, dequantize, and
+     dequantize to bf16 at 64 MiB) and their library calls each timed per
+     call, on the device (profiler) and, at the served shapes, on the host
+     per call (enqueue, no sync), beside the card's write ceiling (``fill_``
+     of 64 MiB); the host time of one
      normalize_image call split into its pieces, before and after the
      wrappers shared one launch path;
 4. server: the port's HTTP server with its model zoo and
@@ -79,7 +95,7 @@ Phases (each raises on failure, so the script exits non-zero):
 It then prints one ``{"kernels": [...]}`` line and, last, one line
 ``{"ok": true, "device": {...}}``. Details go to ``build/chip_smoke.json``.
 Without a CUDA device it fails. The build fails if ptxas reports a spill in
-the softmax or normalize kernels.
+the softmax, normalize or int8 kernels.
 
 ``python3 chip_smoke.py --kernel-times`` builds the kernels and times the
 small kernels and the wrappers' host cost alone (the same rows as phase
@@ -139,6 +155,8 @@ from client_tpu_torch.utils import shared_memory as shm  # noqa: E402
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# the small kernels' float types (fp16 too)
+FLOATS = {**DTYPES, "float16": torch.float16}
 # kernel against its plain version, per kernel and dtype:
 # - decode_attention: max |out - ref| < tol (tests/test_decode_attention.py);
 # - flash_attention: |out - ref| <= tol + tol * |ref| elementwise, the JAX
@@ -169,7 +187,8 @@ TILED_TOLERANCE = {"atol": 2.0 ** -9, "rtol": 2.0 ** -7}
 REDESIGNED = {"decode_attention": "split-K over the cache",
               "flash_attention": "bf16 on the tensor cores",
               "normalize_image": "a lane per 16-byte output word",
-              "softmax_probabilities": "rows held in registers"}
+              "softmax_probabilities": "rows held in registers",
+              "dequantize_int8": "a lane per 16-byte output word (normalize's word loop)"}
 # launch counters of the kernel wrappers, by kernel name
 COUNTERS = {
     "decode_attention": da.LAUNCHES,
@@ -239,10 +258,11 @@ def build_kernels():
     logs = _kernels.build_all()
     seconds = time.perf_counter() - t0
     ptxas = [line for name, text in logs.items() for line in ptxas_lines(name, text)]
-    spills = [line for line in ptxas if line.startswith(("softmax:", "normalize_image:"))
+    spills = [line for line in ptxas
+              if line.startswith(("softmax:", "normalize_image:", "quantize_int8:"))
               and re.search(r"[1-9]\d* bytes spill", line)]
     if spills:
-        raise AssertionError(f"ptxas spills in the softmax or normalize kernels: {spills}")
+        raise AssertionError(f"ptxas spills in the softmax, normalize or int8 kernels: {spills}")
     return seconds, ptxas
 
 
@@ -514,15 +534,23 @@ def quantize_inputs(n, dtype, scale, seed):
 
 
 def check_quantize():
-    """quantize_int8 element-exact and dequantize_int8 exact against their
-    plain versions: fp32 and bf16, a power-of-two scale (exact half-steps
-    after the multiply) and the example's max/127 scale; the wire shape, a
-    ragged length (the kernels' scalar tail) and 64 MiB of fp32."""
+    """quantize_int8 and dequantize_int8 element-exact against their plain
+    versions. Quantize: fp32, bf16 and fp16 in, a power-of-two scale (exact
+    half-steps after the multiply) and the example's max/127 scale, at the
+    wire shape, a ragged length (the scalar tail), 64 MiB of fp32 and a
+    view one element off 16-byte alignment (the scalar way), each
+    dequantized back to its own dtype. Dequantize: fp32, bf16 and fp16 out
+    over every int8 value, at the wire shape, a ragged length, one below
+    and one above a whole word and a whole step of the largest grid (a word
+    for every thread), 64 MiB, and with the input one byte off alignment
+    (the scalar way; the wrapper allocates its output aligned)."""
     rows = []
-    for name, dtype in DTYPES.items():
-        for n in (8192, 8195, 16 * MIB):
+    for name, dtype in FLOATS.items():
+        for n in (8192, 8195, 16 * MIB, "unaligned"):
             for scale_kind in ("pow2", "fit"):
-                x = quantize_inputs(n, dtype, 2.0 ** -5, seed=n)
+                base = quantize_inputs(8196 if n == "unaligned" else n, dtype, 2.0 ** -5,
+                                       seed=len(rows))
+                x = base[1:] if n == "unaligned" else base
                 scale = 2.0 ** -5 if scale_kind == "pow2" else x.float().abs().max().item() / 127
                 q = qz.quantize_int8(x, scale)
                 q_ref = qz.quantize_int8_reference(x, scale)
@@ -531,16 +559,205 @@ def check_quantize():
                 torch.cuda.synchronize()
                 row = {"n": n, "dtype": name, "scale": scale,
                        "quantize_mismatches": int((q != q_ref).sum().item()),
-                       "dequantize_mismatches": int((back != back_ref).sum().item())}
+                       "dequantize_mismatches": bit_mismatches(back, back_ref)}
                 rows.append(row)
                 if row["quantize_mismatches"] or row["dequantize_mismatches"]:
                     raise AssertionError(f"int8 kernels disagree with their plain versions: {row}")
-    # every int8 value, -128 included, through dequantize
-    q = torch.arange(-128, 128, dtype=torch.int8, device="cuda").repeat(33)
-    for name, dtype in DTYPES.items():
-        if not torch.equal(qz.dequantize_int8(q, 0.37, dtype),
-                           qz.dequantize_int8_reference(q, 0.37, dtype)):
-            raise AssertionError(f"dequantize_int8 {name} differs over the int8 range")
+    every = torch.arange(-128, 128, dtype=torch.int8, device="cuda")
+    for name, dtype in FLOATS.items():
+        word = qz.dequantize_plan(1, dtype, True).elements
+        step = word * nz.THREADS * qz.dequantize_plan(1 << 40, dtype, True, sms()).blocks
+        for n in (8192, 8195, word - 1, word + 1, step - 1, step + 1, 16 * MIB, "unaligned"):
+            length = 8193 if n == "unaligned" else n
+            gen = torch.Generator(device="cuda").manual_seed(length)
+            q = torch.randint(-128, 128, (length,), generator=gen, device="cuda",
+                              dtype=torch.int8)
+            q[:min(256, length)] = every[:min(256, length)]
+            q = q[1:] if n == "unaligned" else q
+            rows.append(dequantize_case(q, 0.37, name, n))
+    return rows
+
+
+def dequantize_case(q, scale, out_name, n):
+    """One dequantize_int8 call against its plain version; raises unless
+    every element's bits agree."""
+    out_dtype = FLOATS[out_name]
+    out = qz.dequantize_int8(q, scale, out_dtype)
+    ref = qz.dequantize_int8_reference(q, scale, out_dtype)
+    torch.cuda.synchronize()
+    row = {"n": n, "out": out_name, "aligned": q.data_ptr() % 16 == 0,
+           "mismatches": bit_mismatches(out, ref)}
+    if row["mismatches"] or out.dtype != out_dtype or out.shape != q.shape:
+        raise AssertionError(f"dequantize_int8 disagrees with its plain version: {row}")
+    return row
+
+
+def check_ties():
+    """Classification ties on the card: ``ops.topk_classification`` and the
+    server's classification extension (batched) on tied rows, against the
+    same calls on the CPU (ties lowest index first, as the CPU tests hold
+    them to ``jax.lax.top_k``): int32 and float rows with ties across k,
+    all-equal rows, bf16-rounded logits (densenet's logits are bf16) and
+    rows of four values, rows without ties, and a batch where two rows of
+    eight tie at their maximum. Beside each: how many rows ``torch.topk`` on the
+    card gives in another order (recorded, not gated: the port does not
+    call it)."""
+    from client_tpu_torch.server.core import _classification
+
+    gen = torch.Generator().manual_seed(40)
+    tied = {
+        "int32": torch.tensor([[1, 3, 3, 1, 3], [2, 2, 0, 2, 2]], dtype=torch.int32),
+        "float": torch.tensor([[0.5, 2.0, 0.5, 2.0, 2.0, -1.0], [1.0, 0.0, 1.0, 1.0, 0.0, 1.0]]),
+        "all_equal": torch.zeros(3, 8),
+        "bf16_logits": (torch.randn(16, 1000, generator=gen) * 0.05).bfloat16().float(),
+        "four_values": torch.randint(0, 4, (16, 1000), generator=gen, dtype=torch.int32),
+        "distinct": torch.randn(64, 1000, generator=gen),
+        "mixed": torch.randn(8, 1000, generator=gen),
+    }
+    for row, at in ((1, 7), (4, 900)):  # two rows whose maximum also stands elsewhere
+        tied["mixed"][row, at] = tied["mixed"][row].max()
+    rows = []
+    for name, x in tied.items():
+        for k in (1, 3, 5):
+            k = min(k, x.shape[-1])
+            values, indices = ops.topk_classification(x, k)
+            dev_values, dev_indices = ops.topk_classification(x.to("cuda"), k)
+            torch_topk = torch.topk(x.to("cuda"), k).indices.cpu()
+            row = {"rows": name, "shape": list(x.shape), "k": k,
+                   "equal": bool(torch.equal(dev_indices.cpu(), indices)
+                                 and torch.equal(dev_values.cpu(), values)),
+                   "strings_equal": (_classification(x.to("cuda"), k, None, True).tolist()
+                                     == _classification(x, k, None, True).tolist()),
+                   "torch_topk_rows_in_another_order": int((torch_topk != indices).any(-1)
+                                                           .sum().item())}
+            rows.append(row)
+            if not (row["equal"] and row["strings_equal"]):
+                raise AssertionError(f"classification ties rank otherwise on the card: {row}")
+    return rows
+
+
+def interleaved_ms(calls, rounds: int, batch: int):
+    """Wall time per call of each of ``calls`` (name -> function): in each
+    of ``rounds`` rounds every function runs ``batch`` calls and a
+    synchronize, in an order rotated round by round, so the host clock's
+    drift falls on all of them alike. Returns name -> the rounds' times,
+    sorted."""
+    names = list(calls)
+    for fn in calls.values():
+        fn()
+    torch.cuda.synchronize()
+    times = {name: [] for name in names}
+    for r in range(rounds):
+        for name in names[r % len(names):] + names[:r % len(names)]:
+            t0 = time.perf_counter()
+            for _ in range(batch):
+                calls[name]()
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) / batch * 1e3)
+    return {name: sorted(t) for name, t in times.items()}
+
+
+def time_classification(k: int = 5):
+    """The classification extension's ranking on the card, fp32 logits,
+    k = 5: ``ops.topk_classification`` (a stable sort cut to k) and
+    ``torch.topk`` (its library call; it leaves the order of ties open),
+    each alone and with its two copies to the host (the first is the
+    extension's ranking, the second the one it had before it ranked ties
+    as ``jax.lax.top_k``): wall time per call with the device drained
+    (median and quartiles of interleaved rounds, ``interleaved_ms``) and
+    the device time per call (profiler, every kernel and copy)."""
+    from client_tpu_torch.server.core import _to_host
+
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    rows = []
+    for shape in ((1, VISION_CLASSES), (64, VISION_CLASSES), (16384, VISION_CLASSES)):
+        x = torch.randn(shape, generator=gen, device="cuda")
+        calls = {"sort": lambda: ops.topk_classification(x, k),
+                 "torch_topk": lambda: torch.topk(x, k, dim=-1),
+                 "sort_to_host": lambda: [_to_host(t) for t in ops.topk_classification(x, k)],
+                 "topk_to_host": lambda: [_to_host(t) for t in torch.topk(x, k, dim=-1)]}
+        row = {"shape": list(shape), "k": k}
+        wall = interleaved_ms(calls, rounds=21, batch=50 if shape[0] <= 64 else 5)
+        for name, fn in calls.items():
+            t = wall[name]
+            row[name] = {"ms": statistics.median(t), "ms_quartiles": [t[5], t[15]],
+                         "device_ms": device_ms_per_call(fn, "", 20)}
+        rows.append(row)
+    return rows
+
+
+def check_no_fallback():
+    """A CUDA tensor of a dtype or head dim a kernel has no code for raises
+    (TypeError or ValueError) and launches nothing: there is no fallback to
+    the plain version. Then q, k and v views 2 or 4 bytes off 16-byte
+    alignment run decode_attention and flash_attention on aligned copies,
+    one launch each, within the plain versions' tolerance."""
+    def z(*shape, dtype=torch.float32):
+        return torch.zeros(shape, dtype=dtype, device="cuda")
+
+    half, pos = torch.float16, torch.zeros(1, dtype=torch.int32, device="cuda")
+    cases = [
+        ("normalize_image int16 in", lambda: ops.normalize_image(z(8, dtype=torch.int16)),
+         TypeError),
+        ("normalize_image bool in", lambda: ops.normalize_image(z(8, dtype=torch.bool)),
+         TypeError),
+        ("softmax_probabilities int32 in",
+         lambda: ops.softmax_probabilities(z(2, 8, dtype=torch.int32)), TypeError),
+        ("quantize_int8 int32 in", lambda: ops.quantize_int8(z(8, dtype=torch.int32), 1.0),
+         TypeError),
+        ("dequantize_int8 float32 in", lambda: ops.dequantize_int8(z(8), 1.0), TypeError),
+        ("decode_attention float16", lambda: da.decode_attention(
+            z(1, 1, 32, dtype=half), z(1, 1, 8, 32, dtype=half), z(1, 1, 8, 32, dtype=half),
+            pos), TypeError),
+        ("decode_attention D = 16", lambda: da.decode_attention(
+            z(1, 1, 16), z(1, 1, 8, 16), z(1, 1, 8, 16), pos), ValueError),
+        ("flash_attention float16", lambda: flash_attention(
+            *(z(1, 8, 2, 16, dtype=half) for _ in range(3))), TypeError),
+        ("flash_attention D = 8", lambda: flash_attention(*(z(1, 8, 2, 8) for _ in range(3))),
+         ValueError),
+    ]
+    reset_counts()
+    rows = []
+    for name, call, exc in cases:
+        try:
+            call()
+        except exc as e:
+            rows.append({"case": name, "raised": type(e).__name__, "message": str(e)})
+        else:
+            raise AssertionError(f"{name}: ran where it should raise")
+    if any(read_counts().values()):
+        raise AssertionError(f"a refused call launched a kernel: {read_counts()}")
+
+    def off(t, elements):
+        """A contiguous copy of ``t`` starting ``elements`` past an aligned
+        allocation."""
+        view = torch.empty(t.numel() + 8, dtype=t.dtype, device="cuda")[elements:]
+        return view[:t.numel()].view(t.shape).copy_(t)
+
+    q, k, v = attention_inputs(2, 2, 300, 64, torch.bfloat16, seed=50)
+    q, k, v = off(q, 1), off(k, 1), off(v, 1)
+    positions = torch.tensor([40, 299], dtype=torch.int32, device="cuda")
+    fq, fk, fv = (off(t, 1) for t in flash_inputs((1, 100, 2, 16), torch.float32, seed=51))
+    checks = (
+        ("decode_attention bf16 views 2 bytes off", da.LAUNCHES,
+         lambda: da.decode_attention(q, k, v, positions),
+         lambda: da.decode_attention_reference(q, k, v, positions),
+         TOLERANCE["decode_attention"]["bfloat16"], (q, k, v)),
+        ("flash_attention fp32 views 4 bytes off", FLASH_LAUNCHES,
+         lambda: flash_attention(fq, fk, fv), lambda: flash_attention_reference(fq, fk, fv),
+         TOLERANCE["flash_attention"]["float32"], (fq, fk, fv)),
+    )
+    for name, counter, kernel, plain, tol, views in checks:
+        if not all(t.data_ptr() % 16 for t in views):
+            raise AssertionError(f"{name}: the views are aligned")
+        before = counter.count
+        out = kernel()
+        err = (out.float() - plain().float()).abs().max().item()
+        row = {"case": name, "max_abs_err": err, "tol": tol,
+               "launches": counter.count - before}
+        rows.append(row)
+        if not err < tol or row["launches"] != 1:
+            raise AssertionError(f"{name} disagrees with its plain version: {row}")
     return rows
 
 
@@ -604,6 +821,7 @@ def time_quantize(n, iters):
             "plain_ms": cuda_ms(plain, iters),
             "library_device_ms": device_ms_per_call(lib, "", 20),
             "bound_ms": bound_ms, "max_abs_err": err}
+        device_share(row[name])
         if n == 8192:
             row[name]["host_us"] = host_us(kernel)
             row[name]["library_host_us"] = host_us(lib)
@@ -616,11 +834,50 @@ def time_quantize(n, iters):
             "ms": cuda_ms(lambda: out.fill_(1.0), iters),
             "device_ms": device_ms_per_call(lambda: out.fill_(1.0), "", 20),
             "bound_ms": 4 * n / PEAK_BYTES_PER_S * 1e3}
+        device_share(row["dequantize"]["write_ceiling"])
+    return row
+
+
+def time_dequantize_to(n, out_dtype, iters):
+    """dequantize_int8 to a 2-byte type at n elements: kernel, plain
+    version and ``torch.mul(q, scale, out=o)`` with a bf16 or fp16 ``o``
+    (one call: it multiplies in float32 and rounds to o's type, whose bits
+    are counted against the kernel's, not assumed), per call and on the
+    device (profiler), beside the bytes bound (n int8 in, 2n bytes out)."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    q = torch.randint(-128, 128, (n,), generator=gen, device="cuda", dtype=torch.int8)
+    scale = 0.37
+    out = qz.dequantize_int8(q, scale, out_dtype)
+    if bit_mismatches(out, qz.dequantize_int8_reference(q, scale, out_dtype)):
+        raise AssertionError(f"dequantize_int8 to {out_dtype} disagrees at n = {n}")
+    lib_out = torch.empty(n, dtype=out_dtype, device="cuda")
+
+    def kernel():
+        return qz.dequantize_int8(q, scale, out_dtype)
+
+    def library():
+        return torch.mul(q, scale, out=lib_out)
+
+    library()
+    mismatches = bit_mismatches(lib_out, out)
+    candidate = cuda_ms(library, iters)
+    row = {
+        "n": n, "out": str(out_dtype).replace("torch.", ""), "max_abs_err": 0.0,
+        "ms": cuda_ms(kernel, iters),
+        "device_ms": device_ms_per_launch(kernel, "::dequantize_kernel", 20),
+        "plain_ms": cuda_ms(lambda: qz.dequantize_int8_reference(q, scale, out_dtype), iters),
+        "bound_ms": 3 * n / PEAK_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "library_mismatches": mismatches, "library_candidate_ms": candidate,
+        "library_device_ms": device_ms_per_call(library, "", 20),
+        "library_ms": candidate if mismatches == 0 else None,
+    }
+    device_share(row)
     return row
 
 
 INCEPTION = (2.0 / 255.0, -1.0)
-NORMALIZE_IN = {"float32": torch.float32, "uint8": torch.uint8, "bfloat16": torch.bfloat16}
+NORMALIZE_IN = {"float32": torch.float32, "uint8": torch.uint8, "bfloat16": torch.bfloat16,
+                "float16": torch.float16, "int32": torch.int32}
 
 
 def image_input(shape, dtype, seed):
@@ -637,29 +894,35 @@ def bit_mismatches(a, b) -> int:
 
 
 def check_normalize():
-    """normalize_image element-exact against its plain version: fp32, uint8
-    and bf16 in x fp32 and bf16 out, INCEPTION and NONE scaling, at the
-    image_client's (224, 224, 3), a ragged (7, 13, 3), 64 MiB of fp32 and
-    an input 4 bytes off 16-byte alignment (the kernel's scalar path); then,
-    for every path (the widening uint8 -> fp32 / bf16 and bf16 -> fp32
-    among them), at lengths one below and one above a whole vector (the
-    word a thread takes at a time) and a whole step of the largest grid (a
-    word for every thread), where the word loop, its grid-stride step and
-    the scalar tail meet."""
+    """normalize_image element-exact against its plain version: fp32, uint8,
+    bf16, fp16 and int32 in x fp32, bf16 and fp16 out, INCEPTION and NONE
+    scaling, at the image_client's (224, 224, 3), a ragged (7, 13, 3), 64
+    MiB of fp32 and an input one element off 16-byte alignment (the
+    kernel's scalar path), and int32 spread past 2**24 (where its fp32 cast
+    rounds); then, for every path (the widening uint8 -> fp32 / bf16 / fp16
+    and bf16 -> fp32 among them), at lengths one below and one above a
+    whole vector (the word a thread takes at a time) and a whole step of the
+    largest grid (a word for every thread), where the word loop, its
+    grid-stride step and the scalar tail meet."""
     rows = []
     for in_name, in_dtype in NORMALIZE_IN.items():
         for shape in ((224, 224, 3), (7, 13, 3), (16 * MIB,), "unaligned"):
             base = image_input((4099,) if shape == "unaligned" else shape, in_dtype,
                                seed=len(rows))
             x = base[1:] if shape == "unaligned" else base
-            for out_name, out_dtype in (("float32", torch.float32),
-                                        ("bfloat16", torch.bfloat16)):
+            for out_name in FLOATS:
                 for mode, (scale, shift) in (("INCEPTION", INCEPTION), ("NONE", (1.0, 0.0))):
                     rows.append(normalize_case(x, shape, in_name, out_name, mode, scale,
                                                shift))
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    wide = torch.randint(-2 ** 31, 2 ** 31 - 1, (8195,), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    for out_name in FLOATS:
+        rows.append(normalize_case(wide, (8195,), "int32 past 2**24", out_name, "odd", 0.37,
+                                   0.5))
     plan = nz.normalize_plan
     for in_name, in_dtype in NORMALIZE_IN.items():
-        for out_name, out_dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        for out_name, out_dtype in FLOATS.items():
             vector = plan(1, in_dtype, out_dtype, True).elements
             step = vector * nz.THREADS * plan(1 << 40, in_dtype, out_dtype, True, sms()).blocks
             for n in (vector - 1, vector + 1, step - 1, step + 1):
@@ -672,7 +935,7 @@ def check_normalize():
 def normalize_case(x, shape, in_name, out_name, mode, scale, shift):
     """One normalize_image call against its plain version; raises unless
     every element's bits agree."""
-    out_dtype = DTYPES[out_name]
+    out_dtype = FLOATS[out_name]
     out = ops.normalize_image(x, scale, shift, out_dtype)
     ref = nz.normalize_image_reference(x, scale, shift, out_dtype)
     torch.cuda.synchronize()
@@ -716,6 +979,7 @@ def time_normalize(shape, in_dtype, iters):
         "bound_ms": n * (x.element_size() + 4) / PEAK_BYTES_PER_S * 1e3,
         "bound_by": "bytes", "library_ms": None,
     }
+    device_share(row)
     lib = library()
     if lib.dtype != torch.float32:
         raise AssertionError(f"torch.add(shift, x, alpha=scale) gave {lib.dtype} for {in_dtype}")
@@ -734,10 +998,11 @@ def check_softmax():
     """softmax_probabilities against its plain version within rtol 1e-5
     (atol 1e-30): the served (1, 1000), a batch (8, 1000), tests/
     test_utils.py's (3, 50) x 30, 1-D (1000,), bf16 (8, 1000), a long row
-    (4, 5000), a bytes-sized (16384, 1000); then every width in
-    SOFTMAX_COLS at 1, 8 and 16384 rows in fp32 and bf16 (every variant of
-    softmax_plan and every warps and vectors count it picks, which must all
-    occur), and a row 4 bytes off 16-byte alignment. Special rows (all -inf,
+    (4, 5000), a bytes-sized (16384, 1000), fp16 (8, 1000); then every
+    width in SOFTMAX_COLS at 1, 8 and 16384 rows in fp32, bf16 and fp16
+    (every variant of softmax_plan and every warps and vectors count it
+    picks, which must all occur), and a row 4 bytes off 16-byte
+    alignment. Special rows (all -inf,
     a -inf prefix, a NaN, a +inf) in each variant must give what the plain
     version gives (NaN where it does)."""
     from client_tpu_torch.ops.softmax import softmax_plan
@@ -746,8 +1011,8 @@ def check_softmax():
     cases = [((1, 1000), "float32", 1.0), ((8, 1000), "float32", 1.0),
              ((3, 50), "float32", 30.0), ((1000,), "float32", 1.0),
              ((8, 1000), "bfloat16", 1.0), ((4, 5000), "float32", 1.0),
-             ((16384, 1000), "float32", 1.0)]
-    cases += [((r, c), name, 4.0) for name in DTYPES for r in (1, 8, 16384)
+             ((16384, 1000), "float32", 1.0), ((8, 1000), "float16", 1.0)]
+    cases += [((r, c), name, 4.0) for name in FLOATS for r in (1, 8, 16384)
               for c in SOFTMAX_COLS]
     cases.append(("unaligned", "float32", 4.0))
     seen = set()
@@ -757,7 +1022,7 @@ def check_softmax():
             x = (torch.randn(8 * 1000 + 1, generator=gen, device="cuda") * stretch)[1:]
             x = x.view(8, 1000)
         else:
-            x = (torch.randn(shape, generator=gen, device="cuda") * stretch).to(DTYPES[name])
+            x = (torch.randn(shape, generator=gen, device="cuda") * stretch).to(FLOATS[name])
         cols = x.shape[-1]
         plan = softmax_plan(x.numel() // cols, cols, x.dtype, x.data_ptr() % 16 == 0, sms())
         seen.update({("variant", plan.variant), ("warps", plan.warps),
@@ -766,7 +1031,7 @@ def check_softmax():
     want = ({("variant", v) for v in ("registers", "two_pass", "scalar")}
             | {("warps", w) for w in (1, 2, 4, 8)}
             | {("vectors float32", v) for v in (1, 2, 4, 8)}
-            | {("vectors bfloat16", v) for v in (1, 2, 4)})
+            | {(f"vectors {name}", v) for name in ("bfloat16", "float16") for v in (1, 2, 4)})
     if want - seen:
         raise AssertionError(f"softmax checks never ran {sorted(want - seen)}")
     inf, nan = float("inf"), float("nan")
@@ -845,6 +1110,7 @@ def time_softmax(shape, iters):
         "library_device_ms": device_ms_per_call(library, "", 20),
         "bound_ms": 8 * x.numel() / PEAK_BYTES_PER_S * 1e3, "bound_by": "bytes",
     }
+    device_share(row)
     if shape[0] == 1:
         row["host_us"] = host_us(kernel)
         row["library_host_us"] = host_us(library)
@@ -1469,6 +1735,15 @@ def small_kernel_times():
     public wrappers and plain versions are called, so the same function
     times an earlier tree of the port (``--kernel-times``)."""
     quant_timed = [time_quantize(8192, 200), time_quantize(16 * MIB, 20)]
+    dequant_bf16 = time_dequantize_to(16 * MIB, torch.bfloat16, 20)
+    library = ("none" if dequant_bf16["library_ms"] is None
+               else f"{dequant_bf16['library_ms']:.4f} ms")
+    log(f"time dequantize_int8 n={dequant_bf16['n']} bf16 out: kernel {dequant_bf16['ms']:.4f} "
+        f"ms ({ms_text(dequant_bf16['device_ms'])} on the device), plain "
+        f"{dequant_bf16['plain_ms']:.4f} ms, library {library} (torch.mul(q, scale, out=o) "
+        f"{dequant_bf16['library_candidate_ms']:.4f} ms, {dequant_bf16['library_mismatches']} "
+        f"bit mismatches; {ms_text(dequant_bf16['library_device_ms'])} on the device), "
+        f"{bound_text(dequant_bf16)}")
     for row in quant_timed:
         for name in ("quantize", "dequantize"):
             t = row[name]
@@ -1484,14 +1759,12 @@ def small_kernel_times():
                 f"({ms_text(t['device_ms'])} on the device{host_text(t, 'host_us')}), plain "
                 f"{t['plain_ms']:.4f} ms, library {library}{extra} "
                 f"({ms_text(t['library_device_ms'])} on the device"
-                f"{host_text(t, 'library_host_us')}), bound "
-                f"{t['bound_ms']:.5f} ms (bytes; {t['bound_ms'] / t['ms']:.1%} of bound)")
+                f"{host_text(t, 'library_host_us')}), {bound_text(t)}")
         ceiling = row["dequantize"].get("write_ceiling")
         if ceiling:
             log(f"time write ceiling {ceiling['call']} n={ceiling['n']}: {ceiling['ms']:.4f} "
-                f"ms ({ms_text(ceiling['device_ms'])} on the device), bound "
-                f"{ceiling['bound_ms']:.5f} ms (bytes; "
-                f"{ceiling['bound_ms'] / ceiling['ms']:.1%} of bound)")
+                f"ms ({ms_text(ceiling['device_ms'])} on the device), "
+                f"{bound_text(ceiling)}")
     # the image_client's input first: the row of the kernels line
     norm_timed = [time_normalize((224, 224, 3), torch.float32, 200),
                   time_normalize((224, 224, 3), torch.uint8, 200),
@@ -1511,13 +1784,12 @@ def small_kernel_times():
                 f"{row['ms']:.4f} ms ({ms_text(row['device_ms'])} on the device"
                 f"{host_text(row, 'host_us')}), plain {row['plain_ms']:.4f} ms, "
                 f"library {library}{extra} ({ms_text(row['library_device_ms'])} on the device"
-                f"{host_text(row, 'library_host_us')}), bound {row['bound_ms']:.5f} ms "
-                f"(bytes; {row['bound_ms'] / row['ms']:.1%} of bound)")
+                f"{host_text(row, 'library_host_us')}), {bound_text(row)}")
     attention = attention_host_us()
     for name, us in attention.items():
         log(f"host {name} at its served shape: {us:.3f} us per call")
-    return {"quantize": quant_timed, "normalize": norm_timed, "softmax": softmax_timed,
-            "attention_host_us": attention}
+    return {"quantize": quant_timed, "dequantize_bf16": dequant_bf16, "normalize": norm_timed,
+            "softmax": softmax_timed, "attention_host_us": attention}
 
 
 def ms_text(ms) -> str:
@@ -1526,6 +1798,22 @@ def ms_text(ms) -> str:
 
 def host_text(row, key) -> str:
     return f", {row[key]:.2f} us on the host" if key in row else ""
+
+
+def device_share(row) -> None:
+    """Store in ``row`` the share of its bound that its device time
+    reaches (None where the profiler gave no device time)."""
+    row["device_share_of_bound"] = (None if row.get("device_ms") is None
+                                    else row["bound_ms"] / row["device_ms"])
+
+
+def bound_text(row) -> str:
+    """The bound and the shares of it that the per-call and the device
+    times reach."""
+    share = row.get("device_share_of_bound")
+    device = "" if share is None else f", {share:.1%} on the device"
+    return (f"bound {row['bound_ms']:.5f} ms (bytes; {row['bound_ms'] / row['ms']:.1%} of "
+            f"bound per call{device})")
 
 
 def attention_host_us():
@@ -1670,13 +1958,15 @@ def main(argv) -> int:
 
     quant_rows = check_quantize()
     log(f"kernel quantize_int8 / dequantize_int8: element exact in all {len(quant_rows)} "
-        "cases (fp32 and bf16; n = 8192, 8195, 16 Mi; half-steps and clipping) and over "
-        "every int8 value")
+        "cases (quantize fp32, bf16 and fp16 in at n = 8192, 8195, 16 Mi and unaligned, "
+        "half-steps and clipping; dequantize to fp32, bf16 and fp16 over every int8 value, "
+        "at n = 8192, 8195, one below and one above a whole word and a whole grid step, "
+        "16 Mi, input unaligned)")
     norm_rows = check_normalize()
-    log(f"kernel normalize_image: element exact in all {len(norm_rows)} cases (fp32, uint8 "
-        "and bf16 in; fp32 and bf16 out; INCEPTION and NONE; (224,224,3), (7,13,3), 16 Mi, "
-        "unaligned; every path one below and one above a whole vector and a whole grid "
-        "step)")
+    log(f"kernel normalize_image: element exact in all {len(norm_rows)} cases (fp32, uint8, "
+        "bf16, fp16 and int32 in; fp32, bf16 and fp16 out; INCEPTION and NONE; (224,224,3), "
+        "(7,13,3), 16 Mi, unaligned, int32 past 2**24; every path one below and one above a "
+        "whole vector and a whole grid step)")
     softmax_rows = check_softmax()
     for row in softmax_rows:
         if "max_rel_err" in row:
@@ -1686,6 +1976,25 @@ def main(argv) -> int:
         else:
             log(f"kernel softmax_probabilities {row['shape']} {row['case']} "
                 f"({row['variant']}): as the plain version, {row['nan_rows']} NaN rows")
+    tie_rows = check_ties()
+    for row in tie_rows:
+        log(f"ties {row['rows']} {row['shape']} k={row['k']}: card as the CPU (indices, "
+            f"values and the extension's strings); torch.topk on the card ranks "
+            f"{row['torch_topk_rows_in_another_order']} rows in another order")
+    topk_timed = time_classification()
+    for row in topk_timed:
+        log(f"time classification {row['shape']} k={row['k']}: " + "; ".join(
+            f"{name} {t['ms']:.4f} ms (quartiles {t['ms_quartiles'][0]:.4f}-"
+            f"{t['ms_quartiles'][1]:.4f}; {ms_text(t['device_ms'])} on the device)"
+            for name, t in row.items()
+            if name in ("sort", "torch_topk", "sort_to_host", "topk_to_host")))
+    fallback_rows = check_no_fallback()
+    for row in fallback_rows:
+        if "raised" in row:
+            log(f"no fallback: {row['case']} raised {row['raised']}")
+        else:
+            log(f"unaligned views: {row['case']}: max_abs_err {row['max_abs_err']:.3g} (tol "
+                f"{row['tol']}), {row['launches']} launch")
     small = small_kernel_times()
     quant_timed, norm_timed, softmax_timed = (small["quantize"], small["normalize"],
                                               small["softmax"])
@@ -1839,9 +2148,11 @@ def main(argv) -> int:
             # device time alone per launch (profiler); "ms" is a wrapper call
             # back to back, host launch cost included
             "device_ms": t["device_ms"],
+            **({"redesigned": REDESIGNED[name]} if name in REDESIGNED else {}),
             "n": wire_row["n"],
             "at_shapes": [{"n": row["n"], **row[name.split("_")[0]]}
-                          for row in quant_timed[1:]],
+                          for row in quant_timed[1:]]
+            + ([small["dequantize_bf16"]] if name == "dequantize_int8" else []),
         })
     for name, source, replaces, timed_rows, note in (
             ("normalize_image", "normalize_image.cu", "client_tpu/ops/__init__.py:44",
@@ -1878,6 +2189,9 @@ def main(argv) -> int:
                    "checks": rows, "worst_err": worst, "timed": timed,
                    "flash_checks": flash_rows, "flash_timed": flash_timed,
                    "quantize_checks": quant_rows, "quantize_timed": quant_timed,
+                   "dequantize_bf16_timed": small["dequantize_bf16"],
+                   "tie_checks": tie_rows, "classification_timed": topk_timed,
+                   "no_fallback_checks": fallback_rows,
                    "normalize_checks": norm_rows, "normalize_timed": norm_timed,
                    "softmax_checks": softmax_rows, "softmax_timed": softmax_timed,
                    "attention_host_us": small["attention_host_us"],

@@ -7,95 +7,79 @@
 //   multiplies by it (it never divides by scale: element-exact agreement
 //   depends on that) and rounds with rintf, half to even like jnp.round.
 // - _dequantize_kernel (dequantize_int8): out = f32(q) * f32(scale), cast to
-//   the output dtype (fp32, or bf16 rounded to nearest even).
+//   the output dtype (fp32, or bf16 / fp16 rounded to nearest even).
 //
 // Bound on the H100: bytes. Each element is read once and written once with
 // one or two flops between, far below the card's balance point, so the least
-// time is the bytes moved over 3.35 TB/s. Each thread moves 16 bytes of
-// input per load (4 fp32, 8 bf16 or 16 int8 elements) in a grid-stride loop,
-// and the few elements past the last whole vector are done one by one.
-// The host entry points return the launch's cudaError_t; they take the
-// caller's stream and allocate nothing.
+// time is the bytes moved over 3.35 TB/s.
+// - quantize narrows: a thread loads 16 bytes of input (4 fp32, or 8 bf16 or
+//   fp16 elements) and stores 4 or 8 bytes of int8, in a grid-stride loop
+//   over at most 4096 blocks.
+// - dequantize widens, and runs the word loop of elementwise.cuh (the one
+//   normalize_image runs): a lane per 16-byte output word, which is one
+//   4-byte load of 4 int8 values for fp32 out, or one 8-byte load of 8 for
+//   bf16 and fp16 out, so each store instruction of a warp writes 512
+//   contiguous bytes; the grid is a thread per word up to 128 blocks a SM
+//   (dequantize_plan in ops/quantize.py). Sixteen int8 values a thread,
+//   stored as four 16-byte words 64 bytes apart across the lanes of a warp,
+//   reach only half the bytes bound at 64 MiB on the H100 (PERF.md).
+// The few elements past the last whole vector or word are done one by one;
+// where the input or output is not 16-byte aligned (a view into a larger
+// tensor), every element is. The host entry points return the launch's
+// cudaError_t; they take the caller's stream and allocate nothing.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-#include <string.h>
+#include "elementwise.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+using namespace elementwise;
+
 constexpr long long kMaxBlocks = 4096;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-__device__ __forceinline__ void from_f32(float x, float* out) { *out = x; }
-__device__ __forceinline__ void from_f32(float x, __nv_bfloat16* out) {
-  *out = __float2bfloat16_rn(x);
-}
 
 __device__ __forceinline__ int8_t quantize_one(float x, float inv_scale) {
   const float r = rintf(__fmul_rn(x, inv_scale));
   return (int8_t)(int)fminf(fmaxf(r, -127.f), 127.f);
 }
 
-template <typename T>
+template <typename T, bool kVectorized>
 __global__ void __launch_bounds__(kThreads)
 quantize_kernel(const T* __restrict__ x, int8_t* __restrict__ q, long long n,
                 float inv_scale) {
   constexpr int kVec = 16 / sizeof(T);
   const long long stride = (long long)gridDim.x * kThreads;
   const long long first = (long long)blockIdx.x * kThreads + threadIdx.x;
-  const long long vecs = n / kVec;
-  for (long long i = first; i < vecs; i += stride) {
-    const uint4 raw = reinterpret_cast<const uint4*>(x)[i];
-    T vals[kVec];
-    memcpy(vals, &raw, sizeof(raw));
-    int8_t packed[kVec];
+  long long done = 0;
+  if constexpr (kVectorized) {
+    const long long vecs = n / kVec;
+    for (long long i = first; i < vecs; i += stride) {
+      const uint4 raw = reinterpret_cast<const uint4*>(x)[i];
+      T vals[kVec];
+      memcpy(vals, &raw, sizeof(raw));
+      int8_t packed[kVec];
 #pragma unroll
-    for (int e = 0; e < kVec; ++e) packed[e] = quantize_one(to_f32(vals[e]), inv_scale);
-    if constexpr (kVec == 4) {
-      uint32_t word;
+      for (int e = 0; e < kVec; ++e) packed[e] = quantize_one(to_f32(vals[e]), inv_scale);
+      using Packed = typename Word<kVec>::type;
+      Packed word;
       memcpy(&word, packed, sizeof(word));
-      reinterpret_cast<uint32_t*>(q)[i] = word;
-    } else {
-      uint2 word;
-      memcpy(&word, packed, sizeof(word));
-      reinterpret_cast<uint2*>(q)[i] = word;
+      reinterpret_cast<Packed*>(q)[i] = word;
     }
+    done = vecs * kVec;
   }
-  for (long long i = vecs * kVec + first; i < n; i += stride) {
+  for (long long i = done + first; i < n; i += stride) {
     q[i] = quantize_one(to_f32(x[i]), inv_scale);
   }
 }
 
-template <typename T>
+struct Scale {
+  float scale;
+  __device__ __forceinline__ float operator()(float x) const { return __fmul_rn(x, scale); }
+};
+
+template <typename Out, bool kVectorized>
 __global__ void __launch_bounds__(kThreads)
-dequantize_kernel(const int8_t* __restrict__ q, T* __restrict__ out, long long n, float scale) {
-  constexpr int kVec = 16;                               // int8 elements per load
-  constexpr int kStores = kVec * (int)sizeof(T) / 16;    // 16-byte stores per load
-  const long long stride = (long long)gridDim.x * kThreads;
-  const long long first = (long long)blockIdx.x * kThreads + threadIdx.x;
-  const long long vecs = n / kVec;
-  for (long long i = first; i < vecs; i += stride) {
-    const uint4 raw = reinterpret_cast<const uint4*>(q)[i];
-    int8_t vals[kVec];
-    memcpy(vals, &raw, sizeof(raw));
-    T res[kVec];
-#pragma unroll
-    for (int e = 0; e < kVec; ++e) from_f32(__fmul_rn((float)vals[e], scale), &res[e]);
-    uint4* dst = reinterpret_cast<uint4*>(out + i * kVec);
-#pragma unroll
-    for (int w = 0; w < kStores; ++w) {
-      uint4 word;
-      memcpy(&word, reinterpret_cast<const unsigned char*>(res) + 16 * w, sizeof(word));
-      dst[w] = word;
-    }
-  }
-  for (long long i = vecs * kVec + first; i < n; i += stride) {
-    from_f32(__fmul_rn((float)q[i], scale), &out[i]);
-  }
+dequantize_kernel(const int8_t* __restrict__ q, Out* __restrict__ out, long long n,
+                  float scale) {
+  map_words<int8_t, Out, kVectorized>(q, out, n, Scale{scale});
 }
 
 int blocks_for(long long n, int per_thread) {
@@ -104,46 +88,58 @@ int blocks_for(long long n, int per_thread) {
   return (int)(blocks < 1 ? 1 : (blocks > kMaxBlocks ? kMaxBlocks : blocks));
 }
 
+template <typename T>
+int quantize(const void* x, void* q, long long n, float inv_scale, cudaStream_t s) {
+  const T* src = static_cast<const T*>(x);
+  int8_t* dst = static_cast<int8_t*>(q);
+  if (aligned16(x, q)) {
+    quantize_kernel<T, true><<<blocks_for(n, 16 / sizeof(T)), kThreads, 0, s>>>(
+        src, dst, n, inv_scale);
+  } else {
+    quantize_kernel<T, false><<<blocks_for(n, 1), kThreads, 0, s>>>(src, dst, n, inv_scale);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <typename Out>
+int dequantize(const void* q, void* out, long long n, float scale, int blocks,
+               cudaStream_t s) {
+  const int8_t* src = static_cast<const int8_t*>(q);
+  Out* dst = static_cast<Out*>(out);
+  if (aligned16(q, out)) {
+    dequantize_kernel<Out, true><<<blocks, kThreads, 0, s>>>(src, dst, n, scale);
+  } else {
+    dequantize_kernel<Out, false><<<blocks, kThreads, 0, s>>>(src, dst, n, scale);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// x: n elements, fp32 (dtype 0) or bf16 (dtype 1), 16-byte aligned; q: n
-// int8. Returns a cudaError_t (0 = launched).
+// x: n elements, fp32 (dtype 0), bf16 (1) or fp16 (2); q: n int8. Returns a
+// cudaError_t (0 = launched).
 extern "C" int quantize_int8_launch(const void* x, void* q, long long n, int dtype,
                                     float inv_scale, void* stream) {
   if (n <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0:
-      quantize_kernel<float><<<blocks_for(n, 4), kThreads, 0, s>>>(
-          static_cast<const float*>(x), static_cast<int8_t*>(q), n, inv_scale);
-      break;
-    case 1:
-      quantize_kernel<__nv_bfloat16><<<blocks_for(n, 8), kThreads, 0, s>>>(
-          static_cast<const __nv_bfloat16*>(x), static_cast<int8_t*>(q), n, inv_scale);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
+    case 0: return quantize<float>(x, q, n, inv_scale, s);
+    case 1: return quantize<__nv_bfloat16>(x, q, n, inv_scale, s);
+    case 2: return quantize<__half>(x, q, n, inv_scale, s);
+    default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
 
-// q: n int8, 16-byte aligned; out: n elements, fp32 (dtype 0) or bf16
-// (dtype 1), 16-byte aligned. Returns a cudaError_t (0 = launched).
+// q: n int8; out: n elements, fp32 (dtype 0), bf16 (1) or fp16 (2); `blocks`
+// blocks of 256 threads. Returns a cudaError_t (0 = launched).
 extern "C" int dequantize_int8_launch(const void* q, void* out, long long n, int dtype,
-                                      float scale, void* stream) {
-  if (n <= 0) return (int)cudaErrorInvalidValue;
+                                      float scale, int blocks, void* stream) {
+  if (n <= 0 || blocks < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0:
-      dequantize_kernel<float><<<blocks_for(n, 16), kThreads, 0, s>>>(
-          static_cast<const int8_t*>(q), static_cast<float*>(out), n, scale);
-      break;
-    case 1:
-      dequantize_kernel<__nv_bfloat16><<<blocks_for(n, 16), kThreads, 0, s>>>(
-          static_cast<const int8_t*>(q), static_cast<__nv_bfloat16*>(out), n, scale);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
+    case 0: return dequantize<float>(q, out, n, scale, blocks, s);
+    case 1: return dequantize<__nv_bfloat16>(q, out, n, scale, blocks, s);
+    case 2: return dequantize<__half>(q, out, n, scale, blocks, s);
+    default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }

@@ -13,10 +13,10 @@
 //
 // - registers (softmax_registers_kernel): a group of 1, 2, 4 or 8 warps owns
 //   a row and holds all of it in registers, V 16-byte vectors a thread (4 fp32
-//   or 8 bf16 each), neighbouring threads on neighbouring vectors. The max,
+//   or 8 bf16 or fp16 each), neighbouring threads on neighbouring vectors. The max,
 //   the exponentials and their sum come from the registers; each element's
 //   expf runs once, and the row is written once with 16-byte stores. Up to
-//   8192 columns (256 threads x 8 float4, or x 4 bf16 vectors).
+//   8192 columns (256 threads x 8 float4, or x 4 bf16 or fp16 vectors).
 // - two passes (softmax_two_pass_kernel<T, true>): longer rows. An online
 //   (max, sum) pass with 16-byte loads, then one pass that writes.
 // - scalar (softmax_two_pass_kernel<T, false>): rows that are not 16-byte
@@ -31,19 +31,16 @@
 // the launch's cudaError_t; it takes the caller's stream and allocates
 // nothing.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
-#include <string.h>
+
+#include "elementwise.cuh"
 
 namespace {
 
+using elementwise::to_f32;
+
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 // The kElems values of one 16-byte vector of T, as fp32. The vector is taken
 // by value: the caller's load is one 16-byte load (a memcpy from a reference
@@ -284,7 +281,7 @@ int launch(const void* x, float* out, long long rows, long long cols, int varian
 
 }  // namespace
 
-// x: rows x cols, row-major, fp32 (dtype 0) or bf16 (dtype 1); out: rows x
+// x: rows x cols, row-major, fp32 (dtype 0), bf16 (1) or fp16 (2); out: rows x
 // cols fp32. variant 0 (registers, `vectors` 16-byte vectors a thread), 1
 // (two passes, 16-byte loads) or 2 (two passes, scalar); `warps` (1, 2, 4 or
 // 8) warps a row; `blocks` blocks of 256 threads. Returns a cudaError_t (0 =
@@ -298,6 +295,7 @@ extern "C" int softmax_launch(const void* x, void* out, long long rows, long lon
   switch (dtype) {
     case 0: return launch<float>(x, dst, rows, cols, variant, warps, vectors, blocks, s);
     case 1: return launch<__nv_bfloat16>(x, dst, rows, cols, variant, warps, vectors, blocks, s);
+    case 2: return launch<__half>(x, dst, rows, cols, variant, warps, vectors, blocks, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -4,7 +4,11 @@ plain PyTorch versions.
 Each kernel wrapper launches its CUDA kernel for CUDA tensors (or raises),
 takes the plain version only for CPU tensors, and counts its launches in a
 :class:`LaunchCounter`, so a run can show that its main path went through the
-kernel. As ``client_tpu.ops`` does, the package exposes its ops by name:
+kernel. On the CPU the plain versions take every dtype of ``PLAIN_DTYPES``,
+as the JAX ops do; on a CUDA tensor a dtype the kernel has no code for
+raises ``TypeError`` (:func:`kernel_dtype_error`).
+
+As ``client_tpu.ops`` does, the package exposes its ops by name:
 ``flash_attention``, ``normalize_image``, ``softmax_probabilities``,
 ``quantize_int8`` / ``dequantize_int8``, and the image and classification
 ops of :mod:`.image` (``resize_nearest``, ``preprocess_image``,
@@ -19,6 +23,32 @@ The launch counters of the other kernels are ``ops.normalize.LAUNCHES``,
 from __future__ import annotations
 
 import threading
+
+import torch
+
+# the dtypes the plain versions take on the CPU: those the JAX package's ops
+# compute (its 64-bit types are off, so no float64 or int64 reaches them)
+PLAIN_DTYPES = (torch.bool, torch.int8, torch.uint8, torch.int16, torch.int32,
+                torch.float16, torch.bfloat16, torch.float32)
+
+
+def _names(dtypes) -> str:
+    return ", ".join(str(d).replace("torch.", "") for d in dtypes)
+
+
+def check_plain_dtype(op: str, dtype) -> None:
+    """Raise ``TypeError`` unless ``dtype`` is one of ``PLAIN_DTYPES``."""
+    if dtype not in PLAIN_DTYPES:
+        raise TypeError(f"{op} takes {_names(PLAIN_DTYPES)}, not {dtype}")
+
+
+def kernel_dtype_error(op: str, dtype, kernel_dtypes) -> TypeError:
+    """The error for a CUDA tensor of a dtype the op computes on the CPU but
+    its kernel does not take: there is no fallback to the plain version."""
+    return TypeError(
+        f"{op} on a CUDA tensor takes {_names(kernel_dtypes)}, not {dtype}: its kernel "
+        "has no code for that dtype yet (ROADMAP.md, queue B, item 7); a CPU tensor of "
+        "that dtype runs the plain version")
 
 
 class LaunchCounter:
@@ -58,6 +88,7 @@ from .softmax import softmax_probabilities  # noqa: E402
 
 __all__ = [
     "LaunchCounter",
+    "PLAIN_DTYPES",
     "dequantize_int8",
     "flash_attention",
     "from_bf16",

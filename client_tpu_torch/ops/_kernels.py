@@ -4,8 +4,9 @@ Every ``client_tpu_torch/csrc/*.cu`` source is compiled by ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface and loaded with
 ``ctypes`` — no PyTorch headers, so a build takes seconds. Libraries land in
 ``build/torch_kernels/`` at the repository root, named by a hash of their
-source and flags, at first use (or by :func:`build_all`). Nothing builds when
-a module is imported, so the package imports on machines with no ``nvcc``.
+source, the shared headers (``csrc/*.cuh``) and the flags, at first use
+(or by :func:`build_all`). Nothing builds when a module is imported, so the
+package imports on machines with no ``nvcc``.
 
 A wrapper reaches its entry point through :func:`function`, which sets the
 ctypes signature once, and calls it through :func:`launch`, the one launch
@@ -65,9 +66,12 @@ def sources() -> Dict[str, Path]:
 
 
 def library_path(name: str) -> Path:
-    src = sources()[name]
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    """Where kernel ``name``'s library is built: named by a hash of its
+    source, every header beside it (``csrc/*.cuh``, which a source may
+    include) and the flags."""
+    parts = [sources()[name].read_bytes()]
+    parts += [p.read_bytes() for p in sorted(CSRC.glob("*.cuh"))]
+    digest = hashlib.sha256(b"".join(parts) + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}.{digest}.so"
 
 

@@ -8,8 +8,13 @@ called through ctypes (see ``ops._kernels``).
 One query vector per (sequence, head) attends over its static KV cache:
 q [B,H,D], k/v [B,H,M,D], pos [B] int32 — cache slots ``<= pos[b]`` attend
 (the decoder's position-based mask), softmax scale ``D**-0.5``, output
-[B,H,D] in q's dtype. fp32 and bf16 inputs; fp32 accumulation; D in
-{32, 64, 128}.
+[B,H,D] in q's dtype. The kernel takes fp32 and bf16 inputs and D in
+{32, 64, 128}, and accumulates in fp32; q, k or v that are not 16-byte
+aligned (views into larger tensors) are copied into fresh tensors, which
+the allocator aligns, and the same kernel runs on the copies (served
+callers pass fresh tensors, so the served path never copies). On the CPU
+the plain versions take any D and every dtype of ``ops.PLAIN_DTYPES``, as
+the JAX function does.
 
 Bound on the H100: bytes. A step reads B*H*(pos+1)*D*2*itemsize bytes of
 cache (plus q and the output), at the card's 3.35 TB/s; the arithmetic is
@@ -27,8 +32,11 @@ single launch with no scratch.
 
 ``decode_attention`` launches the kernel for CUDA tensors on the current
 stream and raises if the launch fails; for CPU tensors it computes
-``decode_attention_reference``, the plain PyTorch version beside it. There is
-no fallback from the one to the other.
+``decode_attention_reference``, the plain PyTorch version beside it, or, for
+an integer or bool cache, ``decode_attention_tiled_reference`` (the Pallas
+kernel rounds the probabilities to the cache's dtype before the PV product,
+which truncates them to 0 or 1 there, so its result depends on its tiles).
+There is no fallback from the one to the other.
 """
 
 from __future__ import annotations
@@ -37,7 +45,7 @@ import ctypes
 
 import torch
 
-from . import LaunchCounter, _kernels
+from . import LaunchCounter, _kernels, check_plain_dtype, kernel_dtype_error
 
 SUPPORTED_DIMS = (32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -69,6 +77,38 @@ def decode_attention_reference(q, k, v, pos):
     s = s.masked_fill(~mask[:, None, :], float("-inf"))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhm,bhmd->bhd", p, vf).to(q.dtype)
+
+
+def decode_attention_tiled_reference(q, k, v, pos, block_k: int = 128):
+    """The Pallas kernel's loop in plain PyTorch: cache tiles of
+    ``min(block_k, M)`` slots walked in order with a running (max, sum, acc)
+    per (b, h) in fp32, scores in fp32, slots past ``pos[b]`` masked, the
+    probabilities rounded to v's dtype before the PV product
+    (``p.astype(v.dtype)`` in the Pallas kernel), a row with no live slot
+    yet kept at p = 0 with a correction of 0, and the final divide by
+    ``max(l, 1e-30)``. Returns q's dtype."""
+    batch, heads, dim = q.shape
+    max_len = k.shape[2]
+    block = min(block_k, max_len)
+    vf = v.float()
+    s_all = torch.einsum("bhd,bhmd->bhm", q.float(), k.float()) * dim ** -0.5
+    slots = torch.arange(max_len, device=k.device)
+    live = slots[None, :] <= pos.to(slots.dtype)[:, None]  # [b, m]
+    s_all = s_all.masked_fill(~live[:, None, :], float("-inf"))
+    m = torch.full((batch, heads), float("-inf"), device=q.device)
+    l = torch.zeros((batch, heads), device=q.device)
+    acc = torch.zeros((batch, heads, dim), device=q.device)
+    for k0 in range(0, max_len, block):
+        s = s_all[:, :, k0:k0 + block]
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        m_use = torch.where(m_new == float("-inf"), 0.0, m_new)
+        p = torch.exp(s - m_use[..., None])
+        corr = torch.exp(m - m_use)
+        l = l * corr + p.sum(-1)
+        pv = torch.einsum("bhm,bhmd->bhd", p.to(v.dtype).float(), vf[:, :, k0:k0 + block])
+        acc = acc * corr[..., None] + pv
+        m = m_new
+    return (acc / l.clamp_min(1e-30)[..., None]).to(q.dtype)
 
 
 def split_plan(batch: int, heads: int, max_len: int, sms: int = H100_SMS) -> int:
@@ -119,9 +159,10 @@ def decode_attention_split_reference(q, k, v, pos, splits: int):
     return (out / total.clamp_min(1e-30)[..., None]).to(q.dtype)
 
 
-def _check(q, k, v, pos) -> None:
-    if q.dtype not in _DTYPE_CODES:
-        raise TypeError(f"decode_attention takes float32 or bfloat16, got {q.dtype}")
+def _check(q, k, v, pos, block_k) -> None:
+    """What the JAX function refuses too, on any device; the kernel's own
+    limits are checked on the CUDA path (``_launch``)."""
+    check_plain_dtype("decode_attention", q.dtype)
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(
             f"q, k and v must share a dtype (got {q.dtype}, {k.dtype}, {v.dtype})")
@@ -140,8 +181,10 @@ def _check(q, k, v, pos) -> None:
         raise ValueError("the KV cache must hold at least one slot")
     if pos.shape != (batch,):
         raise ValueError(f"pos must be [{batch}], got {list(pos.shape)}")
-    if dim not in SUPPORTED_DIMS:
-        raise ValueError(f"head dim {dim} not supported (one of {SUPPORTED_DIMS})")
+    # JAX fails on 0 (a division), on negatives and None (shapes), and on a
+    # float wherever it sets the tiles
+    if not isinstance(block_k, int) or block_k < 1:
+        raise ValueError(f"block_k must be a positive int, got {block_k!r}")
     devices = {t.device for t in (q, k, v, pos)}
     if len(devices) != 1:
         raise ValueError(f"q, k, v and pos must share a device, got {sorted(map(str, devices))}")
@@ -150,10 +193,15 @@ def _check(q, k, v, pos) -> None:
 
 
 def _launch(q, k, v, pos) -> torch.Tensor:
-    for t in (q, k, v):
-        if t.data_ptr() % 16:
-            raise ValueError("decode_attention needs 16-byte-aligned q, k and v")
+    code = _DTYPE_CODES.get(q.dtype)
+    if code is None:
+        raise kernel_dtype_error("decode_attention", q.dtype, _DTYPE_CODES)
     batch, heads, dim = q.shape
+    if dim not in SUPPORTED_DIMS:
+        raise ValueError(f"the decode_attention kernel takes head dims {SUPPORTED_DIMS}, "
+                         f"not {dim}")
+    # a view that is not 16-byte aligned is copied: the allocator aligns the copy
+    q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
     max_len = k.shape[2]
     splits = split_plan(batch, heads, max_len, _kernels.sm_count(q.get_device()))
     out = torch.empty_like(q)
@@ -162,21 +210,29 @@ def _launch(q, k, v, pos) -> torch.Tensor:
     _kernels.launch(
         _kernels.function("decode_attention", "decode_attention_launch", _ARGTYPES), LAUNCHES,
         q, q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(), out.data_ptr(),
-        None if partial is None else partial.data_ptr(), batch, heads, max_len, dim,
-        _DTYPE_CODES[q.dtype], splits, dim ** -0.5)
+        None if partial is None else partial.data_ptr(), batch, heads, max_len, dim, code,
+        splits, dim ** -0.5)
     return out
 
 
-def decode_attention(q, k, v, pos):
+def decode_attention(q, k, v, pos, block_k: int = 128, interpret=None):
     """One-step decode attention. q: [batch, heads, dim]; k, v:
     [batch, heads, max_len, dim]; pos: [batch] int32 — cache slots
     ``<= pos[b]`` attend. Returns [batch, heads, dim] in q's dtype.
 
-    CUDA tensors run the Hopper kernel; CPU tensors the plain version."""
-    _check(q, k, v, pos)
+    ``block_k`` and ``interpret`` keep the JAX signature. ``block_k`` is
+    checked (a positive int), and sets the tiles only of the plain version
+    for an integer or bool cache, where the result depends on them; the
+    Hopper kernel splits the cache by ``split_plan``. ``interpret`` changes
+    nothing: the tensors' device decides what runs. CUDA tensors run the
+    Hopper kernel (fp32 or bf16, D in ``SUPPORTED_DIMS``; anything else
+    raises); CPU tensors the plain version."""
+    _check(q, k, v, pos, block_k)
     device = q.device.type
     if device == "cuda":
         return _launch(q, k, v, pos)
     if device == "cpu":
-        return decode_attention_reference(q, k, v, pos)
+        if q.dtype.is_floating_point:
+            return decode_attention_reference(q, k, v, pos)
+        return decode_attention_tiled_reference(q, k, v, pos, block_k)
     raise ValueError(f"decode_attention runs on cuda or cpu tensors, not {device}")

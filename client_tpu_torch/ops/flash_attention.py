@@ -5,9 +5,14 @@ Replaces the Pallas TPU kernel ``client_tpu/ops/flash_attention.py``
 Hopper, ``client_tpu_torch/csrc/flash_attention.cu``, built by nvcc and
 called through ctypes (see ``ops._kernels``).
 
-q, k, v: [batch, seq, heads, dim], one dtype (float32 or bfloat16), dim in
-{16, 32, 64, 128}, any seq >= 1; softmax scale ``dim**-0.5``; optional causal
-mask; output in q's dtype. Scores and the output accumulate in fp32; with
+q, k, v: [batch, seq, heads, dim], one dtype, any seq >= 1; softmax scale
+``dim**-0.5``; optional causal mask; output in q's dtype. The kernel takes
+float32 and bfloat16 and dim in {16, 32, 64, 128}; q, k or v that are not
+16-byte aligned (views into larger tensors) are copied into fresh tensors,
+which the allocator aligns, and the same kernel runs on the copies (served
+callers pass fresh tensors, so the served path never copies). On the CPU
+the plain versions take any dim and every dtype of ``ops.PLAIN_DTYPES``, as
+the JAX function does. Scores and the output accumulate in fp32; with
 bf16 inputs the probabilities are rounded to bf16 before the PV product, as
 the Pallas kernel does. The kernel masks keys past the sequence itself, so a
 ragged length is never padded in memory, and it reads the [B,S,H,D] layout
@@ -28,8 +33,11 @@ dense version the kernel is held against.
 
 ``flash_attention`` launches the kernel for CUDA tensors on the current
 stream and raises if the launch fails; for CPU tensors it computes
-``flash_attention_reference``, the dense plain version beside it. There is
-no fallback from the one to the other.
+``flash_attention_reference``, the dense plain version beside it, or, for
+integer or bool inputs, ``flash_attention_tiled_reference`` with JAX's key
+tiles (rounding the probabilities to v's dtype truncates them to 0 or 1
+there, so the result depends on the tiles). There is no fallback from the
+one to the other.
 """
 
 from __future__ import annotations
@@ -38,7 +46,7 @@ import ctypes
 
 import torch
 
-from . import LaunchCounter, _kernels
+from . import LaunchCounter, _kernels, check_plain_dtype, kernel_dtype_error
 
 SUPPORTED_DIMS = (16, 32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -102,8 +110,9 @@ def flash_attention_tiled_reference(q, k, v, causal: bool = False, block_k: int 
 
 
 def _check(q, k, v, block_q, block_k) -> None:
-    if q.dtype not in _DTYPE_CODES:
-        raise TypeError(f"flash_attention takes float32 or bfloat16, got {q.dtype}")
+    """What the JAX function refuses too, on any device; the kernel's own
+    limits are checked on the CUDA path (``_launch``)."""
+    check_plain_dtype("flash_attention", q.dtype)
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(
             f"q, k and v must share a dtype (got {q.dtype}, {k.dtype}, {v.dtype})")
@@ -116,8 +125,6 @@ def _check(q, k, v, block_q, block_k) -> None:
     batch, seq, heads, dim = q.shape
     if min(batch, seq, heads) < 1:
         raise ValueError(f"batch, seq and heads must be >= 1, got {list(q.shape)}")
-    if dim not in SUPPORTED_DIMS:
-        raise ValueError(f"head dim {dim} not supported (one of {SUPPORTED_DIMS})")
     for name, block in (("block_q", block_q), ("block_k", block_k)):
         if not isinstance(block, int) or block < 1:
             raise ValueError(f"{name} must be a positive int, got {block!r}")
@@ -129,33 +136,45 @@ def _check(q, k, v, block_q, block_k) -> None:
 
 
 def _launch(q, k, v, causal: bool) -> torch.Tensor:
-    for t in (q, k, v):
-        if t.data_ptr() % 16:
-            raise ValueError("flash_attention needs 16-byte-aligned q, k and v")
+    code = _DTYPE_CODES.get(q.dtype)
+    if code is None:
+        raise kernel_dtype_error("flash_attention", q.dtype, _DTYPE_CODES)
     batch, seq, heads, dim = q.shape
+    if dim not in SUPPORTED_DIMS:
+        raise ValueError(f"the flash_attention kernel takes head dims {SUPPORTED_DIMS}, "
+                         f"not {dim}")
+    # a view that is not 16-byte aligned is copied: the allocator aligns the copy
+    q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
     out = torch.empty_like(q)
     stride_b, stride_s, stride_h, _ = q.stride()
     _kernels.launch(
         _kernels.function("flash_attention", "flash_attention_launch", _ARGTYPES), LAUNCHES,
         q, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), batch, seq, heads, dim,
-        stride_b, stride_s, stride_h, _DTYPE_CODES[q.dtype], dim ** -0.5, int(causal))
+        stride_b, stride_s, stride_h, code, dim ** -0.5, int(causal))
     return out
 
 
-def flash_attention(q, k, v, causal: bool = False, block_q: int = 128, block_k: int = 128):
+def flash_attention(q, k, v, causal: bool = False, block_q: int = 128, block_k: int = 128,
+                    interpret=None):
     """Blocked attention. q, k, v: [batch, seq, heads, dim] -> the same
     shape, in q's dtype.
 
-    ``block_q`` and ``block_k`` keep the JAX signature and are checked, but
-    the result does not depend on them: the Hopper kernel tiles keys by 64
-    and queries by 64 (fp32 at D <= 32: keys by 128, queries by 64 / 32);
-    the TPU's block sizes follow its VMEM and its 128-wide MXU. The plain
-    version is dense. CUDA tensors run the Hopper kernel; CPU tensors the
-    plain version."""
+    ``block_q``, ``block_k`` and ``interpret`` keep the JAX signature.
+    The blocks are checked, but for float inputs the result does not depend
+    on them: the Hopper kernel tiles keys by 64 and queries by 64 (fp32 at
+    D <= 32: keys by 128, queries by 64 / 32); the TPU's block sizes follow
+    its VMEM and its 128-wide MXU. The plain version is dense, and for
+    integer or bool inputs tiled by ``min(block_k, seq)`` keys, as JAX's
+    kernel is. ``interpret`` changes nothing: the tensors' device decides
+    what runs. CUDA tensors run the Hopper kernel (fp32 or bf16, D in
+    ``SUPPORTED_DIMS``; anything else raises); CPU tensors the plain
+    version."""
     _check(q, k, v, block_q, block_k)
     device = q.device.type
     if device == "cuda":
         return _launch(q, k, v, causal)
     if device == "cpu":
-        return flash_attention_reference(q, k, v, causal)
+        if q.dtype.is_floating_point:
+            return flash_attention_reference(q, k, v, causal)
+        return flash_attention_tiled_reference(q, k, v, causal, min(block_k, q.shape[1]))
     raise ValueError(f"flash_attention runs on cuda or cpu tensors, not {device}")

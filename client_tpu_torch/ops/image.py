@@ -45,8 +45,11 @@ def preprocess_image(img, out_h: int = 224, out_w: int = 224, scale: float = 2.0
 
 def topk_classification(logits, k: int):
     """(values, indices) of the top-k logits along the last axis, ranked on
-    the logits' device."""
-    return torch.topk(logits, k, dim=-1)
+    the logits' device, ties lowest index first, as ``jax.lax.top_k`` ranks
+    them: a stable descending sort, cut to k (``torch.topk`` promises no
+    order among ties)."""
+    values, indices = torch.sort(logits, dim=-1, descending=True, stable=True)
+    return values[..., :k], indices[..., :k]
 
 
 def to_bf16(x):

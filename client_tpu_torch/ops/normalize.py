@@ -6,11 +6,21 @@ for Hopper, ``client_tpu_torch/csrc/normalize_image.cu``, built by nvcc and
 called through ctypes (see ``ops._kernels``).
 
 ``normalize_image(x, scale, shift, out_dtype)``: ``x * scale + shift`` cast
-to ``out_dtype`` (float32 or bfloat16), for float32, bfloat16 or uint8 ``x``
-of any shape. Each element is ``f32(x) * f32(scale) + f32(shift)`` rounded
-ONCE to float32 (a fused multiply-add, as XLA computes the JAX kernel), then,
-for bfloat16 output, rounded to nearest even. A separate multiply and add in
-float32 would round twice and miss the JAX result by an ulp.
+to ``out_dtype`` (float32, bfloat16 or float16), for ``x`` of any shape. Each
+element is ``f32(x) * f32(scale) + f32(shift)`` rounded ONCE to float32 (a
+fused multiply-add, as XLA computes the JAX kernel), then, for bfloat16 or
+float16 output, rounded to nearest even. A separate multiply and add in
+float32 would round twice and miss the JAX result by an ulp. The kernel
+takes float32, bfloat16, float16, uint8 and int32 ``x``; on the CPU the
+plain version takes every dtype of ``ops.PLAIN_DTYPES``.
+
+For integer, bool and float32 ``x`` this is the JAX result bit for bit. For
+float16 and bfloat16 ``x`` JAX computes in the input's own type: it rounds
+``scale`` and ``shift`` to it, and rounds its result to it before the cast
+(in bfloat16 the product too). The port keeps the kernel's single rounding
+in float32, in the kernel and in the plain version alike, so the two agree
+within an ulp or two of the input type at the magnitude of ``x * scale``
+and ``shift`` (the tests state the bound).
 
 Bound on the H100: bytes (each element read once and written once). A
 thread of the kernel takes ``16 / max(in size, out size)`` elements at a
@@ -31,10 +41,11 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from . import LaunchCounter, _kernels
+from . import LaunchCounter, _kernels, check_plain_dtype, kernel_dtype_error
 
-_IN_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.uint8: 2}
-_OUT_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_IN_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.uint8: 2, torch.float16: 3,
+             torch.int32: 4}
+_OUT_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # normalize_image_launch(x, out, n, in_code, out_code, scale, shift, blocks,
 # stream); ctypes rounds scale and shift to float32 (to nearest, as
 # np.float32 does)
@@ -113,18 +124,19 @@ def normalize_image(x, scale: float = 1.0, shift: float = 0.0, out_dtype=torch.b
     image_client scaling modes map directly: INCEPTION => scale=2/255,
     shift=-1; NONE => scale=1, shift=0 (a pure cast). CUDA tensors run the
     Hopper kernel; CPU tensors the plain version."""
-    in_code = _IN_CODES.get(x.dtype)
-    if in_code is None:
-        raise TypeError(f"normalize_image takes float32, bfloat16 or uint8, got {x.dtype}")
     out_code = _OUT_CODES.get(out_dtype)
     if out_code is None:
-        raise TypeError(f"normalize_image writes float32 or bfloat16, not {out_dtype}")
+        raise TypeError(f"normalize_image writes float32, bfloat16 or float16, not {out_dtype}")
     if not x.is_contiguous():
         raise ValueError("normalize_image takes a contiguous tensor")
     if not x.is_cuda:
         if x.device.type == "cpu":
+            check_plain_dtype("normalize_image", x.dtype)
             return normalize_image_reference(x, scale, shift, out_dtype)
         raise ValueError(f"normalize_image runs on cuda or cpu tensors, not {x.device.type}")
+    in_code = _IN_CODES.get(x.dtype)
+    if in_code is None:
+        raise kernel_dtype_error("normalize_image", x.dtype, _IN_CODES)
     out = torch.empty_like(x, dtype=out_dtype)
     n = x.numel()
     if n == 0:

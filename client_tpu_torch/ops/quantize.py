@@ -6,16 +6,22 @@ for Hopper, ``client_tpu_torch/csrc/quantize_int8.cu``, built by nvcc and
 called through ctypes (see ``ops._kernels``).
 
 - ``quantize_int8(x, scale)``: ``clip(round(f32(x) * f32(1/scale)), -127,
-  127)`` as int8, for float32 or bfloat16 ``x``. The inverse scale is
-  computed in double precision and rounded to float32, as JAX folds
-  ``1.0 / scale`` in Python; rounding is half to even.
+  127)`` as int8. The inverse scale is computed in double precision and
+  rounded to float32, as JAX folds ``1.0 / scale`` in Python; rounding is
+  half to even. The kernel takes float32, bfloat16 and float16 ``x``.
 - ``dequantize_int8(q, scale, out_dtype)``: ``f32(q) * f32(scale)`` cast to
-  float32 or bfloat16.
+  float32, bfloat16 or float16. The kernel takes int8 ``q``.
 
-Bound on the H100: bytes (each element read once and written once). The
-wrappers launch the kernels for CUDA tensors on the current stream and raise
-if a launch fails; for CPU tensors they compute the plain versions beside
-them. There is no fallback from the one to the other.
+On the CPU the plain versions take every dtype of ``ops.PLAIN_DTYPES``, as
+the JAX kernels do (``f32(x)`` of a bool is 0 or 1). Bound on the H100:
+bytes (each element read once and written once). Dequantize widens, and
+runs normalize_image's word loop (a lane per 16-byte output word), with its
+grid from :func:`dequantize_plan`; quantize narrows, a thread per 16 bytes
+of input. Input or output that is not 16-byte aligned (a view such as
+``x[1:]``) takes the kernels' scalar way. The wrappers launch the kernels
+for CUDA tensors on the current stream and raise if a launch fails; for CPU
+tensors they compute the plain versions beside them. There is no fallback
+from the one to the other.
 """
 
 from __future__ import annotations
@@ -26,17 +32,32 @@ import math
 import numpy as np
 import torch
 
-from . import LaunchCounter, _kernels
+from . import LaunchCounter, _kernels, check_plain_dtype, kernel_dtype_error
+from .normalize import NormalizePlan, normalize_plan
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# {quantize,dequantize}_int8_launch(src, out, n, dtype_code, factor, stream);
-# ctypes rounds factor to float32 (to nearest, as np.float32 does)
-_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-             ctypes.c_float, ctypes.c_void_p)
+# quantize's input and dequantize's output dtypes in the kernel
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# quantize_int8_launch(x, q, n, dtype_code, inv_scale, stream) and
+# dequantize_int8_launch(q, out, n, dtype_code, scale, blocks, stream); ctypes
+# rounds the factor to float32 (to nearest, as np.float32 does)
+_QUANTIZE_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                      ctypes.c_float, ctypes.c_void_p)
+_DEQUANTIZE_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                        ctypes.c_float, ctypes.c_int, ctypes.c_void_p)
 
 # kernel launches made by quantize_int8 / dequantize_int8 (CPU calls do not count)
 QUANTIZE_LAUNCHES = LaunchCounter()
 DEQUANTIZE_LAUNCHES = LaunchCounter()
+
+
+def dequantize_plan(n: int, out_dtype, aligned: bool,
+                    sms: int = _kernels.H100_SMS) -> NormalizePlan:
+    """The dequantize kernel's grid for ``n`` int8 elements: normalize's
+    word loop with int8 in, so a thread per 16-byte output word (4 elements
+    for float32 out, 8 for bfloat16 and float16; one element when input or
+    output is not 16-byte ``aligned``), at most ``normalize.BLOCKS_PER_SM``
+    blocks per SM."""
+    return normalize_plan(n, torch.int8, out_dtype, aligned, sms)
 
 
 def _f32(value: float) -> float:
@@ -69,45 +90,49 @@ def _check_tensor(t, what: str) -> None:
         raise ValueError(f"{what} runs on cuda or cpu tensors, not {t.device.type}")
 
 
-def _launch(name: str, src, out, code: int, factor: float, counter: LaunchCounter):
-    if src.data_ptr() % 16 or out.data_ptr() % 16:
-        raise ValueError(f"{name} needs 16-byte-aligned input and output")
-    _kernels.launch(_kernels.function("quantize_int8", f"{name}_launch", _ARGTYPES), counter,
-                    src, src.data_ptr(), out.data_ptr(), src.numel(), code, factor)
-    return out
-
-
 def quantize_int8(x, scale: float):
     """Symmetric int8 quantization ``round(x / scale)`` clipped to
     [-127, 127] (computed as ``x * f32(1/scale)``, as the JAX kernel does).
     CUDA tensors run the Hopper kernel; CPU tensors the plain version."""
-    if x.dtype not in _DTYPE_CODES:
-        raise TypeError(f"quantize_int8 takes float32 or bfloat16, got {x.dtype}")
     scale = _check_scale(scale)
     _check_tensor(x, "quantize_int8")
     if not x.is_cuda:
+        check_plain_dtype("quantize_int8", x.dtype)
         return quantize_int8_reference(x, scale)
+    code = _DTYPE_CODES.get(x.dtype)
+    if code is None:
+        raise kernel_dtype_error("quantize_int8", x.dtype, _DTYPE_CODES)
     out = torch.empty_like(x, dtype=torch.int8)
     if x.numel() == 0:
         return out
-    return _launch("quantize_int8", x, out, _DTYPE_CODES[x.dtype], 1.0 / scale,
-                   QUANTIZE_LAUNCHES)
+    _kernels.launch(
+        _kernels.function("quantize_int8", "quantize_int8_launch", _QUANTIZE_ARGTYPES),
+        QUANTIZE_LAUNCHES, x, x.data_ptr(), out.data_ptr(), x.numel(), code, 1.0 / scale)
+    return out
 
 
 def dequantize_int8(q, scale: float, out_dtype=torch.float32):
     """Inverse of :func:`quantize_int8`: ``f32(q) * f32(scale)`` as
-    ``out_dtype`` (float32 or bfloat16). CUDA tensors run the Hopper kernel;
-    CPU tensors the plain version."""
-    if q.dtype != torch.int8:
-        raise TypeError(f"dequantize_int8 takes int8, got {q.dtype}")
-    if out_dtype not in _DTYPE_CODES:
-        raise TypeError(f"dequantize_int8 writes float32 or bfloat16, not {out_dtype}")
+    ``out_dtype`` (float32, bfloat16 or float16). CUDA tensors run the
+    Hopper kernel; CPU tensors the plain version."""
+    code = _DTYPE_CODES.get(out_dtype)
+    if code is None:
+        raise TypeError(f"dequantize_int8 writes float32, bfloat16 or float16, not {out_dtype}")
     scale = _check_scale(scale)
     _check_tensor(q, "dequantize_int8")
     if not q.is_cuda:
+        check_plain_dtype("dequantize_int8", q.dtype)
         return dequantize_int8_reference(q, scale, out_dtype)
+    if q.dtype != torch.int8:
+        raise kernel_dtype_error("dequantize_int8", q.dtype, (torch.int8,))
     out = torch.empty_like(q, dtype=out_dtype)
-    if q.numel() == 0:
+    n = q.numel()
+    if n == 0:
         return out
-    return _launch("dequantize_int8", q, out, _DTYPE_CODES[out_dtype], scale,
-                   DEQUANTIZE_LAUNCHES)
+    src, dst = q.data_ptr(), out.data_ptr()
+    plan = dequantize_plan(n, out_dtype, (src | dst) % 16 == 0,
+                           _kernels.sm_count(q.get_device()))
+    _kernels.launch(
+        _kernels.function("quantize_int8", "dequantize_int8_launch", _DEQUANTIZE_ARGTYPES),
+        DEQUANTIZE_LAUNCHES, q, src, dst, n, code, scale, plan.blocks)
+    return out

@@ -5,10 +5,12 @@ Replaces the Pallas TPU kernel of ``client_tpu/ops/__init__.py``
 kernel for Hopper, ``client_tpu_torch/csrc/softmax.cu``, built by nvcc and
 called through ctypes (see ``ops._kernels``).
 
-``softmax_probabilities(logits)``: softmax over the last axis of float32 or
-bfloat16 logits, computed in float32 (max-subtract, exp, normalise) and
-returned as float32. Leading axes are rows; 1-D logits are one row and come
-back 1-D, as in JAX.
+``softmax_probabilities(logits)``: softmax over the last axis, computed in
+float32 (max-subtract, exp, normalise) and returned as float32. The kernel
+takes float32, bfloat16 and float16 logits; on the CPU the plain version
+takes every dtype of ``ops.PLAIN_DTYPES``, as the JAX kernel does (it casts
+the logits to float32 first). Leading axes are rows; 1-D logits are one row
+and come back 1-D, as in JAX.
 
 Bound on the H100: bytes (each logit read once, each probability written
 once). The kernel reads a row once where it can: :func:`softmax_plan`
@@ -30,9 +32,9 @@ from typing import NamedTuple
 
 import torch
 
-from . import LaunchCounter, _kernels
+from . import LaunchCounter, _kernels, check_plain_dtype, kernel_dtype_error
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # softmax_launch(x, out, rows, cols, dtype_code, variant, warps, vectors,
 #                blocks, stream)
 _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
@@ -117,10 +119,6 @@ def softmax_probabilities_reference(logits):
 def softmax_probabilities(logits):
     """Numerically stable softmax over the last axis, float32 out. CUDA
     tensors run the Hopper kernel; CPU tensors the plain version."""
-    code = _DTYPE_CODES.get(logits.dtype)
-    if code is None:
-        raise TypeError(
-            f"softmax_probabilities takes float32 or bfloat16, got {logits.dtype}")
     if logits.dim() == 0 or logits.shape[-1] == 0:
         raise ValueError(
             f"softmax_probabilities needs a non-empty last axis, got {list(logits.shape)}")
@@ -128,9 +126,13 @@ def softmax_probabilities(logits):
         raise ValueError("softmax_probabilities takes a contiguous tensor")
     if not logits.is_cuda:
         if logits.device.type == "cpu":
+            check_plain_dtype("softmax_probabilities", logits.dtype)
             return softmax_probabilities_reference(logits)
         raise ValueError(
             f"softmax_probabilities runs on cuda or cpu tensors, not {logits.device.type}")
+    code = _DTYPE_CODES.get(logits.dtype)
+    if code is None:
+        raise kernel_dtype_error("softmax_probabilities", logits.dtype, _DTYPE_CODES)
     out = torch.empty_like(logits, dtype=torch.float32)
     cols = logits.shape[-1]
     rows = logits.numel() // cols

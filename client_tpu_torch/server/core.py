@@ -445,15 +445,24 @@ def _classification(arr, k: int, labels: Optional[List[str]], batched: bool = Fa
 
     For batched models the first dim is the batch and each element's
     (flattened) remainder is its class vector; for non-batched models the
-    whole (flattened) tensor is one class vector. Ranking runs on the
-    tensor's device through ``ops.topk_classification``; only the k winners
-    cross to the host.
+    whole (flattened) tensor is one class vector. A tensor output (the
+    counterpart of the JAX server's device array) ranks on its device
+    through ``ops.topk_classification``, ties lowest index first, and only
+    the k winners cross to the host; a numpy output ranks through the JAX
+    server's host argsort, ties highest index first (which may pick another
+    set of classes where ties straddle k).
     """
-    t = arr if isinstance(arr, torch.Tensor) else torch.from_numpy(np.array(arr))
-    flat = t.reshape(t.shape[0], -1) if batched and t.dim() >= 1 else t.reshape(1, -1)
+    on_device = isinstance(arr, torch.Tensor)
+    if not on_device:
+        arr = np.asarray(arr)
+    flat = arr.reshape(arr.shape[0], -1) if batched and arr.ndim >= 1 else arr.reshape(1, -1)
     k = min(k, flat.shape[-1])
-    values, indices = topk_classification(flat, k)
-    values, indices = _to_host(values), _to_host(indices)
+    if on_device:
+        values, indices = topk_classification(flat, k)
+        values, indices = _to_host(values), _to_host(indices)
+    else:
+        indices = np.argsort(flat, axis=-1)[:, ::-1][:, :k]
+        values = np.take_along_axis(flat, indices, axis=-1)
     rows = []
     for row_values, row_indices in zip(values, indices):
         entries = []
@@ -466,4 +475,4 @@ def _classification(arr, k: int, labels: Optional[List[str]], batched: bool = Fa
     out = np.array(rows, dtype=np.object_)
     if not batched:
         return out.reshape(-1)
-    return out.reshape((t.shape[0], k))
+    return out.reshape((arr.shape[0], k))

@@ -6,8 +6,10 @@ CPU, the plain version is held against the JAX Pallas kernel (interpret mode
 off-TPU, as the JAX package's own tests run it) and against the JAX dense
 reference on the same numpy-seeded inputs, at the reference test's shapes
 and tolerances (1e-5 in fp32, 2e-2 in bf16). The kernel itself runs on the
-card only (chip_smoke.py). The wrapper's argument checks, the build step
-and the import without a compiler are tested here too.
+card only (chip_smoke.py). The wrapper's argument checks, the reference's
+``block_k`` and ``interpret`` keywords, head dims and dtypes the kernel does
+not take (computed on the CPU, as JAX computes them), the build step and the
+import without a compiler are tested here too.
 """
 
 import ctypes
@@ -108,16 +110,28 @@ def test_pos_zero_attends_single_slot(dtype):
 
 
 def _good(batch=2, heads=4, max_len=16, dim=32, dtype=torch.float32):
-    return (torch.zeros(batch, heads, dim, dtype=dtype),
-            torch.zeros(batch, heads, max_len, dim, dtype=dtype),
-            torch.zeros(batch, heads, max_len, dim, dtype=dtype),
-            torch.zeros(batch, dtype=torch.int32))
+    rng = np.random.default_rng(dim)
+    return (torch.from_numpy(rng.standard_normal((batch, heads, dim), np.float32)).to(dtype),
+            torch.from_numpy(rng.standard_normal((batch, heads, max_len, dim), np.float32)).to(
+                dtype),
+            torch.from_numpy(rng.standard_normal((batch, heads, max_len, dim), np.float32)).to(
+                dtype),
+            torch.tensor([3, 15][:batch], dtype=torch.int32))
+
+
+# the float16 plain version (dense, fp32) against the Pallas kernel, which
+# rounds p to float16 before the PV product (2^-11 relative) and its output
+# to float16 (half an ulp, as the port does): 3 * 2^-11 * max|v| < 2^-9 * max|v|
+FP16_ATOL = 2.0 ** -9
 
 
 def _bad_case(name):
+    """(args, expected): an exception, or "jax" where the JAX function
+    computes the case and the port's plain version must agree with it
+    (a float16 cache, head dims the kernel does not take)."""
     q, k, v, pos = _good()
     if name == "fp16":
-        return (*(t.half() for t in (q, k, v)), pos), TypeError
+        return (*(t.half() for t in (q, k, v)), pos), "jax"
     if name == "int32_q":
         return (q.int(), k, v, pos), TypeError
     if name == "mixed_dtypes":
@@ -125,8 +139,7 @@ def _bad_case(name):
     if name == "int64_pos":
         return (q, k, v, pos.long()), TypeError
     if name.startswith("dim"):
-        dim = int(name[3:])
-        return _good(dim=dim), ValueError
+        return _good(dim=int(name[3:])), "jax"
     if name == "head_mismatch":
         return (q, k[:, :2].contiguous(), v[:, :2].contiguous(), pos), ValueError
     if name == "kv_shape_mismatch":
@@ -150,9 +163,88 @@ def _bad_case(name):
     "non_contiguous", "meta_device",
 ])
 def test_wrapper_rejects_what_the_kernel_does_not_take(name):
-    args, exc = _bad_case(name)
-    with pytest.raises(exc):
-        da.decode_attention(*args)
+    """Mixed dtypes, bad shapes, layouts and devices raise. What only the
+    kernel does not take (float16, D outside SUPPORTED_DIMS) raises on a
+    CUDA tensor alone (chip_smoke.py checks); on the CPU the plain version
+    computes it, as the JAX function does, and agrees with the Pallas
+    kernel."""
+    args, expected = _bad_case(name)
+    if expected != "jax":
+        with pytest.raises(expected):
+            da.decode_attention(*args)
+        return
+    out = da.decode_attention(*args)
+    q, k, v, pos = (a.numpy() for a in args)
+    want = jax_decode_attention(*(jnp.asarray(a) for a in (q, k, v, pos)))
+    assert out.dtype == args[0].dtype and out.shape == want.shape
+    atol = FP16_ATOL * np.abs(v).max() if name == "fp16" else TOL["float32"]
+    np.testing.assert_allclose(_f32(out), _f32(want), rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("which", ["zero", "last", "mixed"])
+@pytest.mark.parametrize("dim", [16, 8, 48])
+def test_plain_matches_pallas_at_head_dims_the_kernel_does_not_take(dim, which):
+    """The plain version takes any D, as the JAX function does: D = 16 (and
+    8, 48) against the Pallas kernel in interpret mode and the dense JAX
+    reference, at the fp32 tolerance."""
+    batch, heads, max_len = 3, 2, 200
+    positions = {"zero": [0] * batch, "last": [max_len - 1] * batch, "mixed": [0, 99, 199]}[which]
+    q, k, v = _inputs(batch, heads, max_len, dim, "float32", seed=dim)
+    pos = np.asarray(positions, np.int32)
+    out = da.decode_attention(*(numpy_to_tensor(a, "cpu") for a in (q, k, v)),
+                              torch.from_numpy(pos))
+    assert out.shape == (batch, heads, dim)
+    jq, jk, jv, jpos = (jnp.asarray(a) for a in (q, k, v, pos))
+    assert np.max(np.abs(_f32(out) - _f32(jax_decode_attention(jq, jk, jv, jpos)))) < TOL[
+        "float32"]
+    assert np.max(np.abs(_f32(out) - _f32(jax_reference(jq, jk, jv, jpos)))) < TOL["float32"]
+
+
+@pytest.mark.parametrize("interpret", [None, True, False])
+@pytest.mark.parametrize("block_k", [128, 8, 5, 200, True])
+def test_block_k_and_interpret_keywords(block_k, interpret):
+    """The reference's keywords are accepted; for a float cache the result
+    does not depend on them (JAX's own answer at each block_k agrees, in
+    interpret mode, the one it takes on the CPU)."""
+    q, k, v = _inputs(1, 2, 128, 32, "float32", seed=21)
+    pos = np.asarray([100], np.int32)
+    args = [numpy_to_tensor(a, "cpu") for a in (q, k, v)] + [torch.from_numpy(pos)]
+    out = da.decode_attention(*args, block_k=block_k, interpret=interpret)
+    assert torch.equal(out, da.decode_attention(*args))
+    want = jax_decode_attention(*(jnp.asarray(a) for a in (q, k, v, pos)), block_k=block_k,
+                                interpret=True)
+    assert np.max(np.abs(_f32(out) - _f32(want))) < TOL["float32"]
+
+
+@pytest.mark.parametrize("block_k", [0, -1, None, 64.0, "128"])
+def test_block_k_refused_where_jax_fails(block_k):
+    """JAX fails on 0 (a division), on negatives and None (shapes), and on a
+    float wherever it sets the tiles; the port checks first."""
+    q, k, v, pos = _good()
+    with pytest.raises(ValueError):
+        da.decode_attention(q, k, v, pos, block_k=block_k)
+
+
+def test_integer_cache_follows_the_pallas_tiles():
+    """Rounding p to an integer cache's dtype truncates it to 0 or 1, so the
+    result depends on the tiles; the CPU path walks JAX's (min(block_k, M)
+    slots) in decode_attention_tiled_reference, which equals the dense
+    plain version for a float cache."""
+    rng = np.random.default_rng(30)
+    q, k, v = (rng.integers(-3, 4, s).astype(np.int8) for s in ((2, 2, 16), (2, 2, 300, 16),
+                                                                 (2, 2, 300, 16)))
+    pos = np.asarray([40, 299], np.int32)
+    tq, tk, tv, tpos = (torch.from_numpy(a) for a in (q, k, v, pos))
+    for block_k in (128, 64):
+        out = da.decode_attention(tq, tk, tv, tpos, block_k=block_k)
+        assert out.dtype == torch.int8
+        assert torch.equal(out, da.decode_attention_tiled_reference(tq, tk, tv, tpos, block_k))
+        want = np.asarray(jax_decode_attention(*(jnp.asarray(a) for a in (q, k, v, pos)),
+                                               block_k=block_k))
+        np.testing.assert_array_equal(out.numpy(), want)
+    f = [t.float() for t in (tq, tk, tv)]
+    np.testing.assert_allclose(da.decode_attention_tiled_reference(*f, tpos, 64).numpy(),
+                               da.decode_attention_reference(*f, tpos).numpy(), atol=1e-5)
 
 
 @pytest.mark.parametrize("dim", da.SUPPORTED_DIMS)

@@ -10,9 +10,14 @@ at every shape, block pair and causal setting of the JAX tests
 atol/rtol of 2e-5. bf16 inputs are held within atol/rtol 2e-2: the Pallas
 kernel rounds the probabilities to bf16 before the PV product and both
 outputs are rounded to bf16, while the plain version keeps fp32 throughout.
-The kernel itself runs on the card only (chip_smoke.py).
+Head dims, dtypes and the ``interpret`` keyword the kernel does not take
+are computed on the CPU, as JAX computes them. The kernel itself runs on
+the card only (chip_smoke.py).
 """
 
+import itertools
+
+import jax
 import jax.numpy as jnp
 import ml_dtypes
 import numpy as np
@@ -66,6 +71,68 @@ def _f32(x):
 
 def _port(arrays, causal, **blocks):
     return flash_attention(*(numpy_to_tensor(a, "cpu") for a in arrays), causal=causal, **blocks)
+
+
+def integer_flash_explained(q, k, v, causal, got, want):
+    """Hold integer flash attention over one key tile (S <= block_k, so no
+    padding) from the port (``got``) and the Pallas kernel in interpret mode
+    (``want``) to the kernel's arithmetic, row by row.
+
+    Rounding p to an integer dtype truncates it: exp(s - m) is 1 at the
+    slots that hold the row's maximum score and truncates to 0 elsewhere,
+    so a row is trunc(sum of v over the maximum's slots / l), l the sum of
+    exp(s - m) over the live slots. Two things may move JAX's row off the
+    port's, and nothing else:
+
+    - XLA on the CPU contracts the kernel's ``dot * scale - m`` into one
+      rounding where no mask stands between the product and the
+      subtraction (non-causal, unpadded): a slot whose product
+      fl(dot * scale) rounded then gets a residual of either sign, and
+      exp(residual) < 1 truncates its p to 0
+      (test_xla_contracts_the_unmasked_score_subtraction shows this);
+      so JAX may drop any subset of those slots, and no other;
+    - the two sum l in another order: the quotient is allowed l's
+      rounding error, (live slots + 4) * 2^-23 relative, which moves the
+      truncated value only where the quotient lies that close to an
+      integer.
+
+    The port's row must be the row with no slot dropped. Returns the number
+    of rows where JAX dropped a slot."""
+    batch, seq, heads, dim = q.shape
+    scale = np.float32(dim ** -0.5)
+    dot = np.einsum("bqhd,bkhd->bhqk", q.astype(np.int64), k.astype(np.int64))
+    exact = dot * np.float64(scale)
+    live = np.tril(np.ones((seq, seq), bool)) if causal else np.ones((seq, seq), bool)
+    s = np.where(live, (dot.astype(np.float32) * scale).astype(np.float64), -np.inf)
+    m = s.max(-1, keepdims=True)
+    at_max = s == m
+    droppable = at_max & (s != exact) & (not causal)
+    l = np.exp(s - m).sum(-1)
+    slack = (live.sum(-1) + 4) * 2.0 ** -23
+    vf = v.astype(np.float64)
+    dropped_rows = 0
+    for b, h, i in np.ndindex(batch, heads, seq):
+        slots = set(np.flatnonzero(at_max[b, h, i]).tolist())
+
+        def holds(row, drop):
+            a = vf[b, sorted(slots - set(drop)), h].sum(0)
+            ends = np.trunc(a / (l[b, h, i] * (1 + slack[i]))), np.trunc(
+                a / (l[b, h, i] * (1 - slack[i])))
+            return bool(((np.minimum(*ends) <= row) & (row <= np.maximum(*ends))).all())
+
+        where = f"row (b={b}, s={i}, h={h})"
+        assert holds(got[b, i, h].astype(np.float64), ()), f"port {where} is not the kernel's"
+        row = want[b, i, h].astype(np.float64)
+        if holds(row, ()):
+            continue
+        candidates = np.flatnonzero(droppable[b, h, i]).tolist()
+        assert len(candidates) <= 12, f"{where}: {len(candidates)} tied slots to try"
+        assert any(holds(row, drop) for r in range(1, len(candidates) + 1)
+                   for drop in itertools.combinations(candidates, r)), (
+            f"JAX {where} = {row} is not the kernel's, with or without a rounded slot "
+            "at the maximum dropped")
+        dropped_rows += 1
+    return dropped_rows
 
 
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
@@ -128,15 +195,26 @@ def test_tile_edges_match_dense(seq):
 
 
 def _good(shape=(1, 8, 2, 32), dtype=torch.float32):
-    return tuple(torch.zeros(shape, dtype=dtype) for _ in range(3))
+    rng = np.random.default_rng(shape[-1])
+    return tuple(torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dtype)
+                 for _ in range(3))
+
+
+# the float16 plain version (dense, fp32) against the Pallas kernel, which
+# rounds p to float16 before the PV product (2^-11 relative) and its output
+# to float16 (half an ulp, as the port does): 3 * 2^-11 * max|v| < 2^-9 * max|v|
+FP16_ATOL = 2.0 ** -9
 
 
 def _bad_case(name):
+    """(args, kwargs, expected): an exception, or "jax" where the JAX
+    function computes the case and the port's plain version must agree
+    with it (float16, int32, head dims the kernel does not take)."""
     q, k, v = _good()
     if name == "fp16":
-        return (q.half(), k.half(), v.half()), {}, TypeError
+        return (q.half(), k.half(), v.half()), {}, "jax"
     if name == "int32":
-        return (q.int(), k.int(), v.int()), {}, TypeError
+        return tuple((t * 2).round().int() for t in (q, k, v)), {}, "jax"
     if name == "mixed_dtypes":
         return (q, k.bfloat16(), v), {}, TypeError
     if name == "rank3":
@@ -148,7 +226,7 @@ def _bad_case(name):
     if name == "empty_batch":
         return _good((0, 8, 2, 32)), {}, ValueError
     if name.startswith("dim"):
-        return _good((1, 8, 2, int(name[3:]))), {}, ValueError
+        return _good((1, 8, 2, int(name[3:]))), {}, "jax"
     if name == "block_q_zero":
         return (q, k, v), {"block_q": 0}, ValueError
     if name == "block_k_float":
@@ -166,9 +244,107 @@ def _bad_case(name):
     "non_contiguous", "meta_device",
 ])
 def test_wrapper_rejects_what_the_kernel_does_not_take(name):
-    args, kwargs, exc = _bad_case(name)
-    with pytest.raises(exc):
-        flash_attention(*args, **kwargs)
+    """Mixed dtypes, bad shapes, blocks, layouts and devices raise. What
+    only the kernel does not take (float16, int32, D outside
+    SUPPORTED_DIMS) raises on a CUDA tensor alone (chip_smoke.py checks);
+    on the CPU the plain version computes it, as the JAX function does, and
+    agrees with the Pallas kernel: float16 within FP16_ATOL * max|v|, int32
+    row by row as integer_flash_explained holds it, the head dims within
+    the JAX tests' 2e-5."""
+    args, kwargs, expected = _bad_case(name)
+    if expected != "jax":
+        with pytest.raises(expected):
+            flash_attention(*args, **kwargs)
+        return
+    out = flash_attention(*args, **kwargs)
+    want = jax_flash_attention(*(jnp.asarray(t.numpy()) for t in args))
+    assert out.dtype == args[0].dtype and out.shape == want.shape
+    if name == "int32":
+        integer_flash_explained(*(t.numpy() for t in args), False, out.numpy(), np.asarray(want))
+        return
+    v_max = float(np.abs(args[2].float().numpy()).max())
+    atol = FP16_ATOL * v_max if name == "fp16" else TOL["float32"]
+    np.testing.assert_allclose(_f32(out), _f32(want), rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("seq", [8, 100, 130])
+@pytest.mark.parametrize("dim", [8, 48])
+def test_plain_matches_pallas_at_head_dims_the_kernel_does_not_take(dim, seq, causal):
+    """The plain version takes any D, as the JAX function does: D = 8 (and
+    48) against the Pallas kernel in interpret mode and full_attention at
+    the JAX tests' 2e-5."""
+    arrays = _inputs((1, seq, 2, dim), "float32", seed=dim + seq)
+    out = _port(arrays, causal)
+    jq, jk, jv = (jnp.asarray(a) for a in arrays)
+    np.testing.assert_allclose(_f32(out), _f32(jax_flash_attention(jq, jk, jv, causal=causal)),
+                               atol=TOL["float32"], rtol=TOL["float32"])
+    np.testing.assert_allclose(_f32(out), _f32(full_attention(jq, jk, jv, causal=causal)),
+                               atol=TOL["float32"], rtol=TOL["float32"])
+
+
+@pytest.mark.parametrize("interpret", [None, True, False])
+def test_interpret_keyword_changes_nothing(interpret):
+    """The reference's keyword is accepted: the tensors' device decides what
+    runs, so the result is the one without it."""
+    arrays = _inputs((1, 64, 2, 16), "float32", seed=5)
+    assert torch.equal(_port(arrays, True, interpret=interpret), _port(arrays, True))
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_integer_inputs_follow_the_pallas_tiles(causal):
+    """Rounding p to an integer dtype truncates it to 0 or 1, so the result
+    depends on the key tiles: the CPU path walks JAX's (min(block_k, S)
+    keys) in flash_attention_tiled_reference. A padded sequence (130 keys
+    in tiles of 128 or 64) has JAX mask every score, so XLA does not
+    contract the score subtraction (see integer_flash_explained): the two
+    agree element for element."""
+    rng = np.random.default_rng(31)
+    arrays = [rng.integers(-3, 4, (1, 130, 2, 16)).astype(np.int8) for _ in range(3)]
+    tq, tk, tv = (torch.from_numpy(a) for a in arrays)
+    for block_k in (128, 64):
+        out = flash_attention(tq, tk, tv, causal=causal, block_k=block_k)
+        assert out.dtype == torch.int8
+        assert torch.equal(out, flash_attention_tiled_reference(tq, tk, tv, causal, block_k))
+        want = np.asarray(jax_flash_attention(*(jnp.asarray(a) for a in arrays), causal=causal,
+                                              block_k=block_k))
+        assert want.dtype == np.int8 and want.shape == out.shape
+        np.testing.assert_array_equal(out.numpy(), want)
+
+
+@pytest.mark.parametrize("dim", [8, 16, 32, 48, 64])
+def test_xla_contracts_the_unmasked_score_subtraction(dim):
+    """The cause integer_flash_explained allows for, shown in XLA itself:
+    jitted on the CPU, ``exp(d * scale - m)`` with m = fl(d * scale) (the
+    kernel's ``exp(s - m)`` at a slot holding the maximum, with no mask in
+    between) is exp of the product's own rounding residual, not exp(0). It
+    reads below 1 only where the product rounded up, above 1 only where it
+    rounded down, and exactly 1 where the product is exact (every d at
+    D = 16 and 64, whose scale is a power of two)."""
+    scale = np.float32(dim ** -0.5)
+    d = np.arange(-3000, 3000, dtype=np.float32)
+    rounded = (d * scale).astype(np.float64)
+    exact = d.astype(np.float64) * np.float64(scale)
+    r = np.asarray(jax.jit(lambda d, m: jnp.exp(d * (dim ** -0.5) - m))(d, d * scale))
+    assert (r[rounded == exact] == 1).all()
+    assert (rounded[r < 1] > exact[r < 1]).all() and (rounded[r > 1] < exact[r > 1]).all()
+    assert (r < 1).any() == (dim not in (16, 64))
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("dtype", ["int8", "uint8", "int32"])
+@pytest.mark.parametrize("dim", [8, 32, 48, 64])
+def test_integer_one_tile_differs_from_pallas_only_where_explained(dim, dtype, causal):
+    """Integer inputs at one key tile, against the Pallas kernel row by row
+    (integer_flash_explained): exact but for the score subtraction XLA
+    contracts (full attention at D = 8, 32, 48) and the order of l's sum."""
+    rng = np.random.default_rng(dim)
+    arrays = [rng.integers(0 if dtype == "uint8" else -7, 8, (1, 100, 2, dim)).astype(dtype)
+              for _ in range(3)]
+    out = flash_attention(*(torch.from_numpy(a) for a in arrays), causal=causal)
+    want = np.asarray(jax_flash_attention(*(jnp.asarray(a) for a in arrays), causal=causal))
+    assert str(out.dtype) == f"torch.{dtype}" and want.dtype == dtype
+    integer_flash_explained(*arrays, causal, out.numpy(), want)
 
 
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])

@@ -5,14 +5,15 @@ launch CUDA kernels for CUDA tensors and compute their plain versions for
 CPU tensors. Here, on the CPU, the plain versions are held against the JAX
 Pallas kernels (interpret mode off-TPU) on numpy-seeded inputs:
 
-- normalize_image element for element for float32 and uint8 inputs, to
-  float32 and bfloat16, in image_client's INCEPTION and NONE modes; bfloat16
-  inputs to a bfloat16 tolerance (rtol 1e-2, as
+- normalize_image element for element for float32, uint8 and int32
+  inputs, to float32, bfloat16 and float16, in image_client's INCEPTION and
+  NONE modes; bfloat16 inputs to a bfloat16 tolerance (rtol 1e-2, as
   tests/test_models_parallel.py holds them), since XLA on the CPU rounds
-  them at places of its own;
+  them at places of its own (float16 inputs: tests/test_torch_parity.py);
 - softmax_probabilities within rtol 1e-5 (atol 1e-30: XLA flushes denormal
   probabilities), as tests/test_utils.py holds it;
-- resize_nearest, preprocess_image, topk_classification and the bf16 casts.
+- resize_nearest, preprocess_image, topk_classification (ties lowest index
+  first, as ``jax.lax.top_k``) and the bf16 casts.
 
 The kernels themselves run on the card only (chip_smoke.py).
 """
@@ -33,7 +34,8 @@ from client_tpu_torch.ops.softmax import softmax_probabilities_reference
 from client_tpu_torch.utils import numpy_to_tensor, tensor_to_numpy
 
 MODES = {"INCEPTION": (2.0 / 255.0, -1.0), "NONE": (1.0, 0.0)}
-OUT = {"float32": (torch.float32, jnp.float32), "bfloat16": (torch.bfloat16, jnp.bfloat16)}
+OUT = {"float32": (torch.float32, jnp.float32), "bfloat16": (torch.bfloat16, jnp.bfloat16),
+       "float16": (torch.float16, jnp.float16)}
 SHAPES = {"lanes": (3, 8, 128), "image": (224, 224, 3), "ragged": (7, 13, 3)}
 
 
@@ -49,7 +51,7 @@ def _one_torch_thread():
 
 def _image(shape, dtype, seed):
     x = np.random.default_rng(seed).uniform(0, 255, shape)
-    return x.astype(np.uint8) if dtype == "uint8" else x.astype(np.float32)
+    return x.astype(dtype if dtype in ("uint8", "int32") else np.float32)
 
 
 def _bits(t):
@@ -61,7 +63,7 @@ def _bits(t):
 
 @pytest.mark.parametrize("out", list(OUT))
 @pytest.mark.parametrize("mode", list(MODES))
-@pytest.mark.parametrize("in_dtype", ["float32", "uint8"])
+@pytest.mark.parametrize("in_dtype", ["float32", "uint8", "int32"])
 @pytest.mark.parametrize("shape", list(SHAPES))
 def test_normalize_is_element_exact(shape, in_dtype, mode, out):
     scale, shift = MODES[mode]
@@ -129,7 +131,10 @@ def test_normalize_special_values():
 
 PATHS = [(torch.float32, torch.float32), (torch.float32, torch.bfloat16),
          (torch.bfloat16, torch.float32), (torch.bfloat16, torch.bfloat16),
-         (torch.uint8, torch.float32), (torch.uint8, torch.bfloat16)]
+         (torch.uint8, torch.float32), (torch.uint8, torch.bfloat16),
+         (torch.float16, torch.float32), (torch.float16, torch.float16),
+         (torch.uint8, torch.float16), (torch.int32, torch.float32),
+         (torch.int32, torch.float16)]
 PATH_IDS = [f"{str(a)[6:]}_to_{str(b)[6:]}" for a, b in PATHS]
 
 
@@ -202,13 +207,13 @@ SOFTMAX_SHAPES = {"test_utils": (3, 50), "densenet": (1, 1000), "batch": (8, 100
                   "three_d": (2, 3, 17), "one_d": (1000,), "long_row": (2, 5000)}
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("shape", list(SOFTMAX_SHAPES))
 def test_softmax_matches_jax(shape, dtype):
     logits = np.random.default_rng(len(shape)).standard_normal(
         SOFTMAX_SHAPES[shape]).astype(np.float32) * 30  # stress stability
-    if dtype == "bfloat16":
-        logits = logits.astype(ml_dtypes.bfloat16)
+    if dtype != "float32":
+        logits = logits.astype(ml_dtypes.bfloat16 if dtype == "bfloat16" else np.float16)
     t = numpy_to_tensor(logits, "cpu")
     got = ops.softmax_probabilities(t)
     want = np.asarray(jax_ops.softmax_probabilities(logits))
@@ -237,15 +242,24 @@ def test_softmax_all_minus_inf_row_is_nan():
 
 
 def _bad_case(name):
-    x = torch.zeros(4, 8)
+    """(call, expected): an exception, or the JAX call whose result the
+    port's must equal bit for bit. JAX computes int32 and float16 inputs
+    (NONE scaling, the default, is exact in float16 too), so the plain
+    versions compute them; float16 softmax within tests/test_utils.py's
+    rtol 1e-5."""
+    x = torch.from_numpy(_image((4, 8), "float32", seed=12))
+    jx = x.numpy()
     return {
-        "normalize_int32": (lambda: ops.normalize_image(x.int()), TypeError),
-        "normalize_fp16": (lambda: ops.normalize_image(x.half()), TypeError),
+        "normalize_int32": (lambda: ops.normalize_image(x.int()),
+                            lambda: jax_ops.normalize_image(jx.astype(np.int32))),
+        "normalize_fp16": (lambda: ops.normalize_image(x.half()),
+                           lambda: jax_ops.normalize_image(jx.astype(np.float16))),
         "normalize_int8_out": (lambda: ops.normalize_image(x, out_dtype=torch.int8), TypeError),
         "normalize_non_contiguous": (lambda: ops.normalize_image(x.t()), ValueError),
         "normalize_meta": (lambda: ops.normalize_image(x.to("meta")), ValueError),
         "softmax_int64": (lambda: ops.softmax_probabilities(x.long()), TypeError),
-        "softmax_fp16": (lambda: ops.softmax_probabilities(x.half()), TypeError),
+        "softmax_fp16": (lambda: ops.softmax_probabilities(x.half() / 32),
+                         lambda: jax_ops.softmax_probabilities((jx / 32).astype(np.float16))),
         "softmax_scalar": (lambda: ops.softmax_probabilities(torch.tensor(1.0)), ValueError),
         "softmax_empty_row": (lambda: ops.softmax_probabilities(torch.zeros(3, 0)), ValueError),
         "softmax_non_contiguous": (lambda: ops.softmax_probabilities(x.t()), ValueError),
@@ -259,9 +273,22 @@ def _bad_case(name):
     "softmax_non_contiguous", "softmax_meta",
 ])
 def test_wrappers_reject_what_the_kernels_do_not_take(name):
-    call, exc = _bad_case(name)
-    with pytest.raises(exc):
-        call()
+    """Bad shapes, layouts and devices raise, and dtypes no JAX op here
+    computes (int64, which JAX narrows to int32; int8 out, outside the float
+    outputs the port writes); a dtype JAX computes is computed, with JAX's
+    output dtype and values (on a CUDA tensor a dtype the kernel has no code
+    for raises, chip_smoke.py checks)."""
+    call, expected = _bad_case(name)
+    if isinstance(expected, type):
+        with pytest.raises(expected):
+            call()
+        return
+    got, want = tensor_to_numpy(call()), np.asarray(expected())
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if name.startswith("softmax"):
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-30)
+    else:
+        assert got.tobytes() == want.tobytes()
 
 
 def test_cpu_path_is_the_plain_version_and_launches_nothing():
@@ -317,6 +344,31 @@ def test_preprocess_image_other_size_and_dtype():
                                                out_dtype=jnp.bfloat16))
     assert got.dtype == torch.bfloat16 and got.shape == (3, 32, 24)
     assert _bits(got) == want.tobytes()
+
+
+# rows with ties: int32 and float, all equal, ties across k
+TIED_ROWS = {
+    "int32": np.array([[1, 3, 3, 1, 3], [2, 2, 0, 2, 2]], np.int32),
+    "float": np.array([[0.5, 2.0, 0.5, 2.0, 2.0, -1.0], [1.0, 0.0, 1.0, 1.0, 0.0, 1.0]],
+                      np.float32),
+    "all_equal": np.zeros((3, 8), np.float32),
+}
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 4])
+@pytest.mark.parametrize("rows", list(TIED_ROWS))
+def test_topk_classification_ties_rank_as_lax_top_k(rows, k):
+    """Ties lowest index first, as jax.lax.top_k ranks them (where k cuts
+    through a tie, that also decides which classes are in): batched and one
+    row alone."""
+    x = TIED_ROWS[rows]
+    values, indices = ops.topk_classification(torch.from_numpy(x), k)
+    jv, ji = jax_ops.topk_classification(x, k)
+    np.testing.assert_array_equal(indices.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(values.numpy(), np.asarray(jv))
+    one_v, one_i = ops.topk_classification(torch.from_numpy(x[1]), k)
+    np.testing.assert_array_equal(one_i.numpy(), np.asarray(ji)[1])
+    np.testing.assert_array_equal(one_v.numpy(), np.asarray(jv)[1])
 
 
 @pytest.mark.parametrize("k", [1, 3, 7])

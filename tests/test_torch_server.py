@@ -2,6 +2,8 @@
 
 - the 2x2 matrix: port and JAX clients against port and JAX servers on
   ``simple`` and ``identity_fp32``;
+- the classification extension's tie order, served and on both of the JAX
+  server's ranking paths (device array and numpy);
 - the port server's system and cuda shared-memory paths (cuda regions on the
   CPU device here: in one process the client's tensor reaches the model as
   that very tensor), and raw handles read across the two packages;
@@ -128,6 +130,58 @@ def test_classification_matches_the_jax_server(port_server, jax_server):
             client.close()
     assert results[0].tolist() == results[1].tolist()
     assert results[0].tolist()[0].startswith(b"9.000000:4")
+
+
+@pytest.mark.parametrize("k", [1, 3, 5])
+def test_classification_ties_match_the_jax_server(port_server, jax_server, k):
+    """identity_fp32 returns a device tensor on both servers (a torch tensor,
+    a jax.Array), so both rank ties lowest index first: the same entries,
+    and the same set of classes where k cuts through a tie."""
+    x = np.array([[1.0, 3.0, 3.0, 1.0, 3.0, 0.0]], dtype=np.float32)
+    results = []
+    for url in (port_server.url, jax_server.url):
+        client = port_http.InferenceServerClient(url)
+        try:
+            inp = port_http.InferInput("INPUT0", [1, 6], "FP32").set_data_from_numpy(x)
+            out = port_http.InferRequestedOutput("OUTPUT0", class_count=k)
+            results.append(client.infer("identity_fp32", [inp], outputs=[out]).as_numpy("OUTPUT0"))
+        finally:
+            client.close()
+    assert results[0].tolist() == results[1].tolist()
+    assert [e.split(b":")[1] for e in results[0].reshape(-1)][:3] == [b"1", b"2", b"4"][:k]
+
+
+# tied class vectors: int32 and float, all equal; unbatched and batched
+TIES = {"int32": np.array([1, 3, 3, 1, 3], np.int32),
+        "float": np.array([0.0, 2.0, 0.5, 2.0, 2.0, 0.5], np.float32),
+        "all_equal": np.zeros(8, np.float32),
+        "batched": np.array([[2, 2, 0, 2], [1, 1, 1, 1], [0, 5, 5, 0]], np.int32)}
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 4])
+@pytest.mark.parametrize("rows", list(TIES))
+def test_classification_ranks_ties_as_the_jax_server(rows, k):
+    """The extension's strings against the JAX server's own function on
+    both of its paths: a tensor output against a jax.Array (lax.top_k,
+    ties lowest index first), a numpy output against a numpy output (the
+    host argsort, ties highest index first)."""
+    import jax.numpy as jnp
+
+    from client_tpu.server.core import _classification as jax_classification
+    from client_tpu_torch.server.core import _classification
+
+    x = TIES[rows]
+    batched = x.ndim == 2
+    labels = [f"class{i}" for i in range(x.shape[-1] - 1)]  # one index without a label
+    on_device = _classification(torch.from_numpy(x), k, labels, batched)
+    want_device = jax_classification(jnp.asarray(x), k, labels, batched)
+    assert on_device.tolist() == want_device.tolist()
+    on_host = _classification(x, k, labels, batched)
+    want_host = jax_classification(x, k, labels, batched)
+    assert on_host.tolist() == want_host.tolist()
+    if rows == "all_equal" and k == 3:
+        assert [e.split(b":")[1] for e in on_device] == [b"0", b"1", b"2"]
+        assert [e.split(b":")[1] for e in on_host] == [b"7", b"6", b"5"]
 
 
 def test_health_and_metadata(port_client):
