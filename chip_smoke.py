@@ -8,7 +8,9 @@ toolkit:
 
 Phases (each raises on failure, so the script exits non-zero):
 
-1. device: the ``nvidia-smi`` name and power-limit line;
+1. device: the ``nvidia-smi`` name and power-limit line, and whether the
+   ``grpc`` and ``aiohttp`` packages are importable here (looked up, not
+   imported);
 2. build: every kernel under ``client_tpu_torch/csrc`` (decode_attention,
    flash_attention, normalize_image, quantize_int8, softmax) built from
    source with nvcc into ``build/torch_kernels/``, one compiler per source,
@@ -18,8 +20,9 @@ Phases (each raises on failure, so the script exits non-zero):
    card, with the kernel, the plain version and one PyTorch library call
    (where one computes the same function) timed by CUDA events beside the
    least time the card could take:
-   - decode_attention at the reference test shapes, the decoder's shape and
-     large cache shapes; split-K cases (positions on a split boundary, a
+   - decode_attention at the reference test shapes, the decoder's shape,
+     the batched decode step's (8, 4, 128, 32) at mixed positions (0, 127
+     and an idle slot among them) and large cache shapes; split-K cases (positions on a split boundary, a
      position inside the first of many splits so the rest are empty, a
      cache length that splits unevenly) and a short cache in fp32 and bf16
      at D = 32, 64 and 128; the device time (profiler) of the large shapes beside the
@@ -76,6 +79,18 @@ Phases (each raises on failure, so the script exits non-zero):
      ``decoder_lm`` over the sequence API and ``tiny_lm_generate`` over
      ``generate_stream``, checked against a CPU run of the port with the
      same weights (decode_attention launches = tokens x layers);
+   - ``decoder_lm_batched`` over HTTP to 8 concurrent sequences (prompts
+     of 1-8 tokens, then 8 greedy continuations; the first window holds
+     all 8 starts), each sequence's tokens equal to ``decoder_lm``'s on the
+     card and to a CPU run's, logits within 5e-2, a round of width >= 4,
+     decode_attention launches = rounds x layers; in process, a sequence
+     at pos == MAX_LEN riding along untouched while another decodes;
+     ``decoder_lm_prefill`` rows bit-equal to ``decoder_lm``; the disagg
+     pair's KV handed over on the device through a colocated cuda shm
+     region into ``ServerCore.infer_stream``, the stream equal to
+     ``tiny_lm_generate``'s; batched rounds timed in process at 1, 2, 4
+     and 8 active sequences, with the device time and idle share of a
+     round at 8;
    - ``long_context_encoder`` (flash, dim 64, heads 4) at S = 100, 4096 and
      8192 over the wire and colocated cuda shared memory, checked against a
      CPU run of the port with the same weights (flash_attention launches =
@@ -110,9 +125,11 @@ import ctypes
 import json
 import os
 import re
+import importlib.util
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from contextlib import nullcontext
 
@@ -135,6 +152,7 @@ from client_tpu_torch.ops import normalize as nz  # noqa: E402
 from client_tpu_torch.ops import softmax as sm  # noqa: E402
 from client_tpu_torch.models.long_context import WEIGHTS, load_jax_params  # noqa: E402
 from client_tpu_torch.models.decoder import TinyDecoderModel  # noqa: E402
+from client_tpu_torch.models.decoder_batched import _SeqRequest  # noqa: E402
 from client_tpu_torch.models.generate import TinyGenerateModel  # noqa: E402
 from client_tpu_torch.ops import _kernels  # noqa: E402
 from client_tpu_torch.ops import decode_attention as da  # noqa: E402
@@ -339,8 +357,11 @@ def check_decode_attention():
                              ((2, 8, 384, 128), [100, 383])):
         for name in dtypes:
             cases.append(("reference", shape, positions, name))
-    # the decoder's own shape at a mid-run position
+    # the decoder's own shape at a mid-run position, and the batched step's
+    # (B = slots) at mixed positions in both dtypes
     cases.append(("decoder", (1, 4, 128, 32), [11], "bfloat16"))
+    for name in dtypes:
+        cases.append(("batched", BATCHED_SHAPE, BATCHED_POS, name))
     # one split over a cache so short that the kernel unrolls less: at M = 24
     # a lane group loads 1, 2 or 4 slots at a time, by D and dtype
     for d in (32, 64, 128):
@@ -1491,6 +1512,219 @@ def drive_decoder(run, prompt, steps):
     return tokens, np.concatenate(all_logits)
 
 
+# decoder_lm_batched over HTTP: one sequence a client and thread, prompts of
+# lengths 1-8 drawn from seed 7, then BATCH_STEPS greedy continuations each
+BATCH_SEQS = 8
+BATCH_STEPS = 8
+# the decode_attention row at the batched step's shape (B = slots): mixed
+# positions with 0, 127 (a full cache, which the step clips to MAX_LEN - 1)
+# and an idle slot (never started: pos 0, its output unused)
+BATCHED_SHAPE = (8, 4, 128, 32)
+BATCHED_POS = [0, 127, 5, 64, 31, 100, 77, 0]
+# prefill rows and the disagg prompt
+PREFILL_ROWS = 4
+PREFILL_LEN = 6
+
+
+def batch_prompts():
+    rng = np.random.default_rng(7)
+    return [rng.integers(0, 256, size=n).tolist() for n in range(1, BATCH_SEQS + 1)]
+
+
+def gate_first_window(model, size):
+    """Hold the batched model's worker before its first window until
+    ``size`` requests are queued, so that window holds them all; later
+    windows coalesce on their own. Set before the model's first request
+    (the worker starts with it); past 60 s the worker goes on and the
+    width check fails instead."""
+    real = model._collect
+
+    def gated():
+        deadline = time.monotonic() + 60
+        while model._queue.qsize() < size and time.monotonic() < deadline:
+            time.sleep(0.0005)
+        model._collect = real
+        return real()
+
+    model._collect = gated
+
+
+def drive_batched(url, prompts, steps):
+    """Each prompt's sequence through decoder_lm_batched on a thread and
+    client of its own, started together: (tokens, logits) per sequence."""
+    results, errors = {}, []
+    barrier = threading.Barrier(len(prompts))
+
+    def run(i, prompt):
+        client = httpclient.InferenceServerClient(url, network_timeout=600.0)
+        try:
+            def served(tokens, start, end):
+                inp = httpclient.InferInput("TOKENS", [1, len(tokens)], "INT32")
+                inp.set_data_from_numpy(np.array([tokens], dtype=np.int32))
+                r = client.infer("decoder_lm_batched", [inp], sequence_id=300 + i,
+                                 sequence_start=start, sequence_end=end)
+                return r.as_numpy("LOGITS"), int(r.as_numpy("NEXT_TOKEN")[0, 0])
+
+            barrier.wait(60)
+            results[i] = drive_decoder(served, prompt, steps)
+        except Exception as e:  # raised below, after every thread ended
+            errors.append((i, repr(e)))
+        finally:
+            client.close()
+
+    threads = [threading.Thread(target=run, args=(i, p)) for i, p in enumerate(prompts)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300)
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"decoder_lm_batched sequences failed: {errors}")
+    return [results[i] for i in range(len(prompts))]
+
+
+def in_process(model, seq_id):
+    """``run(tokens, start, end)`` for drive_decoder, through ``model.execute``."""
+    def run(tokens, start, end):
+        out = model.execute({"TOKENS": np.array([tokens], dtype=np.int32)},
+                            {"sequence_id": seq_id, "sequence_start": start, "sequence_end": end})
+        return out["LOGITS"], int(out["NEXT_TOKEN"][0, 0])
+    return run
+
+
+def top2_margins(logits):
+    top = np.sort(logits, axis=-1)
+    return (top[:, -1] - top[:, -2]).tolist()
+
+
+def full_slot_ride_along(batched, decoder):
+    """In process on the card: a sequence fills its cache to MAX_LEN and
+    stays live (no sequence_end) while another decodes beside it at
+    pos == MAX_LEN: no error, the other's tokens as decoder_lm's, the full
+    slot's cache untouched; the full sequence's next token is refused with
+    max_len and frees its slot."""
+    full = np.random.default_rng(11).integers(0, 256, size=decoder.MAX_LEN).tolist()
+    in_process(batched, 900)(full, True, False)
+    slot = batched._slot_of[900]
+    if int(batched._pos[slot]) != decoder.MAX_LEN:
+        raise AssertionError(f"the full sequence sits at {batched._pos[slot]}, not MAX_LEN")
+    before = [kv[:, slot].clone() for kv in batched._caches]
+    tokens, logits = drive_decoder(in_process(batched, 901), [5, 6, 7], 6)
+    ref_tokens, ref_logits = drive_decoder(in_process(decoder, 902), [5, 6, 7], 6)
+    untouched = all(torch.equal(kv[:, slot], old) for kv, old in zip(batched._caches, before))
+    try:
+        in_process(batched, 900)([1], False, False)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    row = {"tokens": tokens, "decoder_lm_tokens": ref_tokens,
+           "max_abs_logit_diff": float(np.abs(logits - ref_logits).max()),
+           "cache_untouched": untouched, "overflow_error": refused,
+           "live_after": batched.live_sequences()}
+    if (tokens != ref_tokens or not untouched or refused is None or "max_len" not in refused
+            or row["live_after"] != 0):
+        raise AssertionError(f"the full-slot ride-along failed: {row}; decoder_lm top-2 "
+                             f"margins {top2_margins(ref_logits)}")
+    return row
+
+
+def prompt_kv(decoder, prompt):
+    """The decoder's cache after ``prompt`` as the disagg KV, [L*2, H, M, Dh] fp32."""
+    caches = decoder.fresh_cache()
+    decoder.prefill(caches, np.array(prompt), 0)
+    return torch.stack([c[half] for c in caches for half in ("k", "v")]).float()
+
+
+def disagg_handoff(client, core, decoder, prompt, max_tokens, kv_ref):
+    """decoder_lm_disagg_prefill writes its KV into a colocated cuda shm
+    output region over HTTP; decoder_lm_kv_decode streams from that region
+    through ServerCore.infer_stream in process. ``kv_ref``: the KV the
+    prompt must give (``prompt_kv``)."""
+    shape = [decoder.LAYERS * 2, decoder.HEADS, decoder.MAX_LEN,
+             decoder.D_MODEL // decoder.HEADS]
+    nbytes = int(np.prod(shape)) * 4
+    name = f"kv{os.urandom(4).hex()}"
+    region = cudashm.create_shared_memory_region(name, nbytes, colocated=True)
+    try:
+        client.register_cuda_shared_memory(name, cudashm.get_raw_handle(region), 0, nbytes)
+        inp = httpclient.InferInput("TOKENS", [1, len(prompt)], "INT32")
+        inp.set_data_from_numpy(np.array([prompt], dtype=np.int32))
+        kv_out = httpclient.InferRequestedOutput("KV")
+        kv_out.set_shared_memory(name, nbytes)
+        r = client.infer("decoder_lm_disagg_prefill", [inp], outputs=[
+            kv_out, httpclient.InferRequestedOutput("NEXT_TOKEN"),
+            httpclient.InferRequestedOutput("POS")])
+        first, pos = int(r.as_numpy("NEXT_TOKEN")[0, 0]), int(r.as_numpy("POS")[0, 0])
+        kv = cudashm.get_contents_as_torch(region, "FP32", shape)
+        on_device = kv.is_cuda
+        request = {"inputs": [
+            {"name": "KV", "datatype": "FP32", "shape": shape, "shm": (name, nbytes, 0)},
+            {"name": "POS", "datatype": "INT32", "shape": [1],
+             "array": np.array([pos], np.int32)},
+            {"name": "FIRST_TOKEN", "datatype": "INT32", "shape": [1],
+             "array": np.array([first], np.int32)},
+            {"name": "MAX_TOKENS", "datatype": "INT32", "shape": [1],
+             "array": np.array([max_tokens], np.int32)},
+        ]}
+        stream = [int(resp["outputs"][0]["array"][0, 0])
+                  for resp in core.infer_stream("decoder_lm_kv_decode", "", request)]
+        kv_exact = torch.equal(kv, kv_ref)
+    finally:
+        client.unregister_cuda_shared_memory()
+        cudashm.destroy_shared_memory_region(region)
+    return {"prompt": prompt, "stream": stream, "pos": pos, "kv_on_device": on_device,
+            "kv_equals_the_cache": kv_exact, "kv_bytes": nbytes}
+
+
+def time_batched_rounds(batched, widths, windows):
+    """In process on the card, through the model's own window runner: for
+    each width S, S sequences started with one token, then ``windows``
+    windows of one token each (one round, its logits read back in one copy):
+    wall per round, tokens per second, and at the widest, the device time
+    per round and decode_attention launches per round (profiler)."""
+    rows = []
+    for width in widths:
+        seqs = [950 + i for i in range(width)]
+
+        def window(start, end):
+            reqs = [_SeqRequest(s, [(s * 31 + 7) % 256], start, end) for s in seqs]
+            batched._run_window(reqs)
+            for req in reqs:
+                req.future.result(timeout=60)
+
+        window(True, False)
+        window(False, False)  # warm
+        t0 = time.perf_counter()
+        for _ in range(windows):
+            window(False, False)
+        wall_ms = (time.perf_counter() - t0) * 1e3 / windows
+        row = {"width": width, "windows": windows, "wall_ms_per_round": wall_ms,
+               "tokens_per_s": width * 1e3 / wall_ms}
+        if width == max(widths):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(windows):
+                    window(False, False)
+                torch.cuda.synchronize()
+            kernels = device_kernels(prof)
+            device_ms = sum(k["total_ms"] for k in kernels) / windows
+            attention = [k for k in kernels if "decode_attention" in k["name"]]
+            row.update({
+                "device_ms_per_round": device_ms if kernels else None,
+                "device_idle_share": 1 - device_ms / wall_ms if kernels else None,
+                "decode_attention_launches_per_round": (
+                    sum(k["count"] for k in attention) / windows if kernels else None),
+                "decode_attention_ms_per_round": (
+                    sum(k["total_ms"] for k in attention) / windows if kernels else None),
+                "kernel_launches_per_round": (sum(k["count"] for k in kernels) / windows
+                                              if kernels else None),
+                "top_kernels": kernels[:8],
+            })
+        window(False, True)
+        rows.append(row)
+    if batched.live_sequences():
+        raise AssertionError("the timed sequences did not end")
+    return rows
+
+
 def serve_and_check():
     prompt, steps, max_tokens = [1, 2, 3, 4], 8, 8
     result = {}
@@ -1555,6 +1789,56 @@ def serve_and_check():
         reset_counts()
         result["int8"], round_trips = drive_int8(client, 20)
         int8_counts = read_counts()
+
+        # decoder_lm_batched: 8 sequences over HTTP, the first window holding
+        # all 8 starts
+        batched = server.core.model("decoder_lm_batched")
+        gate_first_window(batched, BATCH_SEQS)
+        prompts = batch_prompts()
+        reset_counts()
+        t0 = time.perf_counter()
+        batched_runs = drive_batched(server.url, prompts, BATCH_STEPS)
+        batched_s = time.perf_counter() - t0
+        batched_counts = read_counts()
+        batched_rounds = sum(batched.batch_histogram.values())
+        histogram = dict(sorted(batched.batch_histogram.items()))
+
+        reset_counts()
+        result["full_slot"] = full_slot_ride_along(batched, decoder)
+        full_slot_counts = read_counts()
+        full_slot_rounds = sum(batched.batch_histogram.values()) - batched_rounds
+        # (the ride-along's decoder_lm reference steps count too)
+        full_slot_stepped = 3 + 6
+
+        rows = np.random.default_rng(12).integers(
+            0, decoder.VOCAB, size=(PREFILL_ROWS, PREFILL_LEN)).astype(np.int32)
+        reset_counts()
+        inp = httpclient.InferInput("TOKENS", list(rows.shape), "INT32").set_data_from_numpy(rows)
+        prefill = client.infer("decoder_lm_prefill", [inp])
+        prefill_counts = read_counts()
+        prefill_logits = prefill.as_numpy("LOGITS")
+
+        kv_ref = prompt_kv(decoder, prompt)
+        reset_counts()
+        result["disagg"] = disagg_handoff(client, server.core, decoder, prompt, max_tokens,
+                                          kv_ref)
+        disagg_counts = read_counts()
+
+        # references, after the counts were read: decoder_lm on the card for
+        # each prefill row and each batched sequence, and the disagg stream's
+        # tiny_lm_generate
+        prefill_rows = []
+        for b, row in enumerate(rows.tolist()):
+            inp = httpclient.InferInput("TOKENS", [1, PREFILL_LEN], "INT32")
+            inp.set_data_from_numpy(np.array([row], dtype=np.int32))
+            r = client.infer("decoder_lm", [inp], sequence_id=400 + b, sequence_start=True,
+                             sequence_end=True)
+            prefill_rows.append(r.as_numpy("LOGITS")[0])
+        card_runs = [drive_decoder(in_process(decoder, 500 + i), p, BATCH_STEPS)
+                     for i, p in enumerate(prompts)]
+        disagg_want = [e["NEXT_TOKEN"] for e in client.generate_stream(
+            "tiny_lm_generate", {"TOKENS": prompt, "MAX_TOKENS": max_tokens})]
+        result["batched_timing"] = time_batched_rounds(batched, (1, 2, 4, 8), 50)
     finally:
         client.close()
         server.stop()
@@ -1567,10 +1851,18 @@ def serve_and_check():
     stepped = (len(prompt) + steps) + (len(prompt) + max_tokens - 1)
     # each path launched its own kernels, once per token x layer, request or
     # round trip, and no other kernel
+    # the disagg path: the prompt, then one step per streamed token but the last
+    disagg_stepped = len(prompt) + len(result["disagg"]["stream"]) - 1
     expected = {
         "decoder": (decoder_counts, {"decode_attention": stepped * layers}),
         "long_context_encoder": (lc_counts, {"flash_attention": lc_requests}),
         "int8 wire": (int8_counts, {"quantize_int8": round_trips, "dequantize_int8": round_trips}),
+        # one launch a layer a round, at B = slots
+        "decoder_lm_batched": (batched_counts, {"decode_attention": batched_rounds * layers}),
+        "full slot ride-along": (full_slot_counts, {"decode_attention": (
+            full_slot_rounds + full_slot_stepped) * layers}),
+        "decoder_lm_prefill": (prefill_counts, {"decode_attention": rows.size * layers}),
+        "disagg": (disagg_counts, {"decode_attention": disagg_stepped * layers}),
     }
     for path, (counts, want) in expected.items():
         if counts != {name: want.get(name, 0) for name in COUNTERS}:
@@ -1610,9 +1902,55 @@ def serve_and_check():
             f"margins {(sorted_logits[:, -1] - sorted_logits[:, -2]).tolist()}")
     if not np.isfinite(gpu_logits).all() or logit_err > 5e-2:
         raise AssertionError(f"logits differ from the CPU run by {logit_err}")
+
+    # decoder_lm_batched: every sequence's tokens as decoder_lm's on the card
+    # and as the CPU run's, logits within 5e-2 of the CPU run
+    cpu_runs = [drive_decoder(in_process(cpu, 600 + i), p, BATCH_STEPS)
+                for i, p in enumerate(prompts)]
+    batched_err = max(float(np.abs(got[1] - ref[1]).max())
+                      for got, ref in zip(batched_runs, cpu_runs))
+    result["batched"] = {
+        "prompts": prompts, "steps": BATCH_STEPS, "seconds": batched_s,
+        "tokens": [run[0] for run in batched_runs],
+        "card_decoder_lm_tokens": [run[0] for run in card_runs],
+        "cpu_tokens": [run[0] for run in cpu_runs],
+        "max_abs_logit_diff_vs_cpu": batched_err,
+        "max_abs_logit_diff_vs_card_decoder_lm": max(
+            float(np.abs(got[1] - ref[1]).max()) for got, ref in zip(batched_runs, card_runs)),
+        "histogram": histogram, "rounds": batched_rounds,
+        "launches": batched_counts["decode_attention"], "layers": layers,
+    }
+    for i, (got, card, ref) in enumerate(zip(batched_runs, card_runs, cpu_runs)):
+        if got[0] != card[0] or got[0] != ref[0]:
+            raise AssertionError(
+                f"decoder_lm_batched sequence {i} tokens {got[0]}, decoder_lm on the card "
+                f"{card[0]}, CPU {ref[0]}; top-2 margins batched {top2_margins(got[1])}, "
+                f"card {top2_margins(card[1])}, CPU {top2_margins(ref[1])}")
+    if not np.isfinite(np.concatenate([run[1] for run in batched_runs])).all() \
+            or batched_err > 5e-2:
+        raise AssertionError(f"decoder_lm_batched logits differ from the CPU run by {batched_err}")
+    if max(histogram) < 4:
+        raise AssertionError(f"no batched round of width >= 4: {histogram}")
+    prefill_exact = all(prefill_logits[b].tobytes() == prefill_rows[b].tobytes()
+                        for b in range(PREFILL_ROWS))
+    result["prefill"] = {"rows": rows.tolist(), "bit_equal_to_decoder_lm": prefill_exact,
+                         "next_tokens": prefill.as_numpy("NEXT_TOKEN")[:, 0].tolist()}
+    if not prefill_exact:
+        raise AssertionError("decoder_lm_prefill rows differ from decoder_lm on the card")
+    disagg = result["disagg"]
+    disagg["tiny_lm_generate"] = disagg_want
+    if not (disagg["stream"] == disagg_want and disagg["kv_on_device"]
+            and disagg["kv_equals_the_cache"]):
+        raise AssertionError(f"the disagg handoff differs from tiny_lm_generate: {disagg}")
+
     # after the launch counts were read: where a served request's time goes
     result["profile"] = profile_decode(decoder, prompt, steps)
     result["long_context_profile"] = profile_long_context(encoder, 8192, 5)
+    result["launches_by_path"] = {
+        "decoder": launches, "decoder_lm_batched": batched_counts["decode_attention"],
+        "full slot ride-along": full_slot_counts["decode_attention"],
+        "decoder_lm_prefill": prefill_counts["decode_attention"],
+        "disagg": disagg_counts["decode_attention"]}
     return result, {"decode_attention": launches, "flash_attention": lc_counts["flash_attention"],
                     "quantize_int8": int8_counts["quantize_int8"],
                     "dequantize_int8": int8_counts["dequantize_int8"]}
@@ -1896,6 +2234,10 @@ def main(argv) -> int:
     kind = torch.cuda.get_device_name(0)
     smi = device_line()
     log(f"device: {smi}")
+    # whether the gRPC and aiohttp stacks could be ported onto this machine
+    # (find_spec looks the packages up and imports nothing)
+    probe = {name: importlib.util.find_spec(name) is not None for name in ("grpc", "aiohttp")}
+    log(f"probe: importable here: {json.dumps(probe)}")
 
     seconds, ptxas = build_kernels()
     log(f"build: {seconds:.2f} s")
@@ -1928,10 +2270,12 @@ def main(argv) -> int:
     for shape, iters in (((8, 8, 2048, 128), 50), ((8, 8, 8192, 128), 20),
                          ((16, 8, 4096, 128), 20)):
         timed.append(time_decode_attention(shape, [shape[2] - 1] * shape[0], iters))
-    for row in timed:
+    batched_timed = time_decode_attention(BATCHED_SHAPE, BATCHED_POS, 200)
+    for row in timed + [batched_timed]:
         device = ("not measured" if row["device_ms"] is None
                   else f"{row['device_ms']:.4f} ms")
-        log(f"time decode_attention {row['shape']} pos {row['pos'][0]} bf16 splits "
+        pos = row["pos"] if len(set(row["pos"])) > 1 else row["pos"][0]
+        log(f"time decode_attention {row['shape']} pos {pos} bf16 splits "
             f"{row['splits']}: kernel {row['ms']:.4f} ms per call ({device} on the "
             f"device), plain {row['plain_ms']:.4f} ms, "
             f"sdpa {row['library_ms']:.4f} ms, bound {row['bound_ms']:.5f} ms "
@@ -2028,6 +2372,36 @@ def main(argv) -> int:
         f"{dec['max_abs_logit_diff']:.4g}; tiny_lm_generate {dec['generate_tokens']}; "
         f"decode_attention launches {launches['decode_attention']} = "
         f"{dec['tokens_stepped']} tokens x {dec['layers']} layers")
+    bat = served["batched"]
+    log(f"decoder_lm_batched over HTTP: {BATCH_SEQS} sequences (prompts of 1-{BATCH_SEQS} "
+        f"tokens, {bat['steps']} continuations each) in {bat['seconds']:.3f} s; rounds by "
+        f"width {bat['histogram']}; decode_attention launches {bat['launches']} = "
+        f"{bat['rounds']} rounds x {bat['layers']} layers; tokens as decoder_lm on the card "
+        f"and as the CPU run; max logit diff vs CPU {bat['max_abs_logit_diff_vs_cpu']:.4g}, vs "
+        f"decoder_lm on the card {bat['max_abs_logit_diff_vs_card_decoder_lm']:.4g}")
+    fs = served["full_slot"]
+    log(f"decoder_lm_batched full slot: a sequence at pos == MAX_LEN rode along while "
+        f"another decoded {fs['tokens']} (decoder_lm {fs['decoder_lm_tokens']}, max logit diff "
+        f"{fs['max_abs_logit_diff']:.4g}); its cache untouched; its next token refused "
+        f"({fs['overflow_error']})")
+    log(f"decoder_lm_prefill {PREFILL_ROWS}x{PREFILL_LEN}: rows bit-equal to decoder_lm on "
+        f"the card; next tokens {served['prefill']['next_tokens']}")
+    dg = served["disagg"]
+    log(f"disagg: KV ({dg['kv_bytes']} B) in a colocated cuda shm region, on the device and "
+        f"equal to the prompt's cache; kv_decode stream {dg['stream']} = tiny_lm_generate")
+    log("launches by path: " + json.dumps(served["launches_by_path"]))
+    for row in served["batched_timing"]:
+        extra = ""
+        if "device_ms_per_round" in row:
+            extra = ("; profiler: not measured" if row["device_ms_per_round"] is None else
+                     f"; {row['device_ms_per_round']:.4f} ms per round on the device (idle "
+                     f"{row['device_idle_share']:.1%}), "
+                     f"{row['decode_attention_launches_per_round']:g} decode_attention "
+                     f"launches ({row['decode_attention_ms_per_round']:.4f} ms) and "
+                     f"{row['kernel_launches_per_round']:g} kernels per round")
+        log(f"time decoder_lm_batched in process, {row['width']} active: "
+            f"{row['wall_ms_per_round']:.4f} ms per round, {row['tokens_per_s']:.1f} tokens/s"
+            + extra)
     for row in served["long_context"]:
         log(f"long_context_encoder S={row['seq']} p50: wire {row['wire_p50_ms']:.3f} ms, "
             f"cuda shm {row['cuda_shm_p50_ms']:.3f} ms; max diff vs CPU run "
@@ -2097,6 +2471,9 @@ def main(argv) -> int:
         "pos": main_row["pos"],
         "splits": main_row["splits"],
         "at_shapes": timed[1:],
+        # launches is the decoder path's; every decoder-family path's here
+        "launches_by_path": served["launches_by_path"],
+        "batched_shape": batched_timed,
     }]
     flash_row = flash_timed[0]
     kernels.append({
@@ -2186,7 +2563,9 @@ def main(argv) -> int:
     os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
     with open(os.path.join(REPO, "build", "chip_smoke.json"), "w") as f:
         json.dump({"device": smi, "build_seconds": seconds, "ptxas": ptxas,
+                   "probe": probe,
                    "checks": rows, "worst_err": worst, "timed": timed,
+                   "batched_timed": batched_timed,
                    "flash_checks": flash_rows, "flash_timed": flash_timed,
                    "quantize_checks": quant_rows, "quantize_timed": quant_timed,
                    "dequantize_bf16_timed": small["dequantize_bf16"],

@@ -1,7 +1,9 @@
 """The model zoo of the PyTorch port (the counterpart of ``client_tpu.models``):
-the fixture contracts, the decoder family, the long-context encoder and the
-vision path, on a torch device. ``long_context_encoder`` and the vision
-models are not in :func:`default_model_zoo` (as in the JAX package): add a
+the fixture contracts, ``batched_matmul``, the decoder family (``decoder_lm``,
+``tiny_lm_generate``, ``decoder_lm_batched``, ``decoder_lm_prefill`` and the
+disagg pair), the long-context encoder and the vision path, on a torch
+device. ``long_context_encoder`` and the vision models are not in
+:func:`default_model_zoo` (as in the JAX package): add a
 :class:`LongContextEncoderModel`, or the three models of
 :func:`build_image_ensemble` (``preprocess``, ``densenet_onnx``,
 ``ensemble_image``), to a ``ServerCore`` to serve them. ``draw_params`` and
@@ -9,23 +11,42 @@ models are not in :func:`default_model_zoo` (as in the JAX package): add a
 modules."""
 
 from .base import Model, TensorSpec
+from .batched import BatchedMatMulModel
 from .decoder import TinyDecoderModel, draw_params, load_jax_params
+from .decoder_batched import BatchedDecoderModel
+from .decoder_prefill import PrefillDecoderModel
+from .disagg import DisaggPrefillModel, KvDecodeModel
 from .ensemble import EnsembleModel, EnsembleStep, build_image_ensemble
 from .generate import TinyGenerateModel
 from .long_context import LongContextEncoder, LongContextEncoderModel
-from .simple import AddSubModel, IdentityModel, default_model_zoo
+from .simple import (
+    AddSubModel,
+    IdentityModel,
+    RepeatModel,
+    SequenceAccumulatorModel,
+    StringAddSubModel,
+    default_model_zoo,
+)
 from .vision import DenseNetModel, ImagePreprocessModel
 
 __all__ = [
     "AddSubModel",
+    "BatchedDecoderModel",
+    "BatchedMatMulModel",
     "DenseNetModel",
+    "DisaggPrefillModel",
     "EnsembleModel",
     "EnsembleStep",
     "IdentityModel",
     "ImagePreprocessModel",
+    "KvDecodeModel",
     "LongContextEncoder",
     "LongContextEncoderModel",
     "Model",
+    "PrefillDecoderModel",
+    "RepeatModel",
+    "SequenceAccumulatorModel",
+    "StringAddSubModel",
     "TensorSpec",
     "TinyDecoderModel",
     "TinyGenerateModel",

@@ -182,6 +182,61 @@ class TinyDecoderModel(Model):
             x = x + F.gelu(h2 @ layer["mlp_in"], approximate="tanh") @ layer["mlp_out"]
         return (_norm(x) @ params["unembed"]).float()
 
+    def fresh_batched_cache(self, slots: int) -> List[torch.Tensor]:
+        """Per-layer static KV cache of ``slots`` sequences: one bf16 tensor
+        [2, slots, H, MAX_LEN, Dh] a layer, K at index 0 and V at 1 (each a
+        contiguous [slots, H, MAX_LEN, Dh], as the kernel takes them), so one
+        ``index_copy_`` writes a round's keys and values."""
+        Dh = self.D_MODEL // self.HEADS
+        return [
+            torch.zeros((2, slots, self.HEADS, self.MAX_LEN, Dh), dtype=torch.bfloat16,
+                        device=self._device)
+            for _ in range(self.LAYERS)
+        ]
+
+    def batched_step(self, caches, tokens: np.ndarray, pos: np.ndarray,
+                     active: np.ndarray) -> torch.Tensor:
+        """One decode step of every slot of :meth:`fresh_batched_cache`
+        ``caches``: host arrays ``tokens`` [S], ``pos`` [S] and ``active``
+        [S] bool; returns fp32 logits [S, VOCAB] on the device.
+
+        Every slot is computed, so the shapes do not depend on ``active``
+        (as the JAX model's ``vmap`` of :meth:`step`), and attention is one
+        ``decode_attention`` call a layer at B = S. Only the active slots'
+        cache rows are written (IN PLACE): an inactive slot's cache is left
+        as it was and its logits mean nothing. Positions are clipped to
+        ``MAX_LEN - 1`` before any indexing, so a live slot that has filled
+        its cache (pos == MAX_LEN) rides along inactive. The tokens, the
+        clipped positions and the active rows' source and target rows go
+        to the device in one copy of a fresh host array."""
+        params = self.params()
+        D, H, M = self.D_MODEL, self.HEADS, self.MAX_LEN
+        Dh = D // H
+        S = len(tokens)
+        slot = np.minimum(np.asarray(pos, np.int64), M - 1)
+        rows = np.flatnonzero(active)[None, :, None]
+        half = np.arange(2)[:, None, None]  # 0: K, 1: V
+        head = np.arange(H)[None, None, :]
+        # rows of qkv [S, 3D] viewed [S*3*H, Dh] (q, k, v order) and of the
+        # cache [2, S, H, M, Dh] viewed [2*S*H*M, Dh], as (K/V, slot, head)
+        src = ((rows * 3 + 1 + half) * H + head).reshape(-1)
+        dst = (((half * S + rows) * H + head) * M + slot[rows]).reshape(-1)
+        packed = torch.from_numpy(np.concatenate(
+            [np.asarray(tokens, np.int64), slot, src, dst])).to(self._device)
+        toks, slots, src, dst = packed.split([S, S, src.size, dst.size])
+        positions = slots.int()
+        x = params["embed"].index_select(0, toks) + params["pos"].index_select(0, slots)
+        for layer, kv in zip(params["layers"], caches):
+            h = _norm(x)
+            qkv = h @ layer["qkv"]  # [S, 3D]
+            kv.view(-1, Dh).index_copy_(0, dst, qkv.view(-1, Dh).index_select(0, src))
+            q = qkv[:, :D].reshape(S, H, Dh).contiguous()
+            attn = decode_attention(q, kv[0], kv[1], positions)  # [S, H, Dh]
+            x = x + attn.reshape(S, D) @ layer["proj"]
+            h2 = _norm(x)
+            x = x + F.gelu(h2 @ layer["mlp_in"], approximate="tanh") @ layer["mlp_out"]
+        return (_norm(x) @ params["unembed"]).float()
+
     def prefill(self, caches, tokens: np.ndarray, start: int) -> torch.Tensor:
         """Run ``tokens`` through :meth:`step` from position ``start`` (the
         same step serves prompt and decode); returns the last logits."""

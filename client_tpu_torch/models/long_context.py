@@ -9,8 +9,9 @@ CPU. Any sequence length >= 1 runs on one device.
 
 The JAX model's default mode, ring attention over a device mesh, and its
 "ulysses" and "auto" modes are multi-device schemes of ``parallel/`` that the
-port does not have yet (ROADMAP A10): asking for them raises
-``NotImplementedError``, and the port's default is "flash".
+port does not have yet (ROADMAP.md queue A, "Multi-device models and
+parallel/"): asking for them raises ``NotImplementedError``, and the port's
+default is "flash".
 
 Weights: the JAX model draws its projections with ``jax.random``, which
 torch cannot reproduce. :func:`draw_params` is the port's own seeded draw
@@ -87,7 +88,8 @@ class LongContextEncoderModel(Model):
         if attention in MESH_MODES:
             raise NotImplementedError(
                 f"attention={attention!r} is a multi-device scheme the port does not "
-                "have yet (ROADMAP A10); use attention='flash'")
+                "have yet (ROADMAP.md queue A, 'Multi-device models and parallel/'); "
+                "use attention='flash'")
         if attention != "flash":
             raise ValueError(f"attention must be flash (or a mesh mode), got {attention!r}")
         self._device = torch.device(device)

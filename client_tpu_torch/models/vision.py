@@ -274,7 +274,7 @@ class DenseNetModel(Model):
         if tensor_parallel > 1:
             raise NotImplementedError(
                 "tensor_parallel > 1 shards over a device mesh, which the port does not "
-                "have yet (ROADMAP A10)")
+                "have yet (ROADMAP.md queue A, 'Multi-device models and parallel/')")
         self._num_classes = num_classes
         self._device = torch.device(device)
         self.net = DenseNetish(num_classes, width, self.ARCHS[arch], self._device)

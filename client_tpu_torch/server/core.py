@@ -12,6 +12,7 @@ shared-memory region.
 from __future__ import annotations
 
 import threading
+from concurrent.futures import TimeoutError as FuturesTimeoutError
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -188,6 +189,8 @@ class ServerCore:
         self._lock = threading.Lock()
         self._models: Dict[str, Model] = {}
         self._regions: Dict[str, _Region] = {}
+        self._batchers: Dict[str, Any] = {}  # model name -> (max_batch, DynamicBatcher)
+        self.batch_timeout_s = 60.0  # future wait for one batched request
         for m in models or []:
             self.add_model(m)
 
@@ -299,12 +302,57 @@ class ServerCore:
                 f"model '{model_name}' is a decoupled model: use streaming inference", 400)
         try:
             inputs = self._resolve_inputs(model, request)
-            raw = model.execute(inputs, request.get("parameters", {}))
+            params = request.get("parameters", {})
+            if self._batchable(model, request):
+                try:
+                    raw = self._batcher_for(model).submit(inputs, params).result(
+                        timeout=self.batch_timeout_s)
+                except FuturesTimeoutError:
+                    raise InferError(
+                        f"batched inference timed out after {self.batch_timeout_s:.0f}s "
+                        "(the execution may still complete server-side; raise "
+                        "core.batch_timeout_s for cold-compile workloads)", 504)
+            else:
+                raw = model.execute(inputs, params)
         except InferError:
             raise
         except Exception as e:
             raise InferError(f"inference failed: {e}", 400)
         return self._build_response(model, model_version, request, raw)
+
+    # -- dynamic batching ---------------------------------------------------
+    def _batchable(self, model: Model, request: Dict[str, Any]) -> bool:
+        """Coalescing is for stateless, non-decoupled models that declared
+        batch capacity; sequence requests never merge, and requests bound to
+        shared memory run alone (their tensors are the regions' own)."""
+        return (
+            model.effective_max_batch_size() > 1
+            and not model.decoupled
+            and not model.stateful
+            and not request.get("parameters", {}).get("sequence_id")
+            and not any("shm" in t for t in request.get("inputs", []))
+            and not any("shm" in t for t in request.get("outputs") or [])
+        )
+
+    def _batcher_for(self, model: Model):
+        from .batcher import DynamicBatcher
+
+        max_batch = model.effective_max_batch_size()
+        with self._lock:
+            entry = self._batchers.get(model.name)
+            if entry is not None and entry[0] == max_batch:
+                return entry[1]
+            stale = entry[1] if entry is not None else None
+            # report=None: the batch statistics (InferBatchStatistics) come
+            # with the port's statistics surface (ROADMAP.md queue A, 'Rest
+            # of the data plane and server')
+            batcher = DynamicBatcher(model.execute, max_batch, report=None)
+            self._batchers[model.name] = (max_batch, batcher)
+        if stale is not None:
+            # max_batch_size changed through a config override: close OUTSIDE
+            # the core lock, as close() joins the worker
+            stale.close()
+        return batcher
 
     def infer_stream(self, model_name: str, model_version: str, request: Dict[str, Any]):
         """Incremental inference: a generator yielding response dicts AS the

@@ -206,7 +206,7 @@ def test_bad_arch_raises():
 
 
 def test_tensor_parallel_raises():
-    with pytest.raises(NotImplementedError, match="A10"):
+    with pytest.raises(NotImplementedError, match="Multi-device models"):
         DenseNetModel(tensor_parallel=4, device="cpu")
     with pytest.raises(NotImplementedError):
         build_image_ensemble(num_classes=CLASSES, width=WIDTH, tensor_parallel=4, device="cpu")
