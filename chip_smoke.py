@@ -8,9 +8,7 @@ toolkit:
 
 Phases (each raises on failure, so the script exits non-zero):
 
-1. device: the ``nvidia-smi`` name and power-limit line, and whether the
-   ``grpc`` and ``aiohttp`` packages are importable here (looked up, not
-   imported);
+1. device: the ``nvidia-smi`` name and power-limit line;
 2. build: every kernel under ``client_tpu_torch/csrc`` (decode_attention,
    flash_attention, normalize_image, quantize_int8, softmax) built from
    source with nvcc into ``build/torch_kernels/``, one compiler per source,
@@ -107,6 +105,26 @@ Phases (each raises on failure, so the script exits non-zero):
      5e-2; normalize launches = requests, softmax launches = calls), with
      the p50 of each plane and an in-process profile of densenet_onnx.
 
+5. GRPC: the port's GRPC server over ``ServerCore(default_model_zoo("cuda"))``
+   plus the vision models, driven by the port's GRPC clients, each path with
+   every launch count set to 0 just before it and read just after:
+   - ``simple``, then health, metadata, config, the repository index,
+     unload and load, and statistics (success count = requests sent);
+   - ``identity_fp32`` at 4 MiB and 64 MiB over the GRPC wire, system shm
+     and colocated cuda shm (host windows all-zero), p50 beside HTTP's;
+   - ``decoder_lm`` over one bidi stream, the tokens equal to the HTTP
+     phase's and the CPU run's (decode_attention launches = tokens x
+     layers);
+   - ``decoder_lm_batched`` over 8 concurrent streams (the first window
+     holding all 8 starts), each sequence's tokens equal to ``decoder_lm``'s
+     on the card, a round of width >= 4 (launches = rounds x layers);
+   - the image_client flow with input and logits in colocated cuda shm
+     (normalize and softmax on the card; top-1 equal to the CPU run;
+     normalize launches = requests, softmax launches = calls);
+   - ``grpc.aio`` and ``http.aio`` (an HTTP frontend on the same core) each
+     sending ``simple`` and ``identity_fp32`` (cuda shm) requests through
+     ``asyncio.gather``, their outputs equal.
+
 It then prints one ``{"kernels": [...]}`` line and, last, one line
 ``{"ok": true, "device": {...}}``. Details go to ``build/chip_smoke.json``.
 Without a CUDA device it fails. The build fails if ptxas reports a spill in
@@ -121,11 +139,12 @@ the port times that tree, for a comparison inside one run.
 
 from __future__ import annotations
 
+import asyncio
 import ctypes
 import json
 import os
+import queue
 import re
-import importlib.util
 import statistics
 import subprocess
 import sys
@@ -141,7 +160,10 @@ from torch.profiler import ProfilerActivity, profile
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
 
+import client_tpu_torch.grpc as grpcclient  # noqa: E402
+import client_tpu_torch.grpc.aio as grpc_aio  # noqa: E402
 import client_tpu_torch.http as httpclient  # noqa: E402
+import client_tpu_torch.http.aio as http_aio  # noqa: E402
 import client_tpu_torch.ops.quantize as qz  # noqa: E402
 from client_tpu_torch import ops  # noqa: E402
 from client_tpu_torch.models import DenseNetModel, ImagePreprocessModel  # noqa: E402
@@ -163,7 +185,7 @@ from client_tpu_torch.ops.flash_attention import (  # noqa: E402
     flash_attention_reference,
     flash_attention_tiled_reference,
 )
-from client_tpu_torch.server import HttpInferenceServer, ServerCore  # noqa: E402
+from client_tpu_torch.server import GrpcInferenceServer, HttpInferenceServer, ServerCore  # noqa: E402
 from client_tpu_torch.utils import cuda_shared_memory as cudashm  # noqa: E402
 from client_tpu_torch.utils import numpy_to_tensor  # noqa: E402
 from client_tpu_torch.utils import shared_memory as shm  # noqa: E402
@@ -1179,8 +1201,9 @@ def p50_ms(fn, iters: int) -> float:
     return statistics.median(times)
 
 
-def drive_identity(client, nbytes: int, iters: int):
-    """identity_fp32 over the wire, system shm and colocated cuda shm."""
+def drive_identity(client, nbytes: int, iters: int, mod=httpclient):
+    """identity_fp32 over the wire, system shm and colocated cuda shm, through
+    ``client`` of the client module ``mod`` (HTTP or GRPC)."""
     n = nbytes // 4
     shape = [1, n]
     x = torch.arange(n, dtype=torch.float32, device="cuda").reshape(shape) * 0.5
@@ -1188,7 +1211,7 @@ def drive_identity(client, nbytes: int, iters: int):
     row = {"bytes": nbytes}
 
     def wire():
-        inp = httpclient.InferInput("INPUT0", shape, "FP32").set_data_from_numpy(x_host)
+        inp = mod.InferInput("INPUT0", shape, "FP32").set_data_from_numpy(x_host)
         return client.infer("identity_fp32", [inp]).as_numpy("OUTPUT0")
 
     if not np.array_equal(wire(), x_host):
@@ -1204,8 +1227,8 @@ def drive_identity(client, nbytes: int, iters: int):
 
         def system():
             shm.set_shared_memory_region(sys_in, [x_host])
-            inp = httpclient.InferInput("INPUT0", shape, "FP32").set_shared_memory(f"sin{tag}", nbytes)
-            out = httpclient.InferRequestedOutput("OUTPUT0")
+            inp = mod.InferInput("INPUT0", shape, "FP32").set_shared_memory(f"sin{tag}", nbytes)
+            out = mod.InferRequestedOutput("OUTPUT0")
             out.set_shared_memory(f"sout{tag}", nbytes)
             client.infer("identity_fp32", [inp], outputs=[out])
             return shm.get_contents_as_numpy(sys_out, "FP32", shape)
@@ -1226,8 +1249,8 @@ def drive_identity(client, nbytes: int, iters: int):
 
         def cuda():
             cudashm.set_shared_memory_region_from_torch(cu_in, x)
-            inp = httpclient.InferInput("INPUT0", shape, "FP32").set_shared_memory(f"cin{tag}", nbytes)
-            out = httpclient.InferRequestedOutput("OUTPUT0")
+            inp = mod.InferInput("INPUT0", shape, "FP32").set_shared_memory(f"cin{tag}", nbytes)
+            out = mod.InferRequestedOutput("OUTPUT0")
             out.set_shared_memory(f"cout{tag}", nbytes)
             client.infer("identity_fp32", [inp], outputs=[out])
             return cudashm.get_contents_as_torch(cu_out, "FP32", shape)
@@ -1403,6 +1426,8 @@ def serve_vision(iters):
         {})["fc6_1"].numpy().reshape(-1)
     stage0 =ImagePreprocessModel(device="cpu").execute({"raw_image": raw}, {})["preprocessed"]
     want_ens = cpu_densenet.execute({"data_0": stage0}, {})["fc6_1"].numpy().reshape(-1)
+    # the gRPC phase holds its image_client flow against the same CPU run
+    result["cpu_logits"] = want.tolist()
 
     def check(logits, reference, what):
         diff = float(np.abs(logits - reference).max())
@@ -1956,6 +1981,329 @@ def serve_and_check():
                     "dequantize_int8": int8_counts["dequantize_int8"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the served path over GRPC
+# ---------------------------------------------------------------------------
+
+
+def stream_decode(client, model, seq_id, prompt, steps):
+    """decoder_lm-style greedy decode over the client's bidi stream, the way
+    examples/grpc_decoder_stream_client.py drives it: (tokens, logits)."""
+    responses = queue.Queue()
+    client.start_stream(lambda r, e: responses.put((r, e)))
+    try:
+        def run(tokens, start, end):
+            inp = grpcclient.InferInput("TOKENS", [1, len(tokens)], "INT32")
+            inp.set_data_from_numpy(np.array([tokens], dtype=np.int32))
+            client.async_stream_infer(model, [inp], sequence_id=seq_id,
+                                      sequence_start=start, sequence_end=end)
+            result, error = responses.get(timeout=600)
+            if error is not None:
+                raise error
+            return result.as_numpy("LOGITS"), int(result.as_numpy("NEXT_TOKEN")[0, 0])
+
+        return drive_decoder(run, prompt, steps)
+    finally:
+        client.stop_stream()
+
+
+def stream_batched(url, prompts, steps):
+    """Each prompt's sequence through decoder_lm_batched on a GRPC stream,
+    client and thread of its own, started together: (tokens, logits) each."""
+    results, errors = {}, []
+    barrier = threading.Barrier(len(prompts))
+
+    def run(i, prompt):
+        try:
+            with grpcclient.InferenceServerClient(url) as client:
+                barrier.wait(60)
+                results[i] = stream_decode(client, "decoder_lm_batched", 300 + i, prompt, steps)
+        except Exception as e:  # raised below, after every thread ended
+            errors.append((i, repr(e)))
+
+    threads = [threading.Thread(target=run, args=(i, p)) for i, p in enumerate(prompts)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300)
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"decoder_lm_batched GRPC streams failed: {errors}")
+    return [results[i] for i in range(len(prompts))]
+
+
+def aio_identity(cuda_regions, mod, infer, x, shape, nbytes, n):
+    """``n`` identity_fp32 requests through colocated cuda shm regions sent
+    at once with asyncio.gather; the tensors the model handed back."""
+    async def one(i):
+        cin, cout, names = cuda_regions[i]
+        cudashm.set_shared_memory_region_from_torch(cin, x * (i + 1))
+        inp = mod.InferInput("INPUT0", shape, "FP32").set_shared_memory(names[0], nbytes)
+        out = mod.InferRequestedOutput("OUTPUT0")
+        out.set_shared_memory(names[1], nbytes)
+        await infer("identity_fp32", [inp], outputs=[out])
+        return cudashm.get_contents_as_torch(cout, "FP32", shape)
+
+    async def run():
+        return await asyncio.gather(*[one(i) for i in range(n)])
+    return run()
+
+
+def drive_aio(http_url, grpc_url, requests):
+    """The aio clients: grpc.aio and http.aio each send ``requests`` simple
+    and identity_fp32 (colocated cuda shm) requests through asyncio.gather;
+    every output as expected and the two clients' outputs equal."""
+    a = np.arange(16, dtype=np.int32).reshape(1, 16)
+    n = 1 << 20
+    shape, nbytes = [1, n], 4 * n
+    x = torch.arange(n, dtype=torch.float32, device="cuda").reshape(shape) * 0.25
+    tag = os.urandom(4).hex()
+    regions = []
+    for i in range(requests):
+        names = (f"acin{i}{tag}", f"acout{i}{tag}")
+        regions.append((cudashm.create_shared_memory_region(names[0], nbytes, colocated=True),
+                        cudashm.create_shared_memory_region(names[1], nbytes, colocated=True),
+                        names))
+
+    async def session(mod, url):
+        async with mod.InferenceServerClient(url) as client:
+            for cin, cout, names in regions:
+                for region, name in ((cin, names[0]), (cout, names[1])):
+                    await client.register_cuda_shared_memory(
+                        name, cudashm.get_raw_handle(region), 0, nbytes)
+            simple = [mod.InferInput(name, [1, 16], "INT32").set_data_from_numpy(a)
+                      for name in ("INPUT0", "INPUT1")]
+            sums = await asyncio.gather(*[client.infer("simple", simple)
+                                          for _ in range(requests)])
+            ys = await aio_identity(regions, mod, client.infer, x, shape, nbytes, requests)
+            await client.unregister_cuda_shared_memory()
+            return [r.as_numpy("OUTPUT0") for r in sums], ys
+
+    out = {}
+    try:
+        for name, mod, url in (("grpc_aio", grpc_aio, grpc_url), ("http_aio", http_aio, http_url)):
+            t0 = time.perf_counter()
+            sums, ys = asyncio.run(session(mod, url))
+            seconds = time.perf_counter() - t0
+            if not all(np.array_equal(s, 2 * a) for s in sums):
+                raise AssertionError(f"{name}: simple returned wrong sums")
+            for i, y in enumerate(ys):
+                if not (y.is_cuda and torch.equal(y, x * (i + 1))):
+                    raise AssertionError(f"{name}: identity_fp32 over cuda shm changed "
+                                         f"request {i}'s tensor")
+            out[name] = {"requests": 2 * requests, "seconds": seconds,
+                         "sums": [s.tolist() for s in sums],
+                         "identity_sums": [float(y.sum().item()) for y in ys]}
+        if (out["grpc_aio"]["sums"] != out["http_aio"]["sums"]
+                or out["grpc_aio"]["identity_sums"] != out["http_aio"]["identity_sums"]):
+            raise AssertionError(f"the aio clients' outputs differ: {out}")
+        for cin, cout, _ in regions:
+            for region in (cin, cout):
+                if np.frombuffer(region.host_buffer(), dtype=np.uint8).any():
+                    raise AssertionError(f"cuda shm region {region.name} was mirrored to the host")
+    finally:
+        for cin, cout, _ in regions:
+            cudashm.destroy_shared_memory_region(cin)
+            cudashm.destroy_shared_memory_region(cout)
+    return out
+
+
+def grpc_image_client(url, want, iters):
+    """The image_client flow over GRPC: the noise image to the card,
+    ``ops.normalize_image`` (INCEPTION), CHW into a colocated cuda shm
+    region, ``densenet_onnx`` with its logits in another, then
+    ``ops.softmax_probabilities`` on them. Checked against the CPU run's
+    logits (top-1 equal, within 5e-2). Returns (row, requests, softmax
+    calls)."""
+    img = np.random.default_rng(0).uniform(0, 255, (224, 224, 3)).astype(np.float32)
+    scale, shift = INCEPTION
+    in_bytes, out_bytes = 3 * 224 * 224 * 4, VISION_CLASSES * 4
+    tag = os.urandom(4).hex()
+    names = (f"gdnin{tag}", f"gdnout{tag}")
+    cu_in = cudashm.create_shared_memory_region(names[0], in_bytes, colocated=True)
+    cu_out = cudashm.create_shared_memory_region(names[1], out_bytes, colocated=True)
+    calls = {"requests": 0, "softmax": 0}
+    client = grpcclient.InferenceServerClient(url)
+    row = {}
+    try:
+        client.register_cuda_shared_memory(names[0], cudashm.get_raw_handle(cu_in), 0, in_bytes)
+        client.register_cuda_shared_memory(names[1], cudashm.get_raw_handle(cu_out), 0,
+                                           out_bytes)
+
+        def run():
+            calls["requests"] += 1
+            x = torch.from_numpy(img).to("cuda")
+            data_0 = ops.normalize_image(x, scale, shift, torch.float32).permute(2, 0, 1)
+            cudashm.set_shared_memory_region_from_torch(cu_in, data_0.contiguous())
+            inp = grpcclient.InferInput("data_0", [3, 224, 224], "FP32").set_shared_memory(
+                names[0], in_bytes)
+            out = grpcclient.InferRequestedOutput("fc6_1")
+            out.set_shared_memory(names[1], out_bytes)
+            client.infer("densenet_onnx", [inp], outputs=[out])
+            logits = cudashm.get_contents_as_torch(cu_out, "FP32", [VISION_CLASSES, 1, 1])
+            calls["softmax"] += 1
+            probs = ops.softmax_probabilities(logits.reshape(1, VISION_CLASSES))
+            torch.cuda.synchronize()  # the probabilities are ready to use
+            return logits, probs
+
+        logits, probs = run()
+        if not (logits.is_cuda and probs.is_cuda):
+            raise AssertionError("densenet_onnx's GRPC cuda shm output or its softmax left "
+                                 "the card")
+        got = logits.reshape(-1).cpu().numpy()
+        diff = float(np.abs(got - want).max())
+        row["max_abs_logit_diff_vs_cpu"] = diff
+        row["top1"], row["cpu_top1"] = int(got.argmax()), int(want.argmax())
+        row["probabilities_sum"] = probs.sum().item()
+        row["probabilities_top1"] = int(probs.argmax().item())
+        if (not np.isfinite(got).all() or diff > 5e-2 or row["top1"] != row["cpu_top1"]
+                or row["probabilities_top1"] != row["cpu_top1"]
+                or abs(row["probabilities_sum"] - 1.0) > 1e-5):
+            raise AssertionError(f"image_client over GRPC differs from the CPU run: {row}")
+        row["cuda_shm_p50_ms"] = p50_ms(run, iters)
+        for region in (cu_in, cu_out):
+            if np.frombuffer(region.host_buffer(), dtype=np.uint8).any():
+                raise AssertionError(f"cuda shm region {region.name} was mirrored to the host")
+    finally:
+        client.unregister_cuda_shared_memory()
+        client.close()
+        cudashm.destroy_shared_memory_region(cu_in)
+        cudashm.destroy_shared_memory_region(cu_out)
+    return row, calls["requests"], calls["softmax"]
+
+
+def serve_grpc(served, vision):
+    """The port's GRPC server over ``ServerCore(default_model_zoo("cuda"))``
+    plus the vision models, driven by the port's GRPC clients (and http.aio
+    through an HTTP frontend on the same core), each path with every launch
+    count set to 0 just before it and read just after. ``served`` and
+    ``vision`` are the HTTP phases' results, which the GRPC paths must
+    reproduce."""
+    prompt, steps = served["decoder"]["prompt"], 8
+    core = ServerCore(default_model_zoo("cuda")
+                      + build_image_ensemble(VISION_CLASSES, VISION_WIDTH, device="cuda"))
+    server = GrpcInferenceServer(core, max_workers=2 * BATCH_SEQS).start()
+    http_server = HttpInferenceServer(core).start()
+    client = grpcclient.InferenceServerClient(server.url)
+    result, counts, expected = {}, {}, {}
+    try:
+        # warm-up outside the counts: cuBLAS and cuDNN set-up, kernels loaded
+        warm = grpcclient.InferInput("TOKENS", [1, 1], "INT32")
+        warm.set_data_from_numpy(np.array([[1]], dtype=np.int32))
+        client.infer("decoder_lm", [warm], sequence_id=16, sequence_start=True,
+                     sequence_end=True)
+        grpc_image_client(server.url, np.asarray(vision["cpu_logits"], np.float32), 1)
+
+        # 1. simple and the admin surface
+        reset_counts()
+        a = np.arange(16, dtype=np.int32).reshape(1, 16)
+        inputs = [grpcclient.InferInput(n, [1, 16], "INT32").set_data_from_numpy(a)
+                  for n in ("INPUT0", "INPUT1")]
+        sent = 5
+        for _ in range(sent):
+            res = client.infer("simple", inputs)
+            if not (np.array_equal(res.as_numpy("OUTPUT0"), 2 * a)
+                    and not res.as_numpy("OUTPUT1").any()):
+                raise AssertionError("simple over GRPC returned wrong sums")
+        meta = client.get_model_metadata("simple")
+        config = client.get_model_config("decoder_lm")["config"]
+        index = client.get_model_repository_index()
+        client.unload_model("simple_string")
+        unloaded = client.is_model_ready("simple_string")
+        client.load_model("simple_string")
+        stats = client.get_inference_statistics("simple")["model_stats"][0]
+        admin = {
+            "live": client.is_server_live(), "ready": client.is_server_ready(),
+            "simple_ready": client.is_model_ready("simple"),
+            "extensions": client.get_server_metadata()["extensions"],
+            "simple_inputs": [i["name"] for i in meta["inputs"]],
+            "decoder_lm_config_inputs": [i["name"] for i in config["input"]],
+            "repository_models": len(index),
+            "unloaded_then_ready": (unloaded, client.is_model_ready("simple_string")),
+            "simple_success_count": stats["inference_stats"]["success"]["count"],
+            "simple_sent": sent,
+        }
+        result["admin"] = admin
+        if not (admin["live"] and admin["ready"] and admin["simple_ready"]
+                and admin["unloaded_then_ready"] == (False, True)
+                and admin["simple_success_count"] == sent
+                and admin["repository_models"] == len(core.repository_index())):
+            raise AssertionError(f"the GRPC admin surface: {admin}")
+        counts["simple and admin"], expected["simple and admin"] = read_counts(), {}
+
+        # 2. identity_fp32 by data plane
+        reset_counts()
+        result["identity"] = [drive_identity(client, 4 * MIB, 20, grpcclient),
+                              drive_identity(client, 64 * MIB, 5, grpcclient)]
+        counts["identity"], expected["identity"] = read_counts(), {}
+
+        # 3. decoder_lm over one bidi stream
+        decoder = core.model("decoder_lm")
+        layers = decoder.LAYERS
+        reset_counts()
+        t0 = time.perf_counter()
+        tokens, logits = stream_decode(client, "decoder_lm", 17, prompt, steps)
+        seconds = time.perf_counter() - t0
+        counts["decoder"] = read_counts()
+        expected["decoder"] = {"decode_attention": (len(prompt) + steps) * layers}
+        http_dec = served["decoder"]
+        result["decoder"] = {"tokens": tokens, "http_tokens": http_dec["gpu_tokens"],
+                             "cpu_tokens": http_dec["cpu_tokens"], "seconds": seconds,
+                             "ms_per_token": seconds * 1e3 / (steps + 1),
+                             "launches": counts["decoder"]["decode_attention"],
+                             "tokens_stepped": len(prompt) + steps, "layers": layers}
+        if tokens != http_dec["gpu_tokens"] or tokens != http_dec["cpu_tokens"]:
+            raise AssertionError(f"decoder_lm over GRPC: {result['decoder']}")
+        if not np.isfinite(logits).all():
+            raise AssertionError("decoder_lm over GRPC gave non-finite logits")
+
+        # 4. decoder_lm_batched over 8 concurrent streams
+        batched = core.model("decoder_lm_batched")
+        gate_first_window(batched, BATCH_SEQS)
+        prompts = batch_prompts()
+        reset_counts()
+        t0 = time.perf_counter()
+        runs = stream_batched(server.url, prompts, BATCH_STEPS)
+        seconds = time.perf_counter() - t0
+        counts["decoder_lm_batched"] = read_counts()
+        rounds = sum(batched.batch_histogram.values())
+        histogram = dict(sorted(batched.batch_histogram.items()))
+        expected["decoder_lm_batched"] = {"decode_attention": rounds * layers}
+        card = served["batched"]["card_decoder_lm_tokens"]
+        result["batched"] = {"tokens": [r[0] for r in runs], "card_decoder_lm_tokens": card,
+                             "seconds": seconds, "histogram": histogram, "rounds": rounds,
+                             "launches": counts["decoder_lm_batched"]["decode_attention"],
+                             "layers": layers}
+        if [r[0] for r in runs] != card:
+            raise AssertionError(f"decoder_lm_batched over GRPC: {result['batched']}")
+        if max(histogram) < 4:
+            raise AssertionError(f"no batched GRPC round of width >= 4: {histogram}")
+
+        # 5. the image_client flow over GRPC, input and logits in cuda shm
+        reset_counts()
+        result["image_client"], requests, softmax_calls = grpc_image_client(
+            server.url, np.asarray(vision["cpu_logits"], np.float32), 20)
+        counts["image_client"] = read_counts()
+        expected["image_client"] = {"normalize_image": requests,
+                                    "softmax_probabilities": softmax_calls}
+        result["image_client"].update(requests=requests, softmax_calls=softmax_calls)
+
+        # 6. the aio clients
+        reset_counts()
+        result["aio"] = drive_aio(http_server.url, server.url, 4)
+        counts["aio"], expected["aio"] = read_counts(), {}
+    finally:
+        client.close()
+        server.stop()
+        http_server.stop()
+        core.model("decoder_lm_batched").unload()
+    for path, want in expected.items():
+        if counts[path] != {name: want.get(name, 0) for name in COUNTERS}:
+            raise AssertionError(f"launches on the GRPC {path} path: {counts[path]}, "
+                                 f"expected {want}")
+    result["launch_counts"] = counts
+    return result
+
+
 def device_kernels(prof):
     """Device time by kernel in a torch.profiler trace, largest first."""
     kernels = []
@@ -2234,10 +2582,6 @@ def main(argv) -> int:
     kind = torch.cuda.get_device_name(0)
     smi = device_line()
     log(f"device: {smi}")
-    # whether the gRPC and aiohttp stacks could be ported onto this machine
-    # (find_spec looks the packages up and imports nothing)
-    probe = {name: importlib.util.find_spec(name) is not None for name in ("grpc", "aiohttp")}
-    log(f"probe: importable here: {json.dumps(probe)}")
 
     seconds, ptxas = build_kernels()
     log(f"build: {seconds:.2f} s")
@@ -2350,6 +2694,7 @@ def main(argv) -> int:
     served, launches = serve_and_check()
     vision, vision_launches = serve_vision(20)
     launches.update(vision_launches)
+    grpc_served = serve_grpc(served, vision)
     for row in served["identity"]:
         log(f"identity_fp32 {row['bytes'] // MIB} MiB p50: wire {row['wire_p50_ms']:.3f} ms, "
             f"system shm {row['system_shm_p50_ms']:.3f} ms, "
@@ -2449,6 +2794,45 @@ def main(argv) -> int:
             + ", ".join(f"{k['name'][:40]} {k['total_ms']:.3f} ms/{k['count']}"
                         for k in dn_prof["top_kernels"][:4]))
 
+    # the GRPC phase, beside the HTTP phase's numbers on the same card
+    card = smi.strip()
+    for grpc_row, http_row in zip(grpc_served["identity"], served["identity"]):
+        log(f"grpc identity_fp32 {grpc_row['bytes'] // MIB} MiB p50 (HTTP beside it): wire "
+            f"{grpc_row['wire_p50_ms']:.3f} ms ({http_row['wire_p50_ms']:.3f}), system shm "
+            f"{grpc_row['system_shm_p50_ms']:.3f} ms ({http_row['system_shm_p50_ms']:.3f}), "
+            f"cuda shm {grpc_row['cuda_shm_p50_ms']:.3f} ms "
+            f"({http_row['cuda_shm_p50_ms']:.3f}); {card}")
+    adm = grpc_served["admin"]
+    log(f"grpc admin: live, ready, metadata, config, {adm['repository_models']} models in the "
+        f"repository index, unload/load {adm['unloaded_then_ready']}, statistics success "
+        f"count {adm['simple_success_count']} = {adm['simple_sent']} simple requests sent")
+    gdec = grpc_served["decoder"]
+    log(f"grpc decoder_lm over one bidi stream: tokens {gdec['tokens']} = HTTP and CPU; "
+        f"{gdec['ms_per_token']:.3f} ms per token (HTTP "
+        f"{served['decoder']['client_request_ms']['total_request']:.3f} ms per request); "
+        f"decode_attention launches {gdec['launches']} = {gdec['tokens_stepped']} tokens x "
+        f"{gdec['layers']} layers; {card}")
+    gbat = grpc_served["batched"]
+    log(f"grpc decoder_lm_batched over {BATCH_SEQS} concurrent streams in "
+        f"{gbat['seconds']:.3f} s (HTTP {served['batched']['seconds']:.3f} s); rounds by width "
+        f"{gbat['histogram']}; decode_attention launches {gbat['launches']} = "
+        f"{gbat['rounds']} rounds x {gbat['layers']} layers; tokens as decoder_lm on the "
+        f"card; {card}")
+    gimg = grpc_served["image_client"]
+    log(f"grpc image_client (cuda shm in and out, normalize and softmax on the card) p50 "
+        f"{gimg['cuda_shm_p50_ms']:.3f} ms (HTTP {vision['cuda_shm_p50_ms']:.3f}); top-1 "
+        f"{gimg['top1']} = CPU {gimg['cpu_top1']}, max logit diff "
+        f"{gimg['max_abs_logit_diff_vs_cpu']:.4g}; launches normalize_image "
+        f"{grpc_served['launch_counts']['image_client']['normalize_image']} = "
+        f"{gimg['requests']} requests, softmax_probabilities "
+        f"{grpc_served['launch_counts']['image_client']['softmax_probabilities']} = "
+        f"{gimg['softmax_calls']} calls; {card}")
+    for name, row in grpc_served["aio"].items():
+        log(f"{name}: {row['requests']} requests (simple, identity_fp32 over cuda shm) "
+            f"through asyncio.gather in {row['seconds']:.3f} s; outputs as expected and "
+            f"equal across the two aio clients; {card}")
+    grpc_counts = grpc_served["launch_counts"]
+
     main_row = timed[0]
     kernels = [{
         "name": "decode_attention",
@@ -2473,6 +2857,9 @@ def main(argv) -> int:
         "at_shapes": timed[1:],
         # launches is the decoder path's; every decoder-family path's here
         "launches_by_path": served["launches_by_path"],
+        "grpc_launches_by_path": {
+            "decoder": grpc_counts["decoder"]["decode_attention"],
+            "decoder_lm_batched": grpc_counts["decoder_lm_batched"]["decode_attention"]},
         "batched_shape": batched_timed,
     }]
     flash_row = flash_timed[0]
@@ -2557,13 +2944,13 @@ def main(argv) -> int:
                                          "host_us", "library_host_us") if key in row},
             "device_ms": row["device_ms"],
             "redesigned": REDESIGNED[name],
+            "grpc_launches": grpc_counts["image_client"][name],
             "shape": row["shape"],
             "at_shapes": timed_rows[1:],
         })
     os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
     with open(os.path.join(REPO, "build", "chip_smoke.json"), "w") as f:
         json.dump({"device": smi, "build_seconds": seconds, "ptxas": ptxas,
-                   "probe": probe,
                    "checks": rows, "worst_err": worst, "timed": timed,
                    "batched_timed": batched_timed,
                    "flash_checks": flash_rows, "flash_timed": flash_timed,
@@ -2575,7 +2962,8 @@ def main(argv) -> int:
                    "softmax_checks": softmax_rows, "softmax_timed": softmax_timed,
                    "attention_host_us": small["attention_host_us"],
                    "host_breakdown": breakdown,
-                   "served": served, "vision": vision, "kernels": kernels}, f, indent=1)
+                   "served": served, "vision": vision, "grpc": grpc_served,
+                   "kernels": kernels}, f, indent=1)
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

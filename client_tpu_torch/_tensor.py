@@ -8,7 +8,7 @@ stages are identical to the JAX package's for the same values.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -29,6 +29,16 @@ def _to_host_ndarray(tensor: Any) -> np.ndarray:
     if isinstance(tensor, torch.Tensor):
         return tensor_to_numpy(tensor)
     return np.asarray(tensor)
+
+
+def _shm_params(parameters: Dict[str, Any]) -> Optional[Tuple[str, int, int]]:
+    """(region, byte_size, offset) of a tensor bound to a shared-memory
+    region, else None."""
+    region = parameters.get("shared_memory_region")
+    if region is None:
+        return None
+    return (region, parameters.get("shared_memory_byte_size", 0),
+            parameters.get("shared_memory_offset", 0))
 
 
 class InferInput:
@@ -151,6 +161,9 @@ class InferInput:
             tensor["data"] = self._json_data
         return tensor
 
+    def _shared_memory_params(self) -> Optional[Tuple[str, int, int]]:
+        return _shm_params(self._parameters)
+
 
 class InferRequestedOutput:
     """A requested output tensor with optional classification / shm placement."""
@@ -179,6 +192,9 @@ class InferRequestedOutput:
     # -- encoder-facing private API ---------------------------------------
     def _in_shared_memory(self) -> bool:
         return "shared_memory_region" in self._parameters
+
+    def _shared_memory_params(self) -> Optional[Tuple[str, int, int]]:
+        return _shm_params(self._parameters)
 
     def _get_tensor_json(self) -> Dict[str, Any]:
         tensor: Dict[str, Any] = {"name": self._name}

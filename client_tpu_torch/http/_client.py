@@ -1,10 +1,13 @@
 """Synchronous KServe v2 HTTP/REST client.
 
 The counterpart of ``client_tpu.http.InferenceServerClient`` for the routes
-this port serves: health, metadata and config, ``infer``, the generate
-extension (``generate`` / ``generate_stream`` over SSE) and shared-memory
-registration for the system and cuda families. Request bodies and headers
-are byte-identical to the JAX package's for the same inputs.
+this port serves: health, metadata and config, ``infer`` and ``async_infer``
+(a cancellable ``InferAsyncRequest`` on the client's thread pool), the
+generate extension (``generate`` / ``generate_stream`` over SSE),
+shared-memory registration for the system and cuda families, and the admin
+routes (the repository index, load and unload, statistics, trace and log
+settings). Request bodies and headers are byte-identical to the JAX
+package's for the same inputs.
 
 Transport: a urllib3 connection pool. One attempt per call: retry policies,
 telemetry and response-integrity checks are layers the port does not carry
@@ -13,7 +16,10 @@ yet.
 
 from __future__ import annotations
 
+import base64
 import json
+import threading
+from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Any, Dict, List, Optional, Sequence
 from urllib.parse import quote, urlencode
 
@@ -44,10 +50,32 @@ class _Response:
         self.data = data
 
 
+class InferAsyncRequest:
+    """Handle for an in-flight async_infer; ``get_result`` blocks for the result."""
+
+    def __init__(self, future: Future, verbose: bool = False):
+        self._future = future
+        self._verbose = verbose
+
+    def get_result(self, block: bool = True, timeout: Optional[float] = None) -> InferResult:
+        if not block and not self._future.done():
+            raise InferenceServerException("inference request not yet completed")
+        try:
+            return self._future.result(timeout=timeout)
+        except InferenceServerException:
+            raise
+        except Exception as e:  # transport-level failure
+            raise InferenceServerException(f"inference request failed: {e}") from e
+
+    def cancel(self) -> bool:
+        return self._future.cancel()
+
+
 class InferenceServerClient(InferenceServerClientBase):
     """Client for the KServe v2 HTTP/REST protocol.
 
-    One instance should be driven from one thread at a time.
+    One instance should be driven from one thread at a time for sync calls;
+    ``async_infer`` runs on a pool of ``concurrency`` threads.
     """
 
     def __init__(
@@ -65,19 +93,25 @@ class InferenceServerClient(InferenceServerClientBase):
             )
         self._url = url
         self._verbose = verbose
+        self._concurrency = max(1, concurrency)
         self._timeout = urllib3.Timeout(connect=connection_timeout, read=network_timeout)
         host, _, port = url.partition(":")
         self._pool = urllib3.HTTPConnectionPool(
             host=host,
             port=int(port) if port else 80,
-            maxsize=max(1, concurrency),
+            maxsize=self._concurrency,
             timeout=self._timeout,
             retries=False,
         )
+        self._executor: Optional[ThreadPoolExecutor] = None
+        self._executor_lock = threading.Lock()
         self._infer_stat = InferStat()
 
     # -- lifecycle ---------------------------------------------------------
     def close(self) -> None:
+        if self._executor is not None:
+            self._executor.shutdown(wait=True)
+            self._executor = None
         self._pool.close()
 
     def __enter__(self) -> "InferenceServerClient":
@@ -188,6 +222,68 @@ class InferenceServerClient(InferenceServerClientBase):
     ) -> Dict[str, Any]:
         path = self._model_path(model_name, model_version) + "/config"
         return self._json_of(self._get(path, headers, query_params))
+
+    # -- repository control ------------------------------------------------
+    def get_model_repository_index(self, headers=None, query_params=None) -> List[Dict[str, Any]]:
+        resp = self._post("v2/repository/index", b"", headers, query_params)
+        raise_if_error(resp.status, resp.data)
+        return json.loads(resp.data) if resp.data else []
+
+    def load_model(
+        self, model_name, headers=None, query_params=None, config: Optional[str] = None,
+        files: Optional[Dict[str, bytes]] = None,
+    ) -> None:
+        """Load (or reload) a model; ``config`` is a JSON override of its
+        config, ``files`` are sent base64-encoded by path."""
+        params: Dict[str, Any] = {}
+        if config is not None:
+            params["config"] = config
+        for path, content in (files or {}).items():
+            params[path] = base64.b64encode(content).decode("ascii")
+        body = {"parameters": params} if params else {}
+        resp = self._post(f"v2/repository/models/{quote(model_name)}/load",
+                          json.dumps(body).encode("utf-8"), headers, query_params)
+        raise_if_error(resp.status, resp.data)
+
+    def unload_model(
+        self, model_name, headers=None, query_params=None, unload_dependents: bool = False
+    ) -> None:
+        body = {"parameters": {"unload_dependents": unload_dependents}}
+        resp = self._post(f"v2/repository/models/{quote(model_name)}/unload",
+                          json.dumps(body).encode("utf-8"), headers, query_params)
+        raise_if_error(resp.status, resp.data)
+
+    # -- statistics / trace / log -------------------------------------------
+    def get_inference_statistics(
+        self, model_name="", model_version="", headers=None, query_params=None
+    ) -> Dict[str, Any]:
+        path = (self._model_path(model_name, model_version) + "/stats" if model_name
+                else "v2/models/stats")
+        return self._json_of(self._get(path, headers, query_params))
+
+    @staticmethod
+    def _trace_path(model_name) -> str:
+        return f"v2/models/{quote(model_name)}/trace/setting" if model_name else "v2/trace/setting"
+
+    def update_trace_settings(
+        self, model_name=None, settings: Optional[Dict[str, Any]] = None,
+        headers=None, query_params=None,
+    ) -> Dict[str, Any]:
+        return self._json_of(self._post(
+            self._trace_path(model_name), json.dumps(settings or {}).encode("utf-8"),
+            headers, query_params))
+
+    def get_trace_settings(self, model_name=None, headers=None, query_params=None) -> Dict[str, Any]:
+        return self._json_of(self._get(self._trace_path(model_name), headers, query_params))
+
+    def update_log_settings(
+        self, settings: Dict[str, Any], headers=None, query_params=None
+    ) -> Dict[str, Any]:
+        return self._json_of(self._post(
+            "v2/logging", json.dumps(settings).encode("utf-8"), headers, query_params))
+
+    def get_log_settings(self, headers=None, query_params=None) -> Dict[str, Any]:
+        return self._json_of(self._get("v2/logging", headers, query_params))
 
     # -- shared memory -----------------------------------------------------
     def _shm_status(self, family, region_name, headers, query_params) -> List[Dict[str, Any]]:
@@ -315,10 +411,21 @@ class InferenceServerClient(InferenceServerClientBase):
             print(result.get_response())
         return result
 
+    def async_infer(self, model_name: str, inputs: Sequence[InferInput],
+                    **kwargs) -> InferAsyncRequest:
+        """Submit an inference on the client's thread pool; returns a handle."""
+        with self._executor_lock:
+            if self._executor is None:
+                self._executor = ThreadPoolExecutor(
+                    max_workers=self._concurrency, thread_name_prefix="client_tpu_torch_http")
+        future = self._executor.submit(self.infer, model_name, inputs, **kwargs)
+        return InferAsyncRequest(future, self._verbose)
+
     # -- generate extension (LLM JSON API) ----------------------------------
-    def _generate_path(self, model_name: str, model_version: str, stream: bool) -> str:
+    @classmethod
+    def _generate_path(cls, model_name: str, model_version: str, stream: bool) -> str:
         tail = "generate_stream" if stream else "generate"
-        return f"{self._model_path(model_name, model_version)}/{tail}"
+        return f"{cls._model_path(model_name, model_version)}/{tail}"
 
     @staticmethod
     def _generate_payload(inputs, request_id, parameters) -> bytes:

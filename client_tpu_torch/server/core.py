@@ -1,17 +1,23 @@
 """Protocol-neutral server core: model registry, shm data plane, infer.
 
-The counterpart of ``client_tpu.server.core``. The HTTP frontend marshals
-requests into the neutral dict shape consumed by :meth:`ServerCore.infer`;
-the core resolves shared-memory placement, runs the model (sequence
-parameters pass through to it; decoupled models stream), and applies the
-classification extension. Model outputs may be torch tensors: they reach the
-wire as host bytes, or stay on the device when the output lands in a cuda
-shared-memory region.
+The counterpart of ``client_tpu.server.core``. The HTTP and GRPC frontends
+marshal requests into the neutral dict shape consumed by
+:meth:`ServerCore.infer`; the core resolves shared-memory placement, runs
+the model (sequence parameters pass through to it; decoupled models stream),
+applies the classification extension and keeps per-model statistics. Model
+outputs may be torch tensors: they reach the wire as host bytes, or stay on
+the device when the output lands in a cuda shared-memory region.
+
+The admin surface is the JAX core's: the repository index, load (with a
+config override) and unload, statistics, trace settings (with the trace
+records they switch on) and log settings.
 """
 
 from __future__ import annotations
 
+import json
 import threading
+import time
 from concurrent.futures import TimeoutError as FuturesTimeoutError
 from typing import Any, Dict, List, Optional
 
@@ -178,6 +184,94 @@ class _CudaRegion(_Region):
         self._region.detach()
 
 
+class _ModelStats:
+    """One model's inference statistics (the protocol's ModelStatistics)."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.inference_count = 0
+        self.execution_count = 0
+        self.last_inference = 0
+        self.success = [0, 0]  # count, ns
+        self.fail = [0, 0]
+        # client cancel/disconnect mid-stream: neither a success nor a
+        # model failure
+        self.cancel = [0, 0]
+        self.compute_infer = [0, 0]
+        self.queue = [0, 0]
+        self.batches: Dict[int, List[int]] = {}  # batch_size -> [count, ns]
+
+    def record(self, ok: bool, total_ns: int, infer_ns: int, batch: int,
+               executed: bool = True) -> None:
+        """``executed=False`` for dynamically batched requests: the model
+        execution is counted once by record_batch, not once per request
+        (execution_count < inference_count under batching)."""
+        with self.lock:
+            if ok:
+                self.inference_count += batch
+                if executed:
+                    self.execution_count += 1
+                    self.compute_infer[0] += 1
+                    self.compute_infer[1] += infer_ns
+                self.last_inference = int(time.time() * 1000)
+                self.success[0] += 1
+                self.success[1] += total_ns
+            else:
+                self.fail[0] += 1
+                self.fail[1] += total_ns
+
+    def record_cancel(self, total_ns: int) -> None:
+        with self.lock:
+            self.cancel[0] += 1
+            self.cancel[1] += total_ns
+            self.last_inference = int(time.time() * 1000)
+
+    def record_batch(self, batch_size: int, exec_ns: int, queue_ns: int,
+                     n_requests: int) -> None:
+        """One dynamic-batcher execution (InferBatchStatistics feed).
+
+        ``queue`` counts per request (the average must be a request's wait,
+        not the batch's summed waits)."""
+        with self.lock:
+            row = self.batches.setdefault(batch_size, [0, 0])
+            row[0] += 1
+            row[1] += exec_ns
+            self.queue[0] += n_requests
+            self.queue[1] += queue_ns
+            self.execution_count += 1
+            self.compute_infer[0] += 1
+            self.compute_infer[1] += exec_ns
+
+    def as_dict(self, name: str, version: str) -> Dict[str, Any]:
+        with self.lock:
+            return {
+                "name": name,
+                "version": version,
+                "last_inference": self.last_inference,
+                "inference_count": self.inference_count,
+                "execution_count": self.execution_count,
+                "inference_stats": {
+                    "success": {"count": self.success[0], "ns": self.success[1]},
+                    "fail": {"count": self.fail[0], "ns": self.fail[1]},
+                    "cancel": {"count": self.cancel[0], "ns": self.cancel[1]},
+                    "queue": {"count": self.queue[0], "ns": self.queue[1]},
+                    "compute_input": {"count": 0, "ns": 0},
+                    "compute_infer": {
+                        "count": self.compute_infer[0],
+                        "ns": self.compute_infer[1],
+                    },
+                    "compute_output": {"count": 0, "ns": 0},
+                },
+                "batch_stats": [
+                    {
+                        "batch_size": size,
+                        "compute_infer": {"count": row[0], "ns": row[1]},
+                    }
+                    for size, row in sorted(self.batches.items())
+                ],
+            }
+
+
 class ServerCore:
     """Registry + data plane + execution, shared by the protocol frontends.
 
@@ -188,16 +282,44 @@ class ServerCore:
         self._device = torch.device(device)
         self._lock = threading.Lock()
         self._models: Dict[str, Model] = {}
+        self._stats: Dict[str, _ModelStats] = {}
         self._regions: Dict[str, _Region] = {}
         self._batchers: Dict[str, Any] = {}  # model name -> (max_batch, DynamicBatcher)
         self.batch_timeout_s = 60.0  # future wait for one batched request
+        self.trace_settings: Dict[str, Any] = {
+            "trace_level": ["OFF"],
+            "trace_rate": "1000",
+            "trace_count": "-1",
+            "log_frequency": "0",
+            "trace_file": "",
+            "trace_mode": "triton",
+        }
+        self.log_settings: Dict[str, Any] = {
+            "log_file": "",
+            "log_info": True,
+            "log_warning": True,
+            "log_error": True,
+            "log_verbose_level": 0,
+            "log_format": "default",
+        }
+        # rolling per-request trace records, kept while trace_level includes
+        # TIMESTAMPS or TENSORS (mirrored to trace_file when one is set)
+        self._traces: List[Dict[str, Any]] = []
+        self._trace_seq = 0
+        self._trace_candidates = 0
         for m in models or []:
             self.add_model(m)
+
+    @property
+    def device(self) -> torch.device:
+        """The device tensors from cross-process cuda regions land on."""
+        return self._device
 
     # -- registry ----------------------------------------------------------
     def add_model(self, model: Model) -> None:
         with self._lock:
             self._models[model.name] = model
+            self._stats.setdefault(model.name, _ModelStats())
         if hasattr(model, "bind"):  # ensembles resolve members at execute time
             model.bind(self.model)
 
@@ -224,13 +346,110 @@ class ServerCore:
             "extensions": [
                 "classification",
                 "sequence",
+                "model_repository",
+                "model_repository(unload_dependents)",
                 "model_configuration",
                 "system_shared_memory",
                 "cuda_shared_memory",
                 "binary_tensor_data",
                 "parameters",
+                "statistics",
+                "trace",
+                "logging",
             ],
         }
+
+    # -- repository, statistics, trace ---------------------------------------
+    def repository_index(self) -> List[Dict[str, Any]]:
+        with self._lock:
+            return [
+                {
+                    "name": m.name,
+                    "version": m.versions[-1],
+                    "state": "READY" if m.ready else "UNAVAILABLE",
+                    "reason": "",
+                }
+                for m in self._models.values()
+            ]
+
+    def load_model(self, name: str, config: Optional[str] = None) -> None:
+        """(Re)load ``name``; ``config`` is a JSON override merged over the
+        model's config (a plain load reverts to the repository config)."""
+        model = self.model(name)
+        if config:
+            try:
+                override = json.loads(config)
+            except Exception as e:
+                raise InferError(f"invalid config override: {e}", 400)
+            if not isinstance(override, dict):
+                raise InferError("config override must be a JSON object", 400)
+            if override.get("name", name) != name:
+                raise InferError("config override cannot rename the model", 400)
+        else:
+            override = {}
+        model.config_override = override
+        model.load()
+
+    def unload_model(self, name: str) -> None:
+        self.model(name).unload()
+
+    def statistics(self, name: str = "", version: str = "") -> Dict[str, Any]:
+        with self._lock:
+            names = [name] if name else list(self._models.keys())
+        out = []
+        for n in names:
+            m = self.model(n)
+            out.append(self._stats[n].as_dict(n, version or m.versions[-1]))
+        return {"model_stats": out}
+
+    def _trace_enabled(self) -> bool:
+        """Honors trace_level plus the trace_rate (sample 1-in-N) and
+        trace_count (stop after N, -1 = unlimited) settings."""
+        level = self.trace_settings.get("trace_level", [])
+        if "TIMESTAMPS" not in level and "TENSORS" not in level:
+            return False
+        with self._lock:
+            try:
+                rate = max(int(self.trace_settings.get("trace_rate", 1) or 1), 1)
+                count = int(self.trace_settings.get("trace_count", -1))
+            except (TypeError, ValueError):
+                rate, count = 1, -1
+            if count >= 0 and self._trace_seq >= count:
+                return False
+            self._trace_candidates += 1
+            return (self._trace_candidates - 1) % rate == 0
+
+    def _trace_request(self, model_name: str, request: Dict[str, Any],
+                       t0: int, t_infer: int, infer_ns: int) -> None:
+        if not self._trace_enabled():
+            return
+        with self._lock:
+            self._trace_seq += 1
+            record = {
+                "id": self._trace_seq,
+                "model_name": model_name,
+                "request_id": request.get("id", ""),
+                "timestamps": {
+                    "request_start_ns": t0,
+                    "compute_start_ns": t_infer,
+                    "compute_end_ns": t_infer + infer_ns,
+                    "request_end_ns": time.perf_counter_ns(),
+                },
+            }
+            self._traces.append(record)
+            if len(self._traces) > 1024:
+                del self._traces[: len(self._traces) - 1024]
+            trace_file = self.trace_settings.get("trace_file")
+        if trace_file:
+            try:
+                with open(trace_file, "a") as f:
+                    f.write(json.dumps(record) + "\n")
+            except OSError:
+                pass
+
+    def recent_traces(self, count: int = 100) -> List[Dict[str, Any]]:
+        with self._lock:
+            return list(self._traces[-count:])
 
     # -- shared memory -----------------------------------------------------
     def register_system_region(self, name: str, key: str, offset: int, byte_size: int) -> None:
@@ -294,16 +513,20 @@ class ServerCore:
         Returns the response dict: {"model_name", "model_version", "id",
         "outputs": [{name, datatype, shape, "array"|"shm"}]}.
         """
+        t0 = time.perf_counter_ns()
         model = self.model(model_name, model_version)
         if not model.ready:
             raise InferError(f"Request for unknown model: '{model_name}' is not ready", 400)
         if model.decoupled:
             raise InferError(
                 f"model '{model_name}' is a decoupled model: use streaming inference", 400)
+        stats = self._stats[model.name]
         try:
             inputs = self._resolve_inputs(model, request)
             params = request.get("parameters", {})
-            if self._batchable(model, request):
+            t_infer = time.perf_counter_ns()
+            batched = self._batchable(model, request)
+            if batched:
                 try:
                     raw = self._batcher_for(model).submit(inputs, params).result(
                         timeout=self.batch_timeout_s)
@@ -314,11 +537,22 @@ class ServerCore:
                         "core.batch_timeout_s for cold-compile workloads)", 504)
             else:
                 raw = model.execute(inputs, params)
+            infer_ns = time.perf_counter_ns() - t_infer
         except InferError:
+            stats.record(False, time.perf_counter_ns() - t0, 0, 0)
             raise
         except Exception as e:
+            stats.record(False, time.perf_counter_ns() - t0, 0, 0)
             raise InferError(f"inference failed: {e}", 400)
-        return self._build_response(model, model_version, request, raw)
+        response = self._build_response(model, model_version, request, raw)
+        self._trace_request(model.name, request, t0, t_infer, infer_ns)
+        batch = 1
+        if model.effective_max_batch_size():
+            first = next(iter(raw.values()))
+            batch = int(first.shape[0]) if first.ndim else 1
+        stats.record(True, time.perf_counter_ns() - t0, infer_ns, batch,
+                     executed=not batched)
+        return response
 
     # -- dynamic batching ---------------------------------------------------
     def _batchable(self, model: Model, request: Dict[str, Any]) -> bool:
@@ -343,10 +577,8 @@ class ServerCore:
             if entry is not None and entry[0] == max_batch:
                 return entry[1]
             stale = entry[1] if entry is not None else None
-            # report=None: the batch statistics (InferBatchStatistics) come
-            # with the port's statistics surface (ROADMAP.md queue A, 'Rest
-            # of the data plane and server')
-            batcher = DynamicBatcher(model.execute, max_batch, report=None)
+            batcher = DynamicBatcher(
+                model.execute, max_batch, report=self._stats[model.name].record_batch)
             self._batchers[model.name] = (max_batch, batcher)
         if stale is not None:
             # max_batch_size changed through a config override: close OUTSIDE
@@ -364,18 +596,41 @@ class ServerCore:
             return
         if not model.ready:
             raise InferError(f"Request for unknown model: '{model_name}' is not ready", 400)
-        yield from self._decoupled_stream(model, model_version, request)
+        yield from self._decoupled_stream(model, model_version, request,
+                                          time.perf_counter_ns())
 
-    def _decoupled_stream(self, model: Model, model_version: str, request: Dict[str, Any]):
+    def _decoupled_stream(self, model: Model, model_version: str,
+                          request: Dict[str, Any], t0: int):
+        """Drive ``execute_decoupled`` lazily, building and yielding each
+        response as it is produced. Records the request's statistics once,
+        whether it completes, fails mid-stream, or the consumer abandons the
+        generator (a cancel)."""
+        stats = self._stats[model.name]
         try:
             inputs = self._resolve_inputs(model, request)
-            gen = model.execute_decoupled(inputs, request.get("parameters", {}))
-            for raw in gen:
-                yield self._build_response(model, model_version, request, raw)
         except InferError:
+            stats.record(False, time.perf_counter_ns() - t0, 0, 0)
             raise
         except Exception as e:
+            stats.record(False, time.perf_counter_ns() - t0, 0, 0)
             raise InferError(f"inference failed: {e}", 400)
+        t_infer = time.perf_counter_ns()
+        try:
+            for raw in model.execute_decoupled(inputs, request.get("parameters", {})):
+                yield self._build_response(model, model_version, request, raw)
+        except GeneratorExit:
+            # the consumer went away mid-stream (client cancel/disconnect)
+            stats.record_cancel(time.perf_counter_ns() - t0)
+            raise
+        except InferError:
+            stats.record(False, time.perf_counter_ns() - t0, 0, 0)
+            raise
+        except Exception as e:
+            stats.record(False, time.perf_counter_ns() - t0, 0, 0)
+            raise InferError(f"inference failed: {e}", 400)
+        infer_ns = time.perf_counter_ns() - t_infer
+        stats.record(True, time.perf_counter_ns() - t0, infer_ns, 1)
+        self._trace_request(model.name, request, t0, t_infer, infer_ns)
 
     def _resolve_inputs(self, model: Model, request: Dict[str, Any]) -> Dict[str, Any]:
         specs = {s.name: s for s in model.inputs()}

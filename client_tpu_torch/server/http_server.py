@@ -4,9 +4,11 @@ serves.
 The counterpart of ``client_tpu.server.http_server``: health, server and
 model metadata, model config, shared-memory registration and status for the
 system and cuda families, two-part binary inference bodies with
-``Inference-Header-Content-Length``, and the generate extension
-(``/generate`` and SSE ``/generate_stream``). Response bytes are identical
-to the JAX server's for the same outputs.
+``Inference-Header-Content-Length``, the generate extension (``/generate``
+and SSE ``/generate_stream``), and the admin routes: the repository index,
+load and unload, statistics, trace settings and logging. Response bytes are
+identical to the JAX server's for the same outputs (statistics differ in
+their timing fields alone).
 """
 
 from __future__ import annotations
@@ -31,6 +33,8 @@ _SHM_RE = re.compile(
     r"^/v2/(systemsharedmemory|cudasharedmemory)"
     r"(?:/region/([^/]+))?/(status|register|unregister)$"
 )
+_REPOSITORY_RE = re.compile(r"^/v2/repository/models/([^/]+)/(load|unload)$")
+_MODEL_TRACE_RE = re.compile(r"^/v2/models/[^/]+/trace/setting$")
 _FAMILY = {
     "systemsharedmemory": "system",
     "cudasharedmemory": "cuda",
@@ -346,6 +350,12 @@ class _Handler(BaseHTTPRequestHandler):
                 return self._send_json(core.server_metadata())
             if path in ("/v2/health/live", "/v2/health/ready"):
                 return self._send(200)
+            if path == "/v2/models/stats":
+                return self._send_json(core.statistics())
+            if path == "/v2/trace/setting":
+                return self._send_json(core.trace_settings)
+            if path == "/v2/logging":
+                return self._send_json(core.log_settings)
             m = _SHM_RE.match(path)
             if m and m.group(3) == "status":
                 return self._send_json(
@@ -357,6 +367,10 @@ class _Handler(BaseHTTPRequestHandler):
                     return self._send(200 if core.model_ready(name, version) else 400)
                 if tail == "config":
                     return self._send_json(core.model(name, version).config())
+                if tail == "stats":
+                    return self._send_json(core.statistics(name, version))
+                if tail == "trace/setting":
+                    return self._send_json(core.trace_settings)
                 if tail == "":
                     return self._send_json(core.model(name, version).metadata())
             self._send_json({"error": f"unknown route {path}"}, 404)
@@ -369,6 +383,29 @@ class _Handler(BaseHTTPRequestHandler):
         path = self.path.split("?", 1)[0]
         try:
             body = self._read_body()
+            if path == "/v2/repository/index":
+                return self._send_json(core.repository_index())
+            m = _REPOSITORY_RE.match(path)
+            if m:
+                if m.group(2) == "load":
+                    payload = json.loads(body) if body else {}
+                    if not isinstance(payload, dict):
+                        raise InferError("load request body must be a JSON object", 400)
+                    config = payload.get("parameters", {}).get("config")
+                    core.load_model(unquote(m.group(1)), config=config)
+                else:
+                    core.unload_model(unquote(m.group(1)))
+                return self._send_json({})
+            if path == "/v2/trace/setting" or _MODEL_TRACE_RE.match(path):
+                settings = json.loads(body) if body else {}
+                for k, v in settings.items():
+                    core.trace_settings[k] = v
+                return self._send_json(core.trace_settings)
+            if path == "/v2/logging":
+                settings = json.loads(body) if body else {}
+                for k, v in settings.items():
+                    core.log_settings[k] = v
+                return self._send_json(core.log_settings)
             m = _SHM_RE.match(path)
             if m:
                 family, action = _FAMILY[m.group(1)], m.group(3)

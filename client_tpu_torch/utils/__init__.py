@@ -73,6 +73,16 @@ class InferenceServerException(Exception):
         return self._debug_details
 
 
+def sorted_percentile(sorted_values, q: float) -> float:
+    """The q-quantile of an ascending sequence by the index convention
+    every harness/stats surface in this repo shares (min(int(n*q), n-1));
+    0.0 when empty. Callers sort once and take several quantiles."""
+    if not sorted_values:
+        return 0.0
+    idx = min(int(len(sorted_values) * q), len(sorted_values) - 1)
+    return sorted_values[idx]
+
+
 def raise_error(msg: str) -> "NoReturn":  # noqa: F821
     """Raise an InferenceServerException with ``msg``."""
     raise InferenceServerException(msg=msg)
