@@ -125,6 +125,38 @@ Phases (each raises on failure, so the script exits non-zero):
      sending ``simple`` and ``identity_fp32`` (cuda shm) requests through
      ``asyncio.gather``, their outputs equal.
 
+6. resilience and observability: the port's HTTP and GRPC servers over the
+   default zoo plus the vision models, the port's ``testing.ChaosProxy`` in
+   front of each, every client with contract validation on
+   (``integrity``), a process-wide data-plane recorder; each path with every
+   launch count set to 0 just before it and read just after, decode_attention
+   launches held to what the server ran (its execution count and each
+   request's tokens, times the layers):
+   - the image_client flow (normalize and softmax on the card, the image over
+     the wire) under ``flap`` and ``reset@N`` with a seeded ``RetryPolicy``:
+     zero errors, top-1 equal to the CPU run;
+   - a ``decoder_lm`` sequence under ``reset@N``: the faulted request makes
+     one attempt and raises (never re-sent), the tokens before it equal the
+     CPU run's;
+   - ``decoder_lm`` over a GRPC bidi stream with ``auto_reconnect=True``
+     under a reset: one ``StreamReconnected`` naming the in-flight sequence
+     request as abandoned, the sequence re-driven to the CPU run's tokens, a
+     ``StreamChecker`` on each wire stream's response ids;
+   - a ``CircuitBreaker`` under ``blackhole``: it opens, fast-fails without
+     a connection and is half-open probed once; the ``FlightRecorder``
+     retains each failure the caller saw;
+   - ``Telemetry`` at ratio 1.0 on identity_fp32 at 4 MiB (wire and
+     colocated cuda shm), decoder_lm per token and the image_client flow
+     (cuda shm): client phase p50s beside the server's queue and compute
+     time, joined by trace id, and one request's ``compute_ns`` beside its
+     device time from the profiler;
+   - the hooks' host cost: identity_fp32 over cuda shm and decoder_lm per
+     token with no hooks and with telemetry, resilience and integrity, in
+     interleaved rounds;
+   - ``/metrics`` counts equal to the statistics, the cuda data-plane
+     counters equal to the creates, registers, destroys and requests made,
+     zero integrity violations.
+
 It then prints one ``{"kernels": [...]}`` line and, last, one line
 ``{"ok": true, "device": {...}}``. Details go to ``build/chip_smoke.json``.
 Without a CUDA device it fails. The build fails if ptxas reports a spill in
@@ -144,12 +176,14 @@ import ctypes
 import json
 import os
 import queue
+import random
 import re
 import statistics
 import subprocess
 import sys
 import threading
 import time
+import urllib.request
 from contextlib import nullcontext
 
 import numpy as np
@@ -185,7 +219,25 @@ from client_tpu_torch.ops.flash_attention import (  # noqa: E402
     flash_attention_reference,
     flash_attention_tiled_reference,
 )
+from client_tpu_torch.flight import FlightRecorder  # noqa: E402
+from client_tpu_torch.integrity import IntegrityPolicy, IntegrityStats, StreamChecker  # noqa: E402
+from client_tpu_torch.observe import (  # noqa: E402
+    Telemetry,
+    dataplane,
+    enable_dataplane,
+    install_dataplane,
+)
+from client_tpu_torch.resilience import (  # noqa: E402
+    CircuitBreaker,
+    CircuitOpenError,
+    ResiliencePolicy,
+    RetryPolicy,
+    StreamReconnected,
+    classify_fault,
+)
 from client_tpu_torch.server import GrpcInferenceServer, HttpInferenceServer, ServerCore  # noqa: E402
+from client_tpu_torch.testing import ChaosProxy, Fault  # noqa: E402
+from client_tpu_torch.utils import InferenceServerException  # noqa: E402
 from client_tpu_torch.utils import cuda_shared_memory as cudashm  # noqa: E402
 from client_tpu_torch.utils import numpy_to_tensor  # noqa: E402
 from client_tpu_torch.utils import shared_memory as shm  # noqa: E402
@@ -2304,6 +2356,594 @@ def serve_grpc(served, vision):
     return result
 
 
+# phase 6: resilience, telemetry, integrity and flight on the served paths.
+# Seeded backoff; a GRPC channel that redials faster than the backoff (with a
+# subchannel pool of its own, so one client's dead connection is not shared)
+RESILIENCE_SEED = 0xC11E
+FAST_REDIAL = [
+    ("grpc.use_local_subchannel_pool", 1),
+    ("grpc.initial_reconnect_backoff_ms", 50),
+    ("grpc.min_reconnect_backoff_ms", 50),
+    ("grpc.max_reconnect_backoff_ms", 100),
+    ("grpc.max_send_message_length", 2**31 - 1),
+    ("grpc.max_receive_message_length", 2**31 - 1),
+]
+# image_client requests per fault, the decoder step at which the fault
+# lands, bytes into a connection before a reset (mid-body of the 588 KiB
+# image request; past a decoder request, inside its ~1.5 KiB response)
+FAULT_REQUESTS = 6
+FAULT_STEP = 3
+IMAGE_RESET_BYTES = 300_000
+DECODER_RESET_BYTES = 1_200
+# telemetry paths and the hooks' host cost: requests per path, interleaved
+# rounds (bare, hooked, hooked, bare per round)
+SPLIT_REQUESTS = 10
+HOOK_ROUNDS = 3
+HOOK_REQUESTS = 20
+
+
+def resilience_policy(breaker=None):
+    return ResiliencePolicy(retry=RetryPolicy(
+        max_attempts=6, initial_backoff_s=0.05, max_backoff_s=0.4,
+        rng=random.Random(RESILIENCE_SEED)), breaker=breaker)
+
+
+def median(values):
+    return statistics.median(values) if values else None
+
+
+def split_of(tel, core):
+    """Each traced request's client phases beside the server's queue and
+    compute time, joined by trace id: p50s in ms."""
+    traces = tel.recent_traces()
+    access = {r["trace_id"]: r for r in core.access_records(1024)}
+    phases, server = {}, {"queue": [], "compute": [], "total": []}
+    for trace in traces:
+        for ph in trace["phases"]:
+            phases.setdefault(ph["name"], []).append(ph["duration_ms"])
+        record = access.get(trace["trace_id"])
+        if record is None or record["client_span_id"] != trace["span_id"]:
+            raise AssertionError(f"span {trace['trace_id']} has no server access record")
+        for key in server:
+            server[key].append(record[f"{key}_ns"] / 1e6)
+    return {"requests": len(traces),
+            "client_ms_p50": {name: median(v) for name, v in phases.items()},
+            "client_total_ms_p50": median([t["duration_ms"] for t in traces]),
+            "server_queue_ms_p50": median(server["queue"]),
+            "server_compute_ms_p50": median(server["compute"]),
+            "server_total_ms_p50": median(server["total"])}
+
+
+def serve_resilience(served, vision, device="cuda"):
+    """Phase 6: the port's HTTP and GRPC servers over the default zoo and
+    the vision models on ``device``, the port's ``ChaosProxy`` in front of
+    each, every client with contract validation on, and a process-wide
+    data-plane recorder. Each path runs with every launch count set to 0
+    just before it and read just after; decode_attention launches are held
+    to what the server ran (its execution count, each request's tokens,
+    times the layers), as a retried request that reached the server runs
+    the model again. ``served`` and ``vision`` are the HTTP phases' results
+    (the decoder's prompt, CPU tokens and CPU logits).
+
+    On a CPU ``device`` the wrappers run their plain versions and launch
+    nothing; the script itself runs this phase only on the card."""
+    on_card = torch.device(device).type == "cuda"
+    prompt, steps = served["decoder"]["prompt"], 8
+    cpu_tokens = served["decoder"]["cpu_tokens"]
+    want = np.asarray(vision["cpu_logits"], np.float32)
+    core = ServerCore(default_model_zoo(device)
+                      + build_image_ensemble(VISION_CLASSES, VISION_WIDTH, device=device),
+                      device=device)
+    layers = core.model("decoder_lm").LAYERS
+    http_server = HttpInferenceServer(core).start()
+    # a bidi stream holds a handler thread for its life, and a reconnect
+    # opens another before the dead one's handler notices
+    grpc_server = GrpcInferenceServer(core, max_workers=2 * BATCH_SEQS + 8).start()
+    http_proxy = ChaosProxy("127.0.0.1", http_server.port).start()
+    grpc_proxy = ChaosProxy("127.0.0.1", grpc_server.port).start()
+    previous_recorder = dataplane()
+    recorder = enable_dataplane()
+    integrity = IntegrityPolicy(stats=IntegrityStats())
+    flight = FlightRecorder(baseline_ratio=0.0, rng=random.Random(RESILIENCE_SEED))
+    fault_tel = Telemetry(sample="ratio", sample_ratio=1.0, rng=random.Random(1),
+                          flight=flight)
+    img = np.random.default_rng(0).uniform(0, 255, (224, 224, 3)).astype(np.float32)
+    scale, shift = INCEPTION
+    in_bytes, out_bytes = 3 * 224 * 224 * 4, VISION_CLASSES * 4
+    result, counts, expected = {}, {}, {}
+    seen_failures = []
+    dp = {"created": 0, "destroyed": 0, "registered": 0, "resident": 0, "peak": 0,
+          "requests": 0}
+    clients = []
+
+    def client(url, tel=None, policy=None, checked=True):
+        c = httpclient.InferenceServerClient(url, network_timeout=600.0)
+        clients.append(c)
+        c.configure_integrity(integrity if checked else False)
+        if tel is not None:
+            c.configure_telemetry(tel)
+        if policy is not None:
+            c.configure_resilience(policy)
+        return c
+
+    def executions(model):
+        return core.statistics(model)["model_stats"][0]["execution_count"]
+
+    def decoder_gate(path, before, extra_tokens):
+        """decode_attention launches = layers x the tokens the server ran:
+        one a request, plus each executed start's prompt beyond one."""
+        ran = executions("decoder_lm") - before
+        expected[path] = {"decode_attention": layers * (ran + extra_tokens) if on_card else 0}
+        return ran
+
+    def regions(c, tag, sizes):
+        """Colocated cuda regions, registered on ``c``, accounted for the
+        data-plane check."""
+        made = []
+        for i, nbytes in enumerate(sizes):
+            name = f"{tag}{i}{os.urandom(3).hex()}"
+            region = cudashm.create_shared_memory_region(name, nbytes, colocated=True,
+                                                         device=device)
+            c.register_cuda_shared_memory(name, cudashm.get_raw_handle(region), 0, nbytes)
+            made.append((name, region))
+            dp["created"] += 1
+            dp["registered"] += 1
+            dp["resident"] += nbytes
+            dp["peak"] = max(dp["peak"], dp["resident"])
+        return made
+
+    def release(c, made):
+        for name, region in made:
+            c.unregister_cuda_shared_memory(name)
+            cudashm.destroy_shared_memory_region(region)
+            dp["destroyed"] += 1
+            dp["resident"] -= region.byte_size
+
+    calls = {"normalize": 0, "softmax": 0}
+
+    def data_0():
+        calls["normalize"] += 1
+        x = torch.from_numpy(img).to(device)
+        return ops.normalize_image(x, scale, shift, torch.float32).permute(2, 0, 1).contiguous()
+
+    def softmax(logits):
+        calls["softmax"] += 1
+        probs = ops.softmax_probabilities(logits.reshape(1, VISION_CLASSES))
+        if on_card:
+            torch.cuda.synchronize()  # the probabilities are ready to use
+        return probs
+
+    def image_wire(c):
+        inp = httpclient.InferInput("data_0", [3, 224, 224], "FP32")
+        inp.set_data_from_numpy(data_0().cpu().numpy())
+        res = c.infer("densenet_onnx", [inp], outputs=[httpclient.InferRequestedOutput("fc6_1")])
+        logits = res.as_torch("fc6_1", device=device)
+        return logits, softmax(logits)
+
+    def image_cuda(c, made):
+        (in_name, cu_in), (out_name, cu_out) = made
+        cudashm.set_shared_memory_region_from_torch(cu_in, data_0())
+        inp = httpclient.InferInput("data_0", [3, 224, 224], "FP32").set_shared_memory(
+            in_name, in_bytes)
+        out = httpclient.InferRequestedOutput("fc6_1").set_shared_memory(out_name, out_bytes)
+        c.infer("densenet_onnx", [inp], outputs=[out])
+        dp["requests"] += 1
+        logits = cudashm.get_contents_as_torch(cu_out, "FP32", [VISION_CLASSES, 1, 1])
+        return logits, softmax(logits)
+
+    def check_image(logits, probs, what):
+        got = logits.reshape(-1).cpu().numpy()
+        diff = float(np.abs(got - want).max())
+        top1, ptop1 = int(got.argmax()), int(probs.argmax().item())
+        if (not np.isfinite(got).all() or diff > 5e-2 or top1 != int(want.argmax())
+                or ptop1 != top1 or abs(probs.sum().item() - 1.0) > 1e-5):
+            raise AssertionError(f"{what}: top-1 {top1} (CPU {int(want.argmax())}), max "
+                                 f"logit diff {diff}")
+        return top1, diff
+
+    x_id = torch.arange(MIB, dtype=torch.float32, device=device).reshape(1, MIB) * 0.5
+
+    def identity_cuda(c, made):
+        (in_name, cu_in), (out_name, cu_out) = made
+        cudashm.set_shared_memory_region_from_torch(cu_in, x_id)
+        inp = httpclient.InferInput("INPUT0", [1, MIB], "FP32").set_shared_memory(
+            in_name, 4 * MIB)
+        out = httpclient.InferRequestedOutput("OUTPUT0").set_shared_memory(out_name, 4 * MIB)
+        c.infer("identity_fp32", [inp], outputs=[out])
+        dp["requests"] += 1
+        y = cudashm.get_contents_as_torch(cu_out, "FP32", [1, MIB])
+        if not torch.equal(y, x_id):
+            raise AssertionError("identity_fp32 over cuda shm changed the tensor")
+
+    def decoder_step(c, seq, tokens, start, end=False):
+        inp = httpclient.InferInput("TOKENS", [1, len(tokens)], "INT32")
+        inp.set_data_from_numpy(np.array([tokens], dtype=np.int32))
+        res = c.infer("decoder_lm", [inp], sequence_id=seq, sequence_start=start,
+                      sequence_end=end)
+        return int(res.as_numpy("NEXT_TOKEN")[0, 0])
+
+    def decode_sequence(c, seq):
+        """prompt, then ``steps`` greedy continuations: (tokens, seconds)."""
+        t0 = time.perf_counter()
+        tokens = [decoder_step(c, seq, prompt, True)]
+        for i in range(steps):
+            tokens.append(decoder_step(c, seq, [tokens[-1]], False, i == steps - 1))
+        return tokens, time.perf_counter() - t0
+
+    try:
+        direct = client(http_server.url)
+        for model in ("simple", "identity_fp32", "decoder_lm", "densenet_onnx"):
+            direct.get_model_metadata(model)  # primes the contract cache
+        # warm-up outside the counts: cuBLAS and cuDNN set-up, kernels loaded
+        check_image(*image_wire(direct), "warm-up")
+        decode_sequence(direct, 50)
+
+        # 1. the image_client flow (idempotent) under flap and reset@N, a
+        #    connection a request so the faults land
+        for name, fault in (("flap", Fault("flap", every=2)),
+                            ("reset@N", Fault("reset", after_bytes=IMAGE_RESET_BYTES,
+                                              every=2))):
+            reset_counts()
+            calls.update(normalize=0, softmax=0)
+            before = executions("densenet_onnx")
+            policy = fault_tel.attach(resilience_policy())
+            faulted_before = http_proxy.stats["faulted"]
+            http_proxy.fault = fault
+            top1s, diffs = [], []
+            for _ in range(FAULT_REQUESTS):
+                top1, diff = check_image(*image_wire(client(http_proxy.url, fault_tel, policy)),
+                                         f"image_client under {name}")
+                top1s.append(top1)
+                diffs.append(diff)
+            http_proxy.heal()
+            path = f"image_client under {name}"
+            counts[path] = read_counts()
+            expected[path] = {"normalize_image": calls["normalize"] if on_card else 0,
+                              "softmax_probabilities": calls["softmax"] if on_card else 0}
+            stats = policy.stats.as_dict()
+            result[path] = {"requests": FAULT_REQUESTS, "errors": 0, "top1": top1s,
+                            "cpu_top1": int(want.argmax()),
+                            "max_abs_logit_diff_vs_cpu": max(diffs), "policy": stats,
+                            "server_executions": executions("densenet_onnx") - before,
+                            "faulted_connections": http_proxy.stats["faulted"] - faulted_before}
+            if stats["retries"] < 1 or stats["calls"] != FAULT_REQUESTS:
+                raise AssertionError(f"{path}: no retry under the fault: {stats}")
+
+        # 2. a decoder_lm sequence under reset@N: its faulted request is not
+        #    re-sent; the tokens before it are the CPU run's
+        reset_counts()
+        before = executions("decoder_lm")
+        policy = fault_tel.attach(resilience_policy())
+        c = client(http_proxy.url, fault_tel, policy)
+        tokens = [decoder_step(c, 41, prompt, True)]
+        for _ in range(FAULT_STEP - 1):
+            tokens.append(decoder_step(c, 41, [tokens[-1]], False))
+        sequence_stats = policy.stats.as_dict()
+        http_proxy.fault = Fault("reset", after_bytes=DECODER_RESET_BYTES, limit=1)
+        faulted = client(http_proxy.url, fault_tel, policy)  # a new connection: faulted
+        try:
+            decoder_step(faulted, 41, [tokens[-1]], False)
+            raise AssertionError("the faulted decoder_lm request did not fail")
+        except InferenceServerException as e:
+            domain = classify_fault(e)
+            seen_failures.append(("decoder_lm", domain))
+        http_proxy.heal()
+        after = policy.stats.as_dict()
+        ran = decoder_gate("decoder_lm under reset@N", before, len(prompt) - 1)
+        counts["decoder_lm under reset@N"] = read_counts()
+        result["decoder_lm under reset@N"] = {
+            "tokens_before_fault": tokens, "cpu_tokens": cpu_tokens[:FAULT_STEP],
+            "fault_domain": domain, "requests_sent": FAULT_STEP + 1, "server_executions": ran,
+            "faulted_call_attempts": after["attempts"] - sequence_stats["attempts"]}
+        if (tokens != cpu_tokens[:FAULT_STEP] or after["calls"] - sequence_stats["calls"] != 1
+                or after["attempts"] - sequence_stats["attempts"] != 1
+                or ran > FAULT_STEP + 1 or ran < FAULT_STEP):
+            raise AssertionError(f"decoder_lm under reset@N: {result['decoder_lm under reset@N']}")
+        decoder_step(direct, 41, prompt, True, True)  # ends the broken sequence
+
+        # 3. a GRPC bidi stream with auto_reconnect under a reset: one
+        #    StreamReconnected naming the in-flight sequence request; the
+        #    application re-drives the sequence from the tokens it has
+        reset_counts()
+        before = executions("decoder_lm")
+        events = queue.Queue()
+        gc = grpcclient.InferenceServerClient(grpc_proxy.url, channel_args=FAST_REDIAL)
+        gc.configure_integrity(integrity)
+        gc.configure_telemetry(fault_tel)
+        gc.configure_resilience(fault_tel.attach(resilience_policy()))
+        gc.start_stream(lambda r, e: events.put((r, e)), auto_reconnect=True)
+        checkers = [StreamChecker(grpc_proxy.url, integrity)]
+        reconnects = []
+        starts = []
+
+        def stream_step(seq, tokens, start, rid):
+            inp = grpcclient.InferInput("TOKENS", [1, len(tokens)], "INT32")
+            inp.set_data_from_numpy(np.array([tokens], dtype=np.int32))
+            gc.async_stream_infer("decoder_lm", [inp], sequence_id=seq, sequence_start=start,
+                                  request_id=rid)
+            if start:
+                starts.append(len(tokens))
+
+        def stream_result(reconnect=False):
+            """The next token, or (``reconnect``) the next StreamReconnected;
+            each wire stream's responses pass a StreamChecker of their own
+            (request ids count up from 0 on each)."""
+            while True:
+                res, err = events.get(timeout=60)
+                if err is not None:
+                    raise err
+                if isinstance(res, StreamReconnected):
+                    reconnects.append(res)
+                    checkers.append(StreamChecker(grpc_proxy.url, integrity))
+                    if reconnect:
+                        return res
+                    continue
+                if reconnect:
+                    raise AssertionError(f"a response where the reconnect was due: "
+                                         f"{res.get_response()}")
+                rid = res.get_response()["id"]
+                checkers[-1].observe({"index": int(rid[1:])})
+                return int(res.as_numpy("NEXT_TOKEN")[0, 0])
+
+        try:
+            stream_step(42, prompt, True, "t0")
+            tokens = [stream_result()]
+            for i in range(1, FAULT_STEP):
+                stream_step(42, [tokens[-1]], False, f"t{i}")
+                tokens.append(stream_result())
+            grpc_proxy.pause_forwarding = True
+            stream_step(42, [tokens[-1]], False, f"t{FAULT_STEP}")  # in flight
+            time.sleep(0.2)
+            grpc_proxy.reset_active()
+            grpc_proxy.pause_forwarding = False
+            # the reconnect first: a request enqueued while the dead stream
+            # still looks alive would be abandoned with the in-flight one
+            stream_result(reconnect=True)
+            # re-driven: a new sequence over the prompt and the tokens so far
+            stream_step(43, prompt + tokens, True, "r0")
+            tokens.append(stream_result())
+            for i in range(1, steps + 1 - FAULT_STEP):
+                stream_step(43, [tokens[-1]], False, f"r{i}")
+                tokens.append(stream_result())
+        finally:
+            gc.stop_stream()
+            gc.close()
+        ran = decoder_gate("grpc stream auto_reconnect", before,
+                           sum(n - 1 for n in starts))
+        counts["grpc stream auto_reconnect"] = read_counts()
+        event = reconnects[0] if reconnects else None
+        result["grpc stream auto_reconnect"] = {
+            "tokens": tokens, "cpu_tokens": cpu_tokens, "reconnects": len(reconnects),
+            "abandoned_request_ids": event.abandoned_request_ids if event else None,
+            "resent_request_ids": event.resent_request_ids if event else None,
+            "server_executions": ran, "stream_checker_events": [k.events for k in checkers]}
+        if (len(reconnects) != 1 or event.abandoned_request_ids != [f"t{FAULT_STEP}"]
+                or event.resent_request_ids or tokens != cpu_tokens
+                or ran != FAULT_STEP + 1 + steps - FAULT_STEP):
+            raise AssertionError(f"grpc stream auto_reconnect: "
+                                 f"{result['grpc stream auto_reconnect']}")
+        direct_grpc = grpcclient.InferenceServerClient(grpc_server.url)
+        inp = grpcclient.InferInput("TOKENS", [1, 1], "INT32")
+        inp.set_data_from_numpy(np.array([[1]], dtype=np.int32))
+        for seq in (42, 43):  # end both sequences
+            direct_grpc.infer("decoder_lm", [inp], sequence_id=seq, sequence_start=True,
+                              sequence_end=True)
+        direct_grpc.close()
+
+        # 4. a circuit breaker under blackhole: opens, fast-fails without a
+        #    connection, and after the recovery window probes once
+        reset_counts()
+        transitions = []
+        breaker = CircuitBreaker(failure_threshold=0.5, window=4, min_calls=4,
+                                 recovery_time_s=0.5)
+        policy = fault_tel.attach(ResiliencePolicy(retry=None, breaker=breaker))
+        breaker.on_transition = lambda state: (transitions.append(state),
+                                               fault_tel.on_breaker_transition(state))
+        a = np.arange(16, dtype=np.int32).reshape(1, 16)
+        simple_in = [httpclient.InferInput(n, [1, 16], "INT32").set_data_from_numpy(a)
+                     for n in ("INPUT0", "INPUT1")]
+        http_proxy.fault = Fault("blackhole")
+        c = client(http_proxy.url, fault_tel, policy)
+        for _ in range(4):
+            try:
+                c.infer("simple", simple_in, client_timeout=0.25)
+                raise AssertionError("simple answered through a blackhole")
+            except InferenceServerException as e:
+                seen_failures.append(("simple", classify_fault(e)))
+        state_after_faults = breaker.state
+        connections = http_proxy.stats["connections"]
+        try:
+            c.infer("simple", simple_in, client_timeout=0.25)
+            raise AssertionError("an open breaker let a request through")
+        except CircuitOpenError:
+            seen_failures.append(("simple", "fast_fail"))
+        fast_fail_connections = http_proxy.stats["connections"] - connections
+        http_proxy.heal()
+        http_proxy.reset_active()
+        time.sleep(0.55)
+        probe = c.infer("simple", simple_in, client_timeout=30.0)
+        counts["breaker"], expected["breaker"] = read_counts(), {}
+        result["breaker"] = {"state_after_faults": state_after_faults,
+                             "transitions": transitions, "policy": policy.stats.as_dict(),
+                             "fast_fail_connections": fast_fail_connections,
+                             "probe_ok": bool(np.array_equal(probe.as_numpy("OUTPUT0"), 2 * a))}
+        if (state_after_faults != "open" or transitions != ["open", "half_open", "closed"]
+                or fast_fail_connections != 0 or not result["breaker"]["probe_ok"]
+                or policy.stats.as_dict()["fast_fails"] != 1):
+            raise AssertionError(f"breaker under blackhole: {result['breaker']}")
+
+        # the flight recorder kept each failure the caller saw, once
+        flight_stats = flight.stats()
+        retained = flight_stats["retained"]
+        result["flight"] = {"failures_seen": len(seen_failures), "seen": seen_failures,
+                            "retained": retained, "requests": flight_stats["requests"]}
+        if retained["error"] + retained["shed"] != len(seen_failures):
+            raise AssertionError(f"flight recorder: {result['flight']}")
+
+        # 5. the round-trip split: client phases beside the server's queue and
+        #    compute time, joined by trace id (telemetry at ratio 1.0)
+        split = {}
+        tel = Telemetry(sample="ratio", sample_ratio=1.0, rng=random.Random(2))
+        c = client(http_server.url, tel)
+        x_host = x_id.cpu().numpy()
+        reset_counts()
+        for _ in range(SPLIT_REQUESTS):
+            inp = httpclient.InferInput("INPUT0", [1, MIB], "FP32").set_data_from_numpy(x_host)
+            if not np.array_equal(c.infer("identity_fp32", [inp]).as_numpy("OUTPUT0"),
+                                  x_host):
+                raise AssertionError("identity_fp32 over the wire changed the tensor")
+        split["identity_fp32 4 MiB wire"] = split_of(tel, core)
+        counts["split identity"], expected["split identity"] = read_counts(), {}
+
+        tel = Telemetry(sample="ratio", sample_ratio=1.0, rng=random.Random(3))
+        c = client(http_server.url, tel)
+        made = regions(c, "spid", (4 * MIB, 4 * MIB))
+        for _ in range(SPLIT_REQUESTS):
+            identity_cuda(c, made)
+        release(c, made)
+        split["identity_fp32 4 MiB cuda shm"] = split_of(tel, core)
+
+        tel = Telemetry(sample="ratio", sample_ratio=1.0, rng=random.Random(4))
+        c = client(http_server.url, tel)
+        reset_counts()
+        before = executions("decoder_lm")
+        tokens, _ = decode_sequence(c, 44)
+        decoder_gate("split decoder_lm", before, len(prompt) - 1)
+        counts["split decoder_lm"] = read_counts()
+        if tokens != cpu_tokens:
+            raise AssertionError(f"decoder_lm with telemetry: {tokens} vs CPU {cpu_tokens}")
+        split["decoder_lm per token"] = split_of(tel, core)
+
+        tel = Telemetry(sample="ratio", sample_ratio=1.0, rng=random.Random(5))
+        c = client(http_server.url, tel)
+        made = regions(c, "spim", (in_bytes, out_bytes))
+        reset_counts()
+        calls.update(normalize=0, softmax=0)
+        for _ in range(SPLIT_REQUESTS):
+            check_image(*image_cuda(c, made), "image_client with telemetry")
+        counts["split image_client"] = read_counts()
+        expected["split image_client"] = {
+            "normalize_image": calls["normalize"] if on_card else 0,
+            "softmax_probabilities": calls["softmax"] if on_card else 0}
+        split["image_client cuda shm"] = split_of(tel, core)
+        # compute_ns is the host time of model.execute; the same request's
+        # device time from the profiler beside it
+        device_ms = None
+        if on_card:
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                image_cuda(c, made)
+                torch.cuda.synchronize()
+            kernels_ms = sum(k["total_ms"] for k in device_kernels(prof))
+            device_ms = kernels_ms if kernels_ms > 0 else None
+        last = tel.recent_traces()[-1]
+        record = next(r for r in core.access_records(1024)
+                      if r["trace_id"] == last["trace_id"])
+        split["image_client cuda shm"]["profiled_request"] = {
+            "server_compute_ms": record["compute_ns"] / 1e6,
+            "server_total_ms": record["total_ns"] / 1e6,
+            "device_ms": device_ms, "client_total_ms": last["duration_ms"]}
+        release(c, made)
+        result["split"] = split
+
+        # 6. the hooks' host cost: the same paths with no hooks (no
+        #    telemetry, resilience or integrity) and with all three, in
+        #    interleaved rounds
+        bare = client(http_server.url, checked=False)
+        hooked = client(http_server.url, Telemetry(sample="ratio", sample_ratio=1.0,
+                                                   rng=random.Random(6)),
+                        resilience_policy())
+        bare_regions = regions(bare, "hkb", (4 * MIB, 4 * MIB))
+        hooked_regions = regions(hooked, "hkh", (4 * MIB, 4 * MIB))
+        cost = {"bare": {"identity_p50_ms": [], "decoder_ms_per_token": []},
+                "hooked": {"identity_p50_ms": [], "decoder_ms_per_token": []}}
+        reset_counts()
+        before = executions("decoder_lm")
+        seq = 60
+        for _ in range(HOOK_ROUNDS):
+            for side in ("bare", "hooked", "hooked", "bare"):
+                c, made = (bare, bare_regions) if side == "bare" else (hooked, hooked_regions)
+                cost[side]["identity_p50_ms"].append(
+                    p50_ms(lambda: identity_cuda(c, made), HOOK_REQUESTS))
+                seq += 1
+                tokens, seconds = decode_sequence(c, seq)
+                if tokens != cpu_tokens:
+                    raise AssertionError(f"decoder_lm ({side}): {tokens} vs CPU {cpu_tokens}")
+                cost[side]["decoder_ms_per_token"].append(seconds * 1e3 / (steps + 1))
+        decoder_gate("hooks", before, (len(prompt) - 1) * 4 * HOOK_ROUNDS)
+        counts["hooks"] = read_counts()
+        release(bare, bare_regions)
+        release(hooked, hooked_regions)
+        summary = {side: {k: median(v) for k, v in rows.items()} for side, rows in cost.items()}
+        result["hooks"] = {"rounds": cost, "median": summary, "difference": {
+            k: summary["hooked"][k] - summary["bare"][k] for k in summary["bare"]}}
+
+        # integrity: every served output of the phase passed its contract
+        overhead = integrity.stats.overhead_ns()
+        result["integrity"] = {"violations": integrity.stats.violations,
+                               "results": integrity.stats.results,
+                               "checks": integrity.stats.checks,
+                               "overhead_ns": overhead}
+        if integrity.stats.violations or not integrity.stats.results:
+            raise AssertionError(f"integrity: {result['integrity']}")
+
+        # /metrics: the server's counts are the executions the phase caused
+        with urllib.request.urlopen(f"http://{http_server.url}/metrics", timeout=60) as resp:
+            text = resp.read().decode()
+        metrics = {}
+        for model in ("simple", "identity_fp32", "decoder_lm", "densenet_onnx"):
+            stats = core.statistics(model)["model_stats"][0]
+            row = {}
+            for metric, want_value in (
+                    ("inference_count", stats["inference_count"]),
+                    ("execution_count", stats["execution_count"]),
+                    ("request_success_count", stats["inference_stats"]["success"]["count"])):
+                match = re.search(rf'^client_tpu_server_{metric}{{model="{model}"}} (\S+)$',
+                                  text, re.M)
+                got = float(match.group(1)) if match else None
+                row[metric] = got
+                if got != want_value:
+                    raise AssertionError(f"/metrics {metric} of {model}: {got}, the "
+                                         f"statistics say {want_value}")
+            metrics[model] = row
+        identity_sent = SPLIT_REQUESTS * 2 + 4 * HOOK_ROUNDS * HOOK_REQUESTS
+        if metrics["identity_fp32"]["request_success_count"] != identity_sent:
+            raise AssertionError(f"/metrics identity_fp32 successes "
+                                 f"{metrics['identity_fp32']} != {identity_sent} sent")
+        result["metrics"] = {"models": metrics, "identity_sent": identity_sent,
+                             "lines": len(text.splitlines())}
+
+        # the data-plane counters: the creates, registers and destroys made
+        snap = recorder.snapshot()
+        fam = snap["families"]["cuda"]
+        registers = snap["rpcs"].get("cuda.register.ok", 0)
+        unregisters = snap["rpcs"].get("cuda.unregister.ok", 0)
+        result["dataplane"] = {"cuda": fam, "registers": registers,
+                               "unregisters": unregisters, "made": dict(dp)}
+        if (fam["created"] != dp["created"] or fam["destroyed"] != dp["destroyed"]
+                or registers != dp["registered"] or unregisters != dp["registered"]
+                or fam["regions"] != 0 or fam["bytes_resident"] != 0
+                or fam["bytes_peak"] != dp["peak"]
+                or fam["map_writes"] != 2 * dp["requests"]
+                or fam["map_reads"] != 2 * dp["requests"]):
+            raise AssertionError(f"the cuda data-plane counters: {result['dataplane']}")
+    finally:
+        install_dataplane(previous_recorder)
+        for c in clients:
+            c.close()
+        http_proxy.stop()
+        grpc_proxy.stop()
+        http_server.stop()
+        grpc_server.stop()
+        core.model("decoder_lm_batched").unload()
+    for path, wanted in expected.items():
+        if counts[path] != {name: wanted.get(name, 0) for name in COUNTERS}:
+            raise AssertionError(f"launches on the resilience phase's {path} path: "
+                                 f"{counts[path]}, expected {wanted}")
+    result["launch_counts"] = counts
+    return result
+
+
 def device_kernels(prof):
     """Device time by kernel in a torch.profiler trace, largest first."""
     kernels = []
@@ -2695,6 +3335,9 @@ def main(argv) -> int:
     vision, vision_launches = serve_vision(20)
     launches.update(vision_launches)
     grpc_served = serve_grpc(served, vision)
+    t_phase = time.perf_counter()
+    resilience = serve_resilience(served, vision)
+    resilience["seconds"] = time.perf_counter() - t_phase
     for row in served["identity"]:
         log(f"identity_fp32 {row['bytes'] // MIB} MiB p50: wire {row['wire_p50_ms']:.3f} ms, "
             f"system shm {row['system_shm_p50_ms']:.3f} ms, "
@@ -2833,6 +3476,68 @@ def main(argv) -> int:
             f"equal across the two aio clients; {card}")
     grpc_counts = grpc_served["launch_counts"]
 
+    # the resilience phase, with the card's name and power limit on each line
+    log(f"resilience phase: {resilience['seconds']:.1f} s")
+    for name in ("image_client under flap", "image_client under reset@N"):
+        row = resilience[name]
+        log(f"resilience {name}: {row['requests']} requests, {row['errors']} errors, policy "
+            f"{row['policy']}, {row['faulted_connections']} faulted connections, "
+            f"{row['server_executions']} densenet_onnx executions; top-1 {row['top1'][0]} = "
+            f"CPU {row['cpu_top1']}, max logit diff {row['max_abs_logit_diff_vs_cpu']:.4g}; "
+            f"{card}")
+    row = resilience["decoder_lm under reset@N"]
+    log(f"resilience decoder_lm sequence under reset@N: tokens before the fault "
+        f"{row['tokens_before_fault']} = CPU; the faulted request ({row['fault_domain']}) "
+        f"made {row['faulted_call_attempts']} attempt (never re-sent); "
+        f"{row['server_executions']} executions of {row['requests_sent']} requests sent")
+    row = resilience["grpc stream auto_reconnect"]
+    log(f"resilience grpc stream auto_reconnect: {row['reconnects']} StreamReconnected, "
+        f"abandoned {row['abandoned_request_ids']}, re-sent {row['resent_request_ids']}; "
+        f"re-driven tokens {row['tokens']} = CPU; {row['server_executions']} executions; "
+        f"StreamChecker events per wire stream {row['stream_checker_events']}")
+    row = resilience["breaker"]
+    log(f"resilience breaker under blackhole: {row['state_after_faults']} after 4 "
+        f"timeouts, transitions {row['transitions']}, fast-fail opened "
+        f"{row['fast_fail_connections']} connections, policy {row['policy']}")
+    row = resilience["flight"]
+    log(f"flight recorder: retained {row['retained']} for {row['failures_seen']} failures "
+        f"seen by the caller")
+    for name, row in resilience["split"].items():
+        phases = ", ".join(f"{k} {v:.3f}" for k, v in row["client_ms_p50"].items())
+        log(f"round trip {name} ({row['requests']} requests, p50 ms): client {phases}, "
+            f"total {row['client_total_ms_p50']:.3f}; server queue "
+            f"{row['server_queue_ms_p50']:.3f}, compute {row['server_compute_ms_p50']:.3f}, "
+            f"total {row['server_total_ms_p50']:.3f}; {card}")
+    prof_row = resilience["split"]["image_client cuda shm"]["profiled_request"]
+    log(f"one image_client request (cuda shm): server compute_ns "
+        f"{prof_row['server_compute_ms']:.3f} ms (host time of model.execute), server total "
+        f"{prof_row['server_total_ms']:.3f} ms, device time (profiler, all device activity) "
+        f"{ms_text(prof_row['device_ms'])}, client {prof_row['client_total_ms']:.3f} ms; "
+        f"{card}")
+    hooks = resilience["hooks"]
+    log(f"hooks' host cost ({HOOK_ROUNDS} interleaved rounds, medians): identity_fp32 4 MiB "
+        f"cuda shm p50 {hooks['median']['bare']['identity_p50_ms']:.4f} ms bare, "
+        f"{hooks['median']['hooked']['identity_p50_ms']:.4f} ms with telemetry, resilience "
+        f"and integrity (+{hooks['difference']['identity_p50_ms']:.4f}); decoder_lm "
+        f"{hooks['median']['bare']['decoder_ms_per_token']:.4f} ms per token bare, "
+        f"{hooks['median']['hooked']['decoder_ms_per_token']:.4f} hooked "
+        f"(+{hooks['difference']['decoder_ms_per_token']:.4f}); {card}")
+    row = resilience["integrity"]
+    log(f"integrity: {row['results']} results, {row['checks']} checks, {row['violations']} "
+        f"violations; overhead p50 {row['overhead_ns']['p50']:.0f} ns, p99 "
+        f"{row['overhead_ns']['p99']:.0f} ns per result; {card}")
+    log("metrics: /metrics counts = the statistics: " + json.dumps(
+        resilience["metrics"]["models"]))
+    row = resilience["dataplane"]
+    log(f"dataplane cuda: {row['cuda']} = {row['made']['created']} creates, "
+        f"{row['made']['registered']} registers, {row['made']['destroyed']} destroys, peak "
+        f"{row['made']['peak']} B, {row['made']['requests']} requests x 2 map writes and reads")
+    log("resilience launches by path: " + json.dumps(resilience["launch_counts"]))
+    res_counts = resilience["launch_counts"]
+
+    def resilience_launches(kernel):
+        return {path: row[kernel] for path, row in res_counts.items() if row[kernel]}
+
     main_row = timed[0]
     kernels = [{
         "name": "decode_attention",
@@ -2860,6 +3565,7 @@ def main(argv) -> int:
         "grpc_launches_by_path": {
             "decoder": grpc_counts["decoder"]["decode_attention"],
             "decoder_lm_batched": grpc_counts["decoder_lm_batched"]["decode_attention"]},
+        "resilience_launches_by_path": resilience_launches("decode_attention"),
         "batched_shape": batched_timed,
     }]
     flash_row = flash_timed[0]
@@ -2945,6 +3651,7 @@ def main(argv) -> int:
             "device_ms": row["device_ms"],
             "redesigned": REDESIGNED[name],
             "grpc_launches": grpc_counts["image_client"][name],
+            "resilience_launches_by_path": resilience_launches(name),
             "shape": row["shape"],
             "at_shapes": timed_rows[1:],
         })
@@ -2963,6 +3670,7 @@ def main(argv) -> int:
                    "attention_host_us": small["attention_host_us"],
                    "host_breakdown": breakdown,
                    "served": served, "vision": vision, "grpc": grpc_served,
+                   "resilience": resilience,
                    "kernels": kernels}, f, indent=1)
     log(smi)
     log(json.dumps({"kernels": kernels}))

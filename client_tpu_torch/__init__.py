@@ -10,14 +10,20 @@ an obvious counterpart:
   shared-memory registration, the repository, statistics, trace and log
   calls);
 - ``client_tpu_torch.grpc`` and ``grpc.aio``: the GRPC clients, sync (with
-  the bidi stream) and asyncio, over an own copy of the schema-driven wire
-  codec;
+  the bidi stream and its ``auto_reconnect``) and asyncio, over an own copy
+  of the schema-driven wire codec;
+- ``client_tpu_torch.resilience``, ``observe``, ``flight`` and
+  ``integrity``: the layers every client runs under (retries and circuit
+  breakers, spans, metrics and the ``traceparent``, per-request flight
+  timelines, response contract validation); ``client_tpu_torch.testing``:
+  the chaos fault-injection proxy;
 - ``client_tpu_torch.utils``: dtype maps (numpy and torch) and the
   BYTES/BF16 wire serializers; ``utils.shared_memory`` (POSIX system
   shared memory) and ``utils.cuda_shared_memory`` (host window + device
   tensor cache: in one process a CUDA tensor crosses the API itself);
-- ``client_tpu_torch.server``: the in-process v2 server (``ServerCore``, the
-  threaded HTTP frontend and the GRPC frontend);
+- ``client_tpu_torch.server``: the in-process v2 server (``ServerCore`` with
+  traceparent-joined access records, the threaded HTTP frontend with
+  ``/metrics``, and the GRPC frontend);
 - ``client_tpu_torch.models``: ``simple``, the identity fixtures and the
   decoder family (``decoder_lm``, ``tiny_lm_generate``);
 - ``client_tpu_torch.ops``: the hand-written kernels (``decode_attention``)

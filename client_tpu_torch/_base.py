@@ -1,25 +1,52 @@
 """Client base: plugin hook, auth, request bag, cumulative client statistics.
 
 The counterpart of ``client_tpu._base``: the plugin/auth hook, the request
-header bag, ``RequestTimers`` (with the host<->device transfer points) and
-``InferStat``. The layers the JAX package hangs off this base (telemetry,
-resilience, integrity, the shm arena, batching, caching) are not part of the
-port yet; the base carries none of their hooks.
+header bag, ``RequestTimers`` (with the host<->device transfer points),
+``InferStat``, and the hooks every frontend routes its transport through:
+telemetry (``observe``: request and stream spans, the ``traceparent`` on
+the wire, ORCA endpoint load), data-plane accounting of the shm
+register/unregister calls, response integrity (``integrity``) and
+resilience (``resilience``). The JAX package's shm arena, coalescing and
+caching layers are not part of the port yet, and neither are their hooks.
 """
 
 from __future__ import annotations
 
 import abc
 import base64
+import contextvars
 import threading
 import time
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
-# wire family segment -> data-plane family
+from . import observe as _observe
+
+# wire family segment -> data-plane accounting family
 SHM_FAMILY_OF = {
     "systemsharedmemory": "system",
     "cudasharedmemory": "cuda",
 }
+
+# admission-queue phase handoff: an admission gate runs BEFORE a
+# frontend's request span exists, so it stashes the wait interval in a
+# contextvar (thread- and task-local) and the next span begun on the same
+# thread/task claims it as an ``admission_queue`` phase. Consume-once, so
+# an admitted-then-errored call can never donate its wait to a later
+# request.
+_ADMISSION_PHASE: contextvars.ContextVar = contextvars.ContextVar(
+    "client_tpu_admission_phase", default=None)
+
+
+def stash_admission_phase(start_ns: int, end_ns: int) -> None:
+    """Record an admission-queue wait for the next span on this context."""
+    _ADMISSION_PHASE.set((start_ns, end_ns))
+
+
+def consume_admission_phase() -> Optional[Tuple[int, int]]:
+    value = _ADMISSION_PHASE.get()
+    if value is not None:
+        _ADMISSION_PHASE.set(None)
+    return value
 
 
 class Request:
@@ -53,14 +80,223 @@ class BasicAuth(InferenceServerClientPlugin):
 
 
 class InferenceServerClientBase:
-    """Holds the (single) registered plugin and applies it before network ops."""
+    """Holds the (single) registered plugin and applies it before network ops,
+    plus the shared resilience hook every frontend routes its transport
+    through (see ``client_tpu_torch.resilience``)."""
+
+    # telemetry frontend label ("http", "grpc", "http_aio", "grpc_aio")
+    _FRONTEND = "client"
 
     def __init__(self):
         self._plugin: Optional[InferenceServerClientPlugin] = None
+        self._resilience = None  # Optional[resilience.ResiliencePolicy]
+        self._telemetry = None  # Optional[observe.Telemetry]
+        # None = process-default integrity policy; False = disabled;
+        # else an integrity.IntegrityPolicy
+        self._integrity = None
 
     def _call_plugin(self, request: Request) -> None:
         if self._plugin is not None:
             self._plugin(request)
+
+    # -- observability -------------------------------------------------------
+    def configure_telemetry(self, telemetry) -> "InferenceServerClientBase":
+        """Install an ``observe.Telemetry`` (or None to clear) that every
+        inference of this client reports into: request-phase spans, a
+        ``traceparent`` header/metadata key on the wire, and the pre-wired
+        metrics. Pay-for-what-you-use: with no telemetry configured the
+        transport paths check one attribute and do nothing else."""
+        self._telemetry = telemetry
+        return self
+
+    def telemetry(self):
+        return self._telemetry
+
+    def _obs_begin(self, frontend: str, model: str):
+        """A request span when telemetry is configured, else None — the
+        single hot-path gate all four frontends share. A pending
+        admission-queue wait stashed by the pool's admission gate is
+        claimed onto the new span as its first phase. With a flight
+        recorder armed, the span's trace id is bound onto the active
+        flight scratch (or a span-owned scratch opens — this frontend is
+        the outermost layer — which ``Telemetry.finish`` settles)."""
+        tel = self._telemetry
+        if tel is None:
+            return None
+        span = tel.begin(frontend, model)
+        flight = getattr(tel, "flight", None)
+        if flight is not None:
+            flight.span_begin(span, getattr(self, "_url", None))
+        pending = consume_admission_phase()
+        if pending is not None:
+            span.phase("admission_queue", pending[0], pending[1])
+        return span
+
+    def _obs_begin_stream(self, frontend: str, model: str,
+                          op: str = "generate_stream"):
+        """A stream span when telemetry is configured, else None — the
+        streaming twin of ``_obs_begin`` (SSE generate streams and GRPC
+        bidi streams)."""
+        tel = self._telemetry
+        if tel is None:
+            return None
+        return tel.begin_stream(frontend, model, op)
+
+    # -- data plane ----------------------------------------------------------
+    def _shm_call(self, family: str, op: str, call, *args, **kwargs):
+        """Run one shm register/unregister RPC under data-plane accounting
+        (registration latency + outcome). With no process-global recorder
+        installed this is one attribute check around the plain call."""
+        rec = _observe._DATAPLANE
+        if rec is None:
+            return call(*args, **kwargs)
+        t0 = time.perf_counter_ns()
+        try:
+            result = call(*args, **kwargs)
+        except BaseException:
+            rec.on_rpc(self._FRONTEND, family, op,
+                       (time.perf_counter_ns() - t0) * 1e-9, ok=False)
+            raise
+        rec.on_rpc(self._FRONTEND, family, op,
+                   (time.perf_counter_ns() - t0) * 1e-9)
+        return result
+
+    async def _shm_call_async(self, family: str, op: str, call, *args,
+                              **kwargs):
+        """Async twin of :meth:`_shm_call` for the aio frontends."""
+        rec = _observe._DATAPLANE
+        if rec is None:
+            return await call(*args, **kwargs)
+        t0 = time.perf_counter_ns()
+        try:
+            result = await call(*args, **kwargs)
+        except BaseException:
+            rec.on_rpc(self._FRONTEND, family, op,
+                       (time.perf_counter_ns() - t0) * 1e-9, ok=False)
+            raise
+        rec.on_rpc(self._FRONTEND, family, op,
+                   (time.perf_counter_ns() - t0) * 1e-9)
+        return result
+
+    # -- ORCA endpoint load ---------------------------------------------------
+    def _orca_opt_in(self, hdrs: Dict[str, str]) -> Dict[str, str]:
+        """Stamp the ORCA opt-in request header when the configured
+        telemetry declared an ``orca_format`` (caller-set values win)."""
+        tel = self._telemetry
+        if tel is not None and tel.orca_format is not None:
+            hdrs.setdefault(
+                _observe.ENDPOINT_LOAD_FORMAT_HEADER, tel.orca_format)
+        return hdrs
+
+    def _orca_ingest(self, result) -> None:
+        """Feed a response's ORCA header (if any) into the telemetry's
+        per-endpoint load gauges. Missing header → nothing happens, so
+        this is safe to call on every infer."""
+        tel = self._telemetry
+        if tel is None:
+            return
+        value = result.get_response_header(_observe.ENDPOINT_LOAD_HEADER)
+        if value is not None:
+            tel.ingest_endpoint_load(self._url, value)
+
+    # -- response integrity --------------------------------------------------
+    def configure_integrity(self, policy) -> "InferenceServerClientBase":
+        """Install an ``integrity.IntegrityPolicy`` (``True`` = the process
+        default; ``None`` restores the default; ``False`` disables
+        validation for this client). Contract validation runs under the
+        process-default policy even when nothing is configured — every
+        ``InferResult`` is checked against its request before the caller
+        sees it (see docs/integrity.md)."""
+        if policy is True:
+            from .integrity import default_policy
+
+            policy = default_policy()
+        self._integrity = policy
+        return self
+
+    def integrity_policy(self):
+        """The effective policy: the configured one, the process default
+        when unconfigured, or None when explicitly disabled."""
+        policy = self._integrity
+        if policy is None:
+            from .integrity import default_policy
+
+            return default_policy()
+        if policy is False:
+            return None
+        return policy
+
+    def _integrity_check(self, result, inputs=None, outputs=None,
+                         request_id: str = "", model_name: str = "") -> None:
+        """Validate one unary ``InferResult`` before it reaches the caller.
+
+        Raises ``integrity.IntegrityError`` (status INTEGRITY_VIOLATION →
+        resilience's INVALID domain) on any contract violation; on the
+        happy path it is pure arithmetic over bytes already in memory."""
+        policy = self._integrity
+        if policy is False:
+            return
+        from . import integrity as _integrity
+
+        _integrity.check_result(
+            result, inputs, outputs, request_id,
+            url=getattr(self, "_url", "") or "", model_name=model_name,
+            policy=policy, telemetry=self._telemetry)
+
+    def _integrity_parse_note(self, err) -> None:
+        """Stamp this client's url on a parse-time ``IntegrityError`` (a
+        body the decoder could not even parse — torn JSON, overrun binary
+        sizes) and account it into the same stats/flight/telemetry
+        streams as post-parse contract violations. The caller re-raises;
+        parse violations bypass the contract on/off switch because an
+        undecodable body yields no result either way."""
+        from . import integrity as _integrity
+
+        policy = self._integrity
+        _integrity.note_parse_violation(
+            err, url=getattr(self, "_url", "") or "",
+            telemetry=self._telemetry,
+            policy=policy if policy not in (None, False) else None)
+
+    def _integrity_note_metadata(self, model_name: str, metadata) -> None:
+        """Fold a just-fetched model-metadata response into the effective
+        policy's contract cache — the only way the cache is ever
+        populated (responses never teach the contract: a byzantine
+        replica answering first could otherwise poison it)."""
+        policy = self.integrity_policy()
+        if policy is not None and model_name:
+            policy.note_metadata(model_name, metadata)
+
+    def _integrity_stream_checker(self, model_name: str = ""):
+        """A per-stream ``integrity.StreamChecker`` when the effective
+        policy opted into stream-index checks, else None."""
+        policy = self.integrity_policy()
+        if policy is None or not policy.stream_index:
+            return None
+        from .integrity import StreamChecker
+
+        return StreamChecker(getattr(self, "_url", "") or "", policy)
+
+    # -- resilience ---------------------------------------------------------
+    def configure_resilience(self, policy) -> "InferenceServerClientBase":
+        """Install a ``resilience.ResiliencePolicy`` (or None to clear) that
+        every network operation of this client runs under. Pay-for-what-you-
+        use: with no policy configured the transport paths are untouched."""
+        self._resilience = policy
+        return self
+
+    def resilience_policy(self):
+        return self._resilience
+
+    def _resilience_for(self, override):
+        """The effective policy for one request (per-request override hook).
+
+        ``override=False`` explicitly bypasses the configured policy — the
+        health-probe paths use it so a probe observes the endpoint itself,
+        never an open circuit breaker's fast-fail."""
+        if override is False:
+            return None
+        return override if override is not None else self._resilience
 
     def register_plugin(self, plugin: InferenceServerClientPlugin) -> None:
         if plugin is None:

@@ -8,20 +8,26 @@ generic grpc callables bound to the schema-driven wire codec (no generated
 stubs). Request frames and metadata are byte-identical to the JAX
 package's for the same inputs.
 
-One attempt per call: retry policies, stream reconnection, telemetry and
-response-integrity checks are layers the port does not carry yet. The tpu
-shared-memory rpcs are left out; the port's device data plane is cuda.
+Every call runs under the client's resilience policy, reports into its
+telemetry (request spans, the ``traceparent`` metadata key, ORCA endpoint
+load), and every ``InferResult`` is checked against its request
+(``integrity``); ``start_stream(auto_reconnect=True)`` re-establishes a dead
+bidi stream. The tpu shared-memory rpcs are left out; the port's device
+data plane is cuda.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import grpc
 
 from .._base import InferenceServerClientBase, InferStat, Request, RequestTimers
 from .._tensor import InferInput, InferRequestedOutput
+from ..observe import TRACEPARENT_HEADER
+from ..resilience import FATAL, AttemptBudget, StreamReconnected, classify_fault
 from ..utils import InferenceServerException
 from . import _messages as M
 from ._infer import (
@@ -30,7 +36,7 @@ from ._infer import (
     from_infer_parameter,
     to_grpc_compression,
 )
-from ._stream import _InferStream
+from ._stream import _InferStream, _ReconnectingStream
 from ._wire import decode_message, encode_message
 
 INT32_MAX = 2**31 - 1
@@ -167,9 +173,29 @@ class CallContext:
 
     def get_result(self, timeout: Optional[float] = None) -> InferResult:
         try:
-            return InferResult(self._future.result(timeout=timeout))
+            result = InferResult(self._future.result(timeout=timeout))
         except grpc.RpcError as e:
             raise _to_exception(e) from e
+        try:
+            # the future is the call: its response metadata, as on the
+            # unary path
+            result._response_headers = flatten_metadata(
+                self._future.initial_metadata(), self._future.trailing_metadata())
+        except Exception:
+            pass
+        return result
+
+
+def flatten_metadata(*metadata_pairs) -> Dict[str, str]:
+    """Initial and trailing response metadata as one ``{key: value}`` dict
+    (string values only; binary ``-bin`` entries are skipped): what the
+    infer paths stash as ``InferResult._response_headers``."""
+    out: Dict[str, str] = {}
+    for pairs in metadata_pairs:
+        for key, value in pairs or ():
+            if isinstance(value, str):
+                out[key] = value
+    return out
 
 
 def _to_exception(rpc_error: grpc.RpcError) -> InferenceServerException:
@@ -184,6 +210,8 @@ def _to_exception(rpc_error: grpc.RpcError) -> InferenceServerException:
 
 class InferenceServerClient(InferenceServerClientBase):
     """Client for the KServe v2 GRPC protocol."""
+
+    _FRONTEND = "grpc"
 
     def __init__(
         self,
@@ -209,6 +237,7 @@ class InferenceServerClient(InferenceServerClientBase):
             self._channel = grpc.insecure_channel(url, options=options)
         self._callables: Dict[str, Callable] = {}
         self._stream: Optional[_InferStream] = None
+        self._stream_span = None  # Optional[observe.StreamSpan]
         self._stream_lock = threading.Lock()
         self._infer_stat = InferStat()
 
@@ -246,28 +275,100 @@ class InferenceServerClient(InferenceServerClientBase):
         headers: Optional[Dict[str, str]] = None,
         client_timeout: Optional[float] = None,
         compression_algorithm: Optional[str] = None,
+        idempotent: bool = True,
+        resilience=None,
+        span=None,
+        metadata_sink: Optional[Dict[str, str]] = None,
     ) -> Dict[str, Any]:
+        """One unary call under the client's resilience policy (or the
+        per-request ``resilience`` override; ``False`` bypasses it).
+
+        ``metadata_sink``: when given, the call runs through ``with_call``
+        and the response's initial and trailing metadata (string values
+        only) land in the dict — the GRPC twin of HTTP response headers
+        (e.g. ORCA's ``endpoint-load-metrics``)."""
         if self._verbose:
             print(f"{method}, metadata {headers or {}}\n{request}")
-        try:
-            response = self._callable(method)(
-                request,
-                metadata=self._metadata(headers),
-                timeout=client_timeout,
-                compression=to_grpc_compression(compression_algorithm),
-            )
-        except grpc.RpcError as e:
-            raise _to_exception(e) from e
+        policy = self._resilience_for(resilience)
+        budget = AttemptBudget(policy, client_timeout)
+
+        def attempt() -> Dict[str, Any]:
+            attempt_timeout = budget.attempt_timeout_s(status="StatusCode.DEADLINE_EXCEEDED")
+            try:
+                if metadata_sink is None:
+                    return self._callable(method)(
+                        request,
+                        metadata=self._metadata(headers),
+                        timeout=attempt_timeout,
+                        compression=to_grpc_compression(compression_algorithm),
+                    )
+                response, call = self._callable(method).with_call(
+                    request,
+                    metadata=self._metadata(headers),
+                    timeout=attempt_timeout,
+                    compression=to_grpc_compression(compression_algorithm),
+                )
+                metadata_sink.clear()  # a retried attempt must not mix in
+                metadata_sink.update(flatten_metadata(
+                    call.initial_metadata(), call.trailing_metadata()))
+                return response
+            except grpc.RpcError as e:
+                raise _to_exception(e) from e
+
+        run_attempt = attempt
+        on_retry = None
+        if span is not None:
+            def run_attempt():
+                t_a = time.perf_counter_ns()
+                try:
+                    result = attempt()
+                except BaseException:
+                    span.phase("attempt", t_a, time.perf_counter_ns())
+                    raise
+                end = time.perf_counter_ns()
+                span.phase("attempt", t_a, end)
+                # a unary call's send, server time and first byte are not
+                # separable, so the successful attempt is the ttfb window
+                span.phase("ttfb", t_a, end)
+                return result
+
+            def on_retry(n, exc, delay):
+                span.event("retry", attempt=n, backoff_s=round(delay, 6),
+                           error=type(exc).__name__)
+
+        if policy is None:
+            response = run_attempt()
+        else:
+            # UNAVAILABLE/RESOURCE_EXHAUSTED re-attempt under the policy; a
+            # sequence infer only on never-sent connect failures
+            response = policy.execute(
+                run_attempt, idempotent=idempotent, timeout_s=client_timeout,
+                on_retry=on_retry)
         if self._verbose:
             print(response)
         return response
 
     # -- health / metadata -------------------------------------------------
-    def is_server_live(self, headers=None, client_timeout=None) -> bool:
-        return bool(self._call("ServerLive", {}, headers, client_timeout).get("live", False))
+    def _health(self, method, field, headers, client_timeout, probe: bool) -> bool:
+        """Shared ServerLive/ServerReady call. By default transport failures
+        raise (the typed UNAVAILABLE/DEADLINE_EXCEEDED from ``_call``), so
+        callers tell "the server said no" from "could not ask".
+        ``probe=True`` maps connect/transient/timeout-class failures to
+        False and bypasses the resilience policy."""
+        try:
+            resp = self._call(method, {}, headers, client_timeout,
+                              resilience=False if probe else None)
+        except InferenceServerException as e:
+            if probe and classify_fault(e) != FATAL:
+                return False
+            raise
+        return bool(resp.get(field, False))
 
-    def is_server_ready(self, headers=None, client_timeout=None) -> bool:
-        return bool(self._call("ServerReady", {}, headers, client_timeout).get("ready", False))
+    def is_server_live(self, headers=None, client_timeout=None, probe: bool = False) -> bool:
+        return self._health("ServerLive", "live", headers, client_timeout, probe)
+
+    def is_server_ready(self, headers=None, client_timeout=None, probe: bool = False) -> bool:
+        return self._health("ServerReady", "ready", headers, client_timeout, probe)
 
     def is_model_ready(self, model_name, model_version="", headers=None, client_timeout=None) -> bool:
         # transport errors propagate; a served-but-unknown model comes back
@@ -284,10 +385,14 @@ class InferenceServerClient(InferenceServerClientBase):
         self, model_name, model_version="", headers=None, client_timeout=None,
         as_json=True,
     ) -> Dict[str, Any]:
-        return self._call(
+        metadata = self._call(
             "ModelMetadata", {"name": model_name, "version": model_version},
             headers, client_timeout,
         )
+        # captured into the integrity contract cache: later responses are
+        # validated against this fetched truth (never the other way round)
+        self._integrity_note_metadata(model_name, metadata)
+        return metadata
 
     def get_model_config(
         self, model_name, model_version="", headers=None, client_timeout=None,
@@ -356,14 +461,15 @@ class InferenceServerClient(InferenceServerClientBase):
     def register_system_shared_memory(
         self, name, key, byte_size, offset=0, headers=None, client_timeout=None
     ) -> None:
-        self._call(
-            "SystemSharedMemoryRegister",
+        self._shm_call(
+            "system", "register", self._call, "SystemSharedMemoryRegister",
             {"name": name, "key": key, "offset": offset, "byte_size": byte_size},
             headers, client_timeout,
         )
 
     def unregister_system_shared_memory(self, name="", headers=None, client_timeout=None) -> None:
-        self._call("SystemSharedMemoryUnregister", {"name": name}, headers, client_timeout)
+        self._shm_call("system", "unregister", self._call, "SystemSharedMemoryUnregister",
+                       {"name": name}, headers, client_timeout)
 
     def get_cuda_shared_memory_status(self, region_name="", headers=None, client_timeout=None):
         return self._shm_status("CudaSharedMemoryStatus", region_name, headers, client_timeout)
@@ -373,12 +479,13 @@ class InferenceServerClient(InferenceServerClientBase):
     ) -> None:
         """Register a cuda_shared_memory region by its base64 raw handle
         (see ``utils.cuda_shared_memory.get_raw_handle``)."""
-        self._call("CudaSharedMemoryRegister",
-                   cuda_register_request(name, raw_handle, device_id, byte_size),
-                   headers, client_timeout)
+        self._shm_call("cuda", "register", self._call, "CudaSharedMemoryRegister",
+                       cuda_register_request(name, raw_handle, device_id, byte_size),
+                       headers, client_timeout)
 
     def unregister_cuda_shared_memory(self, name="", headers=None, client_timeout=None) -> None:
-        self._call("CudaSharedMemoryUnregister", {"name": name}, headers, client_timeout)
+        self._shm_call("cuda", "unregister", self._call, "CudaSharedMemoryUnregister",
+                       {"name": name}, headers, client_timeout)
 
     # -- inference ---------------------------------------------------------
     def infer(
@@ -397,23 +504,53 @@ class InferenceServerClient(InferenceServerClientBase):
         headers: Optional[Dict[str, str]] = None,
         parameters: Optional[Dict[str, Any]] = None,
         compression_algorithm: Optional[str] = None,
+        resilience=None,
     ) -> InferResult:
-        """Run a synchronous inference."""
+        """Run a synchronous inference.
+
+        ``resilience``: per-request ``ResiliencePolicy`` override (``False``
+        bypasses the policy). Sequence requests (``sequence_id != 0``) are
+        non-idempotent: only never-sent connect failures are retried."""
+        span = self._obs_begin(self._FRONTEND, model_name)
         timers = RequestTimers()
         timers.capture(RequestTimers.REQUEST_START)
-        request = build_infer_request(
-            model_name, inputs, model_version, outputs, request_id,
-            sequence_id, sequence_start, sequence_end, priority, timeout, parameters,
-        )
-        timers.capture(RequestTimers.SEND_START)
-        response = self._call("ModelInfer", request, headers, client_timeout,
-                              compression_algorithm)
-        timers.capture(RequestTimers.SEND_END)
-        timers.capture(RequestTimers.RECV_START)
-        result = InferResult(response)
-        timers.capture(RequestTimers.RECV_END)
+        try:
+            request = build_infer_request(
+                model_name, inputs, model_version, outputs, request_id,
+                sequence_id, sequence_start, sequence_end, priority, timeout, parameters,
+            )
+            hdrs = self._orca_opt_in(dict(headers or {}))
+            if span is not None:
+                hdrs[TRACEPARENT_HEADER] = span.traceparent()
+                span.phase("serialize", span.start_ns, time.perf_counter_ns())
+            timers.capture(RequestTimers.SEND_START)
+            metadata_sink: Dict[str, str] = {}
+            response = self._call(
+                "ModelInfer", request, hdrs, client_timeout, compression_algorithm,
+                idempotent=sequence_id == 0, resilience=resilience, span=span,
+                metadata_sink=metadata_sink,
+            )
+            timers.capture(RequestTimers.SEND_END)
+            timers.capture(RequestTimers.RECV_START)
+            result = InferResult(response)
+            result._response_headers = metadata_sink
+            # the result never reaches the caller (nor the ORCA path below)
+            # unchecked
+            self._integrity_check(result, inputs, outputs, request_id, model_name)
+            timers.capture(RequestTimers.RECV_END)
+        except BaseException as e:
+            if span is not None:
+                self._telemetry.finish(span, error=e)
+            raise
         timers.capture(RequestTimers.REQUEST_END)
         self._infer_stat.update(timers)
+        if span is not None:
+            span.phase("deserialize", timers.get(RequestTimers.RECV_START),
+                       timers.get(RequestTimers.RECV_END))
+            self._telemetry.finish(span)
+        # after the phase capture: ORCA bookkeeping must not count as
+        # deserialize time
+        self._orca_ingest(result)
         return result
 
     def async_infer(
@@ -441,7 +578,7 @@ class InferenceServerClient(InferenceServerClientBase):
         )
         future = self._callable("ModelInfer").future(
             request,
-            metadata=self._metadata(headers),
+            metadata=self._metadata(self._orca_opt_in(dict(headers or {}))),
             timeout=client_timeout,
             compression=to_grpc_compression(compression_algorithm),
         )
@@ -450,6 +587,22 @@ class InferenceServerClient(InferenceServerClientBase):
                 result, error = None, None
                 try:
                     result = InferResult(f.result())
+                    try:
+                        # the future is the call: its response metadata, as
+                        # on the unary path (and any ORCA header to the
+                        # telemetry)
+                        result._response_headers = flatten_metadata(
+                            f.initial_metadata(), f.trailing_metadata())
+                        self._orca_ingest(result)
+                    except Exception:
+                        pass
+                    # the unary path's contract check: a violation becomes
+                    # the callback's typed error, never a result
+                    try:
+                        self._integrity_check(result, inputs, outputs, request_id,
+                                              model_name)
+                    except InferenceServerException as e:
+                        result, error = None, e
                 except grpc.RpcError as e:
                     error = _to_exception(e)
                 except Exception as e:  # cancelled etc.
@@ -469,26 +622,84 @@ class InferenceServerClient(InferenceServerClientBase):
         headers: Optional[Dict[str, str]] = None,
         compression_algorithm: Optional[str] = None,
         auto_reconnect: bool = False,
+        resilience=None,
     ) -> None:
         """Open the bidi stream; ``callback(result, error)`` per response.
 
-        ``auto_reconnect=True`` needs a resilience policy with a RetryPolicy,
-        which the port does not have yet: it raises."""
+        ``auto_reconnect=True`` (needs a resilience policy with a
+        RetryPolicy, configured on the client or passed here) makes the
+        stream survive transport death: the bidi call is re-established
+        with backoff and the callback receives a
+        ``resilience.StreamReconnected`` event (as the result). In-flight
+        idempotent requests are re-sent; in-flight sequence requests are
+        never re-sent — their ids arrive in the event's
+        ``abandoned_request_ids``."""
         with self._stream_lock:
             if self._stream is not None:
                 raise InferenceServerException(
                     "cannot start a stream: one is already active; stop it first"
                 )
-            if auto_reconnect:
-                raise InferenceServerException(
-                    "auto_reconnect requires a resilience policy with a RetryPolicy"
-                )
-            stream = _InferStream(callback, self._verbose)
-            stream.start(
-                self._callable("ModelStreamInfer", streaming=True),
-                self._metadata(headers), stream_timeout,
-                compression=to_grpc_compression(compression_algorithm),
-            )
+            span = self._obs_begin_stream(self._FRONTEND, "", op="stream")
+            self._stream_span = span
+            if span is not None:
+                # a stream-level traceparent: every request on the bidi call
+                # joins this stream's trace in the server's access records,
+                # across reconnects (metadata is recomputed per re-open from
+                # this same headers dict)
+                headers = dict(headers or {})
+                headers[TRACEPARENT_HEADER] = span.traceparent()
+                user_callback = callback
+                mark = span.mark
+                tel_ = self._telemetry
+                stream_box: Dict[str, Any] = {}
+
+                def callback(result, error):
+                    if error is not None:
+                        span.event("stream_error", error=type(error).__name__)
+                        # an in-band per-request error leaves the bidi call
+                        # healthy; a terminal one (the stream died and will
+                        # not reconnect) closes the span with the error now
+                        inner = stream_box.get("stream")
+                        if inner is None or not inner.is_active():
+                            tel_.finish_stream(span, error=error)
+                    elif type(result) is StreamReconnected:
+                        span.reconnect(abandoned=len(result.abandoned_request_ids),
+                                       resent=len(result.resent_request_ids))
+                    else:
+                        mark()
+                    user_callback(result, error)
+
+            compression = to_grpc_compression(compression_algorithm)
+            try:
+                if auto_reconnect:
+                    def open_inner(cb):
+                        inner = _InferStream(cb, self._verbose)
+                        # metadata computed per (re)open: the plugin
+                        # re-stamps auth headers on every reconnect
+                        inner.start(
+                            self._callable("ModelStreamInfer", streaming=True),
+                            self._metadata(headers), stream_timeout,
+                            compression=compression,
+                        )
+                        return inner
+
+                    stream = _ReconnectingStream(
+                        open_inner, callback, self._resilience_for(resilience),
+                        self._verbose)
+                    stream.start()
+                else:
+                    stream = _InferStream(callback, self._verbose)
+                    stream.start(
+                        self._callable("ModelStreamInfer", streaming=True),
+                        self._metadata(headers), stream_timeout,
+                        compression=compression,
+                    )
+            except BaseException as e:
+                if span is not None and self._telemetry is not None:
+                    self._telemetry.finish_stream(span, error=e)
+                raise
+            if span is not None:
+                stream_box["stream"] = stream
             self._stream = stream
 
     def async_stream_infer(
@@ -519,10 +730,23 @@ class InferenceServerClient(InferenceServerClientBase):
             request.setdefault("parameters", {})[
                 "triton_enable_empty_final_response"
             ] = {"bool_param": True}
-        stream.enqueue(request)
+        # a sequence request carries a server-side state transition and is
+        # never re-sent by a reconnecting stream
+        stream.enqueue(request, idempotent=sequence_id == 0)
 
     def stop_stream(self, cancel_requests: bool = False) -> None:
         with self._stream_lock:
             stream, self._stream = self._stream, None
+            # the span outlives the stop for inspection (stream_span());
+            # a new start_stream replaces it
+            span = self._stream_span
         if stream is not None:
             stream.close(cancel_requests)
+        tel = self._telemetry
+        if span is not None and tel is not None:
+            tel.finish_stream(span)
+
+    def stream_span(self):
+        """The active (or most recently stopped) stream's StreamSpan; None
+        without telemetry."""
+        return self._stream_span

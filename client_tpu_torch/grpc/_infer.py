@@ -222,6 +222,23 @@ class InferResult:
                 return out
         return None
 
+    def get_response_header(self, name: str, default: Optional[str] = None) -> Optional[str]:
+        """A response metadata value (e.g. ORCA's ``endpoint-load-metrics``).
+
+        The unary infer paths stash the call's initial and trailing
+        metadata here (wire metadata keys are lowercase; the lookup is
+        case-insensitive, as the HTTP clients' header accessor is)."""
+        headers = getattr(self, "_response_headers", None)
+        if not headers:
+            return default
+        value = headers.get(name.lower())
+        if value is not None:
+            return value
+        for key, value in headers.items():
+            if key.lower() == name.lower():
+                return value
+        return default
+
     def as_numpy(self, name: str) -> Optional[np.ndarray]:
         """Decode output ``name``; None if it lives in a shared-memory region."""
         # raw_output_contents aligns with non-shared-memory outputs in order

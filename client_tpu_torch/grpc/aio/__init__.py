@@ -4,12 +4,16 @@ The grpc.aio twin of the sync client over the same schema-driven wire codec
 and request builders, so its frames are the sync client's. ``stream_infer``
 is the bidi stream as an async iterator of (result, error) pairs.
 
-One attempt per call and a stream without reconnection: retry policies and
-telemetry are layers the port does not carry yet.
+Every unary call runs under the client's resilience policy (retries with
+span events per attempt), reports into its telemetry, and every
+``InferResult`` is checked against its request (``integrity``). The stream
+is traced as a ``StreamSpan``; it does not reconnect (as in the JAX
+package's aio client).
 """
 
 from __future__ import annotations
 
+import time
 from typing import Any, AsyncIterator, Dict, List, Optional, Sequence
 
 import grpc
@@ -17,6 +21,8 @@ import grpc.aio
 
 from ..._base import InferenceServerClientBase, Request
 from ..._tensor import InferInput, InferRequestedOutput
+from ...observe import TRACEPARENT_HEADER
+from ...resilience import FATAL, AttemptBudget, classify_fault
 from ...utils import InferenceServerException
 from .._client import (
     KeepAliveOptions,
@@ -24,6 +30,7 @@ from .._client import (
     callables_for,
     channel_options,
     cuda_register_request,
+    flatten_metadata,
     load_request,
     log_request,
     log_settings_of,
@@ -45,12 +52,19 @@ __all__ = [
 
 class _ResponseIterator:
     """Async iterator of (result, error) pairs over a bidi call, with
-    ``cancel()``."""
+    ``cancel()``; closes the stream's span (if any) at its end."""
 
-    def __init__(self, rpc_call):
+    def __init__(self, rpc_call, stream_span=None, telemetry=None):
         self._call = rpc_call
+        self._span = stream_span
+        self._telemetry = telemetry
+
+    def _finish(self, error=None, abandoned=False):
+        if self._span is not None and self._telemetry is not None:
+            self._telemetry.finish_stream(self._span, error=error, abandoned=abandoned)
 
     def cancel(self) -> bool:
+        self._finish(abandoned=True)
         return self._call.cancel()
 
     def __aiter__(self):
@@ -61,18 +75,28 @@ class _ResponseIterator:
             response = await self._call.read()
         except grpc.aio.AioRpcError as e:
             if e.code() == grpc.StatusCode.CANCELLED:
+                self._finish(abandoned=True)
                 raise StopAsyncIteration
-            raise _to_exception(e) from e
+            err = _to_exception(e)
+            self._finish(error=err)
+            raise err from e
         if response is grpc.aio.EOF:
+            self._finish()
             raise StopAsyncIteration
         err = response.get("error_message")
         if err:
+            if self._span is not None:
+                self._span.event("stream_error", error="InferenceServerException")
             return None, InferenceServerException(err)
+        if self._span is not None:
+            self._span.mark()
         return InferResult(response.get("infer_response", {})), None
 
 
 class InferenceServerClient(InferenceServerClientBase):
     """Asyncio client for the KServe v2 GRPC protocol."""
+
+    _FRONTEND = "grpc_aio"
 
     def __init__(
         self,
@@ -120,30 +144,90 @@ class InferenceServerClient(InferenceServerClientBase):
         return tuple(request.headers.items()) or None
 
     async def _call(self, method, request, headers=None, client_timeout=None,
-                    compression_algorithm=None):
+                    compression_algorithm=None, idempotent=True, resilience=None,
+                    span=None, metadata_sink=None):
+        """One unary call under the client's resilience policy (or the
+        per-request ``resilience`` override; ``False`` bypasses it).
+
+        ``metadata_sink``: when given, the response's initial and trailing
+        metadata (string values only) land in the dict — the GRPC twin of
+        HTTP response headers (e.g. ORCA's ``endpoint-load-metrics``)."""
         if self._verbose:
             print(f"{method}, metadata {headers or {}}\n{request}")
-        try:
-            response = await self._callable(method)(
-                request,
-                metadata=self._metadata(headers),
-                timeout=client_timeout,
-                compression=to_grpc_compression(compression_algorithm),
-            )
-        except grpc.aio.AioRpcError as e:
-            raise _to_exception(e) from e
+        policy = self._resilience_for(resilience)
+        budget = AttemptBudget(policy, client_timeout)
+
+        async def attempt():
+            attempt_timeout = budget.attempt_timeout_s(status="StatusCode.DEADLINE_EXCEEDED")
+            try:
+                call = self._callable(method)(
+                    request,
+                    metadata=self._metadata(headers),
+                    timeout=attempt_timeout,
+                    compression=to_grpc_compression(compression_algorithm),
+                )
+                response = await call
+                if metadata_sink is not None:
+                    metadata_sink.clear()  # a retried attempt must not mix in
+                    metadata_sink.update(flatten_metadata(
+                        await call.initial_metadata(), await call.trailing_metadata()))
+                return response
+            except grpc.aio.AioRpcError as e:
+                raise _to_exception(e) from e
+
+        run_attempt = attempt
+        on_retry = None
+        if span is not None:
+            async def run_attempt():
+                t_a = time.perf_counter_ns()
+                try:
+                    result = await attempt()
+                except BaseException:
+                    span.phase("attempt", t_a, time.perf_counter_ns())
+                    raise
+                end = time.perf_counter_ns()
+                span.phase("attempt", t_a, end)
+                # a unary call: the successful attempt is the ttfb window (a
+                # retried request must not fold failed attempts and backoff
+                # into it)
+                span.phase("ttfb", t_a, end)
+                return result
+
+            def on_retry(n, exc, delay):
+                span.event("retry", attempt=n, backoff_s=round(delay, 6),
+                           error=type(exc).__name__)
+
+        if policy is None:
+            response = await run_attempt()
+        else:
+            response = await policy.execute_async(
+                run_attempt, idempotent=idempotent, timeout_s=client_timeout,
+                on_retry=on_retry)
         if self._verbose:
             print(response)
         return response
 
     # -- health / metadata ---------------------------------------------------
-    async def is_server_live(self, headers=None, client_timeout=None) -> bool:
-        resp = await self._call("ServerLive", {}, headers, client_timeout)
-        return bool(resp.get("live", False))
+    async def _health(self, method, field, headers, client_timeout, probe: bool) -> bool:
+        """The sync client's ``_health``: transport failures raise by
+        default; ``probe=True`` maps connect/transient/timeout-class failures
+        to False and bypasses the resilience policy."""
+        try:
+            resp = await self._call(method, {}, headers, client_timeout,
+                                    resilience=False if probe else None)
+        except InferenceServerException as e:
+            if probe and classify_fault(e) != FATAL:
+                return False
+            raise
+        return bool(resp.get(field, False))
 
-    async def is_server_ready(self, headers=None, client_timeout=None) -> bool:
-        resp = await self._call("ServerReady", {}, headers, client_timeout)
-        return bool(resp.get("ready", False))
+    async def is_server_live(self, headers=None, client_timeout=None,
+                             probe: bool = False) -> bool:
+        return await self._health("ServerLive", "live", headers, client_timeout, probe)
+
+    async def is_server_ready(self, headers=None, client_timeout=None,
+                              probe: bool = False) -> bool:
+        return await self._health("ServerReady", "ready", headers, client_timeout, probe)
 
     async def is_model_ready(self, model_name, model_version="", headers=None,
                              client_timeout=None) -> bool:
@@ -157,9 +241,13 @@ class InferenceServerClient(InferenceServerClientBase):
 
     async def get_model_metadata(self, model_name, model_version="", headers=None,
                                  client_timeout=None):
-        return await self._call(
+        metadata = await self._call(
             "ModelMetadata", {"name": model_name, "version": model_version}, headers,
             client_timeout)
+        # captured into the integrity contract cache: later responses are
+        # validated against this fetched truth (never the other way round)
+        self._integrity_note_metadata(model_name, metadata)
+        return metadata
 
     async def get_model_config(self, model_name, model_version="", headers=None,
                                client_timeout=None):
@@ -217,15 +305,16 @@ class InferenceServerClient(InferenceServerClientBase):
 
     async def register_system_shared_memory(self, name, key, byte_size, offset=0,
                                             headers=None, client_timeout=None):
-        await self._call(
-            "SystemSharedMemoryRegister",
+        await self._shm_call_async(
+            "system", "register", self._call, "SystemSharedMemoryRegister",
             {"name": name, "key": key, "offset": offset, "byte_size": byte_size},
             headers, client_timeout)
 
     async def unregister_system_shared_memory(self, name="", headers=None,
                                               client_timeout=None):
-        await self._call("SystemSharedMemoryUnregister", {"name": name}, headers,
-                         client_timeout)
+        await self._shm_call_async("system", "unregister", self._call,
+                                   "SystemSharedMemoryUnregister", {"name": name}, headers,
+                                   client_timeout)
 
     async def get_cuda_shared_memory_status(self, region_name="", headers=None,
                                             client_timeout=None):
@@ -234,13 +323,15 @@ class InferenceServerClient(InferenceServerClientBase):
 
     async def register_cuda_shared_memory(self, name, raw_handle, device_id, byte_size,
                                           headers=None, client_timeout=None):
-        await self._call("CudaSharedMemoryRegister",
-                         cuda_register_request(name, raw_handle, device_id, byte_size),
-                         headers, client_timeout)
+        await self._shm_call_async("cuda", "register", self._call, "CudaSharedMemoryRegister",
+                                   cuda_register_request(name, raw_handle, device_id,
+                                                         byte_size),
+                                   headers, client_timeout)
 
     async def unregister_cuda_shared_memory(self, name="", headers=None, client_timeout=None):
-        await self._call("CudaSharedMemoryUnregister", {"name": name}, headers,
-                         client_timeout)
+        await self._shm_call_async("cuda", "unregister", self._call,
+                                   "CudaSharedMemoryUnregister", {"name": name}, headers,
+                                   client_timeout)
 
     # -- inference ---------------------------------------------------------
     async def infer(
@@ -259,14 +350,42 @@ class InferenceServerClient(InferenceServerClientBase):
         headers: Optional[Dict[str, str]] = None,
         parameters: Optional[Dict[str, Any]] = None,
         compression_algorithm: Optional[str] = None,
+        resilience=None,
     ) -> InferResult:
-        request = build_infer_request(
-            model_name, inputs, model_version, outputs, request_id,
-            sequence_id, sequence_start, sequence_end, priority, timeout, parameters,
-        )
-        response = await self._call("ModelInfer", request, headers, client_timeout,
-                                    compression_algorithm)
-        return InferResult(response)
+        span = self._obs_begin(self._FRONTEND, model_name)
+        try:
+            request = build_infer_request(
+                model_name, inputs, model_version, outputs, request_id,
+                sequence_id, sequence_start, sequence_end, priority, timeout, parameters,
+            )
+            hdrs = self._orca_opt_in(dict(headers or {}))
+            if span is not None:
+                hdrs[TRACEPARENT_HEADER] = span.traceparent()
+                span.phase("serialize", span.start_ns, time.perf_counter_ns())
+            metadata_sink: Dict[str, str] = {}
+            response = await self._call(
+                "ModelInfer", request, hdrs, client_timeout, compression_algorithm,
+                idempotent=sequence_id == 0, resilience=resilience, span=span,
+                metadata_sink=metadata_sink,
+            )
+            if span is not None:
+                t_deser = time.perf_counter_ns()
+            result = InferResult(response)
+            result._response_headers = metadata_sink
+            # the result never reaches the caller (nor the ORCA path below)
+            # unchecked
+            self._integrity_check(result, inputs, outputs, request_id, model_name)
+        except BaseException as e:
+            if span is not None:
+                self._telemetry.finish(span, error=e)
+            raise
+        if span is not None:
+            span.phase("deserialize", t_deser, time.perf_counter_ns())
+            self._telemetry.finish(span)
+        # after the phase capture: ORCA bookkeeping must not count as
+        # deserialize time
+        self._orca_ingest(result)
+        return result
 
     async def stream_infer(
         self,
@@ -282,7 +401,16 @@ class InferenceServerClient(InferenceServerClientBase):
         an optional ``enable_empty_final_response``. The returned async
         iterator has ``cancel()`` (the consumer's next read then raises
         ``asyncio.CancelledError``).
+
+        With telemetry configured the stream is traced as a ``StreamSpan``
+        and a stream-level ``traceparent`` metadata key joins every request
+        on the call to the server's access records.
         """
+        span = self._obs_begin_stream(self._FRONTEND, "", op="stream")
+        self._last_stream_span = span
+        if span is not None:
+            headers = dict(headers or {})
+            headers[TRACEPARENT_HEADER] = span.traceparent()
 
         async def request_gen():
             async for kwargs in inputs_iterator:
@@ -300,4 +428,9 @@ class InferenceServerClient(InferenceServerClientBase):
             timeout=stream_timeout,
             compression=to_grpc_compression(compression_algorithm),
         )
-        return _ResponseIterator(call)
+        return _ResponseIterator(call, span, self._telemetry)
+
+    def stream_span(self):
+        """The most recent ``stream_infer``'s StreamSpan (None without
+        telemetry)."""
+        return getattr(self, "_last_stream_span", None)

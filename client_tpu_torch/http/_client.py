@@ -9,9 +9,12 @@ routes (the repository index, load and unload, statistics, trace and log
 settings). Request bodies and headers are byte-identical to the JAX
 package's for the same inputs.
 
-Transport: a urllib3 connection pool. One attempt per call: retry policies,
-telemetry and response-integrity checks are layers the port does not carry
-yet.
+Transport: a urllib3 connection pool. Every call runs under the client's
+resilience policy (``configure_resilience``, or the connect-only
+``max_retries``), reports into its telemetry (``configure_telemetry``:
+request spans, the ``traceparent`` header, ORCA endpoint load), and every
+``InferResult`` is checked against its request (``integrity``) before the
+caller sees it.
 """
 
 from __future__ import annotations
@@ -19,14 +22,31 @@ from __future__ import annotations
 import base64
 import json
 import threading
+import time
 from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Any, Dict, List, Optional, Sequence
 from urllib.parse import quote, urlencode
 
 import urllib3
 
-from .._base import InferenceServerClientBase, InferStat, Request, RequestTimers
+from .._base import (
+    SHM_FAMILY_OF,
+    InferenceServerClientBase,
+    InferStat,
+    Request,
+    RequestTimers,
+)
 from .._tensor import InferInput, InferRequestedOutput
+from ..integrity import IntegrityError
+from ..observe import TRACEPARENT_HEADER
+from ..resilience import (
+    FATAL,
+    RETRYABLE_HTTP_STATUSES,
+    AttemptBudget,
+    RetryableStatusError,
+    classify_fault,
+    connect_only_policy,
+)
 from ..utils import InferenceServerException
 from ._infer_result import InferResult
 from ._utils import (
@@ -78,6 +98,8 @@ class InferenceServerClient(InferenceServerClientBase):
     ``async_infer`` runs on a pool of ``concurrency`` threads.
     """
 
+    _FRONTEND = "http"
+
     def __init__(
         self,
         url: str,
@@ -85,7 +107,13 @@ class InferenceServerClient(InferenceServerClientBase):
         concurrency: int = 1,
         connection_timeout: float = 60.0,
         network_timeout: float = 60.0,
+        max_retries: int = 0,
     ):
+        """``max_retries``: re-attempts on *connect* failures (connection
+        refused / DNS), where the request provably never reached the server.
+        In-flight failures are never retried by this knob (inference is not
+        idempotent for sequences); ``configure_resilience`` installs a
+        fuller policy, which takes precedence."""
         super().__init__()
         if "://" in url:
             raise InferenceServerException(
@@ -106,6 +134,8 @@ class InferenceServerClient(InferenceServerClientBase):
         self._executor: Optional[ThreadPoolExecutor] = None
         self._executor_lock = threading.Lock()
         self._infer_stat = InferStat()
+        # legacy knob as a policy: connect-only retries, no breaker
+        self._legacy_policy = connect_only_policy(max(0, max_retries))
 
     # -- lifecycle ---------------------------------------------------------
     def close(self) -> None:
@@ -134,49 +164,111 @@ class InferenceServerClient(InferenceServerClientBase):
         query_params: Optional[Dict[str, Any]] = None,
         timeout: Optional[float] = None,
         timers: Optional[RequestTimers] = None,
+        idempotent: bool = True,
+        resilience=None,
+        span=None,
     ) -> _Response:
         """Issue one HTTP request; returns the response with the body read.
 
         Content-Encoding is decoded by urllib3, so ``data`` is always the
         plain payload. With ``timers``, SEND_END is captured once response
         headers arrive and RECV_START/END bracket the body read.
+
+        The request runs under the client's resilience policy (or the
+        per-request ``resilience`` override; ``False`` bypasses both it and
+        ``max_retries``): connect failures are always re-attemptable;
+        in-flight resets and shed-load statuses (408/429/502/503/504) only
+        when ``idempotent`` — a sequence infer is never re-sent after its
+        bytes may have landed.
         """
         uri = "/" + path
         if query_params:
             uri += "?" + urlencode(query_params)
-        request = Request(dict(headers or {}))
-        self._call_plugin(request)
-        kwargs: Dict[str, Any] = dict(preload_content=False, headers=request.headers)
+        if resilience is False:
+            policy = None
+        else:
+            policy = self._resilience_for(resilience) or self._legacy_policy
+        kwargs: Dict[str, Any] = dict(preload_content=False)
         if body is not None:
             kwargs["body"] = body
-        if timeout is not None:
-            kwargs["timeout"] = urllib3.Timeout(connect=timeout, read=timeout)
-        if self._verbose:
-            print(f"{method} {uri}, headers {request.headers}")
-        resp = None
-        try:
+        budget = AttemptBudget(policy, timeout)
+        retry_statuses = policy is not None and policy.retry_http_statuses
+
+        def attempt() -> _Response:
+            # the plugin runs per attempt: a token-refreshing plugin stamps
+            # a fresh credential on every retry
+            request = Request(dict(headers or {}))
+            self._call_plugin(request)
+            kwargs["headers"] = request.headers
+            if self._verbose:
+                print(f"{method} {uri}, headers {request.headers}")
+            remaining = budget.attempt_timeout_s(status="499")
+            if remaining is not None:
+                kwargs["timeout"] = urllib3.Timeout(connect=remaining, read=remaining)
+            resp = None
+            t_send = time.perf_counter_ns() if span is not None else 0
             try:
-                resp = self._pool.request(method, uri, **kwargs)
-            except urllib3.exceptions.NewConnectionError as e:
-                # subclasses ConnectTimeoutError in urllib3, but "refused"
-                # isn't "timed out"
+                try:
+                    resp = self._pool.request(method, uri, **kwargs)
+                except urllib3.exceptions.NewConnectionError as e:
+                    # subclasses ConnectTimeoutError in urllib3, but "refused"
+                    # isn't "timed out": classify_fault files it under connect
+                    raise InferenceServerException(f"connection error: {e}") from e
+                if span is not None:
+                    # per attempt: a retried request must not fold its
+                    # predecessors' failures and backoff into ttfb
+                    t_hdrs = time.perf_counter_ns()
+                    span.phase("ttfb", t_send, t_hdrs)
+                if timers is not None:
+                    timers.capture(RequestTimers.SEND_END)
+                    timers.capture(RequestTimers.RECV_START)
+                data = resp.read(decode_content=True)
+                if span is not None:
+                    span.phase("recv", t_hdrs, time.perf_counter_ns())
+                if timers is not None:
+                    timers.capture(RequestTimers.RECV_END)
+            except urllib3.exceptions.TimeoutError as e:
+                raise InferenceServerException("Deadline Exceeded", status="499") from e
+            except urllib3.exceptions.HTTPError as e:
                 raise InferenceServerException(f"connection error: {e}") from e
-            if timers is not None:
-                timers.capture(RequestTimers.SEND_END)
-                timers.capture(RequestTimers.RECV_START)
-            data = resp.read(decode_content=True)
-            if timers is not None:
-                timers.capture(RequestTimers.RECV_END)
-        except urllib3.exceptions.TimeoutError as e:
-            raise InferenceServerException("Deadline Exceeded", status="499") from e
-        except urllib3.exceptions.HTTPError as e:
-            raise InferenceServerException(f"connection error: {e}") from e
-        finally:
-            if resp is not None:
-                resp.release_conn()
-        if self._verbose:
-            print(f"-> {resp.status}, headers {dict(resp.headers)}")
-        return _Response(resp.status, resp.headers, data)
+            finally:
+                if resp is not None:
+                    resp.release_conn()
+            if self._verbose:
+                print(f"-> {resp.status}, headers {dict(resp.headers)}")
+            out = _Response(resp.status, resp.headers, data)
+            if retry_statuses and str(resp.status) in RETRYABLE_HTTP_STATUSES:
+                raise RetryableStatusError(resp.status, out)
+            return out
+
+        run_attempt = attempt
+        if span is not None:
+            def run_attempt():
+                # each resilient attempt is its own interval on the timeline
+                t_a = time.perf_counter_ns()
+                try:
+                    return attempt()
+                finally:
+                    span.phase("attempt", t_a, time.perf_counter_ns())
+
+        if policy is None:
+            return run_attempt()
+        on_retry = None
+        if self._verbose or span is not None:
+            def on_retry(n, exc, delay):
+                if span is not None:
+                    span.event("retry", attempt=n, backoff_s=round(delay, 6),
+                               error=type(exc).__name__)
+                if self._verbose:
+                    print(f"retrying after attempt {n + 1} failed ({exc}); "
+                          f"backoff {delay:.3f}s")
+        try:
+            return policy.execute(run_attempt, idempotent=idempotent,
+                                  timeout_s=timeout, on_retry=on_retry)
+        except RetryableStatusError as e:
+            # attempts exhausted on a shed-load status: hand the response
+            # back so callers keep the plain raise_if_error path
+            return e.response
 
     def _get(self, path, headers=None, query_params=None):
         return self._request("GET", path, headers=headers, query_params=query_params)
@@ -198,11 +290,32 @@ class InferenceServerClient(InferenceServerClientBase):
         return path
 
     # -- health / metadata -------------------------------------------------
-    def is_server_live(self, headers=None, query_params=None) -> bool:
-        return self._get("v2/health/live", headers, query_params).status == 200
+    def _health(self, path, headers, query_params, probe: bool,
+                client_timeout: Optional[float]) -> bool:
+        """Shared live/ready GET. By default transport failures (connection
+        refused, resets, timeouts) raise: callers tell "the server said not
+        ready" from "could not ask". ``probe=True`` is the health-poller
+        mode: connect/transient/timeout-class failures return False (a dead
+        endpoint is not ready), and the request bypasses any resilience
+        policy so the probe sees the endpoint, never a breaker's fast-fail.
+        FATAL (application/protocol) errors still raise."""
+        try:
+            resp = self._request(
+                "GET", path, headers=headers, query_params=query_params,
+                timeout=client_timeout, resilience=False if probe else None)
+        except InferenceServerException as e:
+            if probe and classify_fault(e) != FATAL:
+                return False
+            raise
+        return resp.status == 200
 
-    def is_server_ready(self, headers=None, query_params=None) -> bool:
-        return self._get("v2/health/ready", headers, query_params).status == 200
+    def is_server_live(self, headers=None, query_params=None, probe: bool = False,
+                       client_timeout: Optional[float] = None) -> bool:
+        return self._health("v2/health/live", headers, query_params, probe, client_timeout)
+
+    def is_server_ready(self, headers=None, query_params=None, probe: bool = False,
+                        client_timeout: Optional[float] = None) -> bool:
+        return self._health("v2/health/ready", headers, query_params, probe, client_timeout)
 
     def is_model_ready(self, model_name, model_version="", headers=None, query_params=None) -> bool:
         path = self._model_path(model_name, model_version) + "/ready"
@@ -215,7 +328,11 @@ class InferenceServerClient(InferenceServerClientBase):
         self, model_name, model_version="", headers=None, query_params=None
     ) -> Dict[str, Any]:
         path = self._model_path(model_name, model_version)
-        return self._json_of(self._get(path, headers, query_params))
+        metadata = self._json_of(self._get(path, headers, query_params))
+        # captured into the integrity contract cache: later responses are
+        # validated against this fetched truth (never the other way round)
+        self._integrity_note_metadata(model_name, metadata)
+        return metadata
 
     def get_model_config(
         self, model_name, model_version="", headers=None, query_params=None
@@ -295,11 +412,16 @@ class InferenceServerClient(InferenceServerClientBase):
         return json.loads(resp.data) if resp.data else []
 
     def _shm_post(self, family, name, action, body, headers, query_params) -> None:
+        """One register/unregister call, under data-plane accounting."""
         path = f"v2/{family}"
         if name:
             path += f"/region/{quote(name)}"
-        resp = self._post(f"{path}/{action}", body, headers, query_params)
-        raise_if_error(resp.status, resp.data)
+
+        def call():
+            resp = self._post(f"{path}/{action}", body, headers, query_params)
+            raise_if_error(resp.status, resp.data)
+
+        self._shm_call(SHM_FAMILY_OF[family], action, call)
 
     def get_system_shared_memory_status(
         self, region_name="", headers=None, query_params=None
@@ -375,38 +497,70 @@ class InferenceServerClient(InferenceServerClientBase):
         request_compression_algorithm: Optional[str] = None,
         response_compression_algorithm: Optional[str] = None,
         parameters: Optional[Dict[str, Any]] = None,
+        resilience=None,
     ) -> InferResult:
-        """Run a synchronous inference."""
+        """Run a synchronous inference.
+
+        ``resilience``: per-request ``ResiliencePolicy`` override (``False``
+        bypasses the policy). Sequence requests (``sequence_id != 0``) are
+        non-idempotent: only never-sent connect failures are retried."""
+        span = self._obs_begin(self._FRONTEND, model_name)
         timers = RequestTimers()
         timers.capture(RequestTimers.REQUEST_START)
-        body, json_size = build_infer_body(
-            inputs, outputs, request_id, sequence_id, sequence_start,
-            sequence_end, priority, timeout, parameters,
-        )
-        hdrs = dict(headers or {})
-        body, encoding = compress_body(body, request_compression_algorithm)
-        if encoding:
-            hdrs["Content-Encoding"] = encoding
-        if response_compression_algorithm in ("gzip", "deflate"):
-            hdrs["Accept-Encoding"] = response_compression_algorithm
-        if json_size is not None:
-            hdrs["Inference-Header-Content-Length"] = str(json_size)
-            hdrs["Content-Type"] = "application/octet-stream"
-        else:
-            hdrs["Content-Type"] = "application/json"
+        try:
+            body, json_size = build_infer_body(
+                inputs, outputs, request_id, sequence_id, sequence_start,
+                sequence_end, priority, timeout, parameters,
+            )
+            hdrs = self._orca_opt_in(dict(headers or {}))
+            body, encoding = compress_body(body, request_compression_algorithm)
+            if encoding:
+                hdrs["Content-Encoding"] = encoding
+            if response_compression_algorithm in ("gzip", "deflate"):
+                hdrs["Accept-Encoding"] = response_compression_algorithm
+            if json_size is not None:
+                hdrs["Inference-Header-Content-Length"] = str(json_size)
+                hdrs["Content-Type"] = "application/octet-stream"
+            else:
+                hdrs["Content-Type"] = "application/json"
+            if span is not None:
+                hdrs[TRACEPARENT_HEADER] = span.traceparent()
+                span.phase("serialize", span.start_ns, time.perf_counter_ns())
 
-        timers.capture(RequestTimers.SEND_START)
-        resp = self._request(
-            "POST", self._model_path(model_name, model_version) + "/infer",
-            body=body, headers=hdrs, query_params=query_params,
-            timeout=client_timeout, timers=timers,
-        )
-        raise_if_error(resp.status, resp.data)
-        header_length = resp.headers.get("Inference-Header-Content-Length")
-        result = InferResult.from_response_body(
-            resp.data, int(header_length) if header_length is not None else None)
+            timers.capture(RequestTimers.SEND_START)
+            resp = self._request(
+                "POST", self._model_path(model_name, model_version) + "/infer",
+                body=body, headers=hdrs, query_params=query_params,
+                timeout=client_timeout, timers=timers,
+                idempotent=sequence_id == 0, resilience=resilience, span=span,
+            )
+            raise_if_error(resp.status, resp.data)
+            t_deser = time.perf_counter_ns() if span is not None else 0
+            header_length = resp.headers.get("Inference-Header-Content-Length")
+            try:
+                result = InferResult.from_response_body(
+                    resp.data, int(header_length) if header_length is not None else None)
+            except IntegrityError as e:
+                # an undecodable body: attribute it to this endpoint and
+                # account it like any other integrity violation
+                self._integrity_parse_note(e)
+                raise
+            result._response_headers = dict(resp.headers)  # e.g. endpoint-load-metrics
+            # the result never reaches the caller (nor the ORCA and verbose
+            # paths below) unchecked
+            self._integrity_check(result, inputs, outputs, request_id, model_name)
+        except BaseException as e:
+            if span is not None:
+                self._telemetry.finish(span, error=e)
+            raise
         timers.capture(RequestTimers.REQUEST_END)
         self._infer_stat.update(timers)
+        if span is not None:
+            span.phase("deserialize", t_deser, time.perf_counter_ns())
+            self._telemetry.finish(span)
+        # after the phase capture: ORCA bookkeeping must not count as
+        # deserialize time
+        self._orca_ingest(result)
         if self._verbose:
             print(result.get_response())
         return result
@@ -470,48 +624,89 @@ class InferenceServerClient(InferenceServerClientBase):
         """Iterator over generate-extension SSE events, one dict per
         streamed response. Abandoning the iterator mid-stream closes the
         connection, which the server sees as a client cancel. In-band error
-        events raise."""
-        request = Request(dict(headers or {}))
+        events raise.
+
+        With telemetry configured the stream is traced as a ``StreamSpan``
+        (open -> first-event TTFT -> per-event marks -> close/error/abandon)
+        and a ``traceparent`` header joins it to the server's access record
+        for the generation."""
+        hdrs = dict(headers or {})
+        span = self._obs_begin_stream(self._FRONTEND, model_name)
+        self._last_stream_span = span
+        if span is not None:
+            hdrs[TRACEPARENT_HEADER] = span.traceparent()
+        request = Request(hdrs)
         self._call_plugin(request)
         uri = "/" + self._generate_path(model_name, model_version, stream=True)
         if query_params:
             uri += "?" + urlencode(query_params)
+        tel = self._telemetry
         try:
-            # no read deadline: generation streams for as long as it
-            # streams; the pool's connect timeout still applies
-            resp = self._pool.request(
-                "POST", uri,
-                body=self._generate_payload(inputs, request_id, parameters),
-                headers=request.headers, preload_content=False,
-                timeout=urllib3.Timeout(connect=self._timeout.connect_timeout, read=None),
-            )
-        except urllib3.exceptions.HTTPError as e:
-            raise InferenceServerException(f"connection error: {e}") from e
-        exhausted = False
-        try:
-            if resp.status != 200:
-                try:
-                    data = resp.read(decode_content=True)
-                except urllib3.exceptions.HTTPError as e:
-                    raise InferenceServerException(f"connection error: {e}") from e
-                raise_if_error(resp.status, data)
-                raise InferenceServerException(
-                    f"unexpected generate_stream status {resp.status}")
-            decoder = SSEDecoder()
             try:
-                for chunk in resp.stream(8192, decode_content=True):
-                    for payload in decoder.feed(chunk):
-                        yield parse_sse_event(payload)
-                for payload in decoder.flush():
-                    yield parse_sse_event(payload)
+                # no read deadline: generation streams for as long as it
+                # streams; the pool's connect timeout still applies
+                resp = self._pool.request(
+                    "POST", uri,
+                    body=self._generate_payload(inputs, request_id, parameters),
+                    headers=request.headers, preload_content=False,
+                    timeout=urllib3.Timeout(connect=self._timeout.connect_timeout, read=None),
+                )
             except urllib3.exceptions.HTTPError as e:
                 raise InferenceServerException(f"connection error: {e}") from e
-            exhausted = True
-        finally:
-            if exhausted:
-                # fully-drained chunked body: the connection is reusable
-                resp.release_conn()
-            else:
-                # an abandoned stream must tear the connection down so the
-                # server sees the disconnect
-                resp.close()
+            exhausted = False
+            try:
+                if resp.status != 200:
+                    try:
+                        data = resp.read(decode_content=True)
+                    except urllib3.exceptions.HTTPError as e:
+                        raise InferenceServerException(f"connection error: {e}") from e
+                    raise_if_error(resp.status, data)
+                    raise InferenceServerException(
+                        f"unexpected generate_stream status {resp.status}")
+                decoder = SSEDecoder()
+                # marked at parse time (arrival), before the consumer runs
+                mark = span.mark if span is not None else None
+                # opt-in stream-index integrity; None when the policy is off
+                checker = self._integrity_stream_checker(model_name)
+                try:
+                    for chunk in resp.stream(8192, decode_content=True):
+                        for payload in decoder.feed(chunk):
+                            event = parse_sse_event(payload)
+                            if checker is not None:
+                                checker.observe(event)
+                            if mark is not None:
+                                mark()
+                            yield event
+                    for payload in decoder.flush():
+                        event = parse_sse_event(payload)
+                        if checker is not None:
+                            checker.observe(event)
+                        if mark is not None:
+                            mark()
+                        yield event
+                except urllib3.exceptions.HTTPError as e:
+                    raise InferenceServerException(f"connection error: {e}") from e
+                exhausted = True
+            finally:
+                if exhausted:
+                    # fully-drained chunked body: the connection is reusable
+                    resp.release_conn()
+                else:
+                    # an abandoned stream must tear the connection down so
+                    # the server sees the disconnect
+                    resp.close()
+        except GeneratorExit:
+            if span is not None:
+                tel.finish_stream(span, abandoned=True)
+            raise
+        except BaseException as e:
+            if span is not None:
+                tel.finish_stream(span, error=e)
+            raise
+        if span is not None:
+            tel.finish_stream(span)
+
+    def last_stream_span(self):
+        """The most recent ``generate_stream``'s StreamSpan (None without
+        telemetry): harnesses read TTFT/ITL from it."""
+        return getattr(self, "_last_stream_span", None)

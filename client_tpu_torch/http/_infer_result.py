@@ -14,6 +14,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..integrity import IntegrityError
 from ..utils import (
     InferenceServerException,
     deserialize_bf16_tensor,
@@ -23,23 +24,24 @@ from ..utils import (
 )
 
 
-def _malformed(what: str) -> InferenceServerException:
-    return InferenceServerException(f"malformed inference response: {what}")
-
-
 class InferResult:
     """The result of an inference request over HTTP.
 
-    Malformed bodies (torn or non-UTF-8 JSON headers, header-length claims
-    exceeding the body, binary sizes overrunning the buffer) raise
-    ``InferenceServerException``."""
+    Body decoding raises a typed :class:`~client_tpu_torch.integrity.IntegrityError`
+    (status ``INTEGRITY_VIOLATION``, a subclass of ``InferenceServerException``)
+    for malformed responses — torn or non-UTF-8 JSON headers, header-length
+    claims exceeding the body, binary sizes overrunning the buffer — so torn
+    bytes classify into the ``invalid`` fault domain like the contract lies
+    ``integrity.check_result`` catches after the parse. The decoder does not
+    know its endpoint; the frontend stamps the url on through
+    ``integrity.note_parse_violation``."""
 
     def __init__(self, response_body: bytes, header_length: Optional[int] = None):
         self._buffer = memoryview(response_body)
         if header_length is not None and header_length > len(response_body):
-            raise _malformed(
-                f"Inference-Header-Content-Length {header_length} exceeds the "
-                f"{len(response_body)}-byte body")
+            raise IntegrityError(
+                "malformed", "", "Inference-Header-Content-Length",
+                f"<= {len(response_body)}", str(header_length))
         try:
             if header_length is None:
                 self._response: Dict[str, Any] = json.loads(response_body)
@@ -48,29 +50,37 @@ class InferResult:
                 self._response = json.loads(bytes(self._buffer[:header_length]))
                 self._binary_start = header_length
         except (UnicodeDecodeError, ValueError) as e:
-            raise _malformed(f"response header is not valid JSON ({e})") from e
+            raise IntegrityError(
+                "malformed", "", "response header", "valid JSON", str(e)) from e
         if not isinstance(self._response, dict):
-            raise _malformed("response header is not a JSON object")
+            raise IntegrityError(
+                "malformed", "", "response header", "a JSON object",
+                type(self._response).__name__)
         # Map output name -> (start, end) into the binary tail, walked in
         # output order using each output's binary_data_size parameter.
         self._offsets: Dict[str, Tuple[int, int]] = {}
         cursor = self._binary_start
         for output in self._response.get("outputs", []):
             if not isinstance(output, dict):
-                raise _malformed("an output is not a JSON object")
+                raise IntegrityError(
+                    "malformed", "", "outputs", "JSON objects", type(output).__name__)
             params = output.get("parameters", {})
             size = params.get("binary_data_size") if isinstance(params, dict) else None
             if size is None:
                 continue
             name = output.get("name")
             if not isinstance(size, int) or isinstance(size, bool) or size < 0:
-                raise _malformed(f"output {name!r} has binary_data_size {size!r}")
+                raise IntegrityError(
+                    "payload_size", "", str(name), "a non-negative integer",
+                    f"invalid binary_data_size {size!r}")
             if cursor + size > len(response_body):
-                raise _malformed(
-                    f"output {name!r} claims {size} bytes but "
-                    f"{len(response_body) - cursor} remain in the body")
+                raise IntegrityError(
+                    "tail", "", str(name), f"{size} bytes within the body",
+                    f"claim reaches beyond the body "
+                    f"({len(response_body) - cursor} bytes remain)")
             if not isinstance(name, str) or not name:
-                raise _malformed(f"binary output without a name ({name!r})")
+                raise IntegrityError(
+                    "output_name", "", "outputs", "a non-empty string name", repr(name))
             self._offsets[name] = (cursor, cursor + size)
             cursor += size
 
@@ -84,6 +94,16 @@ class InferResult:
     def get_response(self) -> Dict[str, Any]:
         return self._response
 
+    def get_response_header(self, name: str, default: Optional[str] = None) -> Optional[str]:
+        """A transport response header (e.g. ORCA's ``endpoint-load-metrics``)."""
+        headers = getattr(self, "_response_headers", None)
+        if not headers:
+            return default
+        for key, value in headers.items():
+            if key.lower() == name.lower():
+                return value
+        return default
+
     def get_output(self, name: str) -> Optional[Dict[str, Any]]:
         for output in self._response.get("outputs", []):
             if output.get("name") == name:
@@ -95,7 +115,9 @@ class InferResult:
         datatype = output.get("datatype")
         shape = output.get("shape")
         if not isinstance(datatype, str) or not isinstance(shape, list):
-            raise _malformed(f"output {name!r} lacks datatype and shape fields")
+            raise IntegrityError(
+                "malformed", "", f"output '{name}'",
+                "datatype and shape fields", repr(sorted(output))[:120])
         params = output.get("parameters", {})
         if "shared_memory_region" in params:
             return None  # contents live in the shared-memory region
@@ -129,7 +151,8 @@ class InferResult:
                 try:
                     arr = np.array(output["data"], dtype=np_dtype)
                 except (ValueError, TypeError, OverflowError) as e:
-                    raise _malformed(f"output {name!r} data is not {datatype} ({e})") from None
+                    raise IntegrityError(
+                        "malformed", "", f"output '{name}' data", datatype, str(e)) from None
             return self._reshape(arr, shape, name)
         return None
 
@@ -138,9 +161,10 @@ class InferResult:
         try:
             return arr.reshape(shape)
         except (ValueError, TypeError) as e:
-            raise _malformed(
-                f"output {name!r} has {arr.size} elements, not shape {shape} ({e})"
-            ) from None
+            # element count vs claimed shape disagree: the header lied
+            raise IntegrityError(
+                "payload_size", "", f"output '{name}'", shape,
+                f"{arr.size} elements ({e})") from None
 
     def as_numpy(self, name: str) -> Optional[np.ndarray]:
         """Decode output ``name`` as a numpy array (zero-copy for fixed-width

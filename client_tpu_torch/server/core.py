@@ -10,7 +10,9 @@ the device when the output lands in a cuda shared-memory region.
 
 The admin surface is the JAX core's: the repository index, load (with a
 config override) and unload, statistics, trace settings (with the trace
-records they switch on) and log settings.
+records they switch on) and log settings. So is its observability surface:
+traceparent-joined access records, the ``metrics_registry`` the HTTP
+frontend serves at ``/metrics``, and the per-response ORCA load report.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from __future__ import annotations
 import json
 import threading
 import time
+from collections import deque
 from concurrent.futures import TimeoutError as FuturesTimeoutError
 from typing import Any, Dict, List, Optional
 
@@ -307,6 +310,12 @@ class ServerCore:
         self._traces: List[Dict[str, Any]] = []
         self._trace_seq = 0
         self._trace_candidates = 0
+        # W3C trace-context access records: every request that arrived with
+        # a valid traceparent gets a server-side span joined on the same
+        # trace id, so client phase timings and server queue/compute
+        # timings line up (client_tpu_torch.observe)
+        self._access: deque = deque(maxlen=1024)
+        self._metrics_registry = None
         for m in models or []:
             self.add_model(m)
 
@@ -451,6 +460,140 @@ class ServerCore:
         with self._lock:
             return list(self._traces[-count:])
 
+    # -- observability (client_tpu_torch.observe counterpart) -----------------
+    def _observe_access(self, request: Dict[str, Any], model_name: str,
+                        t0: int, t_infer: int, infer_ns: int,
+                        responses: int = 1,
+                        first_response_ns: Optional[int] = None) -> None:
+        """Record a server-side span for a request that carried a W3C
+        ``traceparent`` (the frontends stash the header or metadata value
+        under the reserved ``traceparent`` request key). ``client_span_id``
+        is the parent id from the header — the client's request span — so
+        one trace id joins client phases to the server's queue and compute
+        times. Streamed (decoupled) requests also carry their response count
+        and the server-side first-response latency.
+
+        On the GPU, ``compute_ns`` is the host time of ``model.execute``
+        (or of the decoupled generator's run). A model whose outputs are
+        CUDA tensors may return once its kernels are enqueued: its device
+        time then lands after ``compute_ns`` — in the response build, where
+        a wire output's device-to-host copy waits for it — or, for an output
+        left on the device in a colocated cuda region, in no server span at
+        all. The path adds no synchronize to measure it."""
+        traceparent = request.get("traceparent")
+        if not traceparent:
+            return
+        from ..observe import make_span_id, parse_traceparent
+
+        parsed = parse_traceparent(traceparent)
+        if parsed is None:
+            return
+        trace_id, client_span_id, _sampled = parsed
+        record = {
+            "trace_id": trace_id,
+            "client_span_id": client_span_id,
+            "server_span_id": make_span_id(),
+            "model_name": model_name,
+            "request_id": request.get("id", ""),
+            # recv -> compute start: input resolution and the batching queue
+            "queue_ns": max(t_infer - t0, 0),
+            "compute_ns": infer_ns,
+            "total_ns": time.perf_counter_ns() - t0,
+            "responses": responses,
+            "wall_time_s": time.time(),
+        }
+        if first_response_ns is not None:
+            record["first_response_ns"] = max(first_response_ns - t0, 0)
+        with self._lock:
+            self._access.append(record)
+
+    def access_records(self, count: int = 100) -> List[Dict[str, Any]]:
+        """The most recent traceparent-joined server spans (newest last)."""
+        with self._lock:
+            return list(self._access)[-count:]
+
+    def metrics_registry(self):
+        """The server's ``observe.MetricsRegistry`` (created on first use):
+        live/ready gauges plus per-model request/latency series refreshed
+        from the model statistics at scrape time. The HTTP frontend serves
+        its Prometheus rendering at ``GET /metrics``. The port's server has
+        no drain yet, so live and ready read 1 while it serves."""
+        with self._lock:
+            if self._metrics_registry is not None:
+                return self._metrics_registry
+        from ..observe import MetricsRegistry
+
+        reg = MetricsRegistry()
+        live = reg.gauge("client_tpu_server_live", "Server liveness (1 live)")
+        ready = reg.gauge(
+            "client_tpu_server_ready",
+            "Server readiness (0 while draining; live stays 1)")
+        gauges = {
+            "inference_count": reg.gauge(
+                "client_tpu_server_inference_count",
+                "Inferences completed (batched requests each count)", ("model",)),
+            "execution_count": reg.gauge(
+                "client_tpu_server_execution_count",
+                "Model executions (execution < inference under batching)", ("model",)),
+            "success": reg.gauge(
+                "client_tpu_server_request_success_count", "Successful requests",
+                ("model",)),
+            "fail": reg.gauge(
+                "client_tpu_server_request_fail_count", "Failed requests", ("model",)),
+            "cancel": reg.gauge(
+                "client_tpu_server_request_cancel_count",
+                "Client-cancelled/abandoned streaming requests", ("model",)),
+            "queue_seconds": reg.gauge(
+                "client_tpu_server_queue_seconds", "Cumulative batching-queue wait",
+                ("model",)),
+            "compute_seconds": reg.gauge(
+                "client_tpu_server_compute_seconds", "Cumulative model compute time",
+                ("model",)),
+        }
+        traced = reg.gauge(
+            "client_tpu_server_traced_requests",
+            "Traceparent-joined access records currently buffered")
+
+        def collect():
+            live.set(1.0)
+            ready.set(1.0)
+            for row in self.statistics()["model_stats"]:
+                model = row["name"]
+                gauges["inference_count"].labels(model).set(row["inference_count"])
+                gauges["execution_count"].labels(model).set(row["execution_count"])
+                stats = row["inference_stats"]
+                gauges["success"].labels(model).set(stats["success"]["count"])
+                gauges["fail"].labels(model).set(stats["fail"]["count"])
+                gauges["cancel"].labels(model).set(stats["cancel"]["count"])
+                gauges["queue_seconds"].labels(model).set(stats["queue"]["ns"] / 1e9)
+                gauges["compute_seconds"].labels(model).set(
+                    stats["compute_infer"]["ns"] / 1e9)
+            with self._lock:
+                traced.set(len(self._access))
+
+        reg.add_collector(collect)
+        with self._lock:
+            if self._metrics_registry is None:
+                self._metrics_registry = reg
+            return self._metrics_registry
+
+    def orca_report(self, fmt: str, model_name: str = "") -> str:
+        """Per-response load metrics in ORCA json or text form."""
+        stats = self._stats.get(model_name)
+        count = infer_ns = 0
+        if stats is not None:
+            with stats.lock:
+                count = stats.inference_count
+                infer_ns = stats.compute_infer[1] // max(stats.compute_infer[0], 1)
+        metrics = {
+            "inference_count": count,
+            "avg_compute_infer_us": infer_ns // 1000,
+            "active_models": len(self._models),
+        }
+        if fmt == "json":
+            return json.dumps({"named_metrics": metrics}, separators=(",", ":"))
+        return ", ".join(f"named_metrics.{k}={v}" for k, v in metrics.items())
+
     # -- shared memory -----------------------------------------------------
     def register_system_region(self, name: str, key: str, offset: int, byte_size: int) -> None:
         self._register(_Region(name, "system", key, offset, byte_size))
@@ -546,6 +689,7 @@ class ServerCore:
             raise InferError(f"inference failed: {e}", 400)
         response = self._build_response(model, model_version, request, raw)
         self._trace_request(model.name, request, t0, t_infer, infer_ns)
+        self._observe_access(request, model.name, t0, t_infer, infer_ns)
         batch = 1
         if model.effective_max_batch_size():
             first = next(iter(raw.values()))
@@ -615,9 +759,15 @@ class ServerCore:
             stats.record(False, time.perf_counter_ns() - t0, 0, 0)
             raise InferError(f"inference failed: {e}", 400)
         t_infer = time.perf_counter_ns()
+        n_responses = 0
+        t_first: Optional[int] = None
         try:
             for raw in model.execute_decoupled(inputs, request.get("parameters", {})):
-                yield self._build_response(model, model_version, request, raw)
+                response = self._build_response(model, model_version, request, raw)
+                if t_first is None:
+                    t_first = time.perf_counter_ns()
+                n_responses += 1
+                yield response
         except GeneratorExit:
             # the consumer went away mid-stream (client cancel/disconnect)
             stats.record_cancel(time.perf_counter_ns() - t0)
@@ -631,6 +781,8 @@ class ServerCore:
         infer_ns = time.perf_counter_ns() - t_infer
         stats.record(True, time.perf_counter_ns() - t0, infer_ns, 1)
         self._trace_request(model.name, request, t0, t_infer, infer_ns)
+        self._observe_access(request, model.name, t0, t_infer, infer_ns,
+                             responses=n_responses, first_response_ns=t_first)
 
     def _resolve_inputs(self, model: Model, request: Dict[str, Any]) -> Dict[str, Any]:
         specs = {s.name: s for s in model.inputs()}

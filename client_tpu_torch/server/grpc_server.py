@@ -242,11 +242,30 @@ class _Handlers(grpc.GenericRpcHandler):
         return {"config": config}
 
     # -- inference -----------------------------------------------------------
+    @staticmethod
+    def _metadata_value(context, wanted: str) -> Optional[str]:
+        """One invocation-metadata value (the GRPC twin of an HTTP request
+        header), or None when the client did not send it."""
+        for key, value in (context.invocation_metadata() or ()):
+            if key == wanted:
+                return value
+        return None
+
     def _model_infer(self, request, context):
         try:
-            response = self._core.infer(
-                request.get("model_name", ""), request.get("model_version", ""),
-                _to_core_request(request))
+            core_req = _to_core_request(request)
+            traceparent = self._metadata_value(context, "traceparent")
+            if traceparent:
+                core_req["traceparent"] = traceparent
+            model_name = request.get("model_name", "")
+            response = self._core.infer(model_name, request.get("model_version", ""), core_req)
+            orca_format = self._metadata_value(context, "endpoint-load-metrics-format")
+            if orca_format in ("json", "text"):
+                # ORCA per-response load metrics ride the trailing metadata
+                # on GRPC (the header transport HTTP has)
+                context.set_trailing_metadata((
+                    ("endpoint-load-metrics", self._core.orca_report(orca_format, model_name)),
+                ))
             return _encode_core_response(response)
         except InferError as e:
             self._abort(context, e)
@@ -259,11 +278,16 @@ class _Handlers(grpc.GenericRpcHandler):
             key == "triton_grpc_error" and str(value).lower() == "true"
             for key, value in (context.invocation_metadata() or ())
         )
+        traceparent = self._metadata_value(context, "traceparent")
         for request in request_iterator:
             model_name = request.get("model_name", "")
             model_version = request.get("model_version", "")
             try:
                 core_req = _to_core_request(request)
+                if traceparent:
+                    # stream-level metadata: every request on the stream
+                    # joins the same client trace id
+                    core_req["traceparent"] = traceparent
                 want_final = bool(
                     core_req["parameters"].get("triton_enable_empty_final_response"))
                 model = self._core.model(model_name, model_version)

@@ -348,10 +348,19 @@ class _Handler(BaseHTTPRequestHandler):
         try:
             if path in ("/v2", "/v2/"):
                 return self._send_json(core.server_metadata())
+            if path == "/metrics":
+                # the Prometheus scrape target
+                return self._send(
+                    200, core.metrics_registry().prometheus_text().encode(),
+                    {"Content-Type": "text/plain; version=0.0.4; charset=utf-8"})
             if path in ("/v2/health/live", "/v2/health/ready"):
                 return self._send(200)
             if path == "/v2/models/stats":
                 return self._send_json(core.statistics())
+            if path == "/v2/trace/access":
+                # traceparent-joined server spans (queue/compute ns and
+                # wall_time_s)
+                return self._send_json(core.access_records())
             if path == "/v2/trace/setting":
                 return self._send_json(core.trace_settings)
             if path == "/v2/logging":
@@ -445,6 +454,11 @@ class _Handler(BaseHTTPRequestHandler):
         header_length = self.headers.get("Inference-Header-Content-Length")
         request = parse_infer_request(
             body, int(header_length) if header_length is not None else None)
+        traceparent = self.headers.get("traceparent")
+        if traceparent:
+            # W3C trace context: the core records a server-side span joined
+            # on this trace id (ServerCore.access_records)
+            request["traceparent"] = traceparent
         requested = request.get("outputs")
         binary_default = bool(
             request.get("binary_default")
@@ -457,11 +471,21 @@ class _Handler(BaseHTTPRequestHandler):
                 "Content-Type": "application/octet-stream",
                 "Inference-Header-Content-Length": str(json_size),
             }
+        # ORCA per-response load metrics: the client opts in with the
+        # endpoint-load-metrics-format request header
+        orca_format = self.headers.get("endpoint-load-metrics-format")
+        if orca_format in ("json", "text"):
+            headers["endpoint-load-metrics"] = self.core.orca_report(orca_format, model_name)
         self._send(200, body_out, headers)
 
     def _do_generate(self, model_name: str, model_version: str, body: bytes, stream: bool):
         payload = json.loads(body) if body else {}
         core_req = _generate_core_request(self.core.model(model_name, model_version), payload)
+        traceparent = self.headers.get("traceparent")
+        if traceparent:
+            # the whole generation (streamed or not) joins the client's
+            # stream span in ServerCore.access_records
+            core_req["traceparent"] = traceparent
         if not stream:
             return self._send_json(
                 _generate_once(self.core, model_name, model_version, core_req))

@@ -45,6 +45,7 @@ from .. import (
     torch_to_triton_dtype,
     triton_to_np_dtype,
 )
+from ... import observe as _observe
 from ..shared_memory import (
     SharedMemoryException,
     _owned_names,
@@ -52,6 +53,14 @@ from ..shared_memory import (
     _safe_close,
     attach_shared_memory,
 )
+
+
+def _record_map(write: bool) -> None:
+    # data-plane accounting, family "cuda": one op per public map-level
+    # call; with no recorder installed one attribute load and a None check
+    rec = _observe._DATAPLANE
+    if rec is not None:
+        rec.on_map("cuda", write)
 
 
 def _as_u8(arr) -> np.ndarray:
@@ -188,6 +197,9 @@ class CudaSharedMemoryRegion:
         if not self._cache_enabled and self._shm is not None:
             _safe_close(self._shm, unlink=False)
             self._shm = None
+            rec = _observe._DATAPLANE
+            if rec is not None:  # residency ended: accounted as a destroy
+                rec.on_destroy("cuda", self._byte_size, key=id(self))
 
 
 # Process-global registry: in-process attach resolves to the same region
@@ -229,6 +241,9 @@ def create_shared_memory_region(
         )
     with _lock:
         _registry[shm_key] = region
+    rec = _observe._DATAPLANE
+    if rec is not None:
+        rec.on_create("cuda", byte_size, key=id(region))
     return region
 
 
@@ -276,6 +291,9 @@ def attach_from_raw_handle(raw_handle: str, device: str = "cuda") -> CudaSharedM
         raise SharedMemoryException(
             f"unable to attach cuda shared-memory region with key '{shm_key}'"
         )
+    rec = _observe._DATAPLANE
+    if rec is not None:
+        rec.on_attach("cuda", region.byte_size, key=id(region))
     return region
 
 
@@ -289,6 +307,7 @@ def set_shared_memory_region(
     """
     if not isinstance(input_values, (list, tuple)):
         raise SharedMemoryException("input_values must be a list of arrays")
+    _record_map(write=True)
     cursor = offset
     for value in input_values:
         if isinstance(value, torch.Tensor):
@@ -314,6 +333,7 @@ def set_shared_memory_region_from_torch(
     also mirrored into the host window for cross-process consumers — one D2H
     copy, the same hop the reference's cudashm pays in ``cudaMemcpy``.
     """
+    _record_map(write=True)
     return _set_from_torch(shm_handle, tensor, offset)
 
 
@@ -332,6 +352,7 @@ def get_contents_as_numpy(
     shm_handle: CudaSharedMemoryRegion, datatype, shape, offset: int = 0
 ) -> np.ndarray:
     """Host view of the region contents (flushes device entries first)."""
+    _record_map(write=False)
     if isinstance(datatype, str):
         triton_dtype = datatype
     else:
@@ -357,6 +378,7 @@ def get_contents_as_torch(
     pinned tensor — zero copies. Otherwise: one H2D copy from the host
     window onto the region's device.
     """
+    _record_map(write=False)
     np_dtype = np.dtype(triton_to_np_dtype(datatype))
     n_elems = int(np.prod(shape)) if len(shape) else 1
     nbytes = n_elems * np_dtype.itemsize
@@ -383,4 +405,7 @@ def destroy_shared_memory_region(shm_handle: CudaSharedMemoryRegion) -> None:
             _owned_names.discard(_posix_name(shm_handle.shm_key))
         _safe_close(shm_handle._shm, unlink=owned)
         shm_handle._shm = None
+        rec = _observe._DATAPLANE
+        if rec is not None:
+            rec.on_destroy("cuda", shm_handle.byte_size, key=id(shm_handle))
 

@@ -25,6 +25,10 @@ from .. import (
     serialize_byte_tensor,
     triton_to_np_dtype,
 )
+# data-plane accounting: every lifecycle/map op consults the process-global
+# recorder (observe._DATAPLANE); with none installed the cost is one module
+# attribute load and a None check per op
+from ... import observe as _observe
 
 
 class SharedMemoryException(InferenceServerException):
@@ -181,9 +185,18 @@ def create_shared_memory_region(
                     f"existing shared memory region with key '{key}' is smaller "
                     f"({handle._shm.size}B) than requested ({byte_size}B)"
                 )
+            created = False
+        else:
+            created = True
         handle._byte_size = byte_size
         _key_refcount[key] = _key_refcount.get(key, 0) + 1
         _active_regions.append(handle)
+    rec = _observe._DATAPLANE
+    if rec is not None:
+        if created:
+            rec.on_create("system", byte_size, key=id(handle))
+        else:
+            rec.on_attach("system", byte_size, key=id(handle))
     return handle
 
 
@@ -193,6 +206,9 @@ def set_shared_memory_region(
     """Copy each array in ``input_values`` into the region back-to-back."""
     if not isinstance(input_values, (list, tuple)):
         raise SharedMemoryException("input_values must be a list of numpy arrays")
+    rec = _observe._DATAPLANE
+    if rec is not None:
+        rec.on_map("system", write=True)
     cursor = offset
     buf = shm_handle.buf()
     for value in input_values:
@@ -221,6 +237,9 @@ def get_contents_as_numpy(
 
     ``datatype`` may be a numpy dtype or a Triton datatype string.
     """
+    rec = _observe._DATAPLANE
+    if rec is not None:
+        rec.on_map("system", write=False)
     if isinstance(datatype, str):
         np_dtype = np.dtype(triton_to_np_dtype(datatype))
         is_bytes = datatype == "BYTES"
@@ -269,3 +288,6 @@ def destroy_shared_memory_region(shm_handle: SharedMemoryRegion) -> None:
             _key_refcount[key] = remaining
         _safe_close(shm_handle._shm, unlink=remaining <= 0)
         shm_handle._shm = None
+    rec = _observe._DATAPLANE
+    if rec is not None:
+        rec.on_destroy("system", shm_handle.byte_size, key=id(shm_handle))
