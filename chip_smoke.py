@@ -157,6 +157,29 @@ Phases (each raises on failure, so the script exits non-zero):
      counters equal to the creates, registers, destroys and requests made,
      zero integrity violations.
 
+7. the measurement harness: the port's ``perf``, ``genai_perf`` and
+   ``trace`` against its HTTP and GRPC servers over the default zoo, the
+   image ensemble and ``long_context_encoder`` (``serve_harness``), each
+   path with every launch count set to 0 just before it and read just
+   after:
+   - ``PerfRunner`` closed loops at concurrency 1, 2 and 4: identity_fp32
+     at 4 MiB over shm none, system and cuda (and cuda over GRPC),
+     ensemble_image at (224, 224, 3) and long_context_encoder at S = 8192
+     over cuda shm (normalize_image launches = the ensemble's executions,
+     flash_attention = the encoder's);
+   - one poisson open loop on identity_fp32 over cuda shm at half the
+     closed loop's rate at concurrency 1;
+   - the replay of a seeded mixed trace (unary, sequence and streamed
+     generations) over HTTP (decode_attention launches = the layers times
+     the streams' prompt and generated tokens but the last);
+   - ``GenAiPerfRunner``: decoupled ``tiny_lm_generate`` over GRPC,
+     ``decoder_lm_batched`` sequences at 1 and 8 concurrent sessions
+     (launches = rounds x layers) and the HTTP generate extension, the
+     tokens received = sessions x output tokens;
+   every row with 0 errors and the server's success count equal to the
+   requests sent, the cuda arenas' regions equal to what their size
+   classes need (not the requests), none resident after the arenas close.
+
 It then prints one ``{"kernels": [...]}`` line and, last, one line
 ``{"ok": true, "device": {...}}``. Details go to ``build/chip_smoke.json``.
 Without a CUDA device it fails. The build fails if ptxas reports a spill in
@@ -172,6 +195,7 @@ the port times that tree, for a comparison inside one run.
 from __future__ import annotations
 
 import asyncio
+import collections
 import ctypes
 import json
 import os
@@ -219,8 +243,11 @@ from client_tpu_torch.ops.flash_attention import (  # noqa: E402
     flash_attention_reference,
     flash_attention_tiled_reference,
 )
+from client_tpu_torch import trace as trace_mod  # noqa: E402
 from client_tpu_torch.flight import FlightRecorder  # noqa: E402
+from client_tpu_torch.genai_perf import GenAiPerfRunner  # noqa: E402
 from client_tpu_torch.integrity import IntegrityPolicy, IntegrityStats, StreamChecker  # noqa: E402
+from client_tpu_torch.perf import PerfRunner  # noqa: E402
 from client_tpu_torch.observe import (  # noqa: E402
     Telemetry,
     dataplane,
@@ -2944,6 +2971,252 @@ def serve_resilience(served, vision, device="cuda"):
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the measurement harness (perf, genai_perf, trace) on the served
+# paths, over the shm arena's cuda family
+# ---------------------------------------------------------------------------
+
+# the sizes phase 7 runs at; the CPU rehearsal in the tests passes smaller ones
+HarnessSize = collections.namedtuple("HarnessSize", [
+    "identity_bytes", "image", "vision_classes", "vision_width", "seq", "requests",
+    "concurrency", "prompt", "output", "sessions", "replay"])
+HARNESS = HarnessSize(
+    identity_bytes=4 * MIB, image=(224, 224, 3), vision_classes=VISION_CLASSES,
+    vision_width=VISION_WIDTH, seq=8192, requests=100, concurrency=(1, 2, 4), prompt=8,
+    output=16, sessions=8,
+    replay="mixed:duration_s=3,rate=30,stream_fraction=0.2,seq_fraction=0.15,"
+           "output_mean=4,max_output=6")
+
+
+def arena_regions_expected(arena, nbytes, workers):
+    """The regions an arena carves for ``workers`` workers that each hold
+    one lease of every size in ``nbytes`` at once: a size class carves
+    ``region_target_bytes // class`` slabs a region (one above the
+    target, at most ``max_slabs_per_region``), whatever the requests."""
+    classes = collections.Counter(arena._class_for(n) for n in nbytes)
+    total = 0
+    for size, leases in classes.items():
+        slabs = 1
+        if size <= arena.region_target_bytes:
+            slabs = max(1, min(arena.max_slabs_per_region, arena.region_target_bytes // size))
+        total += -(-workers * leases // slabs)
+    return total
+
+
+class CountingGenAiRunner(GenAiPerfRunner):
+    """``GenAiPerfRunner`` that also counts the tokens its clients received
+    (the rows report rates, not counts)."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.tokens = 0
+        self._tokens_lock = threading.Lock()
+
+    def _count(self, sess):
+        with self._tokens_lock:
+            self.tokens += sess.tokens
+
+    def _run_decoupled_session(self, client, infer_input, sess, responses, rng):
+        super()._run_decoupled_session(client, infer_input, sess, responses, rng)
+        self._count(sess)
+
+    def _run_sequence_session(self, client, infer_input, sess, responses, sequence_id, rng):
+        try:
+            super()._run_sequence_session(client, infer_input, sess, responses, sequence_id, rng)
+        finally:
+            self._count(sess)
+
+    def _run_generate_session(self, client, sess, rng):
+        super()._run_generate_session(client, sess, rng)
+        self._count(sess)
+
+
+def serve_harness(device="cuda", size=HARNESS):
+    """Phase 7: the port's measurement harness against its own servers on
+    ``device`` (the default zoo, the image ensemble and the long-context
+    encoder in one ``ServerCore``, served over HTTP and GRPC in this
+    process). ``PerfRunner`` closed loops at ``size.concurrency`` on
+    identity_fp32 (none, system and cuda shm), ensemble_image and
+    long_context_encoder (cuda shm), one open-loop poisson rate on
+    identity_fp32 over cuda shm at half the closed loop's rate at
+    concurrency 1, the replay of a seeded mixed trace over HTTP, and
+    ``GenAiPerfRunner`` in its three modes. Each path runs with every launch
+    count set to 0 just before it and read just after, and is held to what
+    the server ran (its statistics' executions, the batched model's
+    rounds). Every row has 0 errors and the completed counts of the
+    requests sent; the cuda rows' regions are the arena's size classes,
+    not the requests, and none stays resident after the arenas close.
+
+    On a CPU ``device`` the wrappers run their plain versions and launch
+    nothing, so the launch gate expects zeros there; ``expected_launches``
+    in the result says what the card would launch. The script runs this
+    phase only on the card."""
+    on_card = torch.device(device).type == "cuda"
+    encoder = LongContextEncoderModel(device=device)
+    core = ServerCore(default_model_zoo(device)
+                      + build_image_ensemble(size.vision_classes, size.vision_width,
+                                             device=device)
+                      + [encoder], device=device)
+    layers = core.model("decoder_lm").LAYERS
+    batched = core.model("decoder_lm_batched")
+    http_server = HttpInferenceServer(core).start()
+    grpc_server = GrpcInferenceServer(core, max_workers=2 * BATCH_SEQS + 8).start()
+    previous_recorder = dataplane()
+    recorder = enable_dataplane()
+    result = {"size": size._asdict(), "perf": {}, "genai": {}}
+    counts = {}
+    expected = {}
+    runners = []
+
+    def stat(model, key="execution_count"):
+        stats = core.statistics(model)["model_stats"][0]
+        return (stats["inference_stats"]["success"]["count"] if key == "success"
+                else stats[key])
+
+    def closed_loop(name, url, protocol, model, mode, shapes, kernel, per_request):
+        """A sweep at ``size.concurrency``; ``kernel`` launches ``per_request``
+        times an execution of ``model``."""
+        runner = PerfRunner(url, protocol, model, mode, shapes, device=device)
+        runners.append(runner)
+        executed, succeeded = stat(model), stat(model, "success")
+        reset_counts()
+        rows = [runner.run(c, size.requests) for c in size.concurrency]
+        counts[name] = read_counts()
+        executions = stat(model) - executed
+        successes = stat(model, "success") - succeeded
+        sent = sum(row["requests"] + row["errors"] + row["shed"] for row in rows)
+        for row in rows:
+            if row["errors"] or row["shed"]:
+                raise AssertionError(f"perf {name} c={row['concurrency']}: {row['errors']} "
+                                     f"errors, {row['shed']} shed ({row['error_sample']})")
+        if successes != sent or sum(row["requests"] for row in rows) != sent:
+            raise AssertionError(f"perf {name}: the server counted {successes} successes "
+                                 f"of {sent} requests sent")
+        expected[name] = {kernel: per_request * executions} if kernel else {}
+        if mode != "none":
+            arena = runner._arena
+            made = sum(row["client_shm"]["regions_created"] for row in rows)
+            want = arena_regions_expected(
+                arena, [data.nbytes for _, _, _, data in runner._tensors]
+                + list(runner._output_sizes.values()), max(size.concurrency))
+            if made != want or arena.stats()["regions_created"] != want or made >= sent:
+                raise AssertionError(f"perf {name}: {made} regions created (the arena "
+                                     f"{arena.stats()['regions_created']}) for {sent} "
+                                     f"requests, its size classes need {want}")
+            if any(row["client_shm"]["arena"]["leased_bytes"] for row in rows):
+                raise AssertionError(f"perf {name}: leases held after a run: {rows}")
+        result["perf"][name] = {"rows": rows, "executions": executions, "sent": sent}
+        return runner, rows
+
+    try:
+        identity_shape = {"INPUT0": [1, size.identity_bytes // 4]}
+        for mode in ("none", "system", "cuda"):
+            runner, rows = closed_loop(f"identity_fp32 {mode}", http_server.url, "http",
+                                       "identity_fp32", mode, identity_shape, None, 0)
+            if mode == "cuda":
+                identity_runner, identity_c1 = runner, rows[0]
+        closed_loop("identity_fp32 cuda grpc", grpc_server.url, "grpc", "identity_fp32",
+                    "cuda", identity_shape, None, 0)
+        closed_loop("ensemble_image cuda", http_server.url, "http", "ensemble_image", "cuda",
+                    {"IMAGE": list(size.image)}, "normalize_image", 1)
+        closed_loop(f"long_context_encoder S={size.seq} cuda", http_server.url, "http",
+                    "long_context_encoder", "cuda", {"sequence": [size.seq, encoder.encoder.dim]},
+                    "flash_attention", 1)
+
+        # the open loop at half the closed loop's rate at concurrency 1
+        rate = identity_c1["infer_per_sec"] / 2
+        succeeded = stat("identity_fp32", "success")
+        reset_counts()
+        row = identity_runner.run_rate(rate, size.requests, "poisson", pool_size=4)
+        counts["identity_fp32 cuda poisson"] = read_counts()
+        expected["identity_fp32 cuda poisson"] = {}
+        if (row["errors"] or row["requests"] != size.requests or row["issued"] != size.requests
+                or stat("identity_fp32", "success") - succeeded != size.requests):
+            raise AssertionError(f"perf identity_fp32 poisson at {rate}/s: {row}")
+        result["perf"]["identity_fp32 cuda poisson"] = {"rows": [row], "rate": rate}
+
+        # every arena closed: no region of the phase stays resident
+        for runner in runners:
+            if runner._arena is not None:
+                runner._arena.close()
+        snap = recorder.snapshot()["families"]
+        result["dataplane"] = {fam: snap[fam] for fam in ("system", "cuda")}
+        for fam in ("system", "cuda"):
+            if snap[fam]["regions"] or snap[fam]["bytes_resident"]:
+                raise AssertionError(f"{fam} regions resident after the arenas closed: "
+                                     f"{snap[fam]}")
+
+        # the replay of a seeded trace over HTTP
+        trace = trace_mod.generate(size.replay, seed=0)
+        streams = [r for r in trace.records if r.kind == "generate_stream"]
+        # warmup sends the first record of each kind once more
+        stepped = sum(r.prompt_tokens + r.output_tokens - 1 for r in streams[:1] + streams)
+        replayer = PerfRunner(http_server.url, "http", "simple", device=device)
+        reset_counts()
+        row = replayer.run_trace(trace, replay_workers=16, slos=["error_rate<0.1%"])
+        counts["trace replay"] = read_counts()
+        expected["trace replay"] = {"decode_attention": stepped * layers}
+        if row["errors"] or row["requests"] != len(trace.records) or not row["slo_ok"]:
+            raise AssertionError(f"trace replay: {row['errors']} errors, {row['requests']} of "
+                                 f"{len(trace.records)} records ({row['error_sample']})")
+        result["perf"]["trace replay"] = {"rows": [row], "stream_tokens_stepped": stepped}
+
+        # genai_perf: decoupled and sequence over GRPC, generate over HTTP
+        for name, url, mode, model, levels in (
+                ("decoupled tiny_lm_generate", grpc_server.url, "decoupled",
+                 "tiny_lm_generate", (1,)),
+                ("sequence decoder_lm_batched", grpc_server.url, "sequence",
+                 "decoder_lm_batched", (1, BATCH_SEQS)),
+                ("generate tiny_lm_generate", http_server.url, "generate",
+                 "tiny_lm_generate", (1,))):
+            for concurrency in levels:
+                sessions = max(size.sessions, concurrency)
+                path = f"{name} c={concurrency}"
+                genai = CountingGenAiRunner(url, model, mode, size.prompt, size.output)
+                executed = stat(model)
+                rounds = sum(batched.batch_histogram.values())
+                reset_counts()
+                row = genai.run(concurrency, sessions)
+                counts[path] = read_counts()
+                executions = stat(model) - executed
+                if mode == "sequence":
+                    # a launch a layer a round, at B = slots
+                    launched = sum(batched.batch_histogram.values()) - rounds
+                    want_executions = sessions * size.output
+                else:
+                    launched = executions * (size.prompt + size.output - 1)
+                    want_executions = sessions
+                expected[path] = {"decode_attention": launched * layers}
+                if (row["errors"] or row["incomplete"] or row["sessions"] != sessions
+                        or genai.tokens != sessions * size.output
+                        or executions != want_executions):
+                    raise AssertionError(f"genai {path}: {row['sessions']} of {sessions} "
+                                         f"sessions, {row['errors']} errors, {genai.tokens} "
+                                         f"tokens, {executions} executions "
+                                         f"({row['error_sample']})")
+                result["genai"][path] = {"row": row, "tokens": genai.tokens,
+                                         "executions": executions,
+                                         "rounds": launched if mode == "sequence" else None}
+    finally:
+        install_dataplane(previous_recorder)
+        for runner in runners:
+            runner.close()
+            if runner._arena is not None and not runner._arena._closed:
+                runner._arena.close(force=True)
+        http_server.stop()
+        grpc_server.stop()
+        batched.unload()
+    for path, wanted in expected.items():
+        want = {name: wanted.get(name, 0) if on_card else 0
+                for name in COUNTERS}
+        if counts[path] != want:
+            raise AssertionError(f"launches on the harness phase's {path} path: "
+                                 f"{counts[path]}, expected {want}")
+    result["launch_counts"] = counts
+    result["expected_launches"] = expected
+    return result
+
+
 def device_kernels(prof):
     """Device time by kernel in a torch.profiler trace, largest first."""
     kernels = []
@@ -3338,6 +3611,9 @@ def main(argv) -> int:
     t_phase = time.perf_counter()
     resilience = serve_resilience(served, vision)
     resilience["seconds"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    harness = serve_harness()
+    harness["seconds"] = time.perf_counter() - t_phase
     for row in served["identity"]:
         log(f"identity_fp32 {row['bytes'] // MIB} MiB p50: wire {row['wire_p50_ms']:.3f} ms, "
             f"system shm {row['system_shm_p50_ms']:.3f} ms, "
@@ -3538,6 +3814,40 @@ def main(argv) -> int:
     def resilience_launches(kernel):
         return {path: row[kernel] for path, row in res_counts.items() if row[kernel]}
 
+    # the harness phase: each row's rate and latency, with the card's name
+    log(f"harness phase: {harness['seconds']:.1f} s")
+    for name, entry in harness["perf"].items():
+        for row in entry["rows"]:
+            lm = row["latency_ms"]
+            if "concurrency" in row:
+                level, rate = f"concurrency {row['concurrency']}", row["infer_per_sec"]
+            elif "request_rate" in row:
+                level = f"{row['distribution']} rate {row['request_rate']:.1f}/s"
+                rate = row["achieved_rate"]
+            else:
+                level = f"{row['trace']['records']} records {row['trace']['kinds']}"
+                rate = row["achieved_rate"]
+            shm = row.get("client_shm")
+            extra = ("" if shm is None else
+                     f"; {shm['regions_created']} regions created, arena hit rate "
+                     f"{shm['arena']['hit_rate']}, {shm['arena']['registrations_issued']} "
+                     "registrations issued")
+            log(f"perf {name} {level}: {row['requests']} requests, {row['errors']} errors, "
+                f"{rate} infer/s, p50 {lm['p50']} ms, p99 {lm['p99']} ms{extra}; {card}")
+    for path, entry in harness["genai"].items():
+        row = entry["row"]
+        log(f"genai {path}: {row['sessions']} sessions, {entry['tokens']} tokens, "
+            f"{row['errors']} errors; ttft p50 {row['ttft_ms']['p50']} ms p99 "
+            f"{row['ttft_ms']['p99']} ms, inter-token p50 {row['inter_token_ms']['p50']} ms "
+            f"p99 {row['inter_token_ms']['p99']} ms, {row['output_tokens_per_sec']} tokens/s; "
+            f"{card}")
+    log("harness dataplane after the arenas closed: " + json.dumps(harness["dataplane"]))
+    log("harness launches by path: " + json.dumps(harness["launch_counts"]))
+    harness_counts = harness["launch_counts"]
+
+    def harness_launches(kernel):
+        return {path: row[kernel] for path, row in harness_counts.items() if row[kernel]}
+
     main_row = timed[0]
     kernels = [{
         "name": "decode_attention",
@@ -3566,6 +3876,7 @@ def main(argv) -> int:
             "decoder": grpc_counts["decoder"]["decode_attention"],
             "decoder_lm_batched": grpc_counts["decoder_lm_batched"]["decode_attention"]},
         "resilience_launches_by_path": resilience_launches("decode_attention"),
+        "harness_launches_by_path": harness_launches("decode_attention"),
         "batched_shape": batched_timed,
     }]
     flash_row = flash_timed[0]
@@ -3583,6 +3894,7 @@ def main(argv) -> int:
         "library_ms": flash_row["library_ms"],
         "redesigned": REDESIGNED["flash_attention"],
         "host_us": small["attention_host_us"]["flash_attention"],
+        "harness_launches_by_path": harness_launches("flash_attention"),
         "shape": flash_row["shape"],
         "dtype": flash_row["dtype"],
         "at_shapes": flash_timed[1:],
@@ -3652,6 +3964,7 @@ def main(argv) -> int:
             "redesigned": REDESIGNED[name],
             "grpc_launches": grpc_counts["image_client"][name],
             "resilience_launches_by_path": resilience_launches(name),
+            "harness_launches_by_path": harness_launches(name),
             "shape": row["shape"],
             "at_shapes": timed_rows[1:],
         })
@@ -3670,7 +3983,7 @@ def main(argv) -> int:
                    "attention_host_us": small["attention_host_us"],
                    "host_breakdown": breakdown,
                    "served": served, "vision": vision, "grpc": grpc_served,
-                   "resilience": resilience,
+                   "resilience": resilience, "harness": harness,
                    "kernels": kernels}, f, indent=1)
     log(smi)
     log(json.dumps({"kernels": kernels}))

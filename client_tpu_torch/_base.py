@@ -5,9 +5,11 @@ header bag, ``RequestTimers`` (with the host<->device transfer points),
 ``InferStat``, and the hooks every frontend routes its transport through:
 telemetry (``observe``: request and stream spans, the ``traceparent`` on
 the wire, ORCA endpoint load), data-plane accounting of the shm
-register/unregister calls, response integrity (``integrity``) and
-resilience (``resilience``). The JAX package's shm arena, coalescing and
-caching layers are not part of the port yet, and neither are their hooks.
+register/unregister calls, response integrity (``integrity``),
+resilience (``resilience``) and the shm arena (``arena``: staged inputs
+promoted into leased slabs, cached region registrations). The JAX
+package's coalescing and caching layers are not part of the port yet, and
+neither are their hooks.
 """
 
 from __future__ import annotations
@@ -26,6 +28,18 @@ SHM_FAMILY_OF = {
     "systemsharedmemory": "system",
     "cudasharedmemory": "cuda",
 }
+
+def _any_arena_lease(inputs, outputs) -> bool:
+    """Does any tensor of this request carry an arena lease? (The no-arena
+    hot path pays one class-attribute check per tensor and nothing else.)"""
+    for inp in inputs:
+        if getattr(inp, "_arena_lease", None) is not None:
+            return True
+    for out in outputs or ():
+        if getattr(out, "_arena_lease", None) is not None:
+            return True
+    return False
+
 
 # admission-queue phase handoff: an admission gate runs BEFORE a
 # frontend's request span exists, so it stashes the wait interval in a
@@ -94,6 +108,7 @@ class InferenceServerClientBase:
         # None = process-default integrity policy; False = disabled;
         # else an integrity.IntegrityPolicy
         self._integrity = None
+        self._shm_arena = None  # Optional[arena.ShmArena]
 
     def _call_plugin(self, request: Request) -> None:
         if self._plugin is not None:
@@ -143,40 +158,101 @@ class InferenceServerClientBase:
         return tel.begin_stream(frontend, model, op)
 
     # -- data plane ----------------------------------------------------------
-    def _shm_call(self, family: str, op: str, call, *args, **kwargs):
+    def configure_arena(self, arena) -> "InferenceServerClientBase":
+        """Install a ``client_tpu_torch.arena.ShmArena`` (``True`` = the
+        process default arena; ``None`` to clear) as this client's
+        zero-copy data plane: binary-staged inputs are transparently
+        promoted into leased slabs at ``infer()`` time, arena-leased
+        inputs/outputs get their region registrations ensured (an RPC only
+        on first use per endpoint), and ``InferResult.as_numpy`` serves
+        zero-copy views over leased output slabs."""
+        if arena is True:
+            from .arena import default_arena
+
+            arena = default_arena()
+        self._shm_arena = arena
+        return self
+
+    def arena(self):
+        return self._shm_arena
+
+    def _arena_bind(self, inputs, outputs, promote: bool = True):
+        """Per-request arena binding for the sync frontends: None when the
+        request touches no arena state (the common no-arena hot path costs
+        one attribute check per tensor)."""
+        arena = self._shm_arena
+        if arena is None and not _any_arena_lease(inputs, outputs):
+            return None
+        from . import arena as _arena_mod
+
+        return _arena_mod.bind_request(self, arena, inputs, outputs,
+                                       promote=promote)
+
+    async def _arena_bind_async(self, inputs, outputs, promote: bool = True):
+        """Asyncio twin of :meth:`_arena_bind`."""
+        arena = self._shm_arena
+        if arena is None and not _any_arena_lease(inputs, outputs):
+            return None
+        from . import arena as _arena_mod
+
+        return await _arena_mod.bind_request_async(
+            self, arena, inputs, outputs, promote=promote)
+
+    def _shm_call(self, family: str, op: str, call, *args,
+                  region_name: Optional[str] = None, **kwargs):
         """Run one shm register/unregister RPC under data-plane accounting
         (registration latency + outcome). With no process-global recorder
-        installed this is one attribute check around the plain call."""
+        installed this is one attribute check around the plain call.
+        A successful unregister also notifies the arena registration
+        caches (``region_name``: the unregistered region; "" = all)."""
         rec = _observe._DATAPLANE
         if rec is None:
-            return call(*args, **kwargs)
-        t0 = time.perf_counter_ns()
-        try:
             result = call(*args, **kwargs)
-        except BaseException:
+        else:
+            t0 = time.perf_counter_ns()
+            try:
+                result = call(*args, **kwargs)
+            except BaseException:
+                rec.on_rpc(self._FRONTEND, family, op,
+                           (time.perf_counter_ns() - t0) * 1e-9, ok=False)
+                raise
             rec.on_rpc(self._FRONTEND, family, op,
-                       (time.perf_counter_ns() - t0) * 1e-9, ok=False)
-            raise
-        rec.on_rpc(self._FRONTEND, family, op,
-                   (time.perf_counter_ns() - t0) * 1e-9)
+                       (time.perf_counter_ns() - t0) * 1e-9)
+        if op == "unregister" and region_name is not None:
+            self._arena_notify_unregister(region_name)
         return result
 
     async def _shm_call_async(self, family: str, op: str, call, *args,
-                              **kwargs):
+                              region_name: Optional[str] = None, **kwargs):
         """Async twin of :meth:`_shm_call` for the aio frontends."""
         rec = _observe._DATAPLANE
         if rec is None:
-            return await call(*args, **kwargs)
-        t0 = time.perf_counter_ns()
-        try:
             result = await call(*args, **kwargs)
-        except BaseException:
+        else:
+            t0 = time.perf_counter_ns()
+            try:
+                result = await call(*args, **kwargs)
+            except BaseException:
+                rec.on_rpc(self._FRONTEND, family, op,
+                           (time.perf_counter_ns() - t0) * 1e-9, ok=False)
+                raise
             rec.on_rpc(self._FRONTEND, family, op,
-                       (time.perf_counter_ns() - t0) * 1e-9, ok=False)
-            raise
-        rec.on_rpc(self._FRONTEND, family, op,
-                   (time.perf_counter_ns() - t0) * 1e-9)
+                       (time.perf_counter_ns() - t0) * 1e-9)
+        if op == "unregister" and region_name is not None:
+            self._arena_notify_unregister(region_name)
         return result
+
+    def _arena_notify_unregister(self, region_name: str) -> None:
+        """Tell every live arena the server no longer holds the
+        registration (cache entries for this endpoint are dropped so the
+        next use re-issues the RPC). Lazy lookup: processes that never
+        touch the arena never load it."""
+        import sys
+
+        arena_mod = sys.modules.get("client_tpu_torch.arena")
+        if arena_mod is not None:
+            arena_mod.notify_unregister(
+                getattr(self, "_url", None), region_name)
 
     # -- ORCA endpoint load ---------------------------------------------------
     def _orca_opt_in(self, hdrs: Dict[str, str]) -> Dict[str, str]:

@@ -469,7 +469,7 @@ class InferenceServerClient(InferenceServerClientBase):
 
     def unregister_system_shared_memory(self, name="", headers=None, client_timeout=None) -> None:
         self._shm_call("system", "unregister", self._call, "SystemSharedMemoryUnregister",
-                       {"name": name}, headers, client_timeout)
+                       {"name": name}, headers, client_timeout, region_name=name)
 
     def get_cuda_shared_memory_status(self, region_name="", headers=None, client_timeout=None):
         return self._shm_status("CudaSharedMemoryStatus", region_name, headers, client_timeout)
@@ -485,7 +485,7 @@ class InferenceServerClient(InferenceServerClientBase):
 
     def unregister_cuda_shared_memory(self, name="", headers=None, client_timeout=None) -> None:
         self._shm_call("cuda", "unregister", self._call, "CudaSharedMemoryUnregister",
-                       {"name": name}, headers, client_timeout)
+                       {"name": name}, headers, client_timeout, region_name=name)
 
     # -- inference ---------------------------------------------------------
     def infer(
@@ -514,7 +514,12 @@ class InferenceServerClient(InferenceServerClientBase):
         span = self._obs_begin(self._FRONTEND, model_name)
         timers = RequestTimers()
         timers.capture(RequestTimers.REQUEST_START)
+        actx = None
         try:
+            # arena data plane: promote staged binary inputs into leased
+            # slabs and ensure (cached) region registrations BEFORE the
+            # request is built, so it rides shm params
+            actx = self._arena_bind(inputs, outputs)
             request = build_infer_request(
                 model_name, inputs, model_version, outputs, request_id,
                 sequence_id, sequence_start, sequence_end, priority, timeout, parameters,
@@ -534,6 +539,8 @@ class InferenceServerClient(InferenceServerClientBase):
             timers.capture(RequestTimers.RECV_START)
             result = InferResult(response)
             result._response_headers = metadata_sink
+            if actx is not None:
+                actx.finish(result)
             # the result never reaches the caller (nor the ORCA path below)
             # unchecked
             self._integrity_check(result, inputs, outputs, request_id, model_name)
@@ -542,6 +549,9 @@ class InferenceServerClient(InferenceServerClientBase):
             if span is not None:
                 self._telemetry.finish(span, error=e)
             raise
+        finally:
+            if actx is not None:
+                actx.settle()
         timers.capture(RequestTimers.REQUEST_END)
         self._infer_stat.update(timers)
         if span is not None:
@@ -572,6 +582,10 @@ class InferenceServerClient(InferenceServerClientBase):
         compression_algorithm: Optional[str] = None,
     ) -> CallContext:
         """Fire an async inference; ``callback(result, error)`` when done."""
+        # ensure-only arena binding: registrations are cached per endpoint;
+        # promotion is skipped because a transient lease could be reused
+        # before the server reads it (the future outlives this call)
+        self._arena_bind(inputs, outputs, promote=False)
         request = build_infer_request(
             model_name, inputs, model_version, outputs, request_id,
             sequence_id, sequence_start, sequence_end, priority, timeout, parameters,
@@ -722,6 +736,11 @@ class InferenceServerClient(InferenceServerClientBase):
             stream = self._stream
         if stream is None:
             raise InferenceServerException("stream not available: call start_stream first")
+        # ensure-only arena binding: a stream request may be a region's
+        # FIRST use against this endpoint (no promotion: the stream
+        # outlives this call, so a transient lease could be reused before
+        # the server reads it)
+        self._arena_bind(inputs, outputs, promote=False)
         request = build_infer_request(
             model_name, inputs, model_version, outputs, request_id,
             sequence_id, sequence_start, sequence_end, priority, timeout, parameters,

@@ -17,7 +17,7 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from .._tensor import InferInput, InferRequestedOutput
+from .._tensor import ArenaOutputsMixin, InferInput, InferRequestedOutput
 from ..utils import (
     RESERVED_REQUEST_PARAMETERS,
     InferenceServerException,
@@ -202,7 +202,7 @@ def build_infer_request(
     return request
 
 
-class InferResult:
+class InferResult(ArenaOutputsMixin):
     """The result of an inference over GRPC (decoded ModelInferResponse)."""
 
     def __init__(self, response: Dict[str, Any]):
@@ -240,7 +240,9 @@ class InferResult:
         return default
 
     def as_numpy(self, name: str) -> Optional[np.ndarray]:
-        """Decode output ``name``; None if it lives in a shared-memory region."""
+        """Decode output ``name``; None if it lives in a non-arena
+        shared-memory region (an arena-leased output is a zero-copy view
+        over its slab)."""
         # raw_output_contents aligns with non-shared-memory outputs in order
         raw_index = 0
         out = None
@@ -251,10 +253,18 @@ class InferResult:
                 break
             if not in_shm:
                 raw_index += 1
-        if out is None or "shared_memory_region" in out.get("parameters", {}):
+        if out is None:
             return None
         shape = out.get("shape", [])
         datatype = out.get("datatype", "")
+        if "shared_memory_region" in out.get("parameters", {}):
+            lease = self._arena_lease_for(name)
+            if lease is not None:
+                # arena fast path: a zero-copy view over the leased slab,
+                # pinned by the lease (reading after its last release
+                # raises arena.ArenaLeaseReleased)
+                return lease.as_numpy(datatype, shape)
+            return None
         if raw_index < len(self._raw):
             raw = self._raw[raw_index]
             if datatype == "BYTES":

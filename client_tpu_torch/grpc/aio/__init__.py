@@ -314,7 +314,7 @@ class InferenceServerClient(InferenceServerClientBase):
                                               client_timeout=None):
         await self._shm_call_async("system", "unregister", self._call,
                                    "SystemSharedMemoryUnregister", {"name": name}, headers,
-                                   client_timeout)
+                                   client_timeout, region_name=name)
 
     async def get_cuda_shared_memory_status(self, region_name="", headers=None,
                                             client_timeout=None):
@@ -331,7 +331,7 @@ class InferenceServerClient(InferenceServerClientBase):
     async def unregister_cuda_shared_memory(self, name="", headers=None, client_timeout=None):
         await self._shm_call_async("cuda", "unregister", self._call,
                                    "CudaSharedMemoryUnregister", {"name": name}, headers,
-                                   client_timeout)
+                                   client_timeout, region_name=name)
 
     # -- inference ---------------------------------------------------------
     async def infer(
@@ -353,7 +353,12 @@ class InferenceServerClient(InferenceServerClientBase):
         resilience=None,
     ) -> InferResult:
         span = self._obs_begin(self._FRONTEND, model_name)
+        actx = None
         try:
+            # arena data plane: promote staged binary inputs into leased
+            # slabs and ensure (cached) region registrations BEFORE the
+            # request is built, so it rides shm params
+            actx = await self._arena_bind_async(inputs, outputs)
             request = build_infer_request(
                 model_name, inputs, model_version, outputs, request_id,
                 sequence_id, sequence_start, sequence_end, priority, timeout, parameters,
@@ -372,6 +377,8 @@ class InferenceServerClient(InferenceServerClientBase):
                 t_deser = time.perf_counter_ns()
             result = InferResult(response)
             result._response_headers = metadata_sink
+            if actx is not None:
+                actx.finish(result)
             # the result never reaches the caller (nor the ORCA path below)
             # unchecked
             self._integrity_check(result, inputs, outputs, request_id, model_name)
@@ -379,6 +386,9 @@ class InferenceServerClient(InferenceServerClientBase):
             if span is not None:
                 self._telemetry.finish(span, error=e)
             raise
+        finally:
+            if actx is not None:
+                actx.settle()
         if span is not None:
             span.phase("deserialize", t_deser, time.perf_counter_ns())
             self._telemetry.finish(span)
@@ -415,6 +425,11 @@ class InferenceServerClient(InferenceServerClientBase):
         async def request_gen():
             async for kwargs in inputs_iterator:
                 enable_final = kwargs.pop("enable_empty_final_response", False)
+                # ensure-only arena binding per stream request (no
+                # promotion: the stream outlives each yielded request)
+                await self._arena_bind_async(
+                    kwargs.get("inputs") or (), kwargs.get("outputs"),
+                    promote=False)
                 req = build_infer_request(**kwargs)
                 if enable_final:
                     req.setdefault("parameters", {})[

@@ -421,7 +421,7 @@ class InferenceServerClient(InferenceServerClientBase):
             resp = self._post(f"{path}/{action}", body, headers, query_params)
             raise_if_error(resp.status, resp.data)
 
-        self._shm_call(SHM_FAMILY_OF[family], action, call)
+        self._shm_call(SHM_FAMILY_OF[family], action, call, region_name=name)
 
     def get_system_shared_memory_status(
         self, region_name="", headers=None, query_params=None
@@ -507,7 +507,12 @@ class InferenceServerClient(InferenceServerClientBase):
         span = self._obs_begin(self._FRONTEND, model_name)
         timers = RequestTimers()
         timers.capture(RequestTimers.REQUEST_START)
+        actx = None
         try:
+            # arena data plane: promote staged binary inputs into leased
+            # slabs and ensure (cached) region registrations BEFORE the
+            # body is built, so the request rides shm params
+            actx = self._arena_bind(inputs, outputs)
             body, json_size = build_infer_body(
                 inputs, outputs, request_id, sequence_id, sequence_start,
                 sequence_end, priority, timeout, parameters,
@@ -546,6 +551,8 @@ class InferenceServerClient(InferenceServerClientBase):
                 self._integrity_parse_note(e)
                 raise
             result._response_headers = dict(resp.headers)  # e.g. endpoint-load-metrics
+            if actx is not None:
+                actx.finish(result)
             # the result never reaches the caller (nor the ORCA and verbose
             # paths below) unchecked
             self._integrity_check(result, inputs, outputs, request_id, model_name)
@@ -553,6 +560,11 @@ class InferenceServerClient(InferenceServerClientBase):
             if span is not None:
                 self._telemetry.finish(span, error=e)
             raise
+        finally:
+            # response fully received: promoted input leases release and
+            # the inputs' wire staging is restored for reuse
+            if actx is not None:
+                actx.settle()
         timers.capture(RequestTimers.REQUEST_END)
         self._infer_stat.update(timers)
         if span is not None:

@@ -14,6 +14,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from .._tensor import ArenaOutputsMixin
 from ..integrity import IntegrityError
 from ..utils import (
     InferenceServerException,
@@ -24,7 +25,7 @@ from ..utils import (
 )
 
 
-class InferResult:
+class InferResult(ArenaOutputsMixin):
     """The result of an inference request over HTTP.
 
     Body decoding raises a typed :class:`~client_tpu_torch.integrity.IntegrityError`
@@ -120,6 +121,12 @@ class InferResult:
                 "datatype and shape fields", repr(sorted(output))[:120])
         params = output.get("parameters", {})
         if "shared_memory_region" in params:
+            lease = self._arena_lease_for(name)
+            if lease is not None:
+                # arena fast path: a zero-copy view over the leased slab,
+                # pinned by the lease (reading after its last release
+                # raises arena.ArenaLeaseReleased)
+                return lease.as_numpy(datatype, shape)
             return None  # contents live in the shared-memory region
         if name in self._offsets:
             start, end = self._offsets[name]
@@ -168,7 +175,8 @@ class InferResult:
 
     def as_numpy(self, name: str) -> Optional[np.ndarray]:
         """Decode output ``name`` as a numpy array (zero-copy for fixed-width
-        binary outputs); None if the output lives in a shared-memory region."""
+        binary outputs AND for arena-leased shared-memory outputs); None if
+        the output lives in a non-arena shared-memory region."""
         output = self.get_output(name)
         if output is None:
             return None

@@ -292,7 +292,7 @@ class InferenceServerClient(InferenceServerClientBase):
             path += f"/region/{quote(name)}"
         await self._shm_call_async(
             SHM_FAMILY_OF[family], action, self._post_json,
-            f"{path}/{action}", body, headers, query_params)
+            f"{path}/{action}", body, headers, query_params, region_name=name)
 
     async def get_system_shared_memory_status(self, region_name="", headers=None,
                                               query_params=None):
@@ -349,7 +349,12 @@ class InferenceServerClient(InferenceServerClientBase):
         resilience=None,
     ) -> InferResult:
         span = self._obs_begin(self._FRONTEND, model_name)
+        actx = None
         try:
+            # arena data plane: promote staged binary inputs into leased
+            # slabs and ensure (cached) region registrations BEFORE the
+            # body is built, so the request rides shm params
+            actx = await self._arena_bind_async(inputs, outputs)
             body, json_size = build_infer_body(
                 inputs, outputs, request_id, sequence_id, sequence_start,
                 sequence_end, priority, timeout, parameters,
@@ -385,6 +390,8 @@ class InferenceServerClient(InferenceServerClientBase):
                 self._integrity_parse_note(e)
                 raise
             result._response_headers = resp_headers  # e.g. endpoint-load-metrics
+            if actx is not None:
+                actx.finish(result)
             # the result never reaches the caller (nor the ORCA and verbose
             # paths below) unchecked
             self._integrity_check(result, inputs, outputs, request_id, model_name)
@@ -392,6 +399,9 @@ class InferenceServerClient(InferenceServerClientBase):
             if span is not None:
                 self._telemetry.finish(span, error=e)
             raise
+        finally:
+            if actx is not None:
+                actx.settle()
         if span is not None:
             span.phase("deserialize", t_deser, time.perf_counter_ns())
             self._telemetry.finish(span)

@@ -23,9 +23,11 @@ Three layers, wired through ``_base`` into all four frontends:
   duplicates, no gaps. Opt-in because recovery layers (e.g.
   ``disagg``'s re-prefill) legitimately dedup verified replays ACROSS
   re-opened streams and own that stronger semantic check themselves.
-* **Data-plane digests** (``arena.LeaseDigest`` in ``client_tpu``):
-  they ride the shm arena's leases, and the arena is not part of the
-  port yet, so ``IntegrityPolicy(digests=True)`` raises.
+* **Data-plane digests** (opt-in, ``arena.LeaseDigest``): blake2b-128
+  over shm/arena-resident outputs, sealed when the response lands and
+  re-verified at ``as_numpy()`` map time, so a server that scribbles
+  over a slab AFTER answering is caught before the first read. Digest
+  state rides the existing lease: steady state stays 0 extra RPCs.
 
 Classification: :class:`IntegrityError` carries the
 ``INTEGRITY_VIOLATION`` status, which ``resilience.classify_fault`` maps
@@ -39,7 +41,7 @@ Fundamental limit, stated honestly: a bit-flip INSIDE a fixed-width
 payload whose sizes all agree is invisible to any client-side check
 without redundancy. The contract layer catches every *structural* lie;
 value-level corruption is covered where redundancy exists (BYTES
-framing, and, in ``client_tpu``, arena digests and disagg's token
+framing, arena digests, and, in ``client_tpu``, disagg's token
 continuity) — see docs/integrity.md for the full detection matrix.
 """
 
@@ -244,8 +246,9 @@ class IntegrityPolicy:
     """What to check, and the (cached) model metadata to check against.
 
     ``contract`` (default True) arms the structural checks on every
-    unary result. ``digests`` must stay False: the arena whose leases
-    carry the digests is not ported yet. ``stream_index`` opts SSE/decoupled streams into the
+    unary result. ``digests`` opts shm/arena-resident outputs into
+    ``arena.LeaseDigest`` sealing at response-finish time (verified at
+    map time). ``stream_index`` opts SSE/decoupled streams into the
     strict per-stream index monotonicity check (see module docstring
     for why recovery layers keep this off).
 
@@ -261,11 +264,6 @@ class IntegrityPolicy:
     def __init__(self, contract: bool = True, digests: bool = False,
                  stream_index: bool = False,
                  stats: Optional[IntegrityStats] = None):
-        if digests:
-            raise NotImplementedError(
-                "IntegrityPolicy(digests=True): data-plane digests ride "
-                "the shm arena's leases (arena.LeaseDigest), which come "
-                "with the arena (ROADMAP A5)")
         self.contract = contract
         self.digests = digests
         self.stream_index = stream_index

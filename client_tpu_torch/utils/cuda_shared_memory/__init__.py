@@ -19,6 +19,10 @@ is the TPU package's:
   JAX package's server reads for its cuda family.
 - ``colocated=True`` regions skip host mirroring on device writes: when both
   ends share the process, tensors never leave device memory.
+- ``as_shared_memory_tensor`` exposes the host window as a DLPack producer
+  (``torch.from_dlpack`` / ``np.from_dlpack`` consume it zero-copy) and
+  ``set_shared_memory_region_from_dlpack`` ingests any producer, as in the
+  TPU package; ``region_inventory`` lists this process's regions.
 
 Export of real device memory through ``cudaIpcGetMemHandle`` is not done
 here: like the TPU package, a region crosses processes through its host
@@ -28,11 +32,12 @@ window.
 from __future__ import annotations
 
 import base64
+import ctypes
 import json
 import threading
 import uuid as _uuid
 from multiprocessing import shared_memory as mpshm
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -46,6 +51,7 @@ from .. import (
     triton_to_np_dtype,
 )
 from ... import observe as _observe
+from .._dlpack import SharedMemoryTensor, kDLCPU
 from ..shared_memory import (
     SharedMemoryException,
     _owned_names,
@@ -201,6 +207,11 @@ class CudaSharedMemoryRegion:
             if rec is not None:  # residency ended: accounted as a destroy
                 rec.on_destroy("cuda", self._byte_size, key=id(self))
 
+    def host_address(self, offset: int = 0) -> int:
+        """Raw address of the host window at ``offset`` (for DLPack export)."""
+        buf = self._host_buf()
+        return ctypes.addressof(ctypes.c_char.from_buffer(buf)) + offset
+
 
 # Process-global registry: in-process attach resolves to the same region
 # object, which is what makes the zero-copy device handover possible.
@@ -211,6 +222,19 @@ _registry: Dict[str, CudaSharedMemoryRegion] = {}
 def allocated_shared_memory_regions() -> List[str]:
     with _lock:
         return [r.name for r in _registry.values()]
+
+
+def region_inventory() -> List[Dict[str, Any]]:
+    """One dict per region allocated by this process (doctor inventory)."""
+    with _lock:
+        regions = list(_registry.values())
+    return [
+        {"family": "cuda", "name": r.name, "key": r.shm_key,
+         "byte_size": r.byte_size, "device_id": r.device_id,
+         "colocated": r.colocated,
+         "device_entries": len(r._device_entries)}
+        for r in regions
+    ]
 
 
 def create_shared_memory_region(
@@ -348,6 +372,24 @@ def _set_from_torch(shm_handle, tensor, offset=0) -> int:
     return offset + nbytes
 
 
+def set_shared_memory_region_from_dlpack(
+    shm_handle: CudaSharedMemoryRegion, tensor, offset: int = 0
+) -> None:
+    """Ingest any ``__dlpack__`` producer: a torch tensor is bound through
+    the device cache (as ``set_shared_memory_region_from_torch``), any
+    other producer (numpy, a host DLPack tensor) is copied into the host
+    window."""
+    _record_map(write=True)
+    if isinstance(tensor, torch.Tensor):
+        _set_from_torch(shm_handle, tensor, offset)
+        return
+    try:
+        arr = np.from_dlpack(tensor)
+    except Exception as e:
+        raise SharedMemoryException(f"cannot consume dlpack tensor: {e}")
+    shm_handle.write_host(memoryview(np.ascontiguousarray(arr)).cast("B"), offset)
+
+
 def get_contents_as_numpy(
     shm_handle: CudaSharedMemoryRegion, datatype, shape, offset: int = 0
 ) -> np.ndarray:
@@ -392,6 +434,24 @@ def get_contents_as_torch(
     out = numpy_to_tensor(host, shm_handle.device())
     # the result must not alias the host window (.to(cuda) already copied)
     return out.clone() if out.device.type == "cpu" else out
+
+
+def as_shared_memory_tensor(
+    shm_handle: CudaSharedMemoryRegion, datatype: str, shape: Sequence[int], offset: int = 0
+) -> SharedMemoryTensor:
+    """Expose the host window as a DLPack producer (``torch.from_dlpack`` and
+    ``np.from_dlpack`` consume it zero-copy); overlapping device entries are
+    flushed into the window first."""
+    _record_map(write=False)
+    np_dtype = np.dtype(triton_to_np_dtype(datatype))
+    n_elems = int(np.prod(shape)) if len(shape) else 1
+    nbytes = n_elems * np_dtype.itemsize
+    shm_handle._check(nbytes, offset, "read")
+    shm_handle._flush_overlapping(offset, nbytes)
+    return SharedMemoryTensor(
+        shm_handle.host_address(offset), datatype, shape, owner=shm_handle,
+        device=(kDLCPU, 0),
+    )
 
 
 def destroy_shared_memory_region(shm_handle: CudaSharedMemoryRegion) -> None:

@@ -60,3 +60,76 @@ def test_resilience_phase_on_cpu():
     assert result["integrity"]["violations"] == 0
     assert result["dataplane"]["cuda"]["regions"] == 0
     assert all(v == 0 for counts in result["launch_counts"].values() for v in counts.values())
+
+
+# phase 7 at a small size: the same paths, gates and row keys as on the card
+SMALL_HARNESS = chip_smoke.HarnessSize(
+    identity_bytes=64 * 1024, image=(32, 48, 3), vision_classes=10, vision_width=8, seq=128,
+    requests=8, concurrency=(1, 2), prompt=3, output=3, sessions=2,
+    replay="mixed:duration_s=1,rate=10,stream_fraction=0.25,seq_fraction=0.15,"
+           "output_mean=3,max_output=4")
+
+
+def test_harness_phase_on_cpu(monkeypatch):
+    """``chip_smoke.serve_harness`` at a small size, with the plain
+    versions' calls counted here for each path (between the phase's
+    ``reset_counts`` and ``read_counts``), so its launch formulas (the
+    server's executions, the batched model's rounds and the replayed
+    streams' tokens times the layers) are held here as on the card."""
+    import collections
+
+    import client_tpu_torch.models.decoder as decoder_mod
+    import client_tpu_torch.models.long_context as long_context_mod
+    import client_tpu_torch.ops.image as image_mod
+
+    calls = collections.Counter()
+    for mod, name in ((decoder_mod, "decode_attention"),
+                      (long_context_mod, "flash_attention"),
+                      (image_mod, "normalize_image")):
+
+        def counted(*args, _plain=getattr(mod, name), _name=name, **kwargs):
+            out = _plain(*args, **kwargs)
+            calls[_name] += 1
+            return out
+
+        monkeypatch.setattr(mod, name, counted)
+    by_path = []
+    reset_counts, read_counts = chip_smoke.reset_counts, chip_smoke.read_counts
+
+    def reset():
+        calls.clear()
+        reset_counts()
+
+    def read():
+        by_path.append(dict(calls))
+        return read_counts()
+
+    monkeypatch.setattr(chip_smoke, "reset_counts", reset)
+    monkeypatch.setattr(chip_smoke, "read_counts", read)
+    result = chip_smoke.serve_harness(device="cpu", size=SMALL_HARNESS)
+    assert list(result["expected_launches"]) == list(result["launch_counts"])
+    assert len(by_path) == len(result["expected_launches"])
+    for path, seen in zip(result["expected_launches"], by_path):
+        want = {k: v for k, v in result["expected_launches"][path].items() if v}
+        assert seen == want, path
+    assert all(v == 0 for counts in result["launch_counts"].values() for v in counts.values())
+    perf = result["perf"]
+    assert set(perf) == {"identity_fp32 none", "identity_fp32 system", "identity_fp32 cuda",
+                         "identity_fp32 cuda grpc", "ensemble_image cuda",
+                         "long_context_encoder S=128 cuda", "identity_fp32 cuda poisson",
+                         "trace replay"}
+    for name, entry in perf.items():
+        assert all(row["errors"] == 0 for row in entry["rows"]), name
+    assert perf["identity_fp32 cuda"]["rows"][0]["client_shm"]["family"] == "cuda"
+    assert set(result["genai"]) == {"decoupled tiny_lm_generate c=1",
+                                    "sequence decoder_lm_batched c=1",
+                                    f"sequence decoder_lm_batched c={chip_smoke.BATCH_SEQS}",
+                                    "generate tiny_lm_generate c=1"}
+    counts = dict(zip(result["expected_launches"], by_path))
+    assert counts["ensemble_image cuda"]["normalize_image"] == \
+        perf["ensemble_image cuda"]["executions"] > 0
+    assert counts["long_context_encoder S=128 cuda"]["flash_attention"] == \
+        perf["long_context_encoder S=128 cuda"]["executions"] > 0
+    assert all(counts[path]["decode_attention"] > 0 for path in result["genai"])
+    assert counts["trace replay"]["decode_attention"] > 0
+    assert all(fam["regions"] == 0 for fam in result["dataplane"].values())

@@ -10,7 +10,9 @@
   against JAX's ``ByzantineHttpServer`` under the same seeded plans, unary
   and streamed;
 - ``StreamChecker`` gives the same outcome over the same event sequences;
-- data-plane digests wait for the shm arena: ``digests=True`` raises.
+- data-plane digests came with the shm arena: ``digests=True`` is taken
+  as in the JAX package (``tests/test_torch_arena.py`` holds the sealed
+  output slabs of both packages' clients to the same verdicts).
 """
 
 import copy
@@ -236,9 +238,11 @@ def test_violation_classifies_invalid():
 
 
 def test_digests_wait_for_the_arena():
-    with pytest.raises(NotImplementedError, match="arena"):
-        port_integrity.IntegrityPolicy(digests=True)
-    assert port_integrity.IntegrityPolicy().digests is False
+    """The arena has come: ``digests=True`` is taken as JAX's policy takes
+    it, and the default stays off in both packages."""
+    for _, _, integrity, _ in PKG.values():
+        assert integrity.IntegrityPolicy(digests=True).digests is True
+        assert integrity.IntegrityPolicy().digests is False
 
 
 # -- stream index checks --------------------------------------------------------

@@ -439,30 +439,53 @@ def test_stream_auto_reconnect_needs_a_policy(servers):
     assert msgs[0] == msgs[1]
 
 
+# a stream whose proxied connection was reset and which has heard nothing
+# by then never will: under load the reset can fail to reach the client, the
+# proxy's pumps gone and the client's reader still waiting on the dead call.
+# Both packages' clients stall alike, behind either package's proxy: beside
+# 10 busy processes, 3 of 480 runs stalled with each client, 4 of 660
+# behind the port's proxy and 2 of 300 behind the JAX package's
+STALL_S = 8.0
+
+
+def _stream_give_up(pkg, port):
+    """(events seen, fault domain) of a reconnecting stream whose endpoint
+    goes away for good; None when the reset never reached the stream."""
+    events: "queue.Queue" = queue.Queue()
+    with port_testing.ChaosProxy("127.0.0.1", port) as proxy:
+        with _client(pkg, "grpc", proxy.url) as client:
+            client.configure_resilience(_policy(pkg, max_attempts=2))
+            client.start_stream(lambda r, e: events.put((r, e)), auto_reconnect=True)
+            _, inputs = _inputs(PKG[pkg]["grpc"])
+            client.async_stream_infer("simple", inputs, request_id="a")
+            assert events.get(timeout=WAIT_S)[1] is None
+            proxy.fault = port_testing.Fault("reset", after_bytes=0)
+            proxy.reset_active()
+            seen = []
+            while True:
+                try:
+                    result, error = events.get(timeout=STALL_S)
+                except queue.Empty:
+                    client.stop_stream(cancel_requests=True)
+                    return None
+                seen.append(type(result).__name__ if error is None else "error")
+                if error is not None:
+                    client.stop_stream()
+                    return seen, PKG[pkg]["res"].classify_fault(error)
+
+
 @pytest.mark.parametrize("server_pkg", ["port", "jax"])
 def test_stream_gives_up_after_max_attempts(servers, server_pkg):
     """With the endpoint gone for good the stream reports one terminal
-    error after the policy's attempts, on both clients alike."""
+    error after the policy's attempts, on both clients alike. A run whose
+    reset never reached the stream is measured again, at most three times."""
     outcomes = {}
     for pkg in ("port", "jax"):
-        events: "queue.Queue" = queue.Queue()
-        with port_testing.ChaosProxy("127.0.0.1", servers[("grpc", server_pkg)].port) as proxy:
-            with _client(pkg, "grpc", proxy.url) as client:
-                client.configure_resilience(_policy(pkg, max_attempts=2))
-                client.start_stream(lambda r, e: events.put((r, e)), auto_reconnect=True)
-                _, inputs = _inputs(PKG[pkg]["grpc"])
-                client.async_stream_infer("simple", inputs, request_id="a")
-                assert events.get(timeout=WAIT_S)[1] is None
-                proxy.fault = port_testing.Fault("reset", after_bytes=0)
-                proxy.reset_active()
-                seen = []
-                while True:
-                    result, error = events.get(timeout=WAIT_S)
-                    seen.append(type(result).__name__ if error is None else "error")
-                    if error is not None:
-                        outcomes[pkg] = (seen, PKG[pkg]["res"].classify_fault(error))
-                        break
-                client.stop_stream()
+        for _ in range(3):
+            outcomes[pkg] = _stream_give_up(pkg, servers[("grpc", server_pkg)].port)
+            if outcomes[pkg] is not None:
+                break
+        assert outcomes[pkg] is not None, f"{pkg}: the reset never reached the stream"
     assert outcomes["port"] == outcomes["jax"]
 
 
