@@ -180,6 +180,34 @@ Phases (each raises on failure, so the script exits non-zero):
    requests sent, the cuda arenas' regions equal to what their size
    classes need (not the requests), none resident after the arenas close.
 
+8. the standalone server: ``client_tpu_torch.serve`` (``SERVE_ARGS``: the
+   default zoo, identity_fp32, the image ensemble and long_context_encoder
+   with flash) in processes of its own on the card, this process the client
+   (``serve_process``); the child's ports come from port 0, read back from
+   the lines it prints:
+   - the threaded child: simple, identity_fp32 at 4 and 64 MiB over the
+     wire, system shm and cuda shm with ``colocated=False`` (the host window
+     crosses the processes; input window and output checked) over HTTP and
+     GRPC; decoder_lm over the HTTP generate route and a GRPC stream,
+     long_context_encoder at S = 8192 over cuda shm (2e-5) and
+     ensemble_image (224, 224, 3) over cuda shm, each against a CPU run of
+     the port with the same seed-0 weights (the same top-1); the int8 wire
+     path (quantize and dequantize launched here, once a round trip); then
+     ``PerfRunner`` closed loops at concurrency 1, 2, 4 and 8 on
+     identity_fp32 4 MiB (cuda shm and the wire), ensemble_image and
+     long_context_encoder (cuda shm), beside phase 7's in-process rows;
+   - the aio child (``--http-frontend aio``): the same loops,
+     ``GenAiPerfRunner`` on decoder_lm_batched at 8 sessions over GRPC and
+     ``python -m client_tpu_torch.perf`` as a third process;
+   - SIGTERM under load (4 clients on the encoder and the ensemble): inside
+     serve's 1 s grace window HTTP ready 503, live 200, ``/metrics``
+     ``client_tpu_server_ready 0`` and GRPC ``ServerReady`` false; every
+     request completes with a correct output; exit 0 within 15 s;
+   - each child's final report: its launches equal its executions
+     (decode_attention = layers x tokens stepped or batched rounds,
+     flash_attention = the encoder's, normalize_image = the ensemble's), on
+     the card this process runs on.
+
 It then prints one ``{"kernels": [...]}`` line and, last, one line
 ``{"ok": true, "device": {...}}``. Details go to ``build/chip_smoke.json``.
 Without a CUDA device it fails. The build fails if ptxas reports a spill in
@@ -202,6 +230,7 @@ import os
 import queue
 import random
 import re
+import signal
 import statistics
 import subprocess
 import sys
@@ -266,7 +295,7 @@ from client_tpu_torch.server import GrpcInferenceServer, HttpInferenceServer, Se
 from client_tpu_torch.testing import ChaosProxy, Fault  # noqa: E402
 from client_tpu_torch.utils import InferenceServerException  # noqa: E402
 from client_tpu_torch.utils import cuda_shared_memory as cudashm  # noqa: E402
-from client_tpu_torch.utils import numpy_to_tensor  # noqa: E402
+from client_tpu_torch.utils import numpy_to_tensor, torch_to_triton_dtype  # noqa: E402
 from client_tpu_torch.utils import shared_memory as shm  # noqa: E402
 
 # H100 SXM (NVIDIA data sheet): HBM bandwidth and dense peaks, per dtype
@@ -3217,6 +3246,650 @@ def serve_harness(device="cuda", size=HARNESS):
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the standalone server (client_tpu_torch.serve) in a process of its
+# own, driven from this process as the client
+# ---------------------------------------------------------------------------
+
+# the served set of every child: the default zoo plus identity_fp32, the
+# image ensemble (1000 classes, width 32, weights from seed 0) and
+# long_context_encoder (flash)
+SERVE_ARGS = ["--http-port", "0", "--grpc-port", "0", "--identity-fp32", "--vision",
+              "--long-context", "--attention", "flash"]
+# the child: ``serve.main`` as ``python -m client_tpu_torch.serve`` runs it,
+# its core kept so that, once main returns (after the SIGTERM drain), one
+# line reports the kernels it launched, the statistics and the device
+SERVE_CHILD = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+from client_tpu_torch import serve, server
+from client_tpu_torch.ops import decode_attention, normalize, softmax, quantize
+from client_tpu_torch.ops.flash_attention import LAUNCHES as flash
+cores = []
+class Core(server.ServerCore):
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        cores.append(self)
+server.ServerCore = Core
+rc = serve.main(sys.argv[2:])
+core = cores[0]
+counters = {"decode_attention": decode_attention.LAUNCHES, "flash_attention": flash,
+            "quantize_int8": quantize.QUANTIZE_LAUNCHES,
+            "dequantize_int8": quantize.DEQUANTIZE_LAUNCHES,
+            "normalize_image": normalize.LAUNCHES, "softmax_probabilities": softmax.LAUNCHES}
+stats = core.statistics()["model_stats"]
+print("SERVE_REPORT " + json.dumps({
+    "rc": rc, "launches": {k: c.count for k, c in counters.items()},
+    "executions": {r["name"]: r["execution_count"] for r in stats},
+    "successes": {r["name"]: r["inference_stats"]["success"]["count"] for r in stats},
+    "failures": {r["name"]: r["inference_stats"]["fail"]["count"] for r in stats},
+    "rounds": sum(core.model("decoder_lm_batched").batch_histogram.values()),
+    "layers": core.model("decoder_lm").LAYERS,
+    "device": (torch.cuda.get_device_name(core.device) if core.device.type == "cuda"
+               else str(core.device))}), flush=True)
+sys.exit(rc)
+"""
+
+ProcessSize = collections.namedtuple("ProcessSize", [
+    "identity_bytes", "load_bytes", "seq", "image", "requests", "concurrency", "prompt",
+    "steps", "sessions", "output", "int8_rounds", "cli_requests"])
+PROCESS = ProcessSize(
+    identity_bytes=(4 * MIB, 64 * MIB), load_bytes=4 * MIB, seq=8192, image=(224, 224, 3),
+    requests=40, concurrency=(1, 2, 4, 8), prompt=[1, 2, 3, 4], steps=8, sessions=8,
+    output=16, int8_rounds=4, cli_requests=40)
+PROCESS_WARMUP = 4  # requests a load row sends before it is measured
+DRAIN_THREADS = 4
+DRAIN_GRACE_S = 1.0  # serve's own wait between ready -> 0 and the closes
+
+
+class ServeChild:
+    """``client_tpu_torch.serve`` in a child process on ``device``: its output
+    read line by line, its URLs from the lines it prints."""
+
+    def __init__(self, device, frontend):
+        self.frontend = frontend
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", SERVE_CHILD, REPO, *SERVE_ARGS, "--device", device,
+             "--http-frontend", frontend],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, cwd=REPO)
+        self.lines = []
+        self._eof = False
+        self._cond = threading.Condition()
+        self._reader = threading.Thread(target=self._read, daemon=True)
+        self._reader.start()
+
+    def _read(self):
+        for line in self.proc.stdout:
+            with self._cond:
+                self.lines.append(line.rstrip("\n"))
+                self._cond.notify_all()
+        with self._cond:
+            self._eof = True
+            self._cond.notify_all()
+
+    def line(self, prefix, timeout):
+        """The first line the child printed that starts with ``prefix``."""
+        deadline = time.monotonic() + timeout
+        with self._cond:
+            while True:
+                for line in self.lines:
+                    if line.startswith(prefix):
+                        return line
+                left = deadline - time.monotonic()
+                if self._eof or left <= 0:
+                    raise AssertionError(
+                        f"serve ({self.frontend}) printed no '{prefix}' line (exit "
+                        f"{self.proc.poll()}):\n" + "\n".join(self.lines[-40:]))
+                self._cond.wait(left)
+
+    def wait_ready(self, timeout=300):
+        """The printed URLs, then ``is_server_ready`` over both protocols."""
+        t0 = time.perf_counter()
+        self.http_url = self.line(f"HTTP  server ({self.frontend}) listening on ",
+                                  timeout).rsplit(" ", 1)[1]
+        self.grpc_url = self.line("GRPC  server listening on ", timeout).rsplit(" ", 1)[1]
+        self.models = self.line("models: ", timeout)[len("models: "):].split(", ")
+        deadline = time.monotonic() + 30
+        with httpclient.InferenceServerClient(self.http_url) as h, \
+                grpcclient.InferenceServerClient(self.grpc_url) as g:
+            while not (h.is_server_ready() and g.is_server_ready()):
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"serve ({self.frontend}) never became ready")
+                time.sleep(0.05)
+        self.ready_s = time.perf_counter() - t0
+        return self
+
+    def terminate(self, timeout=15.0):
+        """SIGTERM, then the exit (within ``timeout``) and the final report."""
+        t0 = time.perf_counter()
+        self.proc.send_signal(signal.SIGTERM)
+        return self.finish(t0, timeout)
+
+    def finish(self, t0, timeout):
+        try:
+            rc = self.proc.wait(timeout)
+        except subprocess.TimeoutExpired:
+            raise AssertionError(f"serve ({self.frontend}) did not exit within {timeout} s "
+                                 "of SIGTERM:\n" + "\n".join(self.lines[-40:]))
+        exit_s = time.perf_counter() - t0
+        self._reader.join(10)
+        report = json.loads(self.line("SERVE_REPORT ", 0)[len("SERVE_REPORT "):])
+        if rc != 0 or report["rc"] != 0:
+            raise AssertionError(f"serve ({self.frontend}) exited {rc}:\n"
+                                 + "\n".join(self.lines[-40:]))
+        report["exit_s"] = exit_s
+        report["drain_line"] = any(line.startswith("SIGTERM: draining") for line in self.lines)
+        return report
+
+    def kill(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(10)
+
+
+class CrossRegions:
+    """An input and an output cuda shm region made in this process with
+    ``colocated=False`` (the host window carries the bytes to a server in
+    another process, and the output back), registered on ``client``."""
+
+    def __init__(self, client, mod, in_bytes, out_bytes, device):
+        tag = os.urandom(4).hex()
+        self.client, self.mod = client, mod
+        self.names = (f"xin{tag}", f"xout{tag}")
+        self.sizes = (in_bytes, out_bytes)
+        self.regions = [cudashm.create_shared_memory_region(n, b, device=device, colocated=False)
+                        for n, b in zip(self.names, self.sizes)]
+        for name, region, nbytes in zip(self.names, self.regions, self.sizes):
+            client.register_cuda_shared_memory(name, cudashm.get_raw_handle(region), 0, nbytes)
+
+    def infer(self, model, in_name, x, out_name, out_shape, **kwargs):
+        """One request on ``x`` (a tensor), the output read back as a tensor;
+        the input window must hold ``x`` (mirrored for the server)."""
+        mod = self.mod
+        cudashm.set_shared_memory_region_from_torch(self.regions[0], x)
+        inp = mod.InferInput(in_name, list(x.shape), torch_to_triton_dtype(x.dtype))
+        inp.set_shared_memory(self.names[0], self.sizes[0])
+        out = mod.InferRequestedOutput(out_name)
+        out.set_shared_memory(self.names[1], self.sizes[1])
+        self.client.infer(model, [inp], outputs=[out], **kwargs)
+        window = np.frombuffer(self.regions[0].host_buffer(), dtype=np.uint8)[:x.numel()
+                                                                             * x.element_size()]
+        if not np.array_equal(window, x.cpu().contiguous().view(torch.uint8).numpy().reshape(-1)):
+            raise AssertionError(f"{model}: the input window does not hold the input")
+        return cudashm.get_contents_as_torch(self.regions[1], "FP32", out_shape)
+
+    def close(self):
+        for name in self.names:
+            self.client.unregister_cuda_shared_memory(name)
+        for region in self.regions:
+            cudashm.destroy_shared_memory_region(region)
+
+
+def process_references(size):
+    """The CPU run of the port with the same seed-0 weights as the child's:
+    decoder_lm's greedy tokens and logits, long_context_encoder's output at
+    ``size.seq`` and ensemble_image's logits on a seeded image."""
+    decoder = TinyDecoderModel(device="cpu")
+
+    def run(tokens, start, end):
+        out = decoder.execute({"TOKENS": np.array([tokens], np.int32)},
+                              {"sequence_id": 900, "sequence_start": start,
+                               "sequence_end": end})
+        return out["LOGITS"], int(out["NEXT_TOKEN"][0, 0])
+
+    tokens, logits = drive_decoder(run, size.prompt, size.steps)
+    encoder = LongContextEncoderModel(device="cpu")
+    seq = np.random.default_rng(8).standard_normal(
+        (size.seq, encoder.encoder.dim)).astype(np.float32)
+    encoded = encoder.execute({"sequence": seq}, {})["encoded"].numpy()
+    image = np.random.default_rng(0).integers(0, 256, size.image, dtype=np.uint8)
+    vision = ServerCore(build_image_ensemble(device="cpu"), device="cpu")
+    logits_img = vision.infer("ensemble_image", "", {"inputs": [{
+        "name": "IMAGE", "datatype": "UINT8", "shape": list(image.shape),
+        "array": image}]})["outputs"][0]["array"]
+    logits_img = np.asarray(logits_img.cpu() if isinstance(logits_img, torch.Tensor)
+                            else logits_img).reshape(-1)
+    return {"decoder_tokens": tokens, "decoder_logits": logits, "seq": seq,
+            "encoded": encoded, "image": image, "image_logits": logits_img}
+
+
+def check_encoded(got, refs, where):
+    tol = TOLERANCE["flash_attention"]["float32"]
+    want = refs["encoded"]
+    if got.shape != want.shape:
+        raise AssertionError(f"long_context_encoder {where}: shape {got.shape}")
+    err = float(np.abs(got - want).max())
+    if not (np.isfinite(got).all() and np.allclose(got, want, atol=tol, rtol=tol)):
+        raise AssertionError(f"long_context_encoder {where} differs from the CPU run by {err}")
+    return err
+
+
+def check_image(got, refs, where):
+    want = refs["image_logits"]
+    got = got.reshape(-1)
+    if not (got.shape == want.shape and np.isfinite(got).all()
+            and int(got.argmax()) == int(want.argmax())
+            and float(np.abs(got - want).max()) <= 5e-2):
+        raise AssertionError(f"ensemble_image {where}: top-1 {int(got.argmax())} (CPU "
+                             f"{int(want.argmax())}), max logit diff "
+                             f"{float(np.abs(got - want).max())}")
+    return float(np.abs(got - want).max())
+
+
+def process_identity(client, mod, nbytes, device):
+    """identity_fp32 at ``nbytes`` over the wire, system shm and cross-process
+    cuda shm, each output equal to the input."""
+    n = nbytes // 4
+    x = torch.arange(n, dtype=torch.float32, device=device).reshape(1, n) * 0.25
+    x_host = x.cpu().numpy()
+    inp = mod.InferInput("INPUT0", [1, n], "FP32").set_data_from_numpy(x_host)
+    if not np.array_equal(client.infer("identity_fp32", [inp]).as_numpy("OUTPUT0"), x_host):
+        raise AssertionError(f"identity_fp32 {nbytes} B over the wire changed the tensor")
+    tag = os.urandom(4).hex()
+    names = (f"psin{tag}", f"psout{tag}")
+    regions = [shm.create_shared_memory_region(name, "/" + name, nbytes) for name in names]
+    try:
+        for name in names:
+            client.register_system_shared_memory(name, "/" + name, nbytes)
+        shm.set_shared_memory_region(regions[0], [x_host])
+        inp = mod.InferInput("INPUT0", [1, n], "FP32").set_shared_memory(names[0], nbytes)
+        out = mod.InferRequestedOutput("OUTPUT0")
+        out.set_shared_memory(names[1], nbytes)
+        client.infer("identity_fp32", [inp], outputs=[out])
+        if not np.array_equal(shm.get_contents_as_numpy(regions[1], "FP32", [1, n]), x_host):
+            raise AssertionError(f"identity_fp32 {nbytes} B over system shm changed the tensor")
+    finally:
+        client.unregister_system_shared_memory()
+        for region in regions:
+            shm.destroy_shared_memory_region(region)
+    cross = CrossRegions(client, mod, nbytes, nbytes, device)
+    try:
+        y = cross.infer("identity_fp32", "INPUT0", x, "OUTPUT0", [1, n])
+        if y.device.type != torch.device(device).type or not torch.equal(y, x):
+            raise AssertionError(f"identity_fp32 {nbytes} B over cuda shm (host window) "
+                                 "changed the tensor")
+    finally:
+        cross.close()
+    return 3
+
+
+def process_decoder_http(client, prompt, steps, seq_id):
+    """decoder_lm over the HTTP generate route: the sequence's parameters in
+    the payload, one response per request."""
+    def run(tokens, start, end):
+        event = client.generate("decoder_lm", {"TOKENS": tokens}, parameters={
+            "sequence_id": seq_id, "sequence_start": start, "sequence_end": end})
+        return (np.asarray(event["LOGITS"], np.float32).reshape(1, -1),
+                int(event["NEXT_TOKEN"]))
+
+    return drive_decoder(run, prompt, steps)
+
+
+def process_correctness(child, refs, size, device, full=True):
+    """Every case against the CPU run: simple, identity_fp32 by plane and
+    protocol, decoder_lm over the generate route and a GRPC stream,
+    long_context_encoder and ensemble_image over cross-process cuda shm,
+    and the int8 wire path (quantize and dequantize in this process)."""
+    row = {"requests": collections.Counter()}
+    h = httpclient.InferenceServerClient(child.http_url, network_timeout=600.0)
+    g = grpcclient.InferenceServerClient(child.grpc_url)
+    try:
+        a = np.arange(16, dtype=np.int32).reshape(1, 16)
+        b = np.full((1, 16), 3, dtype=np.int32)
+        for client, mod in ((h, httpclient), (g, grpcclient)):
+            inputs = [mod.InferInput("INPUT0", [1, 16], "INT32").set_data_from_numpy(a),
+                      mod.InferInput("INPUT1", [1, 16], "INT32").set_data_from_numpy(b)]
+            res = client.infer("simple", inputs)
+            if not (np.array_equal(res.as_numpy("OUTPUT0"), a + b)
+                    and np.array_equal(res.as_numpy("OUTPUT1"), a - b)):
+                raise AssertionError("simple returned wrong sums")
+            row["requests"]["simple"] += 1
+        for nbytes in size.identity_bytes if full else size.identity_bytes[:1]:
+            for client, mod in ((h, httpclient), (g, grpcclient)) if full else ((h, httpclient),):
+                row["requests"]["identity_fp32"] += process_identity(client, mod, nbytes, device)
+        if not full:
+            return row
+
+        http_tokens, http_logits = process_decoder_http(h, size.prompt, size.steps, 901)
+        grpc_tokens, grpc_logits = stream_decode(g, "decoder_lm", 902, size.prompt, size.steps)
+        row["requests"]["decoder_lm"] += 2 * (size.steps + 1)
+        row["tokens_stepped"] = 2 * (len(size.prompt) + size.steps)
+        want = refs["decoder_logits"].reshape(-1)
+        errs = [float(np.abs(lg.reshape(-1) - want).max()) if lg.size == want.size
+                else float("inf") for lg in (http_logits, grpc_logits)]
+        row["decoder"] = {"http_tokens": http_tokens, "grpc_tokens": grpc_tokens,
+                          "cpu_tokens": refs["decoder_tokens"], "max_abs_logit_diff": max(errs)}
+        if http_tokens != refs["decoder_tokens"] or grpc_tokens != refs["decoder_tokens"] \
+                or not max(errs) <= 5e-2:
+            raise AssertionError(f"decoder_lm across processes: {row['decoder']}")
+
+        seq = torch.from_numpy(refs["seq"]).to(device)
+        cross = CrossRegions(h, httpclient, seq.numel() * 4, seq.numel() * 4, device)
+        try:
+            y = cross.infer("long_context_encoder", "sequence", seq, "encoded", list(seq.shape))
+            row["encoder_max_abs_diff_vs_cpu"] = check_encoded(y.cpu().numpy(), refs,
+                                                               "over cuda shm")
+        finally:
+            cross.close()
+        row["requests"]["long_context_encoder"] += 1
+
+        image = torch.from_numpy(refs["image"]).to(device)
+        n_classes = refs["image_logits"].size
+        for client, mod in ((h, httpclient), (g, grpcclient)):
+            cross = CrossRegions(client, mod, image.numel(), n_classes * 4, device)
+            try:
+                y = cross.infer("ensemble_image", "IMAGE", image, "CLASSIFICATION",
+                                [n_classes, 1, 1])
+                row[f"ensemble_max_abs_logit_diff_vs_cpu_{mod.__name__.split('.')[-1]}"] = \
+                    check_image(y.cpu().numpy(), refs, "over cuda shm")
+            finally:
+                cross.close()
+            row["requests"]["ensemble_image"] += 1
+        row["top1"] = int(refs["image_logits"].argmax())
+
+        if torch.device(device).type == "cuda":
+            row["int8"], trips = drive_int8(h, size.int8_rounds)
+            row["int8_round_trips"] = trips
+            row["requests"]["identity_int8"] += trips
+    finally:
+        h.close()
+        g.close()
+    return row
+
+
+def process_load(child, size, device, extra=()):
+    """``PerfRunner`` closed loops (``colocated=False``) at
+    ``size.concurrency`` against the child's HTTP frontend: identity_fp32 over
+    cuda shm and the wire, ensemble_image and long_context_encoder over
+    cuda shm. Every row has 0 errors and the child's success count of the
+    requests sent."""
+    rows = {}
+    shapes = {"identity_fp32": {"INPUT0": [1, size.load_bytes // 4]},
+              "ensemble_image": {"IMAGE": list(size.image)},
+              "long_context_encoder": {"sequence": [size.seq, 64]}}
+    cases = [("identity_fp32", "cuda"), ("identity_fp32", "none"),
+             ("ensemble_image", "cuda"), ("long_context_encoder", "cuda")] + list(extra)
+    stats = httpclient.InferenceServerClient(child.http_url)
+    try:
+        for model, mode in cases:
+            runner = PerfRunner(child.http_url, "http", model, mode, shapes[model],
+                                device=device, colocated=False)
+            try:
+                # a fresh child's first requests of a model pay its lazy
+                # set-up: warm it first; the statistics are read after the
+                # runner's set-up probe and the warmup
+                runner.run(1, PROCESS_WARMUP)
+                before = stats.get_inference_statistics(model)["model_stats"][0]
+                levels = [runner.run(c, size.requests) for c in size.concurrency]
+            finally:
+                runner.close()
+                if runner._arena is not None:
+                    runner._arena.close(force=True)
+            after = stats.get_inference_statistics(model)["model_stats"][0]
+            sent = sum(r["requests"] + r["errors"] + r["shed"] for r in levels)
+            ok = (after["inference_stats"]["success"]["count"]
+                  - before["inference_stats"]["success"]["count"])
+            if any(r["errors"] or r["shed"] for r in levels) or ok != sent:
+                raise AssertionError(f"serve {child.frontend} {model} {mode}: {ok} successes "
+                                     f"of {sent} sent; rows {levels}")
+            rows[f"{model} {mode}"] = {
+                "rows": [{k: r[k] for k in ("concurrency", "requests", "errors",
+                                            "infer_per_sec", "latency_ms")} for r in levels],
+                "sent": sent, "executions": after["execution_count"] - before["execution_count"]}
+    finally:
+        stats.close()
+    return rows
+
+
+def process_perf_cli(child, size, device):
+    """``python -m client_tpu_torch.perf`` as a third process against the
+    child: identity_fp32 over cuda shm at concurrency 1 and 2."""
+    args = [sys.executable, "-m", "client_tpu_torch.perf", "-m", "identity_fp32", "-u",
+            child.http_url, "--shape", f"INPUT0:1,{size.load_bytes // 4}",
+            "--shared-memory", "cuda", "--device", device, "--concurrency-range", "1:2",
+            "--measurement-requests", str(size.cli_requests), "--warmup-requests", "2",
+            "-f", "json"]
+    with httpclient.InferenceServerClient(child.http_url) as stats:
+        before = stats.get_inference_statistics("identity_fp32")["model_stats"][0]
+        t0 = time.perf_counter()
+        proc = subprocess.run(args, cwd=REPO, capture_output=True, text=True, timeout=300)
+        seconds = time.perf_counter() - t0
+        after = stats.get_inference_statistics("identity_fp32")["model_stats"][0]
+    if proc.returncode != 0:
+        raise AssertionError(f"perf CLI exited {proc.returncode}: {proc.stderr[-4000:]}")
+    rows = json.loads(proc.stdout.strip().splitlines()[-1])
+    # the runner's set-up probe, the 2 warmup requests and the measured ones
+    sent = 1 + 2 + sum(r["requests"] + r["errors"] for r in rows)
+    ok = (after["inference_stats"]["success"]["count"]
+          - before["inference_stats"]["success"]["count"])
+    if any(r["errors"] for r in rows) or ok != sent:
+        raise AssertionError(f"perf CLI: {ok} successes of {sent} sent; rows {rows}")
+    return {"rows": [{k: r[k] for k in ("concurrency", "requests", "errors", "infer_per_sec",
+                                        "latency_ms")} for r in rows],
+            "sent": sent, "seconds": seconds}
+
+
+def process_drain(child, refs, device):
+    """SIGTERM under load: ``DRAIN_THREADS`` clients send long_context_encoder
+    and ensemble_image requests (HTTP and GRPC, cuda shm and the wire);
+    inside serve's grace window HTTP ready reads 503, live 200, ``/metrics``
+    ``client_tpu_server_ready 0`` and GRPC ``ServerReady`` false; every
+    request sent completes with a correct output, and the child exits 0."""
+    stop = threading.Event()
+    errors, done = [], collections.Counter()
+    started = threading.Barrier(DRAIN_THREADS + 1)
+    seq = torch.from_numpy(refs["seq"]).to(device)
+    image = torch.from_numpy(refs["image"]).to(device)
+    n_classes = refs["image_logits"].size
+
+    def worker(i):
+        mod = httpclient if i < DRAIN_THREADS // 2 else grpcclient
+        encoder = i % 2 == 0
+        client = (mod.InferenceServerClient(child.http_url, network_timeout=600.0)
+                  if mod is httpclient else mod.InferenceServerClient(child.grpc_url))
+        cross = None
+        try:
+            if encoder:
+                cross = CrossRegions(client, mod, seq.numel() * 4, seq.numel() * 4, device)
+            first = True
+            while first or not stop.is_set():
+                if encoder:
+                    y = cross.infer("long_context_encoder", "sequence", seq, "encoded",
+                                    list(seq.shape))
+                    check_encoded(y.cpu().numpy(), refs, "under the drain")
+                else:
+                    inp = mod.InferInput("IMAGE", list(refs["image"].shape), "UINT8")
+                    inp.set_data_from_numpy(refs["image"])
+                    check_image(client.infer("ensemble_image", [inp]).as_numpy(
+                        "CLASSIFICATION"), refs, "under the drain")
+                done["long_context_encoder" if encoder else "ensemble_image"] += 1
+                if first:
+                    first = False
+                    started.wait(120)
+        except Exception as e:  # raised below, after every thread ended
+            errors.append((i, repr(e)))
+            started.abort()
+        finally:
+            try:
+                if cross is not None:
+                    cross.close()
+            except Exception as e:
+                errors.append((i, f"close: {e!r}"))
+            client.close()
+
+    threads = [threading.Thread(target=worker, args=(i,)) for i in range(DRAIN_THREADS)]
+    for t in threads:
+        t.start()
+    row = {}
+    try:
+        started.wait(120)  # every client has had one answer: the load is on
+        h = httpclient.InferenceServerClient(child.http_url)
+        g = grpcclient.InferenceServerClient(child.grpc_url)
+        base = f"http://{child.http_url}"
+        t0 = time.perf_counter()
+        child.proc.send_signal(signal.SIGTERM)
+        try:
+            while h.is_server_ready():
+                if time.perf_counter() - t0 > DRAIN_GRACE_S:
+                    raise AssertionError("HTTP ready still 200 a grace window after SIGTERM")
+                time.sleep(0.005)
+            row["ready_503_ms"] = (time.perf_counter() - t0) * 1e3
+            with urllib.request.urlopen(base + "/v2/health/live", timeout=5) as r:
+                row["live_status"] = r.status
+            with urllib.request.urlopen(base + "/metrics", timeout=5) as r:
+                text = r.read().decode()
+            row["metrics_ready_0"] = "\nclient_tpu_server_ready 0\n" in "\n" + text
+            row["metrics_live_1"] = "\nclient_tpu_server_live 1\n" in "\n" + text
+            row["grpc_ready"] = g.is_server_ready()
+            row["grpc_live"] = g.is_server_live()
+            row["checks_done_ms"] = (time.perf_counter() - t0) * 1e3
+        finally:
+            stop.set()
+            h.close()
+            g.close()
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(120)
+    row["requests"] = dict(done)
+    row["errors"] = errors
+    if (errors or any(t.is_alive() for t in threads) or row["live_status"] != 200
+            or not row["metrics_ready_0"] or not row["metrics_live_1"] or row["grpc_ready"]
+            or not row["grpc_live"] or row["checks_done_ms"] > DRAIN_GRACE_S * 1e3):
+        raise AssertionError(f"drain under load: {row}")
+    report = child.finish(t0, 15.0)
+    row["exit_s"] = report["exit_s"]
+    return row, report
+
+
+def serve_process(device="cuda", size=PROCESS):
+    """Phase 8: ``client_tpu_torch.serve`` in processes of its own on
+    ``device`` (``SERVE_ARGS``), driven from this one. The threaded child:
+    every correctness case against a CPU run of the port on the same seed-0
+    weights, then ``PerfRunner`` closed loops at ``size.concurrency``
+    (``process_load``), then a SIGTERM drain with no load. The aio child
+    (``--http-frontend aio``): simple and identity_fp32, the same loops,
+    ``GenAiPerfRunner`` on decoder_lm_batched at ``size.sessions`` sessions
+    over GRPC, the perf CLI as a third process, then SIGTERM under load
+    (``process_drain``). Each child's final report holds its kernel
+    launches to its executions: decode_attention = layers x the tokens
+    stepped (decoder_lm) and the batched rounds, flash_attention = the
+    encoder's executions, normalize_image = the ensemble's. In this
+    process, quantize_int8 and dequantize_int8 launch once per int8 round
+    trip. On a CPU ``device`` nothing launches: the gates expect zeros,
+    and ``expected_launches`` says what the card would launch."""
+    on_card = torch.device(device).type == "cuda"
+    t_phase = time.perf_counter()
+    children = {frontend: ServeChild(device, frontend) for frontend in ("threaded", "aio")}
+    result = {"size": size._asdict(), "serve_args": SERVE_ARGS, "load": {}, "steps_s": {}}
+    steps, terminated = result["steps_s"], {}
+
+    def step(name, t0):
+        steps[name] = time.perf_counter() - t0
+        return time.perf_counter()
+
+    def terminate(child):
+        try:
+            terminated[child.frontend] = child.terminate()
+        except Exception as e:  # raised below
+            terminated[child.frontend] = e
+
+    try:
+        t = time.perf_counter()
+        refs = process_references(size)
+        t = step("cpu references", t)
+        a = children["threaded"].wait_ready()
+        t = step("threaded child ready", t)
+        result["startup_s"] = {"threaded": a.ready_s}
+        result["models"] = a.models
+        reset_counts()
+        correct = process_correctness(a, refs, size, device)
+        client_counts = read_counts()
+        t = step("correctness", t)
+        result["load"]["threaded"] = process_load(a, size, device)
+        t = step("load threaded", t)
+        # the threaded child drains (no load) while the aio child is driven
+        stopper = threading.Thread(target=terminate, args=(a,))
+        stopper.start()
+
+        b = children["aio"].wait_ready()
+        result["startup_s"]["aio"] = b.ready_s
+        aio_correct = process_correctness(b, refs, size, device, full=False)
+        result["load"]["aio"] = process_load(b, size, device)
+        t = step("load aio", t)
+        # one warm session first: the child's first batched rounds pay its
+        # lazy set-up
+        GenAiPerfRunner(b.grpc_url, "decoder_lm_batched", "sequence", len(size.prompt),
+                        size.output).run(1, 1)
+        genai = CountingGenAiRunner(b.grpc_url, "decoder_lm_batched", "sequence",
+                                    len(size.prompt), size.output)
+        row = genai.run(size.sessions, size.sessions)
+        if (row["errors"] or row["incomplete"] or row["sessions"] != size.sessions
+                or genai.tokens != size.sessions * size.output):
+            raise AssertionError(f"genai decoder_lm_batched over GRPC: {row}")
+        result["genai"] = {"row": row, "tokens": genai.tokens}
+        t = step("genai", t)
+        result["perf_cli"] = process_perf_cli(b, size, device)
+        t = step("perf CLI", t)
+        result["drain"], report_b = process_drain(b, refs, device)
+        t = step("drain", t)
+        stopper.join(30)
+        report_a = terminated.get("threaded")
+        if not isinstance(report_a, dict):
+            raise AssertionError(f"serve (threaded) did not drain: {report_a!r}")
+    finally:
+        for child in children.values():
+            child.kill()
+    result["correctness"] = {"threaded": correct, "aio": aio_correct}
+    result["reports"] = {"threaded": report_a, "aio": report_b}
+
+    # the children's launches against their executions
+    expected = {}
+    for name, report in result["reports"].items():
+        ex = report["executions"]
+        stepped = correct["tokens_stepped"] if name == "threaded" else 0
+        expected[name] = {
+            "decode_attention": report["layers"] * (stepped + report["rounds"]),
+            "flash_attention": ex["long_context_encoder"],
+            "normalize_image": ex["ensemble_image"],
+        }
+        if name == "threaded" and ex["decoder_lm"] != correct["requests"]["decoder_lm"]:
+            raise AssertionError(f"decoder_lm executions {ex['decoder_lm']} of "
+                                 f"{correct['requests']['decoder_lm']} requests sent")
+        if any(report["failures"].values()):
+            raise AssertionError(f"serve ({name}) counted failures: {report['failures']}")
+        if not report["drain_line"]:
+            raise AssertionError(f"serve ({name}) printed no drain line")
+        want = {k: expected[name].get(k, 0) if on_card else 0 for k in COUNTERS}
+        if report["launches"] != want:
+            raise AssertionError(f"serve ({name}) launches {report['launches']}, "
+                                 f"expected {want}")
+        card = torch.cuda.get_device_name(0) if on_card else str(torch.device(device))
+        if report["device"] != card:
+            raise AssertionError(f"serve ({name}) ran on {report['device']}, not {card}")
+    trips = correct.get("int8_round_trips", 0)
+    expected["client"] = {"quantize_int8": trips, "dequantize_int8": trips}
+    want = {k: expected["client"].get(k, 0) if on_card else 0 for k in COUNTERS}
+    if client_counts != want:
+        raise AssertionError(f"launches in this process on the int8 path {client_counts}, "
+                             f"expected {want}")
+    batched = report_b["executions"]["decoder_lm_batched"]
+    if batched != (1 + size.sessions) * size.output or not report_b["rounds"]:
+        raise AssertionError(f"decoder_lm_batched: {batched} executions for 1 + "
+                             f"{size.sessions} sessions x {size.output} tokens, "
+                             f"{report_b['rounds']} rounds")
+    for name in ("threaded", "aio"):
+        if not all(expected[name].values()):
+            raise AssertionError(f"serve ({name}): a kernel's path did not run: "
+                                 f"{expected[name]}")
+    result["launch_counts"] = {"threaded": report_a["launches"], "aio": report_b["launches"],
+                               "client": client_counts}
+    result["expected_launches"] = expected
+    result["seconds"] = time.perf_counter() - t_phase
+    return result
+
+
 def device_kernels(prof):
     """Device time by kernel in a torch.profiler trace, largest first."""
     kernels = []
@@ -3614,6 +4287,7 @@ def main(argv) -> int:
     t_phase = time.perf_counter()
     harness = serve_harness()
     harness["seconds"] = time.perf_counter() - t_phase
+    process = serve_process()
     for row in served["identity"]:
         log(f"identity_fp32 {row['bytes'] // MIB} MiB p50: wire {row['wire_p50_ms']:.3f} ms, "
             f"system shm {row['system_shm_p50_ms']:.3f} ms, "
@@ -3848,6 +4522,61 @@ def main(argv) -> int:
     def harness_launches(kernel):
         return {path: row[kernel] for path, row in harness_counts.items() if row[kernel]}
 
+    # phase 8: the standalone server in processes of its own
+    log(f"process phase: {process['seconds']:.1f} s (serve ready after "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in process["startup_s"].items())
+        + f"); serve {' '.join(SERVE_ARGS)}")
+    pc = process["correctness"]["threaded"]
+    log(f"process correctness (threaded child, this process the client): simple, identity_fp32 "
+        f"at {[n // MIB for n in PROCESS.identity_bytes]} MiB over the wire, system shm and cuda "
+        f"shm (colocated=False) over HTTP and GRPC; decoder_lm tokens {pc['decoder']['http_tokens']} "
+        f"(generate route) = {pc['decoder']['grpc_tokens']} (GRPC stream) = CPU, max logit diff "
+        f"{pc['decoder']['max_abs_logit_diff']:.4g}; long_context_encoder S={PROCESS.seq} over "
+        f"cuda shm max diff {pc['encoder_max_abs_diff_vs_cpu']:.3g}; ensemble_image top-1 "
+        f"{pc['top1']} = CPU, max logit diff "
+        f"{pc['ensemble_max_abs_logit_diff_vs_cpu_http']:.4g} (HTTP), "
+        f"{pc['ensemble_max_abs_logit_diff_vs_cpu_grpc']:.4g} (GRPC); int8 round trips "
+        f"{pc['int8_round_trips']} (max error {pc['int8']['max_abs_err']:.6f})")
+    in_process = harness["perf"]
+    for frontend, rows in process["load"].items():
+        for name, entry in rows.items():
+            beside = {"identity_fp32 cuda": "identity_fp32 cuda",
+                      "identity_fp32 none": "identity_fp32 none",
+                      "ensemble_image cuda": "ensemble_image cuda",
+                      "long_context_encoder cuda": f"long_context_encoder S={HARNESS.seq} cuda"}
+            phase7 = {r["concurrency"]: r for r in in_process[beside[name]]["rows"]}
+            for row in entry["rows"]:
+                lm = row["latency_ms"]
+                near = phase7.get(row["concurrency"])
+                extra = ("" if near is None else
+                         f" (phase 7 in process: {near['infer_per_sec']} infer/s, p50 "
+                         f"{near['latency_ms']['p50']} ms)")
+                log(f"process perf {frontend} {name} concurrency {row['concurrency']}: "
+                    f"{row['requests']} requests, {row['errors']} errors, {row['infer_per_sec']} "
+                    f"infer/s, p50 {lm['p50']} ms, p99 {lm['p99']} ms{extra}; {card}")
+    for row in process["perf_cli"]["rows"]:
+        log(f"process perf CLI (third process) identity_fp32 cuda concurrency "
+            f"{row['concurrency']}: {row['requests']} requests, {row['errors']} errors, "
+            f"{row['infer_per_sec']} infer/s, p50 {row['latency_ms']['p50']} ms; {card}")
+    row = process["genai"]["row"]
+    log(f"process genai decoder_lm_batched over GRPC (aio child): {row['sessions']} sessions, "
+        f"{process['genai']['tokens']} tokens, {row['errors']} errors, ttft p50 "
+        f"{row['ttft_ms']['p50']} ms, inter-token p50 {row['inter_token_ms']['p50']} ms, "
+        f"{row['output_tokens_per_sec']} tokens/s; {card}")
+    dr = process["drain"]
+    log(f"process drain under load (aio child, {DRAIN_THREADS} clients): ready 503 "
+        f"{dr['ready_503_ms']:.1f} ms after SIGTERM, live {dr['live_status']}, /metrics ready 0 "
+        f"{dr['metrics_ready_0']}, GRPC ServerReady {dr['grpc_ready']} (checks done "
+        f"{dr['checks_done_ms']:.1f} ms); requests {dr['requests']}, 0 errors; exit 0 after "
+        f"{dr['exit_s']:.2f} s")
+    log("process launches: " + json.dumps(process["launch_counts"]) + " = expected "
+        + json.dumps(process["expected_launches"]) + "; children on "
+        + ", ".join(f"{k} {r['device']}" for k, r in process["reports"].items()))
+    process_counts = process["launch_counts"]
+
+    def process_launches(kernel):
+        return {path: row[kernel] for path, row in process_counts.items() if row[kernel]}
+
     main_row = timed[0]
     kernels = [{
         "name": "decode_attention",
@@ -3877,6 +4606,7 @@ def main(argv) -> int:
             "decoder_lm_batched": grpc_counts["decoder_lm_batched"]["decode_attention"]},
         "resilience_launches_by_path": resilience_launches("decode_attention"),
         "harness_launches_by_path": harness_launches("decode_attention"),
+        "process_launches": process_launches("decode_attention"),
         "batched_shape": batched_timed,
     }]
     flash_row = flash_timed[0]
@@ -3895,6 +4625,7 @@ def main(argv) -> int:
         "redesigned": REDESIGNED["flash_attention"],
         "host_us": small["attention_host_us"]["flash_attention"],
         "harness_launches_by_path": harness_launches("flash_attention"),
+        "process_launches": process_launches("flash_attention"),
         "shape": flash_row["shape"],
         "dtype": flash_row["dtype"],
         "at_shapes": flash_timed[1:],
@@ -3931,6 +4662,7 @@ def main(argv) -> int:
             # back to back, host launch cost included
             "device_ms": t["device_ms"],
             **({"redesigned": REDESIGNED[name]} if name in REDESIGNED else {}),
+            "process_launches": process_launches(name),
             "n": wire_row["n"],
             "at_shapes": [{"n": row["n"], **row[name.split("_")[0]]}
                           for row in quant_timed[1:]]
@@ -3965,6 +4697,7 @@ def main(argv) -> int:
             "grpc_launches": grpc_counts["image_client"][name],
             "resilience_launches_by_path": resilience_launches(name),
             "harness_launches_by_path": harness_launches(name),
+            "process_launches": process_launches(name),
             "shape": row["shape"],
             "at_shapes": timed_rows[1:],
         })
@@ -3983,7 +4716,7 @@ def main(argv) -> int:
                    "attention_host_us": small["attention_host_us"],
                    "host_breakdown": breakdown,
                    "served": served, "vision": vision, "grpc": grpc_served,
-                   "resilience": resilience, "harness": harness,
+                   "resilience": resilience, "harness": harness, "process": process,
                    "kernels": kernels}, f, indent=1)
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -8,11 +8,12 @@ from .._base import (
 )
 from .._tensor import InferInput, InferRequestedOutput
 from ..utils import InferenceServerException
-from ._client import InferenceServerClient
+from ._client import InferAsyncRequest, InferenceServerClient
 from ._infer_result import InferResult
 
 __all__ = [
     "BasicAuth",
+    "InferAsyncRequest",
     "InferInput",
     "InferRequestedOutput",
     "InferResult",

@@ -1,0 +1,164 @@
+"""Standalone server CLI: serve the port's model zoo over HTTP and GRPC.
+
+The counterpart of ``client_tpu.serve``, a server in a process of its own
+for examples, the perf harness and development::
+
+    python -m client_tpu_torch.serve --http-port 8000 --grpc-port 8001 [--vision]
+
+Models run on the card unless ``--device cpu`` is given; with no card the
+default fails rather than serving on the CPU. Port 0 binds a free port, and
+the printed URLs carry the bound one.
+
+Ctrl-C stops it at once. SIGTERM drains: ``v2/health/ready`` and
+``ServerReady`` turn not-ready first (so multi-endpoint pools route away),
+in-flight requests finish, then the listeners close.
+
+The zoo is the port's ``default_model_zoo``: the JAX package's but for
+``decoder_lm_tp_prefill`` and the four ``chain_*`` models. ``--moe``,
+``--tensor-parallel`` above 1 and the mesh modes of ``--attention`` (ring,
+ulysses, auto) wait for ROADMAP.md A9 and exit non-zero before any listener
+opens; ``--attention`` defaults to ``flash``, the one-card kernel.
+"""
+
+from __future__ import annotations
+
+import argparse
+import signal
+import sys
+import time
+from typing import List, Optional
+
+# the flags whose modules are ROADMAP.md queue A item 9
+_A9 = "ROADMAP.md A9 (multi-device models and parallel/)"
+
+
+def _unported(args) -> Optional[str]:
+    if args.moe:
+        return f"--moe (moe_ffn, expert parallel) waits for {_A9}"
+    if args.tensor_parallel > 1:
+        return f"--tensor-parallel {args.tensor_parallel} waits for {_A9}"
+    if args.attention != "flash":
+        return f"--attention {args.attention} waits for {_A9}; use --attention flash"
+    return None
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    parser = argparse.ArgumentParser(prog="client_tpu_torch.serve")
+    parser.add_argument("--http-port", type=int, default=8000)
+    parser.add_argument("--grpc-port", type=int, default=8001)
+    parser.add_argument("--no-http", action="store_true")
+    parser.add_argument("--no-grpc", action="store_true")
+    parser.add_argument("--vision", action="store_true",
+                        help="also serve the image ensemble (preprocess, densenet_onnx, "
+                        "ensemble_image)")
+    parser.add_argument("--tensor-parallel", type=int, default=1,
+                        help="shard vision-model weights over N devices (1 only: "
+                        "more waits for ROADMAP A9)")
+    parser.add_argument("--identity-fp32", action="store_true",
+                        help="also serve a dynamic-shape FP32 identity model")
+    parser.add_argument("--long-context", action="store_true",
+                        help="also serve long_context_encoder")
+    parser.add_argument("--attention", choices=("ring", "ulysses", "auto", "flash"),
+                        default="flash",
+                        help="attention of --long-context: flash (the one-card kernel); "
+                        "the mesh modes wait for ROADMAP A9")
+    parser.add_argument("--moe", action="store_true",
+                        help="the expert-parallel moe_ffn model (waits for ROADMAP A9)")
+    parser.add_argument("--http-frontend", choices=("threaded", "aio"), default="threaded",
+                        help="threaded: best single-client latency; aio: an event loop "
+                        "for many concurrent connections")
+    parser.add_argument("--device", default="cuda",
+                        help="where the models run (default cuda; cpu for tests)")
+    parser.add_argument("-v", "--verbose", action="store_true")
+    args = parser.parse_args(argv)
+    unported = _unported(args)
+    if unported is not None:
+        print(f"client_tpu_torch.serve: {unported}", file=sys.stderr)
+        return 2
+
+    import torch
+
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        print("client_tpu_torch.serve: no CUDA device; pass --device cpu to serve on the "
+              "CPU", file=sys.stderr)
+        return 2
+
+    from .models import default_model_zoo
+    from .models.simple import IdentityModel
+    from .server import GrpcInferenceServer, HttpInferenceServer, ServerCore
+
+    models = default_model_zoo(device)
+    if args.identity_fp32:
+        models.append(IdentityModel("identity_fp32", "FP32", device=device))
+    if args.vision:
+        from .models.ensemble import build_image_ensemble
+
+        models.extend(build_image_ensemble(tensor_parallel=args.tensor_parallel,
+                                           device=device))
+    if args.long_context:
+        from .models.long_context import LongContextEncoderModel
+
+        models.append(LongContextEncoderModel(attention=args.attention, device=device))
+    core = ServerCore(models, device=device)
+
+    servers = []
+    if not args.no_http:
+        if args.http_frontend == "aio":
+            from .server import AioHttpInferenceServer
+
+            http = AioHttpInferenceServer(core, port=args.http_port)
+        else:
+            http = HttpInferenceServer(core, port=args.http_port, verbose=args.verbose)
+        http.start()
+        servers.append(http)
+        print(f"HTTP  server ({args.http_frontend}) listening on {http.url}", flush=True)
+    if not args.no_grpc:
+        grpc_srv = GrpcInferenceServer(core, port=args.grpc_port)
+        grpc_srv.start()
+        servers.append(grpc_srv)
+        print(f"GRPC  server listening on {grpc_srv.url}", flush=True)
+    print(f"models: {', '.join(m.name for m in models)}", flush=True)
+
+    class _Drain(Exception):
+        pass
+
+    def on_sigterm(signum, frame):
+        # disarmed first: stop sequences often deliver repeated SIGTERMs,
+        # and a second one must not abort the graceful close under way
+        signal.signal(signal.SIGTERM, signal.SIG_IGN)
+        raise _Drain()
+
+    signal.signal(signal.SIGTERM, on_sigterm)
+    draining = False
+    try:
+        while True:
+            time.sleep(3600)
+    except KeyboardInterrupt:
+        pass
+    except _Drain:
+        draining = True
+    finally:
+        # shutdown is under way: no further signal may abort it, and every
+        # server stops on any exit path
+        signal.signal(signal.SIGTERM, signal.SIG_IGN)
+        signal.signal(signal.SIGINT, signal.SIG_IGN)
+        if draining:
+            # ready goes first everywhere, so pool probes route away; then
+            # each frontend finishes its in-flight work and closes
+            print("SIGTERM: draining (ready -> not-ready, finishing in-flight)", flush=True)
+            core.ready = False
+            time.sleep(1.0)
+        for s in servers:
+            try:
+                if draining:
+                    s.close(grace_s=0.0)
+                else:
+                    s.stop()
+            except Exception as e:
+                print(f"error stopping {type(s).__name__}: {e}", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -275,6 +275,24 @@ class _ModelStats:
             }
 
 
+def handler_device(core: "ServerCore") -> torch.device:
+    """The device a frontend's worker threads make current: the core's,
+    with its index resolved here (a worker thread's own current device is
+    0). A core left at "cuda" on a machine without one (its models on the
+    CPU) has no device to bind."""
+    device = core.device
+    if device.type == "cuda" and device.index is None and torch.cuda.is_available():
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def bind_device(device: torch.device) -> None:
+    """Worker-thread initializer: make ``device`` current, so kernels
+    launched from the thread run on it."""
+    if device.type == "cuda" and device.index is not None:
+        torch.cuda.set_device(device)
+
+
 class ServerCore:
     """Registry + data plane + execution, shared by the protocol frontends.
 
@@ -305,6 +323,11 @@ class ServerCore:
             "log_verbose_level": 0,
             "log_format": "default",
         }
+        self.live = True
+        # ready is the drainable half of health: frontends flip it false on
+        # drain/close so pool ready-probes route away while in-flight
+        # requests still complete (live stays true until the process exits)
+        self.ready = True
         # rolling per-request trace records, kept while trace_level includes
         # TIMESTAMPS or TENSORS (mirrored to trace_file when one is set)
         self._traces: List[Dict[str, Any]] = []
@@ -516,8 +539,8 @@ class ServerCore:
         """The server's ``observe.MetricsRegistry`` (created on first use):
         live/ready gauges plus per-model request/latency series refreshed
         from the model statistics at scrape time. The HTTP frontend serves
-        its Prometheus rendering at ``GET /metrics``. The port's server has
-        no drain yet, so live and ready read 1 while it serves."""
+        its Prometheus rendering at ``GET /metrics``. ``ready`` reads 0 once
+        a frontend drains (``core.ready``), while ``live`` stays 1."""
         with self._lock:
             if self._metrics_registry is not None:
                 return self._metrics_registry
@@ -555,8 +578,8 @@ class ServerCore:
             "Traceparent-joined access records currently buffered")
 
         def collect():
-            live.set(1.0)
-            ready.set(1.0)
+            live.set(1.0 if self.live else 0.0)
+            ready.set(1.0 if (self.live and self.ready) else 0.0)
             for row in self.statistics()["model_stats"]:
                 model = row["name"]
                 gauges["inference_count"].labels(model).set(row["inference_count"])

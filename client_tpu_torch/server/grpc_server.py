@@ -13,18 +13,25 @@ request, so kernels launched from them run on that device.
 
 from __future__ import annotations
 
+import time
 from concurrent import futures
 from typing import Any, Dict, List, Optional
 
 import grpc
 import numpy as np
-import torch
 
 from ..grpc import _messages as M
 from ..grpc._infer import _CONTENTS_FIELD, from_infer_parameter, to_infer_parameter
 from ..grpc._wire import decode_message, encode_message
 from ..utils import triton_to_np_dtype
-from .core import InferError, ServerCore, _array_to_bytes, _bytes_to_array
+from .core import (
+    InferError,
+    ServerCore,
+    _array_to_bytes,
+    _bytes_to_array,
+    bind_device,
+    handler_device,
+)
 
 _STATUS_OF_HTTP = {
     400: grpc.StatusCode.INVALID_ARGUMENT,
@@ -191,10 +198,11 @@ class _Handlers(grpc.GenericRpcHandler):
 
     # -- health / metadata ---------------------------------------------------
     def _server_live(self, request, context):
-        return {"live": True}
+        return {"live": bool(self._core.live)}
 
     def _server_ready(self, request, context):
-        return {"ready": True}
+        # drainable: drain()/close() flip core.ready
+        return {"ready": bool(self._core.live and self._core.ready)}
 
     def _model_ready(self, request, context):
         return {"ready": self._core.model_ready(request.get("name", ""),
@@ -419,12 +427,6 @@ class _Handlers(grpc.GenericRpcHandler):
         return self._unregister("cuda", request)
 
 
-def _bind_device(device: torch.device) -> None:
-    """Handler-thread initializer: make the core's device current."""
-    if device.type == "cuda" and device.index is not None:
-        torch.cuda.set_device(device)
-
-
 class GrpcInferenceServer:
     """An in-process v2 GRPC server bound to localhost.
 
@@ -433,7 +435,8 @@ class GrpcInferenceServer:
         server = GrpcInferenceServer(ServerCore(default_model_zoo())).start()
         client = client_tpu_torch.grpc.InferenceServerClient(server.url)
         ...
-        server.stop()
+        server.stop()         # immediate
+        # or: server.close()  # graceful: drain ready, finish in-flight
     """
 
     def __init__(self, core: ServerCore, port: int = 0, max_workers: int = 8,
@@ -442,16 +445,10 @@ class GrpcInferenceServer:
         its life. ``credentials``: a ``grpc.ServerCredentials`` to serve TLS
         instead of cleartext h2c."""
         self.core = core
-        device = core.device
-        if device.type == "cuda" and device.index is None and torch.cuda.is_available():
-            # resolved here: a handler thread's own current device is 0. A
-            # core left at "cuda" on a machine without one (its models on
-            # the CPU) has no device to bind.
-            device = torch.device("cuda", torch.cuda.current_device())
         self._server = grpc.server(
             futures.ThreadPoolExecutor(
                 max_workers=max_workers, thread_name_prefix="client_tpu_torch_grpc_server",
-                initializer=_bind_device, initargs=(device,),
+                initializer=bind_device, initargs=(handler_device(core),),
             ),
             options=[
                 ("grpc.max_send_message_length", 2**31 - 1),
@@ -476,8 +473,24 @@ class GrpcInferenceServer:
         self._server.start()
         return self
 
+    def drain(self, grace_s: float = 0.0) -> None:
+        """Flip ``ServerReady`` to false and wait ``grace_s`` so pool
+        ready-probes route away before the port closes; everything keeps
+        serving through the window. ``core`` may be shared by several
+        frontends: draining one drains them all."""
+        self.core.ready = False
+        if grace_s > 0:
+            time.sleep(grace_s)
+
     def stop(self, grace: Optional[float] = 1.0) -> None:
         self._server.stop(grace).wait()
+
+    def close(self, grace_s: float = 0.5) -> None:
+        """Graceful shutdown: drain, wait ``grace_s``, let in-flight RPCs
+        finish (grpc's own stop grace), then release the port. SIGTERM
+        handlers call this, not ``stop``."""
+        self.drain(grace_s)
+        self.stop(grace=10.0)
 
     def __enter__(self) -> "GrpcInferenceServer":
         return self.start()

@@ -8,7 +8,8 @@ system and cuda families, two-part binary inference bodies with
 and SSE ``/generate_stream``), and the admin routes: the repository index,
 load and unload, statistics, trace settings and logging. Response bytes are
 identical to the JAX server's for the same outputs (statistics differ in
-their timing fields alone).
+their timing fields alone). ``close`` drains: ready answers 503 while
+in-flight requests finish, then the listener closes.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import itertools
 import json
 import re
 import threading
+import time
 import zlib
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Dict, List, Optional, Tuple
@@ -296,8 +298,9 @@ class _Handler(BaseHTTPRequestHandler):
     disable_nagle_algorithm = True
     core: ServerCore  # set by the server factory
 
-    def log_message(self, fmt, *args):  # quiet
-        pass
+    def log_message(self, fmt, *args):  # quiet unless verbose
+        if getattr(self.server, "verbose", False):
+            super().log_message(fmt, *args)
 
     # -- plumbing ----------------------------------------------------------
     def _read_body(self) -> bytes:
@@ -343,18 +346,29 @@ class _Handler(BaseHTTPRequestHandler):
 
     # -- GET ---------------------------------------------------------------
     def do_GET(self):
+        self.server.request_began()
+        try:
+            self._route_get()
+        finally:
+            self.server.request_ended()
+
+    def _route_get(self):
         core = self.core
         path = self.path.split("?", 1)[0]
         try:
             if path in ("/v2", "/v2/"):
                 return self._send_json(core.server_metadata())
             if path == "/metrics":
-                # the Prometheus scrape target
+                # the Prometheus scrape target; not gated on core.ready: a
+                # scraper must see the drain (ready gauge 0), not errors
                 return self._send(
                     200, core.metrics_registry().prometheus_text().encode(),
                     {"Content-Type": "text/plain; version=0.0.4; charset=utf-8"})
-            if path in ("/v2/health/live", "/v2/health/ready"):
-                return self._send(200)
+            if path == "/v2/health/live":
+                return self._send(200 if core.live else 503)
+            if path == "/v2/health/ready":
+                # drainable: drain()/close() flip core.ready
+                return self._send(200 if (core.live and core.ready) else 503)
             if path == "/v2/models/stats":
                 return self._send_json(core.statistics())
             if path == "/v2/trace/access":
@@ -388,6 +402,13 @@ class _Handler(BaseHTTPRequestHandler):
 
     # -- POST --------------------------------------------------------------
     def do_POST(self):
+        self.server.request_began()
+        try:
+            self._route_post()
+        finally:
+            self.server.request_ended()
+
+    def _route_post(self):
         core = self.core
         path = self.path.split("?", 1)[0]
         try:
@@ -537,10 +558,34 @@ class _Handler(BaseHTTPRequestHandler):
             gen.close()
 
 
-class _HTTPServer(ThreadingHTTPServer):
+class _TrackingHTTPServer(ThreadingHTTPServer):
+    """``ThreadingHTTPServer`` with an in-flight request counter, so a
+    graceful close waits for outstanding requests instead of guessing."""
+
     # the stdlib's listen backlog of 5 resets bursts of concurrent connects
     request_queue_size = 128
     daemon_threads = True
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._inflight = 0
+        self._inflight_lock = threading.Lock()
+        self._idle = threading.Event()
+        self._idle.set()
+
+    def request_began(self) -> None:
+        with self._inflight_lock:
+            self._inflight += 1
+            self._idle.clear()
+
+    def request_ended(self) -> None:
+        with self._inflight_lock:
+            self._inflight -= 1
+            if self._inflight <= 0:
+                self._idle.set()
+
+    def wait_idle(self, timeout: Optional[float] = None) -> bool:
+        return self._idle.wait(timeout)
 
 
 class HttpInferenceServer:
@@ -551,13 +596,15 @@ class HttpInferenceServer:
         server = HttpInferenceServer(ServerCore(default_model_zoo())).start()
         client = InferenceServerClient(server.url)
         ...
-        server.stop()
+        server.stop()         # immediate
+        # or: server.close()  # graceful: drain ready, finish in-flight
     """
 
-    def __init__(self, core: ServerCore, port: int = 0):
+    def __init__(self, core: ServerCore, port: int = 0, verbose: bool = False):
         self.core = core
         handler = type("BoundHandler", (_Handler,), {"core": core})
-        self._httpd = _HTTPServer(("127.0.0.1", port), handler)
+        self._httpd = _TrackingHTTPServer(("127.0.0.1", port), handler)
+        self._httpd.verbose = verbose
         self._thread: Optional[threading.Thread] = None
 
     @property
@@ -575,12 +622,31 @@ class HttpInferenceServer:
         self._thread.start()
         return self
 
+    def drain(self, grace_s: float = 0.0) -> None:
+        """Flip ``v2/health/ready`` to 503 (``core.ready = False``) and wait
+        ``grace_s`` so pool ready-probes route away before the listener
+        goes. Everything else keeps serving. ``core`` may be shared by
+        several frontends: draining one drains them all."""
+        self.core.ready = False
+        if grace_s > 0:
+            time.sleep(grace_s)
+
     def stop(self) -> None:
-        """Shut down the listener (in-flight requests may be cut)."""
+        """Immediate shutdown (in-flight requests may be cut); the graceful
+        path is :meth:`close`."""
         self._httpd.shutdown()
         if self._thread is not None:
             self._thread.join(timeout=5)
         self._httpd.server_close()
+
+    def close(self, grace_s: float = 0.5) -> None:
+        """Graceful shutdown: drain (ready -> 503), wait ``grace_s``, finish
+        in-flight requests, then close the listener. While they finish,
+        ``/metrics`` and the health routes still answer on fresh
+        connections. SIGTERM handlers call this, not ``stop``."""
+        self.drain(grace_s)
+        self._httpd.wait_idle(timeout=10)
+        self.stop()
 
     def __enter__(self) -> "HttpInferenceServer":
         return self.start()

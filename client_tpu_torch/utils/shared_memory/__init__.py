@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import threading
 from multiprocessing import shared_memory as mpshm
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 
@@ -268,6 +268,17 @@ def mapped_shared_memory_regions() -> List[str]:
     """Names of regions currently mapped by this process."""
     with _lock:
         return [r.name for r in _active_regions]
+
+
+def region_inventory() -> List[Dict[str, Any]]:
+    """One dict per live handle (name/key/bytes) — the shm inventory a
+    doctor snapshot reports beside the data-plane counters."""
+    with _lock:
+        return [
+            {"family": "system", "name": r.name, "key": r.key,
+             "byte_size": r.byte_size}
+            for r in _active_regions
+        ]
 
 
 def destroy_shared_memory_region(shm_handle: SharedMemoryRegion) -> None:

@@ -1,6 +1,8 @@
-"""``chip_smoke.py``'s resilience and observability phase (phase 6) on the CPU.
+"""``chip_smoke.py``'s phases 6 (resilience and observability), 7 (the
+measurement harness) and 8 (the standalone server in processes of its own)
+on the CPU.
 
-The phase serves the default zoo and the vision models behind the port's
+Phase 6 serves the default zoo and the vision models behind the port's
 ``ChaosProxy`` and checks itself: zero errors for the idempotent flows under
 faults, a sequence request never re-sent, one ``StreamReconnected`` naming
 the abandoned sequence id, the breaker's transitions, the flight recorder's
@@ -9,6 +11,7 @@ equal to the statistics and the data-plane counters equal to the ops made.
 On a CPU device the kernel wrappers run their plain versions and launch
 nothing, so its launch gate expects zeros there; the references are a CPU
 run of the decoder and of densenet with the seed-0 weights, as on the card.
+Phase 8 starts ``client_tpu_torch.serve --device cpu`` in child processes.
 """
 
 import numpy as np
@@ -133,3 +136,59 @@ def test_harness_phase_on_cpu(monkeypatch):
     assert all(counts[path]["decode_attention"] > 0 for path in result["genai"])
     assert counts["trace replay"]["decode_attention"] > 0
     assert all(fam["regions"] == 0 for fam in result["dataplane"].values())
+
+
+# phase 8 at a small size, its children on the CPU (``serve --device cpu``)
+SMALL_PROCESS = chip_smoke.ProcessSize(
+    identity_bytes=(64 * 1024, 256 * 1024), load_bytes=64 * 1024, seq=256, image=(64, 64, 3),
+    requests=4, concurrency=(1, 2), prompt=[1, 2, 3, 4], steps=3, sessions=2, output=3,
+    int8_rounds=1, cli_requests=4)
+
+
+def test_process_phase_on_cpu(monkeypatch):
+    """``chip_smoke.serve_process``: the standalone server in two child
+    processes (threaded and aio HTTP frontends), this process the client.
+    Every output against the CPU run, every load row and the perf CLI with
+    0 errors and the child's success count of the requests sent, the drain
+    under load inside the grace window, both children's exit 0 and their
+    reports. On the CPU nothing launches (the gate expects zeros), and the
+    expected launches are what the card would run."""
+    import client_tpu_torch.integrity as integrity
+
+    # the process-default contract cache is keyed by model name: the
+    # harness rehearsal's 10-class ensemble_image must not be the contract
+    # of the child's 1000-class one
+    monkeypatch.setattr(integrity, "_DEFAULT_POLICY", integrity.IntegrityPolicy())
+    result = chip_smoke.serve_process(device="cpu", size=SMALL_PROCESS)
+    assert result["models"][-5:] == ["identity_fp32", "preprocess", "densenet_onnx",
+                                     "ensemble_image", "long_context_encoder"]
+    correct = result["correctness"]["threaded"]
+    assert correct["decoder"]["http_tokens"] == correct["decoder"]["grpc_tokens"] == \
+        correct["decoder"]["cpu_tokens"]
+    assert correct["requests"]["identity_fp32"] == 2 * 2 * 3  # sizes x protocols x planes
+    assert set(result["load"]) == {"threaded", "aio"}
+    for rows in result["load"].values():
+        assert set(rows) == {"identity_fp32 cuda", "identity_fp32 none", "ensemble_image cuda",
+                             "long_context_encoder cuda"}
+        for entry in rows.values():
+            assert [r["concurrency"] for r in entry["rows"]] == [1, 2]
+            assert all(r["errors"] == 0 for r in entry["rows"])
+    assert result["genai"]["tokens"] == SMALL_PROCESS.sessions * SMALL_PROCESS.output
+    assert all(r["errors"] == 0 for r in result["perf_cli"]["rows"])
+    drain = result["drain"]
+    assert drain["errors"] == [] and drain["live_status"] == 200
+    assert drain["metrics_ready_0"] and drain["grpc_ready"] is False
+    assert drain["checks_done_ms"] < chip_smoke.DRAIN_GRACE_S * 1e3
+    assert set(drain["requests"]) == {"long_context_encoder", "ensemble_image"}
+    reports = result["reports"]
+    assert all(r["rc"] == 0 and r["drain_line"] and r["device"] == "cpu"
+               for r in reports.values())
+    expected = result["expected_launches"]
+    layers = reports["threaded"]["layers"]
+    assert expected["threaded"]["decode_attention"] == layers * 2 * (4 + SMALL_PROCESS.steps)
+    assert expected["aio"]["decode_attention"] == layers * reports["aio"]["rounds"] > 0
+    for name in ("threaded", "aio"):
+        ex = reports[name]["executions"]
+        assert expected[name]["flash_attention"] == ex["long_context_encoder"] > 0
+        assert expected[name]["normalize_image"] == ex["ensemble_image"] > 0
+    assert all(v == 0 for counts in result["launch_counts"].values() for v in counts.values())
