@@ -208,6 +208,28 @@ Phases (each raises on failure, so the script exits non-zero):
      flash_attention = the encoder's, normalize_image = the ensemble's), on
      the card this process runs on.
 
+9. the routing and serving layers: two ``serve`` children (``SERVE_ARGS``,
+   threaded HTTP) started at once, this process the client of both
+   (``serve_pool``), each output against the CPU run of the port:
+   - round robin over HTTP: ensemble_image split evenly between them;
+   - a decoder_lm sequence through ``PoolClient.infer`` pinned to one child;
+   - ``routing="affinity"``: each key's encoder (S = 8192) requests on one
+     child;
+   - a ``HedgePolicy`` of delay 0 over the wire: both children execute;
+   - ``PoolClient(...).caching()``: 16 identical encoder requests are one
+     wire request and 15 collapsed, then 16 hits bit-equal to the miss;
+   - ``.coalescing()`` on batched_matmul: 8 one-row calls in fewer
+     executions, each row within 1e-5 of a solo call;
+   - an ``AdmissionController`` from a two-tenant spec string: the metered
+     tenant (5/s, burst 5) offered 40 requests in 1 s sheds at least 30 as
+     ``over_quota`` with ``retry_after_s > 0``, the other none;
+   - ``AioPoolClient`` over both GRPC ports: outputs equal row 1's;
+   - ``PerfRunner`` on the encoder, one child and the pool of two, at
+     concurrency 1, 2, 4 and 8 (readings);
+   - SIGTERM to one child under 4 pool workers: 0 errors, one
+     ``EndpointHealthChanged(healthy=False)``, then every request on the
+     survivor; both exit 0, and each child's launches equal its executions.
+
 It then prints one ``{"kernels": [...]}`` line and, last, one line
 ``{"ok": true, "device": {...}}``. Details go to ``build/chip_smoke.json``.
 Without a CUDA device it fails. The build fails if ptxas reports a spill in
@@ -277,6 +299,9 @@ from client_tpu_torch.flight import FlightRecorder  # noqa: E402
 from client_tpu_torch.genai_perf import GenAiPerfRunner  # noqa: E402
 from client_tpu_torch.integrity import IntegrityPolicy, IntegrityStats, StreamChecker  # noqa: E402
 from client_tpu_torch.perf import PerfRunner  # noqa: E402
+from client_tpu_torch.admission import AdmissionController, AdmissionRejected  # noqa: E402
+from client_tpu_torch.pool import AioPoolClient, EndpointHealthChanged  # noqa: E402
+from client_tpu_torch.pool import HedgePolicy, PoolClient  # noqa: E402
 from client_tpu_torch.observe import (  # noqa: E402
     Telemetry,
     dataplane,
@@ -3363,8 +3388,11 @@ class ServeChild:
     def terminate(self, timeout=15.0):
         """SIGTERM, then the exit (within ``timeout``) and the final report."""
         t0 = time.perf_counter()
-        self.proc.send_signal(signal.SIGTERM)
+        self.sigterm()
         return self.finish(t0, timeout)
+
+    def sigterm(self):
+        self.proc.send_signal(signal.SIGTERM)
 
     def finish(self, t0, timeout):
         try:
@@ -3890,6 +3918,519 @@ def serve_process(device="cuda", size=PROCESS):
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the routing and serving layers (pool, batch, cache, tenancy) over
+# a fleet of two ``serve`` processes, this process the client
+# ---------------------------------------------------------------------------
+
+PoolSize = collections.namedtuple("PoolSize", [
+    "image", "rr_requests", "prompt", "steps", "seq", "affinity_keys", "affinity_requests",
+    "hedge_requests", "threads", "coalesce_rows", "window_us", "offered", "offered_s",
+    "steady", "aio_requests", "concurrency", "perf_requests", "failover_workers",
+    "failover_after"])
+POOL = PoolSize(
+    image=(224, 224, 3), rr_requests=40, prompt=[1, 2, 3, 4], steps=8, seq=8192,
+    affinity_keys=3, affinity_requests=6, hedge_requests=4, threads=16, coalesce_rows=8,
+    window_us=20000, offered=40, offered_s=1.0, steady=10, aio_requests=16,
+    concurrency=(1, 2, 4, 8), perf_requests=40, failover_workers=4, failover_after=8)
+# the metered tenant: 5 requests a second, a burst of 5; the other unmetered
+# with weight 3
+POOL_TENANCY = "steady,weight=3;burst,rate=5,burst=5"
+
+
+def fleet_executions(children, model):
+    """Each child's execution count of ``model`` (its statistics)."""
+    out = []
+    for child in children:
+        with httpclient.InferenceServerClient(child.http_url) as c:
+            out.append(c.get_inference_statistics(model)["model_stats"][0]["execution_count"])
+    return out
+
+
+def settled_executions(children, model, at_least, timeout=30.0):
+    """The children's executions of ``model`` once their sum reaches
+    ``at_least`` and holds still for three reads (a hedge's loser finishes
+    on its replica after the winner answered)."""
+    deadline = time.monotonic() + timeout
+    last, still = None, 0
+    while True:
+        now = fleet_executions(children, model)
+        still = still + 1 if now == last else 0
+        if sum(now) >= at_least and still >= 2:
+            return now
+        if time.monotonic() > deadline:
+            raise AssertionError(f"{model}: executions {now} never settled at >= {at_least}")
+        last = now
+        time.sleep(0.05)
+
+
+def pool_encoder_input(mod, refs):
+    return [mod.InferInput("sequence", list(refs["seq"].shape), "FP32").set_data_from_numpy(
+        refs["seq"])]
+
+
+def pool_image_input(mod, refs):
+    return [mod.InferInput("IMAGE", list(refs["image"].shape), "UINT8").set_data_from_numpy(
+        refs["image"])]
+
+
+def pool_round_robin(children, refs, size):
+    """Row 1: round robin over HTTP, ensemble_image on each child in turn."""
+    urls = [c.http_url for c in children]
+    before = fleet_executions(children, "ensemble_image")
+    outputs = []
+    with PoolClient(urls, protocol="http", health_interval_s=0.5) as pool:
+        pool.wait_healthy()
+        for _ in range(size.rr_requests):
+            got = pool.infer("ensemble_image", pool_image_input(httpclient, refs)).as_numpy(
+                "CLASSIFICATION")
+            check_image(got, refs, "round robin over the pool")
+            outputs.append(got.reshape(-1).copy())
+    split = [a - b for a, b in zip(fleet_executions(children, "ensemble_image"), before)]
+    if split != [size.rr_requests // 2] * 2:
+        raise AssertionError(f"round robin: ensemble executions {split} of {size.rr_requests}")
+    return {"requests": size.rr_requests, "executions": split}, outputs
+
+
+def pool_sequence(children, refs, size):
+    """Row 2: a decoder_lm sequence through ``PoolClient.infer`` pins to one
+    child; tokens equal the CPU run's, logits within 5e-2."""
+    urls = [c.http_url for c in children]
+    before = fleet_executions(children, "decoder_lm")
+    with PoolClient(urls, protocol="http", health_interval_s=0.5) as pool:
+        def run(tokens, start, end):
+            inp = httpclient.InferInput("TOKENS", [1, len(tokens)], "INT32")
+            inp.set_data_from_numpy(np.array([tokens], np.int32))
+            res = pool.infer("decoder_lm", [inp], sequence_id=977, sequence_start=start,
+                             sequence_end=end)
+            return res.as_numpy("LOGITS"), int(res.as_numpy("NEXT_TOKEN")[0, 0])
+
+        tokens, logits = drive_decoder(run, size.prompt, size.steps)
+    split = [a - b for a, b in zip(fleet_executions(children, "decoder_lm"), before)]
+    err = float(np.abs(logits.reshape(-1) - refs["decoder_logits"].reshape(-1)).max())
+    if tokens != refs["decoder_tokens"] or not err <= 5e-2:
+        raise AssertionError(f"decoder_lm over the pool: tokens {tokens}, CPU "
+                             f"{refs['decoder_tokens']}, max logit diff {err}")
+    if sorted(split) != [0, size.steps + 1]:
+        raise AssertionError(f"sequence pinning: decoder_lm executions {split}")
+    stepped = [(len(size.prompt) + size.steps) if n else 0 for n in split]
+    return {"executions": split, "tokens": tokens, "max_abs_logit_diff": err,
+            "tokens_stepped": stepped}
+
+
+def pool_affinity(children, refs, size):
+    """Row 3: ``routing="affinity"``: each key's encoder requests on one child."""
+    urls = [c.http_url for c in children]
+    keys = {}
+    with PoolClient(urls, protocol="http", routing="affinity", health_interval_s=0.5) as pool:
+        pool.wait_healthy()
+        for k in range(size.affinity_keys):
+            before = fleet_executions(children, "long_context_encoder")
+            for _ in range(size.affinity_requests):
+                got = pool.infer("long_context_encoder", pool_encoder_input(httpclient, refs),
+                                 affinity_key=f"session{k}").as_numpy("encoded")
+                check_encoded(got, refs, "by affinity over the pool")
+            split = [a - b for a, b in zip(fleet_executions(children, "long_context_encoder"),
+                                           before)]
+            if sorted(split) != [0, size.affinity_requests]:
+                raise AssertionError(f"affinity key session{k}: executions {split}")
+            keys[f"session{k}"] = split
+        stats = pool.endpoint_stats()
+    # every pick landed on its key's home: routed, never rehomed or spilled
+    view = {url: stats[url]["affinity"] for url in urls}
+    if (sum(v["routed"] for v in view.values()) != size.affinity_keys * size.affinity_requests
+            or sum(v["keys"] for v in view.values()) != size.affinity_keys):
+        raise AssertionError(f"affinity: endpoint_stats {view}")
+    return {"keys": keys, "endpoint_stats": view,
+            "executions": [sum(v[i] for v in keys.values()) for i in range(2)]}
+
+
+def pool_hedge(children, refs, size):
+    """Row 4: a ``HedgePolicy`` of fixed delay 0 over the wire: both children
+    execute, and the executions (not the requests) are what launches."""
+    urls = [c.http_url for c in children]
+    before = fleet_executions(children, "long_context_encoder")
+    with PoolClient(urls, protocol="http", health_interval_s=0.5,
+                    hedge=HedgePolicy(delay_s=0.0, jitter_frac=0.0)) as pool:
+        pool.wait_healthy()
+        for _ in range(size.hedge_requests):
+            got = pool.infer("long_context_encoder", pool_encoder_input(httpclient, refs)).as_numpy(
+                "encoded")
+            check_encoded(got, refs, "hedged over the pool")
+        after = settled_executions(children, "long_context_encoder",
+                                   sum(before) + size.hedge_requests)
+    split = [a - b for a, b in zip(after, before)]
+    if not all(split) or sum(split) < size.hedge_requests:
+        raise AssertionError(f"hedging: executions {split} for {size.hedge_requests} requests")
+    return {"requests": size.hedge_requests, "executions": split}
+
+
+class _UntilCollapsed:
+    """The pool under the caching layer, its leader's call held until the
+    other callers have joined the flight (so the collapse does not depend
+    on how fast the threads arrive)."""
+
+    def __init__(self, pool, followers):
+        self.pool, self.followers, self.wrapper = pool, followers, None
+
+    def infer(self, *args, **kwargs):
+        deadline = time.monotonic() + 60
+        while True:
+            with self.wrapper._flights_lock:
+                joined = max((f.followers for f in self.wrapper._flights.values()), default=0)
+            if joined >= self.followers:
+                break
+            if time.monotonic() > deadline:
+                raise AssertionError(f"singleflight: {joined} followers joined")
+            time.sleep(0.001)
+        return self.pool.infer(*args, **kwargs)
+
+    def __getattr__(self, name):
+        return getattr(self.pool, name)
+
+
+def pool_singleflight(children, refs, size, device):
+    """Row 5: ``PoolClient(...).caching()``: identical concurrent encoder
+    requests collapse onto one wire request; repeats are hits, bit-equal
+    to the miss, and a hit's ``as_torch`` equals it on ``device``."""
+    urls = [c.http_url for c in children]
+    before = fleet_executions(children, "long_context_encoder")
+    pool = PoolClient(urls, protocol="http", health_interval_s=0.5)
+    client = pool.caching()
+    gate = _UntilCollapsed(pool, size.threads - 1)
+    gate.wrapper, client._inner = client, gate
+    results, errors = [None] * size.threads, []
+    start = threading.Barrier(size.threads)
+
+    def caller(i):
+        try:
+            start.wait(60)
+            results[i] = client.infer("long_context_encoder", pool_encoder_input(httpclient, refs))
+        except Exception as e:  # raised below
+            errors.append(repr(e))
+
+    try:
+        threads = [threading.Thread(target=caller, args=(i,)) for i in range(size.threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120)
+        if errors:
+            raise AssertionError(f"singleflight: {errors[:3]}")
+        stats = client.cache_stats()
+        miss = results[0].as_numpy("encoded").copy()
+        check_encoded(miss, refs, "through singleflight")
+        if (stats["wire_requests"], stats["singleflight_collapsed"]) != (1, size.threads - 1) \
+                or not all(np.array_equal(r.as_numpy("encoded"), miss) for r in results):
+            raise AssertionError(f"singleflight: {stats}")
+        mid = fleet_executions(children, "long_context_encoder")
+        hits = [client.infer("long_context_encoder", pool_encoder_input(httpclient, refs))
+                for _ in range(size.threads)]
+        stats = client.cache_stats()
+        after = fleet_executions(children, "long_context_encoder")
+        if stats["hit"] != size.threads or after != mid or not all(
+                h.as_numpy("encoded").tobytes() == miss.tobytes() for h in hits):
+            raise AssertionError(f"cache hits: {stats}, executions {mid} -> {after}")
+        on_device = hits[0].as_torch("encoded", device)
+        if on_device.device.type != torch.device(device).type or not torch.equal(
+                on_device.cpu(), torch.from_numpy(miss)):
+            raise AssertionError("a hit's as_torch differs from the miss")
+    finally:
+        client.close()
+    split = [a - b for a, b in zip(after, before)]
+    return {"threads": size.threads, "wire_requests": stats["wire_requests"],
+            "singleflight_collapsed": stats["singleflight_collapsed"], "hits": stats["hit"],
+            "executions": split}
+
+
+def pool_coalescing(children, size):
+    """Row 6: ``.coalescing(window_us=..., batch_max_rows=8)`` on
+    batched_matmul: one row a thread, fewer executions than rows, each row
+    within 1e-5 of a solo call (cuBLAS may pick another algorithm at M = 8)."""
+    urls = [c.http_url for c in children]
+    rows = np.random.default_rng(6).standard_normal((size.coalesce_rows, 64)).astype(np.float32)
+    got, errors = [None] * size.coalesce_rows, []
+    pool = PoolClient(urls, protocol="http", health_interval_s=0.5)
+    client = pool.coalescing(window_us=size.window_us, batch_max_rows=size.coalesce_rows)
+    start = threading.Barrier(size.coalesce_rows)
+
+    def x(i):
+        return [httpclient.InferInput("X", [1, 64], "FP32").set_data_from_numpy(rows[i:i + 1])]
+
+    def caller(i):
+        try:
+            start.wait(60)
+            got[i] = client.infer("batched_matmul", x(i)).as_numpy("Y")
+        except Exception as e:  # raised below
+            errors.append(repr(e))
+
+    try:
+        pool.wait_healthy()
+        before = fleet_executions(children, "batched_matmul")
+        threads = [threading.Thread(target=caller, args=(i,))
+                   for i in range(size.coalesce_rows)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(60)
+        split = [a - b for a, b in zip(fleet_executions(children, "batched_matmul"), before)]
+        batch = client.stats()
+        solo = [pool.infer("batched_matmul", x(i)).as_numpy("Y") for i in range(size.coalesce_rows)]
+    finally:
+        client.close()
+    err = max(float(np.abs(g - s_).max()) for g, s_ in zip(got, solo)) if not errors else None
+    if errors or sum(split) >= size.coalesce_rows or not err <= 1e-5:
+        raise AssertionError(f"coalescing: errors {errors[:3]}, executions {split}, "
+                             f"max diff {err}")
+    return {"rows": size.coalesce_rows, "executions": split, "dispatches": batch["dispatches"],
+            "max_abs_diff_vs_solo": err}
+
+
+def pool_tenancy(children, refs, size):
+    """Row 7: an ``AdmissionController`` on the pool from ``POOL_TENANCY``:
+    the metered tenant offers ``size.offered`` encoder requests in
+    ``size.offered_s`` and sheds its excess as typed ``over_quota`` with a
+    positive ``retry_after_s``; the unmetered tenant sheds nothing."""
+    urls = [c.http_url for c in children]
+    controller = AdmissionController(tenancy=POOL_TENANCY)
+    verdicts = collections.Counter()
+    retry = []
+    before = fleet_executions(children, "long_context_encoder")
+    with PoolClient(urls, protocol="http", health_interval_s=0.5,
+                    admission=controller) as pool:
+        pool.wait_healthy()
+        steady_every = max(1, size.offered // size.steady)
+        t0 = time.monotonic()
+        for i in range(size.offered):
+            delay = t0 + i * size.offered_s / size.offered - time.monotonic()
+            if delay > 0:
+                time.sleep(delay)
+            for tenant in ("burst",) + (("steady",) if i % steady_every == 0 else ()):
+                try:
+                    got = pool.infer("long_context_encoder", pool_encoder_input(httpclient, refs),
+                                     tenant=tenant).as_numpy("encoded")
+                    check_encoded(got, refs, f"admitted for {tenant}")
+                    verdicts[(tenant, "ok")] += 1
+                except AdmissionRejected as e:
+                    verdicts[(tenant, e.reason)] += 1
+                    retry.append(e.retry_after_s)
+    split = [a - b for a, b in zip(fleet_executions(children, "long_context_encoder"), before)]
+    admitted = verdicts[("burst", "ok")] + verdicts[("steady", "ok")]
+    shed = sum(n for (t, v), n in verdicts.items() if t == "burst" and v != "ok")
+    if (shed < size.offered - 10 or verdicts[("burst", "over_quota")] != shed
+            or not all(r is not None and r > 0 for r in retry)
+            or any(v != "ok" for (t, v) in verdicts if t == "steady")
+            or sum(split) != admitted):
+        raise AssertionError(f"tenancy: verdicts {dict(verdicts)}, executions {split}")
+    return {"verdicts": {f"{t} {v}": n for (t, v), n in sorted(verdicts.items())},
+            "retry_after_s_min": min(retry), "executions": split,
+            "snapshot": controller.tenancy.snapshot()["tenants"]}
+
+
+def pool_aio_grpc(children, refs, size, row1_outputs):
+    """Row 8: ``AioPoolClient`` over both children's GRPC ports, the
+    ensemble requests gathered at once; outputs equal row 1's."""
+    urls = [c.grpc_url for c in children]
+    before = fleet_executions(children, "ensemble_image")
+
+    async def run():
+        pool = AioPoolClient(urls, protocol="grpc", health_interval_s=0.5)
+        try:
+            results = await asyncio.gather(*[
+                pool.infer("ensemble_image", pool_image_input(grpcclient, refs))
+                for _ in range(size.aio_requests)])
+        finally:
+            await pool.close()
+        return [r.as_numpy("CLASSIFICATION").reshape(-1) for r in results]
+
+    outputs = asyncio.run(run())
+    split = [a - b for a, b in zip(fleet_executions(children, "ensemble_image"), before)]
+    if sum(split) != size.aio_requests or not all(
+            any(np.array_equal(o, r) for r in row1_outputs) for o in outputs):
+        raise AssertionError(f"aio GRPC pool: executions {split}, outputs differ from row 1's")
+    return {"requests": size.aio_requests, "executions": split}
+
+
+def pool_perf(children, size):
+    """Row 9 (readings, not gates): ``PerfRunner`` on the encoder over the
+    wire at ``size.concurrency``, one child alone and the pool of both."""
+    shape = {"sequence": [size.seq, 64]}
+    rows = {}
+    for name, endpoints in (("one child", None),
+                            ("pool of two", [c.http_url for c in children])):
+        runner = PerfRunner(children[0].http_url, "http", "long_context_encoder", "none", shape,
+                            endpoints=endpoints, device="cpu")
+        try:
+            runner.run(1, PROCESS_WARMUP)
+            levels = [runner.run(c, size.perf_requests) for c in size.concurrency]
+        finally:
+            runner.close()
+        if any(r["errors"] or r["shed"] for r in levels):
+            raise AssertionError(f"pool perf {name}: {levels}")
+        rows[name] = [{k: r[k] for k in ("concurrency", "requests", "errors", "infer_per_sec",
+                                         "latency_ms")} for r in levels]
+    return rows
+
+
+def pool_failover(children, refs, size):
+    """Row 10 (last): SIGTERM to the second child while
+    ``size.failover_workers`` pool workers drive ensemble_image: no error,
+    one ``EndpointHealthChanged(healthy=False)`` for its URL, and once it
+    has exited every request on the survivor."""
+    a, b = children
+    events = []
+    errors, done = [], collections.Counter()
+    stop = threading.Event()
+    started = threading.Barrier(size.failover_workers + 1)
+    pool = PoolClient([a.http_url, b.http_url], protocol="http", health_interval_s=0.05,
+                      probe_timeout_s=0.5, on_event=events.append)
+
+    def worker(i):
+        first = True
+        try:
+            while first or not stop.is_set():
+                got = pool.infer("ensemble_image", pool_image_input(httpclient, refs)).as_numpy(
+                    "CLASSIFICATION")
+                check_image(got, refs, "under failover")
+                done["after" if stop.is_set() else "during"] += 1
+                if first:
+                    first = False
+                    started.wait(120)
+        except Exception as e:  # raised below
+            errors.append((i, repr(e)))
+            started.abort()
+
+    threads = [threading.Thread(target=worker, args=(i,)) for i in range(size.failover_workers)]
+    report = None
+    try:
+        pool.wait_healthy()
+        for t in threads:
+            t.start()
+        started.wait(120)
+        t0 = time.perf_counter()
+        b.sigterm()
+        deadline = time.monotonic() + 10
+        while not any(isinstance(e, EndpointHealthChanged) and e.url == b.http_url
+                      and not e.healthy for e in events):
+            if time.monotonic() > deadline or errors:
+                raise AssertionError(f"failover: no health change for {b.http_url}: "
+                                     f"{events}, errors {errors}")
+            time.sleep(0.01)
+        unhealthy_ms = (time.perf_counter() - t0) * 1e3
+        report = b.finish(t0, 15.0)
+        calls_b = pool.endpoint_stats()[b.http_url]["resilience"]["calls"]
+        survivor_before = fleet_executions([a], "ensemble_image")[0]
+        count_before = done["during"]
+        while done["during"] < count_before + size.failover_after and not errors:
+            time.sleep(0.01)
+        stats = pool.endpoint_stats()
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(120)
+        pool.close()
+    survivor = fleet_executions([a], "ensemble_image")[0] - survivor_before
+    changes = [e for e in events if isinstance(e, EndpointHealthChanged)
+               and e.url == b.http_url and not e.healthy]
+    row = {"unhealthy_ms": unhealthy_ms, "requests": dict(done), "errors": errors,
+           "health_changes": len(changes), "exit_s": report["exit_s"],
+           "calls_on_drained_after_exit": stats[b.http_url]["resilience"]["calls"] - calls_b,
+           "survivor_executions_after_exit": survivor}
+    if (errors or len(changes) != 1 or row["calls_on_drained_after_exit"]
+            or survivor < size.failover_after):
+        raise AssertionError(f"failover under drain: {row}")
+    return row, report
+
+
+def serve_pool(device="cuda", size=POOL, start_children=None):
+    """Phase 9: ``client_tpu_torch.pool``, ``batch``, ``cache`` and
+    ``tenancy`` over two ``serve`` children on ``device`` (``SERVE_ARGS``,
+    threaded HTTP frontends), started at once; this process the client.
+    ``start_children`` (tests) returns the two children instead. Rows 1-10
+    (see the module docstring), each output against the CPU run of the port
+    with the same seed-0 weights. This process launches nothing: its
+    counts are reset before each row and read after it. Each child's final
+    report holds its launches to its executions: decode_attention = layers
+    x the tokens it stepped, flash_attention = the encoder's,
+    normalize_image = the ensemble's."""
+    on_card = torch.device(device).type == "cuda"
+    t_phase = time.perf_counter()
+    if start_children is None:
+        children = [ServeChild(device, "threaded"), ServeChild(device, "threaded")]
+    else:
+        children = start_children()
+    result = {"size": size._asdict(), "rows": {}, "client_counts": {}, "steps_s": {}}
+    rows = result["rows"]
+    try:
+        t = time.perf_counter()
+        refs = process_references(size)
+        result["steps_s"]["cpu references"] = time.perf_counter() - t
+        t = time.perf_counter()
+        for child in children:
+            child.wait_ready()
+        result["steps_s"]["children ready"] = time.perf_counter() - t
+        result["urls"] = [[c.http_url, c.grpc_url] for c in children]
+
+        def row(name, fn, *args):
+            reset_counts()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            result["steps_s"][name] = time.perf_counter() - t0
+            counts = read_counts()
+            if any(counts.values()):
+                raise AssertionError(f"pool row {name}: this process launched {counts}")
+            result["client_counts"][name] = counts
+            return out
+
+        rows["round robin"], row1 = row("round robin", pool_round_robin, children, refs, size)
+        rows["sequence"] = row("sequence", pool_sequence, children, refs, size)
+        rows["affinity"] = row("affinity", pool_affinity, children, refs, size)
+        rows["hedge"] = row("hedge", pool_hedge, children, refs, size)
+        rows["singleflight"] = row("singleflight", pool_singleflight, children, refs, size,
+                                   device)
+        rows["coalescing"] = row("coalescing", pool_coalescing, children, size)
+        rows["tenancy"] = row("tenancy", pool_tenancy, children, refs, size)
+        rows["aio grpc"] = row("aio grpc", pool_aio_grpc, children, refs, size, row1)
+        rows["perf"] = row("perf", pool_perf, children, size)
+        rows["failover"], report_b = row("failover", pool_failover, children, refs, size)
+        report_a = children[0].terminate()
+    finally:
+        for child in children:
+            child.kill()
+    result["reports"] = [report_a, report_b]
+
+    expected = []
+    for i, report in enumerate(result["reports"]):
+        ex = report["executions"]
+        stepped = rows["sequence"]["tokens_stepped"][i]
+        want = {"decode_attention": report["layers"] * stepped,
+                "flash_attention": ex["long_context_encoder"],
+                "normalize_image": ex["ensemble_image"]}
+        expected.append(want)
+        if ex["decoder_lm"] != rows["sequence"]["executions"][i] or report["rounds"]:
+            raise AssertionError(f"serve child {i}: decoder executions {ex['decoder_lm']}, "
+                                 f"batched rounds {report['rounds']}")
+        if any(report["failures"].values()):
+            raise AssertionError(f"serve child {i} counted failures: {report['failures']}")
+        if report.get("launches") is not None:
+            got = {k: want.get(k, 0) if on_card else 0 for k in COUNTERS}
+            if report["launches"] != got:
+                raise AssertionError(f"serve child {i} launches {report['launches']}, "
+                                     f"expected {got}")
+            card = torch.cuda.get_device_name(0) if on_card else str(torch.device(device))
+            if report["device"] != card:
+                raise AssertionError(f"serve child {i} ran on {report['device']}, not {card}")
+    total = {k: sum(e[k] for e in expected) for k in expected[0]}
+    if not all(total.values()):
+        raise AssertionError(f"pool phase: a kernel's path did not run: {total}")
+    if not report_b["drain_line"]:
+        raise AssertionError("the drained child printed no drain line")
+    result["launch_counts"] = [r.get("launches") for r in result["reports"]]
+    result["expected_launches"] = expected
+    result["seconds"] = time.perf_counter() - t_phase
+    return result
+
+
 def device_kernels(prof):
     """Device time by kernel in a torch.profiler trace, largest first."""
     kernels = []
@@ -4288,6 +4829,7 @@ def main(argv) -> int:
     harness = serve_harness()
     harness["seconds"] = time.perf_counter() - t_phase
     process = serve_process()
+    pool = serve_pool()
     for row in served["identity"]:
         log(f"identity_fp32 {row['bytes'] // MIB} MiB p50: wire {row['wire_p50_ms']:.3f} ms, "
             f"system shm {row['system_shm_p50_ms']:.3f} ms, "
@@ -4577,6 +5119,43 @@ def main(argv) -> int:
     def process_launches(kernel):
         return {path: row[kernel] for path, row in process_counts.items() if row[kernel]}
 
+    # phase 9: the routing and serving layers over two serve children
+    log(f"pool phase: {pool['seconds']:.1f} s (children ready after "
+        f"{pool['steps_s']['children ready']:.1f} s); rows "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in pool["steps_s"].items()))
+    pr = pool["rows"]
+    log(f"pool round robin (HTTP): {pr['round robin']['requests']} ensemble_image requests, "
+        f"executions by child {pr['round robin']['executions']}, top-1 = CPU; "
+        f"sequence: decoder_lm executions {pr['sequence']['executions']} (pinned), tokens "
+        f"{pr['sequence']['tokens']} = CPU, max logit diff "
+        f"{pr['sequence']['max_abs_logit_diff']:.4g}; affinity: "
+        f"{json.dumps(pr['affinity']['keys'])}; hedge (delay 0): "
+        f"{pr['hedge']['requests']} requests, executions {pr['hedge']['executions']}")
+    sf, co, te = pr["singleflight"], pr["coalescing"], pr["tenancy"]
+    log(f"pool caching: {sf['threads']} threads -> {sf['wire_requests']} wire request, "
+        f"{sf['singleflight_collapsed']} collapsed, then {sf['hits']} hits, executions "
+        f"{sf['executions']}; coalescing: {co['rows']} rows -> {co['dispatches']} dispatches, "
+        f"executions {co['executions']}, max diff vs solo {co['max_abs_diff_vs_solo']:.3g}; "
+        f"tenancy {POOL_TENANCY!r}: {json.dumps(te['verdicts'])}, min retry_after "
+        f"{te['retry_after_s_min']:.3f} s, executions {te['executions']}; aio GRPC: "
+        f"{pr['aio grpc']['requests']} requests, executions {pr['aio grpc']['executions']}")
+    for name, levels in pr["perf"].items():
+        for r in levels:
+            lm = r["latency_ms"]
+            log(f"pool perf long_context_encoder S={POOL.seq} wire {name} concurrency "
+                f"{r['concurrency']}: {r['requests']} requests, {r['errors']} errors, "
+                f"{r['infer_per_sec']} infer/s, p50 {lm['p50']} ms, p99 {lm['p99']} ms; {card}")
+    fo = pr["failover"]
+    log(f"pool failover under drain: {POOL.failover_workers} workers, unhealthy after "
+        f"{fo['unhealthy_ms']:.1f} ms, requests {fo['requests']}, 0 errors, "
+        f"{fo['health_changes']} health change, drained child exit 0 after "
+        f"{fo['exit_s']:.2f} s, calls on it after its exit {fo['calls_on_drained_after_exit']}")
+    log("pool launches by child: " + json.dumps(pool["launch_counts"]) + " = expected "
+        + json.dumps(pool["expected_launches"]))
+
+    def pool_launches(kernel):
+        return [row[kernel] for row in pool["launch_counts"]]
+
     main_row = timed[0]
     kernels = [{
         "name": "decode_attention",
@@ -4607,6 +5186,7 @@ def main(argv) -> int:
         "resilience_launches_by_path": resilience_launches("decode_attention"),
         "harness_launches_by_path": harness_launches("decode_attention"),
         "process_launches": process_launches("decode_attention"),
+        "pool_launches": pool_launches("decode_attention"),
         "batched_shape": batched_timed,
     }]
     flash_row = flash_timed[0]
@@ -4626,6 +5206,7 @@ def main(argv) -> int:
         "host_us": small["attention_host_us"]["flash_attention"],
         "harness_launches_by_path": harness_launches("flash_attention"),
         "process_launches": process_launches("flash_attention"),
+        "pool_launches": pool_launches("flash_attention"),
         "shape": flash_row["shape"],
         "dtype": flash_row["dtype"],
         "at_shapes": flash_timed[1:],
@@ -4663,6 +5244,7 @@ def main(argv) -> int:
             "device_ms": t["device_ms"],
             **({"redesigned": REDESIGNED[name]} if name in REDESIGNED else {}),
             "process_launches": process_launches(name),
+            "pool_launches": pool_launches(name),
             "n": wire_row["n"],
             "at_shapes": [{"n": row["n"], **row[name.split("_")[0]]}
                           for row in quant_timed[1:]]
@@ -4698,6 +5280,7 @@ def main(argv) -> int:
             "resilience_launches_by_path": resilience_launches(name),
             "harness_launches_by_path": harness_launches(name),
             "process_launches": process_launches(name),
+            "pool_launches": pool_launches(name),
             "shape": row["shape"],
             "at_shapes": timed_rows[1:],
         })
@@ -4717,6 +5300,7 @@ def main(argv) -> int:
                    "host_breakdown": breakdown,
                    "served": served, "vision": vision, "grpc": grpc_served,
                    "resilience": resilience, "harness": harness, "process": process,
+                   "pool": pool,
                    "kernels": kernels}, f, indent=1)
     log(smi)
     log(json.dumps({"kernels": kernels}))

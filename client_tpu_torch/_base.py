@@ -6,10 +6,10 @@ header bag, ``RequestTimers`` (with the host<->device transfer points),
 telemetry (``observe``: request and stream spans, the ``traceparent`` on
 the wire, ORCA endpoint load), data-plane accounting of the shm
 register/unregister calls, response integrity (``integrity``),
-resilience (``resilience``) and the shm arena (``arena``: staged inputs
-promoted into leased slabs, cached region registrations). The JAX
-package's coalescing and caching layers are not part of the port yet, and
-neither are their hooks.
+resilience (``resilience``), the shm arena (``arena``: staged inputs
+promoted into leased slabs, cached region registrations), and the
+``coalescing()`` / ``caching()`` wrappers (``batch``, ``cache``) with the
+positional-prefix folding they and the pool share.
 """
 
 from __future__ import annotations
@@ -29,6 +29,17 @@ SHM_FAMILY_OF = {
     "cudasharedmemory": "cuda",
 }
 
+# the four frontends' infer() signatures share this positional prefix;
+# folding positionals into kwargs lets the wrapper layers (pool, batch)
+# stay drop-in replacements for code that calls e.g. client.infer("m",
+# inputs, "2")
+INFER_POSITIONAL_PREFIX = (
+    "model_version", "outputs", "request_id", "sequence_id",
+    "sequence_start", "sequence_end", "priority", "timeout",
+    "client_timeout", "headers",
+)
+
+
 def _any_arena_lease(inputs, outputs) -> bool:
     """Does any tensor of this request carry an arena lease? (The no-arena
     hot path pays one class-attribute check per tensor and nothing else.)"""
@@ -41,12 +52,13 @@ def _any_arena_lease(inputs, outputs) -> bool:
     return False
 
 
-# admission-queue phase handoff: an admission gate runs BEFORE a
+# admission-queue phase handoff: the pool's admission gate runs BEFORE a
 # frontend's request span exists, so it stashes the wait interval in a
 # contextvar (thread- and task-local) and the next span begun on the same
 # thread/task claims it as an ``admission_queue`` phase. Consume-once, so
 # an admitted-then-errored call can never donate its wait to a later
-# request.
+# request. (Hedged attempts run on executor threads that don't inherit
+# the caller's context — their spans simply skip the phase.)
 _ADMISSION_PHASE: contextvars.ContextVar = contextvars.ContextVar(
     "client_tpu_admission_phase", default=None)
 
@@ -61,6 +73,20 @@ def consume_admission_phase() -> Optional[Tuple[int, int]]:
     if value is not None:
         _ADMISSION_PHASE.set(None)
     return value
+
+
+def fold_infer_args(args, kwargs):
+    """Fold ``infer``'s shared positional prefix into ``kwargs``."""
+    if len(args) > len(INFER_POSITIONAL_PREFIX):
+        raise TypeError(
+            "too many positional arguments to wrapped infer(); the "
+            f"frontends diverge after {INFER_POSITIONAL_PREFIX[-1]!r} — "
+            "pass the rest by keyword")
+    for name, value in zip(INFER_POSITIONAL_PREFIX, args):
+        if name in kwargs:
+            raise TypeError(f"infer() got multiple values for argument {name!r}")
+        kwargs[name] = value
+    return kwargs
 
 
 class Request:
@@ -98,8 +124,11 @@ class InferenceServerClientBase:
     plus the shared resilience hook every frontend routes its transport
     through (see ``client_tpu_torch.resilience``)."""
 
-    # telemetry frontend label ("http", "grpc", "http_aio", "grpc_aio")
+    # telemetry frontend label ("http", "grpc", "http_aio", "grpc_aio");
+    # wrapper layers derive theirs from it (e.g. batch -> "http+batch")
     _FRONTEND = "client"
+    # which batching wrapper coalescing() builds (aio frontends flip this)
+    _BATCH_AIO = False
 
     def __init__(self):
         self._plugin: Optional[InferenceServerClientPlugin] = None
@@ -373,6 +402,34 @@ class InferenceServerClientBase:
         if override is False:
             return None
         return override if override is not None else self._resilience
+
+    # -- micro-batching -----------------------------------------------------
+    def coalescing(self, **kwargs):
+        """Wrap this client in the opt-in coalescing dispatcher
+        (``client_tpu_torch.batch``): concurrent compatible ``infer()``
+        calls are stacked into one KServe request within an adaptive
+        window and the result rows scattered back per caller. Returns a
+        ``BatchingClient`` (or the asyncio twin for aio frontends); the
+        client's configured telemetry is adopted automatically."""
+        from .batch import AioBatchingClient, BatchingClient
+
+        cls = AioBatchingClient if self._BATCH_AIO else BatchingClient
+        return cls(self, **kwargs)
+
+    # -- hot-key serving ----------------------------------------------------
+    def caching(self, **kwargs):
+        """Wrap this client in the opt-in singleflight + response-cache
+        layer (``client_tpu_torch.cache``): concurrent identical
+        ``infer()`` calls collapse onto one wire request, and repeated
+        content keys are served from a bounded LRU+TTL cache as zero-copy
+        arena views. Returns a ``CachingClient`` (or the asyncio twin for
+        aio frontends); the client's configured telemetry is adopted
+        automatically. Compose OUTSIDE ``.coalescing()`` — hits skip the
+        coalescing window, misses may still ride a batch."""
+        from .cache import AioCachingClient, CachingClient
+
+        cls = AioCachingClient if self._BATCH_AIO else CachingClient
+        return cls(self, **kwargs)
 
     def register_plugin(self, plugin: InferenceServerClientPlugin) -> None:
         if plugin is None:

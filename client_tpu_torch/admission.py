@@ -35,8 +35,8 @@ item 2's admission half:
   retried, never counted against breakers or outlier ejection) and the
   perf/replay harnesses count it as ``shed``, not ``error``.
 
-- **Tenancy** (``AdmissionController(tenancy=...)``, a policy object
-  such as ``client_tpu.tenancy``'s): each lane's waiter stack becomes per-tenant
+- **Tenancy** (``AdmissionController(tenancy=...)``, see
+  ``client_tpu_torch.tenancy``): each lane's waiter stack becomes per-tenant
   virtual queues drained weighted-fair — the tenant with the smallest
   virtual finish time drains next (its vtime advances by ``1/weight``
   per admit), LIFO within the tenant, so one tenant's backlog can no
@@ -48,14 +48,14 @@ item 2's admission half:
   federation layer must never launder a quota away by spilling the
   excess to another cell.
 
-This module is a copy of ``client_tpu.admission``. In ``client_tpu`` the
-wiring lives in ``pool`` (``PoolClient(admission=...)`` acquires one token
-per pooled infer) and ``batch``, which the port does not have yet (ROADMAP
-A7); here the controller runs on its own, and ``client_tpu_torch.perf``
-counts its ``AdmissionRejected`` as a shed. ``client_tpu_torch.observe``
-(``Telemetry.attach_admission``) exports
+Wiring lives in ``client_tpu_torch.pool`` (``PoolClient(admission=...)``
+acquires one token per pooled infer — one token covers the whole
+failover/hedge engine run, and a coalesced batch from
+``client_tpu_torch.batch`` admits ONCE per wire dispatch by construction) and
+``client_tpu_torch.observe`` (``Telemetry.attach_admission`` exports
 ``client_tpu_admission_shed_total{lane,reason}``, per-lane queue depth,
-and the live limit/inflight gauges.
+and the live limit/inflight gauges). This module is a copy of
+``client_tpu.admission``.
 """
 
 from __future__ import annotations
@@ -510,9 +510,8 @@ class AdmissionController:
         before it sheds (also clamped by the request's own deadline minus
         the limiter's service-time estimate). ``eta_factor`` scales the
         estimate in the deadline-feasibility test (>1 sheds earlier).
-        ``tenancy`` — a tenancy policy object (``client_tpu.tenancy``'s
-        ``TenancyPolicy``; a spec string raises until the port has that
-        module, ROADMAP A7) arming per-tenant quotas and
+        ``tenancy`` — a ``client_tpu_torch.tenancy.TenancyPolicy`` (or a spec
+        string for ``parse_tenancy_spec``) arming per-tenant quotas and
         weighted-fair drain; None keeps the controller tenant-blind
         (tenants still get separate queues but equal weight and no
         quota)."""
@@ -521,9 +520,8 @@ class AdmissionController:
         if max_queue_wait_s < 0:
             raise ValueError("max_queue_wait_s must be >= 0")
         if isinstance(tenancy, str):
-            raise NotImplementedError(
-                "a tenancy spec string needs client_tpu_torch.tenancy, "
-                "which comes with the routing and serving layers (ROADMAP A7)")
+            from .tenancy import parse_tenancy_spec
+            tenancy = parse_tenancy_spec(tenancy, clock=clock)
         self.tenancy = tenancy
         self.limiter = limiter or AdaptiveLimiter(
             mode=mode, target_ms=target_ms)

@@ -877,8 +877,8 @@ class ShmArena:
     # -- convenience -------------------------------------------------------
     def stage(self, data, family: Optional[str] = None) -> ArenaLease:
         """Lease a slab sized for ``data`` (bytes-like) and write it in one
-        call — the response cache (``client_tpu.cache``, not ported yet) stages each cached
-        output's payload this way, so the entry outlives the wire buffer
+        call — the response cache (``client_tpu_torch.cache``) stages each
+        cached output's payload this way, so the entry outlives the wire buffer
         for exactly as long as the lease is held. The lease is released on
         a failed write (no slab can leak half-staged)."""
         view = memoryview(data).cast("B")

@@ -505,6 +505,7 @@ class InferenceServerClient(InferenceServerClientBase):
         parameters: Optional[Dict[str, Any]] = None,
         compression_algorithm: Optional[str] = None,
         resilience=None,
+        tenant: Optional[str] = None,
     ) -> InferResult:
         """Run a synchronous inference.
 
@@ -512,6 +513,10 @@ class InferenceServerClient(InferenceServerClientBase):
         bypasses the policy). Sequence requests (``sequence_id != 0``) are
         non-idempotent: only never-sent connect failures are retried."""
         span = self._obs_begin(self._FRONTEND, model_name)
+        if span is not None and tenant is not None:
+            # client-side QoS attribution only (see client_tpu_torch.tenancy);
+            # the tenant is never sent on the wire
+            span.event("tenant", tenant=tenant)
         timers = RequestTimers()
         timers.capture(RequestTimers.REQUEST_START)
         actx = None

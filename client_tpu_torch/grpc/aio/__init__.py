@@ -97,6 +97,7 @@ class InferenceServerClient(InferenceServerClientBase):
     """Asyncio client for the KServe v2 GRPC protocol."""
 
     _FRONTEND = "grpc_aio"
+    _BATCH_AIO = True
 
     def __init__(
         self,
@@ -351,8 +352,13 @@ class InferenceServerClient(InferenceServerClientBase):
         parameters: Optional[Dict[str, Any]] = None,
         compression_algorithm: Optional[str] = None,
         resilience=None,
+        tenant: Optional[str] = None,
     ) -> InferResult:
         span = self._obs_begin(self._FRONTEND, model_name)
+        if span is not None and tenant is not None:
+            # client-side QoS attribution only (see client_tpu_torch.tenancy);
+            # the tenant is never sent on the wire
+            span.event("tenant", tenant=tenant)
         actx = None
         try:
             # arena data plane: promote staged binary inputs into leased

@@ -498,13 +498,22 @@ class InferenceServerClient(InferenceServerClientBase):
         response_compression_algorithm: Optional[str] = None,
         parameters: Optional[Dict[str, Any]] = None,
         resilience=None,
+        tenant: Optional[str] = None,
     ) -> InferResult:
         """Run a synchronous inference.
 
         ``resilience``: per-request ``ResiliencePolicy`` override (``False``
         bypasses the policy). Sequence requests (``sequence_id != 0``) are
-        non-idempotent: only never-sent connect failures are retried."""
+        non-idempotent: only never-sent connect failures are retried.
+
+        ``tenant``: client-side QoS attribution (see
+        ``client_tpu_torch.tenancy``) — recorded on the request's span,
+        NEVER sent on the wire; quota/fairness enforcement happens in the
+        pool's admission gate, which consumes the kwarg before it
+        reaches a frontend."""
         span = self._obs_begin(self._FRONTEND, model_name)
+        if span is not None and tenant is not None:
+            span.event("tenant", tenant=tenant)
         timers = RequestTimers()
         timers.capture(RequestTimers.REQUEST_START)
         actx = None
@@ -632,6 +641,7 @@ class InferenceServerClient(InferenceServerClientBase):
         parameters: Optional[Dict[str, Any]] = None,
         headers: Optional[Dict[str, str]] = None,
         query_params: Optional[Dict[str, Any]] = None,
+        tenant: Optional[str] = None,
     ):
         """Iterator over generate-extension SSE events, one dict per
         streamed response. Abandoning the iterator mid-stream closes the
@@ -641,10 +651,14 @@ class InferenceServerClient(InferenceServerClientBase):
         With telemetry configured the stream is traced as a ``StreamSpan``
         (open -> first-event TTFT -> per-event marks -> close/error/abandon)
         and a ``traceparent`` header joins it to the server's access record
-        for the generation."""
+        for the generation. ``tenant`` is client-side QoS attribution only
+        (see ``client_tpu_torch.tenancy``) — marked on the stream span,
+        never sent on the wire."""
         hdrs = dict(headers or {})
         span = self._obs_begin_stream(self._FRONTEND, model_name)
         self._last_stream_span = span
+        if span is not None and tenant is not None:
+            span.event("tenant", tenant=tenant)
         if span is not None:
             hdrs[TRACEPARENT_HEADER] = span.traceparent()
         request = Request(hdrs)

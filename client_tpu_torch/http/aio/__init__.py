@@ -7,8 +7,9 @@ the sync client's.
 
 Every call runs under the client's resilience policy with the sync
 client's idempotency contract, reports into its telemetry, and every
-``InferResult`` is checked against its request (``integrity``). The JAX
-package's shm arena is not part of the port yet.
+``InferResult`` is checked against its request (``integrity``).
+``configure_arena`` installs the shm arena, and ``coalescing()`` /
+``caching()`` wrap the client in the asyncio batching and caching layers.
 """
 
 from __future__ import annotations
@@ -56,6 +57,7 @@ class InferenceServerClient(InferenceServerClientBase):
     """Asyncio client for the KServe v2 HTTP/REST protocol."""
 
     _FRONTEND = "http_aio"
+    _BATCH_AIO = True
 
     def __init__(
         self,
@@ -347,8 +349,13 @@ class InferenceServerClient(InferenceServerClientBase):
         response_compression_algorithm: Optional[str] = None,
         parameters: Optional[Dict[str, Any]] = None,
         resilience=None,
+        tenant: Optional[str] = None,
     ) -> InferResult:
         span = self._obs_begin(self._FRONTEND, model_name)
+        if span is not None and tenant is not None:
+            # client-side QoS attribution only (see client_tpu_torch.tenancy);
+            # the tenant is never sent on the wire
+            span.event("tenant", tenant=tenant)
         actx = None
         try:
             # arena data plane: promote staged binary inputs into leased

@@ -8,8 +8,13 @@ loop at a fixed arrival rate (``--request-rate-range``, constant or
 poisson) and the replay of a seeded workload trace (``--trace`` /
 ``--trace-gen``, ``client_tpu_torch.trace``) against one endpoint, with
 ``--generate-stream``, ``--observe``, ``--flight``, ``--validate``,
-``--chaos`` and ``--retries``. The result rows carry the JAX package's
-keys.
+``--chaos`` and ``--retries``, and the routing and serving layers: a
+replica pool over ``--endpoints`` (``--routing``, ``--hedge``,
+``--affinity-key``, ``--endpoint-limits``, ``--admission`` with
+``--tenancy``; ``client_tpu_torch.pool``), the coalescing dispatcher
+(``--coalesce``, ``client_tpu_torch.batch``) and the hot-key layer
+(``--cache``, ``--singleflight``, ``client_tpu_torch.cache``). The
+result rows carry the JAX package's keys.
 
 Usage::
 
@@ -26,9 +31,8 @@ server is another process, so the CLI leases slabs that mirror each input
 into the host window, which that server reads (no CUDA IPC).
 
 Flags whose layers the port does not have yet raise ``NotImplementedError``
-naming their ROADMAP item: the pool, routing, admission, hedging,
-coalescing, caching and tenancy flags (A7); federation cells, shard
-layouts, roles, pipelines and ``--watch`` (A8); the native protocols (A10).
+naming their ROADMAP item: federation cells, shard layouts, roles,
+pipelines and ``--watch`` (A8); the native protocols (A10).
 """
 
 from __future__ import annotations
@@ -118,16 +122,6 @@ def _not_ported(flag: str, layer: str, item: str) -> NotImplementedError:
 def _check_ported(protocol: str, flags: Dict[str, Any]) -> None:
     """Raise for the first requested flag whose layer is not ported."""
     layers = {
-        "--endpoints": ("the replica pool (pool.PoolClient)", "A7"),
-        "--hedge": ("the pool's hedging (pool.HedgePolicy)", "A7"),
-        "--routing": ("the pool's routing policies", "A7"),
-        "--admission": ("the pool's admission wiring (pool, admission)", "A7"),
-        "--tenancy": ("tenancy.TenancyPolicy", "A7"),
-        "--endpoint-limits": ("the pool's endpoint limits", "A7"),
-        "--affinity-key": ("the pool's affinity routing", "A7"),
-        "--coalesce": ("the coalescing dispatcher (batch.BatchingClient)", "A7"),
-        "--cache": ("the response cache (cache.CachingClient)", "A7"),
-        "--singleflight": ("singleflight (cache.CachingClient)", "A7"),
         "--cells": ("federation cells (federation.FederatedClient)", "A8"),
         "--home-cell": ("federation cells (federation.FederatedClient)", "A8"),
         "--shadow-cell": ("federation cells (federation.FederatedClient)", "A8"),
@@ -221,16 +215,26 @@ class PerfRunner:
         (serialize/send/ttfb/recv/deserialize) to each result row.
         ``flight``: attach a flight recorder to every measurement run.
         ``validate``: append the run's contract-validation delta.
+        ``endpoints``: N replica urls — measurement clients become
+        health-aware ``PoolClient``s (``client_tpu_torch.pool``) over them;
+        ``url`` stays the control-plane address. ``hedge`` arms hedged
+        requests on the pool (``hedge_delay_s`` pins the hedge delay;
+        default is the rolling p95). ``routing``, ``affinity_key``,
+        ``endpoint_limits`` and ``admission`` (with ``tenancy``, a
+        ``parse_tenancy_spec`` string) configure that pool.
+        ``coalesce``: wrap every measurement client in the micro-batching
+        dispatcher (``client_tpu_torch.batch.BatchingClient``) so
+        concurrent workers share coalesced wire requests;
+        ``batch_window_us`` pins the coalescing window (default:
+        adaptive) and ``batch_max`` bounds the stacked batch dimension.
+        Each result row then carries a ``client_batch`` block with
+        achieved batch-size p50/p99. ``cache`` / ``singleflight`` wrap the
+        client in the hot-key layer (``client_tpu_torch.cache``) and add
+        a ``client_cache`` block.
 
-        The pool, routing, admission, hedging, coalescing, caching and
-        tenancy arguments (ROADMAP A7), the federation, shard, roles,
-        pipeline and watch arguments (A8) and the native protocols (A10)
-        raise ``NotImplementedError``."""
+        The federation, shard, roles, pipeline and watch arguments (A8)
+        and the native protocols (A10) raise ``NotImplementedError``."""
         _check_ported(protocol, {
-            "--endpoints": endpoints, "--hedge": hedge or hedge_delay_s is not None,
-            "--routing": routing, "--admission": admission, "--tenancy": tenancy,
-            "--endpoint-limits": endpoint_limits, "--affinity-key": affinity_key,
-            "--coalesce": coalesce, "--cache": cache, "--singleflight": singleflight,
             "--cells": cells, "--home-cell": home_cell, "--shadow-cell": shadow_cell,
             "--canary-cell": canary_cell, "--shard-layout": shard_layout,
             "--roles": roles, "--pipeline": pipeline, "--watch": watch,
@@ -247,6 +251,9 @@ class PerfRunner:
         self.batch_size = batch_size
         self.rng = np.random.default_rng(seed)
         self.retries = max(0, retries)
+        self.endpoints = list(endpoints) if endpoints else None
+        self.hedge = hedge
+        self.hedge_delay_s = hedge_delay_s
         self.observe = observe
         self.observe_sample = observe_sample
         # --flight: attach a flight recorder to every measurement run's
@@ -254,10 +261,35 @@ class PerfRunner:
         # retained fraction, commit cost) to each result
         self.flight = flight
         self.generate_stream = generate_stream
+        self.coalesce = coalesce
+        self.batch_window_us = batch_window_us
+        self.batch_max = batch_max
+        self.routing = routing
+        self.admission = admission
+        self.admission_mode = admission_mode
+        self.admission_target_ms = admission_target_ms
+        self.admission_max_queue_wait_s = admission_max_queue_wait_s
+        # multi-tenant QoS (client_tpu_torch.tenancy): a parse_tenancy_spec
+        # string arming per-tenant weighted-fair queueing + quotas on the
+        # pool's admission controller; trace replay threads each record's
+        # ``tenant`` (format v4) through the client stack
+        self.tenancy = tenancy
+        self.endpoint_limits = endpoint_limits
+        # hot-key serving layer (client_tpu_torch.cache): wrap measurement
+        # clients in the singleflight/response-cache wrapper; replay
+        # threads each record's content_key into per-key payloads so the
+        # layer has real hot keys to collapse
+        self.cache = cache
+        self.cache_ttl_s = cache_ttl_s
+        self.singleflight = singleflight
+        self.affinity_key = affinity_key
         self.validate = validate
         self.seed = seed
         self.device = torch.device(device)
         self.colocated = colocated
+        # orca_weighted routing needs the frontends to OPT IN to the ORCA
+        # response header; every Telemetry this runner builds carries it
+        self._orca_format = "json" if routing == "orca_weighted" else None
         self._telemetry = None  # fresh per measurement run (see run())
         # one ShmArena per runner (created lazily on the first shm-mode
         # worker setup): slabs and cached registrations survive across
@@ -285,6 +317,46 @@ class PerfRunner:
                     dtype=np.int32).tolist(),
                 "MAX_TOKENS": max(1, stream_output_tokens),
             }
+        if self.endpoints and shared_memory != "none":
+            raise ValueError(
+                "--endpoints requires --shared-memory none: regions would "
+                "register on one replica while infers route to all of them")
+        if self.endpoints and chaos is not None:
+            raise ValueError(
+                "--chaos proxies a single url; with --endpoints, stand up "
+                "one ChaosProxy per replica instead")
+        if self.hedge and not self.endpoints:
+            raise ValueError("--hedge requires --endpoints")
+        if (routing or admission or endpoint_limits) and not self.endpoints:
+            raise ValueError(
+                "--routing/--admission/--endpoint-limits require "
+                "--endpoints (pool-level policies)")
+        if self.coalesce:
+            if shared_memory != "none":
+                raise ValueError(
+                    "--coalesce requires --shared-memory none: shm-bound "
+                    "tensors never coalesce")
+            if generate_stream:
+                raise ValueError(
+                    "--coalesce applies to unary infers, not "
+                    "--generate-stream")
+        if self.cache or self.singleflight:
+            if shared_memory != "none":
+                raise ValueError(
+                    "--cache/--singleflight require --shared-memory none: "
+                    "shm-bound tensors never cache or collapse")
+            if generate_stream:
+                raise ValueError(
+                    "--cache/--singleflight apply to unary infers, not "
+                    "--generate-stream")
+        if self.affinity_key is not None and self.routing != "affinity":
+            raise ValueError(
+                "--affinity-key requires --routing affinity (and "
+                "--endpoints): the key only steers the affinity policy")
+        if self.tenancy is not None and not self.admission:
+            raise ValueError(
+                "--tenancy requires --admission: tenant quotas and "
+                "weighted-fair queueing live in the admission controller")
         if chaos is not None:
             from .testing.chaos import ChaosProxy
 
@@ -330,6 +402,9 @@ class PerfRunner:
         return mod
 
     def _make_client(self, concurrency: int = 1):
+        if self.endpoints:
+            return self._wrap_caching(self._wrap_coalescing(
+                self._make_pool_client(concurrency)))
         if self.protocol == "http":
             client = self._client_mod.InferenceServerClient(
                 self.url, concurrency=concurrency)
@@ -342,7 +417,85 @@ class PerfRunner:
                 retry=RetryPolicy(max_attempts=self.retries + 1)))
         if self._telemetry is not None:
             client.configure_telemetry(self._telemetry)
-        return client
+        return self._wrap_caching(self._wrap_coalescing(client))
+
+    def _wrap_caching(self, client):
+        """Cache OUTSIDE batching: a hit skips the coalescing window
+        entirely, a collapsed group's one miss may still ride a batch."""
+        if not (self.cache or self.singleflight):
+            return client
+        from .cache import CachingClient
+
+        return CachingClient(
+            client,
+            cache=self.cache,
+            ttl_s=self.cache_ttl_s,
+            singleflight=self.singleflight,
+            telemetry=self._telemetry,
+        )
+
+    def _wrap_coalescing(self, client):
+        """ALL measurement workers share one client, so wrapping it in the
+        batching dispatcher coalesces across workers — the deployment
+        shape the dispatcher exists for."""
+        if not self.coalesce:
+            return client
+        from .batch import BatchingClient
+
+        return BatchingClient(
+            client,
+            window_us=self.batch_window_us,
+            batch_max_rows=self.batch_max,
+            telemetry=self._telemetry,
+        )
+
+    def _make_pool_client(self, concurrency: int):
+        from .pool import HedgePolicy, PoolClient
+        from .resilience import RetryPolicy
+
+        factory = None
+        if self.protocol == "http":
+            mod = self._client_mod
+
+            def factory(url):
+                return mod.InferenceServerClient(url, concurrency=concurrency)
+
+        hedge = None
+        if self.hedge:
+            hedge = HedgePolicy(delay_s=self.hedge_delay_s)
+        endpoint_retry = (
+            RetryPolicy(max_attempts=self.retries + 1) if self.retries else None)
+        telemetry = self._telemetry
+        if self.routing == "orca_weighted" and telemetry is None:
+            # the pool can only route on loads somebody ingests: a quiet
+            # (sample=off) telemetry carries the ORCA opt-in + gauges
+            from .observe import Telemetry
+
+            telemetry = Telemetry(sample="off", orca_format="json")
+        admission = None
+        if self.admission:
+            from .admission import AdmissionController
+
+            admission = AdmissionController(
+                mode=self.admission_mode,
+                target_ms=self.admission_target_ms,
+                max_queue_wait_s=self.admission_max_queue_wait_s,
+                tenancy=self.tenancy)
+        return PoolClient(
+            self.endpoints,
+            protocol=self.protocol,
+            client_factory=factory,
+            routing=self.routing or "round_robin",
+            health_interval_s=0.5,
+            endpoint_retry=endpoint_retry,
+            hedge=hedge,
+            # primary + hedge both ride the executor: size it so the full
+            # worker concurrency never queues behind hedge threads
+            hedge_executor_workers=max(8, 2 * concurrency),
+            telemetry=telemetry,
+            admission=admission,
+            endpoint_limits=True if self.endpoint_limits else None,
+        )
 
     def _control_client(self):
         """(client, module) for metadata/probing: the protocol's own python
@@ -498,10 +651,14 @@ class PerfRunner:
                 stop.set()
                 return
             lock, count, limit = counter
+            # keyword only when armed: harness hooks that stub _infer_once
+            # with the bare (client, inputs, outputs) signature keep working
+            akw = ({"affinity_key": self._affinity_key_for(worker_id)}
+                   if self.affinity_key is not None else {})
             while not stop.is_set():
                 t0 = time.perf_counter()
                 try:
-                    self._infer_once(client, inputs, outputs)
+                    self._infer_once(client, inputs, outputs, **akw)
                     latencies.append(time.perf_counter() - t0)
                 except (CircuitOpenError, AdmissionRejected) as e:
                     sheds.append(str(e))  # deliberate shedding, not error
@@ -539,6 +696,8 @@ class PerfRunner:
                 stop.set()
                 return
             lock, idx = cursor
+            akw = ({"affinity_key": self._affinity_key_for(worker_id)}
+                   if self.affinity_key is not None else {})
             while not stop.is_set():
                 with lock:
                     i = idx[0]
@@ -561,7 +720,7 @@ class PerfRunner:
                 issues.append(schedule[i] + lag)
                 t1 = time.perf_counter()
                 try:
-                    self._infer_once(client, inputs, outputs)
+                    self._infer_once(client, inputs, outputs, **akw)
                     records.append(time.perf_counter() - t1)
                 except (CircuitOpenError, AdmissionRejected) as e:
                     sheds.append(str(e))  # deliberate shedding, not error
@@ -571,14 +730,25 @@ class PerfRunner:
             if shm_ctx is not None:
                 shm_ctx()
 
-    def _infer_once(self, client, inputs, outputs=None):
+    def _affinity_key_for(self, worker_id) -> Optional[str]:
+        """The closed/open-loop worker's session key: ``worker`` = one
+        key per worker (a steady per-session stream, the KV-reuse shape);
+        any other value is a shared literal key (the hot-key shape)."""
+        if self.affinity_key is None:
+            return None
+        if self.affinity_key == "worker":
+            return f"w{worker_id}"
+        return self.affinity_key
+
+    def _infer_once(self, client, inputs, outputs=None, affinity_key=None):
+        kw = {"affinity_key": affinity_key} if affinity_key is not None else {}
         if self.generate_stream:
             # one "request" = one fully-drained SSE generation session
             for _event in client.generate_stream(
-                    self.model_name, self._stream_payload):
+                    self.model_name, self._stream_payload, **kw):
                 pass
             return
-        client.infer(self.model_name, inputs, outputs=outputs)
+        client.infer(self.model_name, inputs, outputs=outputs, **kw)
 
     def _arm_telemetry(self, measurement_requests: int):
         """A fresh Telemetry per measurement run (sample=always, ring sized
@@ -593,6 +763,7 @@ class PerfRunner:
             # recorder's own tail ring is the retention mechanism
             sample=self.observe_sample if self.observe else "off",
             trace_capacity=max(measurement_requests, 1024),
+            orca_format=self._orca_format,
             flight=self._make_flight())
 
     def _arm_dataplane(self):
@@ -727,6 +898,90 @@ class PerfRunner:
         }
         return result
 
+    @staticmethod
+    def _admission_stats(client) -> Optional[Dict[str, Any]]:
+        """The pool's admission-controller snapshot (limit, inflight,
+        per-lane sheds), when one is armed — appended to result rows as
+        ``client_admission`` so artifacts carry the shed story."""
+        getter = getattr(client, "admission", None)
+        if getter is None:
+            return None
+        try:
+            ctrl = getter()
+            return ctrl.snapshot() if ctrl is not None else None
+        except Exception:
+            return None
+
+    @staticmethod
+    def _admission_result(result: Dict[str, Any],
+                          admission_stats: Optional[Dict[str, Any]],
+                          ) -> Dict[str, Any]:
+        if admission_stats is not None:
+            result["client_admission"] = admission_stats
+        return result
+
+    def _cache_stats_row(self, client) -> Optional[Dict[str, Any]]:
+        """The caching wrapper's snapshot, when armed — the per-arm
+        hit/collapse story every harness row carries as ``client_cache``."""
+        if not (self.cache or self.singleflight):
+            return None
+        getter = getattr(client, "cache_stats", None)
+        if getter is None:
+            return None
+        try:
+            return getter()
+        except Exception:
+            return None
+
+    @staticmethod
+    def _cache_result(result: Dict[str, Any],
+                      cache_stats: Optional[Dict[str, Any]]) -> Dict[str, Any]:
+        if cache_stats is not None:
+            result["client_cache"] = {
+                "hit_rate": cache_stats["hit_rate"],
+                "hits": cache_stats["hit"],
+                "stale_hits": cache_stats["stale"],
+                "misses": cache_stats["miss"],
+                "bypass": cache_stats["bypass"],
+                "singleflight_collapsed": cache_stats[
+                    "singleflight_collapsed"],
+                "collapse_ratio": cache_stats["collapse_ratio"],
+                "wire_requests": cache_stats["wire_requests"],
+                "logical_requests": cache_stats["logical_requests"],
+                "bytes_resident": cache_stats["bytes_resident"],
+                "entries": cache_stats["entries"],
+            }
+        return result
+
+    @staticmethod
+    def _batch_result(result: Dict[str, Any],
+                      batch_stats: Optional[Dict[str, Any]]) -> Dict[str, Any]:
+        """Achieved client-side batch sizes alongside the latency row."""
+        if batch_stats is not None:
+            result["client_batch"] = {
+                "dispatches": batch_stats["dispatches"],
+                "coalesced_calls": batch_stats["coalesced_calls"],
+                "solo_calls": batch_stats["solo_calls"],
+                "bypass_calls": batch_stats["bypass_calls"],
+                "window_us": batch_stats["window_us"],
+                "rows_p50": batch_stats["batch_rows"]["p50"],
+                "rows_p99": batch_stats["batch_rows"]["p99"],
+                "rows_mean": batch_stats["batch_rows"]["mean"],
+            }
+        return result
+
+    def _layer_stats(self, client):
+        """(batch, cache, admission) snapshots of the measurement client,
+        read before it closes."""
+        return (client.stats() if self.coalesce else None,
+                self._cache_stats_row(client), self._admission_stats(client))
+
+    def _layer_result(self, result: Dict[str, Any], stats) -> Dict[str, Any]:
+        batch_stats, cache_stats, admission_stats = stats
+        return self._cache_result(self._admission_result(
+            self._batch_result(result, batch_stats), admission_stats),
+            cache_stats)
+
     def _make_flight(self):
         """A fresh FlightRecorder per measurement run under ``--flight``
         (None otherwise), so each row's retention accounting covers
@@ -803,12 +1058,14 @@ class PerfRunner:
         for w in workers:
             w.join(timeout=600)
         elapsed = time.perf_counter() - t_start
+        layer_stats = self._layer_stats(client)
         client.close()
 
         lat_sorted = sorted(latencies)
         n = len(lat_sorted)
         issued = n + len(errors) + len(sheds)
-        return self._integrity_result(self._shm_result(self._observe_result({
+        return self._integrity_result(self._shm_result(self._layer_result(
+            self._observe_result({
             "model": self.model_name,
             "protocol": self.protocol,
             "shared_memory": self.shared_memory,
@@ -828,7 +1085,7 @@ class PerfRunner:
             "duration_s": round(elapsed, 3),
             "infer_per_sec": round(n / elapsed, 1) if elapsed > 0 else 0.0,
             "latency_ms": _latency_ms_row(lat_sorted),
-        }), shm_rec, shm_before), integrity_before)
+        }), layer_stats), shm_rec, shm_before), integrity_before)
 
     def run_rate(self, rate: float, measurement_requests: int,
                  distribution: str = "constant",
@@ -890,6 +1147,7 @@ class PerfRunner:
         for w in workers:
             w.join(timeout=600)
         elapsed = time.perf_counter() - t0_box[0]
+        layer_stats = self._layer_stats(client)
         client.close()
 
         lat_sorted = sorted(records)
@@ -905,7 +1163,8 @@ class PerfRunner:
         # denominator for every capacity claim (a saturated pool that
         # silently under-offers would otherwise flatter its own number)
         arrival_window = max(issues) if issues else 0.0
-        return self._integrity_result(self._shm_result(self._observe_result({
+        return self._integrity_result(self._shm_result(self._layer_result(
+            self._observe_result({
             "model": self.model_name,
             "protocol": self.protocol,
             "shared_memory": self.shared_memory,
@@ -933,7 +1192,7 @@ class PerfRunner:
             "latency_ms": _latency_ms_row(lat_sorted),
             "schedule_lag_ms": _lag_ms_row(lag_sorted),
             "delayed_pct": round(100.0 * delayed / issued, 1) if issued else 0.0,
-        }), shm_rec, shm_before), integrity_before)
+        }), layer_stats), shm_rec, shm_before), integrity_before)
 
     # -- trace replay --------------------------------------------------------
     _SEQ_GATE_TIMEOUT_S = 60.0
@@ -968,9 +1227,11 @@ class PerfRunner:
         separate telemetry-free client, so the first measured record of
         each model never bills its first-call setup to an SLO.
 
-        ``sharded``, ``prefill_decode`` and ``pipeline`` records (ROADMAP
-        A8) and tenant-attributed records (the ``tenant=`` keyword of
-        tenancy, A7) raise ``NotImplementedError``."""
+        Tenant-attributed records (format v4) pass their tenant to the
+        client stack and the row gains per-tenant ``tenants`` counts;
+        with ``routing="affinity"`` keyed records route by their
+        ``content_key``. ``sharded``, ``prefill_decode`` and ``pipeline``
+        records (ROADMAP A8) raise ``NotImplementedError``."""
         from .observe import SLO, SLOSpec, parse_slo_spec, Telemetry
         from .trace import Trace
 
@@ -993,9 +1254,6 @@ class PerfRunner:
                             ("pipeline", "model-DAG pipelines (pipeline.PipelineClient)")):
             if any(r.kind == kind for r in records):
                 raise _not_ported(f"replaying {kind} records", layer, "A8")
-        if any(getattr(r, "tenant", None) is not None for r in records):
-            raise _not_ported("replaying tenant-attributed records",
-                              "the clients' tenant= keyword (tenancy)", "A7")
         if (any(r.kind == "generate_stream" for r in records)
                 and self.protocol != "http"):
             raise ValueError(
@@ -1016,6 +1274,7 @@ class PerfRunner:
             sample="always",
             trace_capacity=len(records) + 64,
             stream_window_s=window_s,
+            orca_format=self._orca_format,
             flight=self._make_flight())
         # request_ms SLOs are fed PER TRACE RECORD from the replay's own
         # outcome accounting, NOT from telemetry spans (a retried attempt
@@ -1058,6 +1317,9 @@ class PerfRunner:
             self._telemetry = None
             warm_client = self._make_client(4)
             try:
+                warm_wait = getattr(warm_client, "wait_healthy", None)
+                if warm_wait is not None:
+                    warm_wait(timeout_s=10.0)
                 self._replay_warmup(warm_client, records, resources)
             finally:
                 warm_client.close()
@@ -1067,7 +1329,14 @@ class PerfRunner:
         integrity_before = self._integrity_stats()
         client = self._make_client(replay_workers)
         try:
-            outcomes: List[Tuple[str, str, float, float, float]] = []
+            # pools: let active probes mark replicas healthy BEFORE the
+            # schedule starts, or the first arrivals measure probe warmup
+            wait_healthy = getattr(client, "wait_healthy", None)
+            if wait_healthy is not None:
+                wait_healthy(timeout_s=10.0)
+            outcomes: List[Tuple[str, str, float, float, float,
+                                 Optional[str], Optional[str],
+                                 Optional[float]]] = []
             errors: List[str] = []
             stop = threading.Event()
             barrier = threading.Barrier(replay_workers + 1)
@@ -1099,11 +1368,12 @@ class PerfRunner:
             # and aggregation must not iterate a list being mutated
             outcomes = list(outcomes)
             errors = list(errors)
+            layer_stats = self._layer_stats(client)
         finally:
             client.close()
-        return self._integrity_result(self._trace_result(
+        return self._integrity_result(self._layer_result(self._trace_result(
             header, records, speed, elapsed, outcomes, errors, specs,
-            resources, request_slos), integrity_before)
+            resources, request_slos), layer_stats), integrity_before)
 
     def _replay_warmup(self, client, records, resources) -> None:
         """One best-effort dispatch per distinct (kind, model) BEFORE the
@@ -1193,18 +1463,45 @@ class PerfRunner:
                             gate.broken = True
                         gate.next = max(gate.next, rec.seq_index + 1)
                         gate.cond.notify_all()
+            # shed attribution rides the outcome tuple: the typed
+            # rejection's reason and honest retry_after hint
+            shed_exc = outcome if status == "shed" else None
             outcomes.append(
                 (rec.kind, status, time.perf_counter() - t1, lag,
-                 rec.at_s / speed))
+                 rec.at_s / speed, getattr(rec, "tenant", None),
+                 getattr(shed_exc, "reason", None),
+                 getattr(shed_exc, "retry_after_s", None)))
             if on_result is not None:
                 on_result(rec, outcome)
+
+    def _replay_affinity_kw(self, rec) -> Dict[str, Any]:
+        """The replay's session-key kwarg: with ``routing="affinity"``,
+        every keyed record (format v3 ``content_key``) routes by its key —
+        the trace-driven twin of ``--affinity-key``."""
+        if (self.routing == "affinity"
+                and getattr(rec, "content_key", None) is not None):
+            return {"affinity_key": f"k{rec.content_key}"}
+        return {}
+
+    def _replay_tenant_kw(self, rec) -> Dict[str, Any]:
+        """The replay's tenant kwarg: a tenant-attributed record (format
+        v4) carries its tenant through the whole client stack — admission
+        queues/quotas, cache partitions and batch compat keys all judge
+        it as that tenant. Tenantless records pass no kwarg at all, so a
+        mixed trace exercises both paths."""
+        tenant = getattr(rec, "tenant", None)
+        if tenant is not None:
+            return {"tenant": tenant}
+        return {}
 
     def _replay_dispatch(self, client, rec, resources):
         if rec.kind == "generate_stream":
             events = []
             for event in client.generate_stream(
                     rec.model, resources.stream_payload(rec),
-                    model_version=rec.version):
+                    model_version=rec.version,
+                    **self._replay_affinity_kw(rec),
+                    **self._replay_tenant_kw(rec)):
                 events.append(event)
             return events
         inputs = resources.inputs_for(rec)
@@ -1214,8 +1511,11 @@ class PerfRunner:
                 model_version=rec.version,
                 sequence_id=rec.seq_group,
                 sequence_start=rec.seq_index == 0,
-                sequence_end=rec.seq_index == rec.seq_len - 1)
-        return client.infer(rec.model, inputs, model_version=rec.version)
+                sequence_end=rec.seq_index == rec.seq_len - 1,
+                **self._replay_tenant_kw(rec))
+        return client.infer(rec.model, inputs, model_version=rec.version,
+                            **self._replay_affinity_kw(rec),
+                            **self._replay_tenant_kw(rec))
 
     @staticmethod
     def _kind_row(samples: Dict[Tuple[str, str], List[float]],
@@ -1240,12 +1540,34 @@ class PerfRunner:
         lags: List[float] = []
         all_ok_lat: List[float] = []
         arrival_window = 0.0
-        for kind, status, lat_s, lag_s, at_rel_s in outcomes:
+        # per-tenant accounting (format v4 records): status counts, ok
+        # latencies and shed-reason breakdown, keyed by tenant label
+        tenant_rows: Dict[str, Dict[str, Any]] = {}
+        retry_hints: List[float] = []
+        for (kind, status, lat_s, lag_s, at_rel_s,
+             tenant, shed_reason, retry_after_s) in outcomes:
             kind_counts[kind] = kind_counts.get(kind, 0) + 1
             counts[(kind, status)] = counts.get((kind, status), 0) + 1
             samples.setdefault((kind, status), []).append(lat_s)
             if status == "ok":
                 all_ok_lat.append(lat_s)
+            if retry_after_s is not None:
+                retry_hints.append(float(retry_after_s))
+            if tenant is not None:
+                row = tenant_rows.setdefault(tenant, {
+                    "issued": 0, "ok": 0, "errors": 0, "shed": 0,
+                    "shed_by_reason": {}, "_lat": []})
+                row["issued"] += 1
+                if status == "ok":
+                    row["ok"] += 1
+                    row["_lat"].append(lat_s)
+                elif status == "shed":
+                    row["shed"] += 1
+                    reason = shed_reason or "unknown"
+                    row["shed_by_reason"][reason] = (
+                        row["shed_by_reason"].get(reason, 0) + 1)
+                else:
+                    row["errors"] += 1
             lags.append(lag_s)
             # actual arrival offset (scheduled + slip): the window the
             # schedule was REALLY issued over, free of the service/drain
@@ -1349,6 +1671,25 @@ class PerfRunner:
             "slo": slo_rows,
             "slo_ok": all(row["attained"] for row in slo_rows),
         }
+        if tenant_rows:
+            # only when the trace carried tenant-attributed records:
+            # tenantless replays keep byte-identical result rows
+            result["tenants"] = {
+                t: {
+                    "issued": row["issued"],
+                    "ok": row["ok"],
+                    "errors": row["errors"],
+                    "shed": row["shed"],
+                    "shed_by_reason": row["shed_by_reason"],
+                    "latency_ms": _latency_ms_row(sorted(row["_lat"])),
+                }
+                for t, row in sorted(tenant_rows.items())
+            }
+        if retry_hints:
+            # the honest backpressure story: every shed's retry_after_s
+            # hint (bucket refill eta / limiter minRTT eta), as ms
+            result["shed_retry_after_ms"] = _latency_ms_row(
+                sorted(retry_hints))
         return self._observe_result(result)
 
 
@@ -1485,6 +1826,21 @@ def main(argv: Optional[List[str]] = None) -> int:
              "(none = clean proxy, for topology-identical baselines)",
     )
     parser.add_argument(
+        "--endpoints", default=None,
+        help="comma-separated replica urls: measurement clients become "
+             "health-aware PoolClients over them (-u stays the "
+             "control-plane address; see client_tpu_torch.pool)",
+    )
+    parser.add_argument(
+        "--hedge", action="store_true",
+        help="arm hedged requests on the pool (requires --endpoints)",
+    )
+    parser.add_argument(
+        "--hedge-delay", type=float, default=None,
+        help="hedge delay in seconds (default: rolling p95 of recent "
+             "latencies)",
+    )
+    parser.add_argument(
         "--observe", action="store_true",
         help="enable client telemetry (observe.Telemetry, sample=always) "
              "during measurement and append a client-phase p50/p99 "
@@ -1512,6 +1868,77 @@ def main(argv: Optional[List[str]] = None) -> int:
              "request drives one generate-extension SSE session to "
              "exhaustion (http protocol only; latency_ms = session e2e)",
     )
+    parser.add_argument(
+        "--coalesce", action="store_true",
+        help="wrap measurement clients in the micro-batching dispatcher "
+             "(client_tpu_torch.batch): concurrent workers share coalesced "
+             "wire requests; result rows gain achieved batch-size p50/p99",
+    )
+    parser.add_argument(
+        "--batch-window-us", type=float, default=None,
+        help="fixed coalescing window in microseconds (default: adaptive, "
+             "tuned from the observed arrival rate)",
+    )
+    parser.add_argument(
+        "--batch-max", type=int, default=32,
+        help="row cap per coalesced request (size to the model's "
+             "max_batch_size)",
+    )
+    parser.add_argument(
+        "--routing", default=None,
+        choices=("round_robin", "least_outstanding", "weighted",
+                 "orca_weighted", "affinity"),
+        help="pool routing policy (requires --endpoints); orca_weighted "
+             "feeds smooth-WRR weights from the servers' ORCA "
+             "endpoint-load-metrics reports, falling back to "
+             "least_outstanding while loads are stale or absent; "
+             "affinity rendezvous-hashes a session/prefix key "
+             "(--affinity-key, or a trace record's content_key) onto a "
+             "home replica with deterministic bounded-load fallback")
+    parser.add_argument(
+        "--cache", action="store_true",
+        help="wrap measurement clients in the bounded response cache "
+             "(client_tpu_torch.cache): repeated content keys are served "
+             "client-side as zero-copy arena views; result rows gain "
+             "client_cache (hit rate, collapse ratio, resident bytes)")
+    parser.add_argument(
+        "--cache-ttl", type=float, default=30.0,
+        help="response-cache TTL in seconds (with --cache)")
+    parser.add_argument(
+        "--singleflight", action="store_true",
+        help="collapse concurrent identical infers onto one wire request "
+             "(client_tpu_torch.cache; combine with --cache for the full "
+             "hot-key layer)")
+    parser.add_argument(
+        "--affinity-key", default=None,
+        help="session key for --routing affinity on the closed/open-loop "
+             "paths: 'worker' = one key per worker thread, anything else "
+             "= one shared literal key; trace replay instead threads "
+             "each record's content_key automatically")
+    parser.add_argument(
+        "--admission", action="store_true",
+        help="arm the pool's adaptive admission controller "
+             "(client_tpu_torch.admission): saturated/deadline-infeasible "
+             "requests are shed with a typed AdmissionRejected, counted "
+             "as shed (never error) in every result row")
+    parser.add_argument(
+        "--admission-mode", choices=("aimd", "gradient"), default="aimd")
+    parser.add_argument(
+        "--admission-target-ms", type=float, default=None,
+        help="SLO latency target the limiter defends (default: a minRTT "
+             "EWMA tolerance band)")
+    parser.add_argument(
+        "--tenancy", default=None,
+        help="per-tenant QoS spec for the admission controller "
+             "(client_tpu_torch.tenancy; requires --admission), e.g. "
+             "'t0,rate=50,weight=2;adv0,rate=50': weighted-fair "
+             "queueing + token-bucket quotas; over-quota requests shed "
+             "typed over_quota with an honest retry_after. Trace replay "
+             "threads each record's tenant (format v4) automatically")
+    parser.add_argument(
+        "--endpoint-limits", action="store_true",
+        help="arm a per-endpoint adaptive concurrency limit (selection "
+             "skips replicas at their limit; requires --endpoints)")
     parser.add_argument(
         "--stream-prompt-tokens", type=int, default=32,
         help="prompt length for --generate-stream sessions")
@@ -1547,14 +1974,11 @@ def main(argv: Optional[List[str]] = None) -> int:
     # the JAX harness's flags whose layers are not ported: accepted, and
     # PerfRunner raises NotImplementedError naming their ROADMAP item
     not_ported = parser.add_argument_group(
-        "not ported yet", "raise NotImplementedError (ROADMAP A7 / A8)")
-    for flag in ("--endpoints", "--routing", "--tenancy", "--affinity-key",
-                 "--shard-layout", "--cells", "--home-cell", "--shadow-cell",
+        "not ported yet", "raise NotImplementedError (ROADMAP A8)")
+    for flag in ("--shard-layout", "--cells", "--home-cell", "--shadow-cell",
                  "--canary-cell", "--roles", "--pipeline"):
         not_ported.add_argument(flag, default=None)
-    for flag in ("--hedge", "--admission", "--endpoint-limits", "--coalesce",
-                 "--cache", "--singleflight", "--watch"):
-        not_ported.add_argument(flag, action="store_true")
+    not_ported.add_argument("--watch", action="store_true")
     args = parser.parse_args(argv)
 
     if args.trace and args.trace_gen:
@@ -1575,18 +1999,23 @@ def main(argv: Optional[List[str]] = None) -> int:
         retries=args.retries, chaos=args.chaos,
         endpoints=[u.strip() for u in args.endpoints.split(",") if u.strip()]
         if args.endpoints else None,
-        hedge=args.hedge,
+        hedge=args.hedge, hedge_delay_s=args.hedge_delay,
         observe=args.observe,
         generate_stream=args.generate_stream,
         stream_prompt_tokens=args.stream_prompt_tokens,
         stream_output_tokens=args.stream_output_tokens,
         coalesce=args.coalesce,
+        batch_window_us=args.batch_window_us,
+        batch_max=args.batch_max,
         routing=args.routing,
         admission=args.admission,
+        admission_mode=args.admission_mode,
+        admission_target_ms=args.admission_target_ms,
         tenancy=args.tenancy,
         endpoint_limits=args.endpoint_limits,
         shard_layout=args.shard_layout,
         cache=args.cache,
+        cache_ttl_s=args.cache_ttl,
         singleflight=args.singleflight,
         affinity_key=args.affinity_key,
         flight=args.flight,

@@ -14,7 +14,8 @@
   engine (never retried, never a breaker outcome) and the port's perf
   runner counts it as a shed, not an error, as the JAX runner does;
 - the port's ``Telemetry.attach_admission`` exports the same admission
-  series; a tenancy spec string raises, naming ROADMAP A7.
+  series; a tenancy spec string is parsed by the port's tenancy module
+  and gives JAX's verdicts.
 
 Every clock is injected and every wait bounded; each test runs under a time
 limit.
@@ -400,15 +401,32 @@ def test_double_release_raises_and_force_never_sheds():
 
 
 def test_tenancy_spec_string_waits_for_a7():
-    with pytest.raises(NotImplementedError, match="A7"):
-        port_adm.AdmissionController(tenancy="a,rate=1,burst=1")
-    # JAX's controller parses the string; the port takes a policy object
-    policy = parse_tenancy_spec("a,rate=1,burst=1", clock=FakeClock())
-    tok = port_adm.AdmissionController(tenancy=policy).acquire(tenant="a")
-    with pytest.raises(port_adm.AdmissionRejected) as exc:
-        port_adm.AdmissionController(tenancy=policy).acquire(tenant="a")
-    assert exc.value.reason == port_adm.SHED_OVER_QUOTA and exc.value.tenant == "a"
-    tok.release(0.01)
+    """The spec string is parsed by ``client_tpu_torch.tenancy`` (ROADMAP
+    A7, ported): the same verdicts as JAX's controller, and the same as a
+    policy object built from the string."""
+
+    def run(pkg, from_object):
+        adm = PKG[pkg]["adm"]
+        clock = FakeClock()
+        if from_object:
+            tenancy = parse_tenancy_spec("a,rate=1,burst=1", clock=clock)
+        else:
+            tenancy = "a,rate=1,burst=1"
+        ctrl = adm.AdmissionController(tenancy=tenancy, clock=clock)
+        verdicts = []
+        for step in range(4):
+            try:
+                ctrl.acquire(tenant="a").release(0.01)
+                verdicts.append("ok")
+            except adm.AdmissionRejected as e:
+                verdicts.append((e.reason, e.tenant, e.retry_after_s))
+            clock.t += 0.5
+        return verdicts
+
+    assert _both(run, False) == [
+        "ok", (port_adm.SHED_OVER_QUOTA, "a", 0.5), "ok",
+        (port_adm.SHED_OVER_QUOTA, "a", 0.5)]
+    assert run("port", True) == run("port", False)
 
 
 # -- the SHED domain -------------------------------------------------------------

@@ -11,8 +11,14 @@ equal to the statistics and the data-plane counters equal to the ops made.
 On a CPU device the kernel wrappers run their plain versions and launch
 nothing, so its launch gate expects zeros there; the references are a CPU
 run of the decoder and of densenet with the seed-0 weights, as on the card.
-Phase 8 starts ``client_tpu_torch.serve --device cpu`` in child processes.
+Phase 8 starts ``client_tpu_torch.serve --device cpu`` in child processes;
+phase 9 (the pool, batch, cache and tenancy layers over two servers) runs
+against two port servers in this process.
 """
+
+import collections
+import threading
+import time
 
 import numpy as np
 import torch
@@ -192,3 +198,123 @@ def test_process_phase_on_cpu(monkeypatch):
         assert expected[name]["flash_attention"] == ex["long_context_encoder"] > 0
         assert expected[name]["normalize_image"] == ex["ensemble_image"] > 0
     assert all(v == 0 for counts in result["launch_counts"].values() for v in counts.values())
+
+
+# phase 9 at a small size, its two "children" port servers in this process
+SMALL_POOL = chip_smoke.PoolSize(
+    image=(64, 64, 3), rr_requests=4, prompt=[1, 2, 3, 4], steps=3, seq=256,
+    affinity_keys=2, affinity_requests=2, hedge_requests=2, threads=4, coalesce_rows=4,
+    window_us=20000, offered=20, offered_s=0.5, steady=4, aio_requests=4, concurrency=(1, 2),
+    perf_requests=4, failover_workers=2, failover_after=4)
+
+
+class InProcessChild:
+    """A ``serve`` child's surface (URLs, SIGTERM drain, final report) over
+    port servers in this process: the served set of ``SERVE_ARGS`` on the
+    CPU, drained as ``serve`` drains (ready false, the grace, then close)."""
+
+    def __init__(self):
+        from client_tpu_torch.models import build_image_ensemble, default_model_zoo
+        from client_tpu_torch.models.long_context import LongContextEncoderModel
+        from client_tpu_torch.models.simple import IdentityModel
+        from client_tpu_torch.server import GrpcInferenceServer, HttpInferenceServer, ServerCore
+
+        models = (default_model_zoo("cpu") + [IdentityModel("identity_fp32", "FP32", device="cpu")]
+                  + build_image_ensemble(device="cpu")
+                  + [LongContextEncoderModel(attention="flash", device="cpu")])
+        self.core = ServerCore(models, device="cpu")
+        self.servers = [HttpInferenceServer(self.core), GrpcInferenceServer(self.core)]
+        self.drainer = None
+
+    def wait_ready(self):
+        for s in self.servers:
+            s.start()
+        self.http_url, self.grpc_url = (s.url for s in self.servers)
+        return self
+
+    def _drain(self):
+        self.core.ready = False
+        time.sleep(chip_smoke.DRAIN_GRACE_S)
+        for s in self.servers:
+            s.close(grace_s=0.0)
+
+    def sigterm(self):
+        self.drainer = threading.Thread(target=self._drain)
+        self.drainer.start()
+
+    def finish(self, t0, timeout):
+        self.drainer.join(timeout)
+        stats = self.core.statistics()["model_stats"]
+        return {"rc": 0, "launches": None, "device": "cpu", "drain_line": True,
+                "executions": {r["name"]: r["execution_count"] for r in stats},
+                "failures": {r["name"]: r["inference_stats"]["fail"]["count"] for r in stats},
+                "rounds": sum(self.core.model("decoder_lm_batched").batch_histogram.values()),
+                "layers": self.core.model("decoder_lm").LAYERS,
+                "exit_s": time.perf_counter() - t0}
+
+    def terminate(self):
+        t0 = time.perf_counter()
+        self.sigterm()
+        return self.finish(t0, 15.0)
+
+    def kill(self):
+        if self.drainer is None:
+            for s in self.servers:
+                s.stop()
+
+
+def test_pool_phase_on_cpu(monkeypatch):
+    """``chip_smoke.serve_pool``: every row of phase 9 against two port
+    servers in this process, with the plain versions' calls counted here
+    for each row (between the phase's ``reset_counts`` and
+    ``read_counts``): their sum over the rows is the children's expected
+    launches (their executions), as on the card."""
+    import client_tpu_torch.integrity as integrity
+    import client_tpu_torch.models.decoder as decoder_mod
+    import client_tpu_torch.models.long_context as long_context_mod
+    import client_tpu_torch.ops.image as image_mod
+
+    monkeypatch.setattr(integrity, "_DEFAULT_POLICY", integrity.IntegrityPolicy())
+    calls = collections.Counter()
+    for mod, name in ((decoder_mod, "decode_attention"),
+                      (long_context_mod, "flash_attention"),
+                      (image_mod, "normalize_image")):
+
+        def counted(*args, _plain=getattr(mod, name), _name=name, **kwargs):
+            out = _plain(*args, **kwargs)
+            calls[_name] += 1
+            return out
+
+        monkeypatch.setattr(mod, name, counted)
+    by_row = collections.Counter()
+    reset_counts, read_counts = chip_smoke.reset_counts, chip_smoke.read_counts
+
+    def reset():
+        calls.clear()
+        reset_counts()
+
+    def read():
+        by_row.update(calls)
+        return read_counts()
+
+    monkeypatch.setattr(chip_smoke, "reset_counts", reset)
+    monkeypatch.setattr(chip_smoke, "read_counts", read)
+    result = chip_smoke.serve_pool(device="cpu", size=SMALL_POOL,
+                                   start_children=lambda: [InProcessChild(), InProcessChild()])
+    rows = result["rows"]
+    assert rows["round robin"]["executions"] == [2, 2]
+    assert sorted(rows["sequence"]["executions"]) == [0, SMALL_POOL.steps + 1]
+    assert all(sorted(split) == [0, 2] for split in rows["affinity"]["keys"].values())
+    assert all(rows["hedge"]["executions"])
+    assert (rows["singleflight"]["wire_requests"],
+            rows["singleflight"]["singleflight_collapsed"]) == (1, 3)
+    assert sum(rows["coalescing"]["executions"]) < SMALL_POOL.coalesce_rows
+    assert rows["tenancy"]["verdicts"].get("steady ok") and \
+        rows["tenancy"]["verdicts"]["burst over_quota"] >= 10
+    assert rows["failover"]["health_changes"] == 1 and not rows["failover"]["errors"]
+    assert [r["concurrency"] for r in rows["perf"]["pool of two"]] == [1, 2]
+    total = {k: sum(e[k] for e in result["expected_launches"])
+             for k in result["expected_launches"][0]}
+    assert dict(by_row) == total and all(total.values())
+    layers = result["reports"][0]["layers"]
+    assert total["decode_attention"] == layers * (4 + SMALL_POOL.steps)

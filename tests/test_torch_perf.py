@@ -7,9 +7,14 @@ runner's tpu). Each port row runs against both packages' servers; the JAX
 runner runs against the JAX server (its tpu family has no route on the
 port's servers). The rows must have the JAX rows' keys at every level, the
 same completed counts and zero errors; the ``client_shm`` sub-row's region
-and registration counts must be equal. The flags whose layers the port does
-not have yet raise ``NotImplementedError`` naming their ROADMAP item, and
-``python -m client_tpu_torch.perf -f json`` prints rows that parse.
+and registration counts must be equal. The routing and serving flags (the
+pool over both packages' HTTP servers, hedging, routing, admission with
+tenancy, endpoint limits, affinity, coalescing, the cache and singleflight)
+run in both runners, from ``PerfRunner`` and from the CLI, and a
+tenant-attributed trace replays with per-tenant rows. The flags whose layers
+the port does not have yet raise ``NotImplementedError`` naming their ROADMAP
+item, and ``python -m client_tpu_torch.perf -f json`` prints rows that
+parse.
 """
 
 import json
@@ -278,7 +283,24 @@ def test_run_trace_rejects_bad_inputs():
     ("mixed:duration_s=1,rate=20,pipeline_fraction=0.5", "A8"),
     ("multi_tenant:duration_s=1,rate=5", "A7"),
 ])
-def test_unported_record_kinds_raise(spec, item):
+def test_unported_record_kinds_raise(servers, spec, item):
+    if item == "A7":
+        # ported: the tenant-attributed records replay through tenant=
+        rows = {}
+        for pkg, mod in (("port", port_perf), ("jax", jax_perf)):
+            runner = _runner(mod, servers[("port", "http")].url, "http", "simple", "none")
+            try:
+                trace = (port_trace if mod is port_perf else jax_trace).generate(spec, seed=0)
+                rows[pkg] = runner.run_trace(trace, speed=4.0, replay_workers=4)
+            finally:
+                _close(runner)
+        assert _keys(rows["port"]) == _keys(rows["jax"])
+        port_tenants = {t: (r["issued"], r["ok"]) for t, r in rows["port"]["tenants"].items()}
+        assert port_tenants == {t: (r["issued"], r["ok"])
+                                for t, r in rows["jax"]["tenants"].items()}
+        assert rows["port"]["errors"] == 0, rows["port"]["error_sample"]
+        assert sum(n for n, _ in port_tenants.values()) == rows["port"]["issued"]
+        return
     runner = port_perf.PerfRunner.__new__(port_perf.PerfRunner)
     runner.protocol = "http"
     runner.shared_memory = "none"
@@ -312,9 +334,58 @@ UNPORTED = [
 ]
 
 
+# what each routing and serving flag needs beside it, and the row's block
+A7_NEEDS = {
+    "--endpoints": ({}, None),
+    "--hedge": ({"hedge": True}, None),
+    "--routing": ({}, None),
+    "--admission": ({}, "client_admission"),
+    "--tenancy": ({"admission": True}, "client_admission"),
+    "--endpoint-limits": ({}, None),
+    "--affinity-key": ({"routing": "affinity"}, None),
+    "--coalesce": ({}, "client_batch"),
+    "--cache": ({}, "client_cache"),
+    "--singleflight": ({}, "client_cache"),
+}
+POOL_FREE = ("--coalesce", "--cache", "--singleflight")
+
+
+def _a7_kwargs(servers, kwargs, flag):
+    """The flag with what it needs: a pool over the port's and the JAX
+    package's HTTP servers for the pool flags."""
+    kw = dict(kwargs, **A7_NEEDS[flag][0])
+    if flag not in POOL_FREE:
+        kw["endpoints"] = [servers[("port", "http")].url, servers[("jax", "http")].url]
+    return kw
+
+
+def _a7_rows(servers, kwargs, flag):
+    rows = {}
+    for pkg, mod in (("port", port_perf), ("jax", jax_perf)):
+        runner = _runner(mod, servers[("port", "http")].url, "http", "simple", "none",
+                         **_a7_kwargs(servers, kwargs, flag))
+        try:
+            rows[pkg] = runner.run(1, 10)
+        finally:
+            _close(runner)
+    return rows
+
+
 @pytest.mark.parametrize("kwargs, flag, item", UNPORTED, ids=[u[1] + str(i)
                                                                 for i, u in enumerate(UNPORTED)])
-def test_unported_flags_raise_naming_their_item(kwargs, flag, item):
+def test_unported_flags_raise_naming_their_item(servers, kwargs, flag, item):
+    if item == "A7":
+        # ported: the flag runs in both runners and counts the same requests
+        rows = _a7_rows(servers, kwargs, flag)
+        assert _keys(rows["port"], 1) == _keys(rows["jax"], 1)
+        assert rows["port"]["requests"] == rows["jax"]["requests"] == 10
+        assert rows["port"]["errors"] == 0, rows["port"]["error_sample"]
+        block = A7_NEEDS[flag][1]
+        if block is not None:
+            assert _keys(rows["port"][block]) == _keys(rows["jax"][block])
+        if block == "client_cache":
+            assert rows["port"]["client_cache"] == rows["jax"]["client_cache"]
+        return
     # raised before any connection: the url is never dialled
     with pytest.raises(NotImplementedError) as exc:
         port_perf.PerfRunner("127.0.0.1:1", **kwargs)
@@ -323,9 +394,21 @@ def test_unported_flags_raise_naming_their_item(kwargs, flag, item):
 
 @pytest.mark.parametrize("flag", ["--admission", "--coalesce", "--watch", "--cache",
                                   "--hedge", "--singleflight", "--endpoint-limits"])
-def test_unported_cli_switches_raise(flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_perf.main(["-m", "simple", "-u", "127.0.0.1:1", flag])
+def test_unported_cli_switches_raise(servers, capsys, flag):
+    if flag == "--watch":
+        with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+            port_perf.main(["-m", "simple", "-u", "127.0.0.1:1", flag])
+        return
+    # ported: the switch runs from the CLI and its row carries the layer
+    argv = ["-m", "simple", "-u", servers[("port", "http")].url, "--concurrency-range", "1",
+            "--measurement-requests", "6", "--warmup-requests", "0", "-f", "json", flag]
+    if flag not in POOL_FREE:
+        argv += ["--endpoints", ",".join(_a7_kwargs(servers, {}, flag)["endpoints"])]
+    assert port_perf.main(argv) == 0
+    (row,) = json.loads(capsys.readouterr().out)
+    assert row["requests"] == 6 and row["errors"] == 0, row["error_sample"]
+    block = A7_NEEDS[flag][1]
+    assert block is None or block in row
 
 
 def test_shared_memory_modes_are_the_port_s(capsys):
