@@ -230,6 +230,40 @@ Phases (each raises on failure, so the script exits non-zero):
      ``EndpointHealthChanged(healthy=False)``, then every request on the
      survivor; both exit 0, and each child's launches equal its executions.
 
+10. the orchestration layers: four ``serve`` children (``SERVE_ARGS``,
+   threaded HTTP) started at once, this process the client of all
+   (``serve_orchestration``); the first two serve every row and drain at the
+   end, the other two are SIGKILLed in rows 2 and 3; each output against
+   the CPU run of the port with the same seeded weights:
+   - ``DisaggClient``, the prefill role on child 1 and the decode role on
+     child 2, over an arena pool (the KV slab in system shm, sent to the
+     decode leg as a shared-memory reference on ``/generate_stream``): 3
+     prompts of 16 tokens, 16 tokens each, equal to ``tiny_lm_generate``
+     on child 1 and to the CPU run (but at a near tie), no region created
+     and no registration issued after the first session, the same streams
+     through ``AioDisaggClient``, a tampered slab refused as
+     ``HandoffCorrupt`` before any token;
+   - ``chain_pipeline()`` over the two children: SCORES bit-equal to
+     ``chain_fused`` on child 1, no region or registration after the first
+     run, each run's peak arena residency the plan's high water; a declared
+     ``preprocess -> densenet_onnx`` pipeline on a (224, 224, 3) image:
+     top-1 equal to the CPU run, logits within 5e-2, beside ensemble_image;
+   - ``PerfRunner`` with ``shard_layout`` (decoder_lm_prefill, 8 x 16),
+     ``roles`` and ``pipeline="chain"`` at concurrency 1 and 2 (20 a
+     level), and the replay of a mixed trace with sharded, prefill_decode
+     and pipeline records: 0 errors, the children's successes equal to the
+     wire requests sent;
+   - recovery: the decode leg on a victim child SIGKILLed after 4 tokens
+     resumes on child 2 through re-prefill, every index once; a lone
+     decode child killed mid-stream raises ``DecodeAbandoned`` naming it;
+   - ``ShardedClient`` over children 1 and 2 on ``decoder_lm_prefill`` (8
+     rows) and ``batched_matmul``: the gather bit-equal to the per-shard
+     calls, NEXT_TOKEN equal to one call, logits within 5e-2; a layout
+     with the SIGKILLed child as shard 1 raises ``ShardFailed`` naming it;
+   - each drained child's launches equal its executions: decode_attention
+     = layers x its decoder steps, normalize_image = its preprocess and
+     ensemble_image executions.
+
 It then prints one ``{"kernels": [...]}`` line and, last, one line
 ``{"ok": true, "device": {...}}``. Details go to ``build/chip_smoke.json``.
 Without a CUDA device it fails. The build fails if ptxas reports a spill in
@@ -282,7 +316,9 @@ from client_tpu_torch.models.vision import flops_per_image  # noqa: E402
 from client_tpu_torch.ops import normalize as nz  # noqa: E402
 from client_tpu_torch.ops import softmax as sm  # noqa: E402
 from client_tpu_torch.models.long_context import WEIGHTS, load_jax_params  # noqa: E402
+from client_tpu_torch.models.chain import ChainFusedModel, chain_core  # noqa: E402
 from client_tpu_torch.models.decoder import TinyDecoderModel  # noqa: E402
+from client_tpu_torch.models.decoder_prefill import PrefillDecoderModel  # noqa: E402
 from client_tpu_torch.models.decoder_batched import _SeqRequest  # noqa: E402
 from client_tpu_torch.models.generate import TinyGenerateModel  # noqa: E402
 from client_tpu_torch.ops import _kernels  # noqa: E402
@@ -301,7 +337,15 @@ from client_tpu_torch.integrity import IntegrityPolicy, IntegrityStats, StreamCh
 from client_tpu_torch.perf import PerfRunner  # noqa: E402
 from client_tpu_torch.admission import AdmissionController, AdmissionRejected  # noqa: E402
 from client_tpu_torch.pool import AioPoolClient, EndpointHealthChanged  # noqa: E402
-from client_tpu_torch.pool import HedgePolicy, PoolClient  # noqa: E402
+from client_tpu_torch.pool import EndpointSpec, HedgePolicy, PoolClient  # noqa: E402
+from client_tpu_torch.disagg import (  # noqa: E402
+    AioDisaggClient,
+    DecodeAbandoned,
+    DisaggClient,
+    HandoffCorrupt,
+)
+from client_tpu_torch.pipeline import Pipeline, PipelineClient, Stage, chain_pipeline  # noqa: E402
+from client_tpu_torch.shard import ShardFailed, ShardLayout, ShardedClient  # noqa: E402
 from client_tpu_torch.observe import (  # noqa: E402
     Telemetry,
     dataplane,
@@ -309,6 +353,7 @@ from client_tpu_torch.observe import (  # noqa: E402
     install_dataplane,
 )
 from client_tpu_torch.resilience import (  # noqa: E402
+    AttemptBudget,
     CircuitBreaker,
     CircuitOpenError,
     ResiliencePolicy,
@@ -3283,14 +3328,22 @@ SERVE_ARGS = ["--http-port", "0", "--grpc-port", "0", "--identity-fp32", "--visi
               "--long-context", "--attention", "flash"]
 # the child: ``serve.main`` as ``python -m client_tpu_torch.serve`` runs it,
 # its core kept so that, once main returns (after the SIGTERM drain), one
-# line reports the kernels it launched, the statistics and the device
+# line reports the kernels it launched, the statistics, the decoder steps
+# (single-sequence steps of every decoder-family model) and the device
 SERVE_CHILD = r"""
-import json, sys
+import json, sys, threading
 sys.path.insert(0, sys.argv[1])
 import torch
 from client_tpu_torch import serve, server
+from client_tpu_torch.models.decoder import TinyDecoderModel
 from client_tpu_torch.ops import decode_attention, normalize, softmax, quantize
 from client_tpu_torch.ops.flash_attention import LAUNCHES as flash
+steps, steps_lock, plain_step = [0], threading.Lock(), TinyDecoderModel.step
+def counted_step(self, *args, **kwargs):
+    with steps_lock:
+        steps[0] += 1
+    return plain_step(self, *args, **kwargs)
+TinyDecoderModel.step = counted_step
 cores = []
 class Core(server.ServerCore):
     def __init__(self, *args, **kwargs):
@@ -3310,6 +3363,7 @@ print("SERVE_REPORT " + json.dumps({
     "successes": {r["name"]: r["inference_stats"]["success"]["count"] for r in stats},
     "failures": {r["name"]: r["inference_stats"]["fail"]["count"] for r in stats},
     "rounds": sum(core.model("decoder_lm_batched").batch_histogram.values()),
+    "decoder_steps": steps[0],
     "layers": core.model("decoder_lm").LAYERS,
     "device": (torch.cuda.get_device_name(core.device) if core.device.type == "cuda"
                else str(core.device))}), flush=True)
@@ -4431,6 +4485,630 @@ def serve_pool(device="cuda", size=POOL, start_children=None):
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the orchestration layers (shard, disagg, pipeline) over ``serve``
+# children, this process the client
+# ---------------------------------------------------------------------------
+
+OrchSize = collections.namedtuple("OrchSize", [
+    "prompts", "prompt_len", "max_tokens", "kill_after", "abandon_after", "shard_rows",
+    "shard_len", "matmul_rows", "chain_runs", "image", "concurrency", "perf_requests",
+    "records", "mixed"])
+ORCH = OrchSize(
+    prompts=3, prompt_len=16, max_tokens=16, kill_after=4, abandon_after=3, shard_rows=8,
+    shard_len=16, matmul_rows=8, chain_runs=4, image=(224, 224, 3), concurrency=(1, 2),
+    perf_requests=20, records=20,
+    mixed=("mixed:duration_s=2,rate=20,stream_fraction=0.1,seq_fraction=0.1,"
+           "shard_fraction=0.2,shard_model=decoder_lm_prefill,disagg_fraction=0.2,"
+           "pipeline_fraction=0.2,max_prompt=24,max_output=8"))
+# the decoder's logit bound against the CPU run; a greedy token may differ
+# from the CPU run's where the CPU's top two logits are closer than twice it
+DECODER_LOGIT_TOL = 5e-2
+NEAR_TIE = 2 * DECODER_LOGIT_TOL
+SHARD_SPEC = "TOKENS=0->LOGITS=0,NEXT_TOKEN=0"
+# the wire requests one record of each kind makes: a sharded record one a
+# shard, a prefill/decode session its prefill infer and its decode stream, a
+# pipeline run one a stage
+RECORD_REQUESTS = {"unary": 1, "sequence": 1, "generate_stream": 1, "sharded": 2,
+                   "prefill_decode": 2, "pipeline": 3}
+
+
+def orchestration_references(size):
+    """The CPU run of the port with the same seeded weights as the children:
+    ``size.prompts`` seeded prompts' greedy streams (tiny_lm_generate's path,
+    with each step's top-two margin), decoder_lm_prefill on the shard row's
+    seeded tokens, a seeded image's ensemble_image logits, and the chain's
+    fused scores on seeded RAW."""
+    rng = np.random.default_rng(13)
+    prompts = [rng.integers(0, TinyDecoderModel.VOCAB, size.prompt_len).tolist()
+               for _ in range(size.prompts)]
+    decoder = TinyDecoderModel(device="cpu")
+    streams, margins = [], []
+    with torch.no_grad():
+        for prompt in prompts:
+            caches = decoder.fresh_cache()
+            logits = decoder.prefill(caches, np.array(prompt), 0)
+            tokens, gaps = [], []
+            for i in range(size.max_tokens):
+                top2 = torch.topk(logits.float(), 2).values
+                gaps.append(float(top2[0] - top2[1]))
+                tokens.append(int(logits.argmax()))
+                if i + 1 < size.max_tokens:
+                    logits = decoder.prefill(caches, np.array(tokens[-1:]), len(prompt) + i)
+            streams.append(tokens)
+            margins.append(gaps)
+        shard_tokens = np.random.default_rng(19).integers(
+            0, TinyDecoderModel.VOCAB, (size.shard_rows, size.shard_len), dtype=np.int32)
+        prefill = PrefillDecoderModel(decoder=decoder).execute({"TOKENS": shard_tokens}, {})
+    image = np.random.default_rng(0).integers(0, 256, size.image, dtype=np.uint8)
+    vision = ServerCore(build_image_ensemble(device="cpu"), device="cpu")
+    logits = vision.infer("ensemble_image", "", {"inputs": [{
+        "name": "IMAGE", "datatype": "UINT8", "shape": list(image.shape),
+        "array": image}]})["outputs"][0]["array"]
+    raw = np.random.default_rng(17).integers(-10**6, 10**6, (1, 16)).astype(np.int32)
+    scores = ChainFusedModel(chain_core("cpu")).execute({"RAW": raw}, {})["SCORES"]
+    return {"prompts": prompts, "streams": streams, "margins": margins, "image": image,
+            "image_logits": np.asarray(logits.cpu() if isinstance(logits, torch.Tensor)
+                                       else logits).reshape(-1),
+            "shard_tokens": shard_tokens, "shard_logits": prefill["LOGITS"],
+            "raw": raw, "chain_scores": scores.numpy()}
+
+
+def near_tie_check(got, want, margins, where):
+    """``got`` equal to the CPU stream ``want``, or equal up to a first
+    difference where the CPU's top-two margin is a near tie; returns that
+    index (None when equal)."""
+    if got == want:
+        return None
+    first = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
+    if len(got) != len(want) or margins[first] >= NEAR_TIE:
+        raise AssertionError(f"{where}: tokens {got} differ from the CPU run's {want} at "
+                             f"{first} (top-two margin {margins[first]:.4g})")
+    return first
+
+
+def drain_disagg(stream, on_token=None):
+    tokens, indices = [], []
+    for event in stream:
+        tokens.append(int(event["NEXT_TOKEN"]))
+        indices.append(int(event["INDEX"]))
+        if on_token is not None:
+            on_token(len(tokens))
+    return tokens, indices
+
+
+def monolithic_stream(url, prompt, max_tokens):
+    with httpclient.InferenceServerClient(url) as c:
+        return [int(e["NEXT_TOKEN"]) for e in c.generate_stream(
+            "tiny_lm_generate", {"TOKENS": [prompt], "MAX_TOKENS": max_tokens})]
+
+
+def orch_disagg(children, refs, size):
+    """Row 1: ``DisaggClient`` with the prefill role on the first child and
+    the decode role on the second, over an arena pool; then the same
+    prompts through ``AioDisaggClient``; then a tampered slab."""
+    a, b = children[:2]
+    specs = [EndpointSpec(a.http_url, role="prefill"), EndpointSpec(b.http_url, role="decode")]
+    row = {"sessions": [], "near_ties": []}
+    pool = PoolClient(specs, protocol="http", shm_arena=True, health_interval_s=None)
+    client = DisaggClient(pool)
+    try:
+        first = None
+        for i, prompt in enumerate(refs["prompts"]):
+            t0 = time.perf_counter()
+            tokens, indices = drain_disagg(client.generate_stream(prompt,
+                                                                  max_tokens=size.max_tokens))
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            mono = monolithic_stream(a.http_url, prompt, size.max_tokens)
+            if tokens != mono or indices != list(range(size.max_tokens)):
+                raise AssertionError(f"disagg prompt {i}: {tokens} (indices {indices}) != "
+                                     f"tiny_lm_generate {mono}")
+            row["near_ties"].append(near_tie_check(tokens, refs["streams"][i],
+                                                   refs["margins"][i], f"disagg prompt {i}"))
+            row["sessions"].append({"tokens": tokens, "ms": wall_ms})
+            if first is None:
+                first = client.arena().stats()
+        last = client.arena().stats()
+        row["arena"] = {k: last[k] for k in ("regions_created", "registrations_issued",
+                                             "leased_bytes")}
+        row["steady_region_creates"] = last["regions_created"] - first["regions_created"]
+        row["steady_registrations"] = (last["registrations_issued"]
+                                       - first["registrations_issued"])
+        row["family"] = client.arena().default_family
+        if (row["steady_region_creates"] or row["steady_registrations"]
+                or last["leased_bytes"] or row["family"] != "system"):
+            raise AssertionError(f"disagg steady state: {row}")
+        # a tampered slab: the digest refuses it before any token
+        budget = AttemptBudget(client.inner._budget_policy, None)
+        handoff = client._prefill_leg(refs["prompts"][0], budget, 0, "")
+        try:
+            handoff.verify(b.http_url)
+            view = handoff.lease.memoryview()
+            view[7] = (view[7] + 1) % 256
+            try:
+                handoff.verify(b.http_url)
+            except HandoffCorrupt as e:
+                row["tampered"] = {"field": e.field, "url": e.url}
+            else:
+                raise AssertionError("a tampered handoff verified")
+        finally:
+            handoff.release()
+        real_leg = client._prefill_leg
+
+        def tampering_leg(*args):
+            h = real_leg(*args)
+            v = h.lease.memoryview()
+            v[0] = (v[0] + 1) % 256
+            return h
+
+        client._prefill_leg = tampering_leg
+        emitted = []
+        try:
+            for event in client.generate_stream(refs["prompts"][0], max_tokens=4):
+                emitted.append(event)
+        except HandoffCorrupt as e:
+            row["tampered_session"] = {"field": e.field, "tokens_before": len(emitted)}
+        else:
+            raise AssertionError("a tampered session streamed to its end")
+        if emitted or client.arena().stats()["leased_bytes"]:
+            raise AssertionError(f"tampered session: {len(emitted)} tokens before the refusal")
+    finally:
+        pool.close()
+
+    async def aio_sessions():
+        apool = AioPoolClient(specs, protocol="http", shm_arena=True, health_interval_s=None)
+        aclient = AioDisaggClient(apool)
+        try:
+            out = []
+            for prompt in refs["prompts"]:
+                tokens = []
+                async for event in aclient.generate_stream(prompt, max_tokens=size.max_tokens):
+                    tokens.append(int(event["NEXT_TOKEN"]))
+                out.append(tokens)
+            return out
+        finally:
+            await apool.close()
+
+    aio = asyncio.run(aio_sessions())
+    if aio != [s["tokens"] for s in row["sessions"]]:
+        raise AssertionError(f"AioDisaggClient {aio} != DisaggClient")
+    row["aio_equal"] = True
+    return row
+
+
+def orch_recovery(children, refs, size):
+    """Row 2: re-prefill recovery. The prefill role on the first child, the
+    decode role on a victim child and on the second child: the victim is
+    SIGKILLed after ``size.kill_after`` tokens of a session it serves, and
+    the session ends on the second child, every index once, the tokens the
+    monolithic ones. Then the prefill child with a second victim as the only
+    decode replica, killed mid-stream: ``DecodeAbandoned`` names it."""
+    a, b, victim, lone = children
+    mono = monolithic_stream(a.http_url, refs["prompts"][0], size.max_tokens)
+    tel = Telemetry(flight=FlightRecorder(baseline_ratio=1.0))
+    pool = PoolClient([EndpointSpec(a.http_url, role="prefill"),
+                       EndpointSpec(victim.http_url, role="decode"),
+                       EndpointSpec(b.http_url, role="decode")],
+                      protocol="http", shm_arena=True, health_interval_s=None,
+                      routing="round_robin", telemetry=tel)
+    legs = []
+    pinned = pool.pinned_generate_stream
+
+    def recording(url, *args, **kwargs):
+        legs.append(url)
+        return pinned(url, *args, **kwargs)
+
+    pool.pinned_generate_stream = recording
+    client = DisaggClient(pool)
+    row = {"sessions": 0}
+    try:
+        for _ in range(3):
+            legs.clear()
+            killed = []
+
+            def maybe_kill(n):
+                if not killed and n == size.kill_after and legs[-1] == victim.http_url:
+                    victim.kill()
+                    killed.append(n)
+
+            tokens, indices = drain_disagg(
+                client.generate_stream(refs["prompts"][0], max_tokens=size.max_tokens),
+                maybe_kill)
+            row["sessions"] += 1
+            if tokens != mono or indices != list(range(size.max_tokens)):
+                raise AssertionError(f"recovery: {tokens} (indices {indices}) != {mono}")
+            if killed:
+                row["decode_legs"] = list(legs)
+                break
+        else:
+            raise AssertionError("recovery: no session ran on the victim's decode replica")
+        names = [e[2] for t in tel.flight.retained() for e in t.events if e[1] == "disagg"]
+        for event in ("decode_died", "reprefill", "handoff", "verify"):
+            if event not in names:
+                raise AssertionError(f"recovery: no disagg.{event} in the flight recorder")
+        row["resumed_on"] = legs[-1]
+        if legs[-1] != b.http_url or client.arena().stats()["leased_bytes"]:
+            raise AssertionError(f"recovery: resumed on {legs[-1]}, legs {legs}")
+    finally:
+        pool.close()
+
+    client = DisaggClient([EndpointSpec(a.http_url, role="prefill"),
+                           EndpointSpec(lone.http_url, role="decode")],
+                          protocol="http", health_interval_s=None)
+    got = []
+    try:
+        for event in client.generate_stream(refs["prompts"][1], max_tokens=size.max_tokens):
+            got.append(int(event["NEXT_TOKEN"]))
+            if len(got) == size.abandon_after:
+                lone.kill()
+    except DecodeAbandoned as e:
+        row["abandoned"] = {"url": e.url, "emitted": e.emitted, "cause": type(e.cause).__name__}
+        if e.url != lone.http_url or e.emitted != len(got) or len(got) < size.abandon_after:
+            raise AssertionError(f"DecodeAbandoned: {row['abandoned']}, {len(got)} received")
+    else:
+        raise AssertionError("the lone decode replica's death was not DecodeAbandoned")
+    finally:
+        client.close()
+    return row
+
+
+def orch_shard(children, refs, size, dead):
+    """Row 3: ``ShardedClient`` over the two children, ``decoder_lm_prefill``
+    rows and ``batched_matmul``: the gather bit-equal to the per-shard
+    direct calls, NEXT_TOKEN equal to one unsharded call, the logits within
+    5e-2 of it; then a layout whose second shard is a SIGKILLed child."""
+    a, b = children[:2]
+    urls = [a.http_url, b.http_url]
+    cases = {"decoder_lm_prefill": ("TOKENS", refs["shard_tokens"],
+                                    {"LOGITS": 0, "NEXT_TOKEN": 0}),
+             "batched_matmul": ("X", np.random.default_rng(19).standard_normal(
+                 (size.matmul_rows, 64)).astype(np.float32), {"Y": 0})}
+    row = {}
+
+    def wire(name, x):
+        return httpclient.InferInput(name, list(x.shape), "INT32" if x.dtype == np.int32
+                                     else "FP32").set_data_from_numpy(x)
+
+    def direct(url, model, name, x):
+        with httpclient.InferenceServerClient(url) as c:
+            res = c.infer(model, [wire(name, x)])
+            return {out: res.as_numpy(out) for out in cases[model][2]}
+
+    for model, (name, x, outputs) in cases.items():
+        layout = ShardLayout(urls, inputs={name: 0}, outputs=outputs)
+        bounds = layout.inputs[name].resolve(name, x.shape[0], 2)
+        with ShardedClient(urls, layout, health_interval_s=None) as client:
+            res = client.infer(model, [wire(name, x)])
+            got = {out: res.as_numpy(out).copy() for out in outputs}
+            res.release()
+        parts = [direct(u, model, name, x[lo:hi]) for u, (lo, hi) in zip(urls, bounds)]
+        whole = direct(a.http_url, model, name, x)
+        diffs = {}
+        for out in outputs:
+            cat = np.concatenate([p[out] for p in parts])
+            if not np.array_equal(got[out], cat):
+                raise AssertionError(f"shard {model} {out}: the gather differs from the "
+                                     "per-shard calls")
+            diffs[out] = float(np.abs(got[out].astype(np.float64)
+                                      - whole[out].astype(np.float64)).max())
+        if model == "decoder_lm_prefill" and (
+                not np.array_equal(got["NEXT_TOKEN"], whole["NEXT_TOKEN"])
+                or not diffs["LOGITS"] <= DECODER_LOGIT_TOL):
+            raise AssertionError(f"shard decoder_lm_prefill vs one call: {diffs}")
+        if model == "batched_matmul" and diffs["Y"] > 1e-5:
+            raise AssertionError(f"shard batched_matmul vs one call: {diffs}")
+        row[model] = {"rows": int(x.shape[0]), "bounds": bounds,
+                      "max_abs_diff_vs_one_call": diffs}
+        if model == "decoder_lm_prefill":
+            # against the CPU run: logits within the bound, each row's next
+            # token the CPU's but where the CPU's top two are a near tie
+            want = refs["shard_logits"]
+            err = float(np.abs(got["LOGITS"] - want).max())
+            top2 = np.sort(want, axis=1)[:, -2:]
+            ties = [i for i, (t, w) in enumerate(zip(got["NEXT_TOKEN"].reshape(-1),
+                                                      want.argmax(axis=1)))
+                    if t != w]
+            if not err <= DECODER_LOGIT_TOL or any(top2[i, 1] - top2[i, 0] >= NEAR_TIE
+                                                   for i in ties):
+                raise AssertionError(f"shard decoder_lm_prefill vs the CPU run: {err}, "
+                                     f"next tokens differ at rows {ties}")
+            row[model].update(max_abs_logit_diff_vs_cpu=err, near_tie_rows=ties)
+
+    name, x, outputs = cases["decoder_lm_prefill"]
+    layout = ShardLayout([a.http_url, dead.http_url], inputs={name: 0}, outputs=outputs)
+    client = ShardedClient(PoolClient(layout.endpoints, protocol="http",
+                                      health_interval_s=None), layout)
+    try:
+        client.infer("decoder_lm_prefill", [wire(name, x)], client_timeout=10.0)
+    except ShardFailed as e:
+        row["killed_shard"] = {"shard": e.shard, "url": e.url,
+                               "cause": type(e.cause).__name__}
+        if (e.shard, e.url) != (1, dead.http_url):
+            raise AssertionError(f"ShardFailed named {row['killed_shard']}")
+    else:
+        raise AssertionError("a layout with a killed shard gathered")
+    finally:
+        client.close()
+    return row
+
+
+def vision_pipeline(size):
+    """``preprocess(raw_image) -> densenet_onnx(data_0)`` declared as a
+    pipeline over the children's vision models."""
+    return Pipeline(
+        name="vision",
+        stages=[Stage("preprocess", "preprocess", inputs={"raw_image": "$.IMAGE"},
+                      outputs={"preprocessed": ("FP32", [3, 224, 224])}),
+                Stage("classify", "densenet_onnx",
+                      inputs={"data_0": "preprocess.preprocessed"},
+                      outputs={"fc6_1": ("FP32", [1000, 1, 1])})],
+        inputs={"IMAGE": ("UINT8", list(size.image))},
+        outputs={"LOGITS": "classify.fc6_1"})
+
+
+def orch_pipeline(children, refs, size):
+    """Row 4: ``chain_pipeline()`` over the pool of the two children, bit-equal
+    to ``chain_fused`` on one child, no region created and no registration
+    issued after the first run, each run's peak arena residency the plan's
+    high water; then the vision pipeline on the first child against the CPU
+    run and against ensemble_image there."""
+    a, b = children[:2]
+    raw = refs["raw"]
+    with httpclient.InferenceServerClient(a.http_url) as c:
+        fused = c.infer("chain_fused", [httpclient.InferInput("RAW", list(raw.shape), "INT32")
+                                        .set_data_from_numpy(raw)]).as_numpy("SCORES")
+        ensemble = c.infer("ensemble_image", [httpclient.InferInput(
+            "IMAGE", list(refs["image"].shape), "UINT8").set_data_from_numpy(refs["image"])]
+        ).as_numpy("CLASSIFICATION").reshape(-1)
+    row = {"chain_max_abs_diff_vs_cpu": float(np.abs(fused - refs["chain_scores"]).max())}
+    if not np.allclose(fused, refs["chain_scores"], atol=1e-5, rtol=1e-5):
+        raise AssertionError(f"chain_fused vs the CPU run: {row}")
+    row["runs"] = []
+    client = PipelineClient([a.http_url, b.http_url], chain_pipeline(), protocol="http",
+                            health_interval_s=None)
+    try:
+        first = None
+        for i in range(size.chain_runs):
+            res = client.run({"RAW": raw})
+            if not np.array_equal(res.as_numpy("SCORES"), fused):
+                raise AssertionError(f"chain run {i}: SCORES differ from chain_fused")
+            if res.arena_high_water_bytes != res.plan_high_water_bytes:
+                raise AssertionError(f"chain run {i}: peak residency "
+                                     f"{res.arena_high_water_bytes} != plan "
+                                     f"{res.plan_high_water_bytes}")
+            row["runs"].append({"ms": res.duration_s * 1e3,
+                                "stage_ms": {k: v * 1e3 for k, v in res.stage_latency_s.items()}})
+            if first is None:
+                first = client.arena().stats()
+        last = client.arena().stats()
+        row["high_water_bytes"] = client.plan().high_water_bytes
+        row["steady_region_creates"] = last["regions_created"] - first["regions_created"]
+        row["steady_registrations"] = (last["registrations_issued"]
+                                       - first["registrations_issued"])
+        if row["steady_region_creates"] or row["steady_registrations"]:
+            raise AssertionError(f"chain steady state: {row}")
+    finally:
+        client.close()
+    client = PipelineClient([a.http_url], vision_pipeline(size), protocol="http",
+                            health_interval_s=None)
+    try:
+        res = client.run({"IMAGE": refs["image"]})
+        logits = res.as_numpy("LOGITS").reshape(-1)
+    finally:
+        client.close()
+    want = refs["image_logits"]
+    err = float(np.abs(logits - want).max())
+    row["vision"] = {"top1": int(logits.argmax()), "cpu_top1": int(want.argmax()),
+                     "max_abs_logit_diff_vs_cpu": err,
+                     "max_abs_diff_vs_ensemble_image": float(np.abs(logits - ensemble).max()),
+                     "high_water_bytes": res.plan_high_water_bytes}
+    if row["vision"]["top1"] != row["vision"]["cpu_top1"] or not err <= DECODER_LOGIT_TOL:
+        raise AssertionError(f"vision pipeline vs the CPU run: {row['vision']}")
+    return row
+
+
+def fleet_successes(children):
+    """Each child's success count summed over its models."""
+    out = []
+    for child in children:
+        with httpclient.InferenceServerClient(child.http_url) as c:
+            out.append(sum(r["inference_stats"]["success"]["count"]
+                           for r in c.get_inference_statistics()["model_stats"]))
+    return out
+
+
+def orch_records(kind, size):
+    if kind == "prefill_decode":
+        return [trace_mod.TraceRecord(at_s=i * 0.005, kind=kind, model="decoder_lm_kv_decode",
+                                      prompt_tokens=16, output_tokens=8,
+                                      prefill_role="prefill", decode_role="decode")
+                for i in range(size.records)]
+    return [trace_mod.TraceRecord(at_s=i * 0.005, kind=kind, model="chain",
+                                  shapes={"RAW": [1, 16]}, dtypes={"RAW": "INT32"})
+            for i in range(size.records)]
+
+
+def orch_harness(children, size):
+    """Row 5: ``PerfRunner`` with ``shard_layout`` (closed loop on
+    decoder_lm_prefill), ``roles`` and ``pipeline="chain"`` (replays of their
+    record kind), each at ``size.concurrency``, then the replay of a mixed
+    trace with every orchestration kind. 0 errors, and the children's
+    success counts equal to the wire requests sent (per child where the
+    routing is fixed: shard i and the role endpoints)."""
+    a, b = children[:2]
+    urls = [a.http_url, b.http_url]
+    rows = {}
+
+    def counted(name, fn, expect):
+        """``fn``'s row; ``expect(row)`` gives the wire requests it sent in
+        all and, where the routing is fixed, to each child."""
+        before = fleet_successes(children[:2])
+        out = fn()
+        got = [x - y for x, y in zip(fleet_successes(children[:2]), before)]
+        total, per_child = expect(out)
+        if sum(got) != total or (per_child is not None and got != per_child):
+            raise AssertionError(f"harness {name}: children succeeded {got}, sent {total} "
+                                 f"({per_child})")
+        rows[name] = {"rows": out, "children_successes": got}
+
+    def shard_loop():
+        runner = PerfRunner(a.http_url, "http", "decoder_lm_prefill", "none",
+                            {"TOKENS": [size.shard_rows, size.shard_len]}, endpoints=urls,
+                            shard_layout=SHARD_SPEC, device="cpu")
+        try:
+            levels = [runner.run(c, size.perf_requests) for c in size.concurrency]
+        finally:
+            runner.close()
+            if runner._arena is not None:
+                runner._arena.close(force=True)
+        return [{k: r[k] for k in ("concurrency", "requests", "errors", "shed",
+                                   "infer_per_sec", "latency_ms")} for r in levels]
+
+    def shard_sent(levels):
+        n = sum(r["requests"] + r["errors"] + r["shed"] for r in levels)
+        return 2 * n, [n, n]  # one request a shard
+
+    counted("shard_layout", shard_loop, shard_sent)
+
+    def replay(kind, **kwargs):
+        def go():
+            runner = PerfRunner(a.http_url, "http", "simple", device="cpu", **kwargs)
+            try:
+                out = []
+                for workers in size.concurrency:
+                    res = runner.run_trace(trace_mod.Trace(header={}, records=orch_records(
+                        kind, size)), replay_workers=workers, warmup=False)
+                    out.append({k: res[k] for k in ("issued", "errors", "shed", "latency_ms",
+                                                    "achieved_rps")
+                                if k in res} | {"workers": workers,
+                                                "ok": res["kinds"][kind]["ok"],
+                                                "stages": res.get("pipeline_stages")})
+            finally:
+                runner.close()
+            if any(r["errors"] or r["shed"] or r["ok"] != size.records for r in out):
+                raise AssertionError(f"harness {kind}: {out}")
+            return out
+        return go
+
+    n = size.records * len(size.concurrency)
+    counted("roles", replay("prefill_decode", roles=f"prefill={a.http_url};decode={b.http_url}"),
+            lambda out: (2 * n, [n, n]))
+    counted("pipeline", replay("pipeline", endpoints=urls, pipeline="chain"),
+            lambda out: (3 * n, None))
+
+    trace = trace_mod.generate(size.mixed, seed=0)
+    counts = trace.kind_counts()
+    for kind in ("sharded", "prefill_decode", "pipeline"):
+        if not counts.get(kind):
+            raise AssertionError(f"mixed trace: no {kind} records ({counts})")
+
+    def mixed():
+        runner = PerfRunner(a.http_url, "http", "simple", endpoints=urls,
+                            shard_layout=SHARD_SPEC, pipeline="chain",
+                            roles=f"prefill={a.http_url};decode={b.http_url}", device="cpu")
+        try:
+            res = runner.run_trace(trace, speed=4.0, replay_workers=8, warmup=False)
+        finally:
+            runner.close()
+            if runner._arena is not None:
+                runner._arena.close(force=True)
+        if res["errors"] or res["shed"] or any(
+                row["ok"] != counts[kind] for kind, row in res["kinds"].items()):
+            raise AssertionError(f"mixed replay: {res['kinds']} of {counts}; "
+                                 f"{res.get('error_sample')}")
+        return {"kinds": {k: {"ok": r["ok"], "latency_ms": r["latency_ms"]}
+                          for k, r in res["kinds"].items()},
+                "pipeline_stages": res.get("pipeline_stages")}
+
+    counted("mixed replay", mixed,
+            lambda out: (sum(RECORD_REQUESTS[k] * n for k, n in counts.items()), None))
+    rows["mixed replay"]["records"] = counts
+    return rows
+
+
+def serve_orchestration(device="cuda", size=ORCH, start_children=None):
+    """Phase 10: ``client_tpu_torch.disagg``, ``shard`` and ``pipeline`` over
+    four ``serve`` children on ``device`` (``SERVE_ARGS``, threaded HTTP),
+    started at once; this process the client. The first two serve every
+    row and drain at the end; the other two are the victims SIGKILLed in
+    rows 2 and 3. ``start_children`` (tests) returns the four instead. Each
+    output is held against the CPU run of the port with the same seeded
+    weights. This process launches nothing. Each drained child's report
+    holds its launches to its executions: decode_attention = layers x its
+    decoder steps, normalize_image = its preprocess and ensemble_image
+    executions, flash_attention = its encoder's."""
+    on_card = torch.device(device).type == "cuda"
+    t_phase = time.perf_counter()
+    if start_children is None:
+        children = [ServeChild(device, "threaded") for _ in range(4)]
+    else:
+        children = start_children()
+    result = {"size": size._asdict(), "rows": {}, "client_counts": {}, "steps_s": {}}
+    rows = result["rows"]
+    reports = []
+    try:
+        t = time.perf_counter()
+        refs = orchestration_references(size)
+        result["steps_s"]["cpu references"] = time.perf_counter() - t
+        t = time.perf_counter()
+        for child in children:
+            child.wait_ready()
+        result["steps_s"]["children ready"] = time.perf_counter() - t
+        result["urls"] = [c.http_url for c in children]
+
+        def row(name, fn, *args):
+            reset_counts()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            result["steps_s"][name] = time.perf_counter() - t0
+            counts = read_counts()
+            if any(counts.values()):
+                raise AssertionError(f"orchestration row {name}: this process launched "
+                                     f"{counts}")
+            result["client_counts"][name] = counts
+            return out
+
+        rows["disagg"] = row("disagg", orch_disagg, children, refs, size)
+        rows["pipeline"] = row("pipeline", orch_pipeline, children, refs, size)
+        rows["harness"] = row("harness", orch_harness, children, size)
+        rows["recovery"] = row("recovery", orch_recovery, children, refs, size)
+        rows["shard"] = row("shard", orch_shard, children, refs, size, children[2])
+        t = time.perf_counter()
+        for child in children[:2]:
+            child.sigterm()
+        reports = [child.finish(t, 15.0) for child in children[:2]]
+    finally:
+        for child in children:
+            child.kill()
+    result["reports"] = reports
+
+    expected = []
+    for i, report in enumerate(reports):
+        ex = report["executions"]
+        want = {"decode_attention": report["layers"] * report["decoder_steps"],
+                "flash_attention": ex["long_context_encoder"],
+                "normalize_image": ex["preprocess"] + ex["ensemble_image"]}
+        expected.append(want)
+        if report["rounds"] or any(report["failures"].values()):
+            raise AssertionError(f"orchestration child {i}: batched rounds {report['rounds']}, "
+                                 f"failures {report['failures']}")
+        if report.get("launches") is not None:
+            got = {k: want.get(k, 0) if on_card else 0 for k in COUNTERS}
+            if report["launches"] != got:
+                raise AssertionError(f"orchestration child {i} launches {report['launches']}, "
+                                     f"expected {got}")
+            card = torch.cuda.get_device_name(0) if on_card else str(torch.device(device))
+            if report["device"] != card:
+                raise AssertionError(f"orchestration child {i} ran on {report['device']}, "
+                                     f"not {card}")
+    if not all(e["decode_attention"] for e in expected) or not expected[0]["normalize_image"]:
+        raise AssertionError(f"orchestration phase: a kernel's path did not run: {expected}")
+    result["launch_counts"] = [r.get("launches") for r in reports]
+    result["expected_launches"] = expected
+    result["seconds"] = time.perf_counter() - t_phase
+    return result
+
+
 def device_kernels(prof):
     """Device time by kernel in a torch.profiler trace, largest first."""
     kernels = []
@@ -4830,6 +5508,7 @@ def main(argv) -> int:
     harness["seconds"] = time.perf_counter() - t_phase
     process = serve_process()
     pool = serve_pool()
+    orchestration = serve_orchestration()
     for row in served["identity"]:
         log(f"identity_fp32 {row['bytes'] // MIB} MiB p50: wire {row['wire_p50_ms']:.3f} ms, "
             f"system shm {row['system_shm_p50_ms']:.3f} ms, "
@@ -5156,6 +5835,47 @@ def main(argv) -> int:
     def pool_launches(kernel):
         return [row[kernel] for row in pool["launch_counts"]]
 
+    orch = orchestration["rows"]
+    log(f"orchestration phase: {orchestration['seconds']:.1f} s (children ready after "
+        f"{orchestration['steps_s']['children ready']:.1f} s); rows "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in orchestration["steps_s"].items()) + f"; {card}")
+    dg = orch["disagg"]
+    log(f"orchestration disagg (prefill child 1, decode child 2, V=256 D=128 H=4 L=2 "
+        f"MAX_LEN=128): {len(dg['sessions'])} prompts of {ORCH.prompt_len} tokens x "
+        f"{ORCH.max_tokens} tokens = tiny_lm_generate on child 1, near ties vs the CPU run "
+        f"{dg['near_ties']}; session ms "
+        + ", ".join(f"{s['ms']:.1f}" for s in dg["sessions"])
+        + f"; steady state {dg['steady_region_creates']} region creates, "
+        f"{dg['steady_registrations']} registrations (family {dg['family']}); aio equal; "
+        f"tampered slab -> HandoffCorrupt({dg['tampered']['field']}), a tampered session "
+        f"{dg['tampered_session']['tokens_before']} tokens before the refusal; {card}")
+    rc = orch["recovery"]
+    log(f"orchestration recovery: decode legs {rc['decode_legs']} (the victim SIGKILLed after "
+        f"{ORCH.kill_after} tokens), resumed on {rc['resumed_on']}, every index once, tokens "
+        f"= monolithic; lone decode replica killed -> DecodeAbandoned {rc['abandoned']}")
+    sh = orch["shard"]
+    log(f"orchestration shard: decoder_lm_prefill {sh['decoder_lm_prefill']['rows']} rows over "
+        f"{sh['decoder_lm_prefill']['bounds']} bit-equal to the per-shard calls, vs one call "
+        f"{sh['decoder_lm_prefill']['max_abs_diff_vs_one_call']}; batched_matmul "
+        f"{sh['batched_matmul']['max_abs_diff_vs_one_call']}; a SIGKILLed shard -> "
+        f"ShardFailed {sh['killed_shard']}")
+    pl = orch["pipeline"]
+    log(f"orchestration pipeline: chain over two children x {len(pl['runs'])} runs = "
+        f"chain_fused, run ms " + ", ".join(f"{r['ms']:.2f}" for r in pl["runs"])
+        + f", high water {pl['high_water_bytes']} B = peak residency, steady state "
+        f"{pl['steady_region_creates']} creates / {pl['steady_registrations']} registrations; "
+        f"vision pipeline top-1 {pl['vision']['top1']} = CPU {pl['vision']['cpu_top1']}, max "
+        f"logit diff vs CPU {pl['vision']['max_abs_logit_diff_vs_cpu']:.4g}, vs ensemble_image "
+        f"on the child {pl['vision']['max_abs_diff_vs_ensemble_image']:.4g}; {card}")
+    for name, hrow in orch["harness"].items():
+        log(f"orchestration harness {name}: children successes {hrow['children_successes']}; "
+            + json.dumps(hrow["rows"]) + f"; {card}")
+    log("orchestration launches by child: " + json.dumps(orchestration["launch_counts"])
+        + " = expected " + json.dumps(orchestration["expected_launches"]))
+
+    def orchestration_launches(kernel):
+        return [row[kernel] for row in orchestration["launch_counts"]]
+
     main_row = timed[0]
     kernels = [{
         "name": "decode_attention",
@@ -5187,6 +5907,7 @@ def main(argv) -> int:
         "harness_launches_by_path": harness_launches("decode_attention"),
         "process_launches": process_launches("decode_attention"),
         "pool_launches": pool_launches("decode_attention"),
+        "orchestration_launches": orchestration_launches("decode_attention"),
         "batched_shape": batched_timed,
     }]
     flash_row = flash_timed[0]
@@ -5207,6 +5928,7 @@ def main(argv) -> int:
         "harness_launches_by_path": harness_launches("flash_attention"),
         "process_launches": process_launches("flash_attention"),
         "pool_launches": pool_launches("flash_attention"),
+        "orchestration_launches": orchestration_launches("flash_attention"),
         "shape": flash_row["shape"],
         "dtype": flash_row["dtype"],
         "at_shapes": flash_timed[1:],
@@ -5245,6 +5967,7 @@ def main(argv) -> int:
             **({"redesigned": REDESIGNED[name]} if name in REDESIGNED else {}),
             "process_launches": process_launches(name),
             "pool_launches": pool_launches(name),
+            "orchestration_launches": orchestration_launches(name),
             "n": wire_row["n"],
             "at_shapes": [{"n": row["n"], **row[name.split("_")[0]]}
                           for row in quant_timed[1:]]
@@ -5281,6 +6004,7 @@ def main(argv) -> int:
             "harness_launches_by_path": harness_launches(name),
             "process_launches": process_launches(name),
             "pool_launches": pool_launches(name),
+            "orchestration_launches": orchestration_launches(name),
             "shape": row["shape"],
             "at_shapes": timed_rows[1:],
         })
@@ -5300,7 +6024,7 @@ def main(argv) -> int:
                    "host_breakdown": breakdown,
                    "served": served, "vision": vision, "grpc": grpc_served,
                    "resilience": resilience, "harness": harness, "process": process,
-                   "pool": pool,
+                   "pool": pool, "orchestration": orchestration,
                    "kernels": kernels}, f, indent=1)
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -1,7 +1,7 @@
 """The model zoo of the PyTorch port (the counterpart of ``client_tpu.models``):
 the fixture contracts, ``batched_matmul``, the decoder family (``decoder_lm``,
 ``tiny_lm_generate``, ``decoder_lm_batched``, ``decoder_lm_prefill`` and the
-disagg pair), the long-context encoder and the vision path, on a torch
+disagg pair), the ``chain_*`` pipeline fixtures, the long-context encoder and the vision path, on a torch
 device. ``long_context_encoder`` and the vision models are not in
 :func:`default_model_zoo` (as in the JAX package): add a
 :class:`LongContextEncoderModel`, or the three models of
@@ -12,6 +12,13 @@ modules."""
 
 from .base import Model, TensorSpec
 from .batched import BatchedMatMulModel
+from .chain import (
+    ChainCore,
+    ChainEmbedModel,
+    ChainFusedModel,
+    ChainRerankModel,
+    ChainTokenizeModel,
+)
 from .decoder import TinyDecoderModel, draw_params, load_jax_params
 from .decoder_batched import BatchedDecoderModel
 from .decoder_prefill import PrefillDecoderModel
@@ -33,6 +40,11 @@ __all__ = [
     "AddSubModel",
     "BatchedDecoderModel",
     "BatchedMatMulModel",
+    "ChainCore",
+    "ChainEmbedModel",
+    "ChainFusedModel",
+    "ChainRerankModel",
+    "ChainTokenizeModel",
     "DenseNetModel",
     "DisaggPrefillModel",
     "EnsembleModel",

@@ -196,11 +196,16 @@ class RepeatModel(Model):
 def default_model_zoo(device="cuda") -> List[Model]:
     """The fixture set every test and example expects to find on the server,
     on ``device``: the JAX package's ``default_model_zoo``, in its order,
-    but for the models that wait for a later item of ROADMAP.md queue A:
-    ``decoder_lm_tp_prefill`` ('Multi-device models and parallel/') and the
-    four ``chain_*`` models (with ``pipeline.py``, 'Orchestration and
-    operations layers')."""
+    but for ``decoder_lm_tp_prefill``, which waits for ROADMAP.md queue A's
+    'Multi-device models and parallel/'."""
     from .batched import BatchedMatMulModel
+    from .chain import (
+        ChainEmbedModel,
+        ChainFusedModel,
+        ChainRerankModel,
+        ChainTokenizeModel,
+        chain_core,
+    )
     from .decoder import TinyDecoderModel
     from .decoder_batched import BatchedDecoderModel
     from .decoder_prefill import PrefillDecoderModel
@@ -208,6 +213,7 @@ def default_model_zoo(device="cuda") -> List[Model]:
     from .generate import TinyGenerateModel
 
     decoder = TinyDecoderModel(device=device)
+    chain = chain_core(device)
     return [
         BatchedMatMulModel(device=device),
         AddSubModel(device=device),
@@ -230,4 +236,10 @@ def default_model_zoo(device="cuda") -> List[Model]:
         # so the split stream equals tiny_lm_generate's bit for bit
         DisaggPrefillModel(decoder=decoder),
         KvDecodeModel(decoder=decoder),
+        # the pipeline chain: three stages plus the fused reference, all
+        # over one shared ChainCore so DAG runs equal the single-model call
+        ChainTokenizeModel(chain),
+        ChainEmbedModel(chain),
+        ChainRerankModel(chain),
+        ChainFusedModel(chain),
     ]

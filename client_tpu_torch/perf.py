@@ -13,8 +13,13 @@ replica pool over ``--endpoints`` (``--routing``, ``--hedge``,
 ``--affinity-key``, ``--endpoint-limits``, ``--admission`` with
 ``--tenancy``; ``client_tpu_torch.pool``), the coalescing dispatcher
 (``--coalesce``, ``client_tpu_torch.batch``) and the hot-key layer
-(``--cache``, ``--singleflight``, ``client_tpu_torch.cache``). The
-result rows carry the JAX package's keys.
+(``--cache``, ``--singleflight``, ``client_tpu_torch.cache``), and the
+orchestration layers: sharded scatter-gather over the pool
+(``--shard-layout``, ``client_tpu_torch.shard``), and the replay of
+``prefill_decode`` records through a role-labeled ``DisaggClient``
+(``--roles``, ``client_tpu_torch.disagg``) and of ``pipeline`` records
+through a ``PipelineClient`` (``--pipeline``, ``client_tpu_torch.pipeline``).
+The result rows carry the JAX package's keys.
 
 Usage::
 
@@ -31,8 +36,8 @@ server is another process, so the CLI leases slabs that mirror each input
 into the host window, which that server reads (no CUDA IPC).
 
 Flags whose layers the port does not have yet raise ``NotImplementedError``
-naming their ROADMAP item: federation cells, shard layouts, roles,
-pipelines and ``--watch`` (A8); the native protocols (A10).
+naming their ROADMAP item: federation cells and ``--watch`` (A8); the
+native protocols (A10).
 """
 
 from __future__ import annotations
@@ -119,6 +124,32 @@ def _not_ported(flag: str, layer: str, item: str) -> NotImplementedError:
         f"(ROADMAP {item})")
 
 
+def _parse_roles_spec(spec: str) -> Dict[str, List[str]]:
+    """``"prefill=h1:8000+h2:8000;decode=h3:8000"`` -> ``{"prefill": [...],
+    "decode": [...]}``: ``;``-separated ``name=url+url`` groups, in
+    declaration order (the JAX package parses ``--roles`` with its
+    federation's cells parser; its messages are kept)."""
+    cells: Dict[str, List[str]] = {}
+    for part in spec.split(";"):
+        part = part.strip()
+        if not part:
+            continue
+        name, eq, urls = part.partition("=")
+        name = name.strip()
+        if not eq or not name:
+            raise ValueError(
+                f"malformed cell spec {part!r} (want name=url+url)")
+        if name in cells:
+            raise ValueError(f"duplicate cell name {name!r}")
+        url_list = [u.strip() for u in urls.split("+") if u.strip()]
+        if not url_list:
+            raise ValueError(f"cell {name!r} declares no urls")
+        cells[name] = url_list
+    if not cells:
+        raise ValueError("cells spec declares no cells")
+    return cells
+
+
 def _check_ported(protocol: str, flags: Dict[str, Any]) -> None:
     """Raise for the first requested flag whose layer is not ported."""
     layers = {
@@ -126,9 +157,6 @@ def _check_ported(protocol: str, flags: Dict[str, Any]) -> None:
         "--home-cell": ("federation cells (federation.FederatedClient)", "A8"),
         "--shadow-cell": ("federation cells (federation.FederatedClient)", "A8"),
         "--canary-cell": ("federation cells (federation.FederatedClient)", "A8"),
-        "--shard-layout": ("sharded scatter-gather (shard.ShardedClient)", "A8"),
-        "--roles": ("disaggregated serving (disagg.DisaggClient)", "A8"),
-        "--pipeline": ("model-DAG pipelines (pipeline.PipelineClient)", "A8"),
         "--watch": ("continuous monitoring (watch.Watchtower)", "A8"),
     }
     for flag, value in flags.items():
@@ -232,12 +260,22 @@ class PerfRunner:
         client in the hot-key layer (``client_tpu_torch.cache``) and add
         a ``client_cache`` block.
 
-        The federation, shard, roles, pipeline and watch arguments (A8)
-        and the native protocols (A10) raise ``NotImplementedError``."""
+        ``shard_layout``: a ``ShardLayout`` or its spec string
+        (``"IN=0->OUT=0"``) over ``endpoints`` in order; measurement
+        clients become ``ShardedClient``s over the pool
+        (``client_tpu_torch.shard``). ``roles``: a ``{role: [urls]}`` dict
+        or its spec string (``"prefill=u1+u2;decode=u3"``); trace replay
+        drives ``prefill_decode`` records through a ``DisaggClient`` over
+        them (``client_tpu_torch.disagg``). ``pipeline``: a ``Pipeline``
+        or its spec (``"chain"`` or an inline graph); trace replay drives
+        ``pipeline`` records through a ``PipelineClient``
+        (``client_tpu_torch.pipeline``).
+
+        The federation and watch arguments (A8) and the native protocols
+        (A10) raise ``NotImplementedError``."""
         _check_ported(protocol, {
             "--cells": cells, "--home-cell": home_cell, "--shadow-cell": shadow_cell,
-            "--canary-cell": canary_cell, "--shard-layout": shard_layout,
-            "--roles": roles, "--pipeline": pipeline, "--watch": watch,
+            "--canary-cell": canary_cell, "--watch": watch,
         })
         if shared_memory not in ("none", "system", "cuda"):
             raise ValueError(
@@ -283,8 +321,37 @@ class PerfRunner:
         self.cache_ttl_s = cache_ttl_s
         self.singleflight = singleflight
         self.affinity_key = affinity_key
+        # disaggregated prefill/decode (client_tpu_torch.disagg): a
+        # {role: [urls]} dict or its spec string
+        # ("prefill=u1+u2;decode=u3") labeling replay endpoints with
+        # serving roles; trace replay drives ``prefill_decode`` records
+        # (format v5) through a DisaggClient over them
+        if isinstance(roles, str):
+            roles = _parse_roles_spec(roles)
+        self.roles = roles
+        # client-orchestrated model-DAG replay (client_tpu_torch.pipeline):
+        # a Pipeline or its spec string ("chain" or an inline graph spec);
+        # trace replay drives ``pipeline`` records (format v6) through a
+        # PipelineClient over the replay endpoints
+        if isinstance(pipeline, str):
+            from .pipeline import resolve_pipeline
+
+            pipeline = resolve_pipeline(pipeline)
+        self.pipeline = pipeline
         self.validate = validate
         self.seed = seed
+        # sharded scatter-gather (client_tpu_torch.shard): a ShardLayout or
+        # a spec string ("IN=0->OUT=0") resolved over --endpoints in order;
+        # measurement clients become ShardedClients over the pool
+        if isinstance(shard_layout, str):
+            from .shard import ShardLayout
+
+            if not endpoints:
+                raise ValueError(
+                    "--shard-layout requires --endpoints: each shard is "
+                    "pinned to one replica url")
+            shard_layout = ShardLayout.parse(shard_layout, list(endpoints))
+        self.shard_layout = shard_layout
         self.device = torch.device(device)
         self.colocated = colocated
         # orca_weighted routing needs the frontends to OPT IN to the ORCA
@@ -331,6 +398,21 @@ class PerfRunner:
             raise ValueError(
                 "--routing/--admission/--endpoint-limits require "
                 "--endpoints (pool-level policies)")
+        if self.shard_layout is not None:
+            if not self.endpoints:
+                raise ValueError(
+                    "--shard-layout requires --endpoints: each shard is "
+                    "pinned to one replica url")
+            if self.hedge or self.coalesce:
+                raise ValueError(
+                    "--shard-layout rejects --hedge and --coalesce: "
+                    "sharded requests never hedge (a hedge would race a "
+                    "replica holding a different partition) and never "
+                    "coalesce")
+            if generate_stream:
+                raise ValueError(
+                    "--shard-layout applies to unary/sharded infers, not "
+                    "--generate-stream")
         if self.coalesce:
             if shared_memory != "none":
                 raise ValueError(
@@ -349,6 +431,11 @@ class PerfRunner:
                 raise ValueError(
                     "--cache/--singleflight apply to unary infers, not "
                     "--generate-stream")
+            if self.shard_layout is not None:
+                raise ValueError(
+                    "--cache/--singleflight reject --shard-layout: a "
+                    "sharded logical request has per-replica partitions, "
+                    "not one cacheable answer")
         if self.affinity_key is not None and self.routing != "affinity":
             raise ValueError(
                 "--affinity-key requires --routing affinity (and "
@@ -403,8 +490,21 @@ class PerfRunner:
 
     def _make_client(self, concurrency: int = 1):
         if self.endpoints:
-            return self._wrap_caching(self._wrap_coalescing(
-                self._make_pool_client(concurrency)))
+            pool = self._make_pool_client(concurrency)
+            if self.shard_layout is not None:
+                from .shard import ShardedClient
+
+                # one ShardedClient per measurement client: logical infers
+                # scatter across the replica-pinned endpoints (the pool
+                # carries the arena so shards stage zero-copy). Every
+                # logical request holds n_shards fan-out threads, so the
+                # executor must admit the full worker concurrency or the
+                # harness would measure its own thread pool
+                return ShardedClient(
+                    pool, self.shard_layout,
+                    executor_workers=max(
+                        8, 2 * concurrency * self.shard_layout.n_shards))
+            return self._wrap_caching(self._wrap_coalescing(pool))
         if self.protocol == "http":
             client = self._client_mod.InferenceServerClient(
                 self.url, concurrency=concurrency)
@@ -449,6 +549,21 @@ class PerfRunner:
             telemetry=self._telemetry,
         )
 
+    def _shard_arena(self):
+        """One NON-promoting arena per runner for the sharded arms: the
+        scatter path leases fresh per-request slabs explicitly (safe), but
+        transparent promotion of the replay's SHARED cached InferInputs
+        would mutate one input's raw-data/shm-params state from many
+        workers at once — unsharded replay records must stay plain
+        binary."""
+        with self._arena_lock:
+            if self._arena is None:
+                from .arena import ShmArena
+
+                self._arena = ShmArena(promote_inputs=False,
+                                       name_prefix="perf_shard")
+            return self._arena
+
     def _make_pool_client(self, concurrency: int):
         from .pool import HedgePolicy, PoolClient
         from .resilience import RetryPolicy
@@ -484,6 +599,10 @@ class PerfRunner:
         return PoolClient(
             self.endpoints,
             protocol=self.protocol,
+            # sharded scatter staging rides the arena fast path (cached
+            # per-endpoint registrations; see client_tpu_torch.shard)
+            shm_arena=self._shard_arena() if self.shard_layout is not None
+            else None,
             client_factory=factory,
             routing=self.routing or "round_robin",
             health_interval_s=0.5,
@@ -1230,8 +1349,11 @@ class PerfRunner:
         Tenant-attributed records (format v4) pass their tenant to the
         client stack and the row gains per-tenant ``tenants`` counts;
         with ``routing="affinity"`` keyed records route by their
-        ``content_key``. ``sharded``, ``prefill_decode`` and ``pipeline``
-        records (ROADMAP A8) raise ``NotImplementedError``."""
+        ``content_key``. ``sharded`` records scatter through the
+        ``shard_layout``; ``prefill_decode`` records run as two-leg
+        sessions through a ``DisaggClient`` over ``roles``; ``pipeline``
+        records run as DAGs through a ``PipelineClient`` over the replay
+        endpoints, and the row gains a ``pipeline_stages`` waterfall."""
         from .observe import SLO, SLOSpec, parse_slo_spec, Telemetry
         from .trace import Trace
 
@@ -1249,16 +1371,35 @@ class PerfRunner:
         if not records:
             raise ValueError("empty trace")
         records = sorted(records, key=lambda r: r.at_s)
-        for kind, layer in (("sharded", "sharded scatter-gather (shard.ShardedClient)"),
-                            ("prefill_decode", "disaggregated serving (disagg.DisaggClient)"),
-                            ("pipeline", "model-DAG pipelines (pipeline.PipelineClient)")):
-            if any(r.kind == kind for r in records):
-                raise _not_ported(f"replaying {kind} records", layer, "A8")
         if (any(r.kind == "generate_stream" for r in records)
                 and self.protocol != "http"):
             raise ValueError(
                 "trace contains generate_stream records: the generate "
                 "extension is an HTTP SSE surface (use -i http)")
+        if (any(r.kind == "sharded" for r in records)
+                and self.shard_layout is None):
+            raise ValueError(
+                "trace contains sharded records: configure --shard-layout "
+                "(with --endpoints) so the replayer can scatter them "
+                "(client_tpu_torch.shard)")
+        if any(r.kind == "prefill_decode" for r in records):
+            if self.protocol != "http":
+                raise ValueError(
+                    "trace contains prefill_decode records: the decode "
+                    "leg is an HTTP SSE surface (use -i http)")
+            if not self.roles:
+                raise ValueError(
+                    "trace contains prefill_decode records: configure "
+                    "--roles 'prefill=u1;decode=u2' so the replayer can "
+                    "build a DisaggClient over role-labeled endpoints "
+                    "(client_tpu_torch.disagg)")
+        if (any(r.kind == "pipeline" for r in records)
+                and self.pipeline is None):
+            raise ValueError(
+                "trace contains pipeline records: configure --pipeline "
+                "('chain' or an inline graph spec) so the replayer can "
+                "run them as client-orchestrated DAGs "
+                "(client_tpu_torch.pipeline)")
         specs: List[SLOSpec] = [
             spec if isinstance(spec, SLOSpec) else parse_slo_spec(spec)
             for spec in slos]
@@ -1294,16 +1435,40 @@ class PerfRunner:
                     spec.objective, window_s=window_s)
 
         try:
-            return self._run_trace_workers(
+            return self._run_trace_measured(
                 header, records, speed, replay_workers, specs, on_result,
-                warmup, trace_duration, request_slos,
-                _ReplayResources(self, records))
+                warmup, trace_duration, request_slos)
         finally:
             if not self.observe:
                 # the per-run Telemetry must not leak into later run()/
                 # run_rate() calls on a runner that never asked for
                 # telemetry — on ANY exit path, including errors
                 self._telemetry = None
+
+    def _run_trace_measured(self, header, records, speed, replay_workers,
+                            specs, on_result, warmup, trace_duration,
+                            request_slos) -> Dict[str, Any]:
+        resources = _ReplayResources(self, records)
+        if any(r.kind == "prefill_decode" for r in records):
+            # one role-labeled DisaggClient for the whole replay
+            # (telemetry-free: prefill_decode sessions feed request_ms
+            # SLOs per record, like unaries, so warmup sessions land
+            # nothing in the per-run Telemetry)
+            resources.disagg = self._make_disagg_client()
+        if any(r.kind == "pipeline" for r in records):
+            # one PipelineClient (own pool, arena-backed) for the whole
+            # replay; per-stage latencies land in the resources and
+            # surface as the result row's ``pipeline_stages`` waterfall
+            resources.pipeline = self._make_pipeline_client()
+        try:
+            return self._run_trace_workers(
+                header, records, speed, replay_workers, specs, on_result,
+                warmup, trace_duration, request_slos, resources)
+        finally:
+            if resources.disagg is not None:
+                resources.disagg.close()
+            if resources.pipeline is not None:
+                resources.pipeline.close()
 
     def _run_trace_workers(self, header, records, speed, replay_workers,
                            specs, on_result, warmup, trace_duration,
@@ -1324,6 +1489,8 @@ class PerfRunner:
             finally:
                 warm_client.close()
                 self._telemetry = saved_telemetry
+            # warmup DAG runs must not land in the measured waterfall
+            resources.pipeline_stage_s.clear()
         # capture AFTER warmup: warmup traffic is contract-checked too
         # and must not pollute the measured row's validation delta
         integrity_before = self._integrity_stats()
@@ -1334,6 +1501,8 @@ class PerfRunner:
             wait_healthy = getattr(client, "wait_healthy", None)
             if wait_healthy is not None:
                 wait_healthy(timeout_s=10.0)
+            if resources.disagg is not None:
+                resources.disagg.wait_healthy(timeout_s=10.0)
             outcomes: List[Tuple[str, str, float, float, float,
                                  Optional[str], Optional[str],
                                  Optional[float]]] = []
@@ -1390,7 +1559,10 @@ class PerfRunner:
             done.add(key)
             try:
                 if rec.kind == "sequence":
-                    client.infer(
+                    # same unwrap as _replay_dispatch: a ShardedClient
+                    # types-rejects sequence kwargs, and a swallowed
+                    # rejection here would silently skip the warmup
+                    getattr(client, "inner", client).infer(
                         rec.model, resources.inputs_for(rec),
                         sequence_id=999979,
                         sequence_start=True, sequence_end=True)
@@ -1446,7 +1618,14 @@ class PerfRunner:
                 outcome = e
                 errors.append(f"{rec.kind}: {e}")
             except Exception as e:  # measured as failure, replay continues
-                status = "error"
+                # a sharded logical request wraps its per-shard failure in
+                # ShardFailed; a breaker-open/admission cause underneath is
+                # still a SHED, not an error — same classification contract
+                # as the unsharded kinds
+                cause = getattr(e, "cause", None)
+                status = ("shed" if isinstance(
+                    cause, (CircuitOpenError, AdmissionRejected))
+                    else "error")
                 outcome = e
                 errors.append(f"{rec.kind}: {e}")
             finally:
@@ -1464,8 +1643,10 @@ class PerfRunner:
                         gate.next = max(gate.next, rec.seq_index + 1)
                         gate.cond.notify_all()
             # shed attribution rides the outcome tuple: the typed
-            # rejection's reason and honest retry_after hint
-            shed_exc = outcome if status == "shed" else None
+            # rejection's reason and honest retry_after hint (possibly
+            # wrapped in a sharded failure's ``cause``)
+            shed_exc = (getattr(outcome, "cause", None) or outcome
+                        if status == "shed" else None)
             outcomes.append(
                 (rec.kind, status, time.perf_counter() - t1, lag,
                  rec.at_s / speed, getattr(rec, "tenant", None),
@@ -1494,7 +1675,54 @@ class PerfRunner:
             return {"tenant": tenant}
         return {}
 
+    def _make_disagg_client(self):
+        """The replay's disaggregated client: a DisaggClient over the
+        ``--roles`` urls (role-labeled) plus any role-less ``--endpoints``
+        (eligible only for the monolithic fallback path)."""
+        from .disagg import DisaggClient
+        from .pool import EndpointSpec
+
+        role_by_url = {u: role for role, urls in self.roles.items()
+                       for u in urls}
+        urls = list(dict.fromkeys(
+            [u for role_urls in self.roles.values() for u in role_urls]
+            + (self.endpoints or [])))
+        specs = [EndpointSpec(u, role=role_by_url.get(u)) for u in urls]
+        return DisaggClient(specs, protocol=self.protocol)
+
+    def _make_pipeline_client(self):
+        """The replay's DAG executor: a PipelineClient over the replay
+        endpoints (its own arena-backed pool, so intermediate handoffs
+        ride cached shm registrations exactly like production runs)."""
+        from .pipeline import PipelineClient
+
+        urls = list(self.endpoints) if self.endpoints else [self.url]
+        return PipelineClient(urls, self.pipeline,
+                              protocol=self.protocol)
+
     def _replay_dispatch(self, client, rec, resources):
+        if rec.kind == "sharded":
+            # the measurement client IS the ShardedClient in shard mode
+            return client.infer(
+                rec.model, resources.inputs_for(rec),
+                model_version=rec.version,
+                **self._replay_tenant_kw(rec))
+        if rec.kind == "prefill_decode":
+            # the disagg session runs on its own role-labeled pool; the
+            # measurement client plays no part in either leg
+            tokens = resources.tokens_for(
+                rec.prompt_tokens, getattr(rec, "content_key", None))
+            return list(resources.disagg.generate_stream(
+                tokens, max_tokens=int(rec.output_tokens)))
+        if rec.kind == "pipeline":
+            # the DAG runs on its own arena-backed pool; the measurement
+            # client plays no part in the stage dispatches
+            res = resources.pipeline.run(resources.feeds_for(rec))
+            resources.record_pipeline(res)
+            return res
+        # non-sharded kinds bypass the scatter-gather wrapper (a sharded
+        # client types-rejects streams and would scatter plain unaries)
+        client = getattr(client, "inner", client)
         if rec.kind == "generate_stream":
             events = []
             for event in client.generate_stream(
@@ -1671,6 +1899,15 @@ class PerfRunner:
             "slo": slo_rows,
             "slo_ok": all(row["attained"] for row in slo_rows),
         }
+        if resources.pipeline_stage_s:
+            # only when the trace carried pipeline records: the per-stage
+            # latency waterfall across every measured DAG run
+            result["pipeline_stages"] = {
+                stage: dict(count=len(vals),
+                            **_latency_ms_row(sorted(vals)))
+                for stage, vals in
+                sorted(resources.pipeline_stage_s.items())
+            }
         if tenant_rows:
             # only when the trace carried tenant-attributed records:
             # tenantless replays keep byte-identical result rows
@@ -1724,10 +1961,22 @@ class _ReplayResources:
         self._inputs: Dict[Any, list] = {}
         self._tokens: Dict[Any, list] = {}
         self.seq_gates: Dict[int, _SeqGate] = {}
+        # the replay's DisaggClient (set by the runner when the trace
+        # carries prefill_decode records; closed by the runner)
+        self.disagg = None
+        # the replay's PipelineClient + per-stage latency accumulator
+        # (set by the runner when the trace carries pipeline records)
+        self.pipeline = None
+        self.pipeline_stage_s: Dict[str, List[float]] = {}
+        self._pipeline_lock = threading.Lock()
+        self._feeds: Dict[Any, Dict[str, Any]] = {}
         for rec in records:
+            if rec.kind == "pipeline":
+                self.feeds_for(rec)
+                continue
             if rec.kind == "sequence":
                 self.seq_gates.setdefault(rec.seq_group, _SeqGate())
-            elif rec.kind == "generate_stream":
+            elif rec.kind in ("generate_stream", "prefill_decode"):
                 self.tokens_for(rec.prompt_tokens,
                                 getattr(rec, "content_key", None))
             if rec.shapes is not None:
@@ -1758,6 +2007,27 @@ class _ReplayResources:
                 inputs.append(inp)
             self._inputs[key] = inputs
         return inputs
+
+    def feeds_for(self, rec) -> Dict[str, Any]:
+        """One deterministic ndarray feed dict per distinct pipeline
+        record layout (PipelineClient.run() takes host arrays, not
+        InferInputs — the client owns the wire staging)."""
+        key = (rec.model,
+               tuple(sorted((name, rec.dtypes[name], tuple(shape))
+                            for name, shape in rec.shapes.items())))
+        feeds = self._feeds.get(key)
+        if feeds is None:
+            feeds = {
+                name: _random_tensor(rec.dtypes[name],
+                                     list(rec.shapes[name]), self._rng)
+                for name in sorted(rec.shapes)}
+            self._feeds[key] = feeds
+        return feeds
+
+    def record_pipeline(self, result) -> None:
+        with self._pipeline_lock:
+            for stage, lat_s in result.stage_latency_s.items():
+                self.pipeline_stage_s.setdefault(stage, []).append(lat_s)
 
     def tokens_for(self, prompt_tokens: int, content_key=None) -> list:
         key = (prompt_tokens, content_key)
@@ -1971,12 +2241,33 @@ def main(argv: Optional[List[str]] = None) -> int:
         "--slo", action="append", default=[],
         help="declare an SLO for the replay verdict (repeatable): "
              "ttft_p95<200ms, p99<50ms, itl_p99<20ms, error_rate<0.1%%")
+    parser.add_argument(
+        "--shard-layout", default=None,
+        help="scatter-gather every infer across --endpoints per this "
+             "layout spec, e.g. 'TOKENS=0->LOGITS=0,NEXT_TOKEN=0' "
+             "(tensor=axis pairs, 'r' = replicated, inputs->outputs; "
+             "shard i pins to the i-th --endpoints url; rejects --hedge/"
+             "--coalesce; also required to replay 'sharded' trace "
+             "records — see client_tpu_torch.shard)")
+    parser.add_argument(
+        "--roles", default=None, metavar="SPEC",
+        help="role-labeled endpoints for disaggregated prefill/decode "
+             "replay: 'prefill=u1+u2;decode=u3' builds a DisaggClient "
+             "over them so 'prefill_decode' trace records (format v5) "
+             "replay as two-leg sessions (client_tpu_torch.disagg)")
+    parser.add_argument(
+        "--pipeline", default=None, metavar="SPEC",
+        help="model-DAG spec for replaying 'pipeline' trace records "
+             "(format v6) as client-orchestrated graphs with "
+             "arena-resident intermediates: 'chain' (the zoo's "
+             "tokenize->embed->rerank chain) or an inline graph spec "
+             "(client_tpu_torch.pipeline); result rows gain per-stage "
+             "latency columns under 'pipeline_stages'")
     # the JAX harness's flags whose layers are not ported: accepted, and
     # PerfRunner raises NotImplementedError naming their ROADMAP item
     not_ported = parser.add_argument_group(
         "not ported yet", "raise NotImplementedError (ROADMAP A8)")
-    for flag in ("--shard-layout", "--cells", "--home-cell", "--shadow-cell",
-                 "--canary-cell", "--roles", "--pipeline"):
+    for flag in ("--cells", "--home-cell", "--shadow-cell", "--canary-cell"):
         not_ported.add_argument(flag, default=None)
     not_ported.add_argument("--watch", action="store_true")
     args = parser.parse_args(argv)

@@ -14,7 +14,7 @@ Ctrl-C stops it at once. SIGTERM drains: ``v2/health/ready`` and
 in-flight requests finish, then the listeners close.
 
 The zoo is the port's ``default_model_zoo``: the JAX package's but for
-``decoder_lm_tp_prefill`` and the four ``chain_*`` models. ``--moe``,
+``decoder_lm_tp_prefill``. ``--moe``,
 ``--tensor-parallel`` above 1 and the mesh modes of ``--attention`` (ring,
 ulysses, auto) wait for ROADMAP.md A9 and exit non-zero before any listener
 opens; ``--attention`` defaults to ``flash``, the one-card kernel.

@@ -47,7 +47,10 @@ def _generate_core_request(model, payload: Any) -> Dict[str, Any]:
     """Map a generate-extension JSON payload onto a core infer request.
 
     'id' and 'parameters' are reserved; every other key names an input
-    tensor whose value is a JSON scalar or (nested) list. Shapes are
+    tensor whose value is a JSON scalar or (nested) list, or an object
+    referencing a registered shared-memory region (``shared_memory_region``,
+    ``shared_memory_byte_size``, ``shared_memory_offset`` and an explicit
+    ``shape``), resolved by the core like infer's shm parameters. Shapes are
     conformed to the model's metadata by prepending singleton dims
     ([1,2,3] -> [1,3] for an INT32[1,-1] input).
     """
@@ -67,6 +70,30 @@ def _generate_core_request(model, payload: Any) -> Dict[str, Any]:
         if spec is None:
             raise InferError(
                 f"unexpected generate input '{key}' for model '{model.name}'", 400)
+        if isinstance(value, dict):
+            if "shared_memory_region" not in value:
+                raise InferError(
+                    f"generate input '{key}': object values must carry a "
+                    "'shared_memory_region' reference", 400)
+            shape = value.get("shape")
+            if (not isinstance(shape, list) or not shape
+                    or not all(isinstance(d, int) and not isinstance(d, bool)
+                               and d >= 0 for d in shape)):
+                raise InferError(
+                    f"generate input '{key}': a shared-memory reference "
+                    "needs an explicit 'shape' (list of non-negative "
+                    "ints) — raw region bytes carry no shape", 400)
+            req["inputs"].append({
+                "name": key,
+                "datatype": spec.datatype,
+                "shape": list(shape),
+                "shm": (
+                    value["shared_memory_region"],
+                    value.get("shared_memory_byte_size", 0),
+                    value.get("shared_memory_offset", 0),
+                ),
+            })
+            continue
         if spec.datatype == "BYTES":
             shaped = np.asarray(value, dtype=object)
 

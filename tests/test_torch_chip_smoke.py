@@ -318,3 +318,162 @@ def test_pool_phase_on_cpu(monkeypatch):
     assert dict(by_row) == total and all(total.values())
     layers = result["reports"][0]["layers"]
     assert total["decode_attention"] == layers * (4 + SMALL_POOL.steps)
+
+
+# phase 10 at a small size: four port servers in this process, the last two
+# behind a ChaosProxy whose reset stands for the SIGKILL
+SMALL_ORCH = chip_smoke.OrchSize(
+    prompts=2, prompt_len=6, max_tokens=8, kill_after=3, abandon_after=2, shard_rows=4,
+    shard_len=5, matmul_rows=5, chain_runs=3, image=(64, 64, 3), concurrency=(1, 2),
+    perf_requests=4, records=4,
+    mixed=("mixed:duration_s=1,rate=16,stream_fraction=0.1,seq_fraction=0.1,"
+           "shard_fraction=0.25,shard_model=decoder_lm_prefill,disagg_fraction=0.25,"
+           "pipeline_fraction=0.25,max_prompt=8,max_output=4"))
+
+
+class CountingChild(InProcessChild):
+    """An in-process child whose report carries its decoder's steps."""
+
+    def __init__(self):
+        super().__init__()
+        decoder = self.core.model("decoder_lm")
+        plain, lock = decoder.step, threading.Lock()
+        self.steps = 0
+
+        def step(*args, **kwargs):
+            with lock:
+                self.steps += 1
+            return plain(*args, **kwargs)
+
+        decoder.step = step
+
+    def finish(self, t0, timeout):
+        return dict(super().finish(t0, timeout), decoder_steps=self.steps)
+
+
+class VictimChild(CountingChild):
+    """A child behind a proxy: ``kill`` resets its connections, the one in
+    flight and every later one, as a SIGKILLed process's port would."""
+
+    def wait_ready(self):
+        super().wait_ready()
+        from client_tpu_torch.testing import ChaosProxy
+
+        self.proxy = ChaosProxy("127.0.0.1", self.servers[0].port).start()
+        self.http_url = self.proxy.url
+        return self
+
+    def kill(self):
+        from client_tpu_torch.testing import Fault
+
+        self.proxy.fault = Fault("reset", after_bytes=0)
+        self.proxy.reset_active()
+
+    def stop(self):
+        self.proxy.stop()
+        for s in self.servers:
+            s.stop()
+
+
+def test_orchestration_phase_on_cpu(monkeypatch):
+    """``chip_smoke.serve_orchestration``: every row of phase 10 on four port
+    servers in this process. The plain normalize calls counted here over the
+    rows equal the drained children's expected normalize launches (their
+    preprocess and ensemble_image executions), and every plain decode call
+    of the test is one a layer of a decoder step: the four children's and
+    the CPU references' (a victim's stream may step on after its row, until
+    its writes fail)."""
+    import client_tpu_torch.integrity as integrity
+    import client_tpu_torch.models.decoder as decoder_mod
+    import client_tpu_torch.ops.image as image_mod
+
+    monkeypatch.setattr(integrity, "_DEFAULT_POLICY", integrity.IntegrityPolicy())
+    calls, totals = collections.Counter(), collections.Counter()
+    for mod, name in ((decoder_mod, "decode_attention"), (image_mod, "normalize_image")):
+
+        def counted(*args, _plain=getattr(mod, name), _name=name, **kwargs):
+            out = _plain(*args, **kwargs)
+            calls[_name] += 1
+            totals[_name] += 1
+            return out
+
+        monkeypatch.setattr(mod, name, counted)
+    by_row = collections.Counter()
+    reset_counts, read_counts = chip_smoke.reset_counts, chip_smoke.read_counts
+
+    def reset():
+        calls.clear()
+        reset_counts()
+
+    def read():
+        by_row.update(calls)
+        return read_counts()
+
+    monkeypatch.setattr(chip_smoke, "reset_counts", reset)
+    monkeypatch.setattr(chip_smoke, "read_counts", read)
+    children = [CountingChild(), CountingChild(), VictimChild(), VictimChild()]
+    try:
+        result = chip_smoke.serve_orchestration(device="cpu", size=SMALL_ORCH,
+                                                start_children=lambda: children)
+    finally:
+        for child in children[2:]:
+            child.stop()
+    rows = result["rows"]
+    urls = result["urls"]
+    dg = rows["disagg"]
+    assert dg["near_ties"] == [None] * SMALL_ORCH.prompts
+    assert (dg["steady_region_creates"], dg["steady_registrations"]) == (0, 0)
+    assert dg["tampered"]["field"] == "digest" and dg["tampered_session"]["tokens_before"] == 0
+    assert dg["aio_equal"] and dg["family"] == "system"
+    rc = rows["recovery"]
+    assert rc["decode_legs"][0] == urls[2] and rc["resumed_on"] == urls[1]
+    assert rc["abandoned"]["url"] == urls[3]
+    assert rc["abandoned"]["emitted"] == SMALL_ORCH.abandon_after
+    assert rows["shard"]["killed_shard"]["shard"] == 1
+    assert rows["shard"]["killed_shard"]["url"] == urls[2]
+    assert rows["shard"]["decoder_lm_prefill"]["max_abs_diff_vs_one_call"]["NEXT_TOKEN"] == 0
+    assert rows["shard"]["decoder_lm_prefill"]["near_tie_rows"] == []
+    assert rows["pipeline"]["chain_max_abs_diff_vs_cpu"] == 0
+    pl = rows["pipeline"]
+    assert pl["vision"]["top1"] == pl["vision"]["cpu_top1"]
+    assert pl["vision"]["max_abs_logit_diff_vs_cpu"] < 1e-4
+    assert (pl["steady_region_creates"], pl["steady_registrations"]) == (0, 0)
+    harness = rows["harness"]
+    assert set(harness) == {"shard_layout", "roles", "pipeline", "mixed replay"}
+    assert harness["roles"]["children_successes"] == [SMALL_ORCH.records * 2] * 2
+    assert all(v["ok"] for v in harness["mixed replay"]["rows"]["kinds"].values())
+    expected = result["expected_launches"]
+    assert by_row["normalize_image"] == sum(e["normalize_image"] for e in expected) > 0
+    layers = result["reports"][0]["layers"]
+    reference_steps = (SMALL_ORCH.prompts * (SMALL_ORCH.prompt_len + SMALL_ORCH.max_tokens - 1)
+                       + SMALL_ORCH.shard_rows * SMALL_ORCH.shard_len)
+    deadline = time.monotonic() + 10
+    while totals["decode_attention"] != layers * (sum(c.steps for c in children)
+                                                  + reference_steps):
+        assert time.monotonic() < deadline, (totals, [c.steps for c in children])
+        time.sleep(0.05)
+    assert sum(e["decode_attention"] for e in expected) == \
+        layers * (children[0].steps + children[1].steps) > 0
+    assert result["launch_counts"] == [None, None]
+
+
+def test_kernels_line_and_last_line_keep_the_contract():
+    """``main`` still prints the six kernels with every key of the contract,
+    and the ``{"ok": true, "device": {"platform": "gpu", ...}}`` line last;
+    without a card it fails before any of them."""
+    import inspect
+
+    source = inspect.getsource(chip_smoke.main)
+    for name in ("decode_attention", "flash_attention", "quantize_int8", "dequantize_int8",
+                 "normalize_image", "softmax_probabilities"):
+        assert f'"{name}"' in source
+    for key in ("route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
+                "bound_ms", "bound_by", "library_ms", "orchestration_launches"):
+        assert f'"{key}":' in source, key
+    lines = [line.strip() for line in source.rstrip().splitlines()]
+    k = lines.index('log(json.dumps({"kernels": kernels}))')
+    assert lines[k - 1] == "log(smi)"  # the card's name and power limit
+    assert '"ok": True' in lines[k + 1] and '"platform": "gpu"' in lines[k + 1]
+    assert lines[-1] == "return 0" and not any("log(" in line for line in lines[k + 2:])
+    if not torch.cuda.is_available():
+        assert chip_smoke.main([]) != 0

@@ -11,12 +11,16 @@ and registration counts must be equal. The routing and serving flags (the
 pool over both packages' HTTP servers, hedging, routing, admission with
 tenancy, endpoint limits, affinity, coalescing, the cache and singleflight)
 run in both runners, from ``PerfRunner`` and from the CLI, and a
-tenant-attributed trace replays with per-tenant rows. The flags whose layers
-the port does not have yet raise ``NotImplementedError`` naming their ROADMAP
-item, and ``python -m client_tpu_torch.perf -f json`` prints rows that
-parse.
+tenant-attributed trace replays with per-tenant rows. The orchestration
+flags run in both runners over each package's zoo servers: ``--shard-layout``
+scatters closed-loop infers, and ``sharded``, ``prefill_decode`` and
+``pipeline`` records replay through the shard layout, ``--roles`` and
+``--pipeline``. The flags whose layers the port does not have yet raise
+``NotImplementedError`` naming their ROADMAP item, and ``python -m
+client_tpu_torch.perf -f json`` prints rows that parse.
 """
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -74,6 +78,49 @@ def servers():
     yield made
     for server in made.values():
         server.stop()
+
+
+@pytest.fixture(scope="module")
+def zoo_servers():
+    """Two HTTP servers of each package's default zoo: {package: [url, url]}."""
+    from client_tpu.models import default_model_zoo as jax_zoo
+    from client_tpu_torch.models import default_model_zoo
+
+    made = {"port": [HttpInferenceServer(ServerCore(default_model_zoo("cpu"), device="cpu")).start()
+                     for _ in range(2)],
+            "jax": [JaxHttpServer(JaxCore(jax_zoo())).start() for _ in range(2)]}
+    yield {pkg: [s.url for s in svs] for pkg, svs in made.items()}
+    for svs in made.values():
+        for server in svs:
+            server.stop()
+
+
+# the orchestration records' spec per kind, and the runner kwargs that replay them
+A8A_RECORDS = {
+    "sharded": lambda urls: {"endpoints": urls, "shard_layout": "TOKENS=0->LOGITS=0,NEXT_TOKEN=0"},
+    "prefill_decode": lambda urls: {"roles": f"prefill={urls[0]};decode={urls[1]}"},
+    "pipeline": lambda urls: {"pipeline": "chain"},
+}
+
+
+def _a8a_replay(zoo_servers, spec, kind):
+    """The spec's trace replayed by both runners, each over its own package's
+    zoo servers. ``sharded`` records name ``decoder_lm_tp_prefill`` by
+    default, which waits for ROADMAP A9 in the port: they replay on
+    ``decoder_lm_prefill``, whose layout is the same."""
+    rows = {}
+    for pkg, mod, trace_mod in (("port", port_perf, port_trace), ("jax", jax_perf, jax_trace)):
+        urls = zoo_servers[pkg]
+        trace = trace_mod.generate(spec, seed=0)
+        trace = trace_mod.Trace(header=trace.header, records=[
+            dataclasses.replace(rec, model="decoder_lm_prefill") if rec.kind == "sharded" else rec
+            for rec in trace.records])
+        runner = _runner(mod, urls[0], "http", "simple", "none", **A8A_RECORDS[kind](urls))
+        try:
+            rows[pkg] = runner.run_trace(trace, speed=4.0, replay_workers=4)
+        finally:
+            _close(runner)
+    return rows
 
 
 def _keys(row, depth=2):
@@ -283,7 +330,21 @@ def test_run_trace_rejects_bad_inputs():
     ("mixed:duration_s=1,rate=20,pipeline_fraction=0.5", "A8"),
     ("multi_tenant:duration_s=1,rate=5", "A7"),
 ])
-def test_unported_record_kinds_raise(servers, spec, item):
+def test_unported_record_kinds_raise(servers, zoo_servers, spec, item):
+    if item == "A8":
+        # ported: each kind replays through its layer in both runners
+        kind = {"sharded": "sharded", "mixed": None}[spec.split(":")[0]] or (
+            "prefill_decode" if "disagg_fraction" in spec else "pipeline")
+        rows = _a8a_replay(zoo_servers, spec, kind)
+        assert _keys(rows["port"]) == _keys(rows["jax"])
+        assert rows["port"]["errors"] == 0, rows["port"]["error_sample"]
+        assert rows["jax"]["errors"] == 0, rows["jax"]["error_sample"]
+        ok = {pkg: row["kinds"][kind]["ok"] for pkg, row in rows.items()}
+        assert ok["port"] == ok["jax"] > 0
+        assert rows["port"]["issued"] == rows["jax"]["issued"]
+        if kind == "pipeline":
+            assert rows["port"]["pipeline_stages"].keys() == rows["jax"]["pipeline_stages"].keys()
+        return
     if item == "A7":
         # ported: the tenant-attributed records replay through tenant=
         rows = {}
@@ -373,7 +434,37 @@ def _a7_rows(servers, kwargs, flag):
 
 @pytest.mark.parametrize("kwargs, flag, item", UNPORTED, ids=[u[1] + str(i)
                                                                 for i, u in enumerate(UNPORTED)])
-def test_unported_flags_raise_naming_their_item(servers, kwargs, flag, item):
+def test_unported_flags_raise_naming_their_item(servers, zoo_servers, kwargs, flag, item):
+    if flag in ("--shard-layout", "--roles", "--pipeline"):
+        # ported: the flag runs in both runners over each package's zoo
+        rows, runners = {}, {}
+        for pkg, mod in (("port", port_perf), ("jax", jax_perf)):
+            urls = zoo_servers[pkg]
+            if flag == "--shard-layout":
+                kw = dict(kwargs, endpoints=urls, shape_overrides={"X": [4, 64]})
+                runner = mod.PerfRunner(urls[0], "http", "batched_matmul",
+                                        **kw, **({"device": "cpu"} if mod is port_perf else {}))
+            else:
+                kw = ({"roles": f"prefill={urls[0]};decode={urls[1]}"} if flag == "--roles"
+                      else kwargs)
+                runner = _runner(mod, urls[0], "http", "simple", "none", **kw)
+            try:
+                rows[pkg] = runner.run(1, 10)
+                runners[pkg] = runner
+            finally:
+                _close(runner)
+        assert _keys(rows["port"], 1) == _keys(rows["jax"], 1)
+        assert rows["port"]["requests"] == rows["jax"]["requests"] == 10
+        assert rows["port"]["errors"] == 0, rows["port"]["error_sample"]
+        if flag == "--roles":
+            assert list(runners["port"].roles) == list(runners["jax"].roles) == ["prefill", "decode"]
+        if flag == "--pipeline":
+            assert runners["port"].pipeline.describe() == runners["jax"].pipeline.describe()
+        if flag == "--shard-layout":
+            ours, theirs = (runners[pkg].shard_layout.describe() for pkg in ("port", "jax"))
+            assert dict(ours, endpoints=None) == dict(theirs, endpoints=None)
+            assert ours["endpoints"] == zoo_servers["port"]
+        return
     if item == "A7":
         # ported: the flag runs in both runners and counts the same requests
         rows = _a7_rows(servers, kwargs, flag)
@@ -390,6 +481,34 @@ def test_unported_flags_raise_naming_their_item(servers, kwargs, flag, item):
     with pytest.raises(NotImplementedError) as exc:
         port_perf.PerfRunner("127.0.0.1:1", **kwargs)
     assert flag in str(exc.value) and f"ROADMAP {item}" in str(exc.value)
+
+
+@pytest.mark.parametrize("flag", ["--shard-layout", "--roles", "--pipeline"])
+def test_orchestration_cli_flags_run(zoo_servers, capsys, flag):
+    """``python -m client_tpu_torch.perf`` with each orchestration flag: the
+    shard layout on a closed loop, roles and the chain pipeline on a replay
+    of their record kind."""
+    a, b = zoo_servers["port"]
+    argv = ["-u", a, "--warmup-requests", "0", "-f", "json"]
+    if flag == "--shard-layout":
+        argv += ["-m", "batched_matmul", "--endpoints", f"{a},{b}", "--shape", "X:4,64",
+                 "--measurement-requests", "6", flag, "X=0->Y=0"]
+        kind = None
+    else:
+        fraction = "disagg_fraction" if flag == "--roles" else "pipeline_fraction"
+        argv += ["-m", "simple", "--trace-gen",
+                 f"mixed:duration_s=1,rate=10,stream_fraction=0,seq_fraction=0,{fraction}=1.0",
+                 "--speed", "4", "--replay-workers", "4",
+                 flag, f"prefill={a};decode={b}" if flag == "--roles" else "chain"]
+        kind = "prefill_decode" if flag == "--roles" else "pipeline"
+    assert port_perf.main(argv) == 0
+    out = json.loads(capsys.readouterr().out)
+    row = out[0] if isinstance(out, list) else out
+    assert row["errors"] == 0, row["error_sample"]
+    if kind is None:
+        assert row["requests"] == 6
+    else:
+        assert row["kinds"][kind]["ok"] == row["issued"] > 0
 
 
 @pytest.mark.parametrize("flag", ["--admission", "--coalesce", "--watch", "--cache",

@@ -9,7 +9,7 @@ the port's three frontends, against the JAX package's.
   completes. Each sequence of statuses is held to the JAX server's;
 - ``python -m client_tpu_torch.serve --device cpu`` as a subprocess: the
   printed lines, the served model list (the JAX zoo less
-  ``decoder_lm_tp_prefill`` and the four ``chain_*`` models), SIGTERM
+  ``decoder_lm_tp_prefill``), SIGTERM
   (ready 503 and live 200 inside the grace window, then exit 0; a second
   SIGTERM ignored), SIGINT (exit at once), ``--http-frontend aio``, the
   flags that wait for ROADMAP A9, and the default device on a machine
@@ -51,8 +51,7 @@ from test_torch_flight import _time_limit  # noqa: F401 (autouse: a time limit a
 
 REPO = Path(__file__).resolve().parent.parent
 # the JAX zoo's models that wait for a later item of ROADMAP.md queue A
-NOT_IN_THE_PORT = {"decoder_lm_tp_prefill", "chain_tokenize", "chain_embed", "chain_rerank",
-                   "chain_fused"}
+NOT_IN_THE_PORT = {"decoder_lm_tp_prefill"}
 FRONTENDS = {
     "threaded": (HttpInferenceServer, JaxHttp),
     "aio": (AioHttpInferenceServer, JaxAio),

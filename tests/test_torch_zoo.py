@@ -1,8 +1,9 @@
 """The port's default model zoo, its new fixtures and the dynamic batcher,
 against the JAX package's.
 
-- the zoo: the JAX zoo's models in its order, minus the five that wait for
-  later ROADMAP items, each with the JAX model's wire signature;
+- the zoo: the JAX zoo's models in its order, minus
+  ``decoder_lm_tp_prefill``, which waits for a later ROADMAP item, each
+  with the JAX model's wire signature;
 - the fixtures (``simple_string``, ``simple_identity``,
   ``custom_identity_int32``, ``identity_fp16``, ``simple_sequence``,
   ``batched_matmul``, ``repeat_int32``) on the 2x2 client/server matrix of
@@ -42,8 +43,7 @@ from client_tpu_torch.server.core import InferError
 
 WAIT_S = 60
 # in the JAX zoo, not yet in the port's: each waits for its ROADMAP item
-NOT_YET = {"decoder_lm_tp_prefill", "chain_tokenize", "chain_embed", "chain_rerank",
-           "chain_fused"}
+NOT_YET = {"decoder_lm_tp_prefill"}
 
 
 @pytest.fixture(autouse=True, scope="module")
