@@ -264,6 +264,42 @@ Phases (each raises on failure, so the script exits non-zero):
      = layers x its decoder steps, normalize_image = its preprocess and
      ensemble_image executions.
 
+11. federation, watch, doctor and the byzantine server: four ``serve``
+   children (``SERVE_ARGS``, threaded HTTP) started at once, each behind a
+   ``ChaosProxy`` of this process, as three cells: home (children 1 and 2,
+   a ``ChaosCell``), away (child 3) and canary (child 4)
+   (``serve_federation``); each output against the CPU run of the port:
+   - ``FederatedClient`` on the encoder (S = 8192): every request served by
+     home, no spill;
+   - home blackholed after request 10 and healed after 25 of 40: 0 caller
+     errors, each spilled request on child 3 with a typed ``CellSpill``,
+     the spill counter in the registry's text, and the requests it took to
+     return home;
+   - a decoder_lm sequence pinned to home takes 4 tokens, then home resets:
+     one ``CellSequenceAbandoned`` naming it, child 3 never steps it;
+   - ``ShadowPolicy("away", ratio=1.0)``: every mirror matches bit for bit;
+   - ``CanaryPolicy("canary", weight=0.5)`` under a latency SLO the healthy
+     cells meet, then a latency fault on child 4's proxy: one
+     ``CanaryRolledBack``, weight 0, 0 caller errors, child 4 idle after;
+   - the port's ``ByzantineHttpServer`` in this process (the encoder on the
+     card, shape_lie and truncate, seed 7) as the home cell ``liar``: its
+     ``IntegrityError``s quarantine it and traffic spills to away, no
+     corrupt output returned, this process's flash launches = its core's
+     executions (the only row that launches here);
+   - a ``Watchtower`` with a black box under ``build/`` over a pool of
+     children 1 and 2: a latency fault on child 2's proxy trips it naming that
+     URL; the ring gives back timelines, metrics and the alerts, and
+     ``python -m client_tpu_torch.doctor --blackbox`` renders it;
+   - ``PerfRunner`` with cells, home, shadow and canary cells and
+     ``watch=True`` at concurrency 1 and 2: 0 errors, the children's
+     successes = the requests sent plus their mirrors;
+   - ``python -m client_tpu_torch.doctor --cells`` lists the three cells and
+     exits 0; after child 4 is SIGKILLed, ``--fail-on-anomaly`` exits 1
+     with ``cell_down`` naming canary;
+   - children 1-3 drain, each child's launches equal its executions
+     (decode_attention = layers x decoder steps, flash_attention = the
+     encoder's).
+
 It then prints one ``{"kernels": [...]}`` line and, last, one line
 ``{"ok": true, "device": {...}}``. Details go to ``build/chip_smoke.json``.
 Without a CUDA device it fails. The build fails if ptxas reports a spill in
@@ -293,6 +329,7 @@ import sys
 import threading
 import time
 import urllib.request
+from concurrent.futures import ThreadPoolExecutor
 from contextlib import nullcontext
 
 import numpy as np
@@ -345,6 +382,14 @@ from client_tpu_torch.disagg import (  # noqa: E402
     HandoffCorrupt,
 )
 from client_tpu_torch.pipeline import Pipeline, PipelineClient, Stage, chain_pipeline  # noqa: E402
+from client_tpu_torch.federation import (  # noqa: E402
+    CanaryPolicy,
+    CanaryRolledBack,
+    CellSequenceAbandoned,
+    CellSpill,
+    FederatedClient,
+    ShadowPolicy,
+)
 from client_tpu_torch.shard import ShardFailed, ShardLayout, ShardedClient  # noqa: E402
 from client_tpu_torch.observe import (  # noqa: E402
     Telemetry,
@@ -362,11 +407,12 @@ from client_tpu_torch.resilience import (  # noqa: E402
     classify_fault,
 )
 from client_tpu_torch.server import GrpcInferenceServer, HttpInferenceServer, ServerCore  # noqa: E402
-from client_tpu_torch.testing import ChaosProxy, Fault  # noqa: E402
+from client_tpu_torch.testing import ByzantineHttpServer, ChaosCell, ChaosProxy, Fault  # noqa: E402
 from client_tpu_torch.utils import InferenceServerException  # noqa: E402
 from client_tpu_torch.utils import cuda_shared_memory as cudashm  # noqa: E402
 from client_tpu_torch.utils import numpy_to_tensor, torch_to_triton_dtype  # noqa: E402
 from client_tpu_torch.utils import shared_memory as shm  # noqa: E402
+from client_tpu_torch.watch import Watchtower, blackbox_report, read_blackbox  # noqa: E402
 
 # H100 SXM (NVIDIA data sheet): HBM bandwidth and dense peaks, per dtype
 # (float32 outside the tensor cores: the port's fp32 kernels use no TF32)
@@ -4111,6 +4157,17 @@ def pool_hedge(children, refs, size):
             got = pool.infer("long_context_encoder", pool_encoder_input(httpclient, refs)).as_numpy(
                 "encoded")
             check_encoded(got, refs, "hedged over the pool")
+        # a loser runs on in the background after its winner answered, and
+        # closing the pool cuts it: a replica's first (cold) encoder
+        # execution can outlast every winner, so let each attempt end first
+        with pool._executor_lock:
+            executor = pool._executor
+        ended = threading.Thread(target=executor.shutdown, kwargs={"wait": True}, daemon=True)
+        ended.start()
+        ended.join(60)
+        if ended.is_alive():
+            raise AssertionError("hedging: attempts still in flight after 60 s: "
+                                 f"{[ep.outstanding for ep in pool.pool.endpoints]}")
         after = settled_executions(children, "long_context_encoder",
                                    sum(before) + size.hedge_requests)
     split = [a - b for a, b in zip(after, before)]
@@ -5109,6 +5166,636 @@ def serve_orchestration(device="cuda", size=ORCH, start_children=None):
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase 11: federation, watch, doctor and the byzantine server over cells of
+# ``serve`` children, this process the client
+# ---------------------------------------------------------------------------
+
+FedSize = collections.namedtuple("FedSize", [
+    "seq", "home_requests", "spill_requests", "blackhole_after", "heal_after",
+    "return_max", "prompt", "seq_tokens", "shadow_requests", "canary_healthy", "canary_max",
+    "canary_after", "canary_slo_ms", "canary_latency_s", "byz_requests", "watch_warm",
+    "watch_batch", "watch_batches", "watch_latency_s", "watch_slo_ms", "watch_fast_s",
+    "watch_window_s", "perf_requests", "concurrency"])
+FED = FedSize(
+    seq=8192, home_requests=20, spill_requests=40, blackhole_after=10, heal_after=25,
+    return_max=200, prompt=[1, 2, 3, 4], seq_tokens=4, shadow_requests=10, canary_healthy=10,
+    canary_max=40, canary_after=10, canary_slo_ms=250.0, canary_latency_s=0.02,
+    byz_requests=12, watch_warm=96, watch_batch=32, watch_batches=16,
+    watch_latency_s=0.001, watch_slo_ms=50.0, watch_fast_s=4.0, watch_window_s=12.0,
+    perf_requests=20, concurrency=(1, 2))
+# the three cells of the four children, each replica behind its own proxy
+FED_CELLS = {"home": (0, 1), "away": (2,), "canary": (3,)}
+BYZ_KINDS = ("shape_lie", "truncate")
+
+
+def federation_references(size):
+    """The CPU run of the port with the children's seeded weights: the
+    encoder at ``size.seq`` on a seeded sequence, and decoder_lm's greedy
+    stream on ``size.prompt`` with each step's logits and top-two margin."""
+    encoder = LongContextEncoderModel(device="cpu")
+    seq = np.random.default_rng(8).standard_normal(
+        (size.seq, encoder.encoder.dim)).astype(np.float32)
+    encoded = encoder.execute({"sequence": seq}, {})["encoded"].numpy()
+    decoder = TinyDecoderModel(device="cpu")
+    margins = []
+
+    def run(tokens, start, end):
+        out = decoder.execute({"TOKENS": np.array([tokens], np.int32)},
+                              {"sequence_id": 901, "sequence_start": start,
+                               "sequence_end": end})
+        top2 = torch.topk(torch.as_tensor(out["LOGITS"]).float().reshape(-1), 2).values
+        margins.append(float(top2[0] - top2[1]))
+        return out["LOGITS"], int(out["NEXT_TOKEN"][0, 0])
+
+    tokens, logits = drive_decoder(run, size.prompt, size.seq_tokens - 1)
+    return {"seq": seq, "encoded": encoded, "decoder_tokens": tokens,
+            "decoder_logits": logits, "decoder_margins": margins}
+
+
+def fed_encode(client, refs, where):
+    """One encoder request through ``client``; the output checked against
+    the CPU run. Returns the output's max abs difference."""
+    got = client.infer("long_context_encoder", pool_encoder_input(httpclient, refs),
+                       client_timeout=30.0).as_numpy("encoded")
+    return check_encoded(got, refs, where)
+
+
+def fed_cells(proxies, names=("home", "away", "canary")):
+    return {name: [proxies[i].url for i in FED_CELLS[name]] for name in names}
+
+
+def fed_client(cells, **kwargs):
+    kwargs.setdefault("pool_kwargs", {"health_interval_s": 0.1, "probe_timeout_s": 0.3})
+    return FederatedClient(cells, home="home", protocol="http", **kwargs)
+
+
+def fed_split(children, model, before):
+    return [a - b for a, b in zip(fleet_executions(children, model), before)]
+
+
+def fed_warm(children, proxies, refs, size):
+    """Row 0: one encoder request straight to each child, all at once, so
+    that no row (the canary's latency SLO above all) reads a child's first
+    execution."""
+    def warm(child):
+        with httpclient.InferenceServerClient(child.http_url) as client:
+            return fed_encode(client, refs, "federation warm-up")
+
+    with ThreadPoolExecutor(len(children)) as pool:
+        errs = list(pool.map(warm, children))
+    return {"max_abs_err": max(errs)}
+
+
+def fed_home(children, proxies, refs, size):
+    """Row 1: every request of a healthy fleet served by the home cell."""
+    before = fleet_executions(children, "long_context_encoder")
+    errs = []
+    with fed_client(fed_cells(proxies)) as fed:
+        for _ in range(size.home_requests):
+            errs.append(fed_encode(fed, refs, "federation home"))
+        spills, order = fed.spill_total(), fed.serve_order()
+    split = fed_split(children, "long_context_encoder", before)
+    if spills or split[2:] != [0, 0] or sum(split[:2]) != size.home_requests:
+        raise AssertionError(f"federation home: executions {split}, spills {spills}")
+    return {"executions": split, "spills": spills, "order": order,
+            "max_abs_err": max(errs)}
+
+
+def fed_spill(children, proxies, refs, size):
+    """Row 2: the home cell blackholed after ``blackhole_after`` requests and
+    healed after ``heal_after``: 0 errors, each spilled request on child 3
+    with a typed ``CellSpill``, the spill counter in the registry, and the
+    requests it took after the heal until home served again."""
+    home = ChaosCell([proxies[i] for i in FED_CELLS["home"]])
+    events = []
+    tel = Telemetry(sample="off")
+    before = fleet_executions(children, "long_context_encoder")
+    errors, timeline = [], []
+    fed = fed_client(fed_cells(proxies), telemetry=tel, on_event=events.append,
+                     cell_breaker_factory=lambda: CircuitBreaker(min_calls=2,
+                                                                recovery_time_s=0.5),
+                     default_deadline_s=30.0, per_attempt_timeout_s=0.5)
+    try:
+        t_heal = None
+
+        def send(i):
+            try:
+                fed_encode(fed, refs, f"federation spill request {i}")
+            except Exception as e:
+                errors.append(f"request {i}: {type(e).__name__}: {e}")
+            # home's served count and the seconds since the heal, a request
+            timeline.append((fed.federation_stats()["cells"]["home"]["served"],
+                             None if t_heal is None else time.perf_counter() - t_heal))
+            time.sleep(0.02)
+
+        for i in range(size.spill_requests):
+            if i == size.blackhole_after:
+                home.blackhole()
+            if i == size.heal_after:
+                home.heal(reset_active=True)
+                t_heal = time.perf_counter()
+            send(i)
+        at_heal = timeline[size.heal_after - 1][0]
+        while timeline[-1][0] == at_heal:  # home not back yet: keep sending
+            if len(timeline) >= size.heal_after + size.return_max:
+                raise AssertionError("federation spill: traffic never returned home")
+            send(len(timeline))
+        if errors:
+            raise AssertionError(f"federation spill: errors reached the caller: {errors}")
+        back = next(i for i in range(size.heal_after, len(timeline))
+                    if timeline[i][0] > at_heal)
+        after_heal, return_s = back - size.heal_after + 1, timeline[back][1]
+        stats = fed.federation_stats()
+        text = tel.registry.prometheus_text()
+    finally:
+        fed.close()
+        home.heal(reset_active=True)
+    spills = [e for e in events if isinstance(e, CellSpill)]
+    split = fed_split(children, "long_context_encoder", before)
+    reasons = collections.Counter(e.reason for e in spills)
+    if not spills or split[2] != len(spills) or split[3] != 0 or any(
+            e.cell != "home" or e.target != "away" for e in spills):
+        raise AssertionError(f"federation spill: {len(spills)} CellSpill events, executions "
+                             f"{split}")
+    if "client_tpu_federation_spill_total" not in text:
+        raise AssertionError("federation spill: no client_tpu_federation_spill_total series")
+    return {"requests": size.spill_requests, "spills": len(spills), "reasons": dict(reasons),
+            "executions": split, "requests_to_return_home": after_heal,
+            "return_home_s": return_s, "spill_out": stats["cells"]["home"]["spill_out"]}
+
+
+def fed_sequence(children, proxies, refs, size):
+    """Row 3: a decoder_lm sequence pinned to home takes ``seq_tokens``
+    tokens, then the home cell resets: a typed ``CellSequenceAbandoned``
+    names the sequence, and child 3 never steps it."""
+    home = ChaosCell([proxies[i] for i in FED_CELLS["home"]])
+    events = []
+    seq_id = 4242
+    before = fleet_executions(children, "decoder_lm")
+    fed = fed_client(fed_cells(proxies), on_event=events.append, default_deadline_s=10.0,
+                     per_attempt_timeout_s=2.0)
+    tokens, logits = [], []
+    try:
+        def run(tok, start, end):
+            inp = httpclient.InferInput("TOKENS", [1, len(tok)], "INT32")
+            inp.set_data_from_numpy(np.array([tok], np.int32))
+            res = fed.infer("decoder_lm", [inp], sequence_id=seq_id, sequence_start=start,
+                            sequence_end=end, client_timeout=10.0)
+            return res.as_numpy("LOGITS"), int(res.as_numpy("NEXT_TOKEN")[0, 0])
+
+        got, got_logits = drive_decoder(run, size.prompt, size.seq_tokens - 1)
+        tokens, logits = got, got_logits
+        home.kill()
+        abandoned_error = None
+        try:
+            run([tokens[-1]], False, False)
+        except Exception as e:
+            abandoned_error = f"{type(e).__name__}: {e}"
+    finally:
+        fed.close()
+        home.heal(reset_active=True)
+    split = fed_split(children, "decoder_lm", before)
+    abandoned = [e for e in events if isinstance(e, CellSequenceAbandoned)]
+    near = near_tie_check(tokens, refs["decoder_tokens"], refs["decoder_margins"],
+                          "federation sequence")
+    err = float(np.abs(logits.reshape(-1) - refs["decoder_logits"].reshape(-1)).max())
+    if abandoned_error is None or len(abandoned) != 1 or abandoned[0].sequence_id != seq_id \
+            or abandoned[0].cell != "home":
+        raise AssertionError(f"federation sequence: error {abandoned_error}, events "
+                             f"{abandoned}")
+    if split[2:] != [0, 0] or sorted(split[:2]) != [0, size.seq_tokens] or not (
+            err <= DECODER_LOGIT_TOL or near is not None):
+        raise AssertionError(f"federation sequence: decoder_lm executions {split}, max logit "
+                             f"diff {err}")
+    return {"tokens": tokens, "cpu_tokens": refs["decoder_tokens"], "near_tie": near,
+            "max_abs_logit_diff": err, "executions": split,
+            "abandoned": {"cell": abandoned[0].cell, "sequence_id": abandoned[0].sequence_id,
+                          "cause": type(abandoned[0].cause).__name__},
+            "error": abandoned_error}
+
+
+def fed_shadow(children, proxies, refs, size):
+    """Row 4: every request mirrored to the away cell: each mirror matches the
+    served response bit for bit, none diverges or fails."""
+    before = fleet_executions(children, "long_context_encoder")
+    errs = []
+    with fed_client(fed_cells(proxies, ("home", "away")),
+                    shadow=ShadowPolicy("away", ratio=1.0)) as fed:
+        for _ in range(size.shadow_requests):
+            errs.append(fed_encode(fed, refs, "federation shadow"))
+        drained = fed.shadow_drain(30.0)
+        status = fed.shadow_status()
+    split = fed_split(children, "long_context_encoder", before)
+    if not drained or status["sent"] != size.shadow_requests or status["matched"] != \
+            size.shadow_requests or status["diverged"] or status["errors"]:
+        raise AssertionError(f"federation shadow: {status}")
+    if split[2] != size.shadow_requests or sum(split[:2]) != size.shadow_requests:
+        raise AssertionError(f"federation shadow: executions {split}")
+    return {"status": status, "executions": split, "max_abs_err": max(errs)}
+
+
+def fed_canary(children, proxies, refs, size):
+    """Row 5: a canary at weight 0.5 under a latency SLO the healthy cells
+    meet; a latency fault on child 4's proxy breaks it: one typed
+    ``CanaryRolledBack``, weight 0, 0 caller errors, and child 4 executes
+    nothing after the rollback."""
+    events = []
+    canary = CanaryPolicy("canary", weight=0.5, slo=f"p95<{size.canary_slo_ms:g}ms",
+                          min_events=4)
+    errors = []
+    fed = fed_client(fed_cells(proxies, ("home", "canary")), canary=canary,
+                     on_event=events.append, default_deadline_s=60.0)
+    proxy = proxies[FED_CELLS["canary"][0]]
+    try:
+        for i in range(size.canary_healthy):
+            try:
+                fed_encode(fed, refs, "federation canary (healthy)")
+            except Exception as e:
+                errors.append(f"healthy {i}: {e}")
+        healthy = fed.canary_status()
+        if healthy["rolled_back"]:
+            raise AssertionError(f"federation canary: rolled back on healthy cells: {healthy}")
+        proxy.fault = Fault("latency", latency_s=size.canary_latency_s)
+        proxy.reset_active()
+        t_fault = time.perf_counter()
+        sent = 0
+        while not fed.canary_status()["rolled_back"]:
+            if sent >= size.canary_max:
+                raise AssertionError(f"federation canary: no rollback after {sent} requests: "
+                                     f"{fed.canary_status()}")
+            try:
+                fed_encode(fed, refs, "federation canary (faulted)")
+            except Exception as e:
+                errors.append(f"faulted {sent}: {e}")
+            sent += 1
+        rollback_s = time.perf_counter() - t_fault
+        at_rollback = fleet_executions(children, "long_context_encoder")
+        for i in range(size.canary_after):
+            try:
+                fed_encode(fed, refs, "federation canary (rolled back)")
+            except Exception as e:
+                errors.append(f"after {i}: {e}")
+        status = fed.canary_status()
+    finally:
+        fed.close()
+        proxy.heal()
+        proxy.reset_active()
+    after = fed_split(children, "long_context_encoder", at_rollback)
+    rollbacks = [e for e in events if isinstance(e, CanaryRolledBack)]
+    if errors or len(rollbacks) != 1 or status["weight"] != 0.0 or after[3] != 0:
+        raise AssertionError(f"federation canary: errors {errors}, rollbacks {rollbacks}, "
+                             f"status {status}, executions after the rollback {after}")
+    return {"healthy_routed": healthy["routed"], "faulted_requests": sent,
+            "rollback_s": rollback_s, "burn_rate": rollbacks[0].burn_rate,
+            "events": rollbacks[0].events, "status": status, "executions_after": after}
+
+
+def fed_byzantine(children, proxies, refs, size, device):
+    """Row 6: the port's ``ByzantineHttpServer`` in this process (the encoder
+    on ``device``, faults ``BYZ_KINDS``, seed 7) is the lone replica of the
+    home cell ``liar``, with ``away`` behind it: the typed
+    ``IntegrityError``s quarantine it, the cell is quarantine-dominated,
+    traffic spills to away, and no corrupt output is returned. This
+    process's flash launches equal the byzantine core's executions."""
+    core = ServerCore([LongContextEncoderModel(attention="flash", device=device)],
+                      device=device)
+    liar = ByzantineHttpServer(core, kinds=BYZ_KINDS, seed=7).start()
+    events = []
+    outputs, errors = [], []
+    before = fleet_executions(children, "long_context_encoder")
+    fed = FederatedClient({"liar": [liar.url], "away": [proxies[FED_CELLS["away"][0]].url]},
+                          home="liar", protocol="http", on_event=events.append,
+                          default_deadline_s=30.0,
+                          pool_kwargs={"health_interval_s": 0.1, "probe_timeout_s": 0.3})
+    try:
+        for i in range(size.byz_requests):
+            try:
+                outputs.append(fed_encode(fed, refs, f"byzantine request {i}"))
+            except AssertionError:
+                raise  # a returned output that is not the CPU run's: a corrupt one
+            except Exception as e:
+                errors.append(f"request {i}: {type(e).__name__}: {e}")
+        cells = fed.federation_stats()["cells"]
+    finally:
+        fed.close()
+        liar.stop()
+    executions = core.statistics()["model_stats"][0]["execution_count"]
+    split = fed_split(children, "long_context_encoder", before)
+    spills = [e for e in events if isinstance(e, CellSpill)]
+    pool = cells["liar"]["pool"]
+    if not (pool["quarantined"] and pool["quarantine_dominated"]) or not spills or \
+            split[2] != len(outputs) - cells["liar"]["served"]:
+        raise AssertionError(f"byzantine: liar cell {cells['liar']}, spills {len(spills)}, "
+                             f"executions {split}, errors {errors}")
+    return {"returned": len(outputs), "errors": errors, "corrupt_returned": 0,
+            "max_abs_err": max(outputs) if outputs else None, "liar": cells["liar"],
+            "spill_reasons": dict(collections.Counter(e.reason for e in spills)),
+            "plan": liar.plan.stats(), "faults": [k for _, k in liar.plan.log],
+            "byzantine_executions": executions, "away_executions": split[2]}
+
+
+def fed_watch(children, proxies, refs, size, out_dir):
+    """Row 7: a ``Watchtower`` with a black box under ``build/`` over the
+    telemetry of a pool of the home cell's two children; a latency fault
+    on child 2's proxy alone: the
+    watchdog trips naming that proxy's URL (not ``fleet_shift``), the edges
+    land in the ring, ``read_blackbox`` gives back timelines, the last
+    metric snapshot and the alerts, and ``python -m
+    client_tpu_torch.doctor --blackbox`` renders them."""
+    ring = os.path.join(out_dir, "fed_watch.bbx")
+    if os.path.exists(ring):
+        os.remove(ring)
+    # no baseline samples: a handful of them, drawn before the fault, would
+    # hold the faulted replica's baseline share to chance (the divergence
+    # test compares the tail against them); the slow tail alone names it.
+    # The slow tail is the top 5%: host noise on the healthy replica
+    # retains few timelines beside the faulted one's
+    rec = FlightRecorder(rng=random.Random(0xB1AB0), capacity=48, slow_quantile=0.95,
+                         threshold_window=96, threshold_min_samples=48, baseline_ratio=0.0)
+    tel = Telemetry(sample="always", flight=rec)
+    # a burn alert stays active while the tail accumulates, and its evidence
+    # (the flight divergence) is refreshed each tick
+    tel.track_slo("req_p95", "request_ms", size.watch_slo_ms, objective=0.95,
+                  window_s=size.watch_window_s)
+    tower = Watchtower(tel, interval_s=0.2, blackbox=ring, fast_window_s=size.watch_fast_s,
+                       cusum_warmup=6, min_stream_count=4, metrics_every_ticks=1)
+    urls = [proxies[i].url for i in FED_CELLS["home"]]
+    faulted = proxies[1]
+    pool = PoolClient(urls, protocol="http", telemetry=tel, routing="round_robin",
+                      health_interval_s=None)
+    named, sent = None, 0
+
+    def traffic(n):
+        nonlocal sent
+        for i in range(n):
+            fed_encode(pool, refs, "watch loop")
+            sent += 1
+            if i % 8 == 7:
+                tower.tick()
+
+    try:
+        traffic(size.watch_warm)
+        # a trip on healthy traffic (host noise) is kept as a reading; one
+        # that names a replica before any fault would be a misattribution
+        before_fault = tower.history()
+        if any(faulted.url in str(a.get("evidence")) for a in before_fault):
+            raise AssertionError(f"watch: a replica named before the fault: {before_fault}")
+        faulted.fault = Fault("latency", latency_s=size.watch_latency_s)
+        faulted.reset_active()
+        t_fault, sent_at_fault = time.perf_counter(), sent
+        for _ in range(size.watch_batches):
+            traffic(size.watch_batch)
+            for alert in [a.as_dict() for a in tower.active_alerts()] + list(tower.history()):
+                ev = alert.get("evidence") or {}
+                moved = ev.get("moved") or (ev.get("divergence") or {}).get("dominant") or ""
+                if alert["state"] == "firing" and faulted.url in str(moved):
+                    named = alert
+                    break
+            if named:
+                break
+        detect_s = time.perf_counter() - t_fault
+        detect_requests = sent - sent_at_fault
+        faulted.heal()
+        faulted.reset_active()
+        if named is None:
+            raise AssertionError(f"watch: no alert named {faulted.url}: {tower.history()}")
+        deadline = time.monotonic() + 20.0
+        while tower.active_alerts() and time.monotonic() < deadline:
+            traffic(16)
+            time.sleep(0.2)
+        active = [a.as_dict() for a in tower.active_alerts()]
+        stats = tower.stats()
+    finally:
+        pool.close()
+        tower.stop()
+        faulted.heal()
+    report = read_blackbox(ring)
+    alerts = [r.data for r in report.records if r.kind == "alert"]
+    kinds = collections.Counter(r.kind for r in report.records)
+    doc = blackbox_report(ring)
+    if active or not any(a["state"] == "firing" for a in alerts) or not any(
+            a["state"] == "resolved" for a in alerts):
+        raise AssertionError(f"watch: active {active}, ring alerts {alerts}")
+    if not (doc["ok"] and doc["timelines_recovered"] and doc["metrics"] is not None
+            and doc["last_alert"] is not None):
+        raise AssertionError(f"watch: black box {kinds}: {doc.get('note')}")
+    # the doctor reads the ring while the next rows run (fed_blackbox_doctor)
+    doctor = (subprocess.Popen([sys.executable, "-m", "client_tpu_torch.doctor", "--blackbox",
+                                ring], cwd=REPO, stdout=subprocess.PIPE,
+                               stderr=subprocess.PIPE, text=True), time.perf_counter())
+    return {"named": named, "faulted_url": faulted.url, "detect_s": detect_s,
+            "alerts_before_fault": len([a for a in before_fault if a["state"] == "firing"]),
+            "detect_requests": detect_requests, "requests": sent, "ring_records": dict(kinds),
+            "ring_alerts": len(alerts), "timelines_recovered": doc["timelines_recovered"],
+            "stats": {k: stats[k] for k in ("ticks", "alerts_fired", "alerts_resolved",
+                                            "changepoint_trips")},
+            "doctor_process": doctor}
+
+
+def fed_blackbox_doctor(doctor):
+    """Row 7's last gate: ``python -m client_tpu_torch.doctor --blackbox``
+    over the watch row's ring exits 0 and renders the reconstruction."""
+    proc, t0 = doctor
+    try:
+        out, err = proc.communicate(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    if proc.returncode != 0 or "blackbox reconstruction" not in out:
+        raise AssertionError(f"watch: doctor --blackbox exited {proc.returncode}:\n"
+                             f"{out[-2000:]}\n{err[-2000:]}")
+    return {"doctor_blackbox_s": time.perf_counter() - t0}
+
+
+def fed_doctor_run(args, out_dir):
+    out = os.path.join(out_dir, "doctor_fed.json")
+    if os.path.exists(out):
+        os.remove(out)
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "client_tpu_torch.doctor", *args, "--json",
+                           out], cwd=REPO, capture_output=True, text=True, timeout=180)
+    seconds = time.perf_counter() - t
+    snap = json.load(open(out)) if os.path.exists(out) else None
+    return proc, snap, seconds
+
+
+def fed_doctor(children, proxies, refs, size, out_dir):
+    """Row 8: ``python -m client_tpu_torch.doctor`` over the four children
+    with ``--cells`` exits 0 and lists the three cells; after child 4 is
+    SIGKILLed, ``--fail-on-anomaly`` exits non-zero with ``cell_down``
+    naming canary."""
+    cells = fed_cells(proxies)
+    spec = ";".join(f"{name}={'+'.join(urls)}" for name, urls in cells.items())
+    args = [p.url for p in proxies] + ["--cells", spec, "--model", "long_context_encoder",
+                                       "--requests", "2", "--timeout", "2"]
+    proc, snap, healthy_s = fed_doctor_run(args, out_dir)
+    listed = sorted(snap["cells"][0]["cells"]) if snap and snap.get("cells") else None
+    if proc.returncode != 0 or listed != sorted(cells):
+        raise AssertionError(f"doctor: exit {proc.returncode}, cells {listed}:\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-2000:]}")
+    victim = FED_CELLS["canary"][0]
+    children[victim].kill()
+    # the killed child's listener is gone; its proxy resets what it had
+    proxies[victim].fault = Fault("reset", after_bytes=0)
+    proxies[victim].reset_active()
+    proc2, snap2, down_s = fed_doctor_run(args + ["--fail-on-anomaly"], out_dir)
+    down = [f for f in (snap2 or {}).get("anomalies", []) if f["flag"] == "cell_down"]
+    if proc2.returncode == 0 or [f["url"] for f in down] != ["canary"]:
+        raise AssertionError(f"doctor after SIGKILL: exit {proc2.returncode}, cell_down "
+                             f"{down}:\n{proc2.stdout[-3000:]}")
+    return {"cells": listed, "healthy_exit": proc.returncode, "healthy_s": healthy_s,
+            "healthy_anomalies": [f["flag"] for f in snap["anomalies"]],
+            "killed_exit": proc2.returncode, "killed_s": down_s,
+            "killed_anomalies": sorted({f["flag"] for f in snap2["anomalies"]})}
+
+
+def fed_harness(children, proxies, refs, size):
+    """Row 9: ``PerfRunner`` on the encoder with ``cells``, ``home_cell``,
+    ``shadow_cell``, ``canary_cell`` and ``watch=True`` at
+    ``size.concurrency``: 0 errors, ``client_federation`` and
+    ``client_watch`` blocks, and the children's successes equal to the wire
+    requests sent (each request once, each mirror once)."""
+    cells = {"home": [proxies[0].url, proxies[1].url], "shadow": [proxies[2].url],
+             "canary": [proxies[3].url]}
+    before = fleet_successes(children)
+    runner = PerfRunner(children[0].http_url, "http", "long_context_encoder", "none",
+                        {"sequence": [size.seq, 64]}, cells=cells, home_cell="home",
+                        shadow_cell="shadow", shadow_ratio=1.0, canary_cell="canary",
+                        canary_weight=0.1, canary_slo=f"p95<{size.canary_slo_ms:g}ms",
+                        watch=True, device="cpu")
+    try:
+        levels = [runner.run(c, size.perf_requests) for c in size.concurrency]
+    finally:
+        runner.close()
+    sent = sum(r["requests"] + r["errors"] + r["shed"] for r in levels)
+    mirrors = sum(r["client_federation"]["shadow"]["sent"] for r in levels)
+    got = [a - b for a, b in zip(fleet_successes(children), before)]
+    if any(r["errors"] or r["shed"] for r in levels) or any(
+            "client_federation" not in r or "client_watch" not in r for r in levels):
+        raise AssertionError(f"federation harness: {levels}")
+    if sum(got) != sent + mirrors:
+        raise AssertionError(f"federation harness: children succeeded {got}, sent {sent} and "
+                             f"{mirrors} mirrors")
+    keep = ("concurrency", "requests", "errors", "shed", "infer_per_sec", "latency_ms")
+    return {"rows": [{k: r[k] for k in keep} | {
+        "spills": r["client_federation"]["spills"],
+        "shadow": {k: r["client_federation"]["shadow"][k]
+                   for k in ("sent", "matched", "diverged", "errors")},
+        "canary_routed": r["client_federation"]["canary"]["routed"],
+        "watch_ticks": r["client_watch"]["ticks"],
+        "alerts_fired": r["client_watch"]["alerts_fired"]} for r in levels],
+        "children_successes": got, "mirrors": mirrors}
+
+
+def serve_federation(device="cuda", size=FED, start_children=None, out_dir=None):
+    """Phase 11: ``client_tpu_torch.federation``, ``watch``, ``doctor`` and the
+    byzantine server over four ``serve`` children on ``device`` (``SERVE_ARGS``,
+    threaded HTTP) started at once, each behind a ``ChaosProxy`` of this
+    process: the cells home (children 1 and 2, a ``ChaosCell``), away
+    (child 3) and canary (child 4). ``start_children`` (tests) returns the
+    four instead. The black box and the doctor's JSON go to ``out_dir``
+    (default ``build/``). Every output is held against the CPU run of the port with
+    the same seeded weights. Only the byzantine row launches in this process
+    (its core's encoder). Children 1-3 drain at the end; child 4 is
+    SIGKILLed in the doctor row. Each drained child's report holds its
+    launches to its executions: decode_attention = layers x its decoder
+    steps, flash_attention = its encoder's executions."""
+    on_card = torch.device(device).type == "cuda"
+    t_phase = time.perf_counter()
+    out_dir = out_dir or os.path.join(REPO, "build")
+    os.makedirs(out_dir, exist_ok=True)
+    if start_children is None:
+        children = [ServeChild(device, "threaded") for _ in range(4)]
+    else:
+        children = start_children()
+    result = {"size": size._asdict(), "rows": {}, "client_counts": {}, "steps_s": {}}
+    rows = result["rows"]
+    reports, proxies = [], []
+    try:
+        t = time.perf_counter()
+        refs = federation_references(size)
+        result["steps_s"]["cpu references"] = time.perf_counter() - t
+        t = time.perf_counter()
+        for child in children:
+            child.wait_ready()
+        result["steps_s"]["children ready"] = time.perf_counter() - t
+        for child in children:
+            host, port = child.http_url.rsplit(":", 1)
+            proxies.append(ChaosProxy(host, int(port)).start())
+        result["urls"] = [c.http_url for c in children]
+        result["proxies"] = [p.url for p in proxies]
+
+        def row(name, fn, *args, launches=None):
+            reset_counts()
+            t0 = time.perf_counter()
+            out = fn(children, proxies, refs, size, *args)
+            result["steps_s"][name] = time.perf_counter() - t0
+            counts = read_counts()
+            want = {k: 0 for k in counts}
+            if launches is not None:
+                want.update(launches(out))
+            if counts != want:
+                raise AssertionError(f"federation row {name}: this process launched {counts}, "
+                                     f"expected {want}")
+            result["client_counts"][name] = counts
+            return out
+
+        rows["warm"] = row("warm", fed_warm)
+        rows["home"] = row("home", fed_home)
+        rows["spill"] = row("spill", fed_spill)
+        rows["sequence"] = row("sequence", fed_sequence)
+        rows["shadow"] = row("shadow", fed_shadow)
+        rows["canary"] = row("canary", fed_canary)
+        rows["byzantine"] = row(
+            "byzantine", fed_byzantine, device,
+            launches=lambda out: {"flash_attention": out["byzantine_executions"]
+                                  if on_card else 0})
+        rows["watch"] = row("watch", fed_watch, out_dir)
+        rows["harness"] = row("harness", fed_harness)
+        rows["doctor"] = row("doctor", fed_doctor, out_dir)
+        rows["watch"].update(fed_blackbox_doctor(rows["watch"].pop("doctor_process")))
+        t = time.perf_counter()
+        for child in children[:3]:
+            child.sigterm()
+        reports = [child.finish(t, 15.0) for child in children[:3]]
+    finally:
+        pending = (rows.get("watch") or {}).get("doctor_process")
+        if pending is not None and pending[0].poll() is None:
+            pending[0].kill()
+        for proxy in proxies:
+            proxy.stop()
+        for child in children:
+            child.kill()
+    result["reports"] = reports
+
+    expected = []
+    for i, report in enumerate(reports):
+        ex = report["executions"]
+        want = {"decode_attention": report["layers"] * report["decoder_steps"],
+                "flash_attention": ex["long_context_encoder"]}
+        expected.append(want)
+        if any(report["failures"].values()):
+            raise AssertionError(f"federation child {i}: failures {report['failures']}")
+        if report.get("launches") is not None:
+            got = {k: want.get(k, 0) if on_card else 0 for k in COUNTERS}
+            if report["launches"] != got:
+                raise AssertionError(f"federation child {i} launches {report['launches']}, "
+                                     f"expected {got}")
+            card = torch.cuda.get_device_name(0) if on_card else str(torch.device(device))
+            if report["device"] != card:
+                raise AssertionError(f"federation child {i} ran on {report['device']}, "
+                                     f"not {card}")
+    if not sum(e["decode_attention"] for e in expected) or \
+            not sum(e["flash_attention"] for e in expected):
+        raise AssertionError(f"federation phase: an attention kernel's path did not run: "
+                             f"{expected}")
+    result["launch_counts"] = [r.get("launches") for r in reports]
+    result["expected_launches"] = expected
+    result["seconds"] = time.perf_counter() - t_phase
+    return result
+
+
 def device_kernels(prof):
     """Device time by kernel in a torch.profiler trace, largest first."""
     kernels = []
@@ -5509,6 +6196,7 @@ def main(argv) -> int:
     process = serve_process()
     pool = serve_pool()
     orchestration = serve_orchestration()
+    federation = serve_federation()
     for row in served["identity"]:
         log(f"identity_fp32 {row['bytes'] // MIB} MiB p50: wire {row['wire_p50_ms']:.3f} ms, "
             f"system shm {row['system_shm_p50_ms']:.3f} ms, "
@@ -5876,6 +6564,43 @@ def main(argv) -> int:
     def orchestration_launches(kernel):
         return [row[kernel] for row in orchestration["launch_counts"]]
 
+    fed = federation["rows"]
+    log(f"federation phase: {federation['seconds']:.1f} s (children ready after "
+        f"{federation['steps_s']['children ready']:.1f} s); rows "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in federation["steps_s"].items()) + f"; {card}")
+    sp = fed["spill"]
+    log(f"federation home: {fed['home']['executions']} encoder executions by child, "
+        f"{fed['home']['spills']} spills; spill: {sp['spills']} of {sp['requests']} spilled "
+        f"{sp['reasons']}, child 3 ran {sp['executions'][2]}, home again after "
+        f"{sp['requests_to_return_home']} requests / {sp['return_home_s']:.3f} s of the heal; "
+        f"{card}")
+    sq = fed["sequence"]
+    log(f"federation sequence: tokens {sq['tokens']} (CPU {sq['cpu_tokens']}, near tie "
+        f"{sq['near_tie']}), abandoned {sq['abandoned']}, decoder_lm executions "
+        f"{sq['executions']}")
+    cn = fed["canary"]
+    log(f"federation shadow: {fed['shadow']['status']}; canary: rolled back after "
+        f"{cn['faulted_requests']} faulted requests / {cn['rollback_s']:.3f} s (burn "
+        f"{cn['burn_rate']}), executions after {cn['executions_after']}; {card}")
+    bz = fed["byzantine"]
+    log(f"federation byzantine: {bz['returned']} returned (0 corrupt, max err "
+        f"{bz['max_abs_err']}), faults {bz['faults']}, liar pool {bz['liar']['pool']}, "
+        f"spills {bz['spill_reasons']}, byzantine core executions {bz['byzantine_executions']}")
+    wt = fed["watch"]
+    log(f"federation watch: {wt['named']['kind']} named {wt['faulted_url']} after "
+        f"{wt['detect_requests']} requests / {wt['detect_s']:.3f} s, ring {wt['ring_records']}, "
+        f"doctor --blackbox {wt['doctor_blackbox_s']:.2f} s; {card}")
+    dr = fed["doctor"]
+    log(f"federation doctor: cells {dr['cells']} exit {dr['healthy_exit']} in "
+        f"{dr['healthy_s']:.2f} s; after SIGKILL exit {dr['killed_exit']} in "
+        f"{dr['killed_s']:.2f} s, anomalies {dr['killed_anomalies']}")
+    log("federation harness: " + json.dumps(fed["harness"]["rows"]) + f"; {card}")
+    log("federation launches by child: " + json.dumps(federation["launch_counts"])
+        + " = expected " + json.dumps(federation["expected_launches"]))
+
+    def federation_launches(kernel):
+        return [row[kernel] for row in federation["launch_counts"]]
+
     main_row = timed[0]
     kernels = [{
         "name": "decode_attention",
@@ -5908,6 +6633,7 @@ def main(argv) -> int:
         "process_launches": process_launches("decode_attention"),
         "pool_launches": pool_launches("decode_attention"),
         "orchestration_launches": orchestration_launches("decode_attention"),
+        "federation_launches": federation_launches("decode_attention"),
         "batched_shape": batched_timed,
     }]
     flash_row = flash_timed[0]
@@ -5929,6 +6655,7 @@ def main(argv) -> int:
         "process_launches": process_launches("flash_attention"),
         "pool_launches": pool_launches("flash_attention"),
         "orchestration_launches": orchestration_launches("flash_attention"),
+        "federation_launches": federation_launches("flash_attention"),
         "shape": flash_row["shape"],
         "dtype": flash_row["dtype"],
         "at_shapes": flash_timed[1:],
@@ -5968,6 +6695,7 @@ def main(argv) -> int:
             "process_launches": process_launches(name),
             "pool_launches": pool_launches(name),
             "orchestration_launches": orchestration_launches(name),
+            "federation_launches": federation_launches(name),
             "n": wire_row["n"],
             "at_shapes": [{"n": row["n"], **row[name.split("_")[0]]}
                           for row in quant_timed[1:]]
@@ -6005,6 +6733,7 @@ def main(argv) -> int:
             "process_launches": process_launches(name),
             "pool_launches": pool_launches(name),
             "orchestration_launches": orchestration_launches(name),
+            "federation_launches": federation_launches(name),
             "shape": row["shape"],
             "at_shapes": timed_rows[1:],
         })
@@ -6024,7 +6753,7 @@ def main(argv) -> int:
                    "host_breakdown": breakdown,
                    "served": served, "vision": vision, "grpc": grpc_served,
                    "resilience": resilience, "harness": harness, "process": process,
-                   "pool": pool, "orchestration": orchestration,
+                   "pool": pool, "orchestration": orchestration, "federation": federation,
                    "kernels": kernels}, f, indent=1)
     log(smi)
     log(json.dumps({"kernels": kernels}))

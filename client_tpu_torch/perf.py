@@ -35,9 +35,11 @@ receives the tensor itself and the host window is never written. The CLI's
 server is another process, so the CLI leases slabs that mirror each input
 into the host window, which that server reads (no CUDA IPC).
 
-Flags whose layers the port does not have yet raise ``NotImplementedError``
-naming their ROADMAP item: federation cells and ``--watch`` (A8); the
-native protocols (A10).
+It also runs the federation over named cells (``--cells``,
+``--home-cell``, ``--shadow-cell``, ``--canary-cell``;
+``client_tpu_torch.federation``) and the continuous monitor
+(``--watch``, ``client_tpu_torch.watch``). Only the native protocols
+(``-i native*``, ROADMAP A10) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -124,45 +126,8 @@ def _not_ported(flag: str, layer: str, item: str) -> NotImplementedError:
         f"(ROADMAP {item})")
 
 
-def _parse_roles_spec(spec: str) -> Dict[str, List[str]]:
-    """``"prefill=h1:8000+h2:8000;decode=h3:8000"`` -> ``{"prefill": [...],
-    "decode": [...]}``: ``;``-separated ``name=url+url`` groups, in
-    declaration order (the JAX package parses ``--roles`` with its
-    federation's cells parser; its messages are kept)."""
-    cells: Dict[str, List[str]] = {}
-    for part in spec.split(";"):
-        part = part.strip()
-        if not part:
-            continue
-        name, eq, urls = part.partition("=")
-        name = name.strip()
-        if not eq or not name:
-            raise ValueError(
-                f"malformed cell spec {part!r} (want name=url+url)")
-        if name in cells:
-            raise ValueError(f"duplicate cell name {name!r}")
-        url_list = [u.strip() for u in urls.split("+") if u.strip()]
-        if not url_list:
-            raise ValueError(f"cell {name!r} declares no urls")
-        cells[name] = url_list
-    if not cells:
-        raise ValueError("cells spec declares no cells")
-    return cells
-
-
-def _check_ported(protocol: str, flags: Dict[str, Any]) -> None:
-    """Raise for the first requested flag whose layer is not ported."""
-    layers = {
-        "--cells": ("federation cells (federation.FederatedClient)", "A8"),
-        "--home-cell": ("federation cells (federation.FederatedClient)", "A8"),
-        "--shadow-cell": ("federation cells (federation.FederatedClient)", "A8"),
-        "--canary-cell": ("federation cells (federation.FederatedClient)", "A8"),
-        "--watch": ("continuous monitoring (watch.Watchtower)", "A8"),
-    }
-    for flag, value in flags.items():
-        if value:
-            layer, item = layers[flag]
-            raise _not_ported(flag, layer, item)
+def _check_ported(protocol: str) -> None:
+    """Raise for a protocol the port does not have yet (the native ones)."""
     if protocol not in PROTOCOLS:
         raise ValueError(f"unknown protocol {protocol!r} (one of {', '.join(PROTOCOLS)})")
     if protocol not in PYTHON_PROTOCOLS:
@@ -271,12 +236,17 @@ class PerfRunner:
         ``pipeline`` records through a ``PipelineClient``
         (``client_tpu_torch.pipeline``).
 
-        The federation and watch arguments (A8) and the native protocols
-        (A10) raise ``NotImplementedError``."""
-        _check_ported(protocol, {
-            "--cells": cells, "--home-cell": home_cell, "--shadow-cell": shadow_cell,
-            "--canary-cell": canary_cell, "--watch": watch,
-        })
+        ``cells``: a ``{cell: [urls]}`` dict or its spec string
+        (``"a=u1+u2;b=u3"``); measurement clients become
+        ``FederatedClient``s over the named cells, each its own
+        ``PoolClient`` (``client_tpu_torch.federation``; ``home_cell``,
+        ``shadow_cell`` and ``canary_cell`` arm locality, the shadow mirror
+        and the canary), and each row gains a ``client_federation`` block.
+        ``watch``: arm a ``Watchtower`` (``client_tpu_torch.watch``) on each
+        run's telemetry and append a ``client_watch`` block.
+
+        The native protocols (A10) raise ``NotImplementedError``."""
+        _check_ported(protocol)
         if shared_memory not in ("none", "system", "cuda"):
             raise ValueError(
                 f"unknown --shared-memory {shared_memory!r} (none|system|cuda)")
@@ -321,13 +291,34 @@ class PerfRunner:
         self.cache_ttl_s = cache_ttl_s
         self.singleflight = singleflight
         self.affinity_key = affinity_key
+        # multi-cell federation (client_tpu_torch.federation): measurement
+        # clients become FederatedClients over named cells, each cell its
+        # own PoolClient (routing/admission/endpoint-limit flags apply
+        # PER CELL); shadow/canary arm the rollout primitives and every
+        # result row gains a ``client_federation`` block
+        if isinstance(cells, str):
+            from .federation import parse_cells_spec
+
+            cells = parse_cells_spec(cells)
+        self.cells = cells
+        self.home_cell = home_cell
+        self.shadow_cell = shadow_cell
+        self.shadow_ratio = shadow_ratio
+        self.canary_cell = canary_cell
+        self.canary_weight = canary_weight
+        self.canary_slo = canary_slo
+        self.canary_min_events = canary_min_events
+        self.cells_deadline_s = cells_deadline_s
+        self.cells_attempt_timeout_s = cells_attempt_timeout_s
         # disaggregated prefill/decode (client_tpu_torch.disagg): a
         # {role: [urls]} dict or its spec string
         # ("prefill=u1+u2;decode=u3") labeling replay endpoints with
         # serving roles; trace replay drives ``prefill_decode`` records
         # (format v5) through a DisaggClient over them
         if isinstance(roles, str):
-            roles = _parse_roles_spec(roles)
+            from .federation import parse_cells_spec
+
+            roles = parse_cells_spec(roles)
         self.roles = roles
         # client-orchestrated model-DAG replay (client_tpu_torch.pipeline):
         # a Pipeline or its spec string ("chain" or an inline graph spec);
@@ -339,6 +330,12 @@ class PerfRunner:
             pipeline = resolve_pipeline(pipeline)
         self.pipeline = pipeline
         self.validate = validate
+        # --watch: arm a continuous Watchtower (client_tpu_torch.watch) on
+        # each measurement run's telemetry and append a client_watch block
+        # (alerts fired/resolved by kind, tick overhead, changepoint
+        # trips) to every result row
+        self.watch = watch
+        self._watchtower = None
         self.seed = seed
         # sharded scatter-gather (client_tpu_torch.shard): a ShardLayout or
         # a spec string ("IN=0->OUT=0") resolved over --endpoints in order;
@@ -394,10 +391,12 @@ class PerfRunner:
                 "one ChaosProxy per replica instead")
         if self.hedge and not self.endpoints:
             raise ValueError("--hedge requires --endpoints")
-        if (routing or admission or endpoint_limits) and not self.endpoints:
+        if (routing or admission or endpoint_limits) and not (
+                self.endpoints or cells):
             raise ValueError(
                 "--routing/--admission/--endpoint-limits require "
-                "--endpoints (pool-level policies)")
+                "--endpoints (pool-level policies) or --cells (applied "
+                "to every cell's pool)")
         if self.shard_layout is not None:
             if not self.endpoints:
                 raise ValueError(
@@ -444,6 +443,37 @@ class PerfRunner:
             raise ValueError(
                 "--tenancy requires --admission: tenant quotas and "
                 "weighted-fair queueing live in the admission controller")
+        if self.cells:
+            if self.endpoints:
+                raise ValueError(
+                    "--cells and --endpoints are mutually exclusive: each "
+                    "cell already declares its own replica urls")
+            if shared_memory != "none":
+                raise ValueError(
+                    "--cells requires --shared-memory none (same rule as "
+                    "--endpoints)")
+            if chaos is not None:
+                raise ValueError(
+                    "--chaos proxies a single url; with --cells, stand up "
+                    "one ChaosProxy per replica and group them per cell "
+                    "(testing.ChaosCell / tools/bench_federation.py)")
+            if self.hedge or self.coalesce or self.cache or self.singleflight:
+                raise ValueError(
+                    "--cells rejects --hedge/--coalesce/--cache/"
+                    "--singleflight: compose them per cell (each cell IS "
+                    "a PoolClient) rather than across cells")
+            if self.shard_layout is not None:
+                raise ValueError(
+                    "--cells rejects --shard-layout: a shard layout pins "
+                    "replicas of ONE pool")
+            for name in (self.home_cell, self.shadow_cell,
+                         self.canary_cell):
+                if name is not None and name not in self.cells:
+                    raise ValueError(
+                        f"cell {name!r} is not declared in --cells")
+        elif (self.home_cell or self.shadow_cell or self.canary_cell):
+            raise ValueError(
+                "--home-cell/--shadow-cell/--canary-cell require --cells")
         if chaos is not None:
             from .testing.chaos import ChaosProxy
 
@@ -489,6 +519,8 @@ class PerfRunner:
         return mod
 
     def _make_client(self, concurrency: int = 1):
+        if self.cells:
+            return self._make_federated_client(concurrency)
         if self.endpoints:
             pool = self._make_pool_client(concurrency)
             if self.shard_layout is not None:
@@ -563,6 +595,63 @@ class PerfRunner:
                 self._arena = ShmArena(promote_inputs=False,
                                        name_prefix="perf_shard")
             return self._arena
+
+    def _make_federated_client(self, concurrency: int):
+        """A FederatedClient over ``--cells``: per-cell PoolClients with
+        the pool-level flags (routing/admission/endpoint limits/retries)
+        applied to EVERY cell, plus the shadow/canary rollout policies
+        when named."""
+        from .federation import CanaryPolicy, FederatedClient, ShadowPolicy
+        from .resilience import RetryPolicy
+
+        factory = None
+        if self.protocol == "http":
+            mod = self._client_mod
+
+            def factory(url):
+                return mod.InferenceServerClient(url, concurrency=concurrency)
+
+        pool_kwargs: Dict[str, Any] = {
+            "client_factory": factory,
+            "routing": self.routing or "round_robin",
+            "health_interval_s": 0.5,
+            "probe_timeout_s": 0.5,
+            "endpoint_retry": (RetryPolicy(max_attempts=self.retries + 1)
+                               if self.retries else None),
+            # admission=True (or the kwargs-dict form, when tenancy is
+            # armed) builds a FRESH controller inside each cell's pool —
+            # one shared controller would meter the cells jointly and
+            # hide exactly the per-cell saturation the federation
+            # spills on
+            "admission": (
+                {"mode": self.admission_mode,
+                 "target_ms": self.admission_target_ms,
+                 "max_queue_wait_s": self.admission_max_queue_wait_s,
+                 "tenancy": self.tenancy}
+                if self.admission and self.tenancy is not None
+                else True if self.admission else None),
+            "endpoint_limits": True if self.endpoint_limits else None,
+        }
+        shadow = None
+        if self.shadow_cell:
+            shadow = ShadowPolicy(self.shadow_cell, ratio=self.shadow_ratio)
+        canary = None
+        if self.canary_cell:
+            canary = CanaryPolicy(
+                self.canary_cell, weight=self.canary_weight,
+                slo=self.canary_slo or "p95<250ms",
+                min_events=self.canary_min_events)
+        return FederatedClient(
+            self.cells,
+            home=self.home_cell,
+            protocol=self.protocol,
+            telemetry=self._telemetry,
+            shadow=shadow,
+            canary=canary,
+            default_deadline_s=self.cells_deadline_s,
+            per_attempt_timeout_s=self.cells_attempt_timeout_s,
+            pool_kwargs=pool_kwargs,
+        )
 
     def _make_pool_client(self, concurrency: int):
         from .pool import HedgePolicy, PoolClient
@@ -873,7 +962,7 @@ class PerfRunner:
         """A fresh Telemetry per measurement run (sample=always, ring sized
         to hold every request) so each result row's phase breakdown covers
         exactly that run."""
-        if not (self.observe or self.flight):
+        if not (self.observe or self.flight or self.watch):
             return
         from .observe import Telemetry
 
@@ -884,6 +973,41 @@ class PerfRunner:
             trace_capacity=max(measurement_requests, 1024),
             orca_format=self._orca_format,
             flight=self._make_flight())
+        self._arm_watch()
+
+    def _arm_watch(self):
+        """A run-scoped Watchtower over the run's telemetry: background
+        ticks during the measurement window, final synchronous tick and
+        stats harvest in :meth:`_watch_result`."""
+        if not self.watch or self._telemetry is None:
+            return
+        from .watch import Watchtower
+
+        if self._watchtower is not None:
+            self._watchtower.stop()
+        self._watchtower = Watchtower(
+            self._telemetry, interval_s=0.25).start()
+
+    def _watch_result(self, result: Dict[str, Any]) -> Dict[str, Any]:
+        """Append ``client_watch``: the run's continuous-monitoring
+        verdicts (alerts fired/resolved by kind, the active set, tick
+        overhead p50/p99, changepoint trips)."""
+        tower, self._watchtower = self._watchtower, None
+        if tower is None:
+            return result
+        tower.tick()  # short runs still get at least one full evaluation
+        tower.stop()
+        stats = tower.stats()
+        result["client_watch"] = {
+            "ticks": stats["ticks"],
+            "tick_ns": stats.get("tick_ns"),
+            "alerts_fired": stats["alerts_fired"],
+            "alerts_resolved": stats["alerts_resolved"],
+            "alerts_active": stats["alerts_active"],
+            "changepoint_trips": stats["changepoint_trips"],
+            "active": [a.as_dict() for a in tower.active_alerts()],
+        }
+        return result
 
     def _arm_dataplane(self):
         """Scoped shm accounting for shm-mode runs: reuse an already
@@ -1090,16 +1214,56 @@ class PerfRunner:
         return result
 
     def _layer_stats(self, client):
-        """(batch, cache, admission) snapshots of the measurement client,
-        read before it closes."""
+        """(batch, cache, admission, federation) snapshots of the
+        measurement client, read before it closes."""
         return (client.stats() if self.coalesce else None,
-                self._cache_stats_row(client), self._admission_stats(client))
+                self._cache_stats_row(client), self._admission_stats(client),
+                self._federation_stats(client))
 
     def _layer_result(self, result: Dict[str, Any], stats) -> Dict[str, Any]:
-        batch_stats, cache_stats, admission_stats = stats
-        return self._cache_result(self._admission_result(
-            self._batch_result(result, batch_stats), admission_stats),
-            cache_stats)
+        batch_stats, cache_stats, admission_stats, fed_stats = stats
+        return self._federation_result(self._cache_result(
+            self._admission_result(
+                self._batch_result(result, batch_stats), admission_stats),
+            cache_stats), fed_stats)
+
+    def _federation_stats(self, client) -> Optional[Dict[str, Any]]:
+        """The federation snapshot (per-cell spill/serve counters plus
+        the shadow/canary views) when ``--cells`` is armed — appended to
+        result rows as ``client_federation`` so artifacts carry the
+        spillover/rollout story."""
+        if not self.cells:
+            return None
+        getter = getattr(client, "federation_stats", None)
+        if getter is None:
+            return None
+        try:
+            # let in-flight shadow mirrors settle so the row's counters
+            # cover the run (bounded; mirrors are themselves bounded)
+            drain = getattr(client, "shadow_drain", None)
+            if drain is not None and self.shadow_cell:
+                drain(timeout_s=5.0)
+            return getter()
+        except Exception:
+            return None
+
+    @staticmethod
+    def _federation_result(result: Dict[str, Any],
+                           fed_stats: Optional[Dict[str, Any]],
+                           ) -> Dict[str, Any]:
+        if fed_stats is not None:
+            cells = fed_stats.get("cells", {})
+            result["client_federation"] = {
+                "home": fed_stats.get("home"),
+                "order": fed_stats.get("order"),
+                "spills": sum(
+                    n for row in cells.values()
+                    for n in (row.get("spill_out") or {}).values()),
+                "cells": cells,
+                "shadow": fed_stats.get("shadow"),
+                "canary": fed_stats.get("canary"),
+            }
+        return result
 
     def _make_flight(self):
         """A fresh FlightRecorder per measurement run under ``--flight``
@@ -1183,7 +1347,7 @@ class PerfRunner:
         lat_sorted = sorted(latencies)
         n = len(lat_sorted)
         issued = n + len(errors) + len(sheds)
-        return self._integrity_result(self._shm_result(self._layer_result(
+        return self._watch_result(self._integrity_result(self._shm_result(self._layer_result(
             self._observe_result({
             "model": self.model_name,
             "protocol": self.protocol,
@@ -1204,7 +1368,7 @@ class PerfRunner:
             "duration_s": round(elapsed, 3),
             "infer_per_sec": round(n / elapsed, 1) if elapsed > 0 else 0.0,
             "latency_ms": _latency_ms_row(lat_sorted),
-        }), layer_stats), shm_rec, shm_before), integrity_before)
+        }), layer_stats), shm_rec, shm_before), integrity_before))
 
     def run_rate(self, rate: float, measurement_requests: int,
                  distribution: str = "constant",
@@ -1282,7 +1446,7 @@ class PerfRunner:
         # denominator for every capacity claim (a saturated pool that
         # silently under-offers would otherwise flatter its own number)
         arrival_window = max(issues) if issues else 0.0
-        return self._integrity_result(self._shm_result(self._layer_result(
+        return self._watch_result(self._integrity_result(self._shm_result(self._layer_result(
             self._observe_result({
             "model": self.model_name,
             "protocol": self.protocol,
@@ -1311,7 +1475,7 @@ class PerfRunner:
             "latency_ms": _latency_ms_row(lat_sorted),
             "schedule_lag_ms": _lag_ms_row(lag_sorted),
             "delayed_pct": round(100.0 * delayed / issued, 1) if issued else 0.0,
-        }), layer_stats), shm_rec, shm_before), integrity_before)
+        }), layer_stats), shm_rec, shm_before), integrity_before))
 
     # -- trace replay --------------------------------------------------------
     _SEQ_GATE_TIMEOUT_S = 60.0
@@ -1417,6 +1581,7 @@ class PerfRunner:
             stream_window_s=window_s,
             orca_format=self._orca_format,
             flight=self._make_flight())
+        self._arm_watch()
         # request_ms SLOs are fed PER TRACE RECORD from the replay's own
         # outcome accounting, NOT from telemetry spans (a retried attempt
         # is a span of its own); stream-metric SLOs stay span-fed (one
@@ -1540,9 +1705,10 @@ class PerfRunner:
             layer_stats = self._layer_stats(client)
         finally:
             client.close()
-        return self._integrity_result(self._layer_result(self._trace_result(
-            header, records, speed, elapsed, outcomes, errors, specs,
-            resources, request_slos), layer_stats), integrity_before)
+        return self._watch_result(self._integrity_result(self._layer_result(
+            self._trace_result(
+                header, records, speed, elapsed, outcomes, errors, specs,
+                resources, request_slos), layer_stats), integrity_before))
 
     def _replay_warmup(self, client, records, resources) -> None:
         """One best-effort dispatch per distinct (kind, model) BEFORE the
@@ -2263,13 +2429,46 @@ def main(argv: Optional[List[str]] = None) -> int:
              "tokenize->embed->rerank chain) or an inline graph spec "
              "(client_tpu_torch.pipeline); result rows gain per-stage "
              "latency columns under 'pipeline_stages'")
-    # the JAX harness's flags whose layers are not ported: accepted, and
-    # PerfRunner raises NotImplementedError naming their ROADMAP item
-    not_ported = parser.add_argument_group(
-        "not ported yet", "raise NotImplementedError (ROADMAP A8)")
-    for flag in ("--cells", "--home-cell", "--shadow-cell", "--canary-cell"):
-        not_ported.add_argument(flag, default=None)
-    not_ported.add_argument("--watch", action="store_true")
+    parser.add_argument(
+        "--cells", default=None, metavar="SPEC",
+        help="multi-cell federation: 'a=u1+u2;b=u3' builds a "
+             "FederatedClient over named cells, each its own PoolClient "
+             "(routing/admission/endpoint-limit flags apply per cell); "
+             "locality-first with transparent spillover "
+             "(client_tpu_torch.federation); result rows gain "
+             "client_federation")
+    parser.add_argument(
+        "--home-cell", default=None,
+        help="the locality-preferred cell (default: first in --cells)")
+    parser.add_argument(
+        "--shadow-cell", default=None,
+        help="mirror a sampled fraction of successful infers to this "
+             "cell (responses compared+counted, never returned)")
+    parser.add_argument(
+        "--shadow-ratio", type=float, default=0.05,
+        help="sampled mirror fraction for --shadow-cell")
+    parser.add_argument(
+        "--canary-cell", default=None,
+        help="weighted canary split to this cell with SLO-burn "
+             "auto-rollback")
+    parser.add_argument(
+        "--canary-weight", type=float, default=0.1,
+        help="canary traffic weight in [0,1]")
+    parser.add_argument(
+        "--canary-slo", default=None,
+        help="canary burn objective, e.g. 'p95<100ms' "
+             "(default p95<250ms)")
+    parser.add_argument(
+        "--canary-min-events", type=int, default=20,
+        help="canary outcomes required before a burn may roll back")
+    parser.add_argument(
+        "--watch", action="store_true",
+        help="arm a continuous Watchtower (client_tpu_torch.watch: multi-"
+             "window SLO burn, watermark gauges, changepoint detectors) "
+             "on each measurement run and append a client_watch block "
+             "(alerts fired/resolved by kind, tick overhead p50/p99, "
+             "changepoint trips) to every result row — closed-loop, "
+             "open-loop and trace replay alike")
     args = parser.parse_args(argv)
 
     if args.trace and args.trace_gen:
@@ -2313,7 +2512,11 @@ def main(argv: Optional[List[str]] = None) -> int:
         cells=args.cells,
         home_cell=args.home_cell,
         shadow_cell=args.shadow_cell,
+        shadow_ratio=args.shadow_ratio,
         canary_cell=args.canary_cell,
+        canary_weight=args.canary_weight,
+        canary_slo=args.canary_slo,
+        canary_min_events=args.canary_min_events,
         roles=args.roles,
         pipeline=args.pipeline,
         validate=args.validate,

@@ -265,6 +265,18 @@ def parse_infer_request(body: bytes, header_length: Optional[int]) -> Dict[str, 
     return request
 
 
+def infer_request_encoding_prefs(request: Dict[str, Any]):
+    """``(requested, binary_default)`` for ``encode_infer_response`` —
+    shared by the HTTP frontend and the byzantine test server so identical
+    request bytes always produce identically-encoded responses."""
+    requested = request.get("outputs")
+    binary_default = bool(
+        request.get("binary_default")
+        or request.get("parameters", {}).get("binary_data_output", False)
+    )
+    return requested, binary_default
+
+
 def encode_infer_response(
     response: Dict[str, Any], requested: Optional[List[Dict[str, Any]]],
     binary_default: bool,
@@ -507,10 +519,7 @@ class _Handler(BaseHTTPRequestHandler):
             # W3C trace context: the core records a server-side span joined
             # on this trace id (ServerCore.access_records)
             request["traceparent"] = traceparent
-        requested = request.get("outputs")
-        binary_default = bool(
-            request.get("binary_default")
-            or request.get("parameters", {}).get("binary_data_output", False))
+        requested, binary_default = infer_request_encoding_prefs(request)
         response = self.core.infer(model_name, model_version, request)
         body_out, json_size = encode_infer_response(response, requested, binary_default)
         headers = {"Content-Type": "application/json"}

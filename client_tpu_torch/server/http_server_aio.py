@@ -27,6 +27,7 @@ from .http_server import (
     _generate_once,
     _sse_event,
     encode_infer_response,
+    infer_request_encoding_prefs,
     parse_infer_request,
 )
 
@@ -134,10 +135,7 @@ class AioHttpInferenceServer:
                     # W3C trace context: the core records a server-side span
                     # joined on this trace id (ServerCore.access_records)
                     parsed["traceparent"] = traceparent
-                requested = parsed.get("outputs")
-                binary_default = bool(
-                    parsed.get("binary_default")
-                    or parsed.get("parameters", {}).get("binary_data_output", False))
+                requested, binary_default = infer_request_encoding_prefs(parsed)
                 response = await run(core.infer, name, version, parsed)
                 body_out, json_size = encode_infer_response(response, requested, binary_default)
                 headers = {}

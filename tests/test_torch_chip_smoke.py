@@ -468,7 +468,8 @@ def test_kernels_line_and_last_line_keep_the_contract():
                  "normalize_image", "softmax_probabilities"):
         assert f'"{name}"' in source
     for key in ("route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
-                "bound_ms", "bound_by", "library_ms", "orchestration_launches"):
+                "bound_ms", "bound_by", "library_ms", "orchestration_launches",
+                "federation_launches"):
         assert f'"{key}":' in source, key
     lines = [line.strip() for line in source.rstrip().splitlines()]
     k = lines.index('log(json.dumps({"kernels": kernels}))')
@@ -477,3 +478,97 @@ def test_kernels_line_and_last_line_keep_the_contract():
     assert lines[-1] == "return 0" and not any("log(" in line for line in lines[k + 2:])
     if not torch.cuda.is_available():
         assert chip_smoke.main([]) != 0
+
+
+# phase 11 at a small size: four port servers in this process, each behind
+# the phase's own proxy; the doctor row's SIGKILL of child 4 is stood in by
+# that proxy's reset (a server stopped in process keeps serving its open
+# keep-alive connections)
+SMALL_FED = chip_smoke.FedSize(
+    seq=256, home_requests=4, spill_requests=12, blackhole_after=3, heal_after=8,
+    return_max=200, prompt=[1, 2, 3, 4], seq_tokens=4, shadow_requests=3, canary_healthy=6,
+    canary_max=20, canary_after=4, canary_slo_ms=100.0, canary_latency_s=0.2, byz_requests=6,
+    watch_warm=64, watch_batch=8, watch_batches=32, watch_latency_s=0.1, watch_slo_ms=100.0,
+    watch_fast_s=2.0, watch_window_s=6.0, perf_requests=4, concurrency=(1, 2))
+
+
+def test_federation_phase_on_cpu(monkeypatch, tmp_path):
+    """``chip_smoke.serve_federation``: every row of phase 11 on four port
+    servers in this process. The plain attention calls counted here over
+    the rows are the expected launches: flash_attention = the encoder's
+    calls a request times the encoder executions of the four children and
+    of the byzantine core, decode_attention = layers x the children's
+    decoder steps."""
+    import client_tpu_torch.integrity as integrity
+    import client_tpu_torch.models.decoder as decoder_mod
+    import client_tpu_torch.models.long_context as long_context_mod
+
+    monkeypatch.setattr(integrity, "_DEFAULT_POLICY", integrity.IntegrityPolicy())
+    calls = collections.Counter()
+    for mod, name in ((decoder_mod, "decode_attention"),
+                      (long_context_mod, "flash_attention")):
+
+        def counted(*args, _plain=getattr(mod, name), _name=name, **kwargs):
+            out = _plain(*args, **kwargs)
+            calls[_name] += 1
+            return out
+
+        monkeypatch.setattr(mod, name, counted)
+    encoder = long_context_mod.LongContextEncoderModel(device="cpu")
+    calls.clear()
+    encoder.execute({"sequence": np.zeros((8, encoder.encoder.dim), np.float32)}, {})
+    flash_per_request = calls["flash_attention"]
+    by_row = collections.Counter()
+    reset_counts, read_counts = chip_smoke.reset_counts, chip_smoke.read_counts
+
+    def reset():
+        calls.clear()
+        reset_counts()
+
+    def read():
+        by_row.update(calls)
+        return read_counts()
+
+    monkeypatch.setattr(chip_smoke, "reset_counts", reset)
+    monkeypatch.setattr(chip_smoke, "read_counts", read)
+    children = [CountingChild() for _ in range(4)]
+    try:
+        result = chip_smoke.serve_federation(device="cpu", size=SMALL_FED,
+                                             start_children=lambda: children,
+                                             out_dir=str(tmp_path))
+    finally:
+        children[3].drainer = None
+        for s in children[3].servers:
+            s.stop()
+    rows = result["rows"]
+    assert rows["home"]["executions"][2:] == [0, 0] and rows["home"]["spills"] == 0
+    spill = rows["spill"]
+    assert spill["spills"] == spill["executions"][2] > 0 and spill["requests_to_return_home"] > 0
+    assert set(spill["reasons"]) <= {"down", "error"}
+    seq = rows["sequence"]
+    assert seq["abandoned"]["sequence_id"] == 4242 and seq["executions"][2:] == [0, 0]
+    assert seq["near_tie"] is None and seq["tokens"] == seq["cpu_tokens"]
+    assert rows["shadow"]["status"]["matched"] == SMALL_FED.shadow_requests
+    assert rows["canary"]["status"]["weight"] == 0.0 and rows["canary"]["executions_after"][3] == 0
+    byz = rows["byzantine"]
+    assert byz["corrupt_returned"] == 0 and byz["returned"] == SMALL_FED.byz_requests
+    assert set(byz["faults"]) <= set(chip_smoke.BYZ_KINDS)
+    assert byz["liar"]["pool"]["quarantine_dominated"] and byz["liar"]["pool"]["invalid_total"]
+    watch = rows["watch"]
+    assert watch["faulted_url"] in str(watch["named"]["evidence"])
+    assert watch["ring_records"]["alert"] >= 2 and watch["timelines_recovered"]
+    assert [r["concurrency"] for r in rows["harness"]["rows"]] == [1, 2]
+    assert rows["doctor"]["cells"] == ["away", "canary", "home"]
+    assert "cell_down" in rows["doctor"]["killed_anomalies"]
+    executions = [sum(r["executions"]["long_context_encoder"] for r in result["reports"]),
+                  children[3].core.statistics("long_context_encoder")["model_stats"][0][
+                      "execution_count"],
+                  byz["byzantine_executions"]]
+    assert by_row["flash_attention"] == flash_per_request * sum(executions) > 0
+    layers = result["reports"][0]["layers"]
+    expected = result["expected_launches"]
+    assert sum(e["decode_attention"] for e in expected) == layers * sum(
+        c.steps for c in children[:3]) > 0
+    assert by_row["decode_attention"] == layers * sum(c.steps for c in children)
+    assert result["launch_counts"] == [None, None, None]
+    assert result["client_counts"]["byzantine"]["flash_attention"] == 0

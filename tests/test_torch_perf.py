@@ -15,8 +15,11 @@ tenant-attributed trace replays with per-tenant rows. The orchestration
 flags run in both runners over each package's zoo servers: ``--shard-layout``
 scatters closed-loop infers, and ``sharded``, ``prefill_decode`` and
 ``pipeline`` records replay through the shard layout, ``--roles`` and
-``--pipeline``. The flags whose layers the port does not have yet raise
-``NotImplementedError`` naming their ROADMAP item, and ``python -m
+``--pipeline``. The federation flags (``--cells``, ``--home-cell``,
+``--shadow-cell``, ``--canary-cell``) run in both runners over cells of the
+two packages' servers, and ``--watch`` over the port's server, with the
+``client_federation`` / ``client_watch`` blocks' keys equal. The native
+protocols raise ``NotImplementedError`` naming ROADMAP A10, and ``python -m
 client_tpu_torch.perf -f json`` prints rows that parse.
 """
 
@@ -432,9 +435,56 @@ def _a7_rows(servers, kwargs, flag):
     return rows
 
 
+FEDERATION_FLAGS = ("--cells", "--home-cell", "--shadow-cell", "--canary-cell", "--watch")
+
+
+def _a8b_kwargs(servers, kwargs, flag):
+    """The flag with what it needs: cells ``a`` (the port's HTTP server) and
+    ``b`` (the JAX package's), the named cell being ``b``."""
+    if flag == "--watch":
+        return dict(kwargs)
+    cells = {"a": [servers[("port", "http")].url], "b": [servers[("jax", "http")].url]}
+    named = {k: "b" for k in kwargs if k.endswith("_cell")}
+    # one outcome per canary request decides the verdict here
+    extra = {"canary_weight": 0.5, "canary_min_events": 1000} if "canary_cell" in named else {}
+    return dict(cells=cells, **named, **extra)
+
+
+def _a8b_rows(servers, kwargs, flag):
+    rows = {}
+    for pkg, mod in (("port", port_perf), ("jax", jax_perf)):
+        runner = _runner(mod, servers[("port", "http")].url, "http", "simple", "none",
+                         **_a8b_kwargs(servers, kwargs, flag))
+        try:
+            rows[pkg] = runner.run(1, 10)
+        finally:
+            _close(runner)
+    return rows
+
+
 @pytest.mark.parametrize("kwargs, flag, item", UNPORTED, ids=[u[1] + str(i)
                                                                 for i, u in enumerate(UNPORTED)])
 def test_unported_flags_raise_naming_their_item(servers, zoo_servers, kwargs, flag, item):
+    if flag in FEDERATION_FLAGS:
+        # ported: the flag runs in both runners and its block has JAX's keys
+        rows = _a8b_rows(servers, kwargs, flag)
+        assert _keys(rows["port"], 1) == _keys(rows["jax"], 1)
+        assert rows["port"]["requests"] == rows["jax"]["requests"] == 10
+        assert rows["port"]["errors"] == 0, rows["port"]["error_sample"]
+        block = "client_watch" if flag == "--watch" else "client_federation"
+        assert _keys(rows["port"][block]) == _keys(rows["jax"][block])
+        if block == "client_federation":
+            fed = {pkg: row[block] for pkg, row in rows.items()}
+            assert fed["port"]["home"] == fed["jax"]["home"]
+            assert fed["port"]["order"] == fed["jax"]["order"]
+            assert fed["port"]["spills"] == fed["jax"]["spills"] == 0
+            if flag == "--shadow-cell":
+                assert fed["port"]["shadow"]["cell"] == "b"
+            if flag == "--canary-cell":
+                assert fed["port"]["canary"]["cell"] == "b"
+        else:
+            assert rows["port"][block]["ticks"] >= 1
+        return
     if flag in ("--shard-layout", "--roles", "--pipeline"):
         # ported: the flag runs in both runners over each package's zoo
         rows, runners = {}, {}
@@ -514,20 +564,59 @@ def test_orchestration_cli_flags_run(zoo_servers, capsys, flag):
 @pytest.mark.parametrize("flag", ["--admission", "--coalesce", "--watch", "--cache",
                                   "--hedge", "--singleflight", "--endpoint-limits"])
 def test_unported_cli_switches_raise(servers, capsys, flag):
-    if flag == "--watch":
-        with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-            port_perf.main(["-m", "simple", "-u", "127.0.0.1:1", flag])
-        return
     # ported: the switch runs from the CLI and its row carries the layer
     argv = ["-m", "simple", "-u", servers[("port", "http")].url, "--concurrency-range", "1",
             "--measurement-requests", "6", "--warmup-requests", "0", "-f", "json", flag]
-    if flag not in POOL_FREE:
+    if flag not in POOL_FREE + ("--watch",):
         argv += ["--endpoints", ",".join(_a7_kwargs(servers, {}, flag)["endpoints"])]
     assert port_perf.main(argv) == 0
     (row,) = json.loads(capsys.readouterr().out)
     assert row["requests"] == 6 and row["errors"] == 0, row["error_sample"]
-    block = A7_NEEDS[flag][1]
+    block = "client_watch" if flag == "--watch" else A7_NEEDS[flag][1]
     assert block is None or block in row
+
+
+@pytest.mark.parametrize("flag", ["--cells", "--home-cell", "--shadow-cell", "--canary-cell"])
+def test_federation_cli_flags_run(servers, capsys, flag):
+    """``python -m client_tpu_torch.perf --cells ...`` with each cell flag:
+    the row's ``client_federation`` block names the cells, and the named
+    cell is the one the flag armed."""
+    a, b = servers[("port", "http")].url, servers[("jax", "http")].url
+    argv = ["-m", "simple", "-u", a, "--concurrency-range", "1", "--measurement-requests",
+            "6", "--warmup-requests", "0", "-f", "json", "--cells", f"a={a};b={b}"]
+    if flag != "--cells":
+        argv += [flag, "b"]
+    assert port_perf.main(argv) == 0
+    (row,) = json.loads(capsys.readouterr().out)
+    assert row["requests"] == 6 and row["errors"] == 0, row["error_sample"]
+    fed = row["client_federation"]
+    assert set(fed["cells"]) == {"a", "b"} and fed["spills"] == 0
+    assert fed["home"] == ("b" if flag == "--home-cell" else "a")
+    if flag == "--shadow-cell":
+        assert fed["shadow"]["cell"] == "b"
+    if flag == "--canary-cell":
+        assert fed["canary"]["cell"] == "b"
+
+
+def test_cells_validation_messages_equal_jax_s():
+    """The ``--cells`` checks raise JAX's messages before any connection."""
+    cases = [
+        {"cells": {"a": ["127.0.0.1:1"]}, "endpoints": ["127.0.0.1:1"]},
+        {"cells": {"a": ["127.0.0.1:1"]}, "shared_memory": "system"},
+        {"cells": {"a": ["127.0.0.1:1"]}, "chaos": "none"},
+        {"cells": {"a": ["127.0.0.1:1"]}, "coalesce": True},
+        {"cells": {"a": ["127.0.0.1:1"]}, "home_cell": "z"},
+        {"home_cell": "a"},
+        {"routing": "least_outstanding"},
+        {"cells": "a=127.0.0.1:1;a=127.0.0.1:2"},
+    ]
+    for kw in cases:
+        msgs = []
+        for mod in (port_perf, jax_perf):
+            with pytest.raises(ValueError) as exc:
+                mod.PerfRunner("127.0.0.1:1", **kw)
+            msgs.append(str(exc.value))
+        assert msgs[0] == msgs[1], kw
 
 
 def test_shared_memory_modes_are_the_port_s(capsys):
