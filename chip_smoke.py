@@ -300,6 +300,37 @@ Phases (each raises on failure, so the script exits non-zero):
      (decode_attention = layers x decoder steps, flash_attention = the
      encoder's).
 
+12. the mesh models (``client_tpu_torch.parallel``) in this process
+   (``serve_mesh``); every mesh's shards share the one card (``Mesh([cuda:0]
+   * n)``), so no time here is a collective's cost; each row with the
+   launch counts set to 0 just before it and read just after:
+   - ``decoder_lm_tp`` (the decoder's full width) over meshes of 1, 2 and 4
+     shards: three 6-token prompts and 5 greedy steps each, then a 4-way
+     concurrent run; tokens and logits of every sequence bit-equal to
+     ``decoder_lm``'s on the card, tokens equal to its CPU run but at a near
+     tie, decode_attention launches = tokens x layers x shards; ms a token
+     beside ``decoder_lm``'s;
+   - the zoo's ``decoder_lm_tp_prefill`` over HTTP (its degree from the
+     local devices) and a 4-shard one in process on 8 x 16 prompts: LOGITS
+     and NEXT_TOKEN bit-equal to ``decoder_lm_prefill``'s, launches =
+     tokens x layers x shards;
+   - ``long_context_encoder`` in ring, ulysses and auto over 4 shards at
+     S = 8192 against flash on the card, and at S = 256 against the CPU
+     run in the same mode (atol = rtol = 2e-5), each mode's served p50
+     beside flash's and its peak memory beside the reckoning; the causal
+     ring and Ulysses against ``full_attention`` on (1, 1024, 4, 16);
+   - ``moe_ffn`` over 4 shards (8 experts) over HTTP at 1024 tokens against
+     the dense reference (2e-5); at half the busiest (shard, expert) load,
+     each kept row the dense row and each dropped row 0; 1023 tokens a 400;
+   - ``pipeline_forward``: 4 stages, 4 microbatches, within 1e-5 of
+     ``sequential_mlp``;
+   - ``densenet_onnx`` (1000 classes, width 96) at ``tensor_parallel=2``
+     over 2 shards against tp = 1: top-1 equal, logits within 2e-2, p50s;
+   - a ``serve`` child with ``--long-context --attention ring --moe
+     --tensor-parallel 2 --vision``: the degrees it prints are those the
+     card count gives, the encoder, ``moe_ffn`` and ``densenet_onnx``
+     answer as the same models here, and it drains.
+
 It then prints one ``{"kernels": [...]}`` line and, last, one line
 ``{"ok": true, "device": {...}}``. Details go to ``build/chip_smoke.json``.
 Without a CUDA device it fails. The build fails if ptxas reports a spill in
@@ -356,6 +387,14 @@ from client_tpu_torch.models.long_context import WEIGHTS, load_jax_params  # noq
 from client_tpu_torch.models.chain import ChainFusedModel, chain_core  # noqa: E402
 from client_tpu_torch.models.decoder import TinyDecoderModel  # noqa: E402
 from client_tpu_torch.models.decoder_prefill import PrefillDecoderModel  # noqa: E402
+from client_tpu_torch.models.decoder_tp import TPDecoderModel  # noqa: E402
+from client_tpu_torch.models.moe import MoEFFNModel  # noqa: E402
+from client_tpu_torch import parallel  # noqa: E402
+from client_tpu_torch.parallel import Mesh  # noqa: E402
+from client_tpu_torch.parallel import moe as parallel_moe  # noqa: E402
+from client_tpu_torch.parallel import pipeline as parallel_pipeline  # noqa: E402
+from client_tpu_torch.parallel import ring as parallel_ring  # noqa: E402
+from client_tpu_torch.parallel import ulysses as parallel_ulysses  # noqa: E402
 from client_tpu_torch.models.decoder_batched import _SeqRequest  # noqa: E402
 from client_tpu_torch.models.generate import TinyGenerateModel  # noqa: E402
 from client_tpu_torch.ops import _kernels  # noqa: E402
@@ -606,6 +645,12 @@ def check_decode_attention():
     # the decoder's own shape at a mid-run position, and the batched step's
     # (B = slots) at mixed positions in both dtypes
     cases.append(("decoder", (1, 4, 128, 32), [11], "bfloat16"))
+    # decoder_lm_tp's per-shard shapes (H/n heads at 2 and 4 shards) at a
+    # mid-run position and at a full cache
+    for h in (2, 1):
+        for p in (63, 127):
+            for name in dtypes:
+                cases.append(("decoder_tp_shard", (1, h, 128, 32), [p], name))
     for name in dtypes:
         cases.append(("batched", BATCHED_SHAPE, BATCHED_POS, name))
     # one split over a cache so short that the kernel unrolls less: at M = 24
@@ -3432,10 +3477,10 @@ class ServeChild:
     """``client_tpu_torch.serve`` in a child process on ``device``: its output
     read line by line, its URLs from the lines it prints."""
 
-    def __init__(self, device, frontend):
+    def __init__(self, device, frontend, args=SERVE_ARGS):
         self.frontend = frontend
         self.proc = subprocess.Popen(
-            [sys.executable, "-c", SERVE_CHILD, REPO, *SERVE_ARGS, "--device", device,
+            [sys.executable, "-c", SERVE_CHILD, REPO, *args, "--device", device,
              "--http-frontend", frontend],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, cwd=REPO)
         self.lines = []
@@ -5796,6 +5841,442 @@ def serve_federation(device="cuda", size=FED, start_children=None, out_dir=None)
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the mesh models in this process
+# ---------------------------------------------------------------------------
+
+MeshSize = collections.namedtuple("MeshSize", [
+    "shards", "prompts", "prompt_len", "steps", "concurrent", "prefill_rows", "prefill_len",
+    "seq", "cpu_seq", "causal", "encoder_requests", "moe_tokens", "pipe", "vision",
+    "vision_requests"])
+MESH = MeshSize(
+    shards=(1, 2, 4), prompts=3, prompt_len=6, steps=5, concurrent=4, prefill_rows=8,
+    prefill_len=16, seq=8192, cpu_seq=256, causal=(1, 1024, 4, 16), encoder_requests=10,
+    moe_tokens=1024, pipe=(4, 4, 64, 256), vision=(1000, 96), vision_requests=10)
+MESH_MODES = ("ring", "ulysses", "auto")
+# the serve child of phase 12: every mesh flag at once, over the local devices
+MESH_SERVE_ARGS = ["--http-port", "0", "--grpc-port", "0", "--long-context", "--attention",
+                   "ring", "--moe", "--tensor-parallel", "2", "--vision"]
+
+
+def shared_mesh(device, n, axis="model"):
+    """A ("data", "model") mesh of ``n`` shards along ``axis`` that all live
+    on ``device`` (one card serves the whole mesh)."""
+    return Mesh([[device]] * n if axis == "data" else [[device] * n], ("data", "model"))
+
+
+def mesh_prompts(size):
+    rng = np.random.default_rng(12)
+    return [rng.integers(0, TinyDecoderModel.VOCAB, size.prompt_len).tolist()
+            for _ in range(size.prompts)]
+
+
+def decoder_stream(model, prompt, steps, seq_id):
+    """(tokens, logits [steps + 1, V], top-two margins) of one sequence."""
+    margins = []
+
+    def run(tokens, start, end):
+        out = model.execute({"TOKENS": np.array([tokens], np.int32)},
+                            {"sequence_id": seq_id, "sequence_start": start,
+                             "sequence_end": end})
+        logits = np.asarray(out["LOGITS"], np.float32).reshape(-1)
+        top2 = np.sort(logits)[-2:]
+        margins.append(float(top2[1] - top2[0]))
+        return logits[None], int(out["NEXT_TOKEN"][0, 0])
+
+    tokens, logits = drive_decoder(run, prompt, steps)
+    return tokens, logits, margins
+
+
+def mesh_decoder(device, size, layers):
+    """Row 1: decoder_lm_tp over meshes of ``size.shards`` shards of one
+    device, against decoder_lm on that device (same weights) and its CPU run."""
+    prompts = mesh_prompts(size)
+    decoder = TinyDecoderModel(device=device)
+    cpu = TinyDecoderModel(device="cpu")
+    tokens_a_prompt = size.prompt_len + size.steps
+    row = {"prompts": prompts, "steps": size.steps, "by_shards": {}}
+    refs = []
+    decoder_stream(decoder, prompts[0], size.steps, 1199)  # warm: the timing starts hot
+    t0 = time.perf_counter()
+    for i, prompt in enumerate(prompts):
+        refs.append(decoder_stream(decoder, prompt, size.steps, 1200 + i))
+    row["decoder_lm_ms_per_token"] = ((time.perf_counter() - t0) * 1e3
+                                      / (tokens_a_prompt * len(prompts)))
+    cpu_refs = [decoder_stream(cpu, p, size.steps, 1300 + i) for i, p in enumerate(prompts)]
+    row["cpu_near_ties"] = [near_tie_check(r[0], c[0], c[2], f"decoder_lm prompt {i}")
+                            for i, (r, c) in enumerate(zip(refs, cpu_refs))]
+    for n in size.shards:
+        model = TPDecoderModel(mesh=shared_mesh(device, n), params=decoder.params())
+        decoder_stream(model, prompts[0], size.steps, 1399)  # warm, as decoder_lm
+        reset_counts()
+        t0 = time.perf_counter()
+        got = [decoder_stream(model, p, size.steps, 1400 + i) for i, p in enumerate(prompts)]
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        ties = []
+        for i, ((toks, _, _), cpu_ref) in enumerate(zip(got, cpu_refs)):
+            ties.append(near_tie_check(toks, cpu_ref[0], cpu_ref[2],
+                                       f"decoder_lm_tp x{n} vs CPU prompt {i}"))
+        # 4 sequences at once on the tp model, each as alone
+        reset_counts()
+        with ThreadPoolExecutor(size.concurrent) as pool:
+            futures = [pool.submit(decoder_stream, model, prompts[i % len(prompts)],
+                                   size.steps, 1500 + i) for i in range(size.concurrent)]
+            concurrent = [f.result() for f in futures]
+        concurrent_counts = read_counts()
+        # same device, same weights: the tokens and logits of every sequence,
+        # alone or concurrent, are decoder_lm's bit for bit
+        pairs = got + concurrent
+        wants = refs + [refs[i % len(refs)] for i in range(size.concurrent)]
+        diffs = [float(np.abs(g[1] - w[1]).max()) if g[1].shape == w[1].shape else float("inf")
+                 for g, w in zip(pairs, wants)]
+        entry = {"tokens": [g[0] for g in got], "near_ties_vs_cpu": ties,
+                 "max_abs_logit_diff_vs_decoder_lm": max(diffs),
+                 "logits_bit_equal": max(diffs) == 0.0,
+                 "ms_per_token": wall * 1e3 / (tokens_a_prompt * len(prompts)),
+                 "launches": counts, "concurrent_launches": concurrent_counts,
+                 "concurrent_equal": [c[0] == w[0] for c, w in
+                                      zip(concurrent, wants[len(refs):])]}
+        if max(diffs) != 0.0 or any(g[0] != w[0] for g, w in zip(pairs, wants)):
+            raise AssertionError(f"decoder_lm_tp x{n}: not bit-equal to decoder_lm on "
+                                 f"{device} (largest logit difference {max(diffs)}, "
+                                 f"sequential tokens {entry['tokens']}, concurrent equal "
+                                 f"{entry['concurrent_equal']})")
+        for where, c, seqs in (("sequential", counts, len(prompts)),
+                               ("concurrent", concurrent_counts, size.concurrent)):
+            expect = tokens_a_prompt * seqs * layers * n if device.type == "cuda" else 0
+            if c["decode_attention"] != expect or sum(c.values()) != expect:
+                raise AssertionError(f"decoder_lm_tp x{n} {where}: launches {c}, expected "
+                                     f"decode_attention {expect}")
+        row["by_shards"][n] = entry
+    row["decoder_lm_tokens"] = [r[0] for r in refs]
+    row["cpu_tokens"] = [c[0] for c in cpu_refs]
+    return row
+
+
+def mesh_prefill(device, size, layers):
+    """Row 2: the zoo's decoder_lm_tp_prefill over HTTP (its degree from the
+    local devices) and a 4-shard one in process, each against the zoo's
+    decoder_lm_prefill on the same rows."""
+    tokens = np.random.default_rng(13).integers(
+        0, TinyDecoderModel.VOCAB, (size.prefill_rows, size.prefill_len)).astype(np.int32)
+    core = ServerCore(default_model_zoo(device), device=device)
+    zoo_tp = core.model("decoder_lm_tp_prefill")
+    row = {"zoo_tp_degree": zoo_tp.tp_degree}
+    with HttpInferenceServer(core) as server, \
+            httpclient.InferenceServerClient(server.url) as client:
+        def infer(name):
+            inp = httpclient.InferInput("TOKENS", list(tokens.shape), "INT32")
+            res = client.infer(name, [inp.set_data_from_numpy(tokens)])
+            return {k: res.as_numpy(k) for k in ("LOGITS", "NEXT_TOKEN")}
+
+        want = infer("decoder_lm_prefill")
+        reset_counts()
+        got = infer("decoder_lm_tp_prefill")
+        counts = read_counts()
+    in_process = PrefillDecoderModel(tp=True, mesh=shared_mesh(device, 4))
+    reset_counts()
+    four = in_process.execute({"TOKENS": tokens}, {})
+    four_counts = read_counts()
+    cells = size.prefill_rows * size.prefill_len * layers
+    for where, out, c, n in (("served", got, counts, zoo_tp.tp_degree),
+                             ("4 shards", four, four_counts, 4)):
+        diff = float(np.abs(out["LOGITS"] - want["LOGITS"]).max())
+        row[where] = {"max_abs_logit_diff": diff, "bit_equal": diff == 0.0,
+                      "next_token_equal": bool(np.array_equal(out["NEXT_TOKEN"],
+                                                              want["NEXT_TOKEN"])),
+                      "launches": c}
+        if diff != 0.0 or not row[where]["next_token_equal"]:
+            raise AssertionError(f"decoder_lm_tp_prefill {where}: not bit-equal to "
+                                 f"decoder_lm_prefill (logits {diff} apart, NEXT_TOKEN equal "
+                                 f"{row[where]['next_token_equal']})")
+        expect = cells * n if device.type == "cuda" else 0
+        if c["decode_attention"] != expect or sum(c.values()) != expect:
+            raise AssertionError(f"decoder_lm_tp_prefill {where}: launches {c}, expected "
+                                 f"decode_attention {expect}")
+    return row
+
+
+def served_p50(model, x, iters):
+    """p50 ms of ``iters`` HTTP requests to ``model`` alone in a server."""
+    name = model.name
+    spec = model.inputs()[0]
+    with HttpInferenceServer(ServerCore([model], device=model._device)) as server, \
+            httpclient.InferenceServerClient(server.url) as client:
+        inp = httpclient.InferInput(spec.name, list(x.shape), "FP32").set_data_from_numpy(x)
+        out_name = model.outputs()[0].name
+        got = client.infer(name, [inp]).as_numpy(out_name)  # warm
+        return p50_ms(lambda: client.infer(name, [inp]), iters), got
+
+
+def mesh_encoder(device, size):
+    """Row 3: long_context_encoder in each mesh mode over 4 shards of one
+    device at ``size.seq``, against flash on the device; at ``size.cpu_seq``
+    against the CPU run in the same mode; causal ring and Ulysses against
+    full_attention; the served p50 of each mode beside flash."""
+    on_card = device.type == "cuda"
+    tol = TOLERANCE["flash_attention"]["float32"]
+    rng = np.random.default_rng(14)
+    x = rng.standard_normal((size.seq, 64)).astype(np.float32)
+    small = rng.standard_normal((size.cpu_seq, 64)).astype(np.float32)
+    flash = LongContextEncoderModel(device=device)
+    reset_counts()
+    want = flash.execute({"sequence": x}, {})["encoded"].cpu().numpy()
+    flash_counts = read_counts()
+    row = {"seq": size.seq, "modes": {}}
+    row["flash_p50_ms"], _ = served_p50(flash, x, size.encoder_requests)
+    n = 4
+    for mode in MESH_MODES:
+        model = LongContextEncoderModel(attention=mode, mesh=shared_mesh(device, n, "data"))
+        cpu = LongContextEncoderModel(attention=mode, device="cpu", n_devices=n)
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+        reset_counts()
+        got = model.execute({"sequence": x}, {})["encoded"].cpu().numpy()
+        counts = read_counts()
+        peak = (torch.cuda.max_memory_allocated() - base) if on_card else None
+        err = float(np.abs(got - want).max())
+        small_got = model.execute({"sequence": small}, {})["encoded"].cpu().numpy()
+        small_want = cpu.execute({"sequence": small}, {})["encoded"].numpy()
+        small_err = float(np.abs(small_got - small_want).max())
+        if not (np.allclose(got, want, atol=tol, rtol=tol)
+                and np.allclose(small_got, small_want, atol=tol, rtol=tol)):
+            raise AssertionError(f"long_context_encoder {mode}: {err} from flash, {small_err} "
+                                 "from the CPU run")
+        if any(counts.values()):
+            raise AssertionError(f"long_context_encoder {mode} launched {counts}")
+        p50, served = served_p50(model, x, size.encoder_requests)
+        if not np.array_equal(served, got):
+            raise AssertionError(f"long_context_encoder {mode}: served output differs")
+        ran = mode if mode != "auto" else parallel_ulysses.auto_mode((1, size.seq, 4, 16), n)
+        heads, sq = 4, size.seq
+        row["modes"][mode] = {
+            "runs": ran, "max_abs_err_vs_flash": err, "max_abs_err_vs_cpu": small_err,
+            "served_p50_ms": p50, "peak_bytes": peak,
+            "reckoned_bytes": (2 * (heads // n) * sq * sq * 4 if ran == "ulysses"
+                               else heads * (sq // n) ** 2 * 4)}
+    if flash_counts["flash_attention"] != (1 if on_card else 0):
+        raise AssertionError(f"long_context_encoder flash launched {flash_counts}")
+    # causal, against the dense reference on the device
+    qkv = [torch.from_numpy(rng.standard_normal(size.causal).astype(np.float32)).to(device)
+           for _ in range(3)]
+    dense = parallel_ring.full_attention(*qkv, causal=True)
+    mesh = shared_mesh(device, n, "data")
+    for name, fn in (("ring", parallel_ring.ring_attention),
+                     ("ulysses", parallel_ulysses.ulysses_attention)):
+        out = fn(*qkv, mesh, axis="data", causal=True).full()
+        err = float((out - dense).abs().max())
+        if not torch.allclose(out, dense, atol=tol, rtol=tol):
+            raise AssertionError(f"causal {name} attention: {err} from full_attention")
+        row[f"causal_{name}_max_abs_err"] = err
+    return row
+
+
+def mesh_moe(device, size):
+    """Row 4: moe_ffn over 4 shards of one device (8 experts) over HTTP at
+    ``size.moe_tokens``, against the dense reference; in process at half the
+    busiest (shard, expert) load, each kept row the dense row and each
+    dropped row 0; an indivisible request a 400."""
+    tol = TOLERANCE["flash_attention"]["float32"]
+    n = 4
+    model = MoEFFNModel(mesh=shared_mesh(device, n))
+    x = np.random.default_rng(15).standard_normal((size.moe_tokens, 32)).astype(np.float32)
+    xt = torch.from_numpy(x).to(device)
+    w1, w2 = model.w1.full(), model.w2.full()
+    dense = parallel_moe.dense_moe_reference(xt, model.gate_w, w1, w2).cpu().numpy()
+    with HttpInferenceServer(ServerCore([model], device=device)) as server, \
+            httpclient.InferenceServerClient(server.url) as client:
+        inp = httpclient.InferInput("tokens", list(x.shape), "FP32").set_data_from_numpy(x)
+        got = client.infer("moe_ffn", [inp]).as_numpy("routed")
+        p50 = p50_ms(lambda: client.infer("moe_ffn", [inp]), size.encoder_requests)
+        bad = httpclient.InferInput("tokens", [size.moe_tokens - 1, 32], "FP32")
+        try:
+            client.infer("moe_ffn", [bad.set_data_from_numpy(x[:-1])])
+        except InferenceServerException as e:
+            refused = e.status()
+        else:
+            raise AssertionError("moe_ffn answered an indivisible token count")
+    err = float(np.abs(got - dense).max())
+    if refused != "400" or not np.allclose(got, dense, atol=tol, rtol=tol):
+        raise AssertionError(f"moe_ffn: {err} from the dense reference, {refused} for "
+                             f"{size.moe_tokens - 1} tokens")
+    expert = (xt @ model.gate_w).argmax(-1).reshape(n, -1)
+    peak_load = max(int((expert[i] == e).sum()) for i in range(n)
+                    for e in range(model.n_experts))
+    cap = max(peak_load // 2, 1)
+    half = parallel_moe.moe_ffn(xt, model.gate_w, model.w1, model.w2, model.mesh,
+                                capacity=cap).full().cpu().numpy()
+    kept = np.isclose(half, dense, atol=tol, rtol=tol).all(-1)
+    dropped = (half == 0).all(-1)
+    if not (kept | dropped).all() or not dropped.any() or not kept.any():
+        raise AssertionError(f"moe_ffn at capacity {cap}: {int(kept.sum())} kept, "
+                             f"{int(dropped.sum())} dropped of {len(half)}")
+    return {"tokens": size.moe_tokens, "experts": model.n_experts, "max_abs_err": err,
+            "served_p50_ms": p50, "refused_status": refused, "half_capacity": cap,
+            "peak_load": peak_load, "kept": int(kept.sum()), "dropped": int(dropped.sum())}
+
+
+def mesh_pipeline(device, size):
+    """Row 5: pipeline_forward over 4 stages of one device, 4 microbatches,
+    against sequential_mlp (1e-5)."""
+    stages, micro, batch, dim = size.pipe
+    w, b = parallel_pipeline.mlp_stage_params(0, stages, dim)
+    w, b = w.to(device), b.to(device)
+    x = torch.from_numpy(np.random.default_rng(16).standard_normal((batch, dim))
+                         .astype(np.float32)).to(device)
+    want = parallel_pipeline.sequential_mlp(w, b, x)
+    got = parallel_pipeline.pipeline_forward(
+        w, b, x, shared_mesh(device, stages), n_microbatches=micro)
+    err = float((got - want).abs().max())
+    if not torch.allclose(got, want, atol=1e-5, rtol=1e-5):
+        raise AssertionError(f"pipeline_forward: {err} from sequential_mlp")
+    return {"stages": stages, "microbatches": micro, "shape": [batch, dim], "max_abs_err": err}
+
+
+def mesh_vision(device, size):
+    """Row 6: densenet_onnx at tensor_parallel=2 over 2 shards of one device
+    against tp = 1 (seed 0): top-1 equal, logits within 2e-2; p50 of each."""
+    classes, width = size.vision
+    single = DenseNetModel(classes, width, seed=0, device=device)
+    tp = DenseNetModel(classes, width, seed=0, tensor_parallel=2,
+                       mesh=shared_mesh(device, 2))
+    image = torch.from_numpy(np.random.default_rng(17).standard_normal((3, 224, 224))
+                             .astype(np.float32)).to(device)
+
+    def run(model):
+        return model.execute({"data_0": image}, {})["fc6_1"].reshape(-1).cpu().numpy()
+
+    want, got = run(single), run(tp)
+    err = float(np.abs(got - want).max())
+    if got.argmax() != want.argmax() or err > 2e-2:
+        raise AssertionError(f"densenet_onnx tp=2: top-1 {got.argmax()} vs {want.argmax()}, "
+                             f"logits {err} apart")
+    return {"classes": classes, "width": width, "tp": tp.tp_degree, "max_abs_logit_diff": err,
+            "top1": int(got.argmax()), "p50_ms": p50_ms(lambda: run(tp), size.vision_requests),
+            "tp1_p50_ms": p50_ms(lambda: run(single), size.vision_requests)}
+
+
+def mesh_child(child, device, size):
+    """Row 7: the serve child with every mesh flag answers the encoder,
+    moe_ffn and densenet_onnx as the same models here, with the degrees the
+    local devices give, then drains."""
+    tol = TOLERANCE["flash_attention"]["float32"]
+    n = len(parallel.local_devices(device))
+    child.wait_ready()
+    degrees = child.line("mesh degrees: ", 30)[len("mesh degrees: "):]
+    want_degrees = {"decoder_lm_tp_prefill": f"model={max(d for d in (1, 2, 4) if d <= n)}",
+                    "densenet_onnx": f"data=1 model={min(2, n)}",
+                    "long_context_encoder": f"data={n} model=1",
+                    "moe_ffn": f"data=1 model={n}"}
+    for name, text in want_degrees.items():
+        if f"{name} {text}" not in degrees:
+            raise AssertionError(f"serve printed mesh degrees {degrees!r}, not {name} {text}")
+    rng = np.random.default_rng(18)
+    seq = rng.standard_normal((64 * n, 64)).astype(np.float32)
+    tokens = rng.standard_normal((8 * n, 32)).astype(np.float32)
+    image = rng.standard_normal((3, 224, 224)).astype(np.float32)
+    local = {
+        "long_context_encoder": LongContextEncoderModel(attention="ring", device=device),
+        "moe_ffn": MoEFFNModel(device=device),
+        "densenet_onnx": DenseNetModel(device=device)}
+    row = {"degrees": degrees}
+    with httpclient.InferenceServerClient(child.http_url) as client:
+        for name, inp_name, out_name, x, bound in (
+                ("long_context_encoder", "sequence", "encoded", seq, tol),
+                ("moe_ffn", "tokens", "routed", tokens, tol),
+                ("densenet_onnx", "data_0", "fc6_1", image, 2e-2)):
+            inp = httpclient.InferInput(inp_name, list(x.shape), "FP32").set_data_from_numpy(x)
+            got = client.infer(name, [inp]).as_numpy(out_name)
+            want = local[name].execute({inp_name: x}, {})[out_name].cpu().numpy()
+            err = float(np.abs(got - want).max())
+            if not np.allclose(got, want, atol=bound, rtol=bound if bound < 1e-2 else 0):
+                raise AssertionError(f"serve child {name}: {err} from this process's model")
+            row[name] = err
+    report = child.terminate()
+    if report["failures"] and any(report["failures"].values()):
+        raise AssertionError(f"serve child failures {report['failures']}")
+    if report.get("launches") and any(report["launches"].values()):
+        raise AssertionError(f"serve child launched {report['launches']} (no kernel path)")
+    row.update(exit_s=report["exit_s"], drained=report["drain_line"], device=report["device"])
+    return row
+
+
+def log_mesh(mesh, card):
+    """Phase 12's lines, each with the card's name and power limit."""
+    ms = mesh["rows"]
+    log(f"mesh phase: {mesh['seconds']:.1f} s; rows "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in mesh["steps_s"].items())
+        + f"; every shard on one card ({mesh['shared_device']}); {card}")
+    dt = ms["decoder_lm_tp"]
+    for n, entry in dt["by_shards"].items():
+        log(f"mesh decoder_lm_tp x{n} shards: {entry['ms_per_token']:.3f} ms a token "
+            f"(decoder_lm {dt['decoder_lm_ms_per_token']:.3f}); max logit diff vs decoder_lm "
+            f"{entry['max_abs_logit_diff_vs_decoder_lm']:.4g} (bit-equal: "
+            f"{entry['logits_bit_equal']}); near ties vs the CPU run {entry['near_ties_vs_cpu']}; "
+            f"decode_attention "
+            f"{entry['launches']['decode_attention']} launches sequential, "
+            f"{entry['concurrent_launches']['decode_attention']} in the 4-way run; {card}")
+    pf = ms["decoder_lm_tp_prefill"]
+    log(f"mesh decoder_lm_tp_prefill (zoo tp {pf['zoo_tp_degree']}) over HTTP: "
+        + json.dumps(pf["served"]) + "; 4 shards in process: " + json.dumps(pf["4 shards"]))
+    enc = ms["long_context_encoder"]
+    log(f"mesh long_context_encoder S={enc['seq']}: flash served p50 "
+        f"{enc['flash_p50_ms']:.3f} ms; " + "; ".join(
+            f"{mode} (runs {r['runs']}) p50 {r['served_p50_ms']:.3f} ms, err vs flash "
+            f"{r['max_abs_err_vs_flash']:.3g}, vs CPU {r['max_abs_err_vs_cpu']:.3g}, peak "
+            f"{r['peak_bytes']} bytes (reckoned {r['reckoned_bytes']})"
+            for mode, r in enc["modes"].items())
+        + f"; causal ring {enc['causal_ring_max_abs_err']:.3g}, causal ulysses "
+        f"{enc['causal_ulysses_max_abs_err']:.3g}; {card}")
+    log("mesh moe_ffn: " + json.dumps(ms["moe_ffn"]) + f"; pipeline: "
+        + json.dumps(ms["pipeline"]) + f"; {card}")
+    log("mesh densenet_onnx tp=2: " + json.dumps(ms["densenet_onnx"]) + f"; {card}")
+    log("mesh serve child: " + json.dumps(ms["serve_child"]))
+
+
+def serve_mesh(device="cuda", size=MESH, start_child=None):
+    """Phase 12: the mesh models (``client_tpu_torch.parallel``) in this
+    process on ``device``, each mesh's shards sharing the one device (so no
+    time here is a collective's cost), and a ``serve`` child with every mesh
+    flag (``start_child`` returns it instead, for tests). Each row runs
+    with the launch counts set to 0 just before it and read just after."""
+    device = torch.device(device)
+    t_phase = time.perf_counter()
+    child = (ServeChild(str(device), "threaded", MESH_SERVE_ARGS) if start_child is None
+             else start_child())
+    shared = str(shared_mesh(device, 1).devices.flat[0])
+    if device.type == "cuda":
+        shared += f" ({torch.cuda.get_device_name(device)})"
+    result = {"size": size._asdict(), "rows": {}, "steps_s": {}, "shared_device": shared,
+              "note": "every mesh's shards share one device: no time here is a collective's"}
+    log(f"mesh: every shard of phase 12 shares {shared}; its times are the shards' compute "
+        "run one after another, no collective's cost")
+    layers = TinyDecoderModel.LAYERS
+    rows = result["rows"]
+    try:
+        for name, fn, args in (("decoder_lm_tp", mesh_decoder, (layers,)),
+                               ("decoder_lm_tp_prefill", mesh_prefill, (layers,)),
+                               ("long_context_encoder", mesh_encoder, ()),
+                               ("moe_ffn", mesh_moe, ()),
+                               ("pipeline", mesh_pipeline, ()),
+                               ("densenet_onnx", mesh_vision, ())):
+            t0 = time.perf_counter()
+            rows[name] = fn(device, size, *args)
+            result["steps_s"][name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rows["serve_child"] = mesh_child(child, device, size)
+        result["steps_s"]["serve_child"] = time.perf_counter() - t0
+    finally:
+        child.kill()
+    result["launches"] = {n: r["launches"]["decode_attention"]
+                          for n, r in rows["decoder_lm_tp"]["by_shards"].items()}
+    result["seconds"] = time.perf_counter() - t_phase
+    return result
+
+
 def device_kernels(prof):
     """Device time by kernel in a torch.profiler trace, largest first."""
     kernels = []
@@ -6197,6 +6678,7 @@ def main(argv) -> int:
     pool = serve_pool()
     orchestration = serve_orchestration()
     federation = serve_federation()
+    mesh = serve_mesh()
     for row in served["identity"]:
         log(f"identity_fp32 {row['bytes'] // MIB} MiB p50: wire {row['wire_p50_ms']:.3f} ms, "
             f"system shm {row['system_shm_p50_ms']:.3f} ms, "
@@ -6601,6 +7083,8 @@ def main(argv) -> int:
     def federation_launches(kernel):
         return [row[kernel] for row in federation["launch_counts"]]
 
+    log_mesh(mesh, card)
+
     main_row = timed[0]
     kernels = [{
         "name": "decode_attention",
@@ -6634,6 +7118,8 @@ def main(argv) -> int:
         "pool_launches": pool_launches("decode_attention"),
         "orchestration_launches": orchestration_launches("decode_attention"),
         "federation_launches": federation_launches("decode_attention"),
+        # decoder_lm_tp's sequential run by mesh size: tokens x layers x shards
+        "mesh_launches": mesh["launches"],
         "batched_shape": batched_timed,
     }]
     flash_row = flash_timed[0]
@@ -6754,7 +7240,7 @@ def main(argv) -> int:
                    "served": served, "vision": vision, "grpc": grpc_served,
                    "resilience": resilience, "harness": harness, "process": process,
                    "pool": pool, "orchestration": orchestration, "federation": federation,
-                   "kernels": kernels}, f, indent=1)
+                   "mesh": mesh, "kernels": kernels}, f, indent=1)
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -99,6 +99,12 @@ class Model:
         """Classification labels (for the classification extension); None if n/a."""
         return None
 
+    @property
+    def mesh_degrees(self) -> Optional[Dict[str, int]]:
+        """The size of each mesh axis this model is served over, in order,
+        or None for a model of one device."""
+        return None
+
     def effective_max_batch_size(self) -> int:
         """max_batch_size honoring any load-time config override — the value
         behavior must use (config() reports the same one)."""

@@ -1,33 +1,40 @@
 """Long-context encoder: one self-attention layer behind the v2 protocol.
 
-The counterpart of ``client_tpu.models.long_context`` in its flash mode:
-``long_context_encoder`` takes FP32 ``sequence`` [-1, dim] and returns FP32
-``encoded`` [-1, dim] — four fp32 projections (``torch.matmul``, as the JAX
-package leaves them to XLA outside any kernel) around ``ops.flash_attention``,
-which is the Hopper kernel on a CUDA device and its plain version on the
-CPU. Any sequence length >= 1 runs on one device.
+The counterpart of ``client_tpu.models.long_context``: ``long_context_encoder``
+takes FP32 ``sequence`` [-1, dim] and returns FP32 ``encoded`` [-1, dim] —
+four fp32 projections (``torch.matmul``, as the JAX package leaves them to
+XLA outside any kernel) around the attention of the model's mode:
 
-The JAX model's default mode, ring attention over a device mesh, and its
-"ulysses" and "auto" modes are multi-device schemes of ``parallel/`` that the
-port does not have yet (ROADMAP.md queue A, "Multi-device models and
-parallel/"): asking for them raises ``NotImplementedError``, and the port's
-default is "flash".
+- "flash" (the port's default): ``ops.flash_attention``, the Hopper kernel
+  on a CUDA device and its plain version on the CPU, on one device, any
+  sequence length >= 1;
+- "ring", "ulysses" and "auto" (the JAX model's default is "ring"): the
+  sequence split over the ``data`` axis of a flat (n, 1) mesh and attended
+  by ``parallel.ring`` / ``parallel.ulysses`` (``sequence_parallel_attention``);
+  the length must divide by n.
+
+The port keeps "flash" as the default: it is the one-card kernel every
+earlier use of the model (and ``serve --long-context``) was built on, and
+on a one-card host the mesh modes run on a mesh of one shard.
 
 Weights: the JAX model draws its projections with ``jax.random``, which
 torch cannot reproduce. :func:`draw_params` is the port's own seeded draw
 (numpy), and :func:`load_jax_params` loads the JAX model's projections,
-exported to numpy, so both packages can run on the same weights.
+exported to numpy, so both packages can run on the same weights, in every
+mode.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Mapping
+from typing import Any, Dict, List, Mapping, Optional
 
 import numpy as np
 import torch
 from torch import nn
 
 from ..ops.flash_attention import SUPPORTED_DIMS, flash_attention
+from ..parallel import Mesh, take_devices
+from ..parallel.ulysses import sequence_parallel_attention
 from ..utils import numpy_to_tensor
 from .base import Model, TensorSpec
 
@@ -47,15 +54,22 @@ def draw_params(dim: int, seed: int) -> Dict[str, np.ndarray]:
 
 class LongContextEncoder(nn.Module):
     """Multi-head self-attention without bias or norm, for inference:
-    x [S, dim] fp32 -> (attention(x wq, x wk, x wv) over ``heads`` heads) wo."""
+    x [S, dim] fp32 -> (attention(x wq, x wk, x wv) over ``heads`` heads) wo.
+    ``mesh``: attend with the ``attention`` mode's sequence-parallel scheme
+    over its ``data`` axis; None: flash attention on x's device."""
 
-    def __init__(self, dim: int = 64, heads: int = 4, device="cuda"):
+    def __init__(self, dim: int = 64, heads: int = 4, device="cuda",
+                 mesh: Optional[Mesh] = None, attention: str = "flash"):
         super().__init__()
-        if heads < 1 or dim % heads or dim // heads not in SUPPORTED_DIMS:
+        if heads < 1 or dim % heads:
+            raise ValueError(f"dim {dim} must divide into {heads} heads")
+        if mesh is None and dim // heads not in SUPPORTED_DIMS:
             raise ValueError(
                 f"dim {dim} over {heads} heads must give a head dim in {SUPPORTED_DIMS}")
         self.dim = dim
         self.heads = heads
+        self.mesh = mesh
+        self.attention = attention
         for name in WEIGHTS:
             self.register_parameter(name, nn.Parameter(
                 torch.zeros((dim, dim), dtype=torch.float32, device=device),
@@ -68,7 +82,12 @@ class LongContextEncoder(nn.Module):
         def project(w):
             return (x @ w).reshape(1, seq, self.heads, head_dim)
 
-        out = flash_attention(project(self.wq), project(self.wk), project(self.wv))
+        q, k, v = project(self.wq), project(self.wk), project(self.wv)
+        if self.mesh is None:
+            out = flash_attention(q, k, v)
+        else:
+            out = sequence_parallel_attention(q, k, v, self.mesh, axis="data",
+                                              mode=self.attention).full(x.device)
         return out.reshape(seq, self.dim) @ self.wo
 
 
@@ -76,25 +95,34 @@ class LongContextEncoderModel(Model):
     """``long_context_encoder``: FP32 [seq, dim] -> attended [seq, dim]."""
 
     name = "long_context_encoder"
-    platform = "pytorch_flash_attention"
 
     def __init__(self, dim: int = 64, heads: int = 4, seed: int = 0,
-                 attention: str = "flash", device="cuda"):
-        """``attention``: only "flash" (one device, any length); the mesh
-        modes of the JAX model raise ``NotImplementedError``. Weights come
-        from :func:`draw_params` with ``seed`` until :func:`load_jax_params`
+                 attention: str = "flash", device="cuda", n_devices: int = 0,
+                 mesh: Optional[Mesh] = None):
+        """``attention``: "flash" (one device, any length), or "ring",
+        "ulysses" or "auto" over ``mesh`` (its ``data`` axis), else over a
+        flat (n, 1) mesh of the first ``n_devices`` of
+        ``local_devices(device)`` (0: all of them). Weights come from
+        :func:`draw_params` with ``seed`` until :func:`load_jax_params`
         replaces them."""
         super().__init__()
-        if attention in MESH_MODES:
-            raise NotImplementedError(
-                f"attention={attention!r} is a multi-device scheme the port does not "
-                "have yet (ROADMAP.md queue A, 'Multi-device models and parallel/'); "
-                "use attention='flash'")
-        if attention != "flash":
-            raise ValueError(f"attention must be flash (or a mesh mode), got {attention!r}")
-        self._device = torch.device(device)
-        self.encoder = LongContextEncoder(dim, heads, self._device)
+        if attention not in MESH_MODES + ("flash",):
+            raise ValueError(f"attention must be ring|ulysses|auto|flash, got {attention!r}")
+        if attention == "flash":
+            mesh = None
+        elif mesh is None:
+            mesh = Mesh([[d] for d in take_devices(n_devices, device)], ("data", "model"))
+        self.platform = ("pytorch_flash_attention" if mesh is None
+                         else f"pytorch_{attention}_attention")
+        self._device = (torch.device(device) if mesh is None
+                        else mesh.axis_devices("data")[0])
+        self.mesh = mesh
+        self.encoder = LongContextEncoder(dim, heads, self._device, mesh, attention)
         load_jax_params(self, draw_params(dim, seed))
+
+    @property
+    def mesh_degrees(self) -> Optional[Dict[str, int]]:
+        return None if self.mesh is None else dict(self.mesh.shape)
 
     def inputs(self) -> List[TensorSpec]:
         return [TensorSpec("sequence", "FP32", [-1, self.encoder.dim])]
@@ -104,6 +132,11 @@ class LongContextEncoderModel(Model):
 
     def execute(self, inputs: Dict[str, Any], parameters: Dict[str, Any]):
         x = inputs["sequence"]
+        if self.mesh is not None and x.shape[0] % self.mesh.shape["data"] != 0:
+            # only the mesh modes split the sequence and need it to divide
+            raise ValueError(
+                f"sequence length {x.shape[0]} must divide by the mesh's data-axis size "
+                f"{self.mesh.shape['data']}")
         if isinstance(x, torch.Tensor):
             # a cuda shared-memory input already on the device is used in place
             x = x.to(self._device, torch.float32)

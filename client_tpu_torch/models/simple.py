@@ -195,9 +195,10 @@ class RepeatModel(Model):
 
 def default_model_zoo(device="cuda") -> List[Model]:
     """The fixture set every test and example expects to find on the server,
-    on ``device``: the JAX package's ``default_model_zoo``, in its order,
-    but for ``decoder_lm_tp_prefill``, which waits for ROADMAP.md queue A's
-    'Multi-device models and parallel/'."""
+    on ``device``: the JAX package's ``default_model_zoo``, in its order.
+    ``decoder_lm_tp_prefill`` shards over the local devices of ``device``
+    (the largest divisor of the decoder's heads that fits: 4 of the CPU's 8
+    mesh entries, 1 on a one-card host)."""
     from .batched import BatchedMatMulModel
     from .chain import (
         ChainEmbedModel,
@@ -232,6 +233,7 @@ def default_model_zoo(device="cuda") -> List[Model]:
         BatchedDecoderModel(device=device),
         # stateless batched prompt scoring over the shared decoder
         PrefillDecoderModel(decoder=decoder),
+        PrefillDecoderModel(tp=True, device=device),
         # the disaggregated prefill/decode pair, sharing the decoder's weights
         # so the split stream equals tiny_lm_generate's bit for bit
         DisaggPrefillModel(decoder=decoder),

@@ -24,6 +24,13 @@ Convolutions, GroupNorm, the pools and the dense layer are PyTorch library
 calls (cuDNN / cuBLAS on the card), as the JAX package leaves them to XLA
 outside any Pallas kernel.
 
+Tensor parallel (``tensor_parallel > 1``, or :meth:`DenseNetish.shard`): the
+output channels of every convolution and of the dense layer are split over
+the ``model`` axis of a (1, tp) mesh where they divide (JAX's
+``shard_params`` rule); each shard computes its channels on its device from
+the whole input, and the slices are gathered along the channels on the
+first device, where everything else (norms, pools, the mean) runs.
+
 Weights: flax draws its init with ``jax.random``, which torch cannot
 reproduce. :func:`draw_params` is the port's own seeded numpy draw in the
 flax tree's names and shapes, and :func:`load_jax_params` loads that tree or
@@ -42,6 +49,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import preprocess_image
+from ..parallel import Mesh, Sharded, local_devices, move, split
 from ..utils import as_device_tensor
 from .base import Model, TensorSpec
 
@@ -68,6 +76,25 @@ def _frozen(shape: Sequence[int], dtype, device) -> nn.Parameter:
                         requires_grad=False)
 
 
+def _split_out(params: Sequence[torch.Tensor], devices) -> Optional[List[Sharded]]:
+    """Each of ``params``' output channels (dim 0) split over ``devices``,
+    or None where they do not divide (the parameters then stay whole)."""
+    if len(devices) < 2 or params[0].shape[0] % len(devices):
+        return None
+    return [split(p.detach(), devices, 0) for p in params]
+
+
+def _by_channels(fn, x: torch.Tensor, params: Sequence[torch.Tensor],
+                 shards: Optional[List[Sharded]]) -> torch.Tensor:
+    """``fn(x, *params)``, or with the output channels split: each shard
+    computes its slice from the whole ``x`` on its device, and the slices
+    are gathered along dim 1 on x's device."""
+    if shards is None:
+        return fn(x, *params)
+    return Sharded([fn(move(x, blocks[0].device), *blocks)
+                    for blocks in zip(*(s.shards for s in shards))], 1).full(x.device)
+
+
 class ConvBlock(nn.Module):
     """3x3 SAME convolution without bias -> GroupNorm(8) -> relu."""
 
@@ -76,9 +103,10 @@ class ConvBlock(nn.Module):
         self.weight = _frozen((features, in_channels, 3, 3), torch.bfloat16, device)
         self.scale = _frozen((features,), torch.float32, device)
         self.bias = _frozen((features,), torch.float32, device)
+        self.weight_shards: Optional[List[Sharded]] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = F.conv2d(_pad_same(x, 3, 1), self.weight)
+        x = _by_channels(F.conv2d, _pad_same(x, 3, 1), (self.weight,), self.weight_shards)
         x = F.group_norm(x.float(), GROUPS, self.scale, self.bias, eps=EPSILON)
         return F.relu(x.to(torch.bfloat16))
 
@@ -129,14 +157,31 @@ class DenseNetish(nn.Module):
         self.transitions = nn.ModuleList(transitions)
         self.fc_weight = _frozen((num_classes, channels), torch.bfloat16, device)
         self.fc_bias = _frozen((num_classes,), torch.bfloat16, device)
+        self.mesh: Optional[Mesh] = None
+        self.stem_shards: Optional[List[Sharded]] = None
+        self.fc_shards: Optional[List[Sharded]] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = F.conv2d(_pad_same(x.to(torch.bfloat16), 7, 2), self.stem, stride=2)
+        x = _by_channels(lambda x, w: F.conv2d(x, w, stride=2),
+                         _pad_same(x.to(torch.bfloat16), 7, 2), (self.stem,), self.stem_shards)
         x = F.max_pool2d(_pad_same(x, 3, 2, float("-inf")), 3, stride=2)
         for stage, transition in zip(self.dense, self.transitions):
             x = F.avg_pool2d(transition(stage(x)), 2, stride=2)
         x = x.float().mean(dim=(2, 3)).to(torch.bfloat16)  # global average pool
-        return F.linear(x, self.fc_weight, self.fc_bias).float()
+        return _by_channels(F.linear, x, (self.fc_weight, self.fc_bias), self.fc_shards).float()
+
+    def shard(self, mesh: Mesh) -> None:
+        """Split the output channels of every convolution and of the dense
+        layer over ``mesh``'s ``model`` axis where they divide (the dense
+        bias with its weight); a mesh of one shard undoes it. Re-applied
+        by :meth:`load`."""
+        self.mesh = mesh
+        devices = mesh.axis_devices("model")
+        self.stem_shards = _split_out((self.stem,), devices)
+        for block in self.modules():
+            if isinstance(block, ConvBlock):
+                block.weight_shards = _split_out((block.weight,), devices)
+        self.fc_shards = _split_out((self.fc_weight, self.fc_bias), devices)
 
     def load(self, params: Mapping[str, Any]) -> None:
         """Copy a flax param tree (``{"params": {...}}`` or its inner dict,
@@ -148,6 +193,8 @@ class DenseNetish(nn.Module):
             transition.load(tree[f"ConvBlock_{i}"])
         _copy(self.fc_weight, np.asarray(tree["Dense_0"]["kernel"]).T)
         _copy(self.fc_bias, tree["Dense_0"]["bias"])
+        if self.mesh is not None:
+            self.shard(self.mesh)
 
 
 def _copy(param: nn.Parameter, value, hwio: bool = False) -> None:
@@ -263,23 +310,39 @@ class DenseNetModel(Model):
     ARCHS = {"lite": (2, 2, 2), "121": (6, 12, 24, 16)}
 
     def __init__(self, num_classes: int = 1000, width: int = 32, seed: int = 0,
-                 tensor_parallel: int = 1, arch: str = "lite", device="cuda"):
+                 tensor_parallel: int = 1, arch: str = "lite", device="cuda",
+                 mesh: Optional[Mesh] = None):
         """Weights come from :func:`draw_params` with ``seed`` until
-        :func:`load_jax_params` replaces them. ``tensor_parallel > 1`` (the
-        JAX model's sharding over a device mesh) raises
-        ``NotImplementedError``: the port has no ``parallel/`` yet."""
+        :func:`load_jax_params` replaces them. ``tensor_parallel > 1`` splits
+        the output channels over the ``model`` axis of a (1, tp) mesh,
+        ``tp = min(tensor_parallel, len(local_devices(device)))`` as JAX's;
+        ``mesh`` gives that mesh instead (:meth:`DenseNetish.shard`)."""
         super().__init__()
         if arch not in self.ARCHS:
             raise ValueError(f"arch must be one of {sorted(self.ARCHS)}")
-        if tensor_parallel > 1:
-            raise NotImplementedError(
-                "tensor_parallel > 1 shards over a device mesh, which the port does not "
-                "have yet (ROADMAP.md queue A, 'Multi-device models and parallel/')")
+        if mesh is None and tensor_parallel > 1:
+            devices = local_devices(device)
+            tp = min(tensor_parallel, len(devices))
+            mesh = Mesh([devices[:tp]], ("data", "model")) if tp > 1 else None
+        self.mesh = mesh
         self._num_classes = num_classes
-        self._device = torch.device(device)
+        self._device = (torch.device(device) if self.mesh is None
+                        else self.mesh.axis_devices("model")[0])
         self.net = DenseNetish(num_classes, width, self.ARCHS[arch], self._device)
         self.net.load(draw_params(num_classes, width, self.ARCHS[arch], seed))
+        if self.mesh is not None:
+            self.net.shard(self.mesh)
         self._labels = [f"class_{i}" for i in range(num_classes)]
+
+    @property
+    def tp_degree(self) -> int:
+        return 1 if self.mesh is None else self.mesh.shape["model"]
+
+    @property
+    def mesh_degrees(self) -> Dict[str, int]:
+        """Also at tp = 1, so that a served ``--tensor-parallel`` shows the
+        degree it chose."""
+        return {"data": 1, "model": self.tp_degree}
 
     def inputs(self) -> List[TensorSpec]:
         return [TensorSpec("data_0", "FP32", [3, 224, 224])]

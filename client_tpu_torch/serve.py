@@ -13,11 +13,13 @@ Ctrl-C stops it at once. SIGTERM drains: ``v2/health/ready`` and
 ``ServerReady`` turn not-ready first (so multi-endpoint pools route away),
 in-flight requests finish, then the listeners close.
 
-The zoo is the port's ``default_model_zoo``: the JAX package's but for
-``decoder_lm_tp_prefill``. ``--moe``,
-``--tensor-parallel`` above 1 and the mesh modes of ``--attention`` (ring,
-ulysses, auto) wait for ROADMAP.md A9 and exit non-zero before any listener
-opens; ``--attention`` defaults to ``flash``, the one-card kernel.
+The zoo is the port's ``default_model_zoo``, the JAX package's model for
+model. ``--moe`` (``moe_ffn``), ``--tensor-parallel N`` (the vision model's
+channels over N devices) and the mesh modes of ``--attention`` (ring,
+ulysses, auto) build their meshes over the local devices of ``--device``:
+every visible card, or eight mesh entries of the one CPU; the degrees chosen
+are printed. ``--attention`` defaults to ``flash``, the one-card kernel
+(the JAX CLI's default is ``ring``).
 """
 
 from __future__ import annotations
@@ -28,18 +30,10 @@ import sys
 import time
 from typing import List, Optional
 
-# the flags whose modules are ROADMAP.md queue A item 9
-_A9 = "ROADMAP.md A9 (multi-device models and parallel/)"
-
-
-def _unported(args) -> Optional[str]:
-    if args.moe:
-        return f"--moe (moe_ffn, expert parallel) waits for {_A9}"
-    if args.tensor_parallel > 1:
-        return f"--tensor-parallel {args.tensor_parallel} waits for {_A9}"
-    if args.attention != "flash":
-        return f"--attention {args.attention} waits for {_A9}; use --attention flash"
-    return None
+def _mesh_degrees(models) -> str:
+    """The mesh size each multi-device model chose, as ``name axis=size``."""
+    return ", ".join(f"{m.name} " + " ".join(f"{k}={v}" for k, v in m.mesh_degrees.items())
+                     for m in models if m.mesh_degrees)
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -52,18 +46,20 @@ def main(argv: Optional[List[str]] = None) -> int:
                         help="also serve the image ensemble (preprocess, densenet_onnx, "
                         "ensemble_image)")
     parser.add_argument("--tensor-parallel", type=int, default=1,
-                        help="shard vision-model weights over N devices (1 only: "
-                        "more waits for ROADMAP A9)")
+                        help="shard vision-model weights over N devices (serving-side tp; "
+                        "at most the local devices)")
     parser.add_argument("--identity-fp32", action="store_true",
                         help="also serve a dynamic-shape FP32 identity model")
     parser.add_argument("--long-context", action="store_true",
                         help="also serve long_context_encoder")
     parser.add_argument("--attention", choices=("ring", "ulysses", "auto", "flash"),
                         default="flash",
-                        help="attention of --long-context: flash (the one-card kernel); "
-                        "the mesh modes wait for ROADMAP A9")
+                        help="attention of --long-context: flash (the one-card kernel), "
+                        "or the sequence-parallel ring, ulysses or auto over the local "
+                        "devices")
     parser.add_argument("--moe", action="store_true",
-                        help="the expert-parallel moe_ffn model (waits for ROADMAP A9)")
+                        help="also serve the expert-parallel moe_ffn model over the local "
+                        "devices")
     parser.add_argument("--http-frontend", choices=("threaded", "aio"), default="threaded",
                         help="threaded: best single-client latency; aio: an event loop "
                         "for many concurrent connections")
@@ -71,10 +67,6 @@ def main(argv: Optional[List[str]] = None) -> int:
                         help="where the models run (default cuda; cpu for tests)")
     parser.add_argument("-v", "--verbose", action="store_true")
     args = parser.parse_args(argv)
-    unported = _unported(args)
-    if unported is not None:
-        print(f"client_tpu_torch.serve: {unported}", file=sys.stderr)
-        return 2
 
     import torch
 
@@ -100,7 +92,12 @@ def main(argv: Optional[List[str]] = None) -> int:
         from .models.long_context import LongContextEncoderModel
 
         models.append(LongContextEncoderModel(attention=args.attention, device=device))
+    if args.moe:
+        from .models.moe import MoEFFNModel
+
+        models.append(MoEFFNModel(device=device))
     core = ServerCore(models, device=device)
+    degrees = _mesh_degrees(models)
 
     servers = []
     if not args.no_http:
@@ -119,6 +116,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         servers.append(grpc_srv)
         print(f"GRPC  server listening on {grpc_srv.url}", flush=True)
     print(f"models: {', '.join(m.name for m in models)}", flush=True)
+    if degrees:
+        print(f"mesh degrees: {degrees}", flush=True)
 
     class _Drain(Exception):
         pass

@@ -375,9 +375,71 @@ class VictimChild(CountingChild):
             s.stop()
 
 
+class Lockstep:
+    """How far the client's disagg session has come back for tokens: its
+    generator resumed after ``count`` tokens (after the loop body that acted
+    on the last one), or every wait released once the victim is killed."""
+
+    def __init__(self):
+        self._cond = threading.Condition()
+        self.count = 0
+        self.released = False
+
+    def reset(self):
+        with self._cond:
+            self.count = 0
+
+    def advance(self):
+        with self._cond:
+            self.count += 1
+            self._cond.notify_all()
+
+    def release(self):
+        with self._cond:
+            self.released = True
+            self._cond.notify_all()
+
+    def wait_for(self, count, timeout=30.0):
+        with self._cond:
+            if not self._cond.wait_for(lambda: self.released or self.count >= count, timeout):
+                raise TimeoutError(f"the client never came back for token {count + 1}")
+
+
+class LockstepVictim(VictimChild):
+    """The lone decode replica of the recovery row: the step after the j-th
+    token of a decode leg waits until the client has come back for token
+    j + 1, so the client's kill after ``abandon_after`` tokens always lands
+    before the next token exists (none is left in flight to arrive after it)."""
+
+    def __init__(self, lockstep):
+        super().__init__()
+        self.lockstep = lockstep
+        self.stream_steps = 0
+        kv = self.core.model("decoder_lm_kv_decode")
+        decoder = self.core.model("decoder_lm")
+        leg, counted = kv.execute_decoupled, decoder.step
+
+        def execute_decoupled(*args, **kwargs):
+            self.stream_steps = 0
+            yield from leg(*args, **kwargs)
+
+        def step(*args, **kwargs):
+            self.stream_steps += 1
+            lockstep.wait_for(self.stream_steps)
+            return counted(*args, **kwargs)
+
+        kv.execute_decoupled = execute_decoupled
+        decoder.step = step
+
+    def kill(self):
+        super().kill()
+        self.lockstep.release()
+
+
 def test_orchestration_phase_on_cpu(monkeypatch):
     """``chip_smoke.serve_orchestration``: every row of phase 10 on four port
-    servers in this process. The plain normalize calls counted here over the
+    servers in this process (the lone decode replica in lockstep with the
+    client, see :class:`LockstepVictim`). The plain normalize calls counted here over the
     rows equal the drained children's expected normalize launches (their
     preprocess and ensemble_image executions), and every plain decode call
     of the test is one a layer of a decoder step: the four children's and
@@ -411,7 +473,17 @@ def test_orchestration_phase_on_cpu(monkeypatch):
 
     monkeypatch.setattr(chip_smoke, "reset_counts", reset)
     monkeypatch.setattr(chip_smoke, "read_counts", read)
-    children = [CountingChild(), CountingChild(), VictimChild(), VictimChild()]
+    lockstep = Lockstep()
+
+    class LockstepDisaggClient(chip_smoke.DisaggClient):
+        def generate_stream(self, *args, **kwargs):
+            lockstep.reset()
+            for event in super().generate_stream(*args, **kwargs):
+                yield event
+                lockstep.advance()
+
+    monkeypatch.setattr(chip_smoke, "DisaggClient", LockstepDisaggClient)
+    children = [CountingChild(), CountingChild(), VictimChild(), LockstepVictim(lockstep)]
     try:
         result = chip_smoke.serve_orchestration(device="cpu", size=SMALL_ORCH,
                                                 start_children=lambda: children)
@@ -469,7 +541,7 @@ def test_kernels_line_and_last_line_keep_the_contract():
         assert f'"{name}"' in source
     for key in ("route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
                 "bound_ms", "bound_by", "library_ms", "orchestration_launches",
-                "federation_launches"):
+                "federation_launches", "mesh_launches"):
         assert f'"{key}":' in source, key
     lines = [line.strip() for line in source.rstrip().splitlines()]
     k = lines.index('log(json.dumps({"kernels": kernels}))')
@@ -572,3 +644,56 @@ def test_federation_phase_on_cpu(monkeypatch, tmp_path):
     assert by_row["decode_attention"] == layers * sum(c.steps for c in children)
     assert result["launch_counts"] == [None, None, None]
     assert result["client_counts"]["byzantine"]["flash_attention"] == 0
+
+
+# phase 12 at a small size: the same rows and gates on CPU shards, the serve
+# child with --device cpu (eight mesh entries of the CPU)
+SMALL_MESH = chip_smoke.MeshSize(
+    shards=(1, 2, 4), prompts=2, prompt_len=3, steps=2, concurrent=2, prefill_rows=2,
+    prefill_len=4, seq=256, cpu_seq=128, causal=(1, 128, 4, 16), encoder_requests=1,
+    moe_tokens=64, pipe=(4, 4, 8, 16), vision=(16, 8), vision_requests=1)
+
+
+def test_mesh_phase_on_cpu(monkeypatch):
+    """``chip_smoke.serve_mesh``: every row of phase 12 on CPU shards. The
+    plain decode_attention calls of the tp decoder counted here are the
+    launches the card must show: tokens x layers x shards of each run."""
+    import client_tpu_torch.models.decoder_tp as decoder_tp
+
+    calls = collections.Counter()
+    plain = decoder_tp.decode_attention
+
+    def counted(*args, **kwargs):
+        calls["decode_attention"] += 1
+        return plain(*args, **kwargs)
+
+    monkeypatch.setattr(decoder_tp, "decode_attention", counted)
+    result = chip_smoke.serve_mesh(device="cpu", size=SMALL_MESH)
+    chip_smoke.log_mesh(result, "cpu")  # main's lines format this result
+    rows = result["rows"]
+    size, layers = SMALL_MESH, TinyDecoderModel.LAYERS
+    tokens = size.prompt_len + size.steps
+    dt = rows["decoder_lm_tp"]
+    assert set(dt["by_shards"]) == set(size.shards)
+    for n, entry in dt["by_shards"].items():
+        assert entry["tokens"] == dt["decoder_lm_tokens"] == dt["cpu_tokens"]
+        assert entry["logits_bit_equal"] and all(entry["concurrent_equal"])
+        assert entry["launches"] == {k: 0 for k in chip_smoke.COUNTERS}
+    pf = rows["decoder_lm_tp_prefill"]
+    assert pf["zoo_tp_degree"] == 4
+    assert pf["served"]["bit_equal"] and pf["4 shards"]["bit_equal"]
+    # each mesh size: one warm stream, the prompts, then the concurrent run
+    decode_steps = sum(size.shards) * (1 + size.prompts + size.concurrent) * tokens
+    prefill_steps = 2 * 4 * size.prefill_rows * size.prefill_len
+    assert calls["decode_attention"] == layers * (decode_steps + prefill_steps)
+    enc = rows["long_context_encoder"]
+    assert set(enc["modes"]) == {"ring", "ulysses", "auto"}
+    assert enc["modes"]["auto"]["runs"] == "ulysses"
+    assert all(r["max_abs_err_vs_flash"] < 2e-4 for r in enc["modes"].values())
+    moe = rows["moe_ffn"]
+    assert moe["refused_status"] == "400" and moe["dropped"] > 0 and moe["kept"] > 0
+    assert moe["experts"] == 8 and rows["pipeline"]["max_abs_err"] < 1e-5
+    assert rows["densenet_onnx"]["tp"] == 2
+    child = rows["serve_child"]
+    assert "moe_ffn data=1 model=8" in child["degrees"] and child["drained"]
+    assert child["device"] == "cpu"

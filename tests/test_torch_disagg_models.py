@@ -120,9 +120,20 @@ def test_prefill_errors_match_jax(decoder, tokens, match):
     assert str(ours.value) == str(theirs.value)
 
 
-def test_tensor_parallel_prefill_waits_for_the_multi_device_item():
-    with pytest.raises(NotImplementedError, match="Multi-device models"):
-        PrefillDecoderModel(tp=True, device="cpu")
+def test_tensor_parallel_prefill_waits_for_the_multi_device_item(decoder):
+    """``decoder_lm_tp_prefill``, which raised until the mesh models were
+    ported: over four CPU shards its rows are ``decoder_lm_prefill``'s bit
+    for bit, and its NEXT_TOKEN is JAX's (logits within 5e-2)."""
+    tp = PrefillDecoderModel(tp=True, device="cpu")
+    assert tp.name == "decoder_lm_tp_prefill" and tp.tp_degree == 4
+    tokens = np.array(_drawn(9, 3, 6), np.int32)
+    ours = tp.execute({"TOKENS": tokens}, {})
+    single = PrefillDecoderModel(decoder=decoder).execute({"TOKENS": tokens}, {})
+    for key in ("LOGITS", "NEXT_TOKEN"):
+        np.testing.assert_array_equal(ours[key], single[key])
+    theirs = JaxPrefill(tp=True).execute({"TOKENS": tokens}, {})
+    np.testing.assert_allclose(ours["LOGITS"], theirs["LOGITS"], atol=LOGIT_ATOL, rtol=0)
+    np.testing.assert_array_equal(ours["NEXT_TOKEN"], theirs["NEXT_TOKEN"])
 
 
 # -- the disagg pair ------------------------------------------------------------

@@ -73,6 +73,11 @@ def test_port_has_files():
     for name in ("decode_attention", "flash_attention", "normalize_image", "quantize_int8",
                  "softmax"):
         assert (REPO / "client_tpu_torch" / "csrc" / f"{name}.cu").exists()
+    # the mesh package and its models are scanned too
+    for name in ("__init__", "ring", "ulysses", "moe", "pipeline"):
+        assert REPO / "client_tpu_torch" / "parallel" / f"{name}.py" in PORT_FILES
+    for name in ("decoder_tp", "moe"):
+        assert REPO / "client_tpu_torch" / "models" / f"{name}.py" in PORT_FILES
 
 
 @pytest.mark.parametrize(

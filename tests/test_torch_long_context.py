@@ -9,7 +9,8 @@
 - The port's HTTP server serving ``long_context_encoder`` and
   ``identity_int8`` to the port's client and to ``client_tpu.http``, over
   the wire and (on the CPU device here) over colocated cuda shared memory.
-- The mesh modes the port does not have raise.
+- The mesh modes (ring, ulysses, auto) over four CPU shards against the
+  JAX model in the same mode over four devices, within 2e-5.
 """
 
 import uuid
@@ -118,8 +119,21 @@ def test_encoder_module_holds_frozen_weights():
 
 @pytest.mark.parametrize("mode", ["ring", "ulysses", "auto"])
 def test_mesh_modes_raise(mode):
-    with pytest.raises(NotImplementedError, match="Multi-device models"):
-        LongContextEncoderModel(attention=mode, device="cpu")
+    """The mesh modes, which raised until ``parallel/`` was ported, now run:
+    JAX's weights over a (4, 1) mesh of CPU shards against the JAX model in
+    the same mode over four devices, within 2e-5; a sequence that does not
+    divide raises JAX's message."""
+    port = LongContextEncoderModel(attention=mode, device="cpu", n_devices=4)
+    assert dict(port.mesh.shape) == {"data": 4, "model": 1}
+    load_jax_params(port, jax_weights(64, seed=0))
+    ref = JaxEncoder(dim=64, heads=4, seed=0, attention=mode, n_devices=4)
+    x = _sequence(64, 64, seed=7)
+    np.testing.assert_allclose(_encoded(port, x), _encoded(ref, x), atol=TOL, rtol=TOL)
+    with pytest.raises(ValueError, match="divide") as ours:
+        port.execute({"sequence": x[:63]}, {})
+    with pytest.raises(ValueError) as theirs:
+        ref.execute({"sequence": x[:63]}, {})
+    assert str(ours.value) == str(theirs.value)
 
 
 @pytest.mark.parametrize("kwargs,exc", [

@@ -23,7 +23,6 @@ protocols raise ``NotImplementedError`` naming ROADMAP A10, and ``python -m
 client_tpu_torch.perf -f json`` prints rows that parse.
 """
 
-import dataclasses
 import json
 import subprocess
 import sys
@@ -108,16 +107,15 @@ A8A_RECORDS = {
 
 def _a8a_replay(zoo_servers, spec, kind):
     """The spec's trace replayed by both runners, each over its own package's
-    zoo servers. ``sharded`` records name ``decoder_lm_tp_prefill`` by
-    default, which waits for ROADMAP A9 in the port: they replay on
-    ``decoder_lm_prefill``, whose layout is the same."""
+    zoo servers. ``sharded`` records name their default model,
+    ``decoder_lm_tp_prefill`` (tp = 4 over the CPU's mesh entries in the
+    port's zoo)."""
     rows = {}
     for pkg, mod, trace_mod in (("port", port_perf, port_trace), ("jax", jax_perf, jax_trace)):
         urls = zoo_servers[pkg]
         trace = trace_mod.generate(spec, seed=0)
-        trace = trace_mod.Trace(header=trace.header, records=[
-            dataclasses.replace(rec, model="decoder_lm_prefill") if rec.kind == "sharded" else rec
-            for rec in trace.records])
+        assert all(rec.model == "decoder_lm_tp_prefill"
+                   for rec in trace.records if rec.kind == "sharded")
         runner = _runner(mod, urls[0], "http", "simple", "none", **A8A_RECORDS[kind](urls))
         try:
             rows[pkg] = runner.run_trace(trace, speed=4.0, replay_workers=4)

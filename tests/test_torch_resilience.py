@@ -450,7 +450,15 @@ STALL_S = 8.0
 
 def _stream_give_up(pkg, port):
     """(events seen, fault domain) of a reconnecting stream whose endpoint
-    goes away for good; None when the reset never reached the stream."""
+    goes away for good; None when the reset never reached the stream.
+
+    New connections are held (``blackhole``) and reset only once the
+    stream has reported its reconnect: a reconnected call that failed at
+    once could report its failure before the reconnecting thread counted
+    the attempt, and so be counted a first failure again (both packages'
+    ``_ReconnectingStream`` read the attempt count and the live call there
+    without ordering), which made one client report two reconnects where
+    the other reported one."""
     events: "queue.Queue" = queue.Queue()
     with port_testing.ChaosProxy("127.0.0.1", port) as proxy:
         with _client(pkg, "grpc", proxy.url) as client:
@@ -459,7 +467,7 @@ def _stream_give_up(pkg, port):
             _, inputs = _inputs(PKG[pkg]["grpc"])
             client.async_stream_infer("simple", inputs, request_id="a")
             assert events.get(timeout=WAIT_S)[1] is None
-            proxy.fault = port_testing.Fault("reset", after_bytes=0)
+            proxy.fault = port_testing.Fault("blackhole")
             proxy.reset_active()
             seen = []
             while True:
@@ -472,6 +480,7 @@ def _stream_give_up(pkg, port):
                 if error is not None:
                     client.stop_stream()
                     return seen, PKG[pkg]["res"].classify_fault(error)
+                proxy.reset_active()  # the reconnect is counted: now its call fails
 
 
 @pytest.mark.parametrize("server_pkg", ["port", "jax"])

@@ -10,12 +10,13 @@ the port's three frontends, against the JAX package's.
 - the SIGTERM window is read from the child's side (its draining line, and
   listeners that still answer), never against this process's own clock;
 - ``python -m client_tpu_torch.serve --device cpu`` as a subprocess: the
-  printed lines, the served model list (the JAX zoo less
-  ``decoder_lm_tp_prefill``), SIGTERM
+  printed lines, the served model list (the JAX zoo, name for name and in
+  order), SIGTERM
   (ready 503 and live 200 inside the grace window, then exit 0; a second
   SIGTERM ignored), SIGINT (exit at once), ``--http-frontend aio``, the
-  flags that wait for ROADMAP A9, and the default device on a machine
-  without a card.
+  mesh flags (``--moe``, ``--tensor-parallel``, ``--attention
+  ring|ulysses|auto``) serving and answering as the same models built in
+  this process, and the default device on a machine without a card.
 """
 
 import json
@@ -38,6 +39,7 @@ import client_tpu.grpc as jax_grpc
 import client_tpu.http as jax_http
 import client_tpu_torch.grpc as port_grpc
 import client_tpu_torch.http as port_http
+import client_tpu_torch.utils as port_utils
 from client_tpu.models import default_model_zoo as jax_zoo
 from client_tpu.models.simple import AddSubModel as JaxAddSub
 from client_tpu.server import AioHttpInferenceServer as JaxAio
@@ -54,8 +56,8 @@ from client_tpu_torch.server import (
 from test_torch_flight import _time_limit  # noqa: F401 (autouse: a time limit a test)
 
 REPO = Path(__file__).resolve().parent.parent
-# the JAX zoo's models that wait for a later item of ROADMAP.md queue A
-NOT_IN_THE_PORT = {"decoder_lm_tp_prefill"}
+# the JAX zoo's models the port's zoo lacks: none since the mesh models came
+NOT_IN_THE_PORT = set()
 FRONTENDS = {
     "threaded": (HttpInferenceServer, JaxHttp),
     "aio": (AioHttpInferenceServer, JaxAio),
@@ -413,18 +415,66 @@ def test_serve_sigint_stops_at_once(serve_cpu):
     assert _get(http_url, "/v2/health/live")[0] is None
 
 
-@pytest.mark.parametrize("flags", [
-    ["--moe"], ["--tensor-parallel", "2"], ["--attention", "ring"],
-    ["--attention", "ulysses"], ["--attention", "auto"],
-    ["--vision", "--tensor-parallel", "4"], ["--long-context", "--attention", "ring"],
+def _flag_answer(flags, http_url):
+    """The answer of the model ``flags`` add (``simple`` where they add
+    none), beside the same model built in this process on the CPU: (got,
+    want, rtol / atol)."""
+    rng = np.random.default_rng(5)
+    with port_http.InferenceServerClient(http_url) as h:
+        if "--moe" in flags:
+            from client_tpu_torch.models.moe import MoEFFNModel
+
+            x = rng.standard_normal((64, 32)).astype(np.float32)
+            bad = port_http.InferInput("tokens", [63, 32], "FP32").set_data_from_numpy(x[:63])
+            with pytest.raises(port_utils.InferenceServerException, match="divide") as err:
+                h.infer("moe_ffn", [bad])
+            assert err.value.status() == "400"
+            inp = port_http.InferInput("tokens", [64, 32], "FP32").set_data_from_numpy(x)
+            want = MoEFFNModel(device="cpu").execute({"tokens": x}, {})["routed"].numpy()
+            return h.infer("moe_ffn", [inp]).as_numpy("routed"), want, 2e-5
+        if "--long-context" in flags:
+            from client_tpu_torch.models import LongContextEncoderModel
+
+            mode = flags[flags.index("--attention") + 1]
+            x = rng.standard_normal((64, 64)).astype(np.float32)
+            inp = port_http.InferInput("sequence", [64, 64], "FP32").set_data_from_numpy(x)
+            want = LongContextEncoderModel(attention=mode, device="cpu").execute(
+                {"sequence": x}, {})["encoded"].numpy()
+            return h.infer("long_context_encoder", [inp]).as_numpy("encoded"), want, 2e-5
+        if "--vision" in flags:
+            from client_tpu_torch.models import DenseNetModel
+
+            x = rng.standard_normal((3, 224, 224)).astype(np.float32)
+            inp = port_http.InferInput("data_0", [3, 224, 224], "FP32").set_data_from_numpy(x)
+            want = DenseNetModel(device="cpu").execute({"data_0": x}, {})["fc6_1"].numpy()
+            got = h.infer("densenet_onnx", [inp]).as_numpy("fc6_1")
+            assert got.argmax() == want.argmax()
+            return got, want, 2e-2  # tensor_parallel=4 against tp = 1
+        assert _simple(port_http, h)
+        return np.zeros(1), np.zeros(1), 0.0
+
+
+@pytest.mark.parametrize("flags,degrees", [
+    (["--moe"], "moe_ffn data=1 model=8"),
+    (["--tensor-parallel", "2"], "decoder_lm_tp_prefill model=4"),
+    (["--attention", "ring"], "decoder_lm_tp_prefill model=4"),
+    (["--attention", "ulysses"], "decoder_lm_tp_prefill model=4"),
+    (["--attention", "auto"], "decoder_lm_tp_prefill model=4"),
+    (["--vision", "--tensor-parallel", "4"], "densenet_onnx data=1 model=4"),
+    (["--long-context", "--attention", "ring"], "long_context_encoder data=8 model=1"),
 ])
-def test_serve_flags_of_a9_fail_before_any_listener(flags):
-    proc = subprocess.run(
-        [sys.executable, "-m", "client_tpu_torch.serve", "--http-port", "0", "--grpc-port",
-         "0", "--device", "cpu", *flags], cwd=REPO, capture_output=True, text=True, timeout=60)
-    assert proc.returncode != 0
-    assert "ROADMAP.md A9" in proc.stderr and flags[-1] in proc.stderr
-    assert "listening" not in proc.stdout
+def test_serve_flags_of_a9_fail_before_any_listener(serve_cpu, flags, degrees):
+    """The mesh flags, which exited before any listener until their models
+    were ported, now serve: the child prints the mesh degrees it chose over
+    the CPU's eight mesh entries and answers as the same model built here."""
+    serve = serve_cpu(*flags)
+    http_url, _ = serve.urls()
+    assert degrees in serve.wait_for("mesh degrees: ")
+    got, want, tol = _flag_answer(flags, http_url)
+    np.testing.assert_allclose(got, want, rtol=tol if tol < 1e-2 else 0, atol=tol)
+    serve.proc.send_signal(signal.SIGINT)
+    rc, err = serve.finish()
+    assert rc == 0, err
 
 
 def test_serve_needs_a_card_by_default():

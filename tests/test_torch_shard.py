@@ -19,8 +19,7 @@
 - Across packages: each package's ``ShardedClient`` over the other's servers
   on ``batched_matmul`` (the same seeded W), within 1e-5 of its own.
 
-JAX's ``decoder_lm_tp_prefill`` case waits for ROADMAP A9 (the model is not
-in the port's zoo yet).
+JAX's ``decoder_lm_tp_prefill`` case is in tests/test_torch_decoder_tp.py.
 """
 
 import asyncio

@@ -206,10 +206,22 @@ def test_bad_arch_raises():
 
 
 def test_tensor_parallel_raises():
-    with pytest.raises(NotImplementedError, match="Multi-device models"):
-        DenseNetModel(tensor_parallel=4, device="cpu")
-    with pytest.raises(NotImplementedError):
-        build_image_ensemble(num_classes=CLASSES, width=WIDTH, tensor_parallel=4, device="cpu")
+    """``tensor_parallel=4``, which raised until ``parallel/`` was ported,
+    now splits the channels over a (1, 4) mesh of CPU shards: logits within
+    JAX's own bound (2e-2, tests/test_models_parallel.py) of tp = 1 with the
+    same weights and the same top-1; the ensemble builds the same."""
+    single = DenseNetModel(num_classes=CLASSES, width=WIDTH, seed=7, device="cpu")
+    sharded = DenseNetModel(num_classes=CLASSES, width=WIDTH, seed=7, tensor_parallel=4,
+                            device="cpu")
+    assert sharded.tp_degree == 4 and sharded.net.stem_shards is not None
+    image = np.random.default_rng(3).standard_normal((3, 224, 224)).astype(np.float32)
+    want = single.execute({"data_0": image}, {})["fc6_1"].numpy()
+    got = sharded.execute({"data_0": image}, {})["fc6_1"].numpy()
+    np.testing.assert_allclose(got, want, atol=2e-2, rtol=0)
+    assert got.argmax() == want.argmax()
+    members = build_image_ensemble(num_classes=CLASSES, width=WIDTH, tensor_parallel=4,
+                                   device="cpu")
+    assert members[1].tp_degree == 4
 
 
 def test_execute_is_deterministic_and_keeps_a_tensor(port_densenet):

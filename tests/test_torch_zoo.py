@@ -42,8 +42,8 @@ from client_tpu_torch.server.batcher import DynamicBatcher
 from client_tpu_torch.server.core import InferError
 
 WAIT_S = 60
-# in the JAX zoo, not yet in the port's: each waits for its ROADMAP item
-NOT_YET = {"decoder_lm_tp_prefill"}
+# in the JAX zoo, not in the port's: none since decoder_lm_tp_prefill came
+NOT_YET = set()
 
 
 @pytest.fixture(autouse=True, scope="module")
