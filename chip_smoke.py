@@ -331,6 +331,27 @@ Phases (each raises on failure, so the script exits non-zero):
      card count gives, the encoder, ``moe_ffn`` and ``densenet_onnx``
      answer as the same models here, and it drains.
 
+13. the training step, the dry run, multihost and ``entry()``
+   (``serve_training``), each row with the launch counts set to 0 just
+   before it and read just after:
+   - ``dryrun.dryrun_multichip(8)`` over dp 2 x tp 4 with every shard on
+     the card: the width-8 densenet's sharded step, the pipeline, ring,
+     Ulysses, ``moe_ffn`` and the served ``decoder_lm_tp`` decode, whose
+     tokens equal ``decoder_lm``'s; decode_attention launches = fed tokens
+     x layers x shards (and x 1 for the reference decoder), nothing else;
+   - the sharded training step at the served densenet's width (1000
+     classes, width 96, 224 x 224, global batch 16, SGD 1e-3) at dp 2 x
+     tp 4 and at one shard: the loss and every leaf's update of the first
+     step against the one shard's, and the one-shard step at batch 2
+     against the CPU's (``TRAIN_TOLERANCE``); ms a step, peak memory and
+     one profiled step's device idle share for each layout;
+   - ``python -m client_tpu_torch.parallel.multihost_check`` in a child
+     through the ``CLIENT_TPU_*`` variables at world size 1 on NCCL: the
+     global mesh, psum, the data-parallel step (rtol 2e-4 against the
+     full-batch step), the train step, ring and Ulysses;
+   - ``dryrun.entry()``: the (4, 1000) logits, a random batch within 5e-2
+     of the CPU run with the same weights, the forward's p50.
+
 It then prints one ``{"kernels": [...]}`` line and, last, one line
 ``{"ok": true, "device": {...}}``. Details go to ``build/chip_smoke.json``.
 Without a CUDA device it fails. The build fails if ptxas reports a spill in
@@ -348,6 +369,7 @@ from __future__ import annotations
 import asyncio
 import collections
 import ctypes
+import functools
 import json
 import os
 import queue
@@ -357,6 +379,7 @@ import signal
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -380,7 +403,9 @@ from client_tpu_torch import ops  # noqa: E402
 from client_tpu_torch.models import DenseNetModel, ImagePreprocessModel  # noqa: E402
 from client_tpu_torch.models import LongContextEncoderModel, default_model_zoo  # noqa: E402
 from client_tpu_torch.models import build_image_ensemble  # noqa: E402
-from client_tpu_torch.models.vision import flops_per_image  # noqa: E402
+from client_tpu_torch.models.vision import FunctionalDenseNet, draw_params  # noqa: E402
+from client_tpu_torch.models.vision import flops_per_image, params_to_torch  # noqa: E402
+from client_tpu_torch import dryrun  # noqa: E402
 from client_tpu_torch.ops import normalize as nz  # noqa: E402
 from client_tpu_torch.ops import softmax as sm  # noqa: E402
 from client_tpu_torch.models.long_context import WEIGHTS, load_jax_params  # noqa: E402
@@ -392,6 +417,7 @@ from client_tpu_torch.models.moe import MoEFFNModel  # noqa: E402
 from client_tpu_torch import parallel  # noqa: E402
 from client_tpu_torch.parallel import Mesh  # noqa: E402
 from client_tpu_torch.parallel import moe as parallel_moe  # noqa: E402
+from client_tpu_torch.parallel import multihost  # noqa: E402
 from client_tpu_torch.parallel import pipeline as parallel_pipeline  # noqa: E402
 from client_tpu_torch.parallel import ring as parallel_ring  # noqa: E402
 from client_tpu_torch.parallel import ulysses as parallel_ulysses  # noqa: E402
@@ -6277,6 +6303,287 @@ def serve_mesh(device="cuda", size=MESH, start_child=None):
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the training step, the dry run, multihost and entry()
+# ---------------------------------------------------------------------------
+
+TrainSize = collections.namedtuple("TrainSize", [
+    "dryrun_devices", "classes", "width", "image", "batch", "cpu_batch", "steps", "lr",
+    "entry_iters"])
+# the served densenet's full width (phase 4's classifier), global batch 16
+TRAIN = TrainSize(dryrun_devices=8, classes=1000, width=96, image=224, batch=16, cpu_batch=2,
+                  steps=5, lr=1e-3, entry_iters=10)
+# one leaf's update against another run's, per leaf: the cosine of the two
+# update vectors and the largest difference as a fraction of the reference
+# update's largest element. dp 2 x tp 4 against one shard on one device
+# changes only the order of bf16 sums (each half batch, each channel block
+# alone); the card against the CPU changes the bf16 convolutions' rounding
+# (cuDNN against oneDNN), as the port against JAX on the CPU does
+# (tests/test_torch_train_step.py: cosine >= 0.98, <= 27% there)
+TRAIN_TOLERANCE = {"layouts": {"cosine": 0.99, "fraction": 0.1, "loss": 1e-3},
+                   "cpu": {"cosine": 0.95, "fraction": 0.35, "loss": 2e-2}}
+# entry() on the card against its CPU run, the same weights (the vision bound)
+ENTRY_TOLERANCE = 5e-2
+MULTIHOST_WAIT_S = 180
+
+
+def train_inputs(size, device, batch):
+    rng = np.random.default_rng(13)
+    images = rng.standard_normal((size.batch, size.image, size.image, 3)).astype(np.float32)
+    labels = rng.integers(0, size.classes, size.batch)
+    return (torch.from_numpy(images[:batch]).to(device=device, dtype=torch.bfloat16),
+            torch.from_numpy(labels[:batch]).to(device))
+
+
+def leaf_values(params):
+    """{path: fp32 numpy} of a parameter tree (Sharded leaves whole)."""
+    out = {}
+
+    def visit(tree, prefix):
+        if isinstance(tree, dict):
+            for key, value in tree.items():
+                visit(value, f"{prefix}/{key}")
+            return
+        whole = tree.full("cpu") if isinstance(tree, parallel.Sharded) else tree
+        # a copy: a CPU leaf's numpy view would follow the in-place update
+        out[prefix] = np.array(whole.detach().float().cpu().numpy())
+
+    visit(params, "")
+    return out
+
+
+def compare_updates(got, want, tol, where):
+    """Each leaf's update in ``got`` against ``want`` (``{path: array}``):
+    the worst cosine and fraction; raises past ``tol``."""
+    worst = {"min_cosine": 1.0, "max_fraction": 0.0, "leaves": len(want)}
+    for name, ref in want.items():
+        new = got[name]
+        if not ref.any() or not new.any():
+            raise AssertionError(f"{where}: leaf {name} was not updated")
+        cosine = float((ref * new).sum() / np.sqrt((ref ** 2).sum() * (new ** 2).sum()))
+        fraction = float(np.abs(new - ref).max() / np.abs(ref).max())
+        worst["min_cosine"] = min(worst["min_cosine"], cosine)
+        worst["max_fraction"] = max(worst["max_fraction"], fraction)
+        if cosine < tol["cosine"] or fraction > tol["fraction"]:
+            raise AssertionError(f"{where}: leaf {name} update cosine {cosine:.4f}, "
+                                 f"{fraction:.3f} of its largest apart (tol {tol})")
+    return worst
+
+
+def train_layout(size, mesh, device, batch, timed=True):
+    """One step from the seed-0 weights over ``mesh``: its loss and each
+    leaf's update; then ``size.steps`` timed steps, the peak memory and one
+    profiled step's device time."""
+    module = FunctionalDenseNet(size.classes, size.width)
+    images, labels = train_inputs(size, device, batch)
+    init = params_to_torch(draw_params(size.classes, size.width, seed=0), device)
+    before = leaf_values(init)
+    params = parallel.shard_params(init, mesh)
+    step = parallel.sharded_train_step(module.apply,
+                                       functools.partial(torch.optim.SGD, lr=size.lr), mesh)
+    on_card = torch.device(device).type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    params, opt, loss = step(params, None, images, labels)
+    sync()
+    row = {"shape": dict(mesh.shape), "batch": batch, "loss": float(loss)}
+    updates = {k: v - before[k] for k, v in leaf_values(params).items()}
+    if not np.isfinite(row["loss"]):
+        raise AssertionError(f"train step over {dict(mesh.shape)}: loss {row['loss']}")
+    if not timed:
+        return row, updates
+    times = []
+    for _ in range(size.steps):
+        t0 = time.perf_counter()
+        params, opt, loss = step(params, opt, images, labels)
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+    row.update(ms_per_step=statistics.median(times), step_ms=times,
+               last_loss=float(loss),
+               peak_bytes=torch.cuda.max_memory_allocated() if on_card else None)
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card else [])
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        step(params, opt, images, labels)
+        sync()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = device_kernels(prof)
+    device_ms = sum(k["total_ms"] for k in kernels)
+    row.update(profiled_wall_ms=wall_ms, device_ms=device_ms if kernels else None,
+               device_idle_share=1 - device_ms / wall_ms if kernels else None,
+               kernel_launches=sum(k["count"] for k in kernels) if kernels else None,
+               top_kernels=kernels[:6])
+    return row, updates
+
+
+def training_step_rows(device, size):
+    """The full-width step at dp 2 x tp 4 and at one shard (every shard on
+    ``device``), each timed; the mesh's updates against the one shard's,
+    and the one-shard step at ``size.cpu_batch`` against the CPU's."""
+    mesh = dryrun.dryrun_mesh(size.dryrun_devices, device)
+    one = Mesh([[device]], ("data", "model"))
+    rows = {}
+    rows["dp2_tp4"], mesh_updates = train_layout(size, mesh, device, size.batch)
+    rows["one_shard"], one_updates = train_layout(size, one, device, size.batch)
+    tol = TRAIN_TOLERANCE["layouts"]
+    loss_diff = abs(rows["dp2_tp4"]["loss"] - rows["one_shard"]["loss"])
+    if loss_diff > tol["loss"] * abs(rows["one_shard"]["loss"]):
+        raise AssertionError(f"train step dp2 x tp4 loss {rows['dp2_tp4']['loss']} vs one "
+                             f"shard {rows['one_shard']['loss']}")
+    rows["dp2_tp4_vs_one_shard"] = dict(
+        compare_updates(mesh_updates, one_updates, tol, "dp2 x tp4 vs one shard"),
+        loss_diff=loss_diff, tolerance=tol)
+    small, small_updates = train_layout(size, one, device, size.cpu_batch, timed=False)
+    cpu, cpu_updates = train_layout(size, Mesh([["cpu"]], ("data", "model")), "cpu",
+                                    size.cpu_batch, timed=False)
+    tol = TRAIN_TOLERANCE["cpu"]
+    loss_diff = abs(small["loss"] - cpu["loss"])
+    if loss_diff > tol["loss"]:
+        raise AssertionError(f"train step at batch {size.cpu_batch}: loss {small['loss']} "
+                             f"on {device} vs {cpu['loss']} on the CPU")
+    rows["vs_cpu"] = dict(compare_updates(small_updates, cpu_updates, tol,
+                                          f"batch {size.cpu_batch} {device} vs cpu"),
+                          batch=size.cpu_batch, loss=small["loss"], cpu_loss=cpu["loss"],
+                          loss_diff=loss_diff, tolerance=tol)
+    return rows
+
+
+def training_dryrun(device, size):
+    """``dryrun.dryrun_multichip`` over (dp 2 x tp 4) with every shard on
+    ``device``: its summary, and decode_attention launches = fed tokens x
+    layers x shards for the served decode (plus fed tokens x layers for
+    its single-device reference), no other kernel launched."""
+    reset_counts()
+    t0 = time.perf_counter()
+    result = dryrun.dryrun_multichip(size.dryrun_devices, device=device)
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    per_layer = result["fed_tokens"] * result["layers"]
+    expected = {"served": per_layer * result["mesh"]["model"], "reference": per_layer}
+    row = {"result": result, "seconds": seconds, "launches": counts,
+           "expected_launches": expected}
+    if torch.device(device).type == "cuda":
+        want = {name: 0 for name in COUNTERS}
+        want["decode_attention"] = sum(expected.values())
+        if result["decode_attention_launches"] != expected or counts != want:
+            raise AssertionError(f"dry run launches {result['decode_attention_launches']} "
+                                 f"(counts {counts}), expected {expected}")
+    return row
+
+
+def training_multihost(device):
+    """``python -m client_tpu_torch.parallel.multihost_check`` in a child
+    through the CLIENT_TPU_* variables at world size 1: NCCL on the card
+    (gloo with four positions on the CPU); its data-parallel step against
+    the full-batch numpy step here."""
+    kind = torch.device(device).type
+    with tempfile.TemporaryDirectory() as out:
+        env = dict(os.environ, CLIENT_TPU_COORDINATOR=multihost.free_address(),
+                   CLIENT_TPU_NPROCS="1", CLIENT_TPU_PROC_ID="0")
+        cmd = [sys.executable, "-m", "client_tpu_torch.parallel.multihost_check", "--device",
+               kind, "--out", out] + (["--local-devices", "4"] if kind == "cpu" else [])
+        t0 = time.perf_counter()
+        done = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True, text=True,
+                              timeout=MULTIHOST_WAIT_S)
+        seconds = time.perf_counter() - t0
+        backend = "nccl" if kind == "cuda" else "gloo"
+        if done.returncode != 0 or f"WORKER_OK 0 world=1 backend={backend}" not in done.stdout:
+            raise AssertionError(f"multihost child exit {done.returncode}:\n"
+                                 f"{(done.stdout + done.stderr)[-3000:]}")
+        got = dict(np.load(os.path.join(out, "rank0.npz")))
+    rng = np.random.default_rng(0)
+    w0 = rng.standard_normal((16, 4)).astype(np.float32)
+    full = np.arange(8 * 16, dtype=np.float32).reshape(8, 16)
+    targets = rng.standard_normal((8, 4)).astype(np.float32)
+    want = w0 - 0.1 * 2.0 * full.T @ (full @ w0 - targets) / (8 * 4)
+    rel = float(np.abs(got["dp_step"] - want).max() / np.abs(want).max())
+    np.testing.assert_allclose(got["dp_step"], want, rtol=2e-4)
+    line = next(x for x in done.stdout.splitlines() if x.startswith("WORKER_OK"))
+    return {"backend": backend, "line": line, "seconds": seconds,
+            "dp_step_max_rel_err": rel, "psum": got["psum"].tolist(),
+            "train_loss": float(got["train_loss"])}
+
+
+def training_entry(device, size):
+    """``dryrun.entry()`` on ``device``: the example batch's logits, and a
+    random batch's within ENTRY_TOLERANCE of the CPU run's (the same seed-0
+    weights); the forward timed."""
+    fn, (params, images) = dryrun.entry(device)
+    cpu_fn, (cpu_params, _) = dryrun.entry("cpu")
+    batch = torch.from_numpy(np.random.default_rng(14).standard_normal(
+        tuple(images.shape)).astype(np.float32))
+    with torch.no_grad():
+        zeros = fn(params, images)
+        got = fn(params, batch.to(device)).cpu().numpy()
+        want = cpu_fn(cpu_params, batch).numpy()
+        on_card = torch.device(device).type == "cuda"
+
+        def forward():
+            fn(params, images)
+            if on_card:
+                torch.cuda.synchronize()
+
+        ms = p50_ms(forward, size.entry_iters)
+    err = float(np.abs(got - want).max())
+    if zeros.shape != (4, 1000) or not torch.isfinite(zeros).all() or err > ENTRY_TOLERANCE:
+        raise AssertionError(f"entry(): logits {tuple(zeros.shape)}, {err} from the CPU run")
+    return {"shape": list(zeros.shape), "max_abs_err_vs_cpu": err, "p50_ms": ms,
+            "tolerance": ENTRY_TOLERANCE}
+
+
+def serve_training(device="cuda", size=TRAIN):
+    """Phase 13: the dry run (``client_tpu_torch.dryrun``), the sharded
+    training step at the served densenet's width, the multihost child and
+    ``entry()``, on ``device``. Each row with the launch counts set to 0
+    just before it and read just after."""
+    t_phase = time.perf_counter()
+    result = {"size": size._asdict(), "rows": {}, "steps_s": {}, "launch_counts": {}}
+    for name, fn in (("dryrun", training_dryrun),
+                     ("train_step", training_step_rows),
+                     ("multihost", lambda device, size: training_multihost(device)),
+                     ("entry", training_entry)):
+        reset_counts()
+        t0 = time.perf_counter()
+        result["rows"][name] = fn(device, size)
+        result["steps_s"][name] = time.perf_counter() - t0
+        result["launch_counts"][name] = read_counts()
+    result["seconds"] = time.perf_counter() - t_phase
+    return result
+
+
+def log_training(training, card):
+    """Phase 13's lines, each with the card's name and power limit."""
+    rows = training["rows"]
+    log(f"training phase: {training['seconds']:.1f} s; rows "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in training["steps_s"].items()) + f"; {card}")
+    dr = rows["dryrun"]
+    log(f"training dry run ({dr['seconds']:.2f} s): loss {dr['result']['loss']:.4f}, tokens "
+        f"{dr['result']['tokens']}; decode_attention launches "
+        f"{dr['result']['decode_attention_launches']} = expected {dr['expected_launches']} "
+        f"(fed tokens x layers x shards, and its reference); {card}")
+    ts = rows["train_step"]
+    for name in ("dp2_tp4", "one_shard"):
+        r = ts[name]
+        idle = ("not measured" if r["device_idle_share"] is None
+                else f"{r['device_idle_share']:.1%} idle, {r['device_ms']:.3f} ms on the device")
+        peak = "not measured" if r["peak_bytes"] is None else f"{r['peak_bytes']} bytes"
+        kernels = ("not measured" if r["kernel_launches"] is None
+                   else f"{r['kernel_launches']} kernels")
+        log(f"training step {name} {r['shape']} batch {r['batch']}: {r['ms_per_step']:.3f} ms "
+            f"a step (median of {len(r['step_ms'])}); loss {r['loss']:.6f} -> "
+            f"{r['last_loss']:.6f}; peak {peak}; profiled step {r['profiled_wall_ms']:.3f} ms "
+            f"({idle}, {kernels}); {card}")
+    log("training dp2 x tp4 vs one shard: " + json.dumps(ts["dp2_tp4_vs_one_shard"])
+        + "; vs the CPU: " + json.dumps(ts["vs_cpu"]))
+    log("training multihost: " + json.dumps(rows["multihost"]))
+    log("training entry(): " + json.dumps(rows["entry"]) + f"; {card}")
+
+
 def device_kernels(prof):
     """Device time by kernel in a torch.profiler trace, largest first."""
     kernels = []
@@ -6679,6 +6986,7 @@ def main(argv) -> int:
     orchestration = serve_orchestration()
     federation = serve_federation()
     mesh = serve_mesh()
+    training = serve_training()
     for row in served["identity"]:
         log(f"identity_fp32 {row['bytes'] // MIB} MiB p50: wire {row['wire_p50_ms']:.3f} ms, "
             f"system shm {row['system_shm_p50_ms']:.3f} ms, "
@@ -7084,6 +7392,7 @@ def main(argv) -> int:
         return [row[kernel] for row in federation["launch_counts"]]
 
     log_mesh(mesh, card)
+    log_training(training, card)
 
     main_row = timed[0]
     kernels = [{
@@ -7120,6 +7429,9 @@ def main(argv) -> int:
         "federation_launches": federation_launches("decode_attention"),
         # decoder_lm_tp's sequential run by mesh size: tokens x layers x shards
         "mesh_launches": mesh["launches"],
+        # the dry run of phase 13: its served tp decode and that decode's
+        # single-device reference (fed tokens x layers x shards, and x 1)
+        "training_launches": training["rows"]["dryrun"]["result"]["decode_attention_launches"],
         "batched_shape": batched_timed,
     }]
     flash_row = flash_timed[0]
@@ -7240,7 +7552,7 @@ def main(argv) -> int:
                    "served": served, "vision": vision, "grpc": grpc_served,
                    "resilience": resilience, "harness": harness, "process": process,
                    "pool": pool, "orchestration": orchestration, "federation": federation,
-                   "mesh": mesh, "kernels": kernels}, f, indent=1)
+                   "mesh": mesh, "training": training, "kernels": kernels}, f, indent=1)
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

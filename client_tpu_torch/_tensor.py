@@ -21,6 +21,7 @@ from .utils import (
     serialize_bf16_tensor,
     serialize_byte_tensor,
     tensor_to_numpy,
+    triton_to_np_dtype,
 )
 
 
@@ -196,6 +197,30 @@ class InferInput:
         else:
             self._raw_data = np.ascontiguousarray(input_tensor).tobytes()
         self._parameters.pop("binary_data_size", None)
+        return self
+
+    def set_data_from_dlpack(self, tensor: Any) -> "InferInput":
+        """Stage the contents of a ``__dlpack__`` producer (torch, numpy, ...).
+
+        Host tensors are wrapped without a copy; a torch tensor on the card
+        crosses to the host once (BF16 as ``ml_dtypes.bfloat16``)."""
+        if isinstance(tensor, torch.Tensor):
+            arr = tensor_to_numpy(tensor)
+        else:
+            arr = np.from_dlpack(tensor)
+        expected = triton_to_np_dtype(self._datatype)
+        if expected is not None and arr.dtype != np.dtype(expected):
+            raise InferenceServerException(
+                f"dlpack tensor has dtype {arr.dtype}, expected "
+                f"{np.dtype(expected)} for {self._datatype}"
+            )
+        self._validate_shape(arr)
+        self._clear_shared_memory_params()
+        self._json_data = None
+        if arr.flags["C_CONTIGUOUS"]:
+            self._raw_data = memoryview(arr.reshape(-1).view(np.uint8))
+        else:
+            self._raw_data = np.ascontiguousarray(arr).tobytes()
         return self
 
     def set_shared_memory(self, region_name: str, byte_size: int, offset: int = 0) -> "InferInput":

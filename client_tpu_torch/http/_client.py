@@ -107,9 +107,17 @@ class InferenceServerClient(InferenceServerClientBase):
         concurrency: int = 1,
         connection_timeout: float = 60.0,
         network_timeout: float = 60.0,
+        max_greenlets: Optional[int] = None,  # accepted for API parity; unused
+        ssl: bool = False,
+        ssl_options: Optional[Dict[str, Any]] = None,
+        ssl_context_factory: Any = None,
+        insecure: bool = False,
         max_retries: int = 0,
     ):
-        """``max_retries``: re-attempts on *connect* failures (connection
+        """``ssl``: speak HTTPS; ``ssl_options`` may hold ``keyfile``,
+        ``certfile`` and ``ca_certs``, ``ssl_context_factory`` returns the
+        ``ssl.SSLContext`` to use, and ``insecure`` skips the certificate
+        check. ``max_retries``: re-attempts on *connect* failures (connection
         refused / DNS), where the request provably never reached the server.
         In-flight failures are never retried by this knob (inference is not
         idempotent for sequences); ``configure_resilience`` installs a
@@ -117,20 +125,33 @@ class InferenceServerClient(InferenceServerClientBase):
         super().__init__()
         if "://" in url:
             raise InferenceServerException(
-                f"unexpected scheme in url '{url}' (pass host:port)"
+                f"unexpected scheme in url '{url}' (pass host:port; use ssl=True for https)"
             )
         self._url = url
         self._verbose = verbose
         self._concurrency = max(1, concurrency)
         self._timeout = urllib3.Timeout(connect=connection_timeout, read=network_timeout)
         host, _, port = url.partition(":")
-        self._pool = urllib3.HTTPConnectionPool(
+        pool_kwargs: Dict[str, Any] = dict(
             host=host,
-            port=int(port) if port else 80,
+            port=int(port) if port else (443 if ssl else 80),
             maxsize=self._concurrency,
             timeout=self._timeout,
             retries=False,
         )
+        if ssl:
+            opts = dict(ssl_options or {})
+            if insecure:
+                pool_kwargs["cert_reqs"] = "CERT_NONE"
+            for option, keyword in (("keyfile", "key_file"), ("certfile", "cert_file"),
+                                    ("ca_certs", "ca_certs")):
+                if option in opts:
+                    pool_kwargs[keyword] = opts[option]
+            if ssl_context_factory is not None:
+                pool_kwargs["ssl_context"] = ssl_context_factory()
+            self._pool = urllib3.HTTPSConnectionPool(**pool_kwargs)
+        else:
+            self._pool = urllib3.HTTPConnectionPool(**pool_kwargs)
         self._executor: Optional[ThreadPoolExecutor] = None
         self._executor_lock = threading.Lock()
         self._infer_stat = InferStat()

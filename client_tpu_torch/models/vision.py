@@ -31,6 +31,13 @@ the ``model`` axis of a (1, tp) mesh where they divide (JAX's
 the whole input, and the slices are gathered along the channels on the
 first device, where everything else (norms, pools, the mean) runs.
 
+Training: :class:`FunctionalDenseNet` is the same network as ``init`` /
+``apply`` over flax's own parameter tree (its names, HWIO kernels, fp32
+leaves that require grad, bf16 compute), the form
+``parallel.sharded_train_step`` trains; :func:`params_to_torch` carries
+JAX's ``module.init`` tree across, and :meth:`DenseNetModel.forward_fn`
+gives the served weights through it.
+
 Weights: flax draws its init with ``jax.random``, which torch cannot
 reproduce. :func:`draw_params` is the port's own seeded numpy draw in the
 flax tree's names and shapes, and :func:`load_jax_params` loads that tree or
@@ -49,7 +56,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import preprocess_image
-from ..parallel import Mesh, Sharded, local_devices, move, split
+from ..parallel import Mesh, Sharded, local_devices, move, shard_params, split
 from ..utils import as_device_tensor
 from .base import Model, TensorSpec
 
@@ -274,6 +281,82 @@ def flops_per_image(num_classes: int, width: int, stages: Sequence[int], size: i
     return total + 2 * channels * num_classes
 
 
+# -- the trainable functional densenet (flax's tree, fp32 params) ---------------
+
+
+def _apply_out(fn, x: torch.Tensor, kernel) -> torch.Tensor:
+    """``fn(x, kernel)``, or per output-channel block of a :class:`Sharded`
+    kernel, the blocks gathered along dim 1 on x's device (differentiable
+    through the gather)."""
+    return _by_channels(fn, x, (kernel,), [kernel] if isinstance(kernel, Sharded) else None)
+
+
+def _conv(x: torch.Tensor, kernel, stride: int = 1) -> torch.Tensor:
+    """A SAME convolution without bias in bf16; ``kernel`` HWIO (fp32)."""
+    return _apply_out(lambda x, k: F.conv2d(x, k.permute(3, 2, 0, 1).to(torch.bfloat16),
+                                            stride=stride),
+                      _pad_same(x, kernel.shape[0], stride), kernel)
+
+
+def _conv_block(x: torch.Tensor, tree: Mapping[str, Any]) -> torch.Tensor:
+    x = _conv(x, tree["Conv_0"]["kernel"])
+    norm = tree["GroupNorm_0"]
+    x = F.group_norm(x.float(), GROUPS, norm["scale"], norm["bias"], eps=EPSILON)
+    return F.relu(x.to(torch.bfloat16))
+
+
+class FunctionalDenseNet:
+    """The flax module ``client_tpu.models.vision._build_flax_model`` returns,
+    as ``init`` / ``apply`` over a parameter tree: flax's names, HWIO conv
+    kernels, a ``[in, out]`` dense kernel, every leaf fp32 (flax's
+    ``param_dtype``) and the compute bf16 (its ``dtype``). ``apply`` takes
+    NHWC images as ``module.apply`` does and gives fp32 logits; it computes
+    what :class:`DenseNetish` computes (the served module keeps frozen bf16
+    weights), and it runs over leaves that ``parallel.shard_params`` split
+    over ``model`` (:class:`Sharded` by output channels)."""
+
+    def __init__(self, num_classes: int, width: int = 32, stages: Sequence[int] = (2, 2, 2)):
+        self.num_classes = num_classes
+        self.width = width
+        self.stages = tuple(stages)
+
+    def init(self, seed: int, images: torch.Tensor) -> Dict[str, Any]:
+        """:func:`draw_params` with ``seed`` as fp32 leaves on ``images``'
+        device that require grad (flax's init reads shapes from ``images``;
+        these shapes do not depend on them)."""
+        return params_to_torch(draw_params(self.num_classes, self.width, self.stages, seed),
+                               images.device)
+
+    def apply(self, params: Mapping[str, Any], images: torch.Tensor) -> torch.Tensor:
+        tree = params.get("params", params)
+        x = _conv(images.to(torch.bfloat16).permute(0, 3, 1, 2), tree["Conv_0"]["kernel"], 2)
+        x = F.max_pool2d(_pad_same(x, 3, 2, float("-inf")), 3, stride=2)
+        for i, layers in enumerate(self.stages):
+            stage = tree[f"DenseStage_{i}"]
+            for j in range(layers):
+                x = torch.cat([x, _conv_block(x, stage[f"ConvBlock_{j}"])], dim=1)
+            x = F.avg_pool2d(_conv_block(x, tree[f"ConvBlock_{i}"]), 2, stride=2)
+        x = x.float().mean(dim=(2, 3)).to(torch.bfloat16)  # global average pool
+        dense = tree["Dense_0"]
+        y = _apply_out(lambda x, k: x @ k.to(torch.bfloat16), x, dense["kernel"])
+        return (y + dense["bias"].to(torch.bfloat16)).float()
+
+
+def params_to_torch(params: Mapping[str, Any], device="cuda",
+                    requires_grad: bool = True) -> Dict[str, Any]:
+    """A flax param tree with numpy leaves (the port's :func:`draw_params`,
+    or JAX's ``module.init`` tree exported with ``np.asarray``) as fp32
+    torch leaves on ``device``, in :class:`FunctionalDenseNet`'s layout
+    (which is flax's: nothing is transposed)."""
+    def convert(value):
+        if isinstance(value, Mapping):
+            return {k: convert(v) for k, v in value.items()}
+        t = torch.from_numpy(np.array(value, dtype=np.float32)).to(device)
+        return t.requires_grad_(requires_grad)
+
+    return convert(params)
+
+
 class ImagePreprocessModel(Model):
     """``preprocess``: raw UINT8 HWC image -> normalised FP32 CHW [3,224,224].
 
@@ -326,10 +409,13 @@ class DenseNetModel(Model):
             mesh = Mesh([devices[:tp]], ("data", "model")) if tp > 1 else None
         self.mesh = mesh
         self._num_classes = num_classes
+        self._width = width
+        self._stages = self.ARCHS[arch]
         self._device = (torch.device(device) if self.mesh is None
                         else self.mesh.axis_devices("model")[0])
-        self.net = DenseNetish(num_classes, width, self.ARCHS[arch], self._device)
-        self.net.load(draw_params(num_classes, width, self.ARCHS[arch], seed))
+        self.net = DenseNetish(num_classes, width, self._stages, self._device)
+        self._params = draw_params(num_classes, width, self._stages, seed)
+        self.net.load(self._params)
         if self.mesh is not None:
             self.net.shard(self.mesh)
         self._labels = [f"class_{i}" for i in range(num_classes)]
@@ -353,6 +439,22 @@ class DenseNetModel(Model):
     def labels(self) -> Optional[List[str]]:
         return self._labels
 
+    def forward_fn(self):
+        """``(fn, params)`` for direct embedding, as JAX's: ``fn(params,
+        chw_batch)`` takes the wire's CHW fp32 batch [N, 3, H, W] to fp32
+        logits [N, num_classes] through :class:`FunctionalDenseNet`;
+        ``params`` is the model's weights as fp32 leaves on its device, split
+        over its mesh's ``model`` axis when it has one."""
+        module = FunctionalDenseNet(self._num_classes, self._width, self._stages)
+        params = params_to_torch(self._params, self._device, requires_grad=False)
+        if self.mesh is not None:
+            params = shard_params(params, self.mesh)
+
+        def fn(params, chw_batch: torch.Tensor) -> torch.Tensor:
+            return module.apply(params, chw_batch.permute(0, 2, 3, 1))
+
+        return fn, params
+
     def execute(self, inputs: Dict[str, Any], parameters: Dict[str, Any]):
         # a cuda shared-memory input (or an ensemble's device tensor) is used
         # in place; a host array goes to the device once
@@ -366,5 +468,7 @@ class DenseNetModel(Model):
 def load_jax_params(model: DenseNetModel, params: Mapping[str, Any]) -> None:
     """Copy the flax param tree (``{"params": {...}}`` with numpy leaves,
     e.g. ``jax.tree_util.tree_map(np.asarray, DenseNetModel(...).forward_fn()[1])``
-    of the JAX package) into ``model``."""
+    of the JAX package) into ``model``; :meth:`DenseNetModel.forward_fn`
+    then gives them too."""
     model.net.load(params)
+    model._params = params

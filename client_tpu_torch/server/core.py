@@ -299,7 +299,10 @@ class ServerCore:
     ``device``: where tensors read from cross-process cuda shared-memory
     regions are placed (the models carry their own device)."""
 
-    def __init__(self, models: Optional[List[Model]] = None, device="cuda"):
+    def __init__(self, models: Optional[List[Model]] = None,
+                 name: str = "client_tpu_torch_server", device="cuda"):
+        """``name``: the server metadata's name (JAX's keyword)."""
+        self._name = name
         self._device = torch.device(device)
         self._lock = threading.Lock()
         self._models: Dict[str, Model] = {}
@@ -373,7 +376,7 @@ class ServerCore:
 
     def server_metadata(self) -> Dict[str, Any]:
         return {
-            "name": "client_tpu_torch_server",
+            "name": self._name,
             "version": "2.x-client_tpu_torch",
             "extensions": [
                 "classification",
@@ -669,21 +672,25 @@ class ServerCore:
 
     # -- inference ---------------------------------------------------------
     def infer(self, model_name: str, model_version: str,
-              request: Dict[str, Any]) -> Dict[str, Any]:
-        """Execute one inference of a non-decoupled model.
+              request: Dict[str, Any], decoupled_ok: bool = False):
+        """Execute one inference.
 
         ``request``: {"id", "parameters", "inputs": [...], "outputs": [...]}
         where each input dict has name/datatype/shape plus exactly one of
         "array" (host ndarray) or "shm" ((region, byte_size, offset)).
 
         Returns the response dict: {"model_name", "model_version", "id",
-        "outputs": [{name, datatype, shape, "array"|"shm"}]}.
+        "outputs": [{name, datatype, shape, "array"|"shm"}]}. A decoupled
+        model raises unless ``decoupled_ok``; then its stream runs to the
+        end and the list of its responses is returned, as JAX's does.
         """
         t0 = time.perf_counter_ns()
         model = self.model(model_name, model_version)
         if not model.ready:
             raise InferError(f"Request for unknown model: '{model_name}' is not ready", 400)
         if model.decoupled:
+            if decoupled_ok:
+                return list(self._decoupled_stream(model, model_version, request, t0))
             raise InferError(
                 f"model '{model_name}' is a decoupled model: use streaming inference", 400)
         stats = self._stats[model.name]

@@ -440,10 +440,13 @@ class GrpcInferenceServer:
     """
 
     def __init__(self, core: ServerCore, port: int = 0, max_workers: int = 8,
-                 credentials=None):
+                 verbose: bool = False, compression=None, credentials=None):
         """``max_workers``: the handler threads; a bidi stream holds one for
-        its life. ``credentials``: a ``grpc.ServerCredentials`` to serve TLS
-        instead of cleartext h2c."""
+        its life. ``verbose`` is accepted for parity with the JAX server and
+        unused there too. ``compression``: a ``grpc.Compression`` (e.g.
+        ``Gzip``) for the responses to clients that advertise it.
+        ``credentials``: a ``grpc.ServerCredentials`` to serve TLS instead
+        of cleartext h2c."""
         self.core = core
         self._server = grpc.server(
             futures.ThreadPoolExecutor(
@@ -454,6 +457,7 @@ class GrpcInferenceServer:
                 ("grpc.max_send_message_length", 2**31 - 1),
                 ("grpc.max_receive_message_length", 2**31 - 1),
             ],
+            compression=compression,
         )
         self._server.add_generic_rpc_handlers((_Handlers(core),))
         if credentials is not None:

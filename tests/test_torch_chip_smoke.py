@@ -697,3 +697,47 @@ def test_mesh_phase_on_cpu(monkeypatch):
     child = rows["serve_child"]
     assert "moe_ffn data=1 model=8" in child["degrees"] and child["drained"]
     assert child["device"] == "cpu"
+
+
+# phase 13 at a small width: the dry run, the step at dp 2 x tp 4 and at one
+# shard, the multihost child over gloo and entry() on the CPU
+SMALL_TRAIN = chip_smoke.TrainSize(dryrun_devices=8, classes=16, width=8, image=32, batch=16,
+                                   cpu_batch=2, steps=1, lr=1e-3, entry_iters=1)
+
+
+def test_training_phase_on_cpu(monkeypatch):
+    """``chip_smoke.serve_training`` on the CPU. The plain decode_attention
+    calls counted here are the launches the card must show: fed tokens x
+    layers x shards for the dry run's served decode, fed tokens x layers
+    for its reference."""
+    import client_tpu_torch.models.decoder as decoder
+    import client_tpu_torch.models.decoder_tp as decoder_tp
+
+    calls = collections.Counter()
+    for module in (decoder, decoder_tp):
+        plain = module.decode_attention
+
+        def counted(*args, _plain=plain, _name=module.__name__, **kwargs):
+            calls[_name] += 1
+            return _plain(*args, **kwargs)
+
+        monkeypatch.setattr(module, "decode_attention", counted)
+    result = chip_smoke.serve_training(device="cpu", size=SMALL_TRAIN)
+    chip_smoke.log_training(result, "cpu")  # main's lines format this result
+    rows = result["rows"]
+    dr = rows["dryrun"]
+    assert dr["result"]["mesh"] == {"data": 2, "model": 4}
+    assert calls[decoder_tp.__name__] == dr["expected_launches"]["served"] == 6 * 2 * 4
+    assert calls[decoder.__name__] == dr["expected_launches"]["reference"] == 6 * 2
+    assert result["launch_counts"]["dryrun"] == {k: 0 for k in chip_smoke.COUNTERS}
+    ts = rows["train_step"]
+    assert ts["dp2_tp4"]["shape"] == {"data": 2, "model": 4}
+    assert ts["one_shard"]["shape"] == {"data": 1, "model": 1}
+    assert ts["dp2_tp4_vs_one_shard"]["min_cosine"] >= 0.99
+    assert ts["dp2_tp4_vs_one_shard"]["leaves"] == 30
+    # the same device against itself: bit for bit
+    assert ts["vs_cpu"]["loss_diff"] == 0 and ts["vs_cpu"]["max_fraction"] == 0
+    assert ts["dp2_tp4"]["device_idle_share"] is None  # no device to profile
+    mh = rows["multihost"]
+    assert mh["backend"] == "gloo" and mh["dp_step_max_rel_err"] < 2e-4
+    assert rows["entry"]["shape"] == [4, 1000] and rows["entry"]["max_abs_err_vs_cpu"] == 0

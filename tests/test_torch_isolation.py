@@ -74,10 +74,12 @@ def test_port_has_files():
                  "softmax"):
         assert (REPO / "client_tpu_torch" / "csrc" / f"{name}.cu").exists()
     # the mesh package and its models are scanned too
-    for name in ("__init__", "ring", "ulysses", "moe", "pipeline"):
+    for name in ("__init__", "ring", "ulysses", "moe", "pipeline", "multihost",
+                 "multihost_check"):
         assert REPO / "client_tpu_torch" / "parallel" / f"{name}.py" in PORT_FILES
     for name in ("decoder_tp", "moe"):
         assert REPO / "client_tpu_torch" / "models" / f"{name}.py" in PORT_FILES
+    assert REPO / "client_tpu_torch" / "dryrun.py" in PORT_FILES
 
 
 @pytest.mark.parametrize(

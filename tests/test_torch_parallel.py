@@ -19,6 +19,8 @@ from a numpy seed, go through both packages at the JAX tests' shapes
   that mode; an indivisible sequence a 400.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -92,8 +94,20 @@ def test_mesh_axes_and_local_devices():
         mesh.axis_devices("pipe")
     with pytest.raises(ValueError, match="axis names"):
         parallel.Mesh(["cpu", "cpu"], ("data", "model"))
-    with pytest.raises(NotImplementedError, match="A9b"):
-        parallel.sharded_train_step(None, None, mesh)
+    # the training step runs on this mesh: zero weights split over the three
+    # model shards give the uniform loss log(3), and the update is the plain
+    # full-batch gradient step
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal((6, 4)).astype(np.float32))
+    labels = torch.tensor([0, 1, 2, 2, 1, 0])
+    params = parallel.shard_params({"w": torch.zeros(4, 3, requires_grad=True)}, mesh)
+    step = parallel.sharded_train_step(lambda p, xb: xb @ p["w"].full(),
+                                       functools.partial(torch.optim.SGD, lr=0.5), mesh)
+    params, opt, loss = step(params, None, x, labels)
+    assert isinstance(opt, torch.optim.SGD)
+    assert float(loss) == pytest.approx(np.log(3.0), rel=1e-6)
+    grad = x.T @ (torch.full((6, 3), 1 / 3) - torch.eye(3)[labels]) / 6
+    np.testing.assert_allclose(params["w"].full().detach().numpy(), -0.5 * grad.numpy(),
+                               rtol=1e-5, atol=1e-7)
 
 
 # -- collectives ------------------------------------------------------------------

@@ -31,3 +31,28 @@ def test_card_shards_read_back_whole_on_the_host(card, read):
     want = torch.cat(blocks, 0).cpu().numpy()
     assert got.shape == (4 * 4096, 4096)
     assert (got == want).all()
+
+
+def test_train_step_stays_on_the_card(card):
+    """``sharded_train_step`` over dp 2 x tp 4 with every shard on the card:
+    the loss, every leaf and its gradient stay there, and the update equals
+    the one-shard step's (fp32, a linear classifier)."""
+    import functools
+
+    gen = torch.Generator().manual_seed(0)
+    w0 = torch.randn(32, 16, generator=gen) * 0.1
+    x = torch.randn(16, 32, generator=gen).to(card)
+    labels = torch.randint(0, 16, (16,), generator=gen).to(card)
+    results = []
+    for mesh in (parallel.Mesh([[card] * 4] * 2, ("data", "model")),
+                 parallel.Mesh([[card]], ("data", "model"))):
+        params = parallel.shard_params({"w": w0.to(card).requires_grad_(True)}, mesh)
+        step = parallel.sharded_train_step(lambda p, xb: xb @ p["w"].full(),
+                                           functools.partial(torch.optim.SGD, lr=0.5), mesh)
+        params, _, loss = step(params, None, x, labels)
+        leaves = parallel.train_leaves(params)
+        assert loss.device.type == "cuda"
+        assert all(t.device.type == "cuda" and t.grad.device.type == "cuda" for t in leaves)
+        results.append((params["w"].full().detach().cpu(), float(loss)))
+    assert torch.allclose(results[0][0], results[1][0], rtol=1e-5, atol=1e-6)
+    assert abs(results[0][1] - results[1][1]) <= 1e-5
