@@ -352,6 +352,32 @@ Phases (each raises on failure, so the script exits non-zero):
    - ``dryrun.entry()``: the (4, 1000) logits, a random batch within 5e-2
      of the CPU run with the same weights, the forward's p50.
 
+14. the native clients and the embedded server (``serve_native``), each row
+   with the launch counts set to 0 just before it and read just after:
+   - (a) ``native_build.probe()`` (compilers, ``curl/curl.h``, ``zlib.h``,
+     ``libcurl``, ``libz``, ``Python.h``, ``libpython``) and the builds with
+     ``g++`` / ``gcc`` into ``build/torch_native/``, their seconds and
+     command lines;
+   - (b) the embed library dlopened in this process (``EmbeddedServer``, the
+     C API of ``server_embed.h`` through ctypes) hosting ``simple`` and
+     ``decoder_lm`` on the card: the prompt [1, 2, 3, 4] and 8 greedy
+     steps, tokens and logits bit-equal to ``decoder_lm`` in this process,
+     decode_attention launches = 12 tokens x 2 layers, the statistics
+     counting the requests;
+   - (c) ``csrc/embed_host.c`` as a child process hosting the same server on
+     the card: exit 0, tokens and logits bit-equal to (b);
+   - (d) where the probe finds curl's and zlib's headers: the native HTTP and
+     gRPC clients against the port's HTTP and gRPC servers on the card:
+     identity_fp32 at 4 MiB over the wire and over two
+     ``NativeCudaShmRegion`` host windows (p50 beside phases 4 and 5's
+     Python clients), ``long_context_encoder`` at S = 8192 over native cuda
+     shm within 2e-5 of the CPU run, ``ensemble_image`` top-1 equal to the
+     CPU run, a ``decoder_lm`` sequence over the native gRPC stream (tokens
+     = phase 5's), ``PerfRunner`` with ``-i native-grpc --shared-memory
+     cuda`` at concurrency 1, 2 and 4 (0 errors, the server's successes =
+     the requests sent); launches = the server's executions. Where a header
+     is missing, one line names it and (d) does not run.
+
 It then prints one ``{"kernels": [...]}`` line and, last, one line
 ``{"ok": true, "device": {...}}``. Details go to ``build/chip_smoke.json``.
 Without a CUDA device it fails. The build fails if ptxas reports a spill in
@@ -406,6 +432,7 @@ from client_tpu_torch.models import build_image_ensemble  # noqa: E402
 from client_tpu_torch.models.vision import FunctionalDenseNet, draw_params  # noqa: E402
 from client_tpu_torch.models.vision import flops_per_image, params_to_torch  # noqa: E402
 from client_tpu_torch import dryrun  # noqa: E402
+from client_tpu_torch import native, native_build  # noqa: E402
 from client_tpu_torch.ops import normalize as nz  # noqa: E402
 from client_tpu_torch.ops import softmax as sm  # noqa: E402
 from client_tpu_torch.models.long_context import WEIGHTS, load_jax_params  # noqa: E402
@@ -6584,6 +6611,506 @@ def log_training(training, card):
     log("training entry(): " + json.dumps(rows["entry"]) + f"; {card}")
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the native clients and the embedded server
+# ---------------------------------------------------------------------------
+
+# the sizes phase 14 runs at; the CPU rehearsal in the tests passes smaller ones
+NativeSize = collections.namedtuple("NativeSize", [
+    "identity_bytes", "iters", "seq", "vision_classes", "vision_width", "prompt", "steps",
+    "perf_requests", "concurrency"])
+NATIVE = NativeSize(identity_bytes=4 * MIB, iters=20, seq=8192, vision_classes=VISION_CLASSES,
+                    vision_width=VISION_WIDTH, prompt=[1, 2, 3, 4], steps=8, perf_requests=50,
+                    concurrency=(1, 2, 4))
+# the embedded server's models, and how long the C host may take
+EMBED_MODELS = ["simple", "decoder_lm"]
+EMBED_HOST_WAIT_S = 300
+
+
+def decoder_request(tokens, start, end):
+    """A decoder_lm request of sequence 1 in the v2 two-part body, the bytes
+    ``csrc/embed_host.c`` sends: (body, header length)."""
+    header = ('{"parameters":{"sequence_id":1,"sequence_start":%s,"sequence_end":%s},'
+              '"inputs":[{"name":"TOKENS","datatype":"INT32","shape":[1,%d],'
+              '"parameters":{"binary_data_size":%d}}],'
+              '"outputs":[{"name":"LOGITS","parameters":{"binary_data":true}},'
+              '{"name":"NEXT_TOKEN","parameters":{"binary_data":true}}]}'
+              % (str(bool(start)).lower(), str(bool(end)).lower(), len(tokens),
+                 4 * len(tokens))).encode()
+    return header + np.asarray(tokens, np.int32).tobytes(), len(header)
+
+
+def response_tensors(body, header_length):
+    """{name: raw bytes} of a two-part response's binary outputs."""
+    header = json.loads(body[:header_length])
+    out, at = {}, header_length
+    for entry in header["outputs"]:
+        size = entry["parameters"]["binary_data_size"]
+        out[entry["name"]] = body[at:at + size]
+        at += size
+    return out
+
+
+class EmbeddedServer:
+    """The embed library (``native_build.build_embed``) dlopened in this
+    process: the C API of ``native/include/client_tpu/server_embed.h`` as a
+    C host calls it, through ctypes. The library takes the interpreter's
+    lock on each call (it finds this interpreter running)."""
+
+    def __init__(self, path, repo=REPO):
+        lib = ctypes.CDLL(path)
+        err = ctypes.POINTER(ctypes.c_void_p)
+        lib.ctpu_embed_init.argtypes = [ctypes.c_char_p, err]
+        lib.ctpu_embed_server_create.argtypes = [ctypes.c_char_p, err]
+        lib.ctpu_embed_server_create.restype = ctypes.c_int64
+        lib.ctpu_embed_infer.argtypes = [
+            ctypes.c_int64, ctypes.c_char_p, ctypes.c_char_p, ctypes.c_char_p, ctypes.c_size_t,
+            ctypes.c_int64, ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_size_t),
+            ctypes.POINTER(ctypes.c_int64), err]
+        lib.ctpu_embed_statistics.argtypes = [ctypes.c_int64, ctypes.c_char_p, err, err]
+        lib.ctpu_embed_server_destroy.argtypes = [ctypes.c_int64, err]
+        lib.ctpu_embed_free.argtypes = [ctypes.c_void_p]
+        self.lib = lib
+        self._call(lib.ctpu_embed_init, repo.encode())
+
+    def _take(self, ptr) -> bytes:
+        """The bytes of a C string the library returned, then freed."""
+        try:
+            return ctypes.string_at(ptr.value) if ptr.value else b""
+        finally:
+            self.lib.ctpu_embed_free(ptr)
+
+    def _call(self, fn, *args, ok=lambda rc: rc == 0):
+        """``fn(*args, &error)``; raises with the library's message unless
+        ``ok(rc)``."""
+        error = ctypes.c_void_p()
+        rc = fn(*args, ctypes.byref(error))
+        if not ok(rc):
+            raise RuntimeError(f"{fn.__name__}: {self._take(error).decode()}")
+        return rc
+
+    def create(self, options) -> int:
+        """A server handle (> 0) of ``options`` (``embed.create``'s JSON)."""
+        return self._call(self.lib.ctpu_embed_server_create, json.dumps(options).encode(),
+                          ok=lambda rc: rc > 0)
+
+    def infer(self, handle, model, body, header_length):
+        """(response body, its header length) of one request."""
+        response, size, hlen = ctypes.c_void_p(), ctypes.c_size_t(), ctypes.c_int64()
+        self._call(self.lib.ctpu_embed_infer, handle, model.encode(), b"", body, len(body),
+                   header_length, ctypes.byref(response), ctypes.byref(size), ctypes.byref(hlen))
+        try:
+            return ctypes.string_at(response.value, size.value), hlen.value
+        finally:
+            self.lib.ctpu_embed_free(response)
+
+    def statistics(self, handle, model=""):
+        out = ctypes.c_void_p()
+        self._call(self.lib.ctpu_embed_statistics, handle, model.encode(), ctypes.byref(out))
+        return json.loads(self._take(out))
+
+    def destroy(self, handle):
+        self._call(self.lib.ctpu_embed_server_destroy, handle)
+
+
+def success_counts(stats):
+    """{model: successful requests} of a statistics document."""
+    return {m["name"]: m["inference_stats"]["success"]["count"] for m in stats["model_stats"]}
+
+
+def embed_in_process(path, device, size):
+    """(b): the embed library in this process, a server of ``EMBED_MODELS``
+    on ``device``: ``simple`` once, one warm decoder_lm token, then the
+    decoder_lm sequence (the prompt and ``size.steps`` greedy steps), with
+    the launch counts set to 0 just before it and read just after; then the
+    same sequence through
+    ``decoder_lm`` in this process. Tokens and logits bit-equal, the
+    statistics counting the requests."""
+    server = EmbeddedServer(path)
+    t0 = time.perf_counter()
+    handle = server.create({"models": EMBED_MODELS, "device": device})
+    create_s = time.perf_counter() - t0
+    try:
+        a = np.arange(16, dtype=np.int32).reshape(1, 16)
+        header = json.dumps({
+            "inputs": [{"name": n, "datatype": "INT32", "shape": [1, 16],
+                        "parameters": {"binary_data_size": 64}} for n in ("INPUT0", "INPUT1")],
+            "outputs": [{"name": n, "parameters": {"binary_data": True}}
+                        for n in ("OUTPUT0", "OUTPUT1")]}).encode()
+        out = response_tensors(*server.infer(handle, "simple", header + a.tobytes() * 2,
+                                             len(header)))
+        if np.frombuffer(out["OUTPUT0"], np.int32).tolist() != (2 * a).reshape(-1).tolist():
+            raise AssertionError("simple in the embedded server returned wrong sums")
+
+        def run(tokens, start, end):
+            got = response_tensors(*server.infer(handle, "decoder_lm",
+                                                 *decoder_request(tokens, start, end)))
+            return (np.frombuffer(got["LOGITS"], np.float32).reshape(1, -1),
+                    int(np.frombuffer(got["NEXT_TOKEN"], np.int32)[0]))
+
+        # one token first, outside the counts and the time: the model's
+        # weights drawn onto the device, the libraries' set-up
+        server.infer(handle, "decoder_lm", *decoder_request([1], True, True))
+        reset_counts()
+        t0 = time.perf_counter()
+        tokens, logits = drive_decoder(run, size.prompt, size.steps)
+        seconds = time.perf_counter() - t0
+        counts = read_counts()
+        stats = success_counts(server.statistics(handle))
+    finally:
+        server.destroy(handle)
+    decoder = TinyDecoderModel(device=device)
+    want_tokens, want_logits = drive_decoder(in_process(decoder, 99), size.prompt, size.steps)
+    stepped = len(size.prompt) + size.steps
+    row = {"tokens": tokens, "in_process_tokens": want_tokens,
+           "logits_bit_equal": bool(np.array_equal(logits.view(np.uint32),
+                                                   want_logits.view(np.uint32))),
+           "statistics_success": stats, "launches": counts, "create_s": create_s,
+           "seconds": seconds, "ms_per_token": seconds * 1e3 / (size.steps + 1),
+           "tokens_stepped": stepped, "layers": decoder.LAYERS,
+           "logits": logits}
+    if tokens != want_tokens or not row["logits_bit_equal"]:
+        raise AssertionError(f"embedded decoder_lm: tokens {tokens}, in process {want_tokens}, "
+                             f"logits bit-equal {row['logits_bit_equal']}")
+    if stats != {"simple": 1, "decoder_lm": size.steps + 2}:
+        raise AssertionError(f"embedded statistics count {stats}, sent simple 1 and "
+                             f"decoder_lm {size.steps + 2} (the warm token included)")
+    return row
+
+
+def embed_host_child(path, device, size):
+    """(c): ``csrc/embed_host.c`` as a child process hosting the same server
+    on ``device``; started here, read by :func:`embed_host_result`."""
+    cmd = [path, REPO, json.dumps({"models": EMBED_MODELS, "device": device}),
+           str(size.steps), *map(str, size.prompt)]
+    return subprocess.Popen(cmd, cwd=REPO, env=native_build.host_env(), stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True), time.perf_counter()
+
+
+def embed_host_result(child, embedded):
+    """The C host's exit, its tokens and LOGITS bytes against (b)'s."""
+    proc, t0 = child
+    try:
+        out, err = proc.communicate(timeout=EMBED_HOST_WAIT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    seconds = time.perf_counter() - t0
+    steps = [line.split() for line in out.splitlines() if line.startswith("step ")]
+    tokens = [int(s[3]) for s in steps]
+    logits = np.stack([np.frombuffer(bytes.fromhex(s[5]), np.float32) for s in steps]) \
+        if steps else np.zeros((0,), np.float32)
+    stats_line = next((x for x in out.splitlines() if x.startswith("statistics ")), None)
+    row = {"exit": proc.returncode, "seconds": seconds, "tokens": tokens,
+           "logits_bit_equal": bool(logits.shape == embedded["logits"].shape and np.array_equal(
+               logits.view(np.uint32), embedded["logits"].view(np.uint32))),
+           "statistics_success": (success_counts(json.loads(stats_line.split(" ", 1)[1]))
+                                  if stats_line else None),
+           "decode_ms": next((float(x.split()[1]) for x in out.splitlines()
+                              if x.startswith("decode_ms ")), None)}
+    if (proc.returncode != 0 or "PASS embed_host" not in out or tokens != embedded["tokens"]
+            or not row["logits_bit_equal"]):
+        raise AssertionError(f"embed_host exit {proc.returncode}, tokens {tokens} (in process "
+                             f"{embedded['tokens']}), logits bit-equal "
+                             f"{row['logits_bit_equal']}:\n{out[-2000:]}\n{err[-3000:]}")
+    return row
+
+
+def native_identity(client, nbytes, iters, tag):
+    """identity_fp32 through a native client over the wire and over two
+    ``NativeCudaShmRegion`` host windows (the server reads the input window
+    onto its device and writes the output window)."""
+    n = nbytes // 4
+    x = (np.arange(n, dtype=np.float32) * 0.5).reshape(1, n)
+    row = {"bytes": nbytes}
+
+    def wire():
+        return client.infer("identity_fp32", [("INPUT0", x)])["OUTPUT0"]
+
+    if not np.array_equal(wire(), x):
+        raise AssertionError("identity_fp32 over a native client's wire changed the tensor")
+    row["wire_p50_ms"] = p50_ms(wire, iters)
+    names = (f"nin{tag}", f"nout{tag}")
+    regions = [native.NativeCudaShmRegion(name, nbytes) for name in names]
+    try:
+        for name, region in zip(names, regions):
+            client.register_cuda_shared_memory(name, region.raw_handle(), 0, nbytes)
+
+        def cuda():
+            regions[0].write(x)
+            client.infer("identity_fp32", [("INPUT0", ("shm", names[0], nbytes, 0, "FP32",
+                                                       [1, n]))],
+                         outputs=[("OUTPUT0", ("shm", names[1], nbytes, 0))])
+            return regions[1].read(np.float32, [1, n])
+
+        if not np.array_equal(cuda(), x):
+            raise AssertionError("identity_fp32 over a native cuda shm region changed the tensor")
+        row["cuda_shm_p50_ms"] = p50_ms(cuda, iters)
+        row["requests"] = 2 * (iters + 1)
+    finally:
+        client.unregister_shared_memory("cuda", "")
+        for region in regions:
+            region.destroy()
+    return row
+
+
+def native_long_context(client, encoder, cpu_encoder, seq, iters, tag):
+    """long_context_encoder at ``seq`` over native cuda shm regions, against
+    the CPU run of the port with the same weights (flash_attention's fp32
+    tolerance)."""
+    dim = cpu_encoder.encoder.dim
+    tol = TOLERANCE["flash_attention"]["float32"]
+    x = np.random.default_rng(seq).standard_normal((seq, dim)).astype(np.float32)
+    want = cpu_encoder.execute({"sequence": x}, {})["encoded"].numpy()
+    nbytes = x.nbytes
+    names = (f"nlcin{tag}", f"nlcout{tag}")
+    regions = [native.NativeCudaShmRegion(name, nbytes) for name in names]
+    try:
+        for name, region in zip(names, regions):
+            client.register_cuda_shared_memory(name, region.raw_handle(), 0, nbytes)
+
+        def cuda():
+            regions[0].write(x)
+            client.infer("long_context_encoder",
+                         [("sequence", ("shm", names[0], nbytes, 0, "FP32", [seq, dim]))],
+                         outputs=[("encoded", ("shm", names[1], nbytes, 0))])
+            return regions[1].read(np.float32, [seq, dim])
+
+        got = cuda()
+        diff = float(np.abs(got - want).max())
+        if not (np.isfinite(got).all() and np.allclose(got, want, atol=tol, rtol=tol)):
+            raise AssertionError(f"long_context_encoder over native cuda shm: {diff} from the "
+                                 "CPU run")
+        p50 = p50_ms(cuda, iters)
+    finally:
+        client.unregister_shared_memory("cuda", "")
+        for region in regions:
+            region.destroy()
+    return {"seq": seq, "dim": dim, "max_abs_diff_vs_cpu": diff, "tol": tol,
+            "cuda_shm_p50_ms": p50, "requests": iters + 1}
+
+
+def native_stream_decode(client, prompt, steps):
+    """decoder_lm greedy over the native gRPC client's bidi stream:
+    (tokens, logits)."""
+    responses = queue.Queue()
+    client.start_stream(lambda outputs, error: responses.put((outputs, error)))
+    try:
+        def run(tokens, start, end):
+            client.stream_infer("decoder_lm", [("TOKENS", np.array([tokens], np.int32))],
+                                sequence=(23, start, end))
+            outputs, error = responses.get(timeout=600)
+            if error is not None:
+                raise AssertionError(f"decoder_lm over the native stream: {error}")
+            return outputs["LOGITS"], int(outputs["NEXT_TOKEN"][0, 0])
+
+        return drive_decoder(run, prompt, steps)
+    finally:
+        client.stop_stream()
+
+
+def native_clients_rows(device, size, reference_tokens):
+    """(d): the native HTTP and gRPC clients against the port's HTTP and
+    gRPC servers over one core on ``device`` (the default zoo, the image
+    ensemble and the encoder), each row with the launch counts set to 0
+    just before it and read just after, and held to the core's executions."""
+    encoder = LongContextEncoderModel(device=device)
+    cpu_encoder = LongContextEncoderModel(device="cpu")
+    load_jax_params(cpu_encoder, {name: getattr(encoder.encoder, name).cpu().numpy()
+                                  for name in WEIGHTS})
+    core = ServerCore(default_model_zoo(device)
+                      + build_image_ensemble(size.vision_classes, size.vision_width,
+                                             device=device)
+                      + [encoder], device=device)
+    layers = core.model("decoder_lm").LAYERS
+    http_server = HttpInferenceServer(core).start()
+    grpc_server = GrpcInferenceServer(core, max_workers=2 * max(size.concurrency) + 4).start()
+    clients = {"http": native.NativeClient(http_server.url),
+               "grpc": native.NativeGrpcClient(grpc_server.url)}
+    rows, counts, expected = {}, {}, {}
+    tag = os.urandom(4).hex()
+
+    def executions(model):
+        return core.statistics(model)["model_stats"][0]["execution_count"]
+
+    def successes(model):
+        return core.statistics(model)["model_stats"][0]["inference_stats"]["success"]["count"]
+
+    raw = np.random.default_rng(0).integers(0, 256, (300, 400, 3)).astype(np.uint8)
+    cpu_densenet = DenseNetModel(size.vision_classes, size.vision_width, seed=0, device="cpu")
+    stage0 = ImagePreprocessModel(device="cpu").execute({"raw_image": raw}, {})["preprocessed"]
+    cpu_top1 = int(cpu_densenet.execute({"data_0": stage0}, {})["fc6_1"].numpy().argmax())
+    try:
+        # one request of each model first (library set-up), outside the counts
+        for client in clients.values():
+            client.infer("ensemble_image", [("IMAGE", raw)], outputs=["CLASSIFICATION"])
+            client.infer("long_context_encoder",
+                         [("sequence", np.zeros((8, encoder.encoder.dim), np.float32))])
+
+        for name, client in clients.items():
+            path = f"identity_fp32 {name}"
+            reset_counts()
+            rows[path] = native_identity(client, size.identity_bytes, size.iters, tag + name)
+            counts[path], expected[path] = read_counts(), {}
+
+            path = f"long_context_encoder {name}"
+            before = executions("long_context_encoder")
+            reset_counts()
+            rows[path] = native_long_context(client, encoder, cpu_encoder, size.seq, size.iters,
+                                             tag + name)
+            counts[path] = read_counts()
+            expected[path] = {"flash_attention": executions("long_context_encoder") - before}
+
+            path = f"ensemble_image {name}"
+            before = executions("ensemble_image")
+            reset_counts()
+            t0 = time.perf_counter()
+            top1 = []
+            for _ in range(size.iters):
+                out = client.infer("ensemble_image", [("IMAGE", raw)],
+                                   outputs=["CLASSIFICATION"])["CLASSIFICATION"]
+                top1.append(int(out.reshape(-1).argmax()))
+            seconds = time.perf_counter() - t0
+            counts[path] = read_counts()
+            expected[path] = {"normalize_image": executions("ensemble_image") - before}
+            rows[path] = {"top1": sorted(set(top1)), "cpu_top1": cpu_top1,
+                          "requests": size.iters, "ms_per_request": seconds * 1e3 / size.iters}
+            if set(top1) != {cpu_top1}:
+                raise AssertionError(f"ensemble_image over the native {name} client: top-1 "
+                                     f"{sorted(set(top1))}, the CPU run {cpu_top1}")
+
+        path = "decoder_lm native grpc stream"
+        reset_counts()
+        t0 = time.perf_counter()
+        tokens, logits = native_stream_decode(clients["grpc"], size.prompt, size.steps)
+        seconds = time.perf_counter() - t0
+        counts[path] = read_counts()
+        stepped = len(size.prompt) + size.steps
+        expected[path] = {"decode_attention": stepped * layers}
+        rows[path] = {"tokens": tokens, "reference_tokens": reference_tokens,
+                      "ms_per_token": seconds * 1e3 / (size.steps + 1),
+                      "tokens_stepped": stepped, "layers": layers}
+        if tokens != reference_tokens or not np.isfinite(logits).all():
+            raise AssertionError(f"decoder_lm over the native gRPC stream: tokens {tokens}, "
+                                 f"expected {reference_tokens}")
+
+        path = "perf native-grpc cuda"
+        runner = PerfRunner(grpc_server.url, "native-grpc", "identity_fp32", "cuda",
+                            {"INPUT0": [1, size.identity_bytes // 4]}, device=device)
+        try:
+            succeeded = successes("identity_fp32")
+            reset_counts()
+            perf_rows = [runner.run(c, size.perf_requests) for c in size.concurrency]
+            counts[path], expected[path] = read_counts(), {}
+            sent = sum(row["requests"] + row["errors"] + row["shed"] for row in perf_rows)
+            got = successes("identity_fp32") - succeeded
+        finally:
+            runner.close()
+        rows[path] = {"rows": perf_rows, "sent": sent, "server_successes": got}
+        if any(row["errors"] or row["shed"] for row in perf_rows) or got != sent:
+            raise AssertionError(f"perf -i native-grpc --shared-memory cuda: "
+                                 f"{[(r['errors'], r['error_sample']) for r in perf_rows]} "
+                                 f"errors, the server counted {got} successes of {sent} sent")
+    finally:
+        for client in clients.values():
+            client.close()
+        grpc_server.stop()
+        http_server.stop()
+    return rows, counts, expected
+
+
+def serve_native(served=None, grpc_served=None, device="cuda", size=NATIVE):
+    """Phase 14: ``native_build`` (a), the embed library in this process
+    (b), the C host in a child (c), and the native clients against the
+    port's servers (d), on ``device``. ``served`` and ``grpc_served`` are
+    phases 4 and 5's results: the native stream's tokens must be phase 5's
+    (else those of decoder_lm in this process), and the identity rows'
+    p50s stand beside theirs. Where ``native_build.probe`` finds no curl
+    or zlib header, (d) is not run and the result names what is missing;
+    any other failure fails the phase."""
+    t_phase = time.perf_counter()
+    found = native_build.probe()
+    result = {"probe": found, "builds": {}, "missing_for_clients": native_build.missing(
+        "http", found)}
+    compiles = ThreadPoolExecutor(1)
+    try:
+        # the client library builds while (b) and (c) run
+        clients_build = (None if result["missing_for_clients"]
+                         else compiles.submit(native_build.build_http))
+        for name in ("embed", "embed_host"):
+            result["builds"][name] = native_build.build_all([name])[name]
+        child = embed_host_child(result["builds"]["embed_host"]["path"], device, size)
+        try:
+            result["embedded"] = embed_in_process(result["builds"]["embed"]["path"], device,
+                                                  size)
+        except BaseException:
+            child[0].kill()
+            child[0].wait()
+            raise
+        result["embed_host"] = embed_host_result(child, result["embedded"])
+        if clients_build is not None:
+            result["builds"]["http"] = clients_build.result()
+    finally:
+        compiles.shutdown(wait=True)
+    embedded = result["embedded"]
+    result["expected_launches"] = {"embedded": {
+        "decode_attention": embedded["tokens_stepped"] * embedded["layers"]}}
+    result["launch_counts"] = {"embedded": embedded["launches"]}
+    if clients_build is not None:
+        reference = (grpc_served["decoder"]["tokens"] if grpc_served is not None
+                     else embedded["in_process_tokens"])
+        rows, counts, expected = native_clients_rows(device, size, reference)
+        result["clients"] = rows
+        result["launch_counts"].update(counts)
+        result["expected_launches"].update(expected)
+    if served is not None and grpc_served is not None:
+        result["python_identity_p50_ms"] = {
+            "http": {k: served["identity"][0][k] for k in ("wire_p50_ms", "cuda_shm_p50_ms")},
+            "grpc": {k: grpc_served["identity"][0][k] for k in ("wire_p50_ms", "cuda_shm_p50_ms")}}
+    if torch.device(device).type == "cuda":
+        for path, counts in result["launch_counts"].items():
+            want = {name: result["expected_launches"][path].get(name, 0) for name in COUNTERS}
+            if counts != want:
+                raise AssertionError(f"phase 14 launches on {path}: {counts}, expected {want}")
+    embedded["logits"] = embedded["logits"].tolist()
+    result["seconds"] = time.perf_counter() - t_phase
+    return result
+
+
+def log_native(result, card):
+    """Phase 14's lines, each with the card's name and power limit."""
+    log(f"native phase: {result['seconds']:.1f} s; {card}")
+    log("native probe: " + json.dumps(result["probe"]))
+    for name, build in result["builds"].items():
+        log(f"native build {name}: {'built' if build['built'] else 'present'} in "
+            f"{build['seconds']:.2f} s: {build['path']}")
+        for cmd in build["commands"]:
+            log(f"  {' '.join(cmd)}")
+    if result["missing_for_clients"]:
+        log("native clients not built on this machine: missing "
+            + ", ".join(result["missing_for_clients"]))
+    em, host = result["embedded"], result["embed_host"]
+    log(f"embedded server in process: tokens {em['tokens']} = decoder_lm in process "
+        f"(logits bit-equal {em['logits_bit_equal']}); {em['ms_per_token']:.3f} ms a token; "
+        f"statistics {em['statistics_success']}; launches {em['launches']}; {card}")
+    log(f"embed_host child: exit {host['exit']} in {host['seconds']:.2f} s, tokens "
+        f"{host['tokens']}, logits bit-equal to the in-process run {host['logits_bit_equal']}, "
+        f"decode {host['decode_ms']} ms; {card}")
+    for path, row in result.get("clients", {}).items():
+        shown = {k: v for k, v in row.items() if k != "rows"}
+        if "rows" in row:
+            shown["rows"] = [{k: r[k] for k in ("concurrency", "requests", "errors",
+                                                "infer_per_sec", "latency_ms")
+                              if k in r} for r in row["rows"]]
+        log(f"native {path}: " + json.dumps(shown) + f"; launches "
+            f"{result['launch_counts'][path]} = expected {result['expected_launches'][path]}; "
+            f"{card}")
+    if "python_identity_p50_ms" in result:
+        log("python clients' identity_fp32 p50 (phases 4 and 5): "
+            + json.dumps(result["python_identity_p50_ms"]) + f"; {card}")
+
+
 def device_kernels(prof):
     """Device time by kernel in a torch.profiler trace, largest first."""
     kernels = []
@@ -6987,6 +7514,7 @@ def main(argv) -> int:
     federation = serve_federation()
     mesh = serve_mesh()
     training = serve_training()
+    native_result = serve_native(served, grpc_served)
     for row in served["identity"]:
         log(f"identity_fp32 {row['bytes'] // MIB} MiB p50: wire {row['wire_p50_ms']:.3f} ms, "
             f"system shm {row['system_shm_p50_ms']:.3f} ms, "
@@ -7393,6 +7921,11 @@ def main(argv) -> int:
 
     log_mesh(mesh, card)
     log_training(training, card)
+    log_native(native_result, card)
+
+    def native_launches(kernel):
+        """Phase 14's launches of ``kernel`` by path."""
+        return {path: counts[kernel] for path, counts in native_result["launch_counts"].items()}
 
     main_row = timed[0]
     kernels = [{
@@ -7432,6 +7965,8 @@ def main(argv) -> int:
         # the dry run of phase 13: its served tp decode and that decode's
         # single-device reference (fed tokens x layers x shards, and x 1)
         "training_launches": training["rows"]["dryrun"]["result"]["decode_attention_launches"],
+        # phase 14: the embedded server's decode and the native gRPC stream's
+        "native_launches": native_launches("decode_attention"),
         "batched_shape": batched_timed,
     }]
     flash_row = flash_timed[0]
@@ -7454,6 +7989,7 @@ def main(argv) -> int:
         "pool_launches": pool_launches("flash_attention"),
         "orchestration_launches": orchestration_launches("flash_attention"),
         "federation_launches": federation_launches("flash_attention"),
+        "native_launches": native_launches("flash_attention"),
         "shape": flash_row["shape"],
         "dtype": flash_row["dtype"],
         "at_shapes": flash_timed[1:],
@@ -7532,6 +8068,7 @@ def main(argv) -> int:
             "pool_launches": pool_launches(name),
             "orchestration_launches": orchestration_launches(name),
             "federation_launches": federation_launches(name),
+            "native_launches": native_launches(name),
             "shape": row["shape"],
             "at_shapes": timed_rows[1:],
         })
@@ -7552,7 +8089,8 @@ def main(argv) -> int:
                    "served": served, "vision": vision, "grpc": grpc_served,
                    "resilience": resilience, "harness": harness, "process": process,
                    "pool": pool, "orchestration": orchestration, "federation": federation,
-                   "mesh": mesh, "training": training, "kernels": kernels}, f, indent=1)
+                   "mesh": mesh, "training": training, "native": native_result,
+                   "kernels": kernels}, f, indent=1)
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -38,8 +38,12 @@ into the host window, which that server reads (no CUDA IPC).
 It also runs the federation over named cells (``--cells``,
 ``--home-cell``, ``--shadow-cell``, ``--canary-cell``;
 ``client_tpu_torch.federation``) and the continuous monitor
-(``--watch``, ``client_tpu_torch.watch``). Only the native protocols
-(``-i native*``, ROADMAP A10) raise ``NotImplementedError``.
+(``--watch``, ``client_tpu_torch.watch``). The native protocols drive
+the C++ clients through ``client_tpu_torch.native`` (built from source at
+first use): ``-i native`` (HTTP), ``-i native-grpc`` (one client a worker)
+and ``-i native-grpc-async`` (one client, every worker's RPCs in flight
+on its one connection); the first two take ``--shared-memory none|cuda``,
+the async one ``none``.
 """
 
 from __future__ import annotations
@@ -57,9 +61,7 @@ import torch
 
 from .utils import sorted_percentile as _percentile
 
-# the protocols the JAX harness has; the native ones wait for ROADMAP A10
 PROTOCOLS = ("http", "grpc", "native", "native-grpc", "native-grpc-async")
-PYTHON_PROTOCOLS = ("http", "grpc")
 
 
 def _random_tensor(datatype: str, shape: List[int], rng) -> np.ndarray:
@@ -118,20 +120,6 @@ def _parse_chaos_fault(spec: str):
     raise ValueError(
         f"unknown --chaos spec {spec!r} "
         "(none|latency:S|reset:N|stall:N|flap:K|blackhole)")
-
-
-def _not_ported(flag: str, layer: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{flag} needs {layer}, which the port does not have yet "
-        f"(ROADMAP {item})")
-
-
-def _check_ported(protocol: str) -> None:
-    """Raise for a protocol the port does not have yet (the native ones)."""
-    if protocol not in PROTOCOLS:
-        raise ValueError(f"unknown protocol {protocol!r} (one of {', '.join(PROTOCOLS)})")
-    if protocol not in PYTHON_PROTOCOLS:
-        raise _not_ported(f"-i {protocol}", "the native clients (native.py)", "A10")
 
 
 class PerfRunner:
@@ -245,8 +233,10 @@ class PerfRunner:
         ``watch``: arm a ``Watchtower`` (``client_tpu_torch.watch``) on each
         run's telemetry and append a ``client_watch`` block.
 
-        The native protocols (A10) raise ``NotImplementedError``."""
-        _check_ported(protocol)
+        ``protocol`` ``native`` / ``native-grpc`` / ``native-grpc-async``
+        drives the C++ clients (``client_tpu_torch.native``)."""
+        if protocol not in PROTOCOLS:
+            raise ValueError(f"unknown protocol {protocol!r} (one of {', '.join(PROTOCOLS)})")
         if shared_memory not in ("none", "system", "cuda"):
             raise ValueError(
                 f"unknown --shared-memory {shared_memory!r} (none|system|cuda)")
@@ -381,6 +371,22 @@ class PerfRunner:
                     dtype=np.int32).tolist(),
                 "MAX_TOKENS": max(1, stream_output_tokens),
             }
+        if protocol in ("native", "native-grpc") and shared_memory == "system":
+            raise ValueError("native protocols support --shared-memory none|cuda")
+        if protocol == "native-grpc-async" and shared_memory != "none":
+            raise ValueError("native-grpc-async supports --shared-memory none")
+        if self.retries and protocol.startswith("native"):
+            raise ValueError(
+                "--retries requires a python frontend (http|grpc): the native "
+                "clients have no resilience hook")
+        if self.observe and protocol.startswith("native"):
+            raise ValueError(
+                "--observe requires a python frontend (http|grpc): the "
+                "native clients have no telemetry hook")
+        if self.endpoints and protocol not in ("http", "grpc"):
+            raise ValueError(
+                "--endpoints requires a python frontend (http|grpc): the "
+                "pool wraps the python clients")
         if self.endpoints and shared_memory != "none":
             raise ValueError(
                 "--endpoints requires --shared-memory none: regions would "
@@ -413,6 +419,10 @@ class PerfRunner:
                     "--shard-layout applies to unary/sharded infers, not "
                     "--generate-stream")
         if self.coalesce:
+            if protocol not in ("http", "grpc"):
+                raise ValueError(
+                    "--coalesce requires a python frontend (http|grpc): the "
+                    "batching dispatcher wraps the python clients")
             if shared_memory != "none":
                 raise ValueError(
                     "--coalesce requires --shared-memory none: shm-bound "
@@ -422,6 +432,11 @@ class PerfRunner:
                     "--coalesce applies to unary infers, not "
                     "--generate-stream")
         if self.cache or self.singleflight:
+            if protocol not in ("http", "grpc"):
+                raise ValueError(
+                    "--cache/--singleflight require a python frontend "
+                    "(http|grpc): the caching wrapper wraps the python "
+                    "clients")
             if shared_memory != "none":
                 raise ValueError(
                     "--cache/--singleflight require --shared-memory none: "
@@ -444,6 +459,10 @@ class PerfRunner:
                 "--tenancy requires --admission: tenant quotas and "
                 "weighted-fair queueing live in the admission controller")
         if self.cells:
+            if protocol not in ("http", "grpc"):
+                raise ValueError(
+                    "--cells requires a python frontend (http|grpc): the "
+                    "federation wraps per-cell PoolClients")
             if self.endpoints:
                 raise ValueError(
                     "--cells and --endpoints are mutually exclusive: each "
@@ -512,13 +531,21 @@ class PerfRunner:
         return run
 
     def _import_client_mod(self):
-        if self.protocol == "http":
+        if self.protocol in ("http", "native"):
             from . import http as mod
-        else:
+        else:  # grpc and native-grpc* share the grpc value model
             from . import grpc as mod
         return mod
 
     def _make_client(self, concurrency: int = 1):
+        if self.protocol == "native":
+            from .native import NativeClient
+
+            return NativeClient(self.url)
+        if self.protocol in ("native-grpc", "native-grpc-async"):
+            from .native import NativeGrpcClient
+
+            return NativeGrpcClient(self.url)
         if self.cells:
             return self._make_federated_client(concurrency)
         if self.endpoints:
@@ -707,7 +734,8 @@ class PerfRunner:
 
     def _control_client(self):
         """(client, module) for metadata/probing: the protocol's own python
-        client. Always dials the server directly (never the chaos proxy)."""
+        client (a native protocol's: the python client of its transport).
+        Always dials the server directly (never the chaos proxy)."""
         mod = self._client_mod
         return mod.InferenceServerClient(self._direct_url), mod
 
@@ -775,15 +803,18 @@ class PerfRunner:
             return self._arena
 
     def _shm_worker_setup(self, client, worker_id):
-        """ONE shared setup path for every shm mode (system / cuda): leases
-        input+output slabs from the runner's arena, writes each payload
-        once, and lets the (cached) registration machinery issue the
-        register RPC only on a region's first use per endpoint. A cuda
-        input is staged on the runner's device and the copy waited for
-        before timing starts. Returns (inputs, outputs_or_None, cleanup)."""
+        """ONE shared setup path for every shm mode (system / cuda, and the
+        native protocols' cuda): leases input+output slabs from the runner's
+        arena, writes each payload once, and lets the (cached) registration
+        machinery issue the register RPC only on a region's first use per
+        endpoint. A cuda input is staged on the runner's device and the copy
+        waited for before timing starts. A native client takes its inputs
+        and outputs as ``("shm", region, ...)`` tuples, its regions
+        registered here. Returns (inputs, outputs_or_None, cleanup)."""
         from .utils import numpy_to_tensor, serialized_byte_size
 
         family = self.shared_memory
+        native = self.protocol in ("native", "native-grpc")
         arena = self._run_arena()
         mod = self._client_mod
         leases = []
@@ -809,16 +840,26 @@ class PerfRunner:
                     lease.write_torch(dev)
                 else:
                     lease.write_numpy(data)
-                # bind_input attaches the lease, so infer() ensures the
-                # (cached) registration against the endpoint
-                inputs.append(lease.bind_input(
-                    mod.InferInput(name, shape, datatype)))
+                if native:
+                    arena.ensure_registered(client, lease._region)
+                    inputs.append((name, ("shm", lease.region_name, nbytes,
+                                          lease.offset, datatype, shape)))
+                else:
+                    # bind_input attaches the lease, so infer() ensures the
+                    # (cached) registration against the endpoint
+                    inputs.append(lease.bind_input(
+                        mod.InferInput(name, shape, datatype)))
             outputs = []
             for name, nbytes in self._output_sizes.items():
                 lease = arena.lease(nbytes, family=family)
                 leases.append(lease)
-                outputs.append(lease.bind_output(
-                    mod.InferRequestedOutput(name)))
+                if native:
+                    arena.ensure_registered(client, lease._region)
+                    outputs.append((name, ("shm", lease.region_name,
+                                           lease.byte_size, lease.offset)))
+                else:
+                    outputs.append(lease.bind_output(
+                        mod.InferRequestedOutput(name)))
         except Exception:
             cleanup()
             raise
@@ -826,18 +867,38 @@ class PerfRunner:
 
     # -- one worker --------------------------------------------------------
     def _worker_setup(self, client, worker_id):
-        """Per-worker tensor/shm setup shared by the closed-loop
+        """Per-worker client/tensor/shm setup shared by the closed-loop
         (concurrency) and open-loop (request-rate) workers.
 
-        Returns (inputs, outputs, shm_cleanup)."""
+        Returns (client, inputs, outputs, shm_cleanup, own_client)."""
+        if self.protocol.startswith("native"):
+            own_client = None
+            if self.protocol != "native-grpc-async":
+                # one C++ client per worker: the native sync Infer serializes
+                # on a per-client transport handle, so sharing one client
+                # would measure lock contention instead of concurrency. The
+                # async protocol shares ONE client: its worker keeps every
+                # worker's RPCs in flight on one multiplexed h2 connection,
+                # which is what that mode measures
+                client = own_client = self._make_client()
+            if self.shared_memory == "none":
+                inputs = [(name, data) for name, _, _, data in self._tensors]
+                return client, inputs, None, None, own_client
+            try:
+                return (client, *self._shm_worker_setup(client, worker_id), own_client)
+            except Exception:
+                # the caller never receives own_client on failure: close it
+                # here or the native socket/handle leaks per failed worker
+                own_client.close()
+                raise
         if self.shared_memory in ("system", "cuda"):
-            return self._shm_worker_setup(client, worker_id)
+            return (client, *self._shm_worker_setup(client, worker_id), None)
         inputs = []
         for name, datatype, shape, data in self._tensors:
             inp = self._client_mod.InferInput(name, shape, datatype)
             inp.set_data_from_numpy(data)
             inputs.append(inp)
-        return inputs, None, None
+        return client, inputs, None, None, None
 
     def _worker(self, client, barrier, stop, latencies, errors, sheds,
                 counter, worker_id):
@@ -845,9 +906,11 @@ class PerfRunner:
         from .resilience import CircuitOpenError
 
         shm_ctx = None
+        own_client = None
         setup_failed = False
         try:
-            inputs, outputs, shm_ctx = self._worker_setup(client, worker_id)
+            client, inputs, outputs, shm_ctx, own_client = self._worker_setup(
+                client, worker_id)
         except Exception as e:
             errors.append(f"worker setup failed: {e}")
             setup_failed = True
@@ -879,6 +942,8 @@ class PerfRunner:
         finally:
             if shm_ctx is not None:
                 shm_ctx()
+            if own_client is not None:
+                own_client.close()
 
     def _rate_worker(self, client, barrier, stop, schedule, cursor, t0_box,
                      records, lags, issues, errors, sheds, worker_id):
@@ -892,9 +957,11 @@ class PerfRunner:
         from .resilience import CircuitOpenError
 
         shm_ctx = None
+        own_client = None
         setup_failed = False
         try:
-            inputs, outputs, shm_ctx = self._worker_setup(client, worker_id)
+            client, inputs, outputs, shm_ctx, own_client = self._worker_setup(
+                client, worker_id)
         except Exception as e:
             errors.append(f"worker setup failed: {e}")
             setup_failed = True
@@ -937,6 +1004,8 @@ class PerfRunner:
         finally:
             if shm_ctx is not None:
                 shm_ctx()
+            if own_client is not None:
+                own_client.close()
 
     def _affinity_key_for(self, worker_id) -> Optional[str]:
         """The closed/open-loop worker's session key: ``worker`` = one
@@ -955,6 +1024,20 @@ class PerfRunner:
             for _event in client.generate_stream(
                     self.model_name, self._stream_payload, **kw):
                 pass
+            return
+        if self.protocol == "native-grpc-async":
+            done = threading.Event()
+            box = {}
+
+            def on_complete(result, error):
+                box["error"] = error
+                done.set()
+
+            client.async_infer(self.model_name, inputs, on_complete)
+            if not done.wait(timeout=120):
+                raise RuntimeError("async infer did not complete in 120s")
+            if box.get("error"):
+                raise RuntimeError(box["error"])
             return
         client.infer(self.model_name, inputs, outputs=outputs, **kw)
 
@@ -1319,6 +1402,10 @@ class PerfRunner:
                     shm_rec, shm_before) -> Dict[str, Any]:
         integrity_before = self._integrity_stats()
         client = self._make_client(concurrency)
+        if self.protocol == "native-grpc-async":
+            # the shared instance must admit as many RPCs as we have
+            # workers, or the measurement clamps at the default window
+            client.set_async_concurrency(concurrency)
         latencies: List[float] = []
         errors: List[str] = []
         sheds: List[str] = []  # breaker fast-fails + admission rejections
@@ -1403,6 +1490,8 @@ class PerfRunner:
                   shm_before) -> Dict[str, Any]:
         integrity_before = self._integrity_stats()
         client = self._make_client(pool_size)
+        if self.protocol == "native-grpc-async":
+            client.set_async_concurrency(pool_size)
         records: List[float] = []  # latency_s of successful requests
         lags: List[float] = []  # schedule lag of EVERY issued request
         issues: List[float] = []  # actual arrival offset of every request
@@ -1523,6 +1612,11 @@ class PerfRunner:
 
         if speed <= 0:
             raise ValueError("speed must be > 0")
+        if self.protocol not in ("http", "grpc"):
+            raise ValueError(
+                "trace replay requires a python frontend (http|grpc): the "
+                "native clients take (name, array) pairs and have no "
+                "sequence/telemetry surface")
         if self.shared_memory != "none":
             raise ValueError(
                 "trace replay supports --shared-memory none only: replay "
@@ -2218,7 +2312,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     parser.add_argument("-u", "--url", default="127.0.0.1:8000")
     parser.add_argument(
         "-i", "--protocol", choices=PROTOCOLS, default="http",
-        help="http or grpc (the native protocols wait for ROADMAP A10)")
+        help="native = the C++ client via its C API (HTTP transport); native-grpc / "
+             "native-grpc-async its gRPC client, one a worker / one for all workers")
     parser.add_argument(
         "--shared-memory", choices=("none", "system", "cuda"), default="none")
     parser.add_argument(

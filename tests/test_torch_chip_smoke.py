@@ -21,6 +21,7 @@ import threading
 import time
 
 import numpy as np
+import pytest
 import torch
 
 import chip_smoke
@@ -705,7 +706,24 @@ SMALL_TRAIN = chip_smoke.TrainSize(dryrun_devices=8, classes=16, width=8, image=
                                    cpu_batch=2, steps=1, lr=1e-3, entry_iters=1)
 
 
-def test_training_phase_on_cpu(monkeypatch):
+@pytest.fixture
+def one_intra_op_thread(monkeypatch):
+    """torch's CPU ops on one thread, here and in the multihost child
+    (``OMP_NUM_THREADS``). The phase's CPU mesh runs thousands of small
+    ops; with torch's default pool (a thread a core) in each of the
+    suite's six workers, the cores are oversubscribed and those ops slow
+    down about tenfold: the phase took 88 s under such a load against
+    its 60 s limit, and 13 s alone. One thread gives the same bits."""
+    before = torch.get_num_threads()
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(before)
+
+
+def test_training_phase_on_cpu(monkeypatch, one_intra_op_thread):
     """``chip_smoke.serve_training`` on the CPU. The plain decode_attention
     calls counted here are the launches the card must show: fed tokens x
     layers x shards for the dry run's served decode, fed tokens x layers
@@ -741,3 +759,68 @@ def test_training_phase_on_cpu(monkeypatch):
     mh = rows["multihost"]
     assert mh["backend"] == "gloo" and mh["dp_step_max_rel_err"] < 2e-4
     assert rows["entry"]["shape"] == [4, 1000] and rows["entry"]["max_abs_err_vs_cpu"] == 0
+
+
+# phase 14 at a small size: the embed library in this process, the C host
+# as a child, and the native clients against CPU servers of the port
+SMALL_NATIVE = chip_smoke.NativeSize(
+    identity_bytes=1 << 20, iters=2, seq=256, vision_classes=16, vision_width=8,
+    prompt=[1, 2, 3, 4], steps=8, perf_requests=6, concurrency=(1, 2))
+
+
+@pytest.fixture(scope="module")
+def native_libraries():
+    """The three host builds, once for the file and before any test's time
+    limit (a parallel worker's build is waited for under the file lock)."""
+    return chip_smoke.native_build.build_all()
+
+
+def test_native_phase_on_cpu(monkeypatch, native_libraries, one_intra_op_thread):
+    """``chip_smoke.serve_native``: every row of phase 14 on the CPU. The
+    plain decode_attention calls counted here are the launches the card
+    must show on the embedded and streamed paths (tokens x layers), beside
+    the warm token and the in-process reference's."""
+    import client_tpu_torch.models.decoder as decoder
+
+    calls = collections.Counter()
+    plain = decoder.decode_attention
+
+    def counted(*args, **kwargs):
+        calls["decode_attention"] += 1
+        return plain(*args, **kwargs)
+
+    monkeypatch.setattr(decoder, "decode_attention", counted)
+    size, layers = SMALL_NATIVE, TinyDecoderModel.LAYERS
+    stepped = len(size.prompt) + size.steps
+    result = chip_smoke.serve_native(device="cpu", size=size)
+    chip_smoke.log_native(result, "cpu")  # main's lines format this result
+    assert result["missing_for_clients"] == []
+    assert set(result["builds"]) == {"embed", "embed_host", "http"}
+    em, host = result["embedded"], result["embed_host"]
+    assert em["tokens"] == em["in_process_tokens"] and em["logits_bit_equal"]
+    assert em["statistics_success"] == {"simple": 1, "decoder_lm": size.steps + 2}
+    assert host["exit"] == 0 and host["tokens"] == em["tokens"] and host["logits_bit_equal"]
+    assert host["statistics_success"] == {"simple": 1, "decoder_lm": size.steps + 1}
+    rows = result["clients"]
+    for name in ("http", "grpc"):
+        assert rows[f"identity_fp32 {name}"]["requests"] == 2 * (size.iters + 1)
+        lc = rows[f"long_context_encoder {name}"]
+        assert lc["max_abs_diff_vs_cpu"] <= lc["tol"] and lc["seq"] == size.seq
+        ens = rows[f"ensemble_image {name}"]
+        assert ens["top1"] == [ens["cpu_top1"]]
+        expected = result["expected_launches"]
+        assert expected[f"long_context_encoder {name}"] == {"flash_attention": size.iters + 1}
+        assert expected[f"ensemble_image {name}"] == {"normalize_image": size.iters}
+    stream = rows["decoder_lm native grpc stream"]
+    assert stream["tokens"] == em["tokens"]
+    perf = rows["perf native-grpc cuda"]
+    assert perf["sent"] == perf["server_successes"] > 0
+    assert [r["concurrency"] for r in perf["rows"]] == list(size.concurrency)
+    assert result["expected_launches"]["embedded"] == {"decode_attention": stepped * layers}
+    assert result["expected_launches"]["decoder_lm native grpc stream"] == {
+        "decode_attention": stepped * layers}
+    # on the CPU the wrappers run their plain versions and launch nothing
+    assert all(c == {k: 0 for k in chip_smoke.COUNTERS}
+               for c in result["launch_counts"].values())
+    # the warm token, the embedded run, its in-process reference, the stream
+    assert calls["decode_attention"] == layers * (1 + 3 * stepped)

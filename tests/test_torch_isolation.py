@@ -11,6 +11,7 @@ the JAX package's arenas, or silently none.
 """
 
 import ast
+import re
 from pathlib import Path
 
 import pytest
@@ -18,6 +19,12 @@ import pytest
 REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "client_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
 FORBIDDEN = ("jax", "jaxlib", "flax", "client_tpu")
+# the port's C and C++ sources (the native clients' shim, the embed shim and
+# its C host): a module of the JAX package named in a string there would be
+# imported by the embedded interpreter
+PORT_C_SOURCES = sorted(p for ext in ("*.c", "*.cc")
+                        for p in (REPO / "client_tpu_torch" / "csrc").glob(ext))
+C_REFERENCE = re.compile(r"\bclient_tpu\.")
 
 
 def _imported_modules(path: Path):
@@ -80,6 +87,39 @@ def test_port_has_files():
     for name in ("decoder_tp", "moe"):
         assert REPO / "client_tpu_torch" / "models" / f"{name}.py" in PORT_FILES
     assert REPO / "client_tpu_torch" / "dryrun.py" in PORT_FILES
+    # the native clients and the embedded server, with their C and C++ sources
+    for name in ("native.py", "native_build.py", "server/embed.py"):
+        assert REPO / "client_tpu_torch" / name in PORT_FILES
+    assert [p.name for p in PORT_C_SOURCES] == ["embed_host.c", "native_cuda_shm.cc",
+                                                "server_embed.cc"]
+
+
+def test_every_reference_module_has_a_counterpart():
+    """Each module of ``client_tpu`` has one at the same path in the port
+    (the tpu shared-memory module's counterpart is the cuda one)."""
+    theirs = {p.relative_to(REPO / "client_tpu").as_posix()
+              for p in (REPO / "client_tpu").rglob("*.py")}
+    ours = {p.relative_to(REPO / "client_tpu_torch").as_posix()
+            for p in (REPO / "client_tpu_torch").rglob("*.py")}
+    assert theirs - ours == {"utils/tpu_shared_memory/__init__.py"}
+    assert "utils/cuda_shared_memory/__init__.py" in ours
+
+
+@pytest.mark.parametrize(
+    "path", PORT_C_SOURCES, ids=[str(p.relative_to(REPO)) for p in PORT_C_SOURCES])
+def test_c_sources_name_no_reference_module(path):
+    bad = sorted(set(C_REFERENCE.findall(path.read_text())))
+    assert not bad, f"{path.relative_to(REPO)} names {bad}"
+
+
+@pytest.mark.parametrize("code, caught", [
+    ('PyImport_ImportModule("client_tpu.server.embed");', True),
+    ("// calls client_tpu.native\n", True),
+    ('PyImport_ImportModule("client_tpu_torch.server.embed");', False),
+    ('#include "client_tpu/server_embed.h"\nclient_tpu::Error e;', False),
+])
+def test_c_scan_catches_reference_modules(code, caught):
+    assert bool(C_REFERENCE.search(code)) == caught
 
 
 @pytest.mark.parametrize(

@@ -19,7 +19,8 @@ scatters closed-loop infers, and ``sharded``, ``prefill_decode`` and
 ``--shadow-cell``, ``--canary-cell``) run in both runners over cells of the
 two packages' servers, and ``--watch`` over the port's server, with the
 ``client_federation`` / ``client_watch`` blocks' keys equal. The native
-protocols raise ``NotImplementedError`` naming ROADMAP A10, and ``python -m
+protocols (the C++ clients of ``client_tpu_torch.native``) run against the
+port's servers with their transport's row keys, and ``python -m
 client_tpu_torch.perf -f json`` prints rows that parse.
 """
 
@@ -525,10 +526,24 @@ def test_unported_flags_raise_naming_their_item(servers, zoo_servers, kwargs, fl
         if block == "client_cache":
             assert rows["port"]["client_cache"] == rows["jax"]["client_cache"]
         return
-    # raised before any connection: the url is never dialled
-    with pytest.raises(NotImplementedError) as exc:
-        port_perf.PerfRunner("127.0.0.1:1", **kwargs)
-    assert flag in str(exc.value) and f"ROADMAP {item}" in str(exc.value)
+    # ported (A10): the native protocol runs against the port's server, its
+    # rows with the keys of its transport's python protocol, in each data
+    # plane it takes (none, and cuda but for the async client)
+    assert item == "A10"
+    protocol = kwargs["protocol"]
+    transport = "http" if protocol == "native" else "grpc"
+    url = servers[("port", transport)].url
+    for mode in ("none",) if protocol == "native-grpc-async" else ("none", "cuda"):
+        rows = {}
+        for name in (protocol, transport):
+            runner = _runner(port_perf, url, name, "identity_fp32", mode)
+            try:
+                rows[name] = runner.run(1, 10)
+            finally:
+                _close(runner)
+        assert _keys(rows[protocol], 1) == _keys(rows[transport], 1)
+        assert rows[protocol]["requests"] == 10
+        assert rows[protocol]["errors"] == 0, rows[protocol]["error_sample"]
 
 
 @pytest.mark.parametrize("flag", ["--shard-layout", "--roles", "--pipeline"])
