@@ -13,43 +13,55 @@ Phases (each raises on failure, so the script exits non-zero):
    flash_attention, normalize_image, quantize_int8, softmax) built from
    source with nvcc into ``build/torch_kernels/``, one compiler per source,
    with ptxas's lines (registers, static shared memory and spills) for each
-   entry function, and the flash kernels' dynamic shared memory;
+   entry function, and the flash kernels' dynamic shared memory at each
+   padded head dim;
 3. kernels: each kernel wrapper against its plain PyTorch version on the
    card, with the kernel, the plain version and one PyTorch library call
    (where one computes the same function) timed by CUDA events beside the
    least time the card could take:
    - decode_attention at the reference test shapes, the decoder's shape,
      the batched decode step's (8, 4, 128, 32) at mixed positions (0, 127
-     and an idle slot among them) and large cache shapes; split-K cases (positions on a split boundary, a
-     position inside the first of many splits so the rest are empty, a
-     cache length that splits unevenly) and a short cache in fp32 and bf16
-     at D = 32, 64 and 128; the device time (profiler) of the large shapes beside the
-     per-call time;
+     and an idle slot among them) and large cache shapes; split-K cases
+     (positions on a split boundary, a position inside the first of many
+     splits so the rest are empty, a cache length that splits unevenly) and
+     a short cache in fp32, bf16 and fp16 at D = 32, 64 and 128, and at the
+     head dims the kernel took last (``NEW_HEAD_DIMS``: 3, 8, 10, 24, 80,
+     96, 256) on a ragged cache, a short one and a prime split one in every
+     float dtype; the device time (profiler) of the large shapes beside the
+     per-call time, and fp16 and D = 96 and 256 timed beside their bounds;
    - flash_attention in fp32 at the JAX tests' shapes, block pairs and
      causal settings (the result must not depend on the blocks), in bf16 at
      the JAX chip benchmark's (4, 2048, 8, 128), and at the served
      long_context_encoder shape (1, S, 4, 16) for S = 100, 4096, 8192, and
-     at ragged lengths S = 1, 63, 65, 130 for every D, both dtypes and both
-     causal settings (the bf16 tensor-core kernel and the fp32 kernels);
-     in bf16 also against the tiled plain version (p rounded before PV), at
-     one bf16 ulp;
+     at ragged lengths S = 1, 63, 65, 130 for D = 16, 32, 64, 128, every
+     float dtype and both causal settings (the bf16 / fp16 tensor-core
+     kernel and the fp32 kernels), at S = 1, 65, 130 for every head dim of
+     ``NEW_HEAD_DIMS`` (rows of 3 and 10 elements are no whole 16-byte
+     vector) and in fp16 at (4, 2048, 8, 128); in bf16 and fp16 also
+     against the tiled plain version (p rounded before PV), at one ulp;
+     timed at the wide encoder's (1, 8192, 32, 96) and (1, 8192, 8, 256) in
+     fp32 and at S = 4096 in bf16 and fp16, beside SDPA;
    - quantize_int8 element-exact (exact half-steps, values past the clip;
-     fp32, bf16 and fp16 in) at (1, 8192), a ragged length, 64 MiB and an
-     unaligned view; dequantize_int8 element-exact to fp32, bf16 and fp16
-     over every int8 value, at (1, 8192), a ragged length, one below and
-     one above a whole word and a whole grid step, 64 MiB, and with the
-     input off 16-byte alignment; ``torch.quantize_per_tensor`` timed as quantize's library
-     call, with the count of its int8 values that differ from the kernel's;
-   - normalize_image element-exact (fp32, uint8, bf16, fp16 and int32 in;
-     fp32, bf16 and fp16 out; INCEPTION and NONE) at (224, 224, 3), (7, 13,
+     fp32, bf16 and fp16 in; uint8, int32, bool, int8 and int16 over their
+     whole range) at (1, 8192), a ragged length, 64 MiB and an unaligned
+     view; dequantize_int8 element-exact to fp32, bf16 and fp16 over every
+     int8 value, at (1, 8192), a ragged length, one below and one above a
+     whole word and a whole grid step, 64 MiB, and with the input off
+     16-byte alignment, and from every other input dtype;
+     ``torch.quantize_per_tensor`` timed as quantize's library call, with
+     the count of its int8 values that differ from the kernel's;
+   - normalize_image element-exact (fp32, uint8, bf16, fp16, int32, bool,
+     int8 and int16 in; fp32, bf16 and fp16 out; INCEPTION and NONE) at
+     (224, 224, 3), (7, 13,
      3), 64 MiB of fp32 and an unaligned view, int32 past 2**24, and every
      path one below and one above a whole vector and a whole grid step;
      softmax_probabilities within rtol 1e-5 at the served (1, 1000) and at
      (8, 1000), (3, 50) x 30, (1000,), bf16, a long row and (16384, 1000),
      then at widths from 1 to 8200 columns at 1, 8 and 16384 rows in fp32,
-     bf16 and fp16 (every variant, warps and vectors count of
-     ``softmax_plan`` must occur), an unaligned row and rows of -inf, NaN
-     and +inf;
+     bf16 and fp16, and at 1 and 8 rows in uint8, int32, bool, int8 and
+     int16 (every variant, warps and vectors count of ``softmax_plan`` must
+     occur), an unaligned row and rows of -inf, NaN and +inf; the new input
+     dtypes of the four kernels timed at 16 Mi elements beside their bounds;
    - classification ties on the card: ``ops.topk_classification`` and the
      server's classification extension on tied rows (int32, float, all
      equal, bf16-rounded logits) and on rows without ties give the CPU's
@@ -59,8 +71,9 @@ Phases (each raises on failure, so the script exits non-zero):
      timed at (1, 1000), (64, 1000) and (16384, 1000): wall per call in
      interleaved rounds, and on the device (profiler);
    - no fallback: a CUDA tensor of a dtype or head dim a kernel has no code
-     for raises and launches nothing; decode and flash views off 16-byte
-     alignment run on aligned copies and agree with the plain versions;
+     for (integer or bool attention, D = 264) raises and launches nothing;
+     decode and flash views off 16-byte alignment run on aligned copies and
+     agree with the plain versions;
    - the small kernels (normalize, softmax, quantize, dequantize, and
      dequantize to bf16 at 64 MiB) and their library calls each timed per
      call, on the device (profiler) and, at the served shapes, on the host
@@ -288,7 +301,9 @@ Phases (each raises on failure, so the script exits non-zero):
      executions (the only row that launches here);
    - a ``Watchtower`` with a black box under ``build/`` over a pool of
      children 1 and 2: a latency fault on child 2's proxy trips it naming that
-     URL; the ring gives back timelines, metrics and the alerts, and
+     URL (past 16 batches the row goes on only while the ``slo_burn`` alert
+     fires, waiting for its flight divergence, 16 more at most); the ring
+     gives back timelines, metrics and the alerts, and
      ``python -m client_tpu_torch.doctor --blackbox`` renders it;
    - ``PerfRunner`` with cells, home, shadow and canary cells and
      ``watch=True`` at concurrency 1 and 2: 0 errors, the children's
@@ -378,14 +393,30 @@ Phases (each raises on failure, so the script exits non-zero):
      the requests sent); launches = the server's executions. Where a header
      is missing, one line names it and (d) does not run.
 
+15. The wide encoder (``serve_wide_encoder``): ``long_context_encoder``
+   (flash, seed-0 weights) through ``ServerCore`` and the port's HTTP
+   server in this process at two published widths whose head dims the
+   kernel took last, depth and width not cut: Phi-3-mini (dim 3072, 32
+   heads, head dim 96) and Gemma-2B (dim 2048, 8 heads, head dim 256); at
+   each, S = 8192 over colocated cuda shm against the plain version
+   (``flash_attention_reference`` between the same projections) on the
+   card, with the p50 of 10 requests, one request profiled (device time
+   and idle share) and, beside it, one request profiled in a process of
+   its own (``WIDE_PROFILE_CHILD``: in this process the trace has held no
+   kernel of phase 15 so far), and S = 1024 over the wire against a CPU
+   run of the port, each within 2e-5; flash_attention launches = the server's
+   executions in each row and the statistics count the requests; the
+   attention's and the projections' fp32 bounds beside the times.
+
 It then prints one ``{"kernels": [...]}`` line and, last, one line
 ``{"ok": true, "device": {...}}``. Details go to ``build/chip_smoke.json``.
 Without a CUDA device it fails. The build fails if ptxas reports a spill in
 the softmax, normalize or int8 kernels.
 
 ``python3 chip_smoke.py --kernel-times`` builds the kernels and times the
-small kernels and the wrappers' host cost alone (the same rows as phase
-3), ending with one ``{"kernel_times": ...}`` line. It calls only the
+small kernels, the wrappers' host cost and the two attention kernels at
+the head dims and dtypes they ran before this widened (the same rows as
+phase 3), ending with one ``{"kernel_times": ...}`` line. It calls only the
 port's public wrappers, so a copy of this file placed in an earlier tree of
 the port times that tree, for a comparison inside one run.
 """
@@ -410,7 +441,7 @@ import threading
 import time
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
-from contextlib import nullcontext
+from contextlib import contextmanager, nullcontext
 
 import numpy as np
 import torch
@@ -509,35 +540,47 @@ from client_tpu_torch.watch import Watchtower, blackbox_report, read_blackbox  #
 # H100 SXM (NVIDIA data sheet): HBM bandwidth and dense peaks, per dtype
 # (float32 outside the tensor cores: the port's fp32 kernels use no TF32)
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "float16": 989e12}
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # the small kernels' float types (fp16 too)
 FLOATS = {**DTYPES, "float16": torch.float16}
 # kernel against its plain version, per kernel and dtype:
 # - decode_attention: max |out - ref| < tol (tests/test_decode_attention.py);
+#   in fp16 2^-7: kernel and plain version both sum in fp32 (the kernel does
+#   not round p) and round the output once, so they differ by the sums'
+#   order and at most an output ulp or two (2^-8 at |out| < 4);
 # - flash_attention: |out - ref| <= tol + tol * |ref| elementwise, the JAX
 #   tests' atol = rtol (tests/test_utils.py: 2e-5 in fp32); in bf16 2e-2, as
 #   the kernel rounds p to bf16 before PV and the output to bf16, where the
-#   plain version keeps fp32;
+#   plain version keeps fp32; in fp16 atol 2^-9 * max|v| and rtol 2^-10
+#   (FLASH_FP16, the CPU tests' bound against the Pallas kernel: p rounded to
+#   fp16 moves the output by at most 2^-11 * max|v|, plus an output ulp);
 # - quantize_int8 / dequantize_int8: element exact;
 # - normalize_image: element exact (both round f32(x)*scale+shift once);
 # - softmax_probabilities: rtol 1e-5, atol 1e-30 (tests/test_utils.py's
 #   bound against JAX; exp and the sums differ in the last bits).
 TOLERANCE = {
-    "decode_attention": {"float32": 1e-5, "bfloat16": 2e-2},
-    "flash_attention": {"float32": 2e-5, "bfloat16": 2e-2},
+    "decode_attention": {"float32": 1e-5, "bfloat16": 2e-2, "float16": 2.0 ** -7},
+    "flash_attention": {"float32": 2e-5, "bfloat16": 2e-2, "float16": 2.0 ** -9},
     "quantize_int8": 0.0,
     "dequantize_int8": 0.0,
     "normalize_image": 0.0,
     "softmax_probabilities": {"rtol": 1e-5, "atol": 1e-30},
 }
-# flash_attention in bf16 against its tiled plain version (the same 64-key
-# tiles, p rounded to bf16 before PV), elementwise |out - ref| <= atol +
-# rtol * |ref|: rtol one bf16 ulp (2^-7, as the CPU tests hold the tiled
-# version against the Pallas kernel), atol 2^-9, the largest difference
-# seen on the card over every bf16 case (PERF.md): the two differ only in
-# fp32 rounding, which flips a few p or outputs by one bf16 ulp
-TILED_TOLERANCE = {"atol": 2.0 ** -9, "rtol": 2.0 ** -7}
+# flash_attention in bf16 and fp16 against its tiled plain version (the
+# same 64-key tiles, p rounded to the dtype before PV), elementwise
+# |out - ref| <= atol + rtol * |ref|: rtol one output ulp (bf16 2^-7, fp16
+# 2^-10, as the CPU tests hold the tiled version against the Pallas
+# kernel), atol 2^-9, the largest difference seen on the card over every
+# bf16 case (PERF.md): the two differ only in fp32 rounding, which flips a
+# few p or outputs by one ulp
+TILED_TOLERANCE = {"bfloat16": {"atol": 2.0 ** -9, "rtol": 2.0 ** -7},
+                   "float16": {"atol": 2.0 ** -9, "rtol": 2.0 ** -10}}
+# the head dims the attention kernels took last (every D up to 256): JAX's
+# test width 8, Pythia's 80, Phi-3-mini's 96, Gemma-2B's 256, 24, and rows
+# that are no whole 16-byte vector (D = 3 and 10: 2-byte copies and 4-byte
+# copies in bf16 and fp16, 4- and 8-byte in fp32)
+NEW_HEAD_DIMS = (3, 8, 10, 24, 80, 96, 256)
 # the kernels redesigned since their port, and how (their earlier times
 # are in PERF.md)
 REDESIGNED = {"decode_attention": "split-K over the cache",
@@ -682,8 +725,11 @@ def attention_bound_ms(batch, heads, max_len, dim, positions, itemsize, dtype_na
 
 
 def check_decode_attention():
-    """Every case: the kernel against the plain version on the same inputs."""
-    dtypes = DTYPES
+    """Every case: the kernel against the plain version on the same inputs,
+    in fp32, bf16 and fp16; the head dims of NEW_HEAD_DIMS at the reference
+    test's ragged (3, 2, 200) with mixed positions, a short cache and a
+    prime, split cache (4099 slots)."""
+    dtypes = FLOATS
     tol = TOLERANCE["decode_attention"]
     cases = []
     for (b, h, m, d) in ((1, 4, 128, 32), (3, 2, 200, 64), (2, 8, 384, 128)):
@@ -721,6 +767,11 @@ def check_decode_attention():
             cases.append(("split_boundary", (2, 2, 4099, d), [first - 1, first], name))
             cases.append(("split_ragged", (2, 2, 4099, d), [4098, 1366], name))
             cases.append(("split_first_of_many", (1, 1, 65536, d), [5], name))
+    for d in NEW_HEAD_DIMS:
+        for name in dtypes:
+            cases.append(("new_head_dim", (3, 2, 200, d), [0, 99, 199], name))
+            cases.append(("new_head_dim_short_cache", (2, 2, 24, d), [23, 5], name))
+            cases.append(("new_head_dim_split_ragged", (2, 2, 4099, d), [4098, 1366], name))
     rows = []
     worst = {}
     for i, (kind, (b, h, m, d), positions, name) in enumerate(cases):
@@ -763,20 +814,21 @@ def check_decode_attention():
     return rows, worst
 
 
-def time_decode_attention(shape, positions, iters):
-    """Kernel, plain version and the SDPA yardstick on the same bf16 inputs."""
+def time_decode_attention(shape, positions, iters, name="bfloat16"):
+    """Kernel, plain version and the SDPA yardstick on the same inputs (bf16
+    unless ``name`` says otherwise)."""
     b, h, m, d = shape
-    q, k, v = attention_inputs(b, h, m, d, torch.bfloat16, seed=7)
+    q, k, v = attention_inputs(b, h, m, d, FLOATS[name], seed=7)
     pos = torch.tensor(positions, dtype=torch.int32, device="cuda")
     out = da.decode_attention(q, k, v, pos)
     ref = da.decode_attention_reference(q, k, v, pos)
     err = (out.float() - ref.float()).abs().max().item()
-    if not err < TOLERANCE["decode_attention"]["bfloat16"]:
+    if not err < TOLERANCE["decode_attention"][name]:
         raise AssertionError(f"decode_attention {shape} pos {positions}: error {err}")
     mask = (torch.arange(m, device="cuda")[None, :] <= pos[:, None])[:, None, None, :]
     q4 = q[:, :, None, :]
     row = {
-        "shape": list(shape), "pos": positions, "dtype": "bfloat16",
+        "shape": list(shape), "pos": positions, "dtype": name,
         "splits": da.split_plan(b, h, m, sms()),
         "max_abs_err": err,
         "ms": cuda_ms(lambda: da.decode_attention(q, k, v, pos), iters),
@@ -787,7 +839,7 @@ def time_decode_attention(shape, positions, iters):
                             max(iters // 4, 3)),
         "library_ms": cuda_ms(
             lambda: F.scaled_dot_product_attention(q4, k, v, attn_mask=mask), iters),
-        "bound_ms": attention_bound_ms(b, h, m, d, positions, 2, "bfloat16"),
+        "bound_ms": attention_bound_ms(b, h, m, d, positions, q.element_size(), name),
     }
     return row
 
@@ -805,6 +857,15 @@ def flash_agrees(out, ref, atol, rtol=None):
     return diff.max().item(), bool((diff <= atol + rtol * ref.float().abs()).all())
 
 
+def flash_tolerance(name, v):
+    """(atol, rtol) of flash_attention against its dense plain version in
+    dtype ``name`` (TOLERANCE; in fp16 atol scales with max|v|)."""
+    tol = TOLERANCE["flash_attention"][name]
+    if name == "float16":
+        return tol * v.float().abs().max().item(), 2.0 ** -10
+    return tol, tol
+
+
 def flash_bound(shape, causal, dtype_name):
     """Least time and what sets it: q, k, v read once and the output written
     once over the HBM rate, or 4*B*H*D flops per live (query, key) pair over
@@ -812,7 +873,7 @@ def flash_bound(shape, causal, dtype_name):
     b, s, h, d = shape
     pairs = s * (s + 1) // 2 if causal else s * s
     flops = 4 * b * h * pairs * d
-    nbytes = 4 * b * s * h * d * DTYPES[dtype_name].itemsize
+    nbytes = 4 * b * s * h * d * FLOATS[dtype_name].itemsize
     by_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     by_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
     return max(by_bytes, by_ops), ("operations" if by_ops >= by_bytes else "bytes")
@@ -831,28 +892,37 @@ def check_flash_attention():
     # ragged lengths around the 64-row tiles, every D, both dtypes (the bf16
     # tensor-core kernel, the fp32 kernels for D <= 32 and D >= 64)
     cases += [("ragged_tiles", (2, s, 3, d), name, causal, (128, 128))
-              for name in ("bfloat16", "float32") for d in (16, 32, 64, 128)
+              for name in ("bfloat16", "float16", "float32") for d in (16, 32, 64, 128)
               for s in (1, 63, 65, 130) for causal in (False, True)]
+    cases += [("chip_bench", (4, 2048, 8, 128), "float16", causal, (128, 128))
+              for causal in (False, True)]
+    # the head dims the kernels took last, in every float dtype, at ragged
+    # lengths (one row, a partial second tile, three tiles)
+    cases += [("new_head_dim", (2, s, 3, d), name, causal, (128, 128))
+              for name in FLOATS for d in NEW_HEAD_DIMS for s in (1, 65, 130)
+              for causal in (False, True)]
     rows = []
     first = {}
     for kind, shape, name, causal, (bq, bk) in cases:
-        q, k, v = flash_inputs(shape, DTYPES[name], seed=shape[1] + causal)
+        q, k, v = flash_inputs(shape, FLOATS[name], seed=shape[1] + causal)
         out = flash_attention(q, k, v, causal=causal, block_q=bq, block_k=bk)
         ref = flash_attention_reference(q, k, v, causal=causal)
-        tiled = flash_attention_tiled_reference(q, k, v, causal=causal)
         torch.cuda.synchronize()
-        tol = TOLERANCE["flash_attention"][name]
-        err, ok = flash_agrees(out, ref, tol)
-        # against the plain form of the kernel's loop (p rounded to v's dtype
-        # before PV): in bf16 a gate of its own, far tighter than 2e-2
-        tiled_err, tiled_ok = flash_agrees(out, tiled, TILED_TOLERANCE["atol"],
-                                           TILED_TOLERANCE["rtol"])
+        atol, rtol = flash_tolerance(name, v)
+        err, ok = flash_agrees(out, ref, atol, rtol)
         rows.append({"case": kind, "shape": list(shape), "dtype": name, "causal": causal,
-                     "blocks": [bq, bk], "max_abs_err": err, "tol": tol,
-                     "max_abs_err_vs_tiled_plain": tiled_err})
-        if name == "bfloat16" and not tiled_ok:
-            raise AssertionError(
-                f"flash_attention disagrees with its tiled plain version: {rows[-1]}")
+                     "blocks": [bq, bk], "max_abs_err": err, "tol": [atol, rtol]})
+        if name in TILED_TOLERANCE:
+            # against the plain form of the kernel's loop (p rounded to v's
+            # dtype before PV): in bf16 and fp16 a gate of its own, far
+            # tighter than the dense version's
+            tiled = flash_attention_tiled_reference(q, k, v, causal=causal)
+            tiled_tol = TILED_TOLERANCE[name]
+            tiled_err, tiled_ok = flash_agrees(out, tiled, tiled_tol["atol"], tiled_tol["rtol"])
+            rows[-1]["max_abs_err_vs_tiled_plain"] = tiled_err
+            if not tiled_ok:
+                raise AssertionError(
+                    f"flash_attention disagrees with its tiled plain version: {rows[-1]}")
         if not ok or out.dtype != q.dtype or not torch.isfinite(out).all():
             raise AssertionError(f"flash_attention disagrees with its plain version: {rows[-1]}")
         key = (shape, name, causal)
@@ -864,10 +934,10 @@ def check_flash_attention():
 
 def time_flash_attention(shape, name, causal, iters):
     """Kernel, plain version and the SDPA yardstick on the same inputs."""
-    q, k, v = flash_inputs(shape, DTYPES[name], seed=99)
+    q, k, v = flash_inputs(shape, FLOATS[name], seed=99)
     out = flash_attention(q, k, v, causal=causal)
     ref = flash_attention_reference(q, k, v, causal=causal)
-    err, ok = flash_agrees(out, ref, TOLERANCE["flash_attention"][name])
+    err, ok = flash_agrees(out, ref, *flash_tolerance(name, v))
     if not ok:
         raise AssertionError(f"flash_attention {shape} {name} causal={causal}: error {err}")
     # SDPA takes [B,H,S,D]: the transposes are views of the same inputs
@@ -928,6 +998,25 @@ def check_quantize():
                 rows.append(row)
                 if row["quantize_mismatches"] or row["dequantize_mismatches"]:
                     raise AssertionError(f"int8 kernels disagree with their plain versions: {row}")
+    # integer and bool input: the whole range with a scale of 2 (odd values
+    # land on exact half-steps, which round to even) and the example's
+    # max/127 scale, then dequantized back to fp32
+    for name, dtype in ELEMENT_IN.items():
+        if dtype.is_floating_point:
+            continue
+        for n in (8192, 8195, 16 * MIB, "unaligned"):
+            gen = torch.Generator(device="cuda").manual_seed(len(rows))
+            base = integer_input((8196 if n == "unaligned" else n,), dtype, gen)
+            x = base[1:] if n == "unaligned" else base
+            for scale in (2.0, max(x.float().abs().max().item(), 1.0) / 127):
+                q = qz.quantize_int8(x, scale)
+                q_ref = qz.quantize_int8_reference(x, scale)
+                torch.cuda.synchronize()
+                row = {"n": n, "dtype": name, "scale": scale,
+                       "quantize_mismatches": int((q != q_ref).sum().item())}
+                rows.append(row)
+                if row["quantize_mismatches"]:
+                    raise AssertionError(f"quantize_int8 disagrees with its plain version: {row}")
     every = torch.arange(-128, 128, dtype=torch.int8, device="cuda")
     for name, dtype in FLOATS.items():
         word = qz.dequantize_plan(1, dtype, True).elements
@@ -940,17 +1029,31 @@ def check_quantize():
             q[:min(256, length)] = every[:min(256, length)]
             q = q[1:] if n == "unaligned" else q
             rows.append(dequantize_case(q, 0.37, name, n))
+    # dequantize from every other input dtype, to each output dtype: around
+    # a whole word and a whole grid step of its own plan, 16 Mi, unaligned
+    for in_name, in_dtype in ELEMENT_IN.items():
+        if in_dtype == torch.int8:
+            continue
+        for name, dtype in FLOATS.items():
+            word = qz.dequantize_plan(1, dtype, True, in_dtype=in_dtype).elements
+            step = word * nz.THREADS * qz.dequantize_plan(1 << 40, dtype, True, sms(),
+                                                          in_dtype).blocks
+            for n in (8195, word - 1, word + 1, step - 1, step + 1, 16 * MIB, "unaligned"):
+                length = 8193 if n == "unaligned" else n
+                q = image_input((length,), in_dtype, seed=length)
+                q = q[1:] if n == "unaligned" else q
+                rows.append(dequantize_case(q, 0.37, name, n, in_name))
     return rows
 
 
-def dequantize_case(q, scale, out_name, n):
+def dequantize_case(q, scale, out_name, n, in_name="int8"):
     """One dequantize_int8 call against its plain version; raises unless
     every element's bits agree."""
     out_dtype = FLOATS[out_name]
     out = qz.dequantize_int8(q, scale, out_dtype)
     ref = qz.dequantize_int8_reference(q, scale, out_dtype)
     torch.cuda.synchronize()
-    row = {"n": n, "out": out_name, "aligned": q.data_ptr() % 16 == 0,
+    row = {"n": n, "in": in_name, "out": out_name, "aligned": q.data_ptr() % 16 == 0,
            "mismatches": bit_mismatches(out, ref)}
     if row["mismatches"] or out.dtype != out_dtype or out.shape != q.shape:
         raise AssertionError(f"dequantize_int8 disagrees with its plain version: {row}")
@@ -1052,34 +1155,32 @@ def time_classification(k: int = 5):
 
 
 def check_no_fallback():
-    """A CUDA tensor of a dtype or head dim a kernel has no code for raises
-    (TypeError or ValueError) and launches nothing: there is no fallback to
-    the plain version. Then q, k and v views 2 or 4 bytes off 16-byte
-    alignment run decode_attention and flash_attention on aligned copies,
-    one launch each, within the plain versions' tolerance."""
+    """A CUDA tensor of a dtype or head dim a kernel has no code for
+    (integer or bool attention, a head dim past 256) raises (TypeError or
+    ValueError) and launches nothing: there is no fallback to the plain
+    version. Then q, k and v views 2 or 4 bytes off 16-byte alignment run
+    decode_attention and flash_attention on aligned copies, one launch each,
+    within the plain versions' tolerance."""
     def z(*shape, dtype=torch.float32):
         return torch.zeros(shape, dtype=dtype, device="cuda")
 
-    half, pos = torch.float16, torch.zeros(1, dtype=torch.int32, device="cuda")
+    i32, pos = torch.int32, torch.zeros(1, dtype=torch.int32, device="cuda")
+    wide = da.MAX_DIM + 8
     cases = [
-        ("normalize_image int16 in", lambda: ops.normalize_image(z(8, dtype=torch.int16)),
-         TypeError),
-        ("normalize_image bool in", lambda: ops.normalize_image(z(8, dtype=torch.bool)),
-         TypeError),
-        ("softmax_probabilities int32 in",
-         lambda: ops.softmax_probabilities(z(2, 8, dtype=torch.int32)), TypeError),
-        ("quantize_int8 int32 in", lambda: ops.quantize_int8(z(8, dtype=torch.int32), 1.0),
-         TypeError),
-        ("dequantize_int8 float32 in", lambda: ops.dequantize_int8(z(8), 1.0), TypeError),
-        ("decode_attention float16", lambda: da.decode_attention(
-            z(1, 1, 32, dtype=half), z(1, 1, 8, 32, dtype=half), z(1, 1, 8, 32, dtype=half),
+        ("decode_attention int32", lambda: da.decode_attention(
+            z(1, 1, 32, dtype=i32), z(1, 1, 8, 32, dtype=i32), z(1, 1, 8, 32, dtype=i32),
             pos), TypeError),
-        ("decode_attention D = 16", lambda: da.decode_attention(
-            z(1, 1, 16), z(1, 1, 8, 16), z(1, 1, 8, 16), pos), ValueError),
-        ("flash_attention float16", lambda: flash_attention(
-            *(z(1, 8, 2, 16, dtype=half) for _ in range(3))), TypeError),
-        ("flash_attention D = 8", lambda: flash_attention(*(z(1, 8, 2, 8) for _ in range(3))),
-         ValueError),
+        ("decode_attention bool", lambda: da.decode_attention(
+            *(z(*shape, dtype=torch.bool) for shape in ((1, 1, 32), (1, 1, 8, 32),
+                                                        (1, 1, 8, 32))), pos), TypeError),
+        (f"decode_attention D = {wide}", lambda: da.decode_attention(
+            z(1, 1, wide), z(1, 1, 8, wide), z(1, 1, 8, wide), pos), ValueError),
+        ("flash_attention int32", lambda: flash_attention(
+            *(z(1, 8, 2, 16, dtype=i32) for _ in range(3))), TypeError),
+        ("flash_attention int8", lambda: flash_attention(
+            *(z(1, 8, 2, 16, dtype=torch.int8) for _ in range(3))), TypeError),
+        (f"flash_attention D = {wide}", lambda: flash_attention(
+            *(z(1, 8, 2, wide) for _ in range(3))), ValueError),
     ]
     reset_counts()
     rows = []
@@ -1243,13 +1344,32 @@ def time_dequantize_to(n, out_dtype, iters):
 INCEPTION = (2.0 / 255.0, -1.0)
 NORMALIZE_IN = {"float32": torch.float32, "uint8": torch.uint8, "bfloat16": torch.bfloat16,
                 "float16": torch.float16, "int32": torch.int32}
+# the input dtypes the four elementwise kernels took last: every other dtype
+# of ops.PLAIN_DTYPES
+NEW_ELEMENT_IN = {"bool": torch.bool, "int8": torch.int8, "int16": torch.int16}
+# every input dtype of the four elementwise kernels
+ELEMENT_IN = {**NORMALIZE_IN, **NEW_ELEMENT_IN}
 
 
 def image_input(shape, dtype, seed):
-    """Seeded pixel values 0..255 (uniform reals, truncated for uint8)."""
+    """Seeded pixel values 0..255 (uniform reals, truncated for uint8); for
+    bool, int8 and int16 their whole range."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
+    if dtype in NEW_ELEMENT_IN.values():
+        return integer_input(shape, dtype, gen)
     x = torch.rand(shape, generator=gen, device="cuda") * 255
     return x.to(torch.uint8) if dtype == torch.uint8 else x.to(dtype)
+
+
+def integer_input(shape, dtype, gen, spread=None):
+    """Seeded values of an integer or bool dtype: its whole range (0 and 1
+    for bool), or -spread..spread."""
+    if dtype == torch.bool:
+        return torch.randint(0, 2, shape, generator=gen, device="cuda").bool()
+    info = torch.iinfo(dtype)
+    low, high = (info.min, info.max) if spread is None else (max(info.min, -spread), spread)
+    return torch.randint(low, high + 1, shape, generator=gen, device="cuda",
+                         dtype=torch.int64).to(dtype)
 
 
 def bit_mismatches(a, b) -> int:
@@ -1260,7 +1380,8 @@ def bit_mismatches(a, b) -> int:
 
 def check_normalize():
     """normalize_image element-exact against its plain version: fp32, uint8,
-    bf16, fp16 and int32 in x fp32, bf16 and fp16 out, INCEPTION and NONE
+    bf16, fp16, int32, bool, int8 and int16 in x fp32, bf16 and fp16 out,
+    INCEPTION and NONE
     scaling, at the image_client's (224, 224, 3), a ragged (7, 13, 3), 64
     MiB of fp32 and an input one element off 16-byte alignment (the
     kernel's scalar path), and int32 spread past 2**24 (where its fp32 cast
@@ -1270,7 +1391,7 @@ def check_normalize():
     largest grid (a word for every thread), where the word loop, its
     grid-stride step and the scalar tail meet."""
     rows = []
-    for in_name, in_dtype in NORMALIZE_IN.items():
+    for in_name, in_dtype in ELEMENT_IN.items():
         for shape in ((224, 224, 3), (7, 13, 3), (16 * MIB,), "unaligned"):
             base = image_input((4099,) if shape == "unaligned" else shape, in_dtype,
                                seed=len(rows))
@@ -1286,7 +1407,7 @@ def check_normalize():
         rows.append(normalize_case(wide, (8195,), "int32 past 2**24", out_name, "odd", 0.37,
                                    0.5))
     plan = nz.normalize_plan
-    for in_name, in_dtype in NORMALIZE_IN.items():
+    for in_name, in_dtype in ELEMENT_IN.items():
         for out_name, out_dtype in FLOATS.items():
             vector = plan(1, in_dtype, out_dtype, True).elements
             step = vector * nz.THREADS * plan(1 << 40, in_dtype, out_dtype, True, sms()).blocks
@@ -1379,6 +1500,13 @@ def check_softmax():
              ((16384, 1000), "float32", 1.0), ((8, 1000), "float16", 1.0)]
     cases += [((r, c), name, 4.0) for name in FLOATS for r in (1, 8, 16384)
               for c in SOFTMAX_COLS]
+    # integer and bool logits (values -20..20, 0..20 for uint8, 0 and 1 for
+    # bool; the whole range at (8, 1000)): every width at 1 and 8 rows, and
+    # (16384, 1000)
+    integers = [name for name, dtype in ELEMENT_IN.items() if not dtype.is_floating_point]
+    cases += [((r, c), name, 20) for name in integers for r in (1, 8) for c in SOFTMAX_COLS]
+    cases += [((16384, 1000), name, 20) for name in integers]
+    cases += [((8, 1000), name, None) for name in integers]
     cases.append(("unaligned", "float32", 4.0))
     seen = set()
     for i, (shape, name, stretch) in enumerate(cases):
@@ -1386,8 +1514,10 @@ def check_softmax():
         if shape == "unaligned":
             x = (torch.randn(8 * 1000 + 1, generator=gen, device="cuda") * stretch)[1:]
             x = x.view(8, 1000)
-        else:
+        elif name in FLOATS:
             x = (torch.randn(shape, generator=gen, device="cuda") * stretch).to(FLOATS[name])
+        else:
+            x = integer_input(shape, ELEMENT_IN[name], gen, stretch)
         cols = x.shape[-1]
         plan = softmax_plan(x.numel() // cols, cols, x.dtype, x.data_ptr() % 16 == 0, sms())
         seen.update({("variant", plan.variant), ("warps", plan.warps),
@@ -1396,7 +1526,10 @@ def check_softmax():
     want = ({("variant", v) for v in ("registers", "two_pass", "scalar")}
             | {("warps", w) for w in (1, 2, 4, 8)}
             | {("vectors float32", v) for v in (1, 2, 4, 8)}
-            | {(f"vectors {name}", v) for name in ("bfloat16", "float16") for v in (1, 2, 4)})
+            | {(f"vectors {name}", v) for name in ("bfloat16", "float16") for v in (1, 2, 4)}
+            | {(f"vectors {name}", v) for name in ("uint8", "int8", "bool") for v in (1, 2)}
+            | {("vectors int16", v) for v in (1, 2, 4)}
+            | {("vectors int32", v) for v in (1, 2, 4, 8)})
     if want - seen:
         raise AssertionError(f"softmax checks never ran {sorted(want - seen)}")
     inf, nan = float("inf"), float("nan")
@@ -3478,7 +3611,7 @@ SERVE_CHILD = r"""
 import json, sys, threading
 sys.path.insert(0, sys.argv[1])
 import torch
-from client_tpu_torch import serve, server
+from client_tpu_torch import serve
 from client_tpu_torch.models.decoder import TinyDecoderModel
 from client_tpu_torch.ops import decode_attention, normalize, softmax, quantize
 from client_tpu_torch.ops.flash_attention import LAUNCHES as flash
@@ -3489,11 +3622,11 @@ def counted_step(self, *args, **kwargs):
     return plain_step(self, *args, **kwargs)
 TinyDecoderModel.step = counted_step
 cores = []
-class Core(server.ServerCore):
+class Core(serve.SignalDrainedCore):
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
         cores.append(self)
-server.ServerCore = Core
+serve.SignalDrainedCore = Core
 rc = serve.main(sys.argv[2:])
 core = cores[0]
 counters = {"decode_attention": decode_attention.LAUNCHES, "flash_attention": flash,
@@ -5596,8 +5729,10 @@ def fed_byzantine(children, proxies, refs, size, device):
 def fed_watch(children, proxies, refs, size, out_dir):
     """Row 7: a ``Watchtower`` with a black box under ``build/`` over the
     telemetry of a pool of the home cell's two children; a latency fault
-    on child 2's proxy alone: the
-    watchdog trips naming that proxy's URL (not ``fleet_shift``), the edges
+    on child 2's proxy alone: the watchdog trips naming that proxy's URL
+    (not ``fleet_shift``) within ``watch_batches`` batches, or, while the
+    ``slo_burn`` alert fires, within as many again (the row waits for the
+    flight divergence behind the burn), the edges
     land in the ring, ``read_blackbox`` gives back timelines, the last
     metric snapshot and the alerts, and ``python -m
     client_tpu_torch.doctor --blackbox`` renders them."""
@@ -5642,7 +5777,20 @@ def fed_watch(children, proxies, refs, size, out_dir):
         faulted.fault = Fault("latency", latency_s=size.watch_latency_s)
         faulted.reset_active()
         t_fault, sent_at_fault = time.perf_counter(), sent
-        for _ in range(size.watch_batches):
+        # past watch_batches the row goes on only while the slo_burn alert
+        # fires: the burn is the fault seen, and its evidence names the
+        # moved replica once the flight recorder's slow tail holds enough
+        # of the faulted replica's timelines (a tail still shared with
+        # healthy host noise gives no divergence yet); at most as many
+        # batches again
+        batches = burn_wait = 0
+        while batches < 2 * size.watch_batches:
+            burning = any(a.kind == "slo_burn" and a.state == "firing"
+                          for a in tower.active_alerts())
+            if batches >= size.watch_batches and not burning:
+                break
+            burn_wait += batches >= size.watch_batches
+            batches += 1
             traffic(size.watch_batch)
             for alert in [a.as_dict() for a in tower.active_alerts()] + list(tower.history()):
                 ev = alert.get("evidence") or {}
@@ -5685,6 +5833,7 @@ def fed_watch(children, proxies, refs, size, out_dir):
     return {"named": named, "faulted_url": faulted.url, "detect_s": detect_s,
             "alerts_before_fault": len([a for a in before_fault if a["state"] == "firing"]),
             "detect_requests": detect_requests, "requests": sent, "ring_records": dict(kinds),
+            "batches": batches, "burn_wait_batches": burn_wait,
             "ring_alerts": len(alerts), "timelines_recovered": doc["timelines_recovered"],
             "stats": {k: stats[k] for k in ("ticks", "alerts_fired", "alerts_resolved",
                                             "changepoint_trips")},
@@ -7111,6 +7260,270 @@ def log_native(result, card):
             + json.dumps(result["python_identity_p50_ms"]) + f"; {card}")
 
 
+# ---------------------------------------------------------------------------
+# phase 15: long_context_encoder at the published widths whose head dims
+# (96 and 256) the flash kernel took last
+# ---------------------------------------------------------------------------
+
+WideSize = collections.namedtuple("WideSize", ["widths", "seq", "wire_seq", "requests"])
+# (name, dim, heads): Phi-3-mini (microsoft/Phi-3-mini-4k-instruct: hidden_size
+# 3072, num_attention_heads 32, head dim 96) and Gemma-2B (google/gemma-2b:
+# hidden_size 2048, num_attention_heads 8, head_dim 256); the encoder is one
+# attention layer, so neither width nor depth is cut
+WIDE = WideSize(widths=(("phi3_mini", 3072, 32), ("gemma_2b", 2048, 8)), seq=8192,
+                wire_seq=1024, requests=10)
+
+
+def encoder_plain(model, x):
+    """The encoder with the flash kernel's plain version in its place: the
+    model's own projections (``torch.matmul``) around
+    ``flash_attention_reference`` (dense fp32) on x's device."""
+    enc = model.encoder
+    seq, head_dim = x.shape[0], enc.dim // enc.heads
+    q, k, v = ((x @ w).reshape(1, seq, enc.heads, head_dim) for w in (enc.wq, enc.wk, enc.wv))
+    return flash_attention_reference(q, k, v).reshape(seq, enc.dim) @ enc.wo
+
+
+def wide_bounds(seq, dim, heads):
+    """The least time of one request's device work over the fp32 peak (the
+    port's fp32 kernels and matmuls use no TF32), reckoned as the kernel
+    table does: the attention's 4*H*S^2*D flops and the four projections'
+    8*S*dim^2 flops."""
+    attention = 4 * heads * seq * seq * (dim // heads)
+    projections = 8 * seq * dim * dim
+    return {"attention_gflop": attention / 1e9,
+            "attention_bound_ms": attention / PEAK_FLOPS["float32"] * 1e3,
+            "projections_gflop": projections / 1e9,
+            "projections_bound_ms": projections / PEAK_FLOPS["float32"] * 1e3}
+
+
+def wide_check(got, want, row, where):
+    """Every element within the flash kernel's fp32 tolerance (2e-5, the
+    tier-1 bound of the port's plain version against JAX's model at these
+    widths): both sides are fp32 with fp32 sums, and differ in their order."""
+    tol = TOLERANCE["flash_attention"]["float32"]
+    got, want = got.float().cpu(), want.float().cpu()
+    row[f"{where}_max_abs_err"] = (got - want).abs().max().item()
+    if not (got.shape == want.shape and torch.isfinite(got).all()
+            and torch.allclose(got, want, atol=tol, rtol=tol)):
+        raise AssertionError(f"long_context_encoder {where}: {row}")
+
+
+@contextmanager
+def wide_cuda_request(client, x, device):
+    """A function that sends x to long_context_encoder over colocated cuda
+    shm (cuda regions on the CPU in a CPU run) and returns the output, the
+    regions registered for the block's life."""
+    seq, dim = x.shape
+    nbytes = seq * dim * 4
+    tag = os.urandom(4).hex()
+    names = (f"wdin{tag}", f"wdout{tag}")
+    regions = [cudashm.create_shared_memory_region(n, nbytes, colocated=True,
+                                                   device="cuda" if device == "cuda" else "cpu")
+               for n in names]
+    try:
+        for name, region in zip(names, regions):
+            client.register_cuda_shared_memory(name, cudashm.get_raw_handle(region), 0, nbytes)
+
+        def request():
+            cudashm.set_shared_memory_region_from_torch(regions[0], x)
+            inp = httpclient.InferInput("sequence", [seq, dim], "FP32").set_shared_memory(
+                names[0], nbytes)
+            out = httpclient.InferRequestedOutput("encoded")
+            out.set_shared_memory(names[1], nbytes)
+            client.infer("long_context_encoder", [inp], outputs=[out])
+            y = cudashm.get_contents_as_torch(regions[1], "FP32", [seq, dim])
+            if device == "cuda":
+                torch.cuda.synchronize()  # the output is ready to use
+            return y
+
+        yield request
+    finally:
+        client.unregister_cuda_shared_memory()
+        for region in regions:
+            cudashm.destroy_shared_memory_region(region)
+
+
+def profiled_request(request):
+    """One call of ``request`` under torch.profiler (CPU and CUDA activity):
+    wall, device time, the device idle share and flash_attention's device
+    time (None where the trace holds no kernel)."""
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        request()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = device_kernels(prof)
+    device_ms = sum(k["total_ms"] for k in kernels)
+    return {"wall_ms": wall_ms, "device_ms": device_ms if kernels else None,
+            "device_idle_share": 1 - device_ms / wall_ms if kernels else None,
+            "flash_attention_ms": (sum(k["total_ms"] for k in kernels
+                                       if "flash_attention" in k["name"])
+                                   if kernels else None),
+            "top_kernels": kernels[:4]}
+
+
+def wide_cuda_row(client, model, x, size, device, row):
+    """S = size.seq over colocated cuda shm: the output against the plain
+    version on the same device with the same weights, the p50 of
+    ``size.requests`` requests, and on the card one request profiled.
+    Returns the requests made."""
+    with wide_cuda_request(client, x, device) as request:
+        got = request()
+        wide_check(got, encoder_plain(model, x), row, "cuda_shm_vs_plain")
+        row["cuda_shm_p50_ms"] = p50_ms(request, size.requests)
+        if device == "cuda":
+            row["profile"] = profiled_request(request)
+    return 1 + size.requests + (1 if device == "cuda" else 0)
+
+
+# one request of the wide encoder profiled in a process of its own: in the
+# script's process the profiler has recorded no kernel of phase 15 (an
+# open question); argv: repo, dim, heads, seq, device
+WIDE_PROFILE_CHILD = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+dim, heads, seq = (int(a) for a in sys.argv[2:5])
+print("WIDE_PROFILE " + json.dumps(chip_smoke.wide_request_profile(dim, heads, seq, sys.argv[5])),
+      flush=True)
+"""
+
+
+def wide_request_profile(dim, heads, seq, device="cuda"):
+    """In ``WIDE_PROFILE_CHILD``'s process: the encoder at (dim, heads)
+    behind ``ServerCore`` and the HTTP server, two requests of S = seq over
+    colocated cuda shm, then one profiled (``profiled_request``; on the CPU
+    its trace holds no device kernel)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = LongContextEncoderModel(dim=dim, heads=heads, seed=0, attention="flash",
+                                    device=device)
+    with HttpInferenceServer(ServerCore([model], device=device)) as server, \
+            httpclient.InferenceServerClient(server.url, network_timeout=600.0) as client:
+        client.configure_integrity(IntegrityPolicy())
+        gen = torch.Generator(device=device).manual_seed(dim)
+        x = torch.randn((seq, dim), generator=gen, device=device)
+        with wide_cuda_request(client, x, device) as request:
+            for _ in range(2):
+                request()
+            return profiled_request(request)
+
+
+def wide_profile_in_child(dim, heads, seq, device="cuda"):
+    """``wide_request_profile`` in a process of its own; its result."""
+    proc = subprocess.run([sys.executable, "-c", WIDE_PROFILE_CHILD, REPO, str(dim), str(heads),
+                           str(seq), device], capture_output=True, text=True, timeout=300)
+    line = next((ln for ln in proc.stdout.splitlines() if ln.startswith("WIDE_PROFILE ")), None)
+    if proc.returncode != 0 or line is None:
+        raise AssertionError(f"wide profile child exited {proc.returncode}: {proc.stderr[-2000:]}")
+    return json.loads(line[len("WIDE_PROFILE "):])
+
+
+def serve_wide_encoder(device="cuda", size=WIDE):
+    """Phase 15: long_context_encoder (flash) through ``ServerCore`` and the
+    port's HTTP server in this process at each width of ``size.widths``
+    (seed-0 weights): S = ``size.seq`` over colocated cuda shm held against
+    the plain version on the same device, and S = ``size.wire_seq`` over
+    the wire held against a CPU run of the port; flash_attention launches
+    equal the server's executions in each row (0 on the CPU, where the
+    wrapper runs its plain version), and the statistics count the
+    requests."""
+    on_card = device == "cuda"
+    rows = []
+    t_phase = time.perf_counter()
+    for name, dim, heads in size.widths:
+        row = {"width": name, "dim": dim, "heads": heads, "head_dim": dim // heads,
+               "seq": size.seq, "wire_seq": size.wire_seq, "p50_requests": size.requests,
+               **wide_bounds(size.seq, dim, heads)}
+        model = LongContextEncoderModel(dim=dim, heads=heads, seed=0, attention="flash",
+                                        device=device)
+        core = ServerCore([model], device=device)
+
+        def executions():
+            stats = core.statistics()["model_stats"][0]
+            return stats["execution_count"], stats["inference_stats"]["success"]["count"]
+
+        with HttpInferenceServer(core) as server, httpclient.InferenceServerClient(
+                server.url, network_timeout=600.0) as client:
+            # an integrity policy of its own: the contract cache is keyed by
+            # model name, and the process default's holds the dim-64 encoder
+            client.configure_integrity(IntegrityPolicy())
+            gen = torch.Generator(device=device).manual_seed(dim)
+            x = torch.randn((size.seq, dim), generator=gen, device=device)
+            before = executions()
+            reset_counts()
+            sent = wide_cuda_row(client, model, x, size, device, row)
+            counts = read_counts()
+            after = executions()
+            row["cuda_shm"] = {"requests": sent, "executions": after[0] - before[0],
+                               "successes": after[1] - before[1], "launches": counts}
+            if on_card:
+                row["child_profile"] = wide_profile_in_child(dim, heads, size.seq)
+            small = x[:size.wire_seq].contiguous()
+            cpu = LongContextEncoderModel(dim=dim, heads=heads, seed=0, attention="flash",
+                                          device="cpu")
+            want = cpu.execute({"sequence": small.cpu().numpy()}, {})["encoded"]
+            before = executions()
+            reset_counts()
+            inp = httpclient.InferInput("sequence", list(small.shape), "FP32")
+            inp.set_data_from_numpy(small.cpu().numpy())
+            t0 = time.perf_counter()
+            got = client.infer("long_context_encoder", [inp]).as_numpy("encoded")
+            row["wire_ms"] = (time.perf_counter() - t0) * 1e3
+            counts = read_counts()
+            after = executions()
+            row["wire"] = {"requests": 1, "executions": after[0] - before[0],
+                           "successes": after[1] - before[1], "launches": counts}
+            wide_check(torch.from_numpy(got.copy()), want, row, "wire_vs_cpu")
+        for plane in ("cuda_shm", "wire"):
+            r = row[plane]
+            flash = r["launches"]["flash_attention"]
+            others = {k: v for k, v in r["launches"].items() if k != "flash_attention" and v}
+            if (r["executions"] != r["requests"] or r["successes"] != r["requests"] or others
+                    or flash != (r["executions"] if on_card else 0)):
+                raise AssertionError(f"long_context_encoder {name} {plane}: launches and "
+                                     f"statistics {r}")
+        rows.append(row)
+        del model, core
+        if on_card:
+            torch.cuda.empty_cache()
+    return {"rows": rows, "seconds": time.perf_counter() - t_phase}
+
+
+def log_wide(result, card):
+    """Phase 15's lines, each with the card's name and power limit."""
+    log(f"wide encoder phase: {result['seconds']:.1f} s; {card}")
+    for row in result["rows"]:
+        prof = row.get("profile") or {}
+        device = ("not measured" if prof.get("device_ms") is None else
+                  f"{prof['device_ms']:.3f} ms on the device (idle "
+                  f"{prof['device_idle_share']:.1%}), flash_attention "
+                  f"{prof['flash_attention_ms']:.3f} ms")
+        child = row.get("child_profile")
+        if child is not None:
+            device += (f"; one request profiled in a process of its own {child['wall_ms']:.3f} ms "
+                       "wall, " + ("the profiler recorded no device time"
+                                   if child["device_ms"] is None
+                                   else f"{child['device_ms']:.3f} ms on the device (idle "
+                                   f"{child['device_idle_share']:.1%}), flash_attention "
+                                   f"{child['flash_attention_ms']:.3f} ms"))
+        log(f"long_context_encoder {row['width']} (dim {row['dim']}, heads {row['heads']}, "
+            f"head dim {row['head_dim']}) S={row['seq']} cuda shm p50 "
+            f"{row['cuda_shm_p50_ms']:.3f} ms over {row['p50_requests']} requests; one profiled "
+            f"request {prof.get('wall_ms', float('nan')):.3f} ms wall, {device}; bounds: "
+            f"attention {row['attention_gflop']:.1f} GFLOP -> {row['attention_bound_ms']:.2f} ms, "
+            f"projections {row['projections_gflop']:.1f} GFLOP -> "
+            f"{row['projections_bound_ms']:.2f} ms (fp32 peak); max |err| vs the plain version "
+            f"on the same device {row['cuda_shm_vs_plain_max_abs_err']:.3g}; {card}")
+        log(f"long_context_encoder {row['width']} S={row['wire_seq']} over the wire "
+            f"{row['wire_ms']:.3f} ms; max |err| vs the CPU run "
+            f"{row['wire_vs_cpu_max_abs_err']:.3g}; flash_attention launches "
+            f"{row['cuda_shm']['launches']['flash_attention']} = "
+            f"{row['cuda_shm']['executions']} executions (cuda shm), "
+            f"{row['wire']['launches']['flash_attention']} = {row['wire']['executions']} "
+            f"(wire); statistics successes {row['cuda_shm']['successes']} + "
+            f"{row['wire']['successes']} = requests sent; {card}")
+
+
 def device_kernels(prof):
     """Device time by kernel in a torch.profiler trace, largest first."""
     kernels = []
@@ -7285,6 +7698,84 @@ def small_kernel_times():
             "softmax": softmax_timed, "attention_host_us": attention}
 
 
+def log_attention_times(decode_rows, flash_rows):
+    """One line per timed decode_attention and flash_attention row."""
+    for row in decode_rows:
+        device = ("not measured" if row["device_ms"] is None
+                  else f"{row['device_ms']:.4f} ms")
+        pos = row["pos"] if len(set(row["pos"])) > 1 else row["pos"][0]
+        log(f"time decode_attention {row['shape']} pos {pos} {row['dtype']} splits "
+            f"{row['splits']}: kernel {row['ms']:.4f} ms per call ({device} on the "
+            f"device), plain {row['plain_ms']:.4f} ms, "
+            f"sdpa {row['library_ms']:.4f} ms, bound {row['bound_ms']:.5f} ms "
+            f"({row['bound_ms'] / row['ms']:.1%} of bound)")
+    for row in flash_rows:
+        log(f"time flash_attention {row['shape']} {row['dtype']} causal={row['causal']}: "
+            f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+            f"sdpa {row['library_ms']:.4f} ms, bound {row['bound_ms']:.5f} ms "
+            f"({row['bound_by']}; {row['bound_ms'] / row['ms']:.1%} of bound)")
+
+
+def attention_kernel_times():
+    """decode_attention and flash_attention at the head dims and dtypes
+    the port served before every head dim up to 256 ran (the decoders' step,
+    full caches, the encoder's shapes, chip_bench's and the fp32 P-tile
+    kernel's), each row logged. Only the public wrappers are called, so
+    ``--kernel-times`` in an earlier tree times that tree's kernels."""
+    decode = [time_decode_attention((1, 4, 128, 32), [11], 200)]
+    for shape, iters, name in (((8, 8, 2048, 128), 50, "bfloat16"),
+                               ((8, 8, 8192, 128), 20, "bfloat16"),
+                               ((16, 8, 4096, 128), 20, "bfloat16"),
+                               ((8, 8, 8192, 128), 20, "float32"),
+                               ((8, 8, 8192, 64), 20, "bfloat16")):
+        decode.append(time_decode_attention(shape, [shape[2] - 1] * shape[0], iters, name))
+    flash = [time_flash_attention((1, s, 4, 16), "float32", False, iters)
+             for s, iters in ((8192, 20), (4096, 50), (100, 200))]
+    flash += [time_flash_attention((4, 2048, 8, 128), "bfloat16", causal, 10)
+              for causal in (False, True)]
+    flash += [time_flash_attention((1, 4096, 8, d), "float32", False, 10) for d in (64, 128)]
+    log_attention_times(decode, flash)
+    return {"decode": decode, "flash": flash}
+
+
+def time_new_element_dtypes(iters: int = 20):
+    """The input dtypes the four elementwise kernels took last, each kernel
+    at 16 Mi elements (softmax at (16384, 1000)): kernel and plain version
+    per call (CUDA events) beside the bytes bound, each input read once and
+    each output written once. Only these rows call the new dtypes, so
+    ``--kernel-times`` (an earlier tree's wrappers) never reaches them."""
+    n, rows = 16 * MIB, []
+    integers = {name: dtype for name, dtype in ELEMENT_IN.items()
+                if not dtype.is_floating_point}
+    plans = [("normalize_image", name, (n,), lambda x: ops.normalize_image(
+        x, *INCEPTION, torch.float32), lambda x: nz.normalize_image_reference(
+        x, *INCEPTION, torch.float32), 4) for name in NEW_ELEMENT_IN]
+    plans += [("softmax_probabilities", name, (16384, VISION_CLASSES), ops.softmax_probabilities,
+               sm.softmax_probabilities_reference, 4) for name in integers]
+    plans += [("quantize_int8", name, (n,), lambda x: qz.quantize_int8(x, 2.0),
+               lambda x: qz.quantize_int8_reference(x, 2.0), 1) for name in integers]
+    plans += [("dequantize_int8", name, (n,), lambda x: qz.dequantize_int8(x, 0.37),
+               lambda x: qz.dequantize_int8_reference(x, 0.37), 4)
+              for name in ELEMENT_IN if name != "int8"]
+    for kernel, name, shape, call, plain, out_size in plans:
+        x = image_input(shape, ELEMENT_IN[name], seed=len(rows))
+        out, ref = call(x), plain(x)
+        if kernel == "softmax_probabilities":
+            ok = torch.allclose(out, ref, rtol=TOLERANCE[kernel]["rtol"],
+                                atol=TOLERANCE[kernel]["atol"])
+        else:
+            ok = torch.equal(out, ref)
+        if not ok:
+            raise AssertionError(f"{kernel} {name} in disagrees with its plain version")
+        numel = x.numel()
+        rows.append({"kernel": kernel, "in": name, "shape": list(shape),
+                     "ms": cuda_ms(lambda: call(x), iters),
+                     "plain_ms": cuda_ms(lambda: plain(x), iters),
+                     "bound_ms": numel * (x.element_size() + out_size) / PEAK_BYTES_PER_S * 1e3,
+                     "bound_by": "bytes"})
+    return rows
+
+
 def ms_text(ms) -> str:
     return "not measured" if ms is None else f"{ms:.4f} ms"
 
@@ -7360,7 +7851,8 @@ def host_breakdown(calls: int = 10000):
         ("before", "torch.cuda.current_stream(x.device).cuda_stream",
          lambda: torch.cuda.current_stream(x.device).cuda_stream),
         ("both", "ctypes call (launches the kernel)",
-         lambda: fn(x.data_ptr(), out.data_ptr(), n, 2, 0, scale, shift, blocks, stream)),
+         lambda: fn(x.data_ptr(), out.data_ptr(), n, _kernels.ELEMENT_CODES[torch.uint8], 0,
+                    scale, shift, blocks, stream)),
         ("both", "launch counter (a lock)", counter.add),
         ("after", "checks (dict.get x2, contiguity, is_cuda)",
          lambda: (in_codes.get(x.dtype), out_codes.get(torch.float32), x.is_contiguous(),
@@ -7398,6 +7890,7 @@ def main(argv) -> int:
         # the small kernels' timings alone, for the tree this file sits in
         # (copied into another tree of the port, it times that one)
         small = small_kernel_times()
+        small["attention"] = attention_kernel_times()
         log(smi)
         log(json.dumps({"kernel_times": small, "device": kind}))
         return 0
@@ -7406,9 +7899,10 @@ def main(argv) -> int:
         return 2
     smem = _kernels.function("flash_attention", "flash_attention_smem_bytes",
                              (ctypes.c_int, ctypes.c_int))
-    log("  flash_attention dynamic shared memory per block (bytes): "
-        + ", ".join(f"{name} D={dim} {smem(code, dim)}"
-                    for name, code in (("bf16", 1), ("fp32", 0)) for dim in (16, 32, 64, 128)))
+    log("  flash_attention dynamic shared memory per block (bytes, by padded head dim): "
+        + ", ".join(f"{name} D<={dim} {smem(code, dim)}"
+                    for name, code in (("bf16/fp16", 1), ("fp32", 0))
+                    for dim in (16, 32, 64, 96, 128, 256)))
 
     rows, worst = check_decode_attention()
     for row in rows:
@@ -7421,52 +7915,54 @@ def main(argv) -> int:
     for shape, iters in (((8, 8, 2048, 128), 50), ((8, 8, 8192, 128), 20),
                          ((16, 8, 4096, 128), 20)):
         timed.append(time_decode_attention(shape, [shape[2] - 1] * shape[0], iters))
+    # the dtype and head dims the kernel took last: fp16 at the full cache,
+    # Phi-3-mini's head dim 96 (32 heads) and Gemma-2B's 256 (8 heads)
+    for shape, name in (((8, 8, 8192, 128), "float16"), ((8, 32, 4096, 96), "bfloat16"),
+                        ((8, 8, 4096, 256), "bfloat16"), ((8, 8, 4096, 256), "float32")):
+        timed.append(time_decode_attention(shape, [shape[2] - 1] * shape[0], 20, name))
     batched_timed = time_decode_attention(BATCHED_SHAPE, BATCHED_POS, 200)
-    for row in timed + [batched_timed]:
-        device = ("not measured" if row["device_ms"] is None
-                  else f"{row['device_ms']:.4f} ms")
-        pos = row["pos"] if len(set(row["pos"])) > 1 else row["pos"][0]
-        log(f"time decode_attention {row['shape']} pos {pos} bf16 splits "
-            f"{row['splits']}: kernel {row['ms']:.4f} ms per call ({device} on the "
-            f"device), plain {row['plain_ms']:.4f} ms, "
-            f"sdpa {row['library_ms']:.4f} ms, bound {row['bound_ms']:.5f} ms "
-            f"({row['bound_ms'] / row['ms']:.1%} of bound)")
+    log_attention_times(timed + [batched_timed], [])
 
     flash_rows = check_flash_attention()
     for row in flash_rows:
         log(f"kernel flash_attention {row['case']} {row['shape']} {row['dtype']} "
             f"causal={row['causal']} blocks {row['blocks']}: max_abs_err "
-            f"{row['max_abs_err']:.3g} (atol = rtol = {row['tol']}; vs the tiled plain "
-            f"version {row['max_abs_err_vs_tiled_plain']:.3g})"
-            + ("" if row["dtype"] != "bfloat16" else
-               f" (atol {TILED_TOLERANCE['atol']:g}, rtol {TILED_TOLERANCE['rtol']:g})"))
+            f"{row['max_abs_err']:.3g} (atol {row['tol'][0]:.3g}, rtol {row['tol'][1]:.3g})"
+            + ("" if row["dtype"] not in TILED_TOLERANCE else
+               f"; vs the tiled plain version {row['max_abs_err_vs_tiled_plain']:.3g} (atol "
+               f"{TILED_TOLERANCE[row['dtype']]['atol']:g}, rtol "
+               f"{TILED_TOLERANCE[row['dtype']]['rtol']:g})"))
     # the served shape at its largest length first: the row of the kernels line
     flash_timed = [time_flash_attention((1, s, 4, 16), "float32", False, iters)
                    for s, iters in ((8192, 20), (4096, 50), (100, 200))]
-    flash_timed += [time_flash_attention((4, 2048, 8, 128), "bfloat16", causal, 10)
-                    for causal in (False, True)]
-    for row in flash_timed:
-        log(f"time flash_attention {row['shape']} {row['dtype']} causal={row['causal']}: "
-            f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
-            f"sdpa {row['library_ms']:.4f} ms, bound {row['bound_ms']:.5f} ms "
-            f"({row['bound_by']}; {row['bound_ms'] / row['ms']:.1%} of bound)")
+    flash_timed += [time_flash_attention((4, 2048, 8, 128), name, causal, 10)
+                    for name in ("bfloat16", "float16") for causal in (False, True)]
+    # the head dims the kernel took last: the wide encoder's shapes (phase 15)
+    # in fp32, and the same heads at S = 4096 on the tensor cores
+    flash_timed += [time_flash_attention((1, 8192, h, d), "float32", False, 3)
+                    for h, d in ((32, 96), (8, 256))]
+    flash_timed += [time_flash_attention((1, 4096, h, d), name, False, 10)
+                    for h, d in ((32, 96), (8, 256)) for name in ("bfloat16", "float16")]
+    log_attention_times([], flash_timed)
 
     quant_rows = check_quantize()
     log(f"kernel quantize_int8 / dequantize_int8: element exact in all {len(quant_rows)} "
         "cases (quantize fp32, bf16 and fp16 in at n = 8192, 8195, 16 Mi and unaligned, "
-        "half-steps and clipping; dequantize to fp32, bf16 and fp16 over every int8 value, "
-        "at n = 8192, 8195, one below and one above a whole word and a whole grid step, "
-        "16 Mi, input unaligned)")
+        "half-steps and clipping, and uint8, int32, bool, int8 and int16 in over their whole "
+        "range at scale 2 and max/127; dequantize to fp32, bf16 and fp16 over every int8 "
+        "value, at n = 8192, 8195, one below and one above a whole word and a whole grid "
+        "step, 16 Mi, input unaligned, and from every other input dtype around its own word "
+        "and grid step)")
     norm_rows = check_normalize()
     log(f"kernel normalize_image: element exact in all {len(norm_rows)} cases (fp32, uint8, "
-        "bf16, fp16 and int32 in; fp32, bf16 and fp16 out; INCEPTION and NONE; (224,224,3), "
-        "(7,13,3), 16 Mi, unaligned, int32 past 2**24; every path one below and one above a "
-        "whole vector and a whole grid step)")
+        "bf16, fp16, int32, bool, int8 and int16 in; fp32, bf16 and fp16 out; INCEPTION and "
+        "NONE; (224,224,3), (7,13,3), 16 Mi, unaligned, int32 past 2**24; every path one "
+        "below and one above a whole vector and a whole grid step)")
     softmax_rows = check_softmax()
     for row in softmax_rows:
         if "max_rel_err" in row:
             log(f"kernel softmax_probabilities {row['shape']} {row['dtype']} "
-                f"x{row['scale']:g} ({row['variant']}, {row['warps']} warps, {row['vectors']} "
+                f"x{row['scale']} ({row['variant']}, {row['warps']} warps, {row['vectors']} "
                 f"vectors): max_rel_err {row['max_rel_err']:.3g} (rtol {row['rtol']})")
         else:
             log(f"kernel softmax_probabilities {row['shape']} {row['case']} "
@@ -7493,6 +7989,11 @@ def main(argv) -> int:
     small = small_kernel_times()
     quant_timed, norm_timed, softmax_timed = (small["quantize"], small["normalize"],
                                               small["softmax"])
+    new_dtype_timed = time_new_element_dtypes()
+    for row in new_dtype_timed:
+        log(f"time {row['kernel']} {row['shape']} {row['in']} in: kernel {row['ms']:.4f} ms, "
+            f"plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.5f} ms "
+            f"({row['bound_ms'] / row['ms']:.1%} of bound)")
     breakdown = host_breakdown()
     for piece in breakdown:
         log(f"host normalize_image (224,224,3) uint8: {piece['side']} {piece['piece']}: "
@@ -7515,6 +8016,7 @@ def main(argv) -> int:
     mesh = serve_mesh()
     training = serve_training()
     native_result = serve_native(served, grpc_served)
+    wide = serve_wide_encoder()
     for row in served["identity"]:
         log(f"identity_fp32 {row['bytes'] // MIB} MiB p50: wire {row['wire_p50_ms']:.3f} ms, "
             f"system shm {row['system_shm_p50_ms']:.3f} ms, "
@@ -7906,7 +8408,9 @@ def main(argv) -> int:
         f"spills {bz['spill_reasons']}, byzantine core executions {bz['byzantine_executions']}")
     wt = fed["watch"]
     log(f"federation watch: {wt['named']['kind']} named {wt['faulted_url']} after "
-        f"{wt['detect_requests']} requests / {wt['detect_s']:.3f} s, ring {wt['ring_records']}, "
+        f"{wt['detect_requests']} requests / {wt['detect_s']:.3f} s ({wt['batches']} batches, "
+        f"{wt['burn_wait_batches']} of them waiting on the burn alert's divergence), ring "
+        f"{wt['ring_records']}, "
         f"doctor --blackbox {wt['doctor_blackbox_s']:.2f} s; {card}")
     dr = fed["doctor"]
     log(f"federation doctor: cells {dr['cells']} exit {dr['healthy_exit']} in "
@@ -7922,6 +8426,7 @@ def main(argv) -> int:
     log_mesh(mesh, card)
     log_training(training, card)
     log_native(native_result, card)
+    log_wide(wide, card)
 
     def native_launches(kernel):
         """Phase 14's launches of ``kernel`` by path."""
@@ -7990,6 +8495,10 @@ def main(argv) -> int:
         "orchestration_launches": orchestration_launches("flash_attention"),
         "federation_launches": federation_launches("flash_attention"),
         "native_launches": native_launches("flash_attention"),
+        # phase 15: the encoder at Phi-3-mini's and Gemma-2B's widths
+        "wide_launches": {row["width"]: {plane: row[plane]["launches"]["flash_attention"]
+                                         for plane in ("cuda_shm", "wire")}
+                          for row in wide["rows"]},
         "shape": flash_row["shape"],
         "dtype": flash_row["dtype"],
         "at_shapes": flash_timed[1:],
@@ -8079,6 +8588,7 @@ def main(argv) -> int:
                    "batched_timed": batched_timed,
                    "flash_checks": flash_rows, "flash_timed": flash_timed,
                    "quantize_checks": quant_rows, "quantize_timed": quant_timed,
+                   "new_dtype_timed": new_dtype_timed,
                    "dequantize_bf16_timed": small["dequantize_bf16"],
                    "tie_checks": tie_rows, "classification_timed": topk_timed,
                    "no_fallback_checks": fallback_rows,
@@ -8090,6 +8600,7 @@ def main(argv) -> int:
                    "resilience": resilience, "harness": harness, "process": process,
                    "pool": pool, "orchestration": orchestration, "federation": federation,
                    "mesh": mesh, "training": training, "native": native_result,
+                   "wide": wide,
                    "kernels": kernels}, f, indent=1)
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -1,6 +1,7 @@
 // Shared by the elementwise kernels (normalize_image.cu, quantize_int8.cu,
-// softmax.cu): element types to and from fp32, and the word loop of the
-// kernels that map one element to one element (normalize_image and
+// softmax.cu): the input element types by the code the wrappers pass
+// (dispatch_input), element types to and from fp32, and the word loop of
+// the kernels that map one element to one element (normalize_image and
 // dequantize_int8).
 //
 // The word loop: a thread takes kElems = 16 / max(in size, out size)
@@ -33,13 +34,38 @@ template <> struct Word<8> { using type = uint2; };
 template <> struct Word<16> { using type = uint4; };
 
 // every type here but int32 converts to fp32 exactly; int32 rounds to
-// nearest even, as a float32 cast does in XLA and PyTorch
+// nearest even, as a float32 cast does in XLA and PyTorch. A bool is read
+// as its byte (uint8_t), which PyTorch and XLA hold at 0 or 1.
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 __device__ __forceinline__ float to_f32(uint8_t x) { return (float)x; }
 __device__ __forceinline__ float to_f32(int8_t x) { return (float)x; }
+__device__ __forceinline__ float to_f32(int16_t x) { return (float)x; }
 __device__ __forceinline__ float to_f32(int32_t x) { return __int2float_rn(x); }
+
+template <typename T>
+struct Tag {
+  using type = T;
+};
+
+// fn(Tag<In>{}) for the input element type of `code`, the codes of
+// ELEMENT_CODES in ops/_kernels.py: 0 fp32, 1 bf16, 2 fp16 (the output
+// codes too), 3 uint8, 4 int8, 5 int16, 6 int32, 7 bool (read as uint8)
+template <typename Fn>
+int dispatch_input(int code, const Fn& fn) {
+  switch (code) {
+    case 0: return fn(Tag<float>{});
+    case 1: return fn(Tag<__nv_bfloat16>{});
+    case 2: return fn(Tag<__half>{});
+    case 3:
+    case 7: return fn(Tag<uint8_t>{});
+    case 4: return fn(Tag<int8_t>{});
+    case 5: return fn(Tag<int16_t>{});
+    case 6: return fn(Tag<int32_t>{});
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
 
 // fp32 to the output type, rounded to nearest even
 __device__ __forceinline__ void from_f32(float x, float* out) { *out = x; }

@@ -2,17 +2,18 @@
 //
 // Replaces the Pallas TPU kernel client_tpu/ops/flash_attention.py
 // (_flash_kernel, launched by flash_attention). What it computes:
-//   q, k, v [B,S,H,D] in one dtype (fp32 or bf16), scale D^-0.5,
-//   out[b,i,h] = softmax_j(q_i.k_j * scale) . v_j in q's dtype, with keys
-//   j > i masked when causal. Scores and the output accumulate in fp32. As
-//   the Pallas kernel does, QK^T takes the operands in their own dtype (a
-//   bf16 x bf16 product is exact in fp32) and the probabilities are rounded
-//   to v's dtype before the PV product; fp32 runs in full fp32 FMA, no TF32.
+//   q, k, v [B,S,H,D] in one dtype (fp32, bf16 or fp16), any D from 1 to
+//   256, scale D^-0.5, out[b,i,h] = softmax_j(q_i.k_j * scale) . v_j in q's
+//   dtype, with keys j > i masked when causal. Scores and the output
+//   accumulate in fp32. As the Pallas kernel does, QK^T takes the operands
+//   in their own dtype (a bf16 x bf16 or fp16 x fp16 product is exact in
+//   fp32) and the probabilities are rounded to v's dtype before the PV
+//   product; fp32 runs in full fp32 FMA, no TF32.
 //
 // Bound on the H100: operations. The work is 4*B*H*S^2*D flops (about half
 // with causal masking) over 4*B*S*H*D elements moved, so at the served and
 // benchmark shapes the flops over the card's peak are the least time: the
-// bf16 tensor-core peak for bf16, the fp32 CUDA-core peak for fp32.
+// tensor-core peak for bf16 and fp16, the fp32 CUDA-core peak for fp32.
 //
 // Every kernel here gives a block a (b*h, query tile) and walks the key
 // tiles in order with the running (max, sum, acc) state in registers, as
@@ -22,46 +23,67 @@
 // keys >= S are masked and their K/V rows zero-filled, so a ragged S is never
 // padded in memory; query rows >= S are not stored. A row with no live key
 // yet keeps p = 0 and a correction of 0 (never exp(-inf - -inf)); the final
-// divide is by max(l, 1e-30), as in Pallas. The two new kernels take the
+// divide is by max(l, 1e-30), as in Pallas. The two newer kernels take the
 // softmax in log2 units (exp2, with scale * log2(e) folded into the score
-// scaling, or into Q for fp32). Three kernels:
+// scaling, or into Q for fp32).
 //
-// - bf16, any D (flash_attention_mma_kernel): a FlashAttention-2 layout on the tensor
-//   cores. 4 warps own 16 rows each of a 64-row query tile. Each warp loads
-//   its Q fragments once with ldmatrix and keeps them in registers; QK^T is
-//   mma.sync m16n8k16 bf16 -> fp32; the online softmax runs on the
-//   accumulator fragments (row max by quad shuffles, each thread summing its
-//   own columns until the end); P is rounded to bf16 in registers and used
-//   directly as the A operand of the PV mma (no P tile in shared memory).
-//   K/V tiles of 64 keys are double-buffered with cp.async (16-byte copies,
-//   rows >= S zero-filled), so the next tile's copy overlaps this one's
-//   math. Shared rows are padded by 16 bytes: ldmatrix reads are
-//   conflict-free. A row whose max did not move skips the accumulator's
-//   rescale (its correction is exactly 1).
+// Head dims: each kernel is instantiated for a padded width DP (16, 32, 64,
+// 96, 128 or 256; the smallest that holds D) and takes the real D at run
+// time. Loads zero-fill the columns at or beyond D, so they add nothing to a
+// score and give output columns that are never stored; stores write the
+// columns below D only; the scale is the real D's. A D that fills its padded
+// width in 16-byte aligned rows (16, 32, 64 and 128 in the served models,
+// 96 and 256 in the wide encoder) runs an instantiation of its own in which
+// D, the copy width and the paired stores are constants. A row of D elements is
+// copied in the widest of 16, 8, 4 or 2 bytes that divides D * itemsize and
+// the tensors' alignment (bf16 D = 10 takes 4-byte copies; cp.async takes 4,
+// 8 or 16 bytes, so an odd D in 2-byte types is copied element by element).
+// Three kernels:
+//
+// - bf16 and fp16, any D (flash_attention_mma_kernel): a FlashAttention-2
+//   layout on the tensor cores. 4 warps own 16 rows each of a 64-row query
+//   tile. Each warp loads its Q fragments with ldmatrix and, up to DP = 128,
+//   keeps them in registers (at DP = 256 they are read from shared memory at
+//   each k-step, which leaves the registers to the 128 fp32 O accumulators a
+//   thread holds there); QK^T is mma.sync m16n8k16 (bf16 or fp16) -> fp32;
+//   the online softmax runs on the accumulator fragments (row max by quad
+//   shuffles, each thread summing its own columns until the end); P is
+//   rounded to the input type in registers and used directly as the A
+//   operand of the PV mma (no P tile in shared memory). K/V tiles of 64 keys
+//   are double-buffered with cp.async (rows >= S zero-filled), so the next
+//   tile's copy overlaps this one's math. Shared rows are padded by 16
+//   bytes: ldmatrix reads are conflict-free. A row whose max did not move
+//   skips the accumulator's rescale (its correction is exactly 1). At DP =
+//   256 the five tiles take 165 KB of shared memory: one block an SM.
 // - fp32, D <= 32 (flash_attention_f32_small_kernel): CUDA-core FMAs. Thread
-//   (ty, tx) of a 16 x 16 grid owns 64/D query rows, held in registers for
+//   (ty, tx) of a 16 x 16 grid owns 64/DP query rows, held in registers for
 //   the whole loop, and the keys tx + 16j of each 128-key tile (the
 //   per-tile softmax bookkeeping spread over 8 keys a thread). Its PV
 //   accumulator sums over ITS OWN keys across the whole loop (the rescale
 //   by corr is uniform along a row, so this is exact); the 16 lanes of a row
 //   are reduced once, at the end. So P never goes through shared memory.
 //   K/V tiles are double-buffered with cp.async as above.
-// - fp32, D >= 64 (flash_attention_f32_kernel): the first design, kept. Thread
+// - fp32, D > 32 (flash_attention_f32_kernel): the first design, kept. Thread
 //   (ty, tx) owns 4 query rows; scores at keys tx + 16j go through a shared
-//   P tile into the PV product at columns tx + 16e.
+//   P tile into the PV product at columns tx + 16e. At DP = 256 its tiles
+//   take 209 KB of shared memory.
 // The host entry point returns the launch's cudaError_t; it takes the
 // caller's stream and allocates nothing.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
 #include <stdint.h>
 #include <string.h>
 
+#include <initializer_list>
+
 namespace {
 
 using bf16 = __nv_bfloat16;
+using half = __half;
 
 constexpr int kBlockK = 64;  // keys per tile (every kernel)
 constexpr float kLog2e = 1.4426950408889634f;
@@ -74,12 +96,19 @@ __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
-// 16 bytes from global to shared; with live = false the 16 bytes are zeroed
-// (src-size 0: nothing is read)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool live) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(live ? 16 : 0)
-               : "memory");
+// VB (4, 8 or 16) bytes from global to shared; with live = false the bytes
+// are zeroed (src-size 0: nothing is read)
+template <int VB>
+__device__ __forceinline__ void cp_async(void* dst, const void* src, bool live) {
+  if constexpr (VB == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+                 "l"(src), "r"(live ? 16 : 0)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(smem_addr(dst)),
+                 "l"(src), "n"(VB), "r"(live ? VB : 0)
+                 : "memory");
+  }
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -103,37 +132,92 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* 
                : "r"(smem_addr(p)));
 }
 
-// c[16x8] += a[16x16] . b[16x8], bf16 operands, fp32 accumulators
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+// The tensor-core types: c[16x8] += a[16x16] . b[16x8] with fp32
+// accumulators, two floats rounded to the type (p.astype(v.dtype)) with lo
+// in the low half, and one pair or one element stored
+template <typename T> struct Mma;
 
-// two floats rounded to bf16 (p.astype(bf16)), lo in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  uint32_t r;
-  memcpy(&r, &h, sizeof(r));
-  return r;
-}
+template <> struct Mma<bf16> {
+  static __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                             uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+        "{%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+    uint32_t r;
+    memcpy(&r, &h, sizeof(r));
+    return r;
+  }
+  static __device__ __forceinline__ void store2(bf16* p, float lo, float hi) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(lo, hi);
+  }
+  static __device__ __forceinline__ void store1(bf16* p, float x) { *p = __float2bfloat16_rn(x); }
+};
+
+template <> struct Mma<half> {
+  static __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                             uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+        "{%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    const __half2 h = __floats2half2_rn(lo, hi);
+    uint32_t r;
+    memcpy(&r, &h, sizeof(r));
+    return r;
+  }
+  static __device__ __forceinline__ void store2(half* p, float lo, float hi) {
+    *reinterpret_cast<__half2*>(p) = __floats2half2_rn(lo, hi);
+  }
+  static __device__ __forceinline__ void store1(half* p, float x) { *p = __float2half_rn(x); }
+};
 
 // rows [row0, row0 + ROWS) of one (b, h) slice into a shared tile with row
-// stride LD, by 16-byte cp.async; rows >= seq are zero-filled
-template <typename T, int D, int LD, int ROWS, int THREADS>
-__device__ __forceinline__ void load_tile_async(T* tile, const T* __restrict__ src, int row0,
-                                                int seq, long long stride_s) {
-  constexpr int kVec = 16 / sizeof(T);
-  constexpr int kPerRow = D / kVec;
+// stride LD, DP columns of which the first `dim` are read, by VB-byte
+// copies; rows >= seq and columns >= dim are zero-filled. VB = 2 (2-byte
+// types whose rows are not 4-byte aligned) is a plain element copy.
+template <typename T, int DP, int LD, int ROWS, int THREADS, int VB>
+__device__ __forceinline__ void load_tile_vec(T* tile, const T* __restrict__ src, int row0,
+                                              int seq, long long stride_s, int dim) {
+  constexpr int kVec = VB / (int)sizeof(T);
+  constexpr int kPerRow = DP / kVec;
   for (int i = threadIdx.x; i < ROWS * kPerRow; i += THREADS) {
     const int r = i / kPerRow;
     const int c = (i % kPerRow) * kVec;
-    const bool live = row0 + r < seq;
+    const bool live = row0 + r < seq && (dim == DP || c < dim);  // c < DP always
     const T* g = live ? src + (long long)(row0 + r) * stride_s + c : src;
-    cp_async16(tile + r * LD + c, g, live);
+    if constexpr (VB >= 4) {
+      cp_async<VB>(tile + r * LD + c, g, live);
+    } else {
+      static_assert(sizeof(T) == 2, "element copies are for 2-byte types");
+      const unsigned short bits = live ? *reinterpret_cast<const unsigned short*>(g) : 0;
+      *reinterpret_cast<unsigned short*>(tile + r * LD + c) = bits;
+    }
+  }
+}
+
+// load_tile_vec with the copy width chosen at run time (uniform over the
+// block): vec is 16, 8, 4 or (2-byte types) 2 bytes
+template <typename T, int DP, int LD, int ROWS, int THREADS>
+__device__ __forceinline__ void load_tile_async(T* tile, const T* __restrict__ src, int row0,
+                                                int seq, long long stride_s, int dim, int vec) {
+  if (vec == 16) {
+    load_tile_vec<T, DP, LD, ROWS, THREADS, 16>(tile, src, row0, seq, stride_s, dim);
+  } else if (vec == 8) {
+    load_tile_vec<T, DP, LD, ROWS, THREADS, 8>(tile, src, row0, seq, stride_s, dim);
+  } else if (vec == 4 || sizeof(T) == 4) {
+    load_tile_vec<T, DP, LD, ROWS, THREADS, 4>(tile, src, row0, seq, stride_s, dim);
+  } else {
+    if constexpr (sizeof(T) == 2) {
+      load_tile_vec<T, DP, LD, ROWS, THREADS, 2>(tile, src, row0, seq, stride_s, dim);
+    }
   }
 }
 
@@ -146,36 +230,45 @@ __device__ __forceinline__ bool tile_needs_mask(int k0, int q0, int seq, int cau
 }
 
 // ---------------------------------------------------------------------------
-// bf16: mma.sync on the tensor cores
+// bf16 and fp16: mma.sync on the tensor cores
 // ---------------------------------------------------------------------------
 
 constexpr int kMmaWarps = 4;
 constexpr int kMmaThreads = kMmaWarps * 32;
 constexpr int kMmaBlockQ = kMmaWarps * 16;  // each warp owns 16 query rows
 
-template <int D>
+template <int DP>
 struct MmaSmem {
-  static constexpr int kLd = D + 8;  // 16 bytes of padding: conflict-free ldmatrix
+  static constexpr int kLd = DP + 8;  // 16 bytes of padding: conflict-free ldmatrix
   static constexpr int kTile = 64 * kLd;
-  static constexpr size_t kBytes = 5 * kTile * sizeof(bf16);  // Q, K x 2, V x 2
+  static constexpr size_t kBytes = 5 * kTile * 2;  // Q, K x 2, V x 2 of 2-byte values
 };
 
-template <int D>
+template <typename T, int DP, bool FULL>
 __global__ void __launch_bounds__(kMmaThreads)
-flash_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                           const bf16* __restrict__ v, bf16* __restrict__ out, int seq, int heads,
-                           long long stride_b, long long stride_s, long long stride_h, float scale,
-                           int causal) {
+flash_attention_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                           const T* __restrict__ v, T* __restrict__ out, int seq, int heads,
+                           int dim, long long stride_b, long long stride_s, long long stride_h,
+                           float scale, int causal, int vec, int pairs) {
+  if constexpr (FULL) {
+    dim = DP;
+    vec = 16;
+    pairs = 1;
+  }
   static_assert(kMmaBlockQ == kBlockK, "the diagonal tile is the block's own");
-  constexpr int LD = MmaSmem<D>::kLd;
-  constexpr int TILE = MmaSmem<D>::kTile;
-  constexpr int KSTEPS = D / 16;     // k-steps of QK^T
+  using M = Mma<T>;
+  constexpr int LD = MmaSmem<DP>::kLd;
+  constexpr int TILE = MmaSmem<DP>::kTile;
+  constexpr int KSTEPS = DP / 16;    // k-steps of QK^T
   constexpr int NT = kBlockK / 8;    // 8-key n-tiles of S
-  constexpr int DT = D / 8;          // 8-column n-tiles of O
+  constexpr int DT = DP / 8;         // 8-column n-tiles of O
+  // Q fragments in registers for the whole loop up to DP = 128; at 256 the
+  // O accumulators need those registers, and Q is read at each k-step
+  constexpr bool kQRegs = DP <= 128;
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sq = reinterpret_cast<bf16*>(smem);
-  bf16* sk = sq + TILE;      // two buffers
-  bf16* sv = sk + 2 * TILE;  // two buffers
+  T* sq = reinterpret_cast<T*>(smem);
+  T* sk = sq + TILE;      // two buffers
+  T* sv = sk + 2 * TILE;  // two buffers
 
   const int bh = blockIdx.x;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kMmaBlockQ;  // longest causal blocks first
@@ -188,16 +281,19 @@ flash_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
   const int row1 = row0 + 8;
   // scores in log2 units: exp(x * scale) = exp2(x * scale * log2(e))
   const float scale_log2 = scale * kLog2e;
+  // this warp's Q fragment rows in the shared tile
+  const int q_row = warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int q_col = (lane >> 4) * 8;
 
   const int k_end = causal ? min(seq, q0 + kMmaBlockQ) : seq;
   const int n_tiles = (k_end + kBlockK - 1) / kBlockK;
 
-  load_tile_async<bf16, D, LD, kMmaBlockQ, kMmaThreads>(sq, q + base, q0, seq, stride_s);
-  load_tile_async<bf16, D, LD, kBlockK, kMmaThreads>(sk, k + base, 0, seq, stride_s);
-  load_tile_async<bf16, D, LD, kBlockK, kMmaThreads>(sv, v + base, 0, seq, stride_s);
+  load_tile_async<T, DP, LD, kMmaBlockQ, kMmaThreads>(sq, q + base, q0, seq, stride_s, dim, vec);
+  load_tile_async<T, DP, LD, kBlockK, kMmaThreads>(sk, k + base, 0, seq, stride_s, dim, vec);
+  load_tile_async<T, DP, LD, kBlockK, kMmaThreads>(sv, v + base, 0, seq, stride_s, dim, vec);
   cp_async_commit();
 
-  uint32_t qa[KSTEPS][4];
+  uint32_t qa[kQRegs ? KSTEPS : 1][4];
   float o[DT][4];
 #pragma unroll
   for (int j = 0; j < DT; ++j)
@@ -212,25 +308,24 @@ flash_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
     if (it + 1 < n_tiles) {
       // the buffer it fills was last read in iteration it - 1, which ended
       // with a barrier
-      load_tile_async<bf16, D, LD, kBlockK, kMmaThreads>(sk + (buf ^ 1) * TILE, k + base,
-                                                         k0 + kBlockK, seq, stride_s);
-      load_tile_async<bf16, D, LD, kBlockK, kMmaThreads>(sv + (buf ^ 1) * TILE, v + base,
-                                                         k0 + kBlockK, seq, stride_s);
+      load_tile_async<T, DP, LD, kBlockK, kMmaThreads>(sk + (buf ^ 1) * TILE, k + base,
+                                                       k0 + kBlockK, seq, stride_s, dim, vec);
+      load_tile_async<T, DP, LD, kBlockK, kMmaThreads>(sv + (buf ^ 1) * TILE, v + base,
+                                                       k0 + kBlockK, seq, stride_s, dim, vec);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();
-    if (it == 0) {
-      // this warp's Q fragments, kept in registers for the whole loop
-      const int r = warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+    if constexpr (kQRegs) {
+      if (it == 0) {
 #pragma unroll
-      for (int kk = 0; kk < KSTEPS; ++kk)
-        ldmatrix_x4(qa[kk], sq + r * LD + kk * 16 + (lane >> 4) * 8);
+        for (int kk = 0; kk < KSTEPS; ++kk) ldmatrix_x4(qa[kk], sq + q_row * LD + kk * 16 + q_col);
+      }
     }
-    const bf16* kt = sk + buf * TILE;
-    const bf16* vt = sv + buf * TILE;
+    const T* kt = sk + buf * TILE;
+    const T* vt = sv + buf * TILE;
 
     // S = Q K^T: 16 rows x 64 keys per warp, fp32
     float s[NT][4];
@@ -240,13 +335,15 @@ flash_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
       for (int c = 0; c < 4; ++c) s[j][c] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < KSTEPS; ++kk) {
+      uint32_t(&a)[4] = qa[kQRegs ? kk : 0];
+      if constexpr (!kQRegs) ldmatrix_x4(a, sq + q_row * LD + kk * 16 + q_col);
 #pragma unroll
       for (int np = 0; np < NT / 2; ++np) {
         uint32_t b[4];
         const int key = np * 16 + (lane & 7) + (lane >> 4) * 8;
         ldmatrix_x4(b, kt + key * LD + kk * 16 + ((lane >> 3) & 1) * 8);
-        mma_bf16(s[2 * np], qa[kk], b[0], b[1]);
-        mma_bf16(s[2 * np + 1], qa[kk], b[2], b[3]);
+        M::mma(s[2 * np], a, b[0], b[1]);
+        M::mma(s[2 * np + 1], a, b[2], b[3]);
       }
     }
 
@@ -298,20 +395,20 @@ flash_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
       m[r] = mx;
     }
 
-    // O += P V, P rounded to bf16 in registers as the A operand
+    // O += P V, P rounded to the input type in registers as the A operand
 #pragma unroll
     for (int kk = 0; kk < NT / 2; ++kk) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+      const uint32_t pa[4] = {M::pack(s[2 * kk][0], s[2 * kk][1]),
+                              M::pack(s[2 * kk][2], s[2 * kk][3]),
+                              M::pack(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                              M::pack(s[2 * kk + 1][2], s[2 * kk + 1][3])};
 #pragma unroll
       for (int dp = 0; dp < DT / 2; ++dp) {
         uint32_t b[4];
         const int key = kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
         ldmatrix_x4_trans(b, vt + key * LD + dp * 16 + (lane >> 4) * 8);
-        mma_bf16(o[2 * dp], pa, b[0], b[1]);
-        mma_bf16(o[2 * dp + 1], pa, b[2], b[3]);
+        M::mma(o[2 * dp], pa, b[0], b[1]);
+        M::mma(o[2 * dp + 1], pa, b[2], b[3]);
       }
     }
     __syncthreads();  // this tile's buffers are refilled in the next iteration
@@ -324,16 +421,27 @@ flash_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
   }
   const float den0 = fmaxf(l[0], 1e-30f);
   const float den1 = fmaxf(l[1], 1e-30f);
+  // columns below dim only: in pairs where the rows are 4-byte aligned
+  // (`pairs`: an even dim and strides), else one by one
 #pragma unroll
   for (int j = 0; j < DT; ++j) {
     const int col = j * 8 + 2 * t;
-    if (row0 < seq) {
-      *reinterpret_cast<__nv_bfloat162*>(out + base + (long long)row0 * stride_s + col) =
-          __floats2bfloat162_rn(o[j][0] / den0, o[j][1] / den0);
-    }
-    if (row1 < seq) {
-      *reinterpret_cast<__nv_bfloat162*>(out + base + (long long)row1 * stride_s + col) =
-          __floats2bfloat162_rn(o[j][2] / den1, o[j][3] / den1);
+    if (col >= dim) continue;
+    T* dst0 = out + base + (long long)row0 * stride_s + col;
+    T* dst1 = out + base + (long long)row1 * stride_s + col;
+    if (pairs) {
+      if (row0 < seq) M::store2(dst0, o[j][0] / den0, o[j][1] / den0);
+      if (row1 < seq) M::store2(dst1, o[j][2] / den1, o[j][3] / den1);
+    } else {
+      const bool second = col + 1 < dim;
+      if (row0 < seq) {
+        M::store1(dst0, o[j][0] / den0);
+        if (second) M::store1(dst0 + 1, o[j][1] / den0);
+      }
+      if (row1 < seq) {
+        M::store1(dst1, o[j][2] / den1);
+        if (second) M::store1(dst1 + 1, o[j][3] / den1);
+      }
     }
   }
 }
@@ -344,23 +452,41 @@ flash_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
 
 constexpr int kThreads = 256;  // a 16 x 16 grid (both fp32 kernels)
 
-template <int D>
+template <int DP>
 struct SmallF32 {
-  static constexpr int kRows = 64 / D;          // query rows per thread
+  static constexpr int kRows = 64 / DP;         // query rows per thread
   static constexpr int kBlockQ = 16 * kRows;    // query rows per block
   static constexpr int kBlockK = 128;           // keys per tile
-  static constexpr int kLd = D + 4;             // padded row: conflict-free float4 reads
+  static constexpr int kLd = DP + 4;            // padded row: conflict-free float4 reads
   static constexpr int kTile = kBlockK * kLd;
   static constexpr size_t kBytes = 4 * kTile * sizeof(float);  // K x 2, V x 2
 };
 
-template <int D>
+// four floats of one row from columns [d, d + 4) (d < DP), zero at or beyond
+// dim; one 16-byte load when the row's copies are 16 bytes wide
+template <int DP>
+__device__ __forceinline__ float4 load4(const float* __restrict__ row, int d, int dim, int vec) {
+  if (vec == 16) {
+    return dim == DP || d < dim ? *reinterpret_cast<const float4*>(row + d)
+                                : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  float x[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) x[e] = d + e < dim ? row[d + e] : 0.f;
+  return make_float4(x[0], x[1], x[2], x[3]);
+}
+
+template <int DP, bool FULL>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_f32_small_kernel(const float* __restrict__ q, const float* __restrict__ k,
                                  const float* __restrict__ v, float* __restrict__ out, int seq,
-                                 int heads, long long stride_b, long long stride_s, long long stride_h,
-                                 float scale, int causal) {
-  using S = SmallF32<D>;
+                                 int heads, int dim, long long stride_b, long long stride_s,
+                                 long long stride_h, float scale, int causal, int vec, int) {
+  if constexpr (FULL) {
+    dim = DP;
+    vec = 16;
+  }
+  using S = SmallF32<DP>;
   constexpr int R = S::kRows;
   constexpr int LD = S::kLd;
   constexpr int TILE = S::kTile;
@@ -378,21 +504,22 @@ flash_attention_f32_small_kernel(const float* __restrict__ q, const float* __res
 
   const int k_end = causal ? min(seq, q0 + S::kBlockQ) : seq;
   const int n_tiles = (k_end + BK - 1) / BK;
-  load_tile_async<float, D, LD, BK, kThreads>(sk, k + base, 0, seq, stride_s);
-  load_tile_async<float, D, LD, BK, kThreads>(sv, v + base, 0, seq, stride_s);
+  load_tile_async<float, DP, LD, BK, kThreads>(sk, k + base, 0, seq, stride_s, dim, vec);
+  load_tile_async<float, DP, LD, BK, kThreads>(sv, v + base, 0, seq, stride_s, dim, vec);
   cp_async_commit();
 
-  // this thread's query rows, for the whole loop (rows >= seq are zero),
-  // times scale * log2(e): the scores come out in log2 units, for exp2
+  // this thread's query rows, for the whole loop (rows >= seq and columns
+  // >= dim are zero), times scale * log2(e): the scores come out in log2
+  // units, for exp2
   const float scale_log2 = scale * kLog2e;
-  float qr[R][D];
+  float qr[R][DP];
 #pragma unroll
   for (int i = 0; i < R; ++i) {
     const int row = q0 + ty * R + i;
 #pragma unroll
-    for (int d = 0; d < D; d += 4) {
+    for (int d = 0; d < DP; d += 4) {
       float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (row < seq) x = *reinterpret_cast<const float4*>(q + base + (long long)row * stride_s + d);
+      if (row < seq) x = load4<DP>(q + base + (long long)row * stride_s, d, dim, vec);
       qr[i][d] = x.x * scale_log2;
       qr[i][d + 1] = x.y * scale_log2;
       qr[i][d + 2] = x.z * scale_log2;
@@ -400,23 +527,23 @@ flash_attention_f32_small_kernel(const float* __restrict__ q, const float* __res
     }
   }
 
-  float m[R], l[R], acc[R][D];
+  float m[R], l[R], acc[R][DP];
 #pragma unroll
   for (int i = 0; i < R; ++i) {
     m[i] = -INFINITY;
     l[i] = 0.f;  // over this thread's keys only, until the end
 #pragma unroll
-    for (int d = 0; d < D; ++d) acc[i][d] = 0.f;  // likewise
+    for (int d = 0; d < DP; ++d) acc[i][d] = 0.f;  // likewise
   }
 
   for (int it = 0; it < n_tiles; ++it) {
     const int k0 = it * BK;
     const int buf = it & 1;
     if (it + 1 < n_tiles) {
-      load_tile_async<float, D, LD, BK, kThreads>(sk + (buf ^ 1) * TILE, k + base,
-                                                       k0 + BK, seq, stride_s);
-      load_tile_async<float, D, LD, BK, kThreads>(sv + (buf ^ 1) * TILE, v + base,
-                                                       k0 + BK, seq, stride_s);
+      load_tile_async<float, DP, LD, BK, kThreads>(sk + (buf ^ 1) * TILE, k + base, k0 + BK,
+                                                   seq, stride_s, dim, vec);
+      load_tile_async<float, DP, LD, BK, kThreads>(sv + (buf ^ 1) * TILE, v + base, k0 + BK,
+                                                   seq, stride_s, dim, vec);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -435,7 +562,7 @@ flash_attention_f32_small_kernel(const float* __restrict__ q, const float* __res
     for (int j = 0; j < KEYS; ++j) {
       const float* krow = kt + (tx + 16 * j) * LD;
 #pragma unroll
-      for (int d = 0; d < D; d += 4) {
+      for (int d = 0; d < DP; d += 4) {
         const float4 kv = *reinterpret_cast<const float4*>(krow + d);
 #pragma unroll
         for (int i = 0; i < R; ++i) {
@@ -464,11 +591,11 @@ flash_attention_f32_small_kernel(const float* __restrict__ q, const float* __res
       // no live key for this row yet: p = 0 and the correction is 0
       const float m_use = mx == -INFINITY ? 0.f : mx;
       // (unconditional: this kernel ran slower on the H100 with a branch that
-      // skips it when the max did not move, as the bf16 kernel does)
+      // skips it when the max did not move, as the mma kernel does)
       const float corr = exp2f(m[i] - m_use);
       l[i] *= corr;
 #pragma unroll
-      for (int d = 0; d < D; ++d) acc[i][d] *= corr;
+      for (int d = 0; d < DP; ++d) acc[i][d] *= corr;
 #pragma unroll
       for (int j = 0; j < KEYS; ++j) {
         s[i][j] = exp2f(s[i][j] - m_use);
@@ -482,7 +609,7 @@ flash_attention_f32_small_kernel(const float* __restrict__ q, const float* __res
     for (int j = 0; j < KEYS; ++j) {
       const float* vrow = vt + (tx + 16 * j) * LD;
 #pragma unroll
-      for (int d = 0; d < D; d += 4) {
+      for (int d = 0; d < DP; d += 4) {
         const float4 vv = *reinterpret_cast<const float4*>(vrow + d);
 #pragma unroll
         for (int i = 0; i < R; ++i) {
@@ -503,21 +630,21 @@ flash_attention_f32_small_kernel(const float* __restrict__ q, const float* __res
     for (int off = 8; off > 0; off >>= 1) {
       l[i] += __shfl_xor_sync(0xffffffffu, l[i], off);
 #pragma unroll
-      for (int d = 0; d < D; ++d) acc[i][d] += __shfl_xor_sync(0xffffffffu, acc[i][d], off);
+      for (int d = 0; d < DP; ++d) acc[i][d] += __shfl_xor_sync(0xffffffffu, acc[i][d], off);
     }
     const int row = q0 + ty * R + i;
     if (row < seq) {
       const float denom = fmaxf(l[i], 1e-30f);
       float* dst = out + base + (long long)row * stride_s;
 #pragma unroll
-      for (int d = 0; d < D; ++d)
-        if ((d & 15) == tx) dst[d] = acc[i][d] / denom;
+      for (int d = 0; d < DP; ++d)
+        if ((d & 15) == tx && d < dim) dst[d] = acc[i][d] / denom;
     }
   }
 }
 
 // ---------------------------------------------------------------------------
-// fp32, D >= 64: P through shared memory
+// fp32, D > 32: P through shared memory
 // ---------------------------------------------------------------------------
 
 constexpr int kBlockQ = 64;          // query rows per block
@@ -526,16 +653,18 @@ constexpr int kKeys = kBlockK / 16;  // keys per thread in a score tile
 constexpr int kLdP = kBlockK + 1;    // padded row of the probability tile
 
 // rows [row0, row0 + rows) of one (b, h) slice into a shared tile with row
-// stride LD; rows >= seq are zero-filled
-template <int D, int LD>
+// stride LD, DP columns of which the first dim are read; rows >= seq and
+// columns >= dim are zero-filled
+template <int DP, int LD>
 __device__ __forceinline__ void load_tile(float* tile, const float* __restrict__ src, int row0,
-                                          int rows, int seq, long long stride_s) {
-  constexpr int kPerRow = D / 4;
+                                          int rows, int seq, long long stride_s, int dim,
+                                          int vec) {
+  constexpr int kPerRow = DP / 4;
   for (int i = threadIdx.x; i < rows * kPerRow; i += kThreads) {
     const int r = i / kPerRow;
     const int c = (i % kPerRow) * 4;
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < seq) x = *reinterpret_cast<const float4*>(src + (long long)(row0 + r) * stride_s + c);
+    if (row0 + r < seq) x = load4<DP>(src + (long long)(row0 + r) * stride_s, c, dim, vec);
     float* dst = tile + r * LD + c;
     dst[0] = x.x;
     dst[1] = x.y;
@@ -544,25 +673,29 @@ __device__ __forceinline__ void load_tile(float* tile, const float* __restrict__
   }
 }
 
-template <int D>
+template <int DP>
 struct F32Smem {
-  static constexpr int kLd = D + 1;  // odd word count per row
+  static constexpr int kLd = DP + 1;  // odd word count per row
   static constexpr size_t kQ = (size_t)kBlockQ * kLd * sizeof(float);
   static constexpr size_t kK = (size_t)kBlockK * kLd * sizeof(float);
-  static constexpr size_t kV = (size_t)kBlockK * D * sizeof(float);
+  static constexpr size_t kV = (size_t)kBlockK * DP * sizeof(float);
   static constexpr size_t kP = (size_t)kBlockQ * kLdP * sizeof(float);
   static constexpr size_t kBytes = kQ + kK + kV + kP;
 };
 
-template <int D>
+template <int DP, bool FULL>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                            const float* __restrict__ v, float* __restrict__ out, int seq, int heads,
-                           long long stride_b, long long stride_s, long long stride_h, float scale,
-                           int causal) {
-  using S = F32Smem<D>;
+                           int dim, long long stride_b, long long stride_s, long long stride_h,
+                           float scale, int causal, int vec, int) {
+  if constexpr (FULL) {
+    dim = DP;
+    vec = 16;
+  }
+  using S = F32Smem<DP>;
   constexpr int LD = S::kLd;
-  constexpr int E = D / 16;  // output columns per thread
+  constexpr int E = DP / 16;  // output columns per thread
   extern __shared__ __align__(16) unsigned char smem[];
   float* sq = reinterpret_cast<float*>(smem);
   float* sk = reinterpret_cast<float*>(smem + S::kQ);
@@ -575,7 +708,7 @@ flash_attention_f32_kernel(const float* __restrict__ q, const float* __restrict_
   const int ty = threadIdx.x >> 4;
   const int tx = threadIdx.x & 15;
 
-  load_tile<D, LD>(sq, q + base, q0, kBlockQ, seq, stride_s);
+  load_tile<DP, LD>(sq, q + base, q0, kBlockQ, seq, stride_s, dim, vec);
 
   float m[kRows], l[kRows], acc[kRows][E];
 #pragma unroll
@@ -590,8 +723,8 @@ flash_attention_f32_kernel(const float* __restrict__ q, const float* __restrict_
   const int k_end = causal ? min(seq, q0 + kBlockQ) : seq;
   for (int k0 = 0; k0 < k_end; k0 += kBlockK) {
     __syncthreads();  // the previous tile's K, V and P are no longer read
-    load_tile<D, LD>(sk, k + base, k0, kBlockK, seq, stride_s);
-    load_tile<D, D>(sv, v + base, k0, kBlockK, seq, stride_s);
+    load_tile<DP, LD>(sk, k + base, k0, kBlockK, seq, stride_s, dim, vec);
+    load_tile<DP, DP>(sv, v + base, k0, kBlockK, seq, stride_s, dim, vec);
     __syncthreads();
 
     float s[kRows][kKeys];
@@ -599,8 +732,9 @@ flash_attention_f32_kernel(const float* __restrict__ q, const float* __restrict_
     for (int i = 0; i < kRows; ++i)
 #pragma unroll
       for (int j = 0; j < kKeys; ++j) s[i][j] = 0.f;
+    // the columns past dim are zero: the product stops at dim
 #pragma unroll 8
-    for (int d = 0; d < D; ++d) {
+    for (int d = 0; d < dim; ++d) {
       float qv[kRows], kv[kKeys];
 #pragma unroll
       for (int i = 0; i < kRows; ++i) qv[i] = sq[(ty * kRows + i) * LD + d];
@@ -649,7 +783,7 @@ flash_attention_f32_kernel(const float* __restrict__ q, const float* __restrict_
     for (int j = 0; j < kBlockK; ++j) {
       float vv[E];
 #pragma unroll
-      for (int e = 0; e < E; ++e) vv[e] = sv[j * D + tx + 16 * e];
+      for (int e = 0; e < E; ++e) vv[e] = sv[j * DP + tx + 16 * e];
 #pragma unroll
       for (int i = 0; i < kRows; ++i) {
         const float p = sp[(ty * kRows + i) * kLdP + j];
@@ -666,7 +800,8 @@ flash_attention_f32_kernel(const float* __restrict__ q, const float* __restrict_
       const float denom = fmaxf(l[i], 1e-30f);
       float* dst = out + base + (long long)row * stride_s;
 #pragma unroll
-      for (int e = 0; e < E; ++e) dst[tx + 16 * e] = acc[i][e] / denom;
+      for (int e = 0; e < E; ++e)
+        if (tx + 16 * e < dim) dst[tx + 16 * e] = acc[i][e] / denom;
     }
   }
 }
@@ -680,10 +815,12 @@ struct Args {
   const void* k;
   const void* v;
   void* out;
-  int batch, seq, heads;
+  int batch, seq, heads, dim;
   long long stride_b, stride_s, stride_h;
   float scale;
   int causal;
+  int vec;    // bytes a row copy moves: 16, 8, 4 or 2
+  int pairs;  // 1: two outputs are stored together (4-byte aligned pairs)
   cudaStream_t stream;
 };
 
@@ -699,25 +836,89 @@ cudaError_t launch(Kernel kernel, size_t smem, int threads, int block_q, const A
   if (bh > INT_MAX || q_tiles > 65535) return cudaErrorInvalidValue;
   kernel<<<dim3((unsigned)bh, (unsigned)q_tiles), threads, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<T*>(a.out), a.seq, a.heads, a.stride_b, a.stride_s, a.stride_h, a.scale,
-      a.causal);
+      static_cast<T*>(a.out), a.seq, a.heads, a.dim, a.stride_b, a.stride_s, a.stride_h,
+      a.scale, a.causal, a.vec, a.pairs);
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t launch_bf16(const Args& a) {
-  return launch<bf16>(flash_attention_mma_kernel<D>, MmaSmem<D>::kBytes, kMmaThreads, kMmaBlockQ, a);
+// rows that fill the padded width and copy in 16 bytes (stores in pairs)
+// take the instantiation where dim, vec and pairs are constants
+template <int DP>
+bool full_rows(const Args& a) {
+  return a.dim == DP && a.vec == 16 && a.pairs;
 }
 
-template <int D>
+template <typename T, int DP>
+cudaError_t launch_mma(const Args& a) {
+  return full_rows<DP>(a)
+             ? launch<T>(flash_attention_mma_kernel<T, DP, true>, MmaSmem<DP>::kBytes,
+                         kMmaThreads, kMmaBlockQ, a)
+             : launch<T>(flash_attention_mma_kernel<T, DP, false>, MmaSmem<DP>::kBytes,
+                         kMmaThreads, kMmaBlockQ, a);
+}
+
+template <int DP>
 cudaError_t launch_f32_small(const Args& a) {
-  return launch<float>(flash_attention_f32_small_kernel<D>, SmallF32<D>::kBytes, kThreads,
-                       SmallF32<D>::kBlockQ, a);
+  return full_rows<DP>(a)
+             ? launch<float>(flash_attention_f32_small_kernel<DP, true>, SmallF32<DP>::kBytes,
+                             kThreads, SmallF32<DP>::kBlockQ, a)
+             : launch<float>(flash_attention_f32_small_kernel<DP, false>, SmallF32<DP>::kBytes,
+                             kThreads, SmallF32<DP>::kBlockQ, a);
 }
 
-template <int D>
+template <int DP>
 cudaError_t launch_f32(const Args& a) {
-  return launch<float>(flash_attention_f32_kernel<D>, F32Smem<D>::kBytes, kThreads, kBlockQ, a);
+  return full_rows<DP>(a) ? launch<float>(flash_attention_f32_kernel<DP, true>,
+                                          F32Smem<DP>::kBytes, kThreads, kBlockQ, a)
+                          : launch<float>(flash_attention_f32_kernel<DP, false>,
+                                          F32Smem<DP>::kBytes, kThreads, kBlockQ, a);
+}
+
+// the padded width a head dim runs at: the smallest instantiated one that
+// holds it (0 past 256)
+int padded_dim(int dim) {
+  if (dim < 1) return 0;
+  for (int dp : {16, 32, 64, 96, 128, 256})
+    if (dim <= dp) return dp;
+  return 0;
+}
+
+template <typename T>
+cudaError_t dispatch_mma(const Args& a) {
+  switch (padded_dim(a.dim)) {
+    case 16: return launch_mma<T, 16>(a);
+    case 32: return launch_mma<T, 32>(a);
+    case 64: return launch_mma<T, 64>(a);
+    case 96: return launch_mma<T, 96>(a);
+    case 128: return launch_mma<T, 128>(a);
+    case 256: return launch_mma<T, 256>(a);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+cudaError_t dispatch_f32(const Args& a) {
+  switch (padded_dim(a.dim)) {
+    case 16: return launch_f32_small<16>(a);
+    case 32: return launch_f32_small<32>(a);
+    case 64: return launch_f32<64>(a);
+    case 96: return launch_f32<96>(a);
+    case 128: return launch_f32<128>(a);
+    case 256: return launch_f32<256>(a);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// the widest copy (16, 8, 4 or 2 bytes) that divides every row's start: the
+// base addresses, the strides and the row's own bytes
+int row_copy_bytes(const Args& a, int itemsize) {
+  const unsigned long long bits =
+      reinterpret_cast<uintptr_t>(a.q) | reinterpret_cast<uintptr_t>(a.k) |
+      reinterpret_cast<uintptr_t>(a.v) | (unsigned long long)(a.stride_b * itemsize) |
+      (unsigned long long)(a.stride_s * itemsize) | (unsigned long long)(a.stride_h * itemsize) |
+      (unsigned long long)(a.dim * itemsize);
+  for (int vec : {16, 8, 4})
+    if (bits % vec == 0) return vec;
+  return 2;
 }
 
 }  // namespace
@@ -725,52 +926,51 @@ cudaError_t launch_f32(const Args& a) {
 // Dynamic shared memory per block of the kernel that runs for (dtype, dim)
 // (0 for an unsupported pair): ptxas reports static shared memory only.
 extern "C" int flash_attention_smem_bytes(int dtype, int dim) {
-  if (dtype == 1) {
-    switch (dim) {
+  const int dp = padded_dim(dim);
+  if (dtype == 1 || dtype == 2) {
+    switch (dp) {
       case 16: return (int)MmaSmem<16>::kBytes;
       case 32: return (int)MmaSmem<32>::kBytes;
       case 64: return (int)MmaSmem<64>::kBytes;
+      case 96: return (int)MmaSmem<96>::kBytes;
       case 128: return (int)MmaSmem<128>::kBytes;
+      case 256: return (int)MmaSmem<256>::kBytes;
     }
   } else if (dtype == 0) {
-    switch (dim) {
+    switch (dp) {
       case 16: return (int)SmallF32<16>::kBytes;
       case 32: return (int)SmallF32<32>::kBytes;
       case 64: return (int)F32Smem<64>::kBytes;
+      case 96: return (int)F32Smem<96>::kBytes;
       case 128: return (int)F32Smem<128>::kBytes;
+      case 256: return (int)F32Smem<256>::kBytes;
     }
   }
   return 0;
 }
 
 // q, k, v and out share the [B,S,H,D] shape and the element strides
-// (stride_b, stride_s, stride_h; the last dimension is contiguous).
-// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 = launched).
+// (stride_b, stride_s, stride_h; the last dimension is contiguous), D from 1
+// to 256. dtype: 0 = float32, 1 = bfloat16, 2 = float16. Returns a
+// cudaError_t (0 = launched).
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* out,
                                       int batch, int seq, int heads, int dim,
                                       long long stride_b, long long stride_s,
                                       long long stride_h, int dtype, float scale, int causal,
                                       void* stream) {
-  if (batch <= 0 || seq <= 0 || heads <= 0) return (int)cudaErrorInvalidValue;
-  const Args a{q, k, v, out, batch, seq, heads, stride_b, stride_s, stride_h, scale, causal,
-               static_cast<cudaStream_t>(stream)};
-  if (dtype == 1) {
-    switch (dim) {
-      case 16: return (int)launch_bf16<16>(a);
-      case 32: return (int)launch_bf16<32>(a);
-      case 64: return (int)launch_bf16<64>(a);
-      case 128: return (int)launch_bf16<128>(a);
-      default: return (int)cudaErrorInvalidValue;
-    }
+  if (batch <= 0 || seq <= 0 || heads <= 0 || padded_dim(dim) == 0) {
+    return (int)cudaErrorInvalidValue;
   }
-  if (dtype == 0) {
-    switch (dim) {
-      case 16: return (int)launch_f32_small<16>(a);
-      case 32: return (int)launch_f32_small<32>(a);
-      case 64: return (int)launch_f32<64>(a);
-      case 128: return (int)launch_f32<128>(a);
-      default: return (int)cudaErrorInvalidValue;
-    }
+  Args a{q, k, v, out, batch, seq, heads, dim, stride_b, stride_s, stride_h, scale, causal,
+         0, 0, static_cast<cudaStream_t>(stream)};
+  const int itemsize = dtype == 0 ? 4 : 2;
+  a.vec = row_copy_bytes(a, itemsize);
+  a.pairs = (reinterpret_cast<uintptr_t>(out) % 4 == 0 && dim % 2 == 0 && stride_b % 2 == 0 &&
+             stride_s % 2 == 0 && stride_h % 2 == 0) ? 1 : 0;
+  switch (dtype) {
+    case 0: return (int)dispatch_f32(a);
+    case 1: return (int)dispatch_mma<bf16>(a);
+    case 2: return (int)dispatch_mma<half>(a);
+    default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaErrorInvalidValue;
 }

@@ -2,12 +2,12 @@
 //
 // Replaces the Pallas TPU kernel of client_tpu/ops/__init__.py,
 // _normalize_kernel (normalize_image): x * scale + shift cast to the output
-// dtype. Each element is f32(x) (fp32, bf16, fp16, uint8 in: all exact in
-// fp32; int32 rounded to nearest) times f32(scale) plus f32(shift) with ONE
-// rounding, by an explicit __fmaf_rn, so the result does not hang on nvcc's
-// -fmad contraction; the JAX kernel rounds once too (XLA fuses the
-// multiply-add). bf16 and fp16 output is that fp32 value rounded to nearest
-// even.
+// dtype. Each element is f32(x) (fp32, bf16, fp16, uint8, int8, int16 and
+// bool in: all exact in fp32; int32 rounded to nearest) times f32(scale)
+// plus f32(shift) with ONE rounding, by an explicit __fmaf_rn, so the result
+// does not hang on nvcc's -fmad contraction; the JAX kernel rounds once too
+// (XLA fuses the multiply-add). bf16 and fp16 output is that fp32 value
+// rounded to nearest even.
 //
 // Bound on the H100: bytes. One FMA per element against 2-8 bytes moved, far
 // below the card's balance point, so the least time is the bytes over
@@ -66,20 +66,17 @@ int launch_out(const void* x, void* out, long long n, int out_dtype, float scale
 
 }  // namespace
 
-// x: n elements, fp32 (in_dtype 0), bf16 (1), uint8 (2), fp16 (3) or int32
-// (4); out: n elements, fp32 (out_dtype 0), bf16 (1) or fp16 (2); `blocks`
+// x: n elements of the input code in_dtype (dispatch_input in
+// elementwise.cuh: fp32, bf16, fp16, uint8, int8, int16, int32 or bool);
+// out: n elements, fp32 (out_dtype 0), bf16 (1) or fp16 (2); `blocks`
 // blocks of 256 threads. Returns a cudaError_t (0 = launched).
 extern "C" int normalize_image_launch(const void* x, void* out, long long n, int in_dtype,
                                       int out_dtype, float scale, float shift, int blocks,
                                       void* stream) {
   if (n <= 0 || blocks < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (in_dtype) {
-    case 0: return launch_out<float>(x, out, n, out_dtype, scale, shift, blocks, s);
-    case 1: return launch_out<__nv_bfloat16>(x, out, n, out_dtype, scale, shift, blocks, s);
-    case 2: return launch_out<uint8_t>(x, out, n, out_dtype, scale, shift, blocks, s);
-    case 3: return launch_out<__half>(x, out, n, out_dtype, scale, shift, blocks, s);
-    case 4: return launch_out<int32_t>(x, out, n, out_dtype, scale, shift, blocks, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return dispatch_input(in_dtype, [&](auto tag) {
+    using In = typename decltype(tag)::type;
+    return launch_out<In>(x, out, n, out_dtype, scale, shift, blocks, s);
+  });
 }

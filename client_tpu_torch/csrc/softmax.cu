@@ -1,7 +1,9 @@
 // Row softmax for Hopper (sm_90a): probabilities over the last axis.
 //
 // Replaces the Pallas TPU kernel of client_tpu/ops/__init__.py,
-// _softmax_kernel (softmax_probabilities): per row, x upcast to fp32,
+// _softmax_kernel (softmax_probabilities): per row, x (fp32, bf16, fp16,
+// uint8, int8, int16, int32 or bool, as dispatch_input in elementwise.cuh
+// reads them) upcast to fp32,
 // m = max(x), e = exp(x - m), out = e / sum(e), written as fp32. expf and
 // IEEE division (no __expf, no __fdividef, no fast-math flags) keep the
 // result within rtol 1e-5 of the plain version. A row that is all -inf
@@ -13,10 +15,12 @@
 //
 // - registers (softmax_registers_kernel): a group of 1, 2, 4 or 8 warps owns
 //   a row and holds all of it in registers, V 16-byte vectors a thread (4 fp32
-//   or 8 bf16 or fp16 each), neighbouring threads on neighbouring vectors. The max,
-//   the exponentials and their sum come from the registers; each element's
-//   expf runs once, and the row is written once with 16-byte stores. Up to
-//   8192 columns (256 threads x 8 float4, or x 4 bf16 or fp16 vectors).
+//   or int32, 8 bf16, fp16 or int16, or 16 of a 1-byte type each),
+//   neighbouring threads on neighbouring vectors. The max, the exponentials
+//   and their sum come from the registers; each element's expf runs once,
+//   and the row is written once with 16-byte stores. Up to 8192 columns
+//   (256 threads x 32 values: 8 vectors of 4-byte values, 4 of 2-byte, 2 of
+//   1-byte).
 // - two passes (softmax_two_pass_kernel<T, true>): longer rows. An online
 //   (max, sum) pass with 16-byte loads, then one pass that writes.
 // - scalar (softmax_two_pass_kernel<T, false>): rows that are not 16-byte
@@ -255,16 +259,25 @@ int launch(const void* x, float* out, long long rows, long long cols, int varian
       if (!aligned || vectors > kMaxVectors || cols / kElems > 32LL * warps * vectors) {
         return (int)cudaErrorInvalidValue;
       }
+      // only the vector counts that keep a thread at 32 values or fewer are
+      // instantiated
       switch (vectors) {
         case 1: return launch_registers<T, 1>(src, out, rows, cols, warps, blocks, s);
-        case 2: return launch_registers<T, 2>(src, out, rows, cols, warps, blocks, s);
-        case 4: return launch_registers<T, 4>(src, out, rows, cols, warps, blocks, s);
+        case 2:
+          if constexpr (kMaxVectors >= 2) {
+            return launch_registers<T, 2>(src, out, rows, cols, warps, blocks, s);
+          }
+          return (int)cudaErrorInvalidValue;
+        case 4:
+          if constexpr (kMaxVectors >= 4) {
+            return launch_registers<T, 4>(src, out, rows, cols, warps, blocks, s);
+          }
+          return (int)cudaErrorInvalidValue;
         case 8:
           if constexpr (kMaxVectors >= 8) {
             return launch_registers<T, 8>(src, out, rows, cols, warps, blocks, s);
-          } else {
-            return (int)cudaErrorInvalidValue;
           }
+          return (int)cudaErrorInvalidValue;
         default: return (int)cudaErrorInvalidValue;
       }
     }
@@ -281,8 +294,9 @@ int launch(const void* x, float* out, long long rows, long long cols, int varian
 
 }  // namespace
 
-// x: rows x cols, row-major, fp32 (dtype 0), bf16 (1) or fp16 (2); out: rows x
-// cols fp32. variant 0 (registers, `vectors` 16-byte vectors a thread), 1
+// x: rows x cols, row-major, of the input code `dtype` (dispatch_input in
+// elementwise.cuh: fp32, bf16, fp16, uint8, int8, int16, int32 or bool);
+// out: rows x cols fp32. variant 0 (registers, `vectors` 16-byte vectors a thread), 1
 // (two passes, 16-byte loads) or 2 (two passes, scalar); `warps` (1, 2, 4 or
 // 8) warps a row; `blocks` blocks of 256 threads. Returns a cudaError_t (0 =
 // launched).
@@ -292,10 +306,8 @@ extern "C" int softmax_launch(const void* x, void* out, long long rows, long lon
   if (rows <= 0 || cols <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* dst = static_cast<float*>(out);
-  switch (dtype) {
-    case 0: return launch<float>(x, dst, rows, cols, variant, warps, vectors, blocks, s);
-    case 1: return launch<__nv_bfloat16>(x, dst, rows, cols, variant, warps, vectors, blocks, s);
-    case 2: return launch<__half>(x, dst, rows, cols, variant, warps, vectors, blocks, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return elementwise::dispatch_input(dtype, [&](auto tag) {
+    return launch<typename decltype(tag)::type>(x, dst, rows, cols, variant, warps, vectors,
+                                                blocks, s);
+  });
 }

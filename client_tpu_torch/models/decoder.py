@@ -14,10 +14,12 @@ wire contract:
 
 Weights and math are bf16 on the model's device with fp32 norm statistics,
 softmax and logits. Attention goes through ``ops.decode_attention`` only: on
-a CUDA device that is the Hopper kernel, on the CPU its plain version (the
-JAX package's ``attention_impl`` switch chose between two versions of that
-same function, so the port has none). The position travels as a device int32
-tensor, so neither the cache update nor the kernel waits on the host.
+a CUDA device that is the Hopper kernel, on the CPU its plain version. The
+JAX package's ``attention_impl`` switch ("einsum", its default, or "pallas")
+chose between two versions of that same function; the port takes and checks
+the keyword as JAX does, and both values run ``ops.decode_attention``. The
+position travels as a device int32 tensor, so neither the cache update nor
+the kernel waits on the host.
 """
 
 from __future__ import annotations
@@ -113,11 +115,22 @@ class TinyDecoderModel(Model):
     LAYERS = 2
     MAX_LEN = 128
 
-    def __init__(self, seed: int = 0, device="cuda", params: Optional[Params] = None):
-        """``params``: weights from :func:`load_jax_params` (or
-        :func:`draw_params`); drawn from ``seed`` on first use when None."""
+    # the JAX model's attention_impl values: its dense einsum path and its
+    # Pallas kernel, the same function
+    ATTENTION_IMPLS = ("einsum", "pallas")
+
+    def __init__(self, seed: int = 0, attention_impl: str = "einsum", *, device="cuda",
+                 params: Optional[Params] = None):
+        """``attention_impl``: "einsum" (JAX's default) or "pallas", checked
+        as JAX checks it; both run ``ops.decode_attention`` (the Hopper kernel
+        on a CUDA device). ``params``: weights from :func:`load_jax_params`
+        (or :func:`draw_params`); drawn from ``seed`` on first use when
+        None."""
+        if attention_impl not in self.ATTENTION_IMPLS:
+            raise ValueError(f"unknown attention_impl {attention_impl!r}")
         super().__init__()
         self._seed = seed
+        self.attention_impl = attention_impl
         self._device = torch.device(device)
         self._lock = threading.Lock()
         self._params = params

@@ -78,9 +78,14 @@ class BatchedDecoderModel(Model):
     RESULT_TIMEOUT_S = 120.0
 
     def __init__(self, seed: int = 0, slots: int = 8, max_delay_s: float = 0.002,
-                 idle_ttl_s: float = 300.0, device="cuda", params: Optional[Params] = None):
+                 attention_impl: str = "einsum", idle_ttl_s: float = 300.0, *, device="cuda",
+                 params: Optional[Params] = None):
+        """JAX's parameters in JAX's order; ``attention_impl`` is checked as
+        :class:`TinyDecoderModel` checks it, and both values run
+        ``ops.decode_attention``."""
         super().__init__()
-        self._decoder = TinyDecoderModel(seed=seed, device=device, params=params)
+        self._decoder = TinyDecoderModel(seed=seed, attention_impl=attention_impl,
+                                         device=device, params=params)
         self.slots = int(slots)
         self._max_delay_s = max_delay_s
         # idle-sequence reaper TTL (tritonserver's sequence batcher:

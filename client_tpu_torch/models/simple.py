@@ -25,26 +25,26 @@ from .decoder import _host_ints
 
 
 class AddSubModel(Model):
-    """``simple``: INPUT0,INPUT1 INT32[1,16] -> OUTPUT0=sum, OUTPUT1=diff."""
+    """``simple``: INPUT0,INPUT1 INT32[batch_dim, width] -> OUTPUT0=sum,
+    OUTPUT1=diff ([1, 16] by default, as JAX's)."""
 
     name = "simple"
 
-    SHAPE = [1, 16]
-
-    def __init__(self, device="cuda"):
+    def __init__(self, batch_dim: int = 1, width: int = 16, *, device="cuda"):
         super().__init__()
+        self._shape = [batch_dim, width]
         self._device = torch.device(device)
 
     def inputs(self) -> List[TensorSpec]:
         return [
-            TensorSpec("INPUT0", "INT32", list(self.SHAPE)),
-            TensorSpec("INPUT1", "INT32", list(self.SHAPE)),
+            TensorSpec("INPUT0", "INT32", list(self._shape)),
+            TensorSpec("INPUT1", "INT32", list(self._shape)),
         ]
 
     def outputs(self) -> List[TensorSpec]:
         return [
-            TensorSpec("OUTPUT0", "INT32", list(self.SHAPE)),
-            TensorSpec("OUTPUT1", "INT32", list(self.SHAPE)),
+            TensorSpec("OUTPUT0", "INT32", list(self._shape)),
+            TensorSpec("OUTPUT1", "INT32", list(self._shape)),
         ]
 
     def execute(self, inputs, parameters):

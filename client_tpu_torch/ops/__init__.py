@@ -4,9 +4,10 @@ plain PyTorch versions.
 Each kernel wrapper launches its CUDA kernel for CUDA tensors (or raises),
 takes the plain version only for CPU tensors, and counts its launches in a
 :class:`LaunchCounter`, so a run can show that its main path went through the
-kernel. On the CPU the plain versions take every dtype of ``PLAIN_DTYPES``,
-as the JAX ops do; on a CUDA tensor a dtype the kernel has no code for
-raises ``TypeError`` (:func:`kernel_dtype_error`).
+kernel. The plain versions take every dtype of ``PLAIN_DTYPES``, as the JAX
+ops do, and so do the four elementwise kernels; the attention kernels take
+float32, bfloat16 and float16 and head dims up to 256, and on a CUDA tensor
+an integer or bool dtype raises ``TypeError`` (:func:`kernel_dtype_error`).
 
 As ``client_tpu.ops`` does, the package exposes its ops by name:
 ``flash_attention``, ``normalize_image``, ``softmax_probabilities``,
@@ -44,11 +45,12 @@ def check_plain_dtype(op: str, dtype) -> None:
 
 def kernel_dtype_error(op: str, dtype, kernel_dtypes) -> TypeError:
     """The error for a CUDA tensor of a dtype the op computes on the CPU but
-    its kernel does not take: there is no fallback to the plain version."""
+    its kernel does not take (integer or bool attention): there is no
+    fallback to the plain version."""
     return TypeError(
         f"{op} on a CUDA tensor takes {_names(kernel_dtypes)}, not {dtype}: its kernel "
-        "has no code for that dtype yet (ROADMAP.md, queue B, item 7); a CPU tensor of "
-        "that dtype runs the plain version")
+        "has no code for integer or bool attention yet (ROADMAP.md, queue B, item 7); a "
+        "CPU tensor of that dtype runs the plain version")
 
 
 class LaunchCounter:

@@ -41,6 +41,13 @@ NVCC_FLAGS = [
 # the card's own count from sm_count on the card
 H100_SMS = 132
 
+# the element-type codes the kernels take (dispatch_input in
+# csrc/elementwise.cuh; the attention kernels take the first three): every
+# dtype of ops.PLAIN_DTYPES, a bool read as its byte
+ELEMENT_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2, torch.uint8: 3,
+                 torch.int8: 4, torch.int16: 5, torch.int32: 6, torch.bool: 7}
+FLOAT_CODES = {dtype: code for dtype, code in ELEMENT_CODES.items() if dtype.is_floating_point}
+
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 _functions: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}

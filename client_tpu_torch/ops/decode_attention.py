@@ -8,13 +8,14 @@ called through ctypes (see ``ops._kernels``).
 One query vector per (sequence, head) attends over its static KV cache:
 q [B,H,D], k/v [B,H,M,D], pos [B] int32 — cache slots ``<= pos[b]`` attend
 (the decoder's position-based mask), softmax scale ``D**-0.5``, output
-[B,H,D] in q's dtype. The kernel takes fp32 and bf16 inputs and D in
-{32, 64, 128}, and accumulates in fp32; q, k or v that are not 16-byte
-aligned (views into larger tensors) are copied into fresh tensors, which
-the allocator aligns, and the same kernel runs on the copies (served
-callers pass fresh tensors, so the served path never copies). On the CPU
-the plain versions take any D and every dtype of ``ops.PLAIN_DTYPES``, as
-the JAX function does.
+[B,H,D] in q's dtype. The kernel takes fp32, bf16 and fp16 inputs and any
+D from 1 to ``MAX_DIM`` (256; it is built for padded widths 16, 32, 64, 128
+and 256 and reads the real D at run time), and accumulates in fp32; q, k or
+v that are not 16-byte aligned (views into larger tensors) are copied into
+fresh tensors, which the allocator aligns, and the same kernel runs on the
+copies (served callers pass fresh tensors, so the served path never
+copies). On the CPU the plain versions take any D and every dtype of
+``ops.PLAIN_DTYPES``, as the JAX function does.
 
 Bound on the H100: bytes. A step reads B*H*(pos+1)*D*2*itemsize bytes of
 cache (plus q and the output), at the card's 3.35 TB/s; the arithmetic is
@@ -47,8 +48,9 @@ import torch
 
 from . import LaunchCounter, _kernels, check_plain_dtype, kernel_dtype_error
 
-SUPPORTED_DIMS = (32, 64, 128)
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the widest head dim the kernel takes
+MAX_DIM = 256
+_DTYPE_CODES = _kernels.FLOAT_CODES
 # decode_attention_launch(q, k, v, pos, out, partial, batch, heads, max_len,
 #                         dim, dtype, splits, scale, stream)
 _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
@@ -197,8 +199,8 @@ def _launch(q, k, v, pos) -> torch.Tensor:
     if code is None:
         raise kernel_dtype_error("decode_attention", q.dtype, _DTYPE_CODES)
     batch, heads, dim = q.shape
-    if dim not in SUPPORTED_DIMS:
-        raise ValueError(f"the decode_attention kernel takes head dims {SUPPORTED_DIMS}, "
+    if not 1 <= dim <= MAX_DIM:
+        raise ValueError(f"the decode_attention kernel takes head dims 1 to {MAX_DIM}, "
                          f"not {dim}")
     # a view that is not 16-byte aligned is copied: the allocator aligns the copy
     q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
@@ -225,8 +227,8 @@ def decode_attention(q, k, v, pos, block_k: int = 128, interpret=None):
     for an integer or bool cache, where the result depends on them; the
     Hopper kernel splits the cache by ``split_plan``. ``interpret`` changes
     nothing: the tensors' device decides what runs. CUDA tensors run the
-    Hopper kernel (fp32 or bf16, D in ``SUPPORTED_DIMS``; anything else
-    raises); CPU tensors the plain version."""
+    Hopper kernel (fp32, bf16 or fp16, D from 1 to ``MAX_DIM``; an integer
+    or bool cache and wider heads raise); CPU tensors the plain version."""
     _check(q, k, v, pos, block_k)
     device = q.device.type
     if device == "cuda":

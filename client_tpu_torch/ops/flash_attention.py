@@ -7,29 +7,31 @@ called through ctypes (see ``ops._kernels``).
 
 q, k, v: [batch, seq, heads, dim], one dtype, any seq >= 1; softmax scale
 ``dim**-0.5``; optional causal mask; output in q's dtype. The kernel takes
-float32 and bfloat16 and dim in {16, 32, 64, 128}; q, k or v that are not
-16-byte aligned (views into larger tensors) are copied into fresh tensors,
-which the allocator aligns, and the same kernel runs on the copies (served
-callers pass fresh tensors, so the served path never copies). On the CPU
-the plain versions take any dim and every dtype of ``ops.PLAIN_DTYPES``, as
-the JAX function does. Scores and the output accumulate in fp32; with
-bf16 inputs the probabilities are rounded to bf16 before the PV product, as
-the Pallas kernel does. The kernel masks keys past the sequence itself, so a
+float32, bfloat16 and float16 and any dim from 1 to ``MAX_DIM`` (256): it
+is built for padded widths (16, 32, 64, 96, 128, 256) and reads the real
+dim at run time. q, k or v that are not 16-byte aligned (views into larger
+tensors) are copied into fresh tensors, which the allocator aligns, and the
+same kernel runs on the copies (served callers pass fresh tensors, so the
+served path never copies). On the CPU the plain versions take any dim and
+every dtype of ``ops.PLAIN_DTYPES``, as the JAX function does. Scores and
+the output accumulate in fp32; with bf16 or fp16 inputs the probabilities
+are rounded to the input dtype before the PV product, as the Pallas kernel
+does. The kernel masks keys past the sequence itself, so a
 ragged length is never padded in memory, and it reads the [B,S,H,D] layout
 with strides (no transpose copies around it).
 
 Bound on the H100: operations (4*B*H*S^2*D flops, about half when causal,
 against 4*B*S*H*D elements moved). The kernel keeps the S x S scores out of
-device memory, as the Pallas kernel keeps them out of HBM. bf16 runs on the
-tensor cores (``mma.sync``, FlashAttention-2 layout: Q fragments and the
-probabilities stay in registers, K/V tiles double-buffered with
+device memory, as the Pallas kernel keeps them out of HBM. bf16 and fp16
+run on the tensor cores (``mma.sync``, FlashAttention-2 layout: Q fragments
+and the probabilities stay in registers, K/V tiles double-buffered with
 ``cp.async``); fp32 runs in full fp32 on the CUDA cores (no TF32, which the
 2e-5 tolerance rules out).
 
 ``flash_attention_tiled_reference`` is the plain form of the kernel's loop
 (64-key tiles, online softmax, p rounded to v's dtype before PV, as the
-bf16 kernel and the Pallas kernel do); ``flash_attention_reference`` is the
-dense version the kernel is held against.
+bf16 and fp16 kernel and the Pallas kernel do); ``flash_attention_reference``
+is the dense version the kernel is held against.
 
 ``flash_attention`` launches the kernel for CUDA tensors on the current
 stream and raises if the launch fails; for CPU tensors it computes
@@ -48,8 +50,9 @@ import torch
 
 from . import LaunchCounter, _kernels, check_plain_dtype, kernel_dtype_error
 
-SUPPORTED_DIMS = (16, 32, 64, 128)
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the widest head dim the kernel takes
+MAX_DIM = 256
+_DTYPE_CODES = _kernels.FLOAT_CODES
 # flash_attention_launch(q, k, v, out, batch, seq, heads, dim, stride_b,
 #                        stride_s, stride_h, dtype, scale, causal, stream)
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 3
@@ -140,8 +143,8 @@ def _launch(q, k, v, causal: bool) -> torch.Tensor:
     if code is None:
         raise kernel_dtype_error("flash_attention", q.dtype, _DTYPE_CODES)
     batch, seq, heads, dim = q.shape
-    if dim not in SUPPORTED_DIMS:
-        raise ValueError(f"the flash_attention kernel takes head dims {SUPPORTED_DIMS}, "
+    if not 1 <= dim <= MAX_DIM:
+        raise ValueError(f"the flash_attention kernel takes head dims 1 to {MAX_DIM}, "
                          f"not {dim}")
     # a view that is not 16-byte aligned is copied: the allocator aligns the copy
     q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
@@ -166,9 +169,9 @@ def flash_attention(q, k, v, causal: bool = False, block_q: int = 128, block_k: 
     its VMEM and its 128-wide MXU. The plain version is dense, and for
     integer or bool inputs tiled by ``min(block_k, seq)`` keys, as JAX's
     kernel is. ``interpret`` changes nothing: the tensors' device decides
-    what runs. CUDA tensors run the Hopper kernel (fp32 or bf16, D in
-    ``SUPPORTED_DIMS``; anything else raises); CPU tensors the plain
-    version."""
+    what runs. CUDA tensors run the Hopper kernel (fp32, bf16 or fp16, D
+    from 1 to ``MAX_DIM``; integer or bool inputs and wider heads raise);
+    CPU tensors the plain version."""
     _check(q, k, v, block_q, block_k)
     device = q.device.type
     if device == "cuda":

@@ -10,9 +10,9 @@ to ``out_dtype`` (float32, bfloat16 or float16), for ``x`` of any shape. Each
 element is ``f32(x) * f32(scale) + f32(shift)`` rounded ONCE to float32 (a
 fused multiply-add, as XLA computes the JAX kernel), then, for bfloat16 or
 float16 output, rounded to nearest even. A separate multiply and add in
-float32 would round twice and miss the JAX result by an ulp. The kernel
-takes float32, bfloat16, float16, uint8 and int32 ``x``; on the CPU the
-plain version takes every dtype of ``ops.PLAIN_DTYPES``.
+float32 would round twice and miss the JAX result by an ulp. The kernel,
+and on the CPU the plain version, take ``x`` of every dtype of
+``ops.PLAIN_DTYPES`` (a bool is 0 or 1).
 
 For integer, bool and float32 ``x`` this is the JAX result bit for bit. For
 float16 and bfloat16 ``x`` JAX computes in the input's own type: it rounds
@@ -41,11 +41,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from . import LaunchCounter, _kernels, check_plain_dtype, kernel_dtype_error
+from . import LaunchCounter, _kernels, check_plain_dtype
 
-_IN_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.uint8: 2, torch.float16: 3,
-             torch.int32: 4}
-_OUT_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_OUT_CODES = _kernels.FLOAT_CODES
 # normalize_image_launch(x, out, n, in_code, out_code, scale, shift, blocks,
 # stream); ctypes rounds scale and shift to float32 (to nearest, as
 # np.float32 does)
@@ -129,14 +127,11 @@ def normalize_image(x, scale: float = 1.0, shift: float = 0.0, out_dtype=torch.b
         raise TypeError(f"normalize_image writes float32, bfloat16 or float16, not {out_dtype}")
     if not x.is_contiguous():
         raise ValueError("normalize_image takes a contiguous tensor")
-    if not x.is_cuda:
-        if x.device.type == "cpu":
-            check_plain_dtype("normalize_image", x.dtype)
-            return normalize_image_reference(x, scale, shift, out_dtype)
+    if x.device.type not in ("cuda", "cpu"):
         raise ValueError(f"normalize_image runs on cuda or cpu tensors, not {x.device.type}")
-    in_code = _IN_CODES.get(x.dtype)
-    if in_code is None:
-        raise kernel_dtype_error("normalize_image", x.dtype, _IN_CODES)
+    check_plain_dtype("normalize_image", x.dtype)
+    if not x.is_cuda:
+        return normalize_image_reference(x, scale, shift, out_dtype)
     out = torch.empty_like(x, dtype=out_dtype)
     n = x.numel()
     if n == 0:
@@ -145,5 +140,6 @@ def normalize_image(x, scale: float = 1.0, shift: float = 0.0, out_dtype=torch.b
     plan = normalize_plan(n, x.dtype, out_dtype, (src | dst) % 16 == 0,
                           _kernels.sm_count(x.get_device()))
     _kernels.launch(_kernels.function("normalize_image", "normalize_image_launch", _ARGTYPES),
-                    LAUNCHES, x, src, dst, n, in_code, out_code, scale, shift, plan.blocks)
+                    LAUNCHES, x, src, dst, n, _kernels.ELEMENT_CODES[x.dtype], out_code, scale,
+                    shift, plan.blocks)
     return out

@@ -8,14 +8,15 @@ called through ctypes (see ``ops._kernels``).
 - ``quantize_int8(x, scale)``: ``clip(round(f32(x) * f32(1/scale)), -127,
   127)`` as int8. The inverse scale is computed in double precision and
   rounded to float32, as JAX folds ``1.0 / scale`` in Python; rounding is
-  half to even. The kernel takes float32, bfloat16 and float16 ``x``.
+  half to even.
 - ``dequantize_int8(q, scale, out_dtype)``: ``f32(q) * f32(scale)`` cast to
-  float32, bfloat16 or float16. The kernel takes int8 ``q``.
+  float32, bfloat16 or float16.
 
-On the CPU the plain versions take every dtype of ``ops.PLAIN_DTYPES``, as
-the JAX kernels do (``f32(x)`` of a bool is 0 or 1). Bound on the H100:
-bytes (each element read once and written once). Dequantize widens, and
-runs normalize_image's word loop (a lane per 16-byte output word), with its
+The kernels, and on the CPU the plain versions, take ``x`` and ``q`` of
+every dtype of ``ops.PLAIN_DTYPES``, as the JAX kernels do (``f32(x)`` of a
+bool is 0 or 1). Bound on the H100: bytes (each element read once and
+written once). Dequantize runs normalize_image's word loop (a lane per
+16-byte word of the wider side: the output, from the wire's int8), with its
 grid from :func:`dequantize_plan`; quantize narrows, a thread per 16 bytes
 of input. Input or output that is not 16-byte aligned (a view such as
 ``x[1:]``) takes the kernels' scalar way. The wrappers launch the kernels
@@ -32,32 +33,32 @@ import math
 import numpy as np
 import torch
 
-from . import LaunchCounter, _kernels, check_plain_dtype, kernel_dtype_error
+from . import LaunchCounter, _kernels, check_plain_dtype
 from .normalize import NormalizePlan, normalize_plan
 
-# quantize's input and dequantize's output dtypes in the kernel
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# dequantize's output dtypes
+_OUT_CODES = _kernels.FLOAT_CODES
 # quantize_int8_launch(x, q, n, dtype_code, inv_scale, stream) and
-# dequantize_int8_launch(q, out, n, dtype_code, scale, blocks, stream); ctypes
-# rounds the factor to float32 (to nearest, as np.float32 does)
+# dequantize_int8_launch(q, out, n, in_code, out_code, scale, blocks, stream);
+# ctypes rounds the factor to float32 (to nearest, as np.float32 does)
 _QUANTIZE_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                       ctypes.c_float, ctypes.c_void_p)
 _DEQUANTIZE_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                        ctypes.c_float, ctypes.c_int, ctypes.c_void_p)
+                        ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p)
 
 # kernel launches made by quantize_int8 / dequantize_int8 (CPU calls do not count)
 QUANTIZE_LAUNCHES = LaunchCounter()
 DEQUANTIZE_LAUNCHES = LaunchCounter()
 
 
-def dequantize_plan(n: int, out_dtype, aligned: bool,
-                    sms: int = _kernels.H100_SMS) -> NormalizePlan:
-    """The dequantize kernel's grid for ``n`` int8 elements: normalize's
-    word loop with int8 in, so a thread per 16-byte output word (4 elements
-    for float32 out, 8 for bfloat16 and float16; one element when input or
-    output is not 16-byte ``aligned``), at most ``normalize.BLOCKS_PER_SM``
-    blocks per SM."""
-    return normalize_plan(n, torch.int8, out_dtype, aligned, sms)
+def dequantize_plan(n: int, out_dtype, aligned: bool, sms: int = _kernels.H100_SMS,
+                    in_dtype=torch.int8) -> NormalizePlan:
+    """The dequantize kernel's grid for ``n`` elements of ``in_dtype``
+    (int8 on the wire): normalize's word loop, so a thread per 16-byte word
+    of the wider side (from int8: 4 elements for float32 out, 8 for
+    bfloat16 and float16; one element when input or output is not 16-byte
+    ``aligned``), at most ``normalize.BLOCKS_PER_SM`` blocks per SM."""
+    return normalize_plan(n, in_dtype, out_dtype, aligned, sms)
 
 
 def _f32(value: float) -> float:
@@ -96,18 +97,16 @@ def quantize_int8(x, scale: float):
     CUDA tensors run the Hopper kernel; CPU tensors the plain version."""
     scale = _check_scale(scale)
     _check_tensor(x, "quantize_int8")
+    check_plain_dtype("quantize_int8", x.dtype)
     if not x.is_cuda:
-        check_plain_dtype("quantize_int8", x.dtype)
         return quantize_int8_reference(x, scale)
-    code = _DTYPE_CODES.get(x.dtype)
-    if code is None:
-        raise kernel_dtype_error("quantize_int8", x.dtype, _DTYPE_CODES)
     out = torch.empty_like(x, dtype=torch.int8)
     if x.numel() == 0:
         return out
     _kernels.launch(
         _kernels.function("quantize_int8", "quantize_int8_launch", _QUANTIZE_ARGTYPES),
-        QUANTIZE_LAUNCHES, x, x.data_ptr(), out.data_ptr(), x.numel(), code, 1.0 / scale)
+        QUANTIZE_LAUNCHES, x, x.data_ptr(), out.data_ptr(), x.numel(),
+        _kernels.ELEMENT_CODES[x.dtype], 1.0 / scale)
     return out
 
 
@@ -115,24 +114,23 @@ def dequantize_int8(q, scale: float, out_dtype=torch.float32):
     """Inverse of :func:`quantize_int8`: ``f32(q) * f32(scale)`` as
     ``out_dtype`` (float32, bfloat16 or float16). CUDA tensors run the
     Hopper kernel; CPU tensors the plain version."""
-    code = _DTYPE_CODES.get(out_dtype)
+    code = _OUT_CODES.get(out_dtype)
     if code is None:
         raise TypeError(f"dequantize_int8 writes float32, bfloat16 or float16, not {out_dtype}")
     scale = _check_scale(scale)
     _check_tensor(q, "dequantize_int8")
+    check_plain_dtype("dequantize_int8", q.dtype)
     if not q.is_cuda:
-        check_plain_dtype("dequantize_int8", q.dtype)
         return dequantize_int8_reference(q, scale, out_dtype)
-    if q.dtype != torch.int8:
-        raise kernel_dtype_error("dequantize_int8", q.dtype, (torch.int8,))
     out = torch.empty_like(q, dtype=out_dtype)
     n = q.numel()
     if n == 0:
         return out
     src, dst = q.data_ptr(), out.data_ptr()
     plan = dequantize_plan(n, out_dtype, (src | dst) % 16 == 0,
-                           _kernels.sm_count(q.get_device()))
+                           _kernels.sm_count(q.get_device()), q.dtype)
     _kernels.launch(
         _kernels.function("quantize_int8", "dequantize_int8_launch", _DEQUANTIZE_ARGTYPES),
-        DEQUANTIZE_LAUNCHES, q, src, dst, n, code, scale, plan.blocks)
+        DEQUANTIZE_LAUNCHES, q, src, dst, n, _kernels.ELEMENT_CODES[q.dtype], code, scale,
+        plan.blocks)
     return out

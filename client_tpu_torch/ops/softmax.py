@@ -6,10 +6,10 @@ kernel for Hopper, ``client_tpu_torch/csrc/softmax.cu``, built by nvcc and
 called through ctypes (see ``ops._kernels``).
 
 ``softmax_probabilities(logits)``: softmax over the last axis, computed in
-float32 (max-subtract, exp, normalise) and returned as float32. The kernel
-takes float32, bfloat16 and float16 logits; on the CPU the plain version
-takes every dtype of ``ops.PLAIN_DTYPES``, as the JAX kernel does (it casts
-the logits to float32 first). Leading axes are rows; 1-D logits are one row
+float32 (max-subtract, exp, normalise) and returned as float32. The kernel,
+and on the CPU the plain version, take logits of every dtype of
+``ops.PLAIN_DTYPES``, as the JAX kernel does (it casts the logits to
+float32 first; a bool is 0 or 1). Leading axes are rows; 1-D logits are one row
 and come back 1-D, as in JAX.
 
 Bound on the H100: bytes (each logit read once, each probability written
@@ -32,9 +32,8 @@ from typing import NamedTuple
 
 import torch
 
-from . import LaunchCounter, _kernels, check_plain_dtype, kernel_dtype_error
+from . import LaunchCounter, _kernels, check_plain_dtype
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # softmax_launch(x, out, rows, cols, dtype_code, variant, warps, vectors,
 #                blocks, stream)
 _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
@@ -43,7 +42,8 @@ _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longl
 
 # the kernel's variants (their codes in the source), block size (kThreads),
 # the 16-byte vectors a thread may hold (the instantiated V) and the fp32
-# values it holds at most (8 float4, or 4 vectors of 8 bf16: 0 spills)
+# values it holds at most (8 float4, 4 vectors of 8 bf16, or 2 of 16 uint8:
+# 0 spills)
 VARIANTS = ("registers", "two_pass", "scalar")
 THREADS = 256
 WARPS_PER_BLOCK = THREADS // 32
@@ -124,15 +124,12 @@ def softmax_probabilities(logits):
             f"softmax_probabilities needs a non-empty last axis, got {list(logits.shape)}")
     if not logits.is_contiguous():
         raise ValueError("softmax_probabilities takes a contiguous tensor")
-    if not logits.is_cuda:
-        if logits.device.type == "cpu":
-            check_plain_dtype("softmax_probabilities", logits.dtype)
-            return softmax_probabilities_reference(logits)
+    if logits.device.type not in ("cuda", "cpu"):
         raise ValueError(
             f"softmax_probabilities runs on cuda or cpu tensors, not {logits.device.type}")
-    code = _DTYPE_CODES.get(logits.dtype)
-    if code is None:
-        raise kernel_dtype_error("softmax_probabilities", logits.dtype, _DTYPE_CODES)
+    check_plain_dtype("softmax_probabilities", logits.dtype)
+    if not logits.is_cuda:
+        return softmax_probabilities_reference(logits)
     out = torch.empty_like(logits, dtype=torch.float32)
     cols = logits.shape[-1]
     rows = logits.numel() // cols
@@ -142,6 +139,7 @@ def softmax_probabilities(logits):
     plan = softmax_plan(rows, cols, logits.dtype, (src | dst) % 16 == 0,
                         _kernels.sm_count(logits.get_device()))
     _kernels.launch(_kernels.function("softmax", "softmax_launch", _ARGTYPES), LAUNCHES, logits,
-                    src, dst, rows, cols, code, VARIANTS.index(plan.variant), plan.warps,
+                    src, dst, rows, cols, _kernels.ELEMENT_CODES[logits.dtype],
+                    VARIANTS.index(plan.variant), plan.warps,
                     plan.vectors, plan.blocks)
     return out

@@ -11,7 +11,12 @@ the printed URLs carry the bound one.
 
 Ctrl-C stops it at once. SIGTERM drains: ``v2/health/ready`` and
 ``ServerReady`` turn not-ready first (so multi-endpoint pools route away),
-in-flight requests finish, then the listeners close.
+in-flight requests finish, then the listeners close. Readiness turns at
+the signal's arrival, not when the main thread gets to run its handler
+(see ``SignalDrainedCore``). The kernel may hand the signal to any thread
+of the process; one that lands on another thread does not wake the main
+thread, which therefore sleeps ``SIGNAL_POLL_S`` at a time and runs the
+handler at its next wake.
 
 The zoo is the port's ``default_model_zoo``, the JAX package's model for
 model. ``--moe`` (``moe_ffn``), ``--tensor-parallel N`` (the vision model's
@@ -25,10 +30,45 @@ are printed. ``--attention`` defaults to ``flash``, the one-card kernel
 from __future__ import annotations
 
 import argparse
+import os
 import signal
 import sys
 import time
 from typing import List, Optional
+
+from .server import ServerCore
+
+# how long the main thread sleeps at a time while it serves: a signal that
+# another thread takes trips the Python handler but does not end the main
+# thread's sleep, so the handler runs at its next wake
+SIGNAL_POLL_S = 0.2
+
+
+class SignalDrainedCore(ServerCore):
+    """A ``ServerCore`` whose ``ready`` reads False from the moment SIGTERM
+    arrives. ``signal.set_wakeup_fd`` makes the C-level signal handler
+    write the signal's number to a pipe, at once and without the
+    interpreter lock, in whatever thread takes the signal; a readiness read
+    (``v2/health/ready``, ``ServerReady``, ``/metrics``) drains that pipe and
+    turns not-ready on a SIGTERM byte. The Python handler in the main thread
+    then drains as before (it sets ``ready`` too)."""
+
+    signal_fd: Optional[int] = None  # the read end of the wakeup pipe
+
+    @property
+    def ready(self) -> bool:
+        if self._ready and self.signal_fd is not None:
+            try:
+                if signal.SIGTERM in os.read(self.signal_fd, 64):
+                    self._ready = False
+            except BlockingIOError:  # no signal has arrived
+                pass
+        return self._ready
+
+    @ready.setter
+    def ready(self, value: bool) -> None:
+        self._ready = value
+
 
 def _mesh_degrees(models) -> str:
     """The mesh size each multi-device model chose, as ``name axis=size``."""
@@ -78,7 +118,7 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     from .models import default_model_zoo
     from .models.simple import IdentityModel
-    from .server import GrpcInferenceServer, HttpInferenceServer, ServerCore
+    from .server import GrpcInferenceServer, HttpInferenceServer
 
     models = default_model_zoo(device)
     if args.identity_fp32:
@@ -96,7 +136,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         from .models.moe import MoEFFNModel
 
         models.append(MoEFFNModel(device=device))
-    core = ServerCore(models, device=device)
+    core = SignalDrainedCore(models, device=device)
     degrees = _mesh_degrees(models)
 
     servers = []
@@ -129,10 +169,16 @@ def main(argv: Optional[List[str]] = None) -> int:
         raise _Drain()
 
     signal.signal(signal.SIGTERM, on_sigterm)
+    # the C-level handler's byte, for readiness reads on any thread
+    wake_r, wake_w = os.pipe()
+    os.set_blocking(wake_r, False)
+    os.set_blocking(wake_w, False)
+    signal.set_wakeup_fd(wake_w, warn_on_full_buffer=False)
+    core.signal_fd = wake_r
     draining = False
     try:
         while True:
-            time.sleep(3600)
+            time.sleep(SIGNAL_POLL_S)
     except KeyboardInterrupt:
         pass
     except _Drain:
@@ -156,6 +202,10 @@ def main(argv: Optional[List[str]] = None) -> int:
                     s.stop()
             except Exception as e:
                 print(f"error stopping {type(s).__name__}: {e}", flush=True)
+        core.signal_fd = None
+        signal.set_wakeup_fd(-1)
+        os.close(wake_r)
+        os.close(wake_w)
     return 0
 
 

@@ -629,6 +629,9 @@ def test_federation_phase_on_cpu(monkeypatch, tmp_path):
     assert byz["liar"]["pool"]["quarantine_dominated"] and byz["liar"]["pool"]["invalid_total"]
     watch = rows["watch"]
     assert watch["faulted_url"] in str(watch["named"]["evidence"])
+    # past watch_batches only while the burn alert fired, as many again at most
+    assert watch["batches"] <= 2 * SMALL_FED.watch_batches
+    assert watch["burn_wait_batches"] == max(0, watch["batches"] - SMALL_FED.watch_batches)
     assert watch["ring_records"]["alert"] >= 2 and watch["timelines_recovered"]
     assert [r["concurrency"] for r in rows["harness"]["rows"]] == [1, 2]
     assert rows["doctor"]["cells"] == ["away", "canary", "home"]
@@ -824,3 +827,56 @@ def test_native_phase_on_cpu(monkeypatch, native_libraries, one_intra_op_thread)
                for c in result["launch_counts"].values())
     # the warm token, the embedded run, its in-process reference, the stream
     assert calls["decode_attention"] == layers * (1 + 3 * stepped)
+
+
+# phase 15 at narrow widths that keep the published head dims: 96
+# (Phi-3-mini's) and 256 (Gemma-2B's), two heads each
+SMALL_WIDE = chip_smoke.WideSize(widths=(("head_dim_96", 192, 2), ("head_dim_256", 512, 2)),
+                                 seq=64, wire_seq=32, requests=2)
+
+
+def test_wide_encoder_phase_on_cpu(monkeypatch):
+    """``chip_smoke.serve_wide_encoder``: phase 15 on the CPU. Each width's
+    encoder serves S = 64 over cuda shm (CPU regions) against the plain
+    version with the same weights and S = 32 over the wire against the CPU
+    run; the wrapper's plain calls, counted here, equal the server's
+    executions in each row (the card would launch the kernel as often; the
+    phase's own gate expects 0 launches on the CPU), and the statistics
+    count the requests."""
+    import sys
+
+    module = sys.modules["client_tpu_torch.ops.flash_attention"]
+    calls = []
+    real = module.flash_attention_reference
+    monkeypatch.setattr(module, "flash_attention_reference",
+                        lambda *args, **kwargs: calls.append(args[0].shape) or real(*args,
+                                                                                   **kwargs))
+    result = chip_smoke.serve_wide_encoder(device="cpu", size=SMALL_WIDE)
+    rows = result["rows"]
+    assert [(r["width"], r["head_dim"]) for r in rows] == [("head_dim_96", 96),
+                                                           ("head_dim_256", 256)]
+    executions = 0
+    for row in rows:
+        assert row["cuda_shm_vs_plain_max_abs_err"] <= 2e-5
+        assert row["wire_vs_cpu_max_abs_err"] <= 2e-5
+        for plane, sent in (("cuda_shm", 1 + SMALL_WIDE.requests), ("wire", 1)):
+            r = row[plane]
+            assert r["requests"] == r["executions"] == r["successes"] == sent
+            assert not any(r["launches"].values())
+            executions += r["executions"]
+        assert row["attention_gflop"] == 4 * row["heads"] * 64 * 64 * row["head_dim"] / 1e9
+    # every served execution ran the wrapper once, at its head dim, and so
+    # did each width's CPU run that the wire row is held against
+    assert len(calls) == executions + len(rows)
+    assert {shape[-1] for shape in calls} == {96, 256}
+    # the card's rows: Phi-3-mini's and Gemma-2B's widths, and their bounds
+    # as the kernel table reckons them
+    assert chip_smoke.WIDE.widths == (("phi3_mini", 3072, 32), ("gemma_2b", 2048, 8))
+    bounds = [chip_smoke.wide_bounds(8192, dim, heads) for _, dim, heads in chip_smoke.WIDE.widths]
+    assert [round(b["attention_gflop"], 1) for b in bounds] == [824.6, 549.8]
+    assert [round(b["attention_bound_ms"], 2) for b in bounds] == [12.31, 8.21]
+    assert [round(b["projections_gflop"], 1) for b in bounds] == [618.5, 274.9]
+    # the card's profiled request in a process of its own: on the CPU the
+    # child serves and profiles one request, and its trace holds no kernel
+    child = chip_smoke.wide_profile_in_child(96, 4, 32, "cpu")
+    assert child["wall_ms"] > 0 and child["device_ms"] is None

@@ -5,11 +5,13 @@ tensors and computes its plain PyTorch version for CPU tensors. Here, on the
 CPU, the plain version is held against the JAX Pallas kernel (interpret mode
 off-TPU, as the JAX package's own tests run it) and against the JAX dense
 reference on the same numpy-seeded inputs, at the reference test's shapes
-and tolerances (1e-5 in fp32, 2e-2 in bf16). The kernel itself runs on the
-card only (chip_smoke.py). The wrapper's argument checks, the reference's
-``block_k`` and ``interpret`` keywords, head dims and dtypes the kernel does
-not take (computed on the CPU, as JAX computes them), the build step and the
-import without a compiler are tested here too.
+and tolerances (1e-5 in fp32, 2e-2 in bf16), and at the head dims and
+dtypes the kernel takes since it took every float dtype and every head dim
+up to 256 (D = 8, 24, 80, 96, 256 in fp32, bf16 and fp16). The kernel
+itself runs on the card only (chip_smoke.py). The wrapper's argument
+checks, the reference's ``block_k`` and ``interpret`` keywords, the dtypes
+the kernel still does not take (computed on the CPU, as JAX computes them),
+the build step and the import without a compiler are tested here too.
 """
 
 import ctypes
@@ -35,6 +37,11 @@ from client_tpu_torch.utils import numpy_to_tensor
 
 REPO = Path(__file__).resolve().parent.parent
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+# the head dims of the kernel's first instantiations; the cases over them
+# keep their names
+DIMS = (32, 64, 128)
+# the head dims the kernel took once it took every dim up to da.MAX_DIM
+NEW_DIMS = (8, 24, 80, 96, 256)
 SHAPES = [  # (batch, heads, max_len, dim, the reference test's positions)
     (1, 4, 128, 32, [5]),
     (3, 2, 200, 64, [0, 99, 199]),
@@ -59,6 +66,8 @@ def _inputs(batch, heads, max_len, dim, dtype, seed):
                         (batch, heads, max_len, dim))]
     if dtype == "bfloat16":
         arrays = [a.astype(ml_dtypes.bfloat16) for a in arrays]
+    elif dtype == "float16":
+        arrays = [a.astype(np.float16) for a in arrays]
     return arrays
 
 
@@ -163,11 +172,11 @@ def _bad_case(name):
     "non_contiguous", "meta_device",
 ])
 def test_wrapper_rejects_what_the_kernel_does_not_take(name):
-    """Mixed dtypes, bad shapes, layouts and devices raise. What only the
-    kernel does not take (float16, D outside SUPPORTED_DIMS) raises on a
-    CUDA tensor alone (chip_smoke.py checks); on the CPU the plain version
-    computes it, as the JAX function does, and agrees with the Pallas
-    kernel."""
+    """Mixed dtypes, bad shapes, layouts and devices raise. What the kernel
+    once did not take (float16, D = 16, 48, 256) runs on the card too since
+    it took every float dtype and head dim up to da.MAX_DIM; here the plain
+    version computes it, as the JAX function does, and agrees with the
+    Pallas kernel."""
     args, expected = _bad_case(name)
     if expected != "jax":
         with pytest.raises(expected):
@@ -247,7 +256,7 @@ def test_integer_cache_follows_the_pallas_tiles():
                                da.decode_attention_reference(*f, tpos).numpy(), atol=1e-5)
 
 
-@pytest.mark.parametrize("dim", da.SUPPORTED_DIMS)
+@pytest.mark.parametrize("dim", DIMS + NEW_DIMS)
 def test_cpu_path_is_the_plain_version_and_launches_nothing(dim):
     q, k, v = (numpy_to_tensor(a, "cpu") for a in _inputs(2, 2, 40, dim, "float32", seed=dim))
     pos = torch.tensor([3, 39], dtype=torch.int32)
@@ -535,3 +544,42 @@ def test_sm_count_reads_each_device_once(monkeypatch):
                         lambda i: reads.append(i) or _Props())
     assert [_kernels.sm_count(i) for i in (0, 0, 1, 0)] == [132] * 4
     assert reads == [0, 1]
+
+
+# ---------------------------------------------------------------------------
+# every float dtype and the head dims up to da.MAX_DIM
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("dim", NEW_DIMS)
+def test_new_head_dims_match_pallas(dim, dtype):
+    """D = 8, 24, 80, 96 and 256 in every float dtype at the reference
+    test's ragged shape (3, 2, 200) and mixed positions (0, 99, 199; two
+    Pallas tiles): the dense plain version and the split plain version (3
+    splits, the kernel's two phases) against the Pallas kernel in interpret
+    mode, fp32 within 1e-5, bf16 within 2e-2, fp16 within FP16_ATOL *
+    max|v| (the Pallas kernel rounds p to fp16 before PV)."""
+    q, k, v = _inputs(3, 2, 200, dim, dtype, seed=dim)
+    pos = np.asarray([0, 99, 199], np.int32)
+    tq, tk, tv = (torch.from_numpy(a.astype(np.float32)).to(getattr(torch, dtype))
+                  for a in (q, k, v))
+    out = da.decode_attention(tq, tk, tv, torch.from_numpy(pos))
+    assert out.dtype == tq.dtype and out.shape == (3, 2, dim)
+    split = da.decode_attention_split_reference(tq, tk, tv, torch.from_numpy(pos), 3)
+    pallas = _pallas(q, k, v, pos)
+    atol = FP16_ATOL * np.abs(v.astype(np.float32)).max() if dtype == "float16" else TOL[dtype]
+    for got in (out, split):
+        assert np.max(np.abs(_f32(got) - pallas)) < atol
+
+
+@pytest.mark.parametrize("dim", [1, 8, 96, da.MAX_DIM, da.MAX_DIM + 8])
+def test_head_dims_up_to_the_kernel_limit(dim):
+    """The kernel's limit is da.MAX_DIM (256); on the CPU every dim, past it
+    too, computes the plain version, as the JAX function does (D = 264
+    raises on a CUDA tensor alone: chip_smoke.py checks)."""
+    q, k, v, pos = _good(dim=dim)
+    out = da.decode_attention(q, k, v, pos)
+    assert out.shape == q.shape
+    assert torch.equal(out, da.decode_attention_reference(q, k, v, pos))
+    assert da.MAX_DIM == 256

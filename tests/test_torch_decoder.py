@@ -228,3 +228,35 @@ def test_attention_goes_through_the_kernel_op(monkeypatch, jax_params_np):
     tokens_stepped = 3 + 2
     assert len(calls) == tokens_stepped * TinyDecoderModel.LAYERS
     assert set(calls) == {((1, 4, 32), (1, 4, 128, 32), torch.int32, "cpu")}
+
+
+@pytest.mark.parametrize("impl", ["einsum", "pallas"])
+def test_attention_impl_runs_the_kernel_op(monkeypatch, jax_decoder, jax_params_np, impl):
+    """JAX's ``TinyDecoderModel(seed, attention_impl)``: the port takes the
+    keyword in JAX's position, and both values run ops.decode_attention
+    (the Hopper kernel on a CUDA device; "einsum", JAX's default, never
+    goes around it), with JAX's tokens and logits within 5e-2 of JAX's
+    model at the same value."""
+    calls = []
+    real = port_decoder.decode_attention
+    monkeypatch.setattr(port_decoder, "decode_attention",
+                        lambda *args: calls.append(1) or real(*args))
+    model = TinyDecoderModel(0, impl, device="cpu", params=load_jax_params(jax_params_np, "cpu"))
+    assert model.attention_impl == impl
+    toks, logits = _drive(model, [1, 2, 3], n=4, seq_id=45)
+    assert len(calls) == (3 + 3) * TinyDecoderModel.LAYERS
+    ref = jax_decoder if impl == "einsum" else JaxDecoder(seed=0, attention_impl=impl)
+    toks_j, logits_j = _drive(ref, [1, 2, 3], n=4, seq_id=45)
+    assert toks == toks_j
+    np.testing.assert_allclose(logits, logits_j, atol=LOGIT_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("impl", ["flash", "dense", ""])
+def test_attention_impl_refused_as_jax(impl):
+    """An unknown value raises JAX's ValueError, with JAX's message, before
+    anything is built."""
+    with pytest.raises(ValueError) as ours:
+        TinyDecoderModel(attention_impl=impl, device="cpu")
+    with pytest.raises(ValueError) as theirs:
+        JaxDecoder(attention_impl=impl)
+    assert str(ours.value) == str(theirs.value) == f"unknown attention_impl {impl!r}"

@@ -557,3 +557,23 @@ def test_failed_step_fails_the_window_and_frees_its_slots(monkeypatch, port_para
     monkeypatch.undo()
     assert _call(model, 2, [5], start=True, end=True)["NEXT_TOKEN"].shape == (1, 1)
     model.unload()
+
+
+@pytest.mark.parametrize("impl", ["einsum", "pallas"])
+def test_positional_parameters_in_jax_order(port_params, impl):
+    """JAX's ``BatchedDecoderModel(seed, slots, max_delay_s, attention_impl,
+    idle_ttl_s)`` by position: the fourth is attention_impl (it used to land
+    in idle_ttl_s), the fifth idle_ttl_s, each as JAX's model reads them."""
+    ours = port_batched.BatchedDecoderModel(0, 2, 0.004, impl, 7.5, device="cpu",
+                                            params=port_params)
+    theirs = jax_batched.BatchedDecoderModel(0, 2, 0.004, impl, 7.5)
+    # neither has built or started its worker: nothing to stop
+    for model in (ours, theirs):
+        assert model.slots == 2 and model._max_delay_s == 0.004
+        assert model._idle_ttl_s == 7.5
+    assert ours._decoder.attention_impl == impl == theirs._decoder._attention_impl
+    with pytest.raises(ValueError) as port_err:
+        port_batched.BatchedDecoderModel(0, 2, 0.004, "flash", device="cpu")
+    with pytest.raises(ValueError) as jax_err:
+        jax_batched.BatchedDecoderModel(0, 2, 0.004, "flash")
+    assert str(port_err.value) == str(jax_err.value)

@@ -10,9 +10,11 @@ at every shape, block pair and causal setting of the JAX tests
 atol/rtol of 2e-5. bf16 inputs are held within atol/rtol 2e-2: the Pallas
 kernel rounds the probabilities to bf16 before the PV product and both
 outputs are rounded to bf16, while the plain version keeps fp32 throughout.
-Head dims, dtypes and the ``interpret`` keyword the kernel does not take
-are computed on the CPU, as JAX computes them. The kernel itself runs on
-the card only (chip_smoke.py).
+The head dims and dtypes the kernel takes since it took every float dtype
+and every head dim up to 256 (D = 8, 24, 80, 96, 256 in fp32, bf16 and
+fp16) are held against the Pallas kernel too, as are integer inputs and
+the ``interpret`` keyword, which the plain version computes as JAX does.
+The kernel itself runs on the card only (chip_smoke.py).
 """
 
 import itertools
@@ -31,7 +33,7 @@ from client_tpu_torch.ops import _kernels
 from client_tpu_torch.ops import flash_attention as fa_function
 from client_tpu_torch.ops.flash_attention import (
     LAUNCHES,
-    SUPPORTED_DIMS,
+    MAX_DIM,
     flash_attention,
     flash_attention_reference,
     flash_attention_tiled_reference,
@@ -39,6 +41,13 @@ from client_tpu_torch.ops.flash_attention import (
 from client_tpu_torch.utils import numpy_to_tensor
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# the head dims of the kernel's first instantiations; the cases over them
+# keep their names
+DIMS = (16, 32, 64, 128)
+# the head dims the kernel took once it took every dim up to MAX_DIM:
+# JAX's test width (8), Phi-3-mini's (96), Pythia's (80), Gemma-2B's (256)
+# and one more that is no power of two (24)
+NEW_DIMS = (8, 24, 80, 96, 256)
 # (shape, block_q, block_k): tests/test_utils.py's block pairs at (2,128,2,32)
 # and tests/test_models_parallel.py's ragged (1,100,2,16) at 64 x 64
 CASES = [((2, 128, 2, 32), bq, bk) for bq, bk in ((128, 128), (64, 32), (32, 64))] + [
@@ -60,6 +69,8 @@ def _inputs(shape, dtype, seed):
     arrays = [rng.standard_normal(shape).astype(np.float32) for _ in range(3)]
     if dtype == "bfloat16":
         arrays = [a.astype(ml_dtypes.bfloat16) for a in arrays]
+    elif dtype == "float16":
+        arrays = [a.astype(np.float16) for a in arrays]
     return arrays
 
 
@@ -245,9 +256,10 @@ def _bad_case(name):
 ])
 def test_wrapper_rejects_what_the_kernel_does_not_take(name):
     """Mixed dtypes, bad shapes, blocks, layouts and devices raise. What
-    only the kernel does not take (float16, int32, D outside
-    SUPPORTED_DIMS) raises on a CUDA tensor alone (chip_smoke.py checks);
-    on the CPU the plain version computes it, as the JAX function does, and
+    the kernel once did not take runs: float16 and head dims up to MAX_DIM
+    on the card, int32 (which the kernel still does not take, and raises
+    on a CUDA tensor alone: chip_smoke.py checks) on the CPU alone; there
+    the plain version computes each case, as the JAX function does, and
     agrees with the Pallas kernel: float16 within FP16_ATOL * max|v|, int32
     row by row as integer_flash_explained holds it, the head dims within
     the JAX tests' 2e-5."""
@@ -348,7 +360,7 @@ def test_integer_one_tile_differs_from_pallas_only_where_explained(dim, dtype, c
 
 
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
-@pytest.mark.parametrize("dim", SUPPORTED_DIMS)
+@pytest.mark.parametrize("dim", DIMS + NEW_DIMS)
 def test_cpu_path_is_the_plain_version_and_launches_nothing(dim, causal):
     q, k, v = (numpy_to_tensor(a, "cpu") for a in _inputs((2, 40, 2, dim), "float32", seed=dim))
     before = LAUNCHES.count
@@ -379,7 +391,7 @@ def _bf16_tensors(arrays):
     return [numpy_to_tensor(a, "cpu") for a in arrays]
 
 
-@pytest.mark.parametrize("dim", SUPPORTED_DIMS)
+@pytest.mark.parametrize("dim", DIMS)
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
 @pytest.mark.parametrize("seq", TILE_SEQS)
 def test_tiled_reference_matches_pallas_in_bf16(seq, causal, dim):
@@ -395,7 +407,7 @@ def test_tiled_reference_matches_pallas_in_bf16(seq, causal, dim):
                                rtol=TILED_BF16_TOL)
 
 
-@pytest.mark.parametrize("dim", SUPPORTED_DIMS)
+@pytest.mark.parametrize("dim", DIMS)
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
 @pytest.mark.parametrize("seq", TILE_SEQS)
 def test_tiled_reference_matches_dense_in_fp32(seq, causal, dim):
@@ -423,3 +435,55 @@ def test_tiled_reference_does_not_depend_on_the_tile(block_k):
             _f32(flash_attention_tiled_reference(tq, tk, tv, causal, block_k=block_k)),
             _f32(flash_attention_reference(tq, tk, tv, causal)),
             atol=TOL["float32"], rtol=TOL["float32"])
+
+
+# ---------------------------------------------------------------------------
+# every float dtype and the head dims up to MAX_DIM
+# ---------------------------------------------------------------------------
+
+# one output ulp of each 2-byte dtype, relative and absolute: the tiled
+# version and the Pallas kernel both round p to the dtype against a running
+# max and round the output to it, so an output may land one ulp apart
+TILED_TOL = {"float32": TOL["float32"], "bfloat16": 2.0 ** -7, "float16": 2.0 ** -10}
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("dim", NEW_DIMS)
+def test_new_head_dims_match_pallas(dim, dtype, causal):
+    """D = 8, 24, 80, 96 and 256 in every float dtype, at a ragged S of 70
+    (two 64-key tiles, the second partial): the dense plain version against
+    the Pallas kernel in interpret mode (fp32 within the JAX tests' 2e-5,
+    bf16 within 2e-2, fp16 within FP16_ATOL * max|v|), and the tiled plain
+    version (the kernel's loop: p rounded to the dtype before PV) against
+    the Pallas kernel at 64 x 64 blocks within one ulp of the dtype."""
+    arrays = _inputs((1, 70, 2, dim), dtype, seed=dim + 3 * len(dtype) + causal)
+    tensors = [torch.from_numpy(a.astype(np.float32)).to(getattr(torch, dtype))
+               for a in arrays]
+    out = flash_attention(*tensors, causal=causal)
+    assert out.dtype == tensors[0].dtype and out.shape == (1, 70, 2, dim)
+    pallas = jax_flash_attention(*(jnp.asarray(a) for a in arrays), causal=causal,
+                                 block_q=64, block_k=64)
+    assert str(pallas.dtype) == dtype
+    v_max = float(np.abs(arrays[2].astype(np.float32)).max())
+    atol = {"float32": TOL["float32"], "bfloat16": TOL["bfloat16"],
+            "float16": FP16_ATOL * v_max}[dtype]
+    rtol = {"float32": TOL["float32"], "bfloat16": TOL["bfloat16"], "float16": 0}[dtype]
+    np.testing.assert_allclose(_f32(out), _f32(pallas), atol=atol, rtol=rtol)
+    tiled = flash_attention_tiled_reference(*tensors, causal=causal)
+    assert tiled.dtype == out.dtype
+    np.testing.assert_allclose(_f32(tiled), _f32(pallas), atol=TILED_TOL[dtype],
+                               rtol=TILED_TOL[dtype])
+
+
+@pytest.mark.parametrize("dim", [1, 8, 96, MAX_DIM, MAX_DIM + 8])
+def test_head_dims_up_to_the_kernel_limit(dim):
+    """The kernel's limit is MAX_DIM (256): dims up to it pass the wrapper's
+    checks; on the CPU every dim, past it too, computes the plain version,
+    as the JAX function does (D = 264 raises on a CUDA tensor alone:
+    chip_smoke.py checks)."""
+    q, k, v = _good((1, 8, 2, dim))
+    out = flash_attention(q, k, v)
+    assert out.shape == (1, 8, 2, dim)
+    assert torch.equal(out, flash_attention_reference(q, k, v))
+    assert MAX_DIM == 256

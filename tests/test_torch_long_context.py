@@ -65,9 +65,10 @@ def _encoded(model, x):
     return out.numpy() if isinstance(out, torch.Tensor) else np.asarray(out)
 
 
-# (seq, dim, heads): the JAX tests' sequences at dim 32 (with heads 2, so
-# the head dim is one the kernel takes), and the model's default width
-WIDTHS = [(128, 32, 2), (100, 32, 2), (128, 64, 4), (100, 64, 4), (1, 64, 4), (257, 128, 4)]
+# (seq, dim, heads): the JAX tests' sequences at dim 32 with heads 2 and at
+# their own width, heads 4 (head dim 8), and the model's default width
+WIDTHS = [(128, 32, 2), (100, 32, 2), (128, 64, 4), (100, 64, 4), (1, 64, 4), (257, 128, 4),
+          (128, 32, 4), (100, 32, 4)]
 
 
 @pytest.mark.parametrize("seq,dim,heads", WIDTHS,
@@ -138,13 +139,49 @@ def test_mesh_modes_raise(mode):
 
 @pytest.mark.parametrize("kwargs,exc", [
     ({"attention": "dense"}, ValueError),
-    ({"dim": 32, "heads": 4}, ValueError),   # head dim 8
+    ({"dim": 32, "heads": 4}, None),         # head dim 8: served, as JAX serves it
     ({"dim": 64, "heads": 3}, ValueError),   # does not divide
-    ({"dim": 512, "heads": 2}, ValueError),  # head dim 256
+    ({"dim": 512, "heads": 2}, None),        # head dim 256: served, as JAX serves it
 ], ids=["unknown_mode", "head_dim_8", "indivisible", "head_dim_256"])
 def test_bad_configurations_raise(kwargs, exc):
-    with pytest.raises(exc):
-        LongContextEncoderModel(device="cpu", **kwargs)
+    """An unknown mode and a dim that the heads do not divide raise (JAX's
+    model fails on them too); any head dim the heads give is served (the
+    port's model used to refuse head dims its kernel did not take): with
+    JAX's weights the port's encoder is JAX's flash model within 2e-5."""
+    if exc is not None:
+        with pytest.raises(exc):
+            LongContextEncoderModel(device="cpu", **kwargs)
+        return
+    dim, heads = kwargs["dim"], kwargs["heads"]
+    port = LongContextEncoderModel(device="cpu", **kwargs)
+    load_jax_params(port, jax_weights(dim, seed=0))
+    ref = JaxEncoder(dim=dim, heads=heads, seed=0, attention="flash", n_devices=1)
+    x = _sequence(40, dim, seed=dim)
+    np.testing.assert_allclose(_encoded(port, x), _encoded(ref, x), atol=TOL, rtol=TOL)
+
+
+# the published widths the kernel's head dims up to 256 admit: Phi-3-mini
+# (microsoft/Phi-3-mini-4k-instruct: hidden_size 3072, 32 attention heads,
+# head dim 96) and Gemma-2B (google/gemma-2b: hidden_size 2048, 8 heads,
+# head dim 256), at S <= 64 on the CPU
+PUBLISHED = {"phi3_mini": (3072, 32), "gemma_2b": (2048, 8)}
+
+
+@pytest.mark.parametrize("seq", [64, 33])
+@pytest.mark.parametrize("width", list(PUBLISHED))
+def test_published_widths_match_the_jax_flash_model(width, seq):
+    """The encoder at both published widths, JAX's weights carried across by
+    load_jax_params, against JAX's flash model on the same sequence: within
+    the JAX tests' 2e-5 (the same bound as at the narrow widths; the
+    projections' sums run over dim terms either way)."""
+    dim, heads = PUBLISHED[width]
+    port = LongContextEncoderModel(dim=dim, heads=heads, device="cpu")
+    load_jax_params(port, jax_weights(dim, seed=0))
+    ref = JaxEncoder(dim=dim, heads=heads, seed=0, attention="flash", n_devices=1)
+    x = _sequence(seq, dim, seed=seq)
+    got = _encoded(port, x)
+    assert got.shape == (seq, dim) and np.isfinite(got).all()
+    np.testing.assert_allclose(got, _encoded(ref, x), atol=TOL, rtol=TOL)
 
 
 @pytest.mark.parametrize("change", ["shape", "dtype", "missing"])

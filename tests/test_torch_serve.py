@@ -224,9 +224,9 @@ class Serve:
     """``python -m client_tpu_torch.serve ARGS`` with its output read line by
     line."""
 
-    def __init__(self, *args):
+    def __init__(self, *args, command=("-m", "client_tpu_torch.serve")):
         self.proc = subprocess.Popen(
-            [sys.executable, "-m", "client_tpu_torch.serve", *args], cwd=REPO,
+            [sys.executable, *command, *args], cwd=REPO,
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         self.lines = []
         self._reader = threading.Thread(target=self._read, daemon=True)
@@ -486,3 +486,79 @@ def test_serve_needs_a_card_by_default():
     assert proc.returncode != 0
     assert "no CUDA device" in proc.stderr and "--device cpu" in proc.stderr
     assert "listening" not in proc.stdout
+
+
+# a serve child whose main thread blocks SIGTERM once it waits, so the
+# kernel hands the signal to another thread of the process (every frontend
+# thread was started with it unblocked)
+MAIN_BLOCKS_SIGTERM = r"""
+import signal, sys, threading, time
+sys.path.insert(0, sys.argv[1])
+from client_tpu_torch import serve
+real_sleep = time.sleep
+def sleep(s):
+    if threading.current_thread() is threading.main_thread():
+        signal.pthread_sigmask(signal.SIG_BLOCK, {signal.SIGTERM})
+    return real_sleep(s)
+serve.time.sleep = sleep
+sys.exit(serve.main(sys.argv[2:]))
+"""
+
+
+def test_sigterm_taken_by_another_thread_drains_and_exits():
+    """SIGTERM delivered to a thread other than the main one (here forced:
+    the main thread blocks it while it waits) still drains: readiness turns
+    at once, the main thread runs the handler at its next wake, prints the
+    draining line and exits 0, as when it takes the signal itself."""
+    serve = Serve("--http-port", "0", "--grpc-port", "0", "--device", "cpu",
+                  command=("-c", MAIN_BLOCKS_SIGTERM, str(REPO)))
+    try:
+        http_url, _ = serve.urls()
+        assert _get(http_url, "/v2/health/ready")[0] == 200
+        serve.proc.send_signal(signal.SIGTERM)
+        serve.wait_for(DRAINING, timeout=10)
+        rc, err = serve.finish()
+        assert rc == 0, err
+    finally:
+        serve.kill()
+
+
+def test_readiness_turns_at_the_signal_byte():
+    """``serve``'s core turns not-ready on the byte the C-level SIGTERM
+    handler writes to the wakeup pipe, read by a frontend thread, without
+    the main thread running its Python handler (which, under load, can
+    wait over a second for the interpreter lock while the frontends answer
+    200); another signal's byte (SIGINT) leaves it ready, and the main
+    thread's own ``ready = False`` / ``True`` still sets it."""
+    import os
+
+    from client_tpu_torch.serve import SignalDrainedCore
+
+    core = SignalDrainedCore([AddSubModel(device="cpu")], device="cpu")
+    r, w = os.pipe()
+    os.set_blocking(r, False)
+    try:
+        assert core.ready  # no pipe yet
+        core.signal_fd = r
+        seen = []
+
+        def probe():
+            seen.append(core.ready)
+
+        os.write(w, bytes([signal.SIGINT]))
+        t = threading.Thread(target=probe)
+        t.start()
+        t.join()
+        os.write(w, bytes([signal.SIGTERM]))
+        t = threading.Thread(target=probe)
+        t.start()
+        t.join()
+        assert seen == [True, False]
+        assert core.ready is False  # stays drained: the byte was read once
+        core.ready = True  # the setter still rules
+        assert core.ready is True
+        core.ready = False
+        assert core.ready is False
+    finally:
+        os.close(r)
+        os.close(w)

@@ -14,6 +14,7 @@ Servers bind ephemeral ports; every shm key is uuid-named and every region
 is destroyed.
 """
 
+import json
 import uuid
 
 import numpy as np
@@ -455,3 +456,63 @@ def test_sequence_error_cases(port_client, case, match):
     with pytest.raises(InferenceServerException, match=match) as err:
         port_client.infer(model, inputs, **kwargs)
     assert err.value.status() == "400"
+
+
+# -- simple at JAX's batch_dim / width parameters ------------------------------
+
+
+def _raw_infer(url, model, body, headers):
+    host, port = url.split(":")
+    pool = urllib3.HTTPConnectionPool(host, int(port), retries=False)
+    try:
+        resp = pool.request("POST", f"/v2/models/{model}/infer", body=body, headers=headers)
+        return resp.status, resp.headers.get("Inference-Header-Content-Length"), resp.data
+    finally:
+        pool.close()
+
+
+def _simple_request(shape, binary):
+    """``simple``'s request body at ``shape``: numpy-seeded INT32 inputs,
+    as JSON data or as binary tails."""
+    rng = np.random.default_rng(shape[-1])
+    a, b = (rng.integers(-1000, 1000, shape).astype(np.int32) for _ in range(2))
+    if not binary:
+        inputs = [{"name": name, "shape": list(shape), "datatype": "INT32",
+                   "data": x.reshape(-1).tolist()} for name, x in (("INPUT0", a), ("INPUT1", b))]
+        return json.dumps({"inputs": inputs}).encode(), {"Content-Type": "application/json"}
+    header = json.dumps({
+        "inputs": [{"name": name, "shape": list(shape), "datatype": "INT32",
+                    "parameters": {"binary_data_size": x.nbytes}}
+                   for name, x in (("INPUT0", a), ("INPUT1", b))],
+        "outputs": [{"name": name, "parameters": {"binary_data": True}}
+                    for name in ("OUTPUT0", "OUTPUT1")]}).encode()
+    return header + a.tobytes() + b.tobytes(), {
+        "Content-Type": "application/octet-stream",
+        "Inference-Header-Content-Length": str(len(header))}
+
+
+@pytest.mark.parametrize("binary", [False, True], ids=["json", "binary"])
+@pytest.mark.parametrize("batch_dim,width", [(1, 64), (2, 16), (1, 16)])
+def test_simple_takes_jax_batch_dim_and_width(batch_dim, width, binary):
+    """``AddSubModel(batch_dim, width)`` as JAX's: specs [batch_dim, width],
+    and the port's server answers a request of that shape with a body
+    byte-identical to the JAX server's (``simple`` at width 64 among
+    them); a request of another shape is refused by both."""
+    from client_tpu_torch.models.simple import AddSubModel
+
+    port = HttpInferenceServer(ServerCore([AddSubModel(batch_dim, width, device="cpu")],
+                                          device="cpu")).start()
+    jax = JaxServer(JaxCore([JaxAddSub(batch_dim=batch_dim, width=width)])).start()
+    try:
+        assert [s.shape for s in AddSubModel(batch_dim, width, device="cpu").inputs()] == \
+            [[batch_dim, width]] * 2
+        body, headers = _simple_request((batch_dim, width), binary)
+        ours = _raw_infer(port.url, "simple", body, headers)
+        theirs = _raw_infer(jax.url, "simple", body, headers)
+        assert ours[0] == 200 and ours == theirs
+        body, headers = _simple_request((batch_dim, width + 1), binary)
+        assert _raw_infer(port.url, "simple", body, headers)[0] == \
+            _raw_infer(jax.url, "simple", body, headers)[0] == 400
+    finally:
+        port.stop()
+        jax.stop()
