@@ -2,8 +2,8 @@
 //
 // Replaces the Pallas TPU kernel client_tpu/ops/flash_attention.py
 // (_flash_kernel, launched by flash_attention). What it computes:
-//   q, k, v [B,S,H,D] in one dtype (fp32, bf16 or fp16), any D from 1 to
-//   256, scale D^-0.5, out[b,i,h] = softmax_j(q_i.k_j * scale) . v_j in q's
+//   q, k, v [B,S,H,D] in one dtype (any of ops.PLAIN_DTYPES), any D >= 1,
+//   scale D^-0.5, out[b,i,h] = softmax_j(q_i.k_j * scale) . v_j in q's
 //   dtype, with keys j > i masked when causal. Scores and the output
 //   accumulate in fp32. As the Pallas kernel does, QK^T takes the operands
 //   in their own dtype (a bf16 x bf16 or fp16 x fp16 product is exact in
@@ -27,8 +27,8 @@
 // softmax in log2 units (exp2, with scale * log2(e) folded into the score
 // scaling, or into Q for fp32).
 //
-// Head dims: each kernel is instantiated for a padded width DP (16, 32, 64,
-// 96, 128 or 256; the smallest that holds D) and takes the real D at run
+// Head dims up to 256: each kernel is instantiated for a padded width DP (16,
+// 32, 64, 96, 128 or 256; the smallest that holds D) and takes the real D at run
 // time. Loads zero-fill the columns at or beyond D, so they add nothing to a
 // score and give output columns that are never stored; stores write the
 // columns below D only; the scale is the real D's. A D that fills its padded
@@ -38,7 +38,7 @@
 // copied in the widest of 16, 8, 4 or 2 bytes that divides D * itemsize and
 // the tensors' alignment (bf16 D = 10 takes 4-byte copies; cp.async takes 4,
 // 8 or 16 bytes, so an odd D in 2-byte types is copied element by element).
-// Three kernels:
+// Past 256 the float kernels have wide forms (below). Six kernels:
 //
 // - bf16 and fp16, any D (flash_attention_mma_kernel): a FlashAttention-2
 //   layout on the tensor cores. 4 warps own 16 rows each of a 64-row query
@@ -67,8 +67,32 @@
 //   (ty, tx) owns 4 query rows; scores at keys tx + 16j go through a shared
 //   P tile into the PV product at columns tx + 16e. At DP = 256 its tiles
 //   take 209 KB of shared memory.
-// The host entry point returns the launch's cudaError_t; it takes the
-// caller's stream and allocates nothing.
+// - D > 256 (flash_attention_mma_wide_kernel for bf16 and fp16,
+//   flash_attention_f32_wide_kernel for fp32): a block owns a (query tile x
+//   256 columns) slab of O, so its accumulators are those of DP = 256 at
+//   any D (grid.z = the slabs). For each key tile it builds S = QK^T over
+//   the whole D from 64-column chunks of Q and K staged through shared
+//   memory (cp.async, double-buffered, in the mma kernel; plain loads in
+//   the fp32 one, as its DP kernel), then multiplies P by its slab of V.
+//   So each slab recomputes the QK^T product and rereads Q and K: D / 256
+//   times the QK^T work of one pass (2x at D = 512, 4x at 1024), the cost
+//   of this simple design. The last slab and chunk are zero-padded past D.
+//   Shared memory: 69 KB (mma), 113 KB (fp32).
+// - integer and bool inputs at any D (flash_attention_tiled_kernel): JAX's
+//   kernel rounds p to the input dtype per key tile of min(block_k, S)
+//   keys, which truncates it to 0 or 1, so the result depends on the tiles
+//   (tiled_attention.cuh): the wrapper hands block_k in, and this kernel
+//   walks those tiles in order. One block per (b*h, 8 query rows, slab of
+//   256 output columns), a warp a row: for each tile the warp scores its
+//   keys over the whole D (lanes along D), takes the tile's max, p =
+//   expf(s - m) of a key a lane, rounded, then p . v for its columns,
+//   skipping p = 0. Its arithmetic is flash_attention_tiled_reference's,
+//   one rounding an operation (s * scale and s - m by __fmul_rn and
+//   __fsub_rn: no FMA contraction); every element is read through the
+//   run-time element code, one instantiation for every dtype; CUDA-core
+//   FMAs, no tensor cores. A causal row stops at its own key.
+// The host entry points return the launch's cudaError_t; they take the
+// caller's stream and allocate nothing.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -79,6 +103,8 @@
 #include <string.h>
 
 #include <initializer_list>
+
+#include "tiled_attention.cuh"
 
 namespace {
 
@@ -426,6 +452,215 @@ flash_attention_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int j = 0; j < DT; ++j) {
     const int col = j * 8 + 2 * t;
+    if (col >= dim) continue;
+    T* dst0 = out + base + (long long)row0 * stride_s + col;
+    T* dst1 = out + base + (long long)row1 * stride_s + col;
+    if (pairs) {
+      if (row0 < seq) M::store2(dst0, o[j][0] / den0, o[j][1] / den0);
+      if (row1 < seq) M::store2(dst1, o[j][2] / den1, o[j][3] / den1);
+    } else {
+      const bool second = col + 1 < dim;
+      if (row0 < seq) {
+        M::store1(dst0, o[j][0] / den0);
+        if (second) M::store1(dst0 + 1, o[j][1] / den0);
+      }
+      if (row1 < seq) {
+        M::store1(dst1, o[j][2] / den1);
+        if (second) M::store1(dst1 + 1, o[j][3] / den1);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 and fp16 past D = 256: a slab of 256 output columns a block
+// ---------------------------------------------------------------------------
+
+constexpr int kSlab = 256;   // output columns of a wide block
+constexpr int kChunkD = 64;  // columns of a Q or K chunk of the QK^T product
+
+struct MmaWideSmem {
+  static constexpr int kLdC = kChunkD + 8;  // 16 bytes of padding: conflict-free ldmatrix
+  static constexpr int kLdV = kSlab + 8;
+  static constexpr int kChunk = 64 * kLdC;  // one Q or one K chunk
+  static constexpr int kV = 64 * kLdV;
+  static constexpr size_t kBytes = (4 * kChunk + kV) * 2;  // (Q, K) x 2 buffers, V
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_attention_mma_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                                const T* __restrict__ v, T* __restrict__ out, int seq, int heads,
+                                int dim, long long stride_b, long long stride_s,
+                                long long stride_h, float scale, int causal, int vec, int pairs) {
+  using M = Mma<T>;
+  using W = MmaWideSmem;
+  constexpr int LDC = W::kLdC;
+  constexpr int LDV = W::kLdV;
+  constexpr int KSTEPS = kChunkD / 16;  // k-steps of a chunk
+  constexpr int NT = kBlockK / 8;       // 8-key n-tiles of S
+  constexpr int DT = kSlab / 8;         // 8-column n-tiles of the O slab
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* sq = reinterpret_cast<T*>(smem);  // two buffers
+  T* sk = sq + 2 * W::kChunk;          // two buffers
+  T* sv = sk + 2 * W::kChunk;
+
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kMmaBlockQ;  // longest causal blocks first
+  const int col0 = blockIdx.z * kSlab;                       // this block's columns of O
+  const long long base = (long long)(bh / heads) * stride_b + (long long)(bh % heads) * stride_h;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int row0 = q0 + warp * 16 + g;
+  const int row1 = row0 + 8;
+  const float scale_log2 = scale * kLog2e;
+  const int q_row = warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int q_col = (lane >> 4) * 8;
+
+  const int k_end = causal ? min(seq, q0 + kMmaBlockQ) : seq;
+  const int n_tiles = (k_end + kBlockK - 1) / kBlockK;
+  const int n_chunks = (dim + kChunkD - 1) / kChunkD;
+
+  float o[DT][4];
+#pragma unroll
+  for (int j = 0; j < DT; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) o[j][c] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};  // this thread's columns only, until the end
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = it * kBlockK;
+    // the tile's V slab first (its group completes before the chunks'),
+    // then the first chunk of Q and K; every buffer was last read before
+    // the previous tile's closing barrier
+    load_tile_async<T, kSlab, LDV, kBlockK, kMmaThreads>(sv, v + base + col0, k0, seq, stride_s,
+                                                        dim - col0, vec);
+    cp_async_commit();
+    load_tile_async<T, kChunkD, LDC, kMmaBlockQ, kMmaThreads>(sq, q + base, q0, seq, stride_s,
+                                                             dim, vec);
+    load_tile_async<T, kChunkD, LDC, kBlockK, kMmaThreads>(sk, k + base, k0, seq, stride_s, dim,
+                                                          vec);
+    cp_async_commit();
+
+    // S = Q K^T over the whole D, chunk by chunk: 16 rows x 64 keys a warp
+    float s[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[j][c] = 0.f;
+    for (int ch = 0; ch < n_chunks; ++ch) {
+      const int buf = ch & 1;
+      if (ch + 1 < n_chunks) {
+        // the buffer it fills was last read in chunk ch - 1, which ended
+        // with a barrier
+        const int c1 = (ch + 1) * kChunkD;
+        load_tile_async<T, kChunkD, LDC, kMmaBlockQ, kMmaThreads>(
+            sq + (buf ^ 1) * W::kChunk, q + base + c1, q0, seq, stride_s, dim - c1, vec);
+        load_tile_async<T, kChunkD, LDC, kBlockK, kMmaThreads>(
+            sk + (buf ^ 1) * W::kChunk, k + base + c1, k0, seq, stride_s, dim - c1, vec);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      const T* qt = sq + buf * W::kChunk;
+      const T* kt = sk + buf * W::kChunk;
+#pragma unroll
+      for (int kk = 0; kk < KSTEPS; ++kk) {
+        uint32_t a[4];
+        ldmatrix_x4(a, qt + q_row * LDC + kk * 16 + q_col);
+#pragma unroll
+        for (int np = 0; np < NT / 2; ++np) {
+          uint32_t b[4];
+          const int key = np * 16 + (lane & 7) + (lane >> 4) * 8;
+          ldmatrix_x4(b, kt + key * LDC + kk * 16 + ((lane >> 3) & 1) * 8);
+          M::mma(s[2 * np], a, b[0], b[1]);
+          M::mma(s[2 * np + 1], a, b[2], b[3]);
+        }
+      }
+      __syncthreads();  // this chunk's buffers are refilled two chunks on
+    }
+
+    if (tile_needs_mask<kBlockK>(k0, q0, seq, causal)) {
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int key = k0 + j * 8 + 2 * t + (c & 1);
+          const int row = c < 2 ? row0 : row1;
+          const bool live = key < seq && (!causal || key <= row);
+          s[j][c] = live ? s[j][c] * scale_log2 : -INFINITY;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) s[j][c] *= scale_log2;
+    }
+
+    // online softmax on the fragments, as flash_attention_mma_kernel
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = m[r];
+#pragma unroll
+      for (int j = 0; j < NT; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_use = mx == -INFINITY ? 0.f : mx;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        s[j][2 * r] = exp2f(s[j][2 * r] - m_use);
+        s[j][2 * r + 1] = exp2f(s[j][2 * r + 1] - m_use);
+        sum += s[j][2 * r] + s[j][2 * r + 1];
+      }
+      if (mx != m[r]) {
+        const float corr = exp2f(m[r] - m_use);
+        l[r] *= corr;
+#pragma unroll
+        for (int j = 0; j < DT; ++j) {
+          o[j][2 * r] *= corr;
+          o[j][2 * r + 1] *= corr;
+        }
+      }
+      l[r] += sum;
+      m[r] = mx;
+    }
+
+    // O slab += P V slab, P rounded to the input type in registers
+#pragma unroll
+    for (int kk = 0; kk < NT / 2; ++kk) {
+      const uint32_t pa[4] = {M::pack(s[2 * kk][0], s[2 * kk][1]),
+                              M::pack(s[2 * kk][2], s[2 * kk][3]),
+                              M::pack(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                              M::pack(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int dp = 0; dp < DT / 2; ++dp) {
+        uint32_t b[4];
+        const int key = kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+        ldmatrix_x4_trans(b, sv + key * LDV + dp * 16 + (lane >> 4) * 8);
+        M::mma(o[2 * dp], pa, b[0], b[1]);
+        M::mma(o[2 * dp + 1], pa, b[2], b[3]);
+      }
+    }
+    __syncthreads();  // this tile's V slab and chunks are refilled in the next
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  const float den0 = fmaxf(l[0], 1e-30f);
+  const float den1 = fmaxf(l[1], 1e-30f);
+#pragma unroll
+  for (int j = 0; j < DT; ++j) {
+    const int col = col0 + j * 8 + 2 * t;
     if (col >= dim) continue;
     T* dst0 = out + base + (long long)row0 * stride_s + col;
     T* dst1 = out + base + (long long)row1 * stride_s + col;
@@ -807,6 +1042,239 @@ flash_attention_f32_kernel(const float* __restrict__ q, const float* __restrict_
 }
 
 // ---------------------------------------------------------------------------
+// fp32 past D = 256: a slab of 256 output columns a block, P through
+// shared memory
+// ---------------------------------------------------------------------------
+
+struct F32WideSmem {
+  static constexpr int kLdC = kChunkD + 1;  // odd word count per row
+  static constexpr size_t kQ = (size_t)kBlockQ * kLdC * sizeof(float);
+  static constexpr size_t kK = (size_t)kBlockK * kLdC * sizeof(float);
+  static constexpr size_t kV = (size_t)kBlockK * kSlab * sizeof(float);
+  static constexpr size_t kP = (size_t)kBlockQ * kLdP * sizeof(float);
+  static constexpr size_t kBytes = kQ + kK + kV + kP;
+};
+
+__global__ void __launch_bounds__(kThreads)
+flash_attention_f32_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                const float* __restrict__ v, float* __restrict__ out, int seq,
+                                int heads, int dim, long long stride_b, long long stride_s,
+                                long long stride_h, float scale, int causal, int vec, int) {
+  using S = F32WideSmem;
+  constexpr int LDC = S::kLdC;
+  constexpr int E = kSlab / 16;  // output columns per thread
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* sq = reinterpret_cast<float*>(smem);
+  float* sk = reinterpret_cast<float*>(smem + S::kQ);
+  float* sv = reinterpret_cast<float*>(smem + S::kQ + S::kK);
+  float* sp = reinterpret_cast<float*>(smem + S::kQ + S::kK + S::kV);
+
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBlockQ;  // longest causal blocks first
+  const int col0 = blockIdx.z * kSlab;                    // this block's columns of O
+  const long long base = (long long)(bh / heads) * stride_b + (long long)(bh % heads) * stride_h;
+  const int ty = threadIdx.x >> 4;
+  const int tx = threadIdx.x & 15;
+
+  float m[kRows], l[kRows], acc[kRows][E];
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc[i][e] = 0.f;
+  }
+
+  const int k_end = causal ? min(seq, q0 + kBlockQ) : seq;
+  for (int k0 = 0; k0 < k_end; k0 += kBlockK) {
+    // S = Q K^T over the whole D, chunk by chunk
+    float s[kRows][kKeys];
+#pragma unroll
+    for (int i = 0; i < kRows; ++i)
+#pragma unroll
+      for (int j = 0; j < kKeys; ++j) s[i][j] = 0.f;
+    for (int c0 = 0; c0 < dim; c0 += kChunkD) {
+      __syncthreads();  // the last chunk (and the last tile's V and P) are no longer read
+      load_tile<kChunkD, LDC>(sq, q + base + c0, q0, kBlockQ, seq, stride_s, dim - c0, vec);
+      load_tile<kChunkD, LDC>(sk, k + base + c0, k0, kBlockK, seq, stride_s, dim - c0, vec);
+      if (c0 == 0) {
+        load_tile<kSlab, kSlab>(sv, v + base + col0, k0, kBlockK, seq, stride_s, dim - col0, vec);
+      }
+      __syncthreads();
+      const int n = min(kChunkD, dim - c0);
+#pragma unroll 8
+      for (int d = 0; d < n; ++d) {
+        float qv[kRows], kv[kKeys];
+#pragma unroll
+        for (int i = 0; i < kRows; ++i) qv[i] = sq[(ty * kRows + i) * LDC + d];
+#pragma unroll
+        for (int j = 0; j < kKeys; ++j) kv[j] = sk[(tx + 16 * j) * LDC + d];
+#pragma unroll
+        for (int i = 0; i < kRows; ++i)
+#pragma unroll
+          for (int j = 0; j < kKeys; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+      }
+    }
+
+    // online softmax, as flash_attention_f32_kernel
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const int row = q0 + ty * kRows + i;
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < kKeys; ++j) {
+        const int col = k0 + tx + 16 * j;
+        const bool live = col < seq && (!causal || col <= row);
+        s[i][j] = live ? s[i][j] * scale : -INFINITY;
+        mx = fmaxf(mx, s[i][j]);
+      }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m[i], mx);
+      const float m_use = m_new == -INFINITY ? 0.f : m_new;
+      const float corr = expf(m[i] - m_use);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < kKeys; ++j) {
+        const float p = expf(s[i][j] - m_use);
+        sum += p;
+        sp[(ty * kRows + i) * kLdP + tx + 16 * j] = p;
+      }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      l[i] = l[i] * corr + sum;
+#pragma unroll
+      for (int e = 0; e < E; ++e) acc[i][e] *= corr;
+      m[i] = m_new;
+    }
+    __syncthreads();  // the whole P tile is written
+
+#pragma unroll 4
+    for (int j = 0; j < kBlockK; ++j) {
+      float vv[E];
+#pragma unroll
+      for (int e = 0; e < E; ++e) vv[e] = sv[j * kSlab + tx + 16 * e];
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) {
+        const float p = sp[(ty * kRows + i) * kLdP + j];
+#pragma unroll
+        for (int e = 0; e < E; ++e) acc[i][e] = fmaf(p, vv[e], acc[i][e]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    const int row = q0 + ty * kRows + i;
+    if (row < seq) {
+      const float denom = fmaxf(l[i], 1e-30f);
+      float* dst = out + base + (long long)row * stride_s;
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        const int col = col0 + tx + 16 * e;
+        if (col < dim) dst[col] = acc[i][e] / denom;
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// integer and bool: JAX's key tiles in order, every dtype by its element code
+// ---------------------------------------------------------------------------
+
+constexpr int kTiledRows = 8;                // query rows of a block, a warp each
+constexpr int kTiledThreads = kTiledRows * 32;
+constexpr int kTiledChunk = 256;             // keys of a tile whose scores wait in shared memory
+constexpr int kTiledCols = kSlab / 32;       // output columns of a lane
+
+__global__ void __launch_bounds__(kTiledThreads)
+flash_attention_tiled_kernel(const void* __restrict__ q, const void* __restrict__ k,
+                             const void* __restrict__ v, void* __restrict__ out, int seq,
+                             int heads, int dim, long long stride_b, long long stride_s,
+                             long long stride_h, int code, float scale, int causal, int tile) {
+  __shared__ float sc_rows[kTiledRows][kTiledChunk];  // a chunk's scores, then its rounded p
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.y * kTiledRows + warp;
+  if (row >= seq) return;  // the whole warp; no block barrier follows
+  float* sc = sc_rows[warp];
+  const int bh = blockIdx.x;
+  const long long base = (long long)(bh / heads) * stride_b + (long long)(bh % heads) * stride_h;
+  const long long q_off = base + (long long)row * stride_s;
+  const int col0 = blockIdx.z * kSlab;
+  // keys [0, k_end) attend: a causal row stops at its own key (the tiles
+  // past it add nothing: their p are 0 and their correction 1)
+  const int k_end = causal ? row + 1 : seq;
+
+  float m = -INFINITY;
+  float l = 0.f;
+  float acc[kTiledCols];
+#pragma unroll
+  for (int i = 0; i < kTiledCols; ++i) acc[i] = 0.f;
+
+  for (int t0 = 0; t0 < k_end; t0 += tile) {
+    const int t1 = min(k_end, t0 + tile);  // this tile's live keys: [t0, t1)
+    const bool held = t1 - t0 <= kTiledChunk;  // its scores all wait in sc
+    float mx = -INFINITY;
+    for (int c0 = t0; c0 < t1; c0 += kTiledChunk) {
+      const int n = min(kTiledChunk, t1 - c0);
+      for (int j = 0; j < n; ++j) {
+        const float s = tiled::warp_score(q, q_off, k, base + (long long)(c0 + j) * stride_s, dim,
+                                          code, scale);
+        if (held && lane == 0) sc[j] = s;
+        mx = fmaxf(mx, s);
+      }
+    }
+    const float m_new = fmaxf(m, mx);
+    // no live key yet: p = 0 and the correction is 0
+    const float m_use = m_new == -INFINITY ? 0.f : m_new;
+    const float corr = expf(__fsub_rn(m, m_use));
+    float psum = 0.f;
+    float pv[kTiledCols];
+#pragma unroll
+    for (int i = 0; i < kTiledCols; ++i) pv[i] = 0.f;
+    for (int c0 = t0; c0 < t1; c0 += kTiledChunk) {
+      const int n = min(kTiledChunk, t1 - c0);
+      if (!held) {
+        for (int j = 0; j < n; ++j) {
+          const float s = tiled::warp_score(q, q_off, k, base + (long long)(c0 + j) * stride_s,
+                                            dim, code, scale);
+          if (lane == 0) sc[j] = s;
+        }
+      }
+      __syncwarp();
+      for (int j = lane; j < n; j += 32) {
+        const float p = expf(__fsub_rn(sc[j], m_use));
+        psum += p;
+        sc[j] = tiled::round_p(p, code);
+      }
+      __syncwarp();
+      for (int j = 0; j < n; ++j) {
+        const float r = sc[j];
+        if (r == 0.f) continue;  // the same in every lane
+        const long long v_off = base + (long long)(c0 + j) * stride_s;
+#pragma unroll
+        for (int i = 0; i < kTiledCols; ++i) {
+          const int d = col0 + lane + 32 * i;
+          if (d < dim) pv[i] = fmaf(r, tiled::load_f32(v, v_off + d, code), pv[i]);
+        }
+      }
+      __syncwarp();  // sc is rewritten next
+    }
+    l = __fadd_rn(__fmul_rn(l, corr), tiled::warp_sum(psum));
+#pragma unroll
+    for (int i = 0; i < kTiledCols; ++i) acc[i] = __fadd_rn(__fmul_rn(acc[i], corr), pv[i]);
+    m = m_new;
+  }
+  const float den = fmaxf(l, 1e-30f);
+#pragma unroll
+  for (int i = 0; i < kTiledCols; ++i) {
+    const int d = col0 + lane + 32 * i;
+    if (d < dim) tiled::store_f32(out, q_off + d, acc[i] / den, code);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
 
@@ -824,8 +1292,11 @@ struct Args {
   cudaStream_t stream;
 };
 
+// grid (b*h, query tiles, slabs): slabs of kSlab output columns for the
+// wide kernels, 1 for the others
 template <typename T, typename Kernel>
-cudaError_t launch(Kernel kernel, size_t smem, int threads, int block_q, const Args& a) {
+cudaError_t launch(Kernel kernel, size_t smem, int threads, int block_q, const Args& a,
+                   int slabs = 1) {
   if (smem > 48 * 1024) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -833,8 +1304,8 @@ cudaError_t launch(Kernel kernel, size_t smem, int threads, int block_q, const A
   }
   const long long bh = (long long)a.batch * a.heads;
   const int q_tiles = (a.seq + block_q - 1) / block_q;
-  if (bh > INT_MAX || q_tiles > 65535) return cudaErrorInvalidValue;
-  kernel<<<dim3((unsigned)bh, (unsigned)q_tiles), threads, smem, a.stream>>>(
+  if (bh > INT_MAX || q_tiles > 65535 || slabs > 65535) return cudaErrorInvalidValue;
+  kernel<<<dim3((unsigned)bh, (unsigned)q_tiles, (unsigned)slabs), threads, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       static_cast<T*>(a.out), a.seq, a.heads, a.dim, a.stride_b, a.stride_s, a.stride_h,
       a.scale, a.causal, a.vec, a.pairs);
@@ -874,8 +1345,11 @@ cudaError_t launch_f32(const Args& a) {
                                           F32Smem<DP>::kBytes, kThreads, kBlockQ, a);
 }
 
+// slabs of kSlab output columns a wide kernel's grid holds
+int slabs(int dim) { return (dim + kSlab - 1) / kSlab; }
+
 // the padded width a head dim runs at: the smallest instantiated one that
-// holds it (0 past 256)
+// holds it (0 past 256, where the wide kernels run)
 int padded_dim(int dim) {
   if (dim < 1) return 0;
   for (int dp : {16, 32, 64, 96, 128, 256})
@@ -892,7 +1366,9 @@ cudaError_t dispatch_mma(const Args& a) {
     case 96: return launch_mma<T, 96>(a);
     case 128: return launch_mma<T, 128>(a);
     case 256: return launch_mma<T, 256>(a);
-    default: return cudaErrorInvalidValue;
+    default:
+      return launch<T>(flash_attention_mma_wide_kernel<T>, MmaWideSmem::kBytes, kMmaThreads,
+                       kMmaBlockQ, a, slabs(a.dim));
   }
 }
 
@@ -904,7 +1380,9 @@ cudaError_t dispatch_f32(const Args& a) {
     case 96: return launch_f32<96>(a);
     case 128: return launch_f32<128>(a);
     case 256: return launch_f32<256>(a);
-    default: return cudaErrorInvalidValue;
+    default:
+      return launch<float>(flash_attention_f32_wide_kernel, F32WideSmem::kBytes, kThreads,
+                           kBlockQ, a, slabs(a.dim));
   }
 }
 
@@ -926,6 +1404,7 @@ int row_copy_bytes(const Args& a, int itemsize) {
 // Dynamic shared memory per block of the kernel that runs for (dtype, dim)
 // (0 for an unsupported pair): ptxas reports static shared memory only.
 extern "C" int flash_attention_smem_bytes(int dtype, int dim) {
+  if (dim < 1) return 0;
   const int dp = padded_dim(dim);
   if (dtype == 1 || dtype == 2) {
     switch (dp) {
@@ -935,6 +1414,7 @@ extern "C" int flash_attention_smem_bytes(int dtype, int dim) {
       case 96: return (int)MmaSmem<96>::kBytes;
       case 128: return (int)MmaSmem<128>::kBytes;
       case 256: return (int)MmaSmem<256>::kBytes;
+      default: return (int)MmaWideSmem::kBytes;
     }
   } else if (dtype == 0) {
     switch (dp) {
@@ -944,21 +1424,22 @@ extern "C" int flash_attention_smem_bytes(int dtype, int dim) {
       case 96: return (int)F32Smem<96>::kBytes;
       case 128: return (int)F32Smem<128>::kBytes;
       case 256: return (int)F32Smem<256>::kBytes;
+      default: return (int)F32WideSmem::kBytes;
     }
   }
   return 0;
 }
 
 // q, k, v and out share the [B,S,H,D] shape and the element strides
-// (stride_b, stride_s, stride_h; the last dimension is contiguous), D from 1
-// to 256. dtype: 0 = float32, 1 = bfloat16, 2 = float16. Returns a
+// (stride_b, stride_s, stride_h; the last dimension is contiguous), any D
+// >= 1. dtype: 0 = float32, 1 = bfloat16, 2 = float16. Returns a
 // cudaError_t (0 = launched).
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* out,
                                       int batch, int seq, int heads, int dim,
                                       long long stride_b, long long stride_s,
                                       long long stride_h, int dtype, float scale, int causal,
                                       void* stream) {
-  if (batch <= 0 || seq <= 0 || heads <= 0 || padded_dim(dim) == 0) {
+  if (batch <= 0 || seq <= 0 || heads <= 0 || dim <= 0) {
     return (int)cudaErrorInvalidValue;
   }
   Args a{q, k, v, out, batch, seq, heads, dim, stride_b, stride_s, stride_h, scale, causal,
@@ -973,4 +1454,25 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
     case 2: return (int)dispatch_mma<half>(a);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// The tiled kernel, for integer and bool inputs: code is the element code
+// of q, k, v and out (ELEMENT_CODES: 0-7), any dim >= 1, tile =
+// min(block_k, seq) >= 1 keys. Strides as flash_attention_launch. Returns
+// a cudaError_t (0 = launched).
+extern "C" int flash_attention_tiled_launch(const void* q, const void* k, const void* v,
+                                            void* out, int batch, int seq, int heads, int dim,
+                                            long long stride_b, long long stride_s,
+                                            long long stride_h, int code, float scale,
+                                            int causal, int tile, void* stream) {
+  const long long bh = (long long)batch * heads;
+  const long long row_blocks = ((long long)seq + kTiledRows - 1) / kTiledRows;
+  if (batch <= 0 || seq <= 0 || heads <= 0 || dim <= 0 || tile <= 0 || code < 0 || code > 7 ||
+      bh > INT_MAX || row_blocks > 65535 || slabs(dim) > 65535) {
+    return (int)cudaErrorInvalidValue;
+  }
+  flash_attention_tiled_kernel<<<dim3((unsigned)bh, (unsigned)row_blocks, (unsigned)slabs(dim)),
+                                 kTiledThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      q, k, v, out, seq, heads, dim, stride_b, stride_s, stride_h, code, scale, causal, tile);
+  return (int)cudaGetLastError();
 }

@@ -5,9 +5,11 @@ Each kernel wrapper launches its CUDA kernel for CUDA tensors (or raises),
 takes the plain version only for CPU tensors, and counts its launches in a
 :class:`LaunchCounter`, so a run can show that its main path went through the
 kernel. The plain versions take every dtype of ``PLAIN_DTYPES``, as the JAX
-ops do, and so do the four elementwise kernels; the attention kernels take
-float32, bfloat16 and float16 and head dims up to 256, and on a CUDA tensor
-an integer or bool dtype raises ``TypeError`` (:func:`kernel_dtype_error`).
+ops do, and so does every kernel, the attention kernels at any head dim
+(integer and bool attention follows JAX's key tiles, on which its result
+depends). What a wrapper refuses on a CUDA tensor is what the JAX op
+refuses on any device: other dtypes, mixed dtypes, bad shapes and (flash)
+block sizes the sequence cannot be cut into.
 
 As ``client_tpu.ops`` does, the package exposes its ops by name:
 ``flash_attention``, ``normalize_image``, ``softmax_probabilities``,
@@ -41,16 +43,6 @@ def check_plain_dtype(op: str, dtype) -> None:
     """Raise ``TypeError`` unless ``dtype`` is one of ``PLAIN_DTYPES``."""
     if dtype not in PLAIN_DTYPES:
         raise TypeError(f"{op} takes {_names(PLAIN_DTYPES)}, not {dtype}")
-
-
-def kernel_dtype_error(op: str, dtype, kernel_dtypes) -> TypeError:
-    """The error for a CUDA tensor of a dtype the op computes on the CPU but
-    its kernel does not take (integer or bool attention): there is no
-    fallback to the plain version."""
-    return TypeError(
-        f"{op} on a CUDA tensor takes {_names(kernel_dtypes)}, not {dtype}: its kernel "
-        "has no code for integer or bool attention yet (ROADMAP.md, queue B, item 7); a "
-        "CPU tensor of that dtype runs the plain version")
 
 
 class LaunchCounter:

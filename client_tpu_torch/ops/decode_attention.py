@@ -8,14 +8,18 @@ called through ctypes (see ``ops._kernels``).
 One query vector per (sequence, head) attends over its static KV cache:
 q [B,H,D], k/v [B,H,M,D], pos [B] int32 — cache slots ``<= pos[b]`` attend
 (the decoder's position-based mask), softmax scale ``D**-0.5``, output
-[B,H,D] in q's dtype. The kernel takes fp32, bf16 and fp16 inputs and any
-D from 1 to ``MAX_DIM`` (256; it is built for padded widths 16, 32, 64, 128
-and 256 and reads the real D at run time), and accumulates in fp32; q, k or
-v that are not 16-byte aligned (views into larger tensors) are copied into
-fresh tensors, which the allocator aligns, and the same kernel runs on the
-copies (served callers pass fresh tensors, so the served path never
-copies). On the CPU the plain versions take any D and every dtype of
-``ops.PLAIN_DTYPES``, as the JAX function does.
+[B,H,D] in q's dtype. The kernels take every dtype of ``ops.PLAIN_DTYPES``
+and any D, as the JAX function does, and accumulate in fp32. fp32, bf16
+and fp16 run the split-K kernel below, built for padded widths 16, 32, 64,
+128, 256, 512 and 1024 (the real D read at run time) and, past 1024, for
+slabs of 1024 output columns a block; q, k or v that are not 16-byte
+aligned (views into larger tensors) are copied into fresh tensors, which
+the allocator aligns, and the same kernel runs on the copies (served
+callers pass fresh tensors, so the served path never copies). An integer
+or bool cache runs the tiled kernel: JAX's tiles of ``min(block_k, M)``
+slots in order, a block per (b, h) and slab of 1024 output columns,
+elements read by their dtype's code. The plain versions take the same on
+the CPU.
 
 Bound on the H100: bytes. A step reads B*H*(pos+1)*D*2*itemsize bytes of
 cache (plus q and the output), at the card's 3.35 TB/s; the arithmetic is
@@ -31,13 +35,14 @@ log-sum-exp. :func:`decode_attention_split_reference` is the plain form of
 exactly that computation. One split (the decoder's served shape) is a
 single launch with no scratch.
 
-``decode_attention`` launches the kernel for CUDA tensors on the current
+``decode_attention`` launches a kernel for CUDA tensors on the current
 stream and raises if the launch fails; for CPU tensors it computes
 ``decode_attention_reference``, the plain PyTorch version beside it, or, for
 an integer or bool cache, ``decode_attention_tiled_reference`` (the Pallas
 kernel rounds the probabilities to the cache's dtype before the PV product,
-which truncates them to 0 or 1 there, so its result depends on its tiles).
-There is no fallback from the one to the other.
+which truncates them to 0 or 1 there, so its result depends on its tiles;
+the tiled kernel's arithmetic is this function's). There is no fallback
+from the one to the other.
 """
 
 from __future__ import annotations
@@ -46,15 +51,16 @@ import ctypes
 
 import torch
 
-from . import LaunchCounter, _kernels, check_plain_dtype, kernel_dtype_error
+from . import LaunchCounter, _kernels, check_plain_dtype
 
-# the widest head dim the kernel takes
-MAX_DIM = 256
-_DTYPE_CODES = _kernels.FLOAT_CODES
 # decode_attention_launch(q, k, v, pos, out, partial, batch, heads, max_len,
 #                         dim, dtype, splits, scale, stream)
 _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
              + [ctypes.c_float, ctypes.c_void_p])
+# decode_attention_tiled_launch(q, k, v, pos, out, batch, heads, max_len,
+#                               dim, code, tile, scale, stream)
+_TILED_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                   + [ctypes.c_float, ctypes.c_void_p])
 
 # split_plan: the H100's SM count, the blocks aimed at (about two per SM)
 # and the fewest cache slots a split walks (shorter splits cost more in
@@ -81,14 +87,15 @@ def decode_attention_reference(q, k, v, pos):
     return torch.einsum("bhm,bhmd->bhd", p, vf).to(q.dtype)
 
 
-def decode_attention_tiled_reference(q, k, v, pos, block_k: int = 128):
+def decode_attention_tiled_reference(q, k, v, pos, block_k: int = 128, out_dtype=None):
     """The Pallas kernel's loop in plain PyTorch: cache tiles of
     ``min(block_k, M)`` slots walked in order with a running (max, sum, acc)
     per (b, h) in fp32, scores in fp32, slots past ``pos[b]`` masked, the
     probabilities rounded to v's dtype before the PV product
     (``p.astype(v.dtype)`` in the Pallas kernel), a row with no live slot
     yet kept at p = 0 with a correction of 0, and the final divide by
-    ``max(l, 1e-30)``. Returns q's dtype."""
+    ``max(l, 1e-30)``. Returns q's dtype, or ``out_dtype`` where given
+    (``torch.float32``: the quotient before the cast)."""
     batch, heads, dim = q.shape
     max_len = k.shape[2]
     block = min(block_k, max_len)
@@ -110,7 +117,7 @@ def decode_attention_tiled_reference(q, k, v, pos, block_k: int = 128):
         pv = torch.einsum("bhm,bhmd->bhd", p.to(v.dtype).float(), vf[:, :, k0:k0 + block])
         acc = acc * corr[..., None] + pv
         m = m_new
-    return (acc / l.clamp_min(1e-30)[..., None]).to(q.dtype)
+    return (acc / l.clamp_min(1e-30)[..., None]).to(out_dtype or q.dtype)
 
 
 def split_plan(batch: int, heads: int, max_len: int, sms: int = H100_SMS) -> int:
@@ -162,8 +169,8 @@ def decode_attention_split_reference(q, k, v, pos, splits: int):
 
 
 def _check(q, k, v, pos, block_k) -> None:
-    """What the JAX function refuses too, on any device; the kernel's own
-    limits are checked on the CUDA path (``_launch``)."""
+    """What the JAX function refuses, on any device (the kernels take
+    everything else)."""
     check_plain_dtype("decode_attention", q.dtype)
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(
@@ -194,17 +201,22 @@ def _check(q, k, v, pos, block_k) -> None:
         raise ValueError("decode_attention takes contiguous tensors")
 
 
-def _launch(q, k, v, pos) -> torch.Tensor:
-    code = _DTYPE_CODES.get(q.dtype)
-    if code is None:
-        raise kernel_dtype_error("decode_attention", q.dtype, _DTYPE_CODES)
+def _launch(q, k, v, pos, block_k: int) -> torch.Tensor:
     batch, heads, dim = q.shape
-    if not 1 <= dim <= MAX_DIM:
-        raise ValueError(f"the decode_attention kernel takes head dims 1 to {MAX_DIM}, "
-                         f"not {dim}")
+    max_len = k.shape[2]
+    if not q.dtype.is_floating_point:
+        # JAX's tiles in order: the result depends on them for an integer or
+        # bool cache; elements are read one by one, so no alignment is needed
+        out = torch.empty_like(q)
+        _kernels.launch(
+            _kernels.function("decode_attention", "decode_attention_tiled_launch",
+                              _TILED_ARGTYPES), LAUNCHES,
+            q, q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(), out.data_ptr(), batch,
+            heads, max_len, dim, _kernels.ELEMENT_CODES[q.dtype], min(block_k, max_len),
+            dim ** -0.5)
+        return out
     # a view that is not 16-byte aligned is copied: the allocator aligns the copy
     q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
-    max_len = k.shape[2]
     splits = split_plan(batch, heads, max_len, _kernels.sm_count(q.get_device()))
     out = torch.empty_like(q)
     partial = (torch.empty(batch * heads * splits * (dim + 2), dtype=torch.float32,
@@ -212,8 +224,8 @@ def _launch(q, k, v, pos) -> torch.Tensor:
     _kernels.launch(
         _kernels.function("decode_attention", "decode_attention_launch", _ARGTYPES), LAUNCHES,
         q, q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(), out.data_ptr(),
-        None if partial is None else partial.data_ptr(), batch, heads, max_len, dim, code,
-        splits, dim ** -0.5)
+        None if partial is None else partial.data_ptr(), batch, heads, max_len, dim,
+        _kernels.FLOAT_CODES[q.dtype], splits, dim ** -0.5)
     return out
 
 
@@ -223,16 +235,16 @@ def decode_attention(q, k, v, pos, block_k: int = 128, interpret=None):
     ``<= pos[b]`` attend. Returns [batch, heads, dim] in q's dtype.
 
     ``block_k`` and ``interpret`` keep the JAX signature. ``block_k`` is
-    checked (a positive int), and sets the tiles only of the plain version
-    for an integer or bool cache, where the result depends on them; the
-    Hopper kernel splits the cache by ``split_plan``. ``interpret`` changes
-    nothing: the tensors' device decides what runs. CUDA tensors run the
-    Hopper kernel (fp32, bf16 or fp16, D from 1 to ``MAX_DIM``; an integer
-    or bool cache and wider heads raise); CPU tensors the plain version."""
+    checked (a positive int) and sets the tiles of ``min(block_k, M)``
+    slots of an integer or bool cache, where the result depends on them, as
+    in JAX (the tiled kernel and plain version); for a float cache the
+    split-K kernel splits the cache by ``split_plan``. ``interpret`` changes nothing: the tensors'
+    device decides what runs. CUDA tensors run a Hopper kernel (every dtype
+    of ``ops.PLAIN_DTYPES``, any D); CPU tensors the plain version."""
     _check(q, k, v, pos, block_k)
     device = q.device.type
     if device == "cuda":
-        return _launch(q, k, v, pos)
+        return _launch(q, k, v, pos, block_k)
     if device == "cpu":
         if q.dtype.is_floating_point:
             return decode_attention_reference(q, k, v, pos)

@@ -6,19 +6,23 @@ Hopper, ``client_tpu_torch/csrc/flash_attention.cu``, built by nvcc and
 called through ctypes (see ``ops._kernels``).
 
 q, k, v: [batch, seq, heads, dim], one dtype, any seq >= 1; softmax scale
-``dim**-0.5``; optional causal mask; output in q's dtype. The kernel takes
-float32, bfloat16 and float16 and any dim from 1 to ``MAX_DIM`` (256): it
-is built for padded widths (16, 32, 64, 96, 128, 256) and reads the real
-dim at run time. q, k or v that are not 16-byte aligned (views into larger
-tensors) are copied into fresh tensors, which the allocator aligns, and the
-same kernel runs on the copies (served callers pass fresh tensors, so the
-served path never copies). On the CPU the plain versions take any dim and
-every dtype of ``ops.PLAIN_DTYPES``, as the JAX function does. Scores and
-the output accumulate in fp32; with bf16 or fp16 inputs the probabilities
-are rounded to the input dtype before the PV product, as the Pallas kernel
-does. The kernel masks keys past the sequence itself, so a
-ragged length is never padded in memory, and it reads the [B,S,H,D] layout
-with strides (no transpose copies around it).
+``dim**-0.5``; optional causal mask; output in q's dtype. The kernels take
+every dtype of ``ops.PLAIN_DTYPES`` and any dim, as the JAX function does.
+float32, bfloat16 and float16 run the float kernels, built for padded
+widths (16, 32, 64, 96, 128, 256; the real dim read at run time) and, past
+256, in wide forms where a block owns 256 columns of the output and
+recomputes QK^T over the whole dim for each such slab; q, k or v that are
+not 16-byte aligned (views into larger tensors) are copied into fresh
+tensors, which the allocator aligns, and the same kernel runs on the copies
+(served callers pass fresh tensors, so the served path never copies).
+Integer and bool inputs run the tiled kernel, which walks JAX's key tiles
+of ``min(block_k, seq)`` keys in order (``block_k`` is handed to it),
+elements read by their dtype's code. The plain versions take the same on
+the CPU. Scores and the output accumulate in fp32; with bf16 or fp16
+inputs the probabilities are rounded to the input dtype before the PV
+product, as the Pallas kernel does. The kernels mask keys past the sequence
+themselves, so a ragged length is never padded in memory, and they read the
+[B,S,H,D] layout with strides (no transpose copies around them).
 
 Bound on the H100: operations (4*B*H*S^2*D flops, about half when causal,
 against 4*B*S*H*D elements moved). The kernel keeps the S x S scores out of
@@ -33,13 +37,15 @@ and the probabilities stay in registers, K/V tiles double-buffered with
 bf16 and fp16 kernel and the Pallas kernel do); ``flash_attention_reference``
 is the dense version the kernel is held against.
 
-``flash_attention`` launches the kernel for CUDA tensors on the current
+``flash_attention`` launches a kernel for CUDA tensors on the current
 stream and raises if the launch fails; for CPU tensors it computes
 ``flash_attention_reference``, the dense plain version beside it, or, for
 integer or bool inputs, ``flash_attention_tiled_reference`` with JAX's key
 tiles (rounding the probabilities to v's dtype truncates them to 0 or 1
-there, so the result depends on the tiles). There is no fallback from the
-one to the other.
+there, so the result depends on the tiles; the tiled kernel's arithmetic is
+this function's). There is no fallback from the one to the other. Both
+refuse, on any device, the block sizes JAX's function refuses
+(:func:`check_blocks`).
 """
 
 from __future__ import annotations
@@ -48,15 +54,18 @@ import ctypes
 
 import torch
 
-from . import LaunchCounter, _kernels, check_plain_dtype, kernel_dtype_error
+from . import LaunchCounter, _kernels, check_plain_dtype
 
-# the widest head dim the kernel takes
-MAX_DIM = 256
-_DTYPE_CODES = _kernels.FLOAT_CODES
 # flash_attention_launch(q, k, v, out, batch, seq, heads, dim, stride_b,
 #                        stride_s, stride_h, dtype, scale, causal, stream)
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 3
              + [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+# flash_attention_tiled_launch(q, k, v, out, batch, seq, heads, dim,
+#                              stride_b, stride_s, stride_h, code, scale,
+#                              causal, tile, stream)
+_TILED_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 3
+                   + [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_void_p])
 # keys per tile of the kernel (and of the tiled plain version)
 BLOCK_K = 64
 
@@ -79,14 +88,16 @@ def flash_attention_reference(q, k, v, causal: bool = False):
     return torch.einsum("bhqk,bkhd->bqhd", p, vf).to(q.dtype)
 
 
-def flash_attention_tiled_reference(q, k, v, causal: bool = False, block_k: int = BLOCK_K):
+def flash_attention_tiled_reference(q, k, v, causal: bool = False, block_k: int = BLOCK_K,
+                                    out_dtype=None):
     """The kernel's loop in plain PyTorch: key tiles of ``block_k`` walked in
     order with a running (max, sum, acc) per query row in fp32, scores in
     fp32 from the operands in their own dtype, the probabilities rounded to
     v's dtype before the PV product (``p.astype(v.dtype)`` in the Pallas
     kernel; a no-op in fp32), a row with no live key yet kept at p = 0 with
     a correction of 0, and the final divide by ``max(l, 1e-30)``. Returns
-    q's dtype."""
+    q's dtype, or ``out_dtype`` where given (``torch.float32``: the quotient
+    before the cast)."""
     batch, seq, heads, dim = q.shape
     qf, kf, vf = q.float(), k.float(), v.float()
     scale = dim ** -0.5
@@ -109,12 +120,25 @@ def flash_attention_tiled_reference(q, k, v, causal: bool = False, block_k: int 
         acc = acc * corr[..., None] + pv
         m = m_new
     out = acc / l.clamp_min(1e-30)[..., None]
-    return out.permute(0, 2, 1, 3).to(q.dtype)
+    return out.permute(0, 2, 1, 3).to(out_dtype or q.dtype)
+
+
+def check_blocks(seq: int, block_q: int, block_k: int) -> None:
+    """Refuse what JAX's ``flash_attention`` refuses
+    (``client_tpu/ops/flash_attention.py``): each block clamped to
+    ``min(block, seq)``, the sequence padded to a multiple of the larger,
+    that length must divide by both blocks. (130, 128, 64) pads to 256 and
+    runs; (40, 128, 16) pads to 48, which 40 does not divide, and raises."""
+    block_q, block_k = min(block_q, seq), min(block_k, seq)
+    block = max(block_q, block_k)
+    padded = -(-seq // block) * block
+    if padded % block_q or padded % block_k:
+        raise ValueError(f"seq {padded} must divide by blocks {block_q}/{block_k}")
 
 
 def _check(q, k, v, block_q, block_k) -> None:
-    """What the JAX function refuses too, on any device; the kernel's own
-    limits are checked on the CUDA path (``_launch``)."""
+    """What the JAX function refuses, on any device (the kernels take
+    everything else)."""
     check_plain_dtype("flash_attention", q.dtype)
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(
@@ -131,6 +155,7 @@ def _check(q, k, v, block_q, block_k) -> None:
     for name, block in (("block_q", block_q), ("block_k", block_k)):
         if not isinstance(block, int) or block < 1:
             raise ValueError(f"{name} must be a positive int, got {block!r}")
+    check_blocks(seq, block_q, block_k)
     devices = {t.device for t in (q, k, v)}
     if len(devices) != 1:
         raise ValueError(f"q, k and v must share a device, got {sorted(map(str, devices))}")
@@ -138,14 +163,21 @@ def _check(q, k, v, block_q, block_k) -> None:
         raise ValueError("flash_attention takes contiguous tensors")
 
 
-def _launch(q, k, v, causal: bool) -> torch.Tensor:
-    code = _DTYPE_CODES.get(q.dtype)
-    if code is None:
-        raise kernel_dtype_error("flash_attention", q.dtype, _DTYPE_CODES)
+def _launch(q, k, v, causal: bool, block_k: int) -> torch.Tensor:
     batch, seq, heads, dim = q.shape
-    if not 1 <= dim <= MAX_DIM:
-        raise ValueError(f"the flash_attention kernel takes head dims 1 to {MAX_DIM}, "
-                         f"not {dim}")
+    if not q.dtype.is_floating_point:
+        # JAX's key tiles in order: the result depends on them for integer
+        # or bool inputs; elements are read one by one, so no alignment is
+        # needed
+        out = torch.empty_like(q)
+        stride_b, stride_s, stride_h, _ = q.stride()
+        _kernels.launch(
+            _kernels.function("flash_attention", "flash_attention_tiled_launch",
+                              _TILED_ARGTYPES), LAUNCHES,
+            q, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), batch, seq, heads, dim,
+            stride_b, stride_s, stride_h, _kernels.ELEMENT_CODES[q.dtype], dim ** -0.5,
+            int(causal), min(block_k, seq))
+        return out
     # a view that is not 16-byte aligned is copied: the allocator aligns the copy
     q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
     out = torch.empty_like(q)
@@ -153,7 +185,7 @@ def _launch(q, k, v, causal: bool) -> torch.Tensor:
     _kernels.launch(
         _kernels.function("flash_attention", "flash_attention_launch", _ARGTYPES), LAUNCHES,
         q, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), batch, seq, heads, dim,
-        stride_b, stride_s, stride_h, code, dim ** -0.5, int(causal))
+        stride_b, stride_s, stride_h, _kernels.FLOAT_CODES[q.dtype], dim ** -0.5, int(causal))
     return out
 
 
@@ -162,20 +194,20 @@ def flash_attention(q, k, v, causal: bool = False, block_q: int = 128, block_k: 
     """Blocked attention. q, k, v: [batch, seq, heads, dim] -> the same
     shape, in q's dtype.
 
-    ``block_q``, ``block_k`` and ``interpret`` keep the JAX signature.
-    The blocks are checked, but for float inputs the result does not depend
-    on them: the Hopper kernel tiles keys by 64 and queries by 64 (fp32 at
-    D <= 32: keys by 128, queries by 64 / 32); the TPU's block sizes follow
-    its VMEM and its 128-wide MXU. The plain version is dense, and for
-    integer or bool inputs tiled by ``min(block_k, seq)`` keys, as JAX's
-    kernel is. ``interpret`` changes nothing: the tensors' device decides
-    what runs. CUDA tensors run the Hopper kernel (fp32, bf16 or fp16, D
-    from 1 to ``MAX_DIM``; integer or bool inputs and wider heads raise);
-    CPU tensors the plain version."""
+    ``block_q``, ``block_k`` and ``interpret`` keep the JAX signature. The
+    blocks are checked as JAX checks them (:func:`check_blocks`). For float
+    inputs the result does not depend on them: the float kernels tile keys
+    by 64 and queries by 64 (fp32 at D <= 32: keys by 128, queries by 64 /
+    32); the TPU's block sizes follow its VMEM and its 128-wide MXU. The
+    plain version is dense. For integer or bool inputs, the tiled kernel and
+    the tiled plain version walk ``min(block_k, seq)`` keys a tile, as
+    JAX's kernel does. ``interpret`` changes nothing: the tensors' device
+    decides what runs. CUDA tensors run a Hopper kernel (every dtype of
+    ``ops.PLAIN_DTYPES``, any D); CPU tensors the plain version."""
     _check(q, k, v, block_q, block_k)
     device = q.device.type
     if device == "cuda":
-        return _launch(q, k, v, causal)
+        return _launch(q, k, v, causal, block_k)
     if device == "cpu":
         if q.dtype.is_floating_point:
             return flash_attention_reference(q, k, v, causal)

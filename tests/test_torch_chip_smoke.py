@@ -829,10 +829,13 @@ def test_native_phase_on_cpu(monkeypatch, native_libraries, one_intra_op_thread)
     assert calls["decode_attention"] == layers * (1 + 3 * stepped)
 
 
-# phase 15 at narrow widths that keep the published head dims: 96
-# (Phi-3-mini's) and 256 (Gemma-2B's), two heads each
-SMALL_WIDE = chip_smoke.WideSize(widths=(("head_dim_96", 192, 2), ("head_dim_256", 512, 2)),
-                                 seq=64, wire_seq=32, requests=2)
+# phase 15 at narrow widths that keep the published head dims, 96
+# (Phi-3-mini's) and 256 (Gemma-2B's), and the head dim past 256 (512),
+# two heads each
+SMALL_WIDE = chip_smoke.WideSize(
+    widths=(("head_dim_96", 192, 2, 64), ("head_dim_256", 512, 2, 64),
+            ("head_dim_512", 1024, 2, 64)),
+    wire_seq=32, requests=2, child_profiled=("head_dim_96", "head_dim_256"))
 
 
 def test_wide_encoder_phase_on_cpu(monkeypatch):
@@ -853,8 +856,8 @@ def test_wide_encoder_phase_on_cpu(monkeypatch):
                                                                                    **kwargs))
     result = chip_smoke.serve_wide_encoder(device="cpu", size=SMALL_WIDE)
     rows = result["rows"]
-    assert [(r["width"], r["head_dim"]) for r in rows] == [("head_dim_96", 96),
-                                                           ("head_dim_256", 256)]
+    assert [(r["width"], r["head_dim"]) for r in rows] == [
+        ("head_dim_96", 96), ("head_dim_256", 256), ("head_dim_512", 512)]
     executions = 0
     for row in rows:
         assert row["cuda_shm_vs_plain_max_abs_err"] <= 2e-5
@@ -868,15 +871,62 @@ def test_wide_encoder_phase_on_cpu(monkeypatch):
     # every served execution ran the wrapper once, at its head dim, and so
     # did each width's CPU run that the wire row is held against
     assert len(calls) == executions + len(rows)
-    assert {shape[-1] for shape in calls} == {96, 256}
-    # the card's rows: Phi-3-mini's and Gemma-2B's widths, and their bounds
-    # as the kernel table reckons them
-    assert chip_smoke.WIDE.widths == (("phi3_mini", 3072, 32), ("gemma_2b", 2048, 8))
-    bounds = [chip_smoke.wide_bounds(8192, dim, heads) for _, dim, heads in chip_smoke.WIDE.widths]
-    assert [round(b["attention_gflop"], 1) for b in bounds] == [824.6, 549.8]
-    assert [round(b["attention_bound_ms"], 2) for b in bounds] == [12.31, 8.21]
-    assert [round(b["projections_gflop"], 1) for b in bounds] == [618.5, 274.9]
+    assert {shape[-1] for shape in calls} == {96, 256, 512}
+    # the card's rows: Phi-3-mini's and Gemma-2B's widths at S = 8192, the
+    # head dim 512 width at S = 1024, and their bounds as the kernel table
+    # reckons them
+    assert chip_smoke.WIDE.widths == (("phi3_mini", 3072, 32, 8192), ("gemma_2b", 2048, 8, 8192),
+                                      ("head_dim_512", 2048, 4, 1024))
+    assert chip_smoke.WIDE.child_profiled == ("phi3_mini", "gemma_2b")
+    bounds = [chip_smoke.wide_bounds(seq, dim, heads)
+              for _, dim, heads, seq in chip_smoke.WIDE.widths]
+    assert [round(b["attention_gflop"], 1) for b in bounds] == [824.6, 549.8, 8.6]
+    assert [round(b["attention_bound_ms"], 2) for b in bounds] == [12.31, 8.21, 0.13]
+    assert [round(b["projections_gflop"], 1) for b in bounds] == [618.5, 274.9, 34.4]
     # the card's profiled request in a process of its own: on the CPU the
     # child serves and profiles one request, and its trace holds no kernel
     child = chip_smoke.wide_profile_in_child(96, 4, 32, "cpu")
     assert child["wall_ms"] > 0 and child["device_ms"] is None
+
+
+def test_tiled_mismatches_explain_only_l_order():
+    """``chip_smoke.tiled_mismatches``, phase 3's gate on the integer
+    kernels against their tiled plain versions: a difference is explained
+    only where it is 1 and the plain version's quotient lies within 2^-18
+    of an integer (l's summation order moves trunc(acc / l) there and
+    nowhere else); any other difference, and any bool difference, is not."""
+    ref = torch.tensor([3, -2, 5, 0, 7], dtype=torch.int8)
+    quotient = torch.tensor([3.0, -2.0, 5.5, 0.25, 7.0])
+    assert chip_smoke.tiled_mismatches(ref.clone(), ref, quotient) == (0, 0)
+    # 3.0 read as 2.999999: trunc 2, explained; 5.5 read as 4: not
+    out = torch.tensor([2, -2, 4, 0, 7], dtype=torch.int8)
+    assert chip_smoke.tiled_mismatches(out, ref, quotient) == (2, 1)
+    # a difference of 2 is never explained
+    out = torch.tensor([3, -2, 5, 0, 5], dtype=torch.int8)
+    assert chip_smoke.tiled_mismatches(out, ref, quotient) == (1, 1)
+    flags = torch.tensor([True, False, True])
+    assert chip_smoke.tiled_mismatches(~flags, flags, flags.float()) == (3, 3)
+
+
+def test_new_cases_record_every_held_case():
+    """The kernels line's ``new_cases``: each integer case with its
+    mismatches and each wide case with its error (4 significant digits),
+    for the op asked, a row a case under its fields."""
+    integer = [{"op": "flash", "dtype": "int8", "shape": [2, 300, 2, 16], "causal": True,
+                "block_k": 48, "mismatches": 0},
+               {"op": "decode", "dtype": "bool", "shape": [2, 2, 300, 16], "causal": None,
+                "block_k": 16, "mismatches": 0}]
+    wide = [{"op": "flash", "dtype": "float32", "shape": [1, 130, 2, 512], "causal": False,
+             "max_abs_err": 1e-7},
+            {"op": "decode", "dtype": "bfloat16", "shape": [2, 2, 300, 2048], "max_abs_err": 0.0}]
+    cases = chip_smoke.new_cases("flash", integer, wide)
+    assert cases["integer"] == {"fields": ["dtype", "shape", "causal", "block_k", "mismatches"],
+                                "rows": [["int8", [2, 300, 2, 16], True, 48, 0]]}
+    assert cases["wide"]["rows"] == [["float32", [1, 130, 2, 512], False, 1e-7]]
+    decode = chip_smoke.new_cases("decode", integer, wide)
+    assert [row[1][-1] for part in ("integer", "wide") for row in decode[part]["rows"]] == [
+        16, 2048]
+    # every dtype and block of the integer checks, and the widths past 256
+    assert set(chip_smoke.INTEGER_ATTENTION) == {"bool", "int8", "uint8", "int16", "int32"}
+    assert chip_smoke.INTEGER_BLOCKS == (128, 16, 48)
+    assert chip_smoke.WIDE_HEAD_DIMS == (257, 300, 512, 576, 1024)

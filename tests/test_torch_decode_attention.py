@@ -5,13 +5,16 @@ tensors and computes its plain PyTorch version for CPU tensors. Here, on the
 CPU, the plain version is held against the JAX Pallas kernel (interpret mode
 off-TPU, as the JAX package's own tests run it) and against the JAX dense
 reference on the same numpy-seeded inputs, at the reference test's shapes
-and tolerances (1e-5 in fp32, 2e-2 in bf16), and at the head dims and
-dtypes the kernel takes since it took every float dtype and every head dim
-up to 256 (D = 8, 24, 80, 96, 256 in fp32, bf16 and fp16). The kernel
-itself runs on the card only (chip_smoke.py). The wrapper's argument
-checks, the reference's ``block_k`` and ``interpret`` keywords, the dtypes
-the kernel still does not take (computed on the CPU, as JAX computes them),
-the build step and the import without a compiler are tested here too.
+and tolerances (1e-5 in fp32, 2e-2 in bf16), at the head dims and dtypes
+the kernel took when it took every float dtype and every head dim up to
+256 (D = 8, 24, 80, 96, 256 in fp32, bf16 and fp16), and at head dims past
+256 (D = 300, 512) and integer and bool caches at JAX's tiles (block_k 16
+and 48), which the kernels take since. The kernels themselves run on the
+card only (chip_smoke.py); here the CUDA path is driven up to the launch
+with the launch faked, to show which kernel, element code, tile and dim
+each dtype and head dim reaches. The wrapper's argument checks, the
+reference's ``block_k`` and ``interpret`` keywords, the build step and the
+import without a compiler are tested here too.
 """
 
 import ctypes
@@ -40,8 +43,11 @@ TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 # the head dims of the kernel's first instantiations; the cases over them
 # keep their names
 DIMS = (32, 64, 128)
-# the head dims the kernel took once it took every dim up to da.MAX_DIM
+# the head dims the kernel took once it took every dim up to 256
 NEW_DIMS = (8, 24, 80, 96, 256)
+# head dims past 256: past one 16-byte padded width (300 in the split
+# kernel's 512) and a padded width itself (512)
+WIDE_DIMS = (300, 512)
 SHAPES = [  # (batch, heads, max_len, dim, the reference test's positions)
     (1, 4, 128, 32, [5]),
     (3, 2, 200, 64, [0, 99, 199]),
@@ -172,11 +178,11 @@ def _bad_case(name):
     "non_contiguous", "meta_device",
 ])
 def test_wrapper_rejects_what_the_kernel_does_not_take(name):
-    """Mixed dtypes, bad shapes, layouts and devices raise. What the kernel
-    once did not take (float16, D = 16, 48, 256) runs on the card too since
-    it took every float dtype and head dim up to da.MAX_DIM; here the plain
-    version computes it, as the JAX function does, and agrees with the
-    Pallas kernel."""
+    """Mixed dtypes, bad shapes, layouts and devices raise, on any device,
+    as they fail in JAX. What the kernel once did not take (float16, D =
+    16, 48, 256) runs on the card too, as every dtype and head dim does
+    now; here the plain version computes it, as the JAX function does, and
+    agrees with the Pallas kernel."""
     args, expected = _bad_case(name)
     if expected != "jax":
         with pytest.raises(expected):
@@ -547,7 +553,7 @@ def test_sm_count_reads_each_device_once(monkeypatch):
 
 
 # ---------------------------------------------------------------------------
-# every float dtype and the head dims up to da.MAX_DIM
+# every float dtype and the head dims up to 256
 # ---------------------------------------------------------------------------
 
 
@@ -573,13 +579,119 @@ def test_new_head_dims_match_pallas(dim, dtype):
         assert np.max(np.abs(_f32(got) - pallas)) < atol
 
 
-@pytest.mark.parametrize("dim", [1, 8, 96, da.MAX_DIM, da.MAX_DIM + 8])
+@pytest.mark.parametrize("dim", [1, 8, 96, 256, 264])
 def test_head_dims_up_to_the_kernel_limit(dim):
-    """The kernel's limit is da.MAX_DIM (256); on the CPU every dim, past it
-    too, computes the plain version, as the JAX function does (D = 264
-    raises on a CUDA tensor alone: chip_smoke.py checks)."""
+    """The kernels have no head-dim limit any more (the split kernel's
+    padded widths end at 1024 and past it it takes slabs of 1024 columns):
+    every dim passes the wrapper's checks and, on the CPU, computes the
+    plain version, as the JAX function does (D = 264 runs on the card too:
+    chip_smoke.py checks D = 257 to 2048)."""
     q, k, v, pos = _good(dim=dim)
     out = da.decode_attention(q, k, v, pos)
     assert out.shape == q.shape
     assert torch.equal(out, da.decode_attention_reference(q, k, v, pos))
-    assert da.MAX_DIM == 256
+    assert not hasattr(da, "MAX_DIM")
+
+
+# ---------------------------------------------------------------------------
+# head dims past 256 and integer and bool caches
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("which", ["mixed", "last"])
+@pytest.mark.parametrize("dim", WIDE_DIMS)
+def test_plain_matches_pallas_at_wide_head_dims(dim, which):
+    """D = 300 and 512 at a ragged cache (2, 2, 100; two Pallas tiles of
+    64): the dense plain version (the CPU path) and the split plain version
+    (the kernel's two phases at 3 splits) against the Pallas kernel in
+    interpret mode within the reference test's 1e-5."""
+    q, k, v = _inputs(2, 2, 100, dim, "float32", seed=dim)
+    pos = np.asarray({"mixed": [37, 99], "last": [99, 99]}[which], np.int32)
+    tq, tk, tv, tpos = (torch.from_numpy(a) for a in (q, k, v, pos))
+    out = da.decode_attention(tq, tk, tv, tpos)
+    want = _f32(jax_decode_attention(*(jnp.asarray(a) for a in (q, k, v, pos)), block_k=64))
+    assert out.shape == (2, 2, dim)
+    assert np.max(np.abs(_f32(out) - want)) < TOL["float32"]
+    split = da.decode_attention_split_reference(tq, tk, tv, tpos, 3)
+    assert np.max(np.abs(_f32(split) - want)) < TOL["float32"]
+
+
+def _integer_array(dtype, shape, rng):
+    """Seeded integers in -7..8 (uint8 0..8, bool 0/1), as chip_smoke.py's
+    integer cases."""
+    low, high = {"bool": (0, 2), "uint8": (0, 9)}.get(dtype, (-7, 9))
+    return rng.integers(low, high, shape).astype(dtype)
+
+
+@pytest.mark.parametrize("block_k", [16, 48])
+@pytest.mark.parametrize("dtype", ["uint8", "int16", "bool"])
+def test_integer_caches_follow_the_pallas_tiles(dtype, block_k):
+    """uint8, int16 and bool caches at tiles of 16 and 48 slots (48 does
+    not divide M = 100): the tiled plain version, which the tiled kernel's
+    arithmetic follows, equals the Pallas kernel in interpret mode element
+    for element (its mask stands between the score and the subtraction, so
+    XLA contracts nothing)."""
+    rng = np.random.default_rng(block_k)
+    q, k, v = (_integer_array(dtype, s, rng) for s in ((2, 2, 16), (2, 2, 100, 16),
+                                                       (2, 2, 100, 16)))
+    pos = np.asarray([40, 99], np.int32)
+    out = da.decode_attention(*(torch.from_numpy(a) for a in (q, k, v, pos)), block_k=block_k)
+    assert str(out.dtype) == f"torch.{dtype}"
+    want = np.asarray(jax_decode_attention(*(jnp.asarray(a) for a in (q, k, v, pos)),
+                                           block_k=block_k))
+    assert want.dtype == dtype
+    np.testing.assert_array_equal(out.numpy(), want)
+
+
+class _FakeKernels:
+    """``_kernels.function`` and ``_kernels.launch`` stood in for: records
+    each launch's entry point and arguments, counts it, launches nothing;
+    every plain version (``*_reference``) of ``module`` raises if called."""
+
+    def __init__(self, monkeypatch, module):
+        self.calls = []
+        monkeypatch.setattr(_kernels, "function",
+                            lambda name, symbol, argtypes: (name, symbol, len(argtypes)))
+        monkeypatch.setattr(_kernels, "launch", self._launch)
+        monkeypatch.setattr(_kernels, "sm_count", lambda index: 132)
+
+        def refuse(*args, **kwargs):
+            raise AssertionError("the CUDA path ran a plain version")
+
+        for name in dir(module):
+            if name.endswith("_reference"):
+                monkeypatch.setattr(module, name, refuse)
+
+    def _launch(self, fn, counter, tensor, *args):
+        self.calls.append((fn, args))
+        counter.add()
+
+
+@pytest.mark.parametrize("dtype", ["bool", "int8", "uint8", "int16", "int32", "float32",
+                                   "bfloat16", "float16"])
+@pytest.mark.parametrize("dim", [16, 300, 1024, 1100])
+def test_cuda_path_reaches_the_kernel_for_every_dtype_and_dim(monkeypatch, dtype, dim):
+    """The CUDA path (``_launch``, what a CUDA tensor runs) up to the launch:
+    an integer or bool cache reaches the tiled kernel with the dtype's
+    element code, the tile min(block_k, M) and the dim; fp32, bf16 and fp16
+    reach the split kernel with the dim, past 1024 too (its slabs). One
+    launch is counted, no plain version runs."""
+    fake = _FakeKernels(monkeypatch, da)
+    torch_dtype = getattr(torch, dtype)
+    q, k, v, pos = (t.to(torch_dtype) if t.dtype != torch.int32 else t
+                    for t in _good(batch=2, heads=2, max_len=40, dim=dim))
+    before = da.LAUNCHES.count
+    out = da._launch(q, k, v, pos, 16)
+    assert out.dtype == torch_dtype and out.shape == (2, 2, dim)
+    assert da.LAUNCHES.count == before + 1 and len(fake.calls) == 1
+    (lib, symbol, nargs), args = fake.calls[0]
+    assert lib == "decode_attention"
+    if torch_dtype.is_floating_point:
+        assert (symbol, nargs) == ("decode_attention_launch", len(da._ARGTYPES))
+        # q, k, v, pos, out, partial, batch, heads, max_len, dim, dtype, splits, scale
+        assert args[6:11] == (2, 2, 40, dim, _kernels.FLOAT_CODES[torch_dtype])
+    else:
+        assert (symbol, nargs) == ("decode_attention_tiled_launch", len(da._TILED_ARGTYPES))
+        # q, k, v, pos, out, batch, heads, max_len, dim, code, tile, scale
+        assert args[5:11] == (2, 2, 40, dim, _kernels.ELEMENT_CODES[torch_dtype], 16)
+    assert args[-1] == pytest.approx(dim ** -0.5)

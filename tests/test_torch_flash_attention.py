@@ -10,14 +10,19 @@ at every shape, block pair and causal setting of the JAX tests
 atol/rtol of 2e-5. bf16 inputs are held within atol/rtol 2e-2: the Pallas
 kernel rounds the probabilities to bf16 before the PV product and both
 outputs are rounded to bf16, while the plain version keeps fp32 throughout.
-The head dims and dtypes the kernel takes since it took every float dtype
+The head dims and dtypes the kernel took when it took every float dtype
 and every head dim up to 256 (D = 8, 24, 80, 96, 256 in fp32, bf16 and
-fp16) are held against the Pallas kernel too, as are integer inputs and
-the ``interpret`` keyword, which the plain version computes as JAX does.
-The kernel itself runs on the card only (chip_smoke.py).
+fp16) are held against the Pallas kernel too, as are head dims past 256
+(D = 300, 512), integer and bool inputs at JAX's key tiles, the block
+sizes JAX refuses and the ``interpret`` keyword, which the plain version
+computes as JAX does. The kernels themselves run on the card only
+(chip_smoke.py); here the CUDA path is driven up to the launch with the
+launch faked, to show which kernel, element code, tile and dim each dtype
+and head dim reaches.
 """
 
 import itertools
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -33,18 +38,19 @@ from client_tpu_torch.ops import _kernels
 from client_tpu_torch.ops import flash_attention as fa_function
 from client_tpu_torch.ops.flash_attention import (
     LAUNCHES,
-    MAX_DIM,
+    check_blocks,
     flash_attention,
     flash_attention_reference,
     flash_attention_tiled_reference,
 )
 from client_tpu_torch.utils import numpy_to_tensor
+from test_torch_decode_attention import _FakeKernels, _integer_array
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # the head dims of the kernel's first instantiations; the cases over them
 # keep their names
 DIMS = (16, 32, 64, 128)
-# the head dims the kernel took once it took every dim up to MAX_DIM:
+# the head dims the kernel took once it took every dim up to 256:
 # JAX's test width (8), Phi-3-mini's (96), Pythia's (80), Gemma-2B's (256)
 # and one more that is no power of two (24)
 NEW_DIMS = (8, 24, 80, 96, 256)
@@ -255,14 +261,13 @@ def _bad_case(name):
     "non_contiguous", "meta_device",
 ])
 def test_wrapper_rejects_what_the_kernel_does_not_take(name):
-    """Mixed dtypes, bad shapes, blocks, layouts and devices raise. What
-    the kernel once did not take runs: float16 and head dims up to MAX_DIM
-    on the card, int32 (which the kernel still does not take, and raises
-    on a CUDA tensor alone: chip_smoke.py checks) on the CPU alone; there
-    the plain version computes each case, as the JAX function does, and
-    agrees with the Pallas kernel: float16 within FP16_ATOL * max|v|, int32
-    row by row as integer_flash_explained holds it, the head dims within
-    the JAX tests' 2e-5."""
+    """Mixed dtypes, bad shapes, blocks, layouts and devices raise, on any
+    device, as they fail in JAX. What the kernels once did not take runs,
+    on the card too: float16, int32 (the tiled kernel) and every head dim
+    (chip_smoke.py checks); here the plain version computes each case, as
+    the JAX function does, and agrees with the Pallas kernel: float16
+    within FP16_ATOL * max|v|, int32 row by row as integer_flash_explained
+    holds it, the head dims within the JAX tests' 2e-5."""
     args, kwargs, expected = _bad_case(name)
     if expected != "jax":
         with pytest.raises(expected):
@@ -438,7 +443,7 @@ def test_tiled_reference_does_not_depend_on_the_tile(block_k):
 
 
 # ---------------------------------------------------------------------------
-# every float dtype and the head dims up to MAX_DIM
+# every float dtype and the head dims up to 256
 # ---------------------------------------------------------------------------
 
 # one output ulp of each 2-byte dtype, relative and absolute: the tiled
@@ -476,14 +481,150 @@ def test_new_head_dims_match_pallas(dim, dtype, causal):
                                rtol=TILED_TOL[dtype])
 
 
-@pytest.mark.parametrize("dim", [1, 8, 96, MAX_DIM, MAX_DIM + 8])
+@pytest.mark.parametrize("dim", [1, 8, 96, 256, 264])
 def test_head_dims_up_to_the_kernel_limit(dim):
-    """The kernel's limit is MAX_DIM (256): dims up to it pass the wrapper's
-    checks; on the CPU every dim, past it too, computes the plain version,
-    as the JAX function does (D = 264 raises on a CUDA tensor alone:
-    chip_smoke.py checks)."""
+    """The kernels have no head-dim limit any more (past 256 the wide
+    kernels own 256 output columns a block): every dim passes the wrapper's
+    checks and, on the CPU, computes the plain version, as the JAX function
+    does (D = 264 runs on the card too: chip_smoke.py checks D = 257 to
+    1024)."""
     q, k, v = _good((1, 8, 2, dim))
     out = flash_attention(q, k, v)
     assert out.shape == (1, 8, 2, dim)
     assert torch.equal(out, flash_attention_reference(q, k, v))
-    assert MAX_DIM == 256
+    assert not hasattr(sys.modules["client_tpu_torch.ops.flash_attention"], "MAX_DIM")
+
+
+# ---------------------------------------------------------------------------
+# the block sizes JAX refuses
+# ---------------------------------------------------------------------------
+
+# (seq, block_q, block_k): JAX clamps each block to min(block, seq), pads
+# the sequence to a multiple of the larger and refuses where that length
+# does not divide by both; the first two and the 40 / 100 / 64 / 70 / 24
+# cases are refused, the rest run
+BLOCK_CASES = [(40, 128, 16), (100, 64, 48), (130, 128, 64), (130, 64, 128), (48, 32, 16),
+               (100, 128, 48), (300, 128, 48), (64, 48, 64), (70, 64, 48), (1, 128, 128),
+               (65, 64, 64), (96, 32, 48), (24, 16, 24)]
+
+
+@pytest.mark.parametrize("seq,block_q,block_k", BLOCK_CASES,
+                         ids=[f"{s}_b{bq}x{bk}" for s, bq, bk in BLOCK_CASES])
+def test_block_sizes_refused_where_jax_refuses(seq, block_q, block_k):
+    """The port raises ValueError exactly where JAX's flash_attention does,
+    with JAX's message, and where JAX runs, the port runs and agrees with
+    it within the JAX tests' 2e-5."""
+    arrays = _inputs((1, seq, 1, 8), "float32", seed=seq)
+    try:
+        want = jax_flash_attention(*(jnp.asarray(a) for a in arrays), block_q=block_q,
+                                   block_k=block_k)
+    except ValueError as e:
+        with pytest.raises(ValueError) as got:
+            _port(arrays, False, block_q=block_q, block_k=block_k)
+        assert str(got.value) == str(e)
+        return
+    out = _port(arrays, False, block_q=block_q, block_k=block_k)
+    np.testing.assert_allclose(_f32(out), _f32(want), atol=TOL["float32"], rtol=TOL["float32"])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int8])
+@pytest.mark.parametrize("seq,block_q,block_k", [(40, 128, 16), (100, 64, 48), (130, 128, 64)])
+def test_block_refusal_comes_before_any_device(seq, block_q, block_k, dtype):
+    """check_blocks runs before the wrapper looks at the device: a tensor
+    on the meta device (neither CPU nor CUDA) is refused for its blocks
+    where JAX refuses them and for its device only where JAX runs, and
+    nothing is launched either way (so a CUDA tensor is refused before any
+    launch)."""
+    q = torch.zeros((1, seq, 2, 16), dtype=dtype, device="meta")
+    before = LAUNCHES.count
+    try:
+        check_blocks(seq, block_q, block_k)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    with pytest.raises(ValueError) as got:
+        flash_attention(q, q, q, block_q=block_q, block_k=block_k)
+    if refused is None:
+        assert "not meta" in str(got.value)
+    else:
+        assert str(got.value) == refused and "must divide by blocks" in refused
+    assert LAUNCHES.count == before
+
+
+# ---------------------------------------------------------------------------
+# head dims past 256 and integer and bool inputs
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("dim", [300, 512])
+def test_plain_matches_pallas_at_wide_head_dims(dim, causal):
+    """D = 300 and 512 (the wide kernels' slabs) at S = 40 in 16 x 16
+    blocks (three tiles, the last padded): the dense plain version and the
+    tiled one against the Pallas kernel in interpret mode within the JAX
+    tests' 2e-5."""
+    arrays = _inputs((1, 40, 2, dim), "float32", seed=dim + causal)
+    tensors = [torch.from_numpy(a) for a in arrays]
+    want = _f32(jax_flash_attention(*(jnp.asarray(a) for a in arrays), causal=causal,
+                                    block_q=16, block_k=16))
+    out = flash_attention(*tensors, causal=causal, block_q=16, block_k=16)
+    assert out.shape == (1, 40, 2, dim)
+    np.testing.assert_allclose(_f32(out), want, atol=TOL["float32"], rtol=TOL["float32"])
+    tiled = flash_attention_tiled_reference(*tensors, causal=causal)
+    np.testing.assert_allclose(_f32(tiled), want, atol=TOL["float32"], rtol=TOL["float32"])
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("seq,block_q,block_k", [(40, 16, 16), (100, 48, 48)],
+                         ids=["40_b16", "100_b48"])
+@pytest.mark.parametrize("dtype", ["uint8", "int16", "bool"])
+def test_integer_inputs_follow_the_pallas_tiles_at_any_block(dtype, seq, block_q, block_k,
+                                                            causal):
+    """uint8, int16 and bool at key tiles of 16 and 48 (S = 40 and 100: JAX
+    pads to 48 and 144, so it masks every score and XLA contracts nothing,
+    see integer_flash_explained): the tiled plain version, which the tiled
+    kernel's arithmetic follows, equals the Pallas kernel in interpret mode
+    element for element."""
+    rng = np.random.default_rng(seq + causal)
+    arrays = [_integer_array(dtype, (1, seq, 2, 16), rng) for _ in range(3)]
+    out = flash_attention(*(torch.from_numpy(a) for a in arrays), causal=causal,
+                          block_q=block_q, block_k=block_k)
+    assert str(out.dtype) == f"torch.{dtype}"
+    want = np.asarray(jax_flash_attention(*(jnp.asarray(a) for a in arrays), causal=causal,
+                                          block_q=block_q, block_k=block_k))
+    assert want.dtype == dtype
+    np.testing.assert_array_equal(out.numpy(), want)
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("dtype", ["bool", "int8", "uint8", "int16", "int32", "float32",
+                                   "bfloat16", "float16"])
+@pytest.mark.parametrize("dim", [16, 300])
+def test_cuda_path_reaches_the_kernel_for_every_dtype_and_dim(monkeypatch, dtype, dim, causal):
+    """The CUDA path (``_launch``, what a CUDA tensor runs) up to the launch:
+    integer and bool inputs reach the tiled kernel with the dtype's element
+    code, the tile min(block_k, S) and the dim; fp32, bf16 and fp16 reach
+    the float kernels with the dim (the wide ones past 256). One launch is
+    counted, no plain version runs."""
+    module = sys.modules["client_tpu_torch.ops.flash_attention"]
+    fake = _FakeKernels(monkeypatch, module)
+    torch_dtype = getattr(torch, dtype)
+    q, k, v = (t.to(torch_dtype) for t in _good((2, 40, 3, dim)))
+    before = LAUNCHES.count
+    out = module._launch(q, k, v, causal, 48)
+    assert out.dtype == torch_dtype and out.shape == q.shape
+    assert LAUNCHES.count == before + 1 and len(fake.calls) == 1
+    (lib, symbol, nargs), args = fake.calls[0]
+    assert lib == "flash_attention"
+    # q, k, v, out, batch, seq, heads, dim, stride_b, stride_s, stride_h, ...
+    assert args[4:11] == (2, 40, 3, dim, 40 * 3 * dim, 3 * dim, dim)
+    if torch_dtype.is_floating_point:
+        assert (symbol, nargs) == ("flash_attention_launch", len(module._ARGTYPES))
+        # ... dtype, scale, causal
+        assert args[11] == _kernels.FLOAT_CODES[torch_dtype] and args[13] == int(causal)
+    else:
+        assert (symbol, nargs) == ("flash_attention_tiled_launch", len(module._TILED_ARGTYPES))
+        # ... code, scale, causal, tile
+        assert args[11] == _kernels.ELEMENT_CODES[torch_dtype]
+        assert args[13:] == (int(causal), 40)
+    assert args[12] == pytest.approx(dim ** -0.5)

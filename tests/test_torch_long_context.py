@@ -184,6 +184,27 @@ def test_published_widths_match_the_jax_flash_model(width, seq):
     np.testing.assert_allclose(got, _encoded(ref, x), atol=TOL, rtol=TOL)
 
 
+# widths whose head dims are past 256, the wide flash kernels' (no published
+# model in the records has one): dim 1040 over 2 heads (head dim 520, past
+# two slabs of 256 columns) and dim 2048 over 4 heads (512, the width
+# chip_smoke.py's phase 15 serves), at S = 16 on the CPU
+WIDE_HEADS = [(1040, 2), (2048, 4)]
+
+
+@pytest.mark.parametrize("dim,heads", WIDE_HEADS, ids=["head_dim_520", "head_dim_512"])
+def test_head_dims_past_256_match_the_jax_flash_model(dim, heads):
+    """The encoder at head dims past 256, JAX's weights carried across by
+    load_jax_params, against JAX's flash model (its Pallas kernel in
+    interpret mode) on the same sequence: within the JAX tests' 2e-5."""
+    port = LongContextEncoderModel(dim=dim, heads=heads, device="cpu")
+    load_jax_params(port, jax_weights(dim, seed=0))
+    ref = JaxEncoder(dim=dim, heads=heads, seed=0, attention="flash", n_devices=1)
+    x = _sequence(16, dim, seed=dim)
+    got = _encoded(port, x)
+    assert got.shape == (16, dim) and np.isfinite(got).all()
+    np.testing.assert_allclose(got, _encoded(ref, x), atol=TOL, rtol=TOL)
+
+
 @pytest.mark.parametrize("change", ["shape", "dtype", "missing"])
 def test_load_jax_params_checks_its_arrays(change):
     model = LongContextEncoderModel(device="cpu")
