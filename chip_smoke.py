@@ -49,10 +49,14 @@ Phases (each raises on failure, so the script exits non-zero):
      element for element but where l's summation order explains a
      difference of 1 (counted and printed); head dims 257, 300, 512, 576
      and 1024 in fp32, bf16 and fp16, decode on a ragged and a prime split
-     cache and at D = 2048, flash at (1, 130, 2, D) full and causal, within
-     TOLERANCE of the dense plain versions; one launch counted a call; then
-     each timed per call and on the device beside its bound, its plain
-     version and, for float inputs, SDPA (none takes integer input);
+     cache and at D = 2048, flash at (1, 130, 2, D) and (2, 40, 3, D) full
+     and causal, and at D = 2048 and 2304 (two and three cluster groups of
+     the wide kernels), within TOLERANCE of the dense plain versions; one
+     launch counted a call; each flash case run twice with the same bits
+     (no atomics), on the cluster size and groups ``wide_plan`` gives (the
+     launch reports them); then each timed per call and on the device
+     beside its bound, its plain version and, for float inputs, SDPA (none
+     takes integer input), flash up to (1, 2048, 2, 2048);
    - quantize_int8 element-exact (exact half-steps, values past the clip;
      fp32, bf16 and fp16 in; uint8, int32, bool, int8 and int16 over their
      whole range) at (1, 8192), a ragged length, 64 MiB and an unaligned
@@ -421,12 +425,14 @@ Phases (each raises on failure, so the script exits non-zero):
    1024 over the wire against a CPU run of the port, each within 2e-5;
    flash_attention launches = the server's executions in each row and the
    statistics count the requests; the attention's and the projections'
-   fp32 bounds beside the times.
+   fp32 bounds beside the times, and the flash kernel alone at the row's
+   attention shape, per call.
 
 It then prints one ``{"kernels": [...]}`` line and, last, one line
 ``{"ok": true, "device": {...}}``. Details go to ``build/chip_smoke.json``.
 Without a CUDA device it fails. The build fails if ptxas reports a spill in
-the softmax, normalize or int8 kernels.
+the softmax, normalize or int8 kernels or in the two wide flash kernels
+(``--kernel-times`` prints the lines and goes on: it times earlier trees too).
 
 ``python3 chip_smoke.py --kernel-times`` builds the kernels and times the
 small kernels, the wrappers' host cost and the two attention kernels at
@@ -615,11 +621,15 @@ INTEGER_ATTENTION = {"bool": torch.bool, "int8": torch.int8, "uint8": torch.uint
 INTEGER_BLOCKS = (128, 16, 48)
 WIDE_HEAD_DIMS = (257, 300, 512, 576, 1024)
 WIDEST_DECODE_DIM = 2048
+# flash past what one cluster of the wide kernels covers (8 blocks of 128
+# columns): two cluster groups at 2048, three at 2304, each recomputing QK^T
+WIDEST_FLASH_DIMS = (2048, 2304)
 ATTENTION_DTYPES = {**FLOATS, **INTEGER_ATTENTION}
 # the kernels redesigned since their port, and how (their earlier times
 # are in PERF.md)
 REDESIGNED = {"decode_attention": "split-K over the cache",
-              "flash_attention": "bf16 on the tensor cores",
+              "flash_attention": "bf16 on the tensor cores; past D = 256 thread-block clusters, "
+                                 "one QK^T pass",
               "normalize_image": "a lane per 16-byte output word",
               "softmax_probabilities": "rows held in registers",
               "dequantize_int8": "a lane per 16-byte output word (normalize's word loop)"}
@@ -687,16 +697,29 @@ def ptxas_lines(name: str, log: str):
     return [f"{name}: {readable[entry]}: {text}" for entry, text in lines]
 
 
-def build_kernels():
+def ptxas_spills(ptxas):
+    """The ptxas lines that report a spill in a kernel the build holds to
+    none: the softmax, normalize and int8 kernels and the two wide flash
+    kernels."""
+    return [line for line in ptxas
+            if (line.startswith(("softmax:", "normalize_image:", "quantize_int8:"))
+                or re.match(r"flash_attention: .*_wide_kernel\b", line))
+            and re.search(r"[1-9]\d* bytes spill", line)]
+
+
+def build_kernels(check_spills: bool = True):
+    """Build every kernel; fail on a spill ptxas reports in the kernels
+    held to none (``ptxas_spills``) unless ``check_spills`` is False
+    (``--kernel-times``, which times whatever tree it sits in: an earlier
+    tree's wide flash kernels spill)."""
     t0 = time.perf_counter()
     logs = _kernels.build_all()
     seconds = time.perf_counter() - t0
     ptxas = [line for name, text in logs.items() for line in ptxas_lines(name, text)]
-    spills = [line for line in ptxas
-              if line.startswith(("softmax:", "normalize_image:", "quantize_int8:"))
-              and re.search(r"[1-9]\d* bytes spill", line)]
-    if spills:
-        raise AssertionError(f"ptxas spills in the softmax, normalize or int8 kernels: {spills}")
+    spills = ptxas_spills(ptxas)
+    if spills and check_spills:
+        raise AssertionError(f"ptxas spills in the softmax, normalize, int8 or wide flash "
+                             f"kernels: {spills}")
     return seconds, ptxas
 
 
@@ -1070,9 +1093,15 @@ def check_wide_attention():
     300, D) at pos 150 and 299 (one split) and a prime split one (2, 2,
     4099, D) at pos 4098 and 1366 (the merge of D columns), and at
     WIDEST_DECODE_DIM (two slabs of 1024 columns); flash at (1, 130, 2,
-    D) full and causal (three key tiles, the last ragged), bf16 and fp16
+    D) full and causal (three key tiles, the last ragged) and at (2, 40, 3,
+    D) (batch and heads > 1, one ragged key tile), for D in WIDE_HEAD_DIMS
+    and WIDEST_FLASH_DIMS (two and three cluster groups), bf16 and fp16
     also against the tiled plain version (reported). One launch a call;
-    ``kernels`` is how many kernels it ran (2 where decode merges)."""
+    ``kernels`` is how many kernels it ran (2 where decode merges). A flash
+    case runs twice and must give the same bits both times (no atomics),
+    on the cluster size and groups of ``wide_plan`` (the launch reports
+    them, with the clusters the card holds at once), and the plan's shared
+    memory must be the kernel's (``flash_attention_smem_bytes``)."""
     rows = []
     tol = TOLERANCE["decode_attention"]
     decode_cases = [((2, 2, m, d), positions) for d in WIDE_HEAD_DIMS
@@ -1095,29 +1124,54 @@ def check_wide_attention():
             if not err < tol[name] or out.dtype != q.dtype or launches != 1:
                 raise AssertionError(f"decode_attention disagrees with its plain version: "
                                      f"{rows[-1]}")
-    for d in WIDE_HEAD_DIMS:
+    # here, not at the top: --kernel-times runs this file in trees without it
+    from client_tpu_torch.ops.flash_attention import wide_plan
+
+    last_wide = _kernels.function("flash_attention", "flash_attention_last_wide_launch",
+                                  [ctypes.POINTER(ctypes.c_int)] * 3)
+    smem = _kernels.function("flash_attention", "flash_attention_smem_bytes",
+                             (ctypes.c_int, ctypes.c_int))
+    # (shape, seed): the cases held since the kernels took head dims past
+    # 256 (seed D + causal), then the dims past one cluster group, and batch
+    # and heads > 1 over one ragged key tile
+    flash_cases = [((1, 130, 2, d), d) for d in WIDE_HEAD_DIMS + WIDEST_FLASH_DIMS]
+    flash_cases += [((2, 40, 3, d), d + 7) for d in WIDE_HEAD_DIMS + WIDEST_FLASH_DIMS]
+    for shape, seed in flash_cases:
         for name, dtype in FLOATS.items():
             for causal in (False, True):
-                shape = (1, 130, 2, d)
-                q, k, v = flash_inputs(shape, dtype, seed=d + causal)
+                q, k, v = flash_inputs(shape, dtype, seed=seed + causal)
                 before = FLASH_LAUNCHES.count
                 out = flash_attention(q, k, v, causal=causal)
                 launches = FLASH_LAUNCHES.count - before
+                again = flash_attention(q, k, v, causal=causal)
+                launches_again = FLASH_LAUNCHES.count - before - launches
                 ref = flash_attention_reference(q, k, v, causal=causal)
                 torch.cuda.synchronize()
+                plan = wide_plan(shape[3], dtype)
+                ran = [ctypes.c_int() for _ in range(3)]
+                last_wide(*(ctypes.byref(x) for x in ran))
                 atol, rtol = flash_tolerance(name, v)
                 err, ok = flash_agrees(out, ref, atol, rtol)
                 row = {"op": "flash", "shape": list(shape), "dtype": name, "causal": causal,
                        "kernels": 1, "launches": launches, "max_abs_err": err,
-                       "tol": [atol, rtol]}
+                       "tol": [atol, rtol], "bits_equal_twice": torch.equal(out, again),
+                       "plan": {"cluster": plan.cluster, "width": plan.width,
+                                "groups": plan.groups, "block_q": plan.block_q,
+                                "smem_bytes": plan.smem_bytes,
+                                "kernel_smem_bytes": smem(_kernels.FLOAT_CODES[dtype],
+                                                          shape[3])},
+                       "launched": {"cluster": ran[0].value, "groups": ran[1].value,
+                                    "active_clusters": ran[2].value}}
                 if name in TILED_TOLERANCE:
                     tiled = flash_attention_tiled_reference(q, k, v, causal=causal)
                     row["max_abs_err_vs_tiled_plain"] = flash_agrees(out, tiled, 0.0)[0]
                 rows.append(row)
                 if (not ok or out.dtype != q.dtype or not torch.isfinite(out).all()
-                        or launches != 1):
-                    raise AssertionError(f"flash_attention disagrees with its plain version: "
-                                         f"{row}")
+                        or (launches, launches_again) != (1, 1) or not row["bits_equal_twice"]
+                        or (ran[0].value, ran[1].value) != (plan.cluster, plan.groups)
+                        or plan.smem_bytes != row["plan"]["kernel_smem_bytes"]):
+                    raise AssertionError(f"flash_attention disagrees with its plain version, "
+                                         f"with itself or with its plan: {row}")
     return rows
 
 
@@ -1190,7 +1244,8 @@ def time_new_attention(iters: int = 10):
             q, k, v = attention_inputs(*shape, dtype, seed=shape[3])
             decode_row(shape, name, q, k, v, [shape[2] - 1] * shape[0])
         for shape in [(1, 1024, 4, d) for d in WIDE_HEAD_DIMS if d < 1024] + [
-                (1, 2048, 2, 1024)]:
+                (1, 2048, 2, 1024)] + ([(1, 2048, 2, WIDEST_FLASH_DIMS[0])]
+                                       if name != "float16" else []):
             q, k, v = flash_inputs(shape, dtype, seed=shape[3])
             for causal in (False, True):
                 flash_row(shape, name, q, k, v, causal)
@@ -1232,6 +1287,12 @@ def log_new_attention(checks, wide, timed_rows):
             extra = f" pos {row['pos']} splits {row['splits']} ({row['kernels']} kernels)"
         else:
             extra = f" causal={row['causal']}"
+            if "plan" in row:
+                plan, ran = row["plan"], row["launched"]
+                extra += (f"; cluster {ran['cluster']} (plan {plan['cluster']}) x groups "
+                          f"{ran['groups']} (plan {plan['groups']}), slabs of <= {plan['width']} "
+                          f"columns, {ran['active_clusters']} clusters at once; the same bits "
+                          f"twice: {row['bits_equal_twice']}")
             if "max_abs_err_vs_tiled_plain" in row:
                 extra += f"; vs the tiled plain version {row['max_abs_err_vs_tiled_plain']:.3g}"
         log(f"kernel {row['op']}_attention wide {row['shape']} {row['dtype']}{extra}: "
@@ -7779,6 +7840,12 @@ def serve_wide_encoder(device="cuda", size=WIDE):
             row["wire"] = {"requests": 1, "executions": after[0] - before[0],
                            "successes": after[1] - before[1], "launches": counts}
             wide_check(torch.from_numpy(got.copy()), want, row, "wire_vs_cpu")
+        if on_card:
+            # the flash kernel alone at the row's attention shape, per call
+            # (CUDA events), outside the counted paths
+            fq, fk, fv = flash_inputs((1, seq, heads, dim // heads), torch.float32, seed=dim)
+            row["flash_ms"] = cuda_ms(lambda: flash_attention(fq, fk, fv), 3 if seq > 2048 else 10)
+            del fq, fk, fv
         for plane in ("cuda_shm", "wire"):
             r = row[plane]
             flash = r["launches"]["flash_attention"]
@@ -7819,7 +7886,11 @@ def log_wide(result, card):
             f"attention {row['attention_gflop']:.1f} GFLOP -> {row['attention_bound_ms']:.2f} ms, "
             f"projections {row['projections_gflop']:.1f} GFLOP -> "
             f"{row['projections_bound_ms']:.2f} ms (fp32 peak); max |err| vs the plain version "
-            f"on the same device {row['cuda_shm_vs_plain_max_abs_err']:.3g}; {card}")
+            f"on the same device {row['cuda_shm_vs_plain_max_abs_err']:.3g}"
+            + ("" if row.get("flash_ms") is None else
+               f"; flash_attention alone at (1, {row['seq']}, {row['heads']}, "
+               f"{row['head_dim']}) {row['flash_ms']:.4f} ms a call")
+            + f"; {card}")
         log(f"long_context_encoder {row['width']} S={row['wire_seq']} over the wire "
             f"{row['wire_ms']:.3f} ms; max |err| vs the CPU run "
             f"{row['wire_vs_cpu_max_abs_err']:.3g}; flash_attention launches "
@@ -8189,7 +8260,7 @@ def main(argv) -> int:
     smi = device_line()
     log(f"device: {smi}")
 
-    seconds, ptxas = build_kernels()
+    seconds, ptxas = build_kernels(check_spills=argv != ["--kernel-times"])
     log(f"build: {seconds:.2f} s")
     for line in ptxas:
         log(f"  ptxas: {line}")
@@ -8214,8 +8285,9 @@ def main(argv) -> int:
     log("  flash_attention dynamic shared memory per block (bytes, by padded head dim): "
         + ", ".join(f"{name} D<={dim} {smem(code, dim)}"
                     for name, code in (("bf16/fp16", 1), ("fp32", 0))
-                    for dim in (16, 32, 64, 96, 128, 256, 512))
-        + " (D > 256: the wide kernels, a slab of 256 output columns a block)")
+                    for dim in (16, 32, 64, 96, 128, 256, 512, 2048))
+        + " (D > 256: the wide kernels, a cluster of blocks a query tile, a slab of at most 128"
+        " columns a block; past 1024 a second Q buffer, and fp32 at 64 query rows, not 80)")
 
     rows, worst = check_decode_attention()
     for row in rows:

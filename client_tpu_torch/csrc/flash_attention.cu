@@ -68,16 +68,60 @@
 //   P tile into the PV product at columns tx + 16e. At DP = 256 its tiles
 //   take 209 KB of shared memory.
 // - D > 256 (flash_attention_mma_wide_kernel for bf16 and fp16,
-//   flash_attention_f32_wide_kernel for fp32): a block owns a (query tile x
-//   256 columns) slab of O, so its accumulators are those of DP = 256 at
-//   any D (grid.z = the slabs). For each key tile it builds S = QK^T over
-//   the whole D from 64-column chunks of Q and K staged through shared
-//   memory (cp.async, double-buffered, in the mma kernel; plain loads in
-//   the fp32 one, as its DP kernel), then multiplies P by its slab of V.
-//   So each slab recomputes the QK^T product and rereads Q and K: D / 256
-//   times the QK^T work of one pass (2x at D = 512, 4x at 1024), the cost
-//   of this simple design. The last slab and chunk are zero-padded past D.
-//   Shared memory: 69 KB (mma), 113 KB (fp32).
+//   flash_attention_f32_wide_kernel for fp32): a thread-block cluster of n
+//   blocks (at most 8, the portable size; grid.z = n * groups, clusters of
+//   (1, 1, n) launched by cudaLaunchKernelEx) covers one (b*h, query tile).
+//   D is cut evenly into n * groups slabs of whole 8-column units, at most
+//   kWideWidth = 128 columns each (the last ends at D and is zero-padded in
+//   shared memory): D = 257 gives three slabs of 88 / 88 / 81, D = 512 four
+//   of 128. Block r of cluster group g owns output slab g * n + r, and its
+//   share of QK^T's depth is slabs j * n + r (j < groups): with one group
+//   (every D up to 8 * 128 = 1024) the two are the same span, so every
+//   byte of Q, K and V is read once a query tile and QK^T is computed once,
+//   split across the cluster. Past 1024, each of the ceil(D / 1024) groups
+//   computes the whole QK^T again (groups x the QK^T work and the Q and K
+//   reads of one pass) and restages its Q chunks for each key tile; with one
+//   group Q stays in shared memory for the whole loop. The key tile's scores
+//   are exchanged inside the cluster as a reduce-scatter and an all-gather
+//   over distributed shared memory, in stores only (every block pulling
+//   every partial over DSMEM took most of the kernel's time on the H100:
+//   PERF.md): row r of the query tile belongs to block r % n. Each block
+//   stores its partial S (fp32) of each row into the owner's receive tile;
+//   after a cluster barrier each owner sums its rows' n partials in rank
+//   order (so every group sums the same ones in the same order), runs the
+//   online softmax on them (the dense kernels' masks, m_use and correction
+//   of 0 for a row with no live key yet) and stores the rows' P (rounded to
+//   the input type in bf16 / fp16, as the dense kernel does) and
+//   corrections into every block; after a second barrier every block
+//   rescales its O slab and adds P times its V slab. So every block holds
+//   the same bits of P and of each row's correction, and the slabs share
+//   one normalisation (at the end the owners store each row's l into every
+//   block). The loop is ordered so that the stores land while the block
+//   computes: tile t's partials go out, PV of tile t - 1 runs, barrier, the
+//   owners' softmax of tile t (P out), QK^T of tile t + 1, barrier; P and
+//   the corrections alternate between two buffers. K chunks are
+//   double-buffered with cp.async (a tile's first chunk prefetched during
+//   the tile before); V (the block's own slab) is loaded right after the PV
+//   that read the buffer last, a whole key tile before its own. Per key
+//   tile: two cluster barriers and, a block, stores of (n - 1) / n x 16 KB
+//   of partials and (n - 1) / n of the P tile, against the 2 x 64 x 64 x
+//   128 MACs of its products. bf16 / fp16: 4 warps of 16 query rows,
+//   mma.sync m16n8k16 as the dense kernel, Q fragments by ldmatrix from the
+//   resident Q at each k-step, P fragments by ldmatrix from the exchange, 64
+//   fp32 O accumulators a thread; 107 KB of shared memory (124 KB with two Q
+//   buffers), two blocks an SM. fp32: 8 warps over query tiles of 80 rows
+//   where Q stays resident (one cluster group; 64 past it, where Q's second
+//   buffer leaves no room): at the served (1, 1024, 4, 512) that makes 52
+//   clusters of 4, two waves of the 30 the card holds at one block an SM,
+//   where 64-row tiles make 64 clusters, three waves. Each thread owns a 5 x
+//   4 register tile of S (float4 loads along D from row-major Q and K: 80
+//   FMAs for nine 16-byte loads) and a 5 x 8 tile of O (per 4 keys, 160
+//   FMAs for 13 loads of P and V), full fp32 FMA (no TF32); 211 KB of
+//   shared memory (222 KB at 64 rows with two Q buffers), one block an SM.
+//   Every cluster holds 3 blocks or more, so an owner's rows fit its
+//   threads. A kernel checks that its cluster has the plan's n blocks (else
+//   it traps), and the launch asks cudaOccupancyMaxActiveClusters once per
+//   configuration and refuses one that cannot be scheduled.
 // - integer and bool inputs at any D (flash_attention_tiled_kernel): JAX's
 //   kernel rounds p to the input dtype per key tile of min(block_k, S)
 //   keys, which truncates it to 0 or 1, so the result depends on the tiles
@@ -102,11 +146,17 @@
 #include <stdint.h>
 #include <string.h>
 
+#include <atomic>
 #include <initializer_list>
+#include <type_traits>
+
+#include <cooperative_groups.h>
 
 #include "tiled_attention.cuh"
 
 namespace {
+
+namespace cg = cooperative_groups;
 
 using bf16 = __nv_bfloat16;
 using half = __half;
@@ -452,215 +502,6 @@ flash_attention_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int j = 0; j < DT; ++j) {
     const int col = j * 8 + 2 * t;
-    if (col >= dim) continue;
-    T* dst0 = out + base + (long long)row0 * stride_s + col;
-    T* dst1 = out + base + (long long)row1 * stride_s + col;
-    if (pairs) {
-      if (row0 < seq) M::store2(dst0, o[j][0] / den0, o[j][1] / den0);
-      if (row1 < seq) M::store2(dst1, o[j][2] / den1, o[j][3] / den1);
-    } else {
-      const bool second = col + 1 < dim;
-      if (row0 < seq) {
-        M::store1(dst0, o[j][0] / den0);
-        if (second) M::store1(dst0 + 1, o[j][1] / den0);
-      }
-      if (row1 < seq) {
-        M::store1(dst1, o[j][2] / den1);
-        if (second) M::store1(dst1 + 1, o[j][3] / den1);
-      }
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// bf16 and fp16 past D = 256: a slab of 256 output columns a block
-// ---------------------------------------------------------------------------
-
-constexpr int kSlab = 256;   // output columns of a wide block
-constexpr int kChunkD = 64;  // columns of a Q or K chunk of the QK^T product
-
-struct MmaWideSmem {
-  static constexpr int kLdC = kChunkD + 8;  // 16 bytes of padding: conflict-free ldmatrix
-  static constexpr int kLdV = kSlab + 8;
-  static constexpr int kChunk = 64 * kLdC;  // one Q or one K chunk
-  static constexpr int kV = 64 * kLdV;
-  static constexpr size_t kBytes = (4 * kChunk + kV) * 2;  // (Q, K) x 2 buffers, V
-};
-
-template <typename T>
-__global__ void __launch_bounds__(kMmaThreads)
-flash_attention_mma_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                                const T* __restrict__ v, T* __restrict__ out, int seq, int heads,
-                                int dim, long long stride_b, long long stride_s,
-                                long long stride_h, float scale, int causal, int vec, int pairs) {
-  using M = Mma<T>;
-  using W = MmaWideSmem;
-  constexpr int LDC = W::kLdC;
-  constexpr int LDV = W::kLdV;
-  constexpr int KSTEPS = kChunkD / 16;  // k-steps of a chunk
-  constexpr int NT = kBlockK / 8;       // 8-key n-tiles of S
-  constexpr int DT = kSlab / 8;         // 8-column n-tiles of the O slab
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* sq = reinterpret_cast<T*>(smem);  // two buffers
-  T* sk = sq + 2 * W::kChunk;          // two buffers
-  T* sv = sk + 2 * W::kChunk;
-
-  const int bh = blockIdx.x;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kMmaBlockQ;  // longest causal blocks first
-  const int col0 = blockIdx.z * kSlab;                       // this block's columns of O
-  const long long base = (long long)(bh / heads) * stride_b + (long long)(bh % heads) * stride_h;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int row0 = q0 + warp * 16 + g;
-  const int row1 = row0 + 8;
-  const float scale_log2 = scale * kLog2e;
-  const int q_row = warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-  const int q_col = (lane >> 4) * 8;
-
-  const int k_end = causal ? min(seq, q0 + kMmaBlockQ) : seq;
-  const int n_tiles = (k_end + kBlockK - 1) / kBlockK;
-  const int n_chunks = (dim + kChunkD - 1) / kChunkD;
-
-  float o[DT][4];
-#pragma unroll
-  for (int j = 0; j < DT; ++j)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) o[j][c] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY};
-  float l[2] = {0.f, 0.f};  // this thread's columns only, until the end
-
-  for (int it = 0; it < n_tiles; ++it) {
-    const int k0 = it * kBlockK;
-    // the tile's V slab first (its group completes before the chunks'),
-    // then the first chunk of Q and K; every buffer was last read before
-    // the previous tile's closing barrier
-    load_tile_async<T, kSlab, LDV, kBlockK, kMmaThreads>(sv, v + base + col0, k0, seq, stride_s,
-                                                        dim - col0, vec);
-    cp_async_commit();
-    load_tile_async<T, kChunkD, LDC, kMmaBlockQ, kMmaThreads>(sq, q + base, q0, seq, stride_s,
-                                                             dim, vec);
-    load_tile_async<T, kChunkD, LDC, kBlockK, kMmaThreads>(sk, k + base, k0, seq, stride_s, dim,
-                                                          vec);
-    cp_async_commit();
-
-    // S = Q K^T over the whole D, chunk by chunk: 16 rows x 64 keys a warp
-    float s[NT][4];
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) s[j][c] = 0.f;
-    for (int ch = 0; ch < n_chunks; ++ch) {
-      const int buf = ch & 1;
-      if (ch + 1 < n_chunks) {
-        // the buffer it fills was last read in chunk ch - 1, which ended
-        // with a barrier
-        const int c1 = (ch + 1) * kChunkD;
-        load_tile_async<T, kChunkD, LDC, kMmaBlockQ, kMmaThreads>(
-            sq + (buf ^ 1) * W::kChunk, q + base + c1, q0, seq, stride_s, dim - c1, vec);
-        load_tile_async<T, kChunkD, LDC, kBlockK, kMmaThreads>(
-            sk + (buf ^ 1) * W::kChunk, k + base + c1, k0, seq, stride_s, dim - c1, vec);
-        cp_async_commit();
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-      __syncthreads();
-      const T* qt = sq + buf * W::kChunk;
-      const T* kt = sk + buf * W::kChunk;
-#pragma unroll
-      for (int kk = 0; kk < KSTEPS; ++kk) {
-        uint32_t a[4];
-        ldmatrix_x4(a, qt + q_row * LDC + kk * 16 + q_col);
-#pragma unroll
-        for (int np = 0; np < NT / 2; ++np) {
-          uint32_t b[4];
-          const int key = np * 16 + (lane & 7) + (lane >> 4) * 8;
-          ldmatrix_x4(b, kt + key * LDC + kk * 16 + ((lane >> 3) & 1) * 8);
-          M::mma(s[2 * np], a, b[0], b[1]);
-          M::mma(s[2 * np + 1], a, b[2], b[3]);
-        }
-      }
-      __syncthreads();  // this chunk's buffers are refilled two chunks on
-    }
-
-    if (tile_needs_mask<kBlockK>(k0, q0, seq, causal)) {
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int key = k0 + j * 8 + 2 * t + (c & 1);
-          const int row = c < 2 ? row0 : row1;
-          const bool live = key < seq && (!causal || key <= row);
-          s[j][c] = live ? s[j][c] * scale_log2 : -INFINITY;
-        }
-      }
-    } else {
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) s[j][c] *= scale_log2;
-    }
-
-    // online softmax on the fragments, as flash_attention_mma_kernel
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float mx = m[r];
-#pragma unroll
-      for (int j = 0; j < NT; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_use = mx == -INFINITY ? 0.f : mx;
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        s[j][2 * r] = exp2f(s[j][2 * r] - m_use);
-        s[j][2 * r + 1] = exp2f(s[j][2 * r + 1] - m_use);
-        sum += s[j][2 * r] + s[j][2 * r + 1];
-      }
-      if (mx != m[r]) {
-        const float corr = exp2f(m[r] - m_use);
-        l[r] *= corr;
-#pragma unroll
-        for (int j = 0; j < DT; ++j) {
-          o[j][2 * r] *= corr;
-          o[j][2 * r + 1] *= corr;
-        }
-      }
-      l[r] += sum;
-      m[r] = mx;
-    }
-
-    // O slab += P V slab, P rounded to the input type in registers
-#pragma unroll
-    for (int kk = 0; kk < NT / 2; ++kk) {
-      const uint32_t pa[4] = {M::pack(s[2 * kk][0], s[2 * kk][1]),
-                              M::pack(s[2 * kk][2], s[2 * kk][3]),
-                              M::pack(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              M::pack(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int dp = 0; dp < DT / 2; ++dp) {
-        uint32_t b[4];
-        const int key = kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-        ldmatrix_x4_trans(b, sv + key * LDV + dp * 16 + (lane >> 4) * 8);
-        M::mma(o[2 * dp], pa, b[0], b[1]);
-        M::mma(o[2 * dp + 1], pa, b[2], b[3]);
-      }
-    }
-    __syncthreads();  // this tile's V slab and chunks are refilled in the next
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-  }
-  const float den0 = fmaxf(l[0], 1e-30f);
-  const float den1 = fmaxf(l[1], 1e-30f);
-#pragma unroll
-  for (int j = 0; j < DT; ++j) {
-    const int col = col0 + j * 8 + 2 * t;
     if (col >= dim) continue;
     T* dst0 = out + base + (long long)row0 * stride_s + col;
     T* dst1 = out + base + (long long)row1 * stride_s + col;
@@ -1042,138 +883,658 @@ flash_attention_f32_kernel(const float* __restrict__ q, const float* __restrict_
 }
 
 // ---------------------------------------------------------------------------
-// fp32 past D = 256: a slab of 256 output columns a block, P through
-// shared memory
+// past D = 256: a cluster of blocks over one (b*h, query tile)
 // ---------------------------------------------------------------------------
 
-struct F32WideSmem {
-  static constexpr int kLdC = kChunkD + 1;  // odd word count per row
-  static constexpr size_t kQ = (size_t)kBlockQ * kLdC * sizeof(float);
-  static constexpr size_t kK = (size_t)kBlockK * kLdC * sizeof(float);
-  static constexpr size_t kV = (size_t)kBlockK * kSlab * sizeof(float);
-  static constexpr size_t kP = (size_t)kBlockQ * kLdP * sizeof(float);
-  static constexpr size_t kBytes = kQ + kK + kV + kP;
+constexpr int kWideWidth = 128;     // the widest slab of D a wide block owns (both wide kernels)
+constexpr int kWideCluster = 8;     // blocks of a cluster at most: the portable maximum
+constexpr int kWideThreads = 128;   // threads of a bf16 / fp16 wide block: 4 warps
+constexpr int kLdS = kBlockK + 8;   // row of an fp32 score tile (partials, fp32 P)
+constexpr int kLdP16 = kBlockK + 8; // row of a 2-byte P tile: conflict-free ldmatrix
+static_assert(kMmaBlockQ == 64 && kBlockK == 64, "the wide tiles below");
+
+// the rows of partials a block of a BQ-row query tile receives: n * ceil(BQ /
+// n) at most over the cluster sizes, in whole 8-row groups
+constexpr int recv_rows(int bq) {
+  int rows = 0;
+  for (int n = 2; n <= kWideCluster; ++n) {
+    const int r = n * ((bq + n - 1) / n);
+    rows = r > rows ? r : rows;
+  }
+  return (rows + 7) / 8 * 8;
+}
+
+// The slabs of a wide launch: n blocks a cluster (grid.z = n * groups), D
+// cut into n * groups slabs of whole 8-column units spread evenly (the
+// first units % slabs slabs take one more), the last ending at D, as
+// ops/flash_attention.py's wide_plan cuts it. Block `rank` of cluster group
+// g owns output slab g * n + rank, and computes the QK^T partial over slabs
+// j * n + rank (j < groups, its "chunks"): every group sums the same
+// partials in the same order.
+struct WideSlabs {
+  int dim, n, rank, base, rem;
+  __device__ __forceinline__ WideSlabs(int dim_, int n_, int groups, int rank_)
+      : dim(dim_), n(n_), rank(rank_) {
+    const int units = (dim + 7) / 8;
+    base = units / (n * groups);
+    rem = units % (n * groups);
+  }
+  __device__ __forceinline__ int slab_col(int s) const {
+    return min(dim, 8 * (s * base + min(s, rem)));
+  }
+  __device__ __forceinline__ int col(int j) const { return slab_col(j * n + rank); }
+  __device__ __forceinline__ int width(int j) const {
+    return slab_col(j * n + rank + 1) - slab_col(j * n + rank);
+  }
 };
 
-__global__ void __launch_bounds__(kThreads)
+// Rows [row0, row0 + ROWS) of `width` columns into a shared tile of
+// kWideWidth columns (row stride LD), zero past `width` and past seq: with
+// 16-byte copies a thread keeps one column of 16 bytes and walks the rows
+// (an address add a copy); other widths take load_tile_async.
+template <typename T, int LD, int ROWS, int THREADS>
+__device__ __forceinline__ void load_rows(T* tile, const T* __restrict__ src, int row0, int seq,
+                                          long long stride_s, int width, int vec) {
+  constexpr int kVec = 16 / (int)sizeof(T);
+  constexpr int kPerRow = kWideWidth / kVec;  // 16-byte copies a row
+  constexpr int kStep = THREADS / kPerRow;    // rows a pass
+  static_assert(THREADS % kPerRow == 0 && ROWS % kStep == 0, "whole rows a pass");
+  if (vec != 16) {
+    load_tile_async<T, kWideWidth, LD, ROWS, THREADS>(tile, src, row0, seq, stride_s, width, vec);
+    return;
+  }
+  const int c = (threadIdx.x % kPerRow) * kVec;
+  const bool col_live = c < width;
+  int r = threadIdx.x / kPerRow;
+  const T* g = src + (long long)(row0 + r) * stride_s + c;
+  T* d = tile + r * LD + c;
+#pragma unroll 4
+  for (; r < ROWS; r += kStep) {
+    const bool live = col_live && row0 + r < seq;
+    cp_async<16>(d, live ? g : src, live);
+    g += kStep * stride_s;
+    d += kStep * LD;
+  }
+}
+
+// A block's shared memory for the cluster's exchange over a BQ-row query
+// tile: the partial score rows it owns as every block of the cluster sent
+// them (row r of the query tile is owned by block r % n, at row (src *
+// ceil(BQ / n) + r / n) of `recv`), and two tiles each (alternating by key
+// tile) of P and of each row's correction as the owners sent them; `l`
+// takes each row's final sum.
+template <typename PT, int BQ>
+struct Exchange {
+  static constexpr int kLd = sizeof(PT) == 2 ? kLdP16 : kLdS;
+  static constexpr int kP = BQ * kLd;
+  static constexpr size_t kRecvBytes = (size_t)recv_rows(BQ) * kLdS * sizeof(float);
+  static constexpr size_t kPBytes = (size_t)2 * kP * sizeof(PT);
+  unsigned char* base;
+  static constexpr size_t bytes() { return kRecvBytes + kPBytes + 3 * BQ * sizeof(float); }
+  // [recv_rows(BQ)][kLdS] fp32
+  __device__ __forceinline__ float* recv() const { return reinterpret_cast<float*>(base); }
+  // [2][BQ][kLd]
+  __device__ __forceinline__ PT* p() const { return reinterpret_cast<PT*>(base + kRecvBytes); }
+  // [2][BQ]
+  __device__ __forceinline__ float* corr() const {
+    return reinterpret_cast<float*>(base + kRecvBytes + kPBytes);
+  }
+  // [BQ]
+  __device__ __forceinline__ float* l() const { return corr() + 2 * BQ; }
+};
+
+template <typename T>
+__device__ __forceinline__ T* in_block(cg::cluster_group& cluster, T* p, int dst, int rank) {
+  return dst == rank ? p : cluster.map_shared_rank(p, dst);
+}
+
+// The softmax of this block's rows of key tile `tile`, once every block's
+// partial scores are in the owners' `recv` (after the cluster barrier):
+// THREADS / 32 threads a row (up to 32 rows), row = lr * n + rank. The n
+// partials are summed in rank order, scaled to log2 units and masked, the
+// online softmax runs on them (m, l: this thread's row's; a row with no live
+// key yet keeps p = 0 and a correction of 0), and P (rounded to PT: the
+// input type for bf16 / fp16) and the row's correction go to every block of
+// the cluster, into the tile's buffer (tile & 1). Returns whether this
+// thread holds a row.
+template <int THREADS, typename PT, int BQ>
+__device__ __forceinline__ bool own_rows(cg::cluster_group& cluster, const Exchange<PT, BQ>& x,
+                                         int n, int rank, int tile, int q0, int k0, int seq,
+                                         int causal, float scale_log2, float& m, float& l) {
+  constexpr int TPR = THREADS / 32;  // threads a row: 32 rows at most
+  constexpr int KPT = kBlockK / TPR;  // keys a thread
+  static_assert(TPR == 4 || TPR == 8, "the shuffles below");
+  static_assert((BQ + 2) / 3 <= 32, "32 rows a block at most (n >= 3)");
+  const int rows_per = (BQ + n - 1) / n;
+  const int owned = (BQ - rank + n - 1) / n;  // rows r with r % n == rank
+  const int lr_raw = threadIdx.x / TPR;
+  const bool active = lr_raw < owned;
+  const int lr = active ? lr_raw : 0;  // an idle thread computes on row 0 and stores nothing
+  const int kq = (threadIdx.x % TPR) * KPT;
+  const int row = lr * n + rank;
+  float s[KPT];
+  for (int r = 0; r < n; ++r) {
+    const float* src = x.recv() + (r * rows_per + lr) * kLdS + kq;
+#pragma unroll
+    for (int f = 0; f < KPT; f += 4) {
+      const float4 y = *reinterpret_cast<const float4*>(src + f);
+      s[f] = r == 0 ? y.x : s[f] + y.x;
+      s[f + 1] = r == 0 ? y.y : s[f + 1] + y.y;
+      s[f + 2] = r == 0 ? y.z : s[f + 2] + y.z;
+      s[f + 3] = r == 0 ? y.w : s[f + 3] + y.w;
+    }
+  }
+  const bool masked = tile_needs_mask<kBlockK>(k0, q0, seq, causal);
+  float mx = -INFINITY;
+#pragma unroll
+  for (int e = 0; e < KPT; ++e) {
+    const int key = k0 + kq + e;
+    const bool live = !masked || (key < seq && (!causal || key <= q0 + row));
+    s[e] = live ? s[e] * scale_log2 : -INFINITY;
+    mx = fmaxf(mx, s[e]);
+  }
+#pragma unroll
+  for (int off = 1; off < TPR; off <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+  const float m_new = fmaxf(m, mx);
+  const float m_use = m_new == -INFINITY ? 0.f : m_new;
+  const float corr = exp2f(m - m_use);
+  float sum = 0.f;
+#pragma unroll
+  for (int e = 0; e < KPT; ++e) {
+    s[e] = exp2f(s[e] - m_use);
+    sum += s[e];
+  }
+#pragma unroll
+  for (int off = 1; off < TPR; off <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+  l = l * corr + sum;
+  m = m_new;
+  if (active) {
+    // P as 16-byte words: 2-byte types rounded here (p.astype(v.dtype))
+    constexpr int kWords = KPT * (int)sizeof(PT) / 16;
+    uint4 w[kWords];
+#pragma unroll
+    for (int i = 0; i < kWords; ++i) {
+      if constexpr (sizeof(PT) == 2) {
+        w[i] = make_uint4(Mma<PT>::pack(s[8 * i], s[8 * i + 1]),
+                          Mma<PT>::pack(s[8 * i + 2], s[8 * i + 3]),
+                          Mma<PT>::pack(s[8 * i + 4], s[8 * i + 5]),
+                          Mma<PT>::pack(s[8 * i + 6], s[8 * i + 7]));
+      } else {
+        w[i] = make_uint4(__float_as_uint(s[4 * i]), __float_as_uint(s[4 * i + 1]),
+                          __float_as_uint(s[4 * i + 2]), __float_as_uint(s[4 * i + 3]));
+      }
+    }
+    const int buf = tile & 1;
+    for (int dst = 0; dst < n; ++dst) {
+      uint4* gp = reinterpret_cast<uint4*>(in_block(cluster, x.p(), dst, rank) +
+                                           buf * x.kP + row * x.kLd + kq);
+#pragma unroll
+      for (int i = 0; i < kWords; ++i) gp[i] = w[i];
+      if (kq == 0) in_block(cluster, x.corr(), dst, rank)[buf * BQ + row] = corr;
+    }
+  }
+  return active;
+}
+
+// Each row's final l from its owner into every block, then a full cluster
+// barrier: after it no block stores into another, and every block can leave.
+template <int THREADS>
+__device__ __forceinline__ void share_l(cg::cluster_group& cluster, float* gl, bool owner, int n,
+                                        int rank, float l) {
+  constexpr int TPR = THREADS / 32;
+  if (owner && threadIdx.x % TPR == 0) {
+    const int row = (int)(threadIdx.x / TPR) * n + rank;
+    for (int dst = 0; dst < n; ++dst) in_block(cluster, gl, dst, rank)[row] = l;
+  }
+  cluster.sync();
+}
+
+// The key-tile loop both wide kernels run, two cluster barriers a tile,
+// ordered so that each barrier's stores land while the block computes and
+// the fewest registers are live at each phase:
+//   prologue: QK^T(0)
+//   tile t:   partials(t) to their owners
+//             PV(t - 1), then V(t) into the V buffer PV(t - 1) read
+//             barrier (every partial of tile t is with its owner)
+//             the owners' softmax of tile t, P(t) to every block
+//             QK^T(t + 1) (its chunks' cp.async double-buffered)
+//             barrier (P(t) and its corrections are in every block)
+//   after:    PV(last)
+// P and the corrections alternate between two buffers by tile; a block's
+// receive tile is rewritten only after the second barrier of the tile
+// before. The kernel supplies load_step(t, j, buf) (the chunks of (key tile
+// t, chunk j) into buffer buf), qk(j, buf) (chunk j of QK^T into its score
+// registers), store_partials(), own(t), pv(t) (O = O * corr + P V for tile
+// t) and load_v(t).
+template <typename LoadStep, typename Qk, typename Store, typename Own, typename Pv,
+          typename LoadV>
+__device__ __forceinline__ void wide_loop(int n_tiles, int groups, LoadStep load_step, Qk qk,
+                                          Store store_partials, Own own, Pv pv, LoadV load_v) {
+  int step = 0;  // (key tile, chunk) steps in order: step s reads buffers s & 1
+  auto qk_tile = [&](int t) {
+    for (int j = 0; j < groups; ++j, ++step) {
+      const bool last = j + 1 == groups;
+      if (!last || t + 1 < n_tiles) {
+        load_step(last ? t + 1 : t, last ? 0 : j + 1, (step + 1) & 1);
+      }
+      cp_async_commit();  // (empty past the last step: the group count stays uniform)
+      // this step's group: after it only the next step's and, for a tile's
+      // first chunk past tile 0, the V group committed after it
+      if (j == 0 && t > 0) {
+        cp_async_wait<2>();
+      } else {
+        cp_async_wait<1>();
+      }
+      __syncthreads();
+      qk(j, step & 1);
+      __syncthreads();  // the buffers of this step are refilled by the next step's prefetch
+    }
+  };
+  qk_tile(0);
+  load_v(0);
+  cp_async_commit();
+  for (int t = 0; t < n_tiles; ++t) {
+    store_partials();
+    if (t >= 1) {
+      cp_async_wait<1>();  // V(t - 1): only the next tile's first chunk may be in flight
+      __syncthreads();
+      pv(t - 1);
+      __syncthreads();  // the V buffer is free
+      load_v(t);
+    }
+    cp_async_commit();
+    cg::this_cluster().sync();  // every partial of tile t is with its owner
+    own(t);
+    if (t + 1 < n_tiles) qk_tile(t + 1);
+    cg::this_cluster().sync();  // P(t) and its corrections are in every block
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  pv(n_tiles - 1);
+}
+
+// bf16 and fp16: 4 warps, 16 query rows each, mma.sync as the dense kernel
+struct MmaWideSmem {
+  static constexpr int kLd = kWideWidth + 8;  // 16 bytes of padding: conflict-free ldmatrix
+  static constexpr int kTile = 64 * kLd;      // one Q, K or V tile of 2-byte values
+  // K x 2, V, Q (two buffers where it is restaged), then the exchange
+  __host__ __device__ static constexpr size_t tiles_bytes(int groups) {
+    return (size_t)(3 + (groups > 1 ? 2 : 1)) * kTile * 2;
+  }
+  template <typename T>
+  static constexpr size_t bytes(int groups) {
+    return tiles_bytes(groups) + Exchange<T, kMmaBlockQ>::bytes();
+  }
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kWideThreads)
+flash_attention_mma_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                                const T* __restrict__ v, T* __restrict__ out, int seq, int heads,
+                                int dim, long long stride_b, long long stride_s,
+                                long long stride_h, float scale, int causal, int vec, int pairs,
+                                int n, int groups) {
+  using M = Mma<T>;
+  using W = MmaWideSmem;
+  constexpr int LD = W::kLd;
+  constexpr int KSTEPS = kWideWidth / 16;  // k-steps of a whole chunk
+  constexpr int NT = kBlockK / 8;          // 8-key n-tiles of S
+  constexpr int DT = kWideWidth / 8;       // 8-column n-tiles of the O slab
+  static_assert(kMmaThreads == kWideThreads, "");
+  cg::cluster_group cluster = cg::this_cluster();
+  if (cluster.num_blocks() != (unsigned)n) __trap();  // launched on another cluster than the plan's
+  const int rank = (int)cluster.block_rank();
+  const WideSlabs sl(dim, n, groups, rank);
+  const int group = blockIdx.z / n;
+  const bool resident = groups == 1;  // Q's one chunk stays in shared memory for the whole loop
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* sk = reinterpret_cast<T*>(smem);  // two buffers
+  T* sv = sk + 2 * W::kTile;
+  T* sq = sv + W::kTile;               // one buffer, or two where restaged
+  const Exchange<T, kMmaBlockQ> ex{smem + W::tiles_bytes(groups)};
+
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kMmaBlockQ;  // longest causal blocks first
+  const long long base = (long long)(bh / heads) * stride_b + (long long)(bh % heads) * stride_h;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int r0 = warp * 16 + g;  // this thread's fragment rows in the tile: r0 and r0 + 8
+  const int r1 = r0 + 8;
+  const float scale_log2 = scale * kLog2e;
+  const int a_row = warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;  // ldmatrix A rows
+  const int a_col = (lane >> 4) * 8;
+  const int rows_per = (kMmaBlockQ + n - 1) / n;
+  const int o0 = sl.col(group);  // this block's slab of O: chunk `group` of its share
+  const int ow = sl.width(group);
+  const int npairs = (ow + 15) / 16;
+
+  const int k_end = causal ? min(seq, q0 + kMmaBlockQ) : seq;
+  const int n_tiles = (k_end + kBlockK - 1) / kBlockK;
+
+  float o[DT][4];
+#pragma unroll
+  for (int j = 0; j < DT; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) o[j][c] = 0.f;
+  float m = -INFINITY;  // the softmax state of the row this thread owns (own_rows)
+  float l = 0.f;
+  bool owner = false;
+  float s[NT][4];
+
+  auto load_step = [&](int t, int j, int buf) {
+    if (!resident) {
+      load_rows<T, LD, kMmaBlockQ, kWideThreads>(sq + buf * W::kTile, q + base + sl.col(j), q0,
+                                                 seq, stride_s, sl.width(j), vec);
+    }
+    load_rows<T, LD, kBlockK, kWideThreads>(sk + buf * W::kTile, k + base + sl.col(j),
+                                            t * kBlockK, seq, stride_s, sl.width(j), vec);
+  };
+  auto qk = [&](int j, int buf) {
+    const T* qt = sq + (resident ? 0 : buf * W::kTile);
+    const T* kt = sk + buf * W::kTile;
+    if (j == 0) {
+#pragma unroll
+      for (int jj = 0; jj < NT; ++jj)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) s[jj][c] = 0.f;
+    }
+    const int ksteps = (sl.width(j) + 15) / 16;
+#pragma unroll
+    for (int kk = 0; kk < KSTEPS; ++kk) {
+      if (kk < ksteps) {
+        uint32_t a[4];
+        ldmatrix_x4(a, qt + a_row * LD + kk * 16 + a_col);
+#pragma unroll
+        for (int np = 0; np < NT / 2; ++np) {
+          uint32_t b[4];
+          const int key = np * 16 + (lane & 7) + (lane >> 4) * 8;
+          ldmatrix_x4(b, kt + key * LD + kk * 16 + ((lane >> 3) & 1) * 8);
+          M::mma(s[2 * np], a, b[0], b[1]);
+          M::mma(s[2 * np + 1], a, b[2], b[3]);
+        }
+      }
+    }
+  };
+  auto store_partials = [&]() {
+    // this thread's partial rows to their owners' receive tiles
+    float* d0 = in_block(cluster, ex.recv(), r0 % n, rank) + (rank * rows_per + r0 / n) * kLdS;
+    float* d1 = in_block(cluster, ex.recv(), r1 % n, rank) + (rank * rows_per + r1 / n) * kLdS;
+#pragma unroll
+    for (int jj = 0; jj < NT; ++jj) {
+      *reinterpret_cast<float2*>(d0 + jj * 8 + 2 * t4) = make_float2(s[jj][0], s[jj][1]);
+      *reinterpret_cast<float2*>(d1 + jj * 8 + 2 * t4) = make_float2(s[jj][2], s[jj][3]);
+    }
+  };
+  auto own = [&](int t) {
+    owner = own_rows<kWideThreads, T>(cluster, ex, n, rank, t, q0, t * kBlockK, seq, causal,
+                                      scale_log2, m, l);
+  };
+  auto pv = [&](int t) {
+    // O slab = O slab * corr + P V slab, P by ldmatrix from the exchange
+    const int buf = t & 1;
+    const float c0 = ex.corr()[buf * kMmaBlockQ + r0];
+    const float c1 = ex.corr()[buf * kMmaBlockQ + r1];
+#pragma unroll
+    for (int jj = 0; jj < DT; ++jj) {
+      o[jj][0] *= c0;
+      o[jj][1] *= c0;
+      o[jj][2] *= c1;
+      o[jj][3] *= c1;
+    }
+    const T* pt = ex.p() + buf * ex.kP;
+#pragma unroll
+    for (int kk = 0; kk < NT / 2; ++kk) {
+      uint32_t pa[4];
+      ldmatrix_x4(pa, pt + a_row * kLdP16 + kk * 16 + a_col);
+#pragma unroll
+      for (int dp = 0; dp < DT / 2; ++dp) {
+        if (dp < npairs) {
+          uint32_t b[4];
+          const int key = kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+          ldmatrix_x4_trans(b, sv + key * LD + dp * 16 + (lane >> 4) * 8);
+          M::mma(o[2 * dp], pa, b[0], b[1]);
+          M::mma(o[2 * dp + 1], pa, b[2], b[3]);
+        }
+      }
+    }
+  };
+  auto load_v = [&](int t) {
+    load_rows<T, LD, kBlockK, kWideThreads>(sv, v + base + o0, t * kBlockK, seq, stride_s, ow,
+                                            vec);
+  };
+
+  // the first step's chunks: Q (for the whole loop where it stays resident) and K
+  if (resident) {
+    load_rows<T, LD, kMmaBlockQ, kWideThreads>(sq, q + base + sl.col(0), q0, seq, stride_s,
+                                               sl.width(0), vec);
+  }
+  load_step(0, 0, 0);
+  cp_async_commit();
+  wide_loop(n_tiles, groups, load_step, qk, store_partials, own, pv, load_v);
+  share_l<kWideThreads>(cluster, ex.l(), owner, n, rank, l);
+
+  const float den0 = fmaxf(ex.l()[r0], 1e-30f);
+  const float den1 = fmaxf(ex.l()[r1], 1e-30f);
+  const int row0 = q0 + r0;
+  const int row1 = q0 + r1;
+#pragma unroll
+  for (int j = 0; j < DT; ++j) {
+    const int col = j * 8 + 2 * t4;  // within the slab
+    if (col >= ow) continue;
+    T* dst0 = out + base + (long long)row0 * stride_s + o0 + col;
+    T* dst1 = out + base + (long long)row1 * stride_s + o0 + col;
+    if (pairs) {
+      if (row0 < seq) M::store2(dst0, o[j][0] / den0, o[j][1] / den0);
+      if (row1 < seq) M::store2(dst1, o[j][2] / den1, o[j][3] / den1);
+    } else {
+      const bool second = col + 1 < ow;
+      if (row0 < seq) {
+        M::store1(dst0, o[j][0] / den0);
+        if (second) M::store1(dst0 + 1, o[j][1] / den0);
+      }
+      if (row1 < seq) {
+        M::store1(dst1, o[j][2] / den1);
+        if (second) M::store1(dst1 + 1, o[j][3] / den1);
+      }
+    }
+  }
+}
+
+// fp32: 8 warps, register tiles on the CUDA cores, query tiles of BQ rows:
+// 80 where Q stays resident (one cluster group), so that the served (1, 1024,
+// 4, 512) makes 52 clusters of 4, two waves of the 30 the card holds at one
+// block an SM (64-row tiles make 64: three waves); 64 where Q is restaged
+// (its second buffer leaves no room for 80)
+constexpr int kF32WideThreads = 256;
+constexpr int kF32WideBlockQ = 80;
+
+template <int BQ>
+struct F32WideSmem {
+  static constexpr int kLd = kWideWidth + 4;  // float4 rows: conflict-free reads
+  static constexpr int kTileQ = BQ * kLd;     // the Q tile
+  static constexpr int kTile = kBlockK * kLd;  // one K or V tile (64 rows)
+  // K x 2, V, Q (two buffers where it is restaged), then the exchange
+  __host__ __device__ static constexpr size_t tiles_bytes(int groups) {
+    return ((size_t)3 * kTile + (size_t)(groups > 1 ? 2 : 1) * kTileQ) * sizeof(float);
+  }
+  static constexpr size_t bytes(int groups) {
+    return tiles_bytes(groups) + Exchange<float, BQ>::bytes();
+  }
+};
+
+template <int BQ>
+__global__ void __launch_bounds__(kF32WideThreads, 1)
 flash_attention_f32_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
                                 const float* __restrict__ v, float* __restrict__ out, int seq,
                                 int heads, int dim, long long stride_b, long long stride_s,
-                                long long stride_h, float scale, int causal, int vec, int) {
-  using S = F32WideSmem;
-  constexpr int LDC = S::kLdC;
-  constexpr int E = kSlab / 16;  // output columns per thread
+                                long long stride_h, float scale, int causal, int vec, int,
+                                int n, int groups) {
+  using S = F32WideSmem<BQ>;
+  constexpr int LD = S::kLd;
+  constexpr int TH = kF32WideThreads;
+  constexpr int RT = BQ / 16;  // query rows a thread
+  static_assert(BQ % 16 == 0 && BQ % (TH / 32) == 0, "the thread grid below");
+  cg::cluster_group cluster = cg::this_cluster();
+  if (cluster.num_blocks() != (unsigned)n) __trap();  // launched on another cluster than the plan's
+  const int rank = (int)cluster.block_rank();
+  const WideSlabs sl(dim, n, groups, rank);
+  const int group = blockIdx.z / n;
+  const bool resident = groups == 1;
   extern __shared__ __align__(16) unsigned char smem[];
-  float* sq = reinterpret_cast<float*>(smem);
-  float* sk = reinterpret_cast<float*>(smem + S::kQ);
-  float* sv = reinterpret_cast<float*>(smem + S::kQ + S::kK);
-  float* sp = reinterpret_cast<float*>(smem + S::kQ + S::kK + S::kV);
+  float* sk = reinterpret_cast<float*>(smem);  // two buffers
+  float* sv = sk + 2 * S::kTile;
+  float* sq = sv + S::kTile;                   // one buffer, or two where restaged
+  const Exchange<float, BQ> ex{smem + S::tiles_bytes(groups)};
 
   const int bh = blockIdx.x;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBlockQ;  // longest causal blocks first
-  const int col0 = blockIdx.z * kSlab;                    // this block's columns of O
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // longest causal blocks first
   const long long base = (long long)(bh / heads) * stride_b + (long long)(bh % heads) * stride_h;
+  // thread (ty, tx) of a 16 x 16 grid owns the rows ty + 16i (i < RT); of S
+  // the keys tx + 16j (j < 4), of O the columns 4 tx + c and 64 + 4 tx + c
+  // (c < 4)
   const int ty = threadIdx.x >> 4;
   const int tx = threadIdx.x & 15;
+  const float scale_log2 = scale * kLog2e;
+  const int rows_per = (BQ + n - 1) / n;
+  const int o0 = sl.col(group);
+  const int ow = sl.width(group);
 
-  float m[kRows], l[kRows], acc[kRows][E];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int e = 0; e < E; ++e) acc[i][e] = 0.f;
-  }
+  const int k_end = causal ? min(seq, q0 + BQ) : seq;
+  const int n_tiles = (k_end + kBlockK - 1) / kBlockK;
 
-  const int k_end = causal ? min(seq, q0 + kBlockQ) : seq;
-  for (int k0 = 0; k0 < k_end; k0 += kBlockK) {
-    // S = Q K^T over the whole D, chunk by chunk
-    float s[kRows][kKeys];
+  float acc[RT][8];
 #pragma unroll
-    for (int i = 0; i < kRows; ++i)
+  for (int i = 0; i < RT; ++i)
 #pragma unroll
-      for (int j = 0; j < kKeys; ++j) s[i][j] = 0.f;
-    for (int c0 = 0; c0 < dim; c0 += kChunkD) {
-      __syncthreads();  // the last chunk (and the last tile's V and P) are no longer read
-      load_tile<kChunkD, LDC>(sq, q + base + c0, q0, kBlockQ, seq, stride_s, dim - c0, vec);
-      load_tile<kChunkD, LDC>(sk, k + base + c0, k0, kBlockK, seq, stride_s, dim - c0, vec);
-      if (c0 == 0) {
-        load_tile<kSlab, kSlab>(sv, v + base + col0, k0, kBlockK, seq, stride_s, dim - col0, vec);
-      }
-      __syncthreads();
-      const int n = min(kChunkD, dim - c0);
-#pragma unroll 8
-      for (int d = 0; d < n; ++d) {
-        float qv[kRows], kv[kKeys];
-#pragma unroll
-        for (int i = 0; i < kRows; ++i) qv[i] = sq[(ty * kRows + i) * LDC + d];
-#pragma unroll
-        for (int j = 0; j < kKeys; ++j) kv[j] = sk[(tx + 16 * j) * LDC + d];
-#pragma unroll
-        for (int i = 0; i < kRows; ++i)
-#pragma unroll
-          for (int j = 0; j < kKeys; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-      }
+    for (int c = 0; c < 8; ++c) acc[i][c] = 0.f;
+  float m = -INFINITY;  // the softmax state of the row this thread owns (own_rows)
+  float l = 0.f;
+  bool owner = false;
+  float s[RT][4];
+
+  auto load_step = [&](int t, int j, int buf) {
+    if (!resident) {
+      load_rows<float, LD, BQ, TH>(sq + buf * S::kTileQ, q + base + sl.col(j), q0, seq, stride_s,
+                                   sl.width(j), vec);
     }
-
-    // online softmax, as flash_attention_f32_kernel
+    load_rows<float, LD, kBlockK, TH>(sk + buf * S::kTile, k + base + sl.col(j), t * kBlockK,
+                                      seq, stride_s, sl.width(j), vec);
+  };
+  auto qk = [&](int j, int buf) {
+    // RT rows x 4 keys a thread, float4 along d (the columns past the
+    // chunk's width are zero): 4 RT FMAs a 16-byte load of RT + 4
+    const float* qt = sq + (resident ? 0 : buf * S::kTileQ);
+    const float* kt = sk + buf * S::kTile;
+    if (j == 0) {
 #pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int row = q0 + ty * kRows + i;
-      float mx = -INFINITY;
+      for (int i = 0; i < RT; ++i)
 #pragma unroll
-      for (int j = 0; j < kKeys; ++j) {
-        const int col = k0 + tx + 16 * j;
-        const bool live = col < seq && (!causal || col <= row);
-        s[i][j] = live ? s[i][j] * scale : -INFINITY;
-        mx = fmaxf(mx, s[i][j]);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      const float m_use = m_new == -INFINITY ? 0.f : m_new;
-      const float corr = expf(m[i] - m_use);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < kKeys; ++j) {
-        const float p = expf(s[i][j] - m_use);
-        sum += p;
-        sp[(ty * kRows + i) * kLdP + tx + 16 * j] = p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      l[i] = l[i] * corr + sum;
-#pragma unroll
-      for (int e = 0; e < E; ++e) acc[i][e] *= corr;
-      m[i] = m_new;
+        for (int jj = 0; jj < 4; ++jj) s[i][jj] = 0.f;
     }
-    __syncthreads();  // the whole P tile is written
-
+    const int d_end = (sl.width(j) + 3) & ~3;
 #pragma unroll 4
-    for (int j = 0; j < kBlockK; ++j) {
-      float vv[E];
+    for (int d = 0; d < d_end; d += 4) {
+      float4 a[RT], b[4];
 #pragma unroll
-      for (int e = 0; e < E; ++e) vv[e] = sv[j * kSlab + tx + 16 * e];
+      for (int i = 0; i < RT; ++i)
+        a[i] = *reinterpret_cast<const float4*>(qt + (ty + 16 * i) * LD + d);
 #pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        const float p = sp[(ty * kRows + i) * kLdP + j];
+      for (int jj = 0; jj < 4; ++jj)
+        b[jj] = *reinterpret_cast<const float4*>(kt + (tx + 16 * jj) * LD + d);
 #pragma unroll
-        for (int e = 0; e < E; ++e) acc[i][e] = fmaf(p, vv[e], acc[i][e]);
+      for (int i = 0; i < RT; ++i) {
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          float x = fmaf(a[i].x, b[jj].x, s[i][jj]);
+          x = fmaf(a[i].y, b[jj].y, x);
+          x = fmaf(a[i].z, b[jj].z, x);
+          s[i][jj] = fmaf(a[i].w, b[jj].w, x);
+        }
       }
     }
+  };
+  auto store_partials = [&]() {
+    // row ty + 16i goes to block (ty + 16i) % n, at row rank * rows_per + (ty + 16i) / n
+    int dst = ty % n;
+    int lr = ty / n;
+#pragma unroll
+    for (int i = 0; i < RT; ++i) {
+      float* d = in_block(cluster, ex.recv(), dst, rank) + (rank * rows_per + lr) * kLdS;
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) d[tx + 16 * jj] = s[i][jj];
+      dst += 16;
+      while (dst >= n) {
+        dst -= n;
+        ++lr;
+      }
+    }
+  };
+  auto own = [&](int t) {
+    owner = own_rows<TH, float, BQ>(cluster, ex, n, rank, t, q0, t * kBlockK, seq, causal,
+                                    scale_log2, m, l);
+  };
+  auto pv = [&](int t) {
+    // O slab = O slab * corr + P V slab: RT rows x 8 columns a thread, 8 RT
+    // FMAs a 16-byte load of RT + 8 (the columns past the slab's width are
+    // zero in V)
+    const int buf = t & 1;
+#pragma unroll
+    for (int i = 0; i < RT; ++i) {
+      const float c = ex.corr()[buf * BQ + ty + 16 * i];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc[i][e] *= c;
+    }
+    const float* pt = ex.p() + buf * ex.kP;
+    const float* vcol = sv + 4 * tx;
+#pragma unroll 2
+    for (int kk = 0; kk < kBlockK; kk += 4) {
+      float4 p[RT];
+#pragma unroll
+      for (int i = 0; i < RT; ++i)
+        p[i] = *reinterpret_cast<const float4*>(pt + (ty + 16 * i) * kLdS + kk);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float4 v0 = *reinterpret_cast<const float4*>(vcol + (kk + e) * LD);
+        const float4 v1 = *reinterpret_cast<const float4*>(vcol + (kk + e) * LD + 64);
+#pragma unroll
+        for (int i = 0; i < RT; ++i) {
+          const float pe = e == 0 ? p[i].x : e == 1 ? p[i].y : e == 2 ? p[i].z : p[i].w;
+          acc[i][0] = fmaf(pe, v0.x, acc[i][0]);
+          acc[i][1] = fmaf(pe, v0.y, acc[i][1]);
+          acc[i][2] = fmaf(pe, v0.z, acc[i][2]);
+          acc[i][3] = fmaf(pe, v0.w, acc[i][3]);
+          acc[i][4] = fmaf(pe, v1.x, acc[i][4]);
+          acc[i][5] = fmaf(pe, v1.y, acc[i][5]);
+          acc[i][6] = fmaf(pe, v1.z, acc[i][6]);
+          acc[i][7] = fmaf(pe, v1.w, acc[i][7]);
+        }
+      }
+    }
+  };
+  auto load_v = [&](int t) {
+    load_rows<float, LD, kBlockK, TH>(sv, v + base + o0, t * kBlockK, seq, stride_s, ow, vec);
+  };
+
+  if (resident) {
+    load_rows<float, LD, BQ, TH>(sq, q + base + sl.col(0), q0, seq, stride_s, sl.width(0), vec);
   }
+  load_step(0, 0, 0);
+  cp_async_commit();
+  wide_loop(n_tiles, groups, load_step, qk, store_partials, own, pv, load_v);
+  share_l<TH>(cluster, ex.l(), owner, n, rank, l);
 
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int row = q0 + ty * kRows + i;
-    if (row < seq) {
-      const float denom = fmaxf(l[i], 1e-30f);
-      float* dst = out + base + (long long)row * stride_s;
+  for (int i = 0; i < RT; ++i) {
+    const int r = ty + 16 * i;
+    if (q0 + r >= seq) continue;
+    const float den = fmaxf(ex.l()[r], 1e-30f);
+    float* dst = out + base + (long long)(q0 + r) * stride_s + o0;
 #pragma unroll
-      for (int e = 0; e < E; ++e) {
-        const int col = col0 + tx + 16 * e;
-        if (col < dim) dst[col] = acc[i][e] / denom;
-      }
+    for (int e = 0; e < 8; ++e) {
+      const int col = 4 * tx + 64 * (e >> 2) + (e & 3);
+      if (col < ow) dst[col] = acc[i][e] / den;
     }
   }
 }
@@ -1182,6 +1543,7 @@ flash_attention_f32_wide_kernel(const float* __restrict__ q, const float* __rest
 // integer and bool: JAX's key tiles in order, every dtype by its element code
 // ---------------------------------------------------------------------------
 
+constexpr int kSlab = 256;                   // output columns of a tiled block
 constexpr int kTiledRows = 8;                // query rows of a block, a warp each
 constexpr int kTiledThreads = kTiledRows * 32;
 constexpr int kTiledChunk = 256;             // keys of a tile whose scores wait in shared memory
@@ -1289,14 +1651,13 @@ struct Args {
   int causal;
   int vec;    // bytes a row copy moves: 16, 8, 4 or 2
   int pairs;  // 1: two outputs are stored together (4-byte aligned pairs)
+  int cluster, groups;  // the wide kernels' plan (D > 256): blocks a cluster, cluster groups
   cudaStream_t stream;
 };
 
-// grid (b*h, query tiles, slabs): slabs of kSlab output columns for the
-// wide kernels, 1 for the others
+// grid (b*h, query tiles): the dense kernels
 template <typename T, typename Kernel>
-cudaError_t launch(Kernel kernel, size_t smem, int threads, int block_q, const Args& a,
-                   int slabs = 1) {
+cudaError_t launch(Kernel kernel, size_t smem, int threads, int block_q, const Args& a) {
   if (smem > 48 * 1024) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -1304,11 +1665,76 @@ cudaError_t launch(Kernel kernel, size_t smem, int threads, int block_q, const A
   }
   const long long bh = (long long)a.batch * a.heads;
   const int q_tiles = (a.seq + block_q - 1) / block_q;
-  if (bh > INT_MAX || q_tiles > 65535 || slabs > 65535) return cudaErrorInvalidValue;
-  kernel<<<dim3((unsigned)bh, (unsigned)q_tiles, (unsigned)slabs), threads, smem, a.stream>>>(
+  if (bh > INT_MAX || q_tiles > 65535) return cudaErrorInvalidValue;
+  kernel<<<dim3((unsigned)bh, (unsigned)q_tiles), threads, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       static_cast<T*>(a.out), a.seq, a.heads, a.dim, a.stride_b, a.stride_s, a.stride_h,
       a.scale, a.causal, a.vec, a.pairs);
+  return cudaGetLastError();
+}
+
+// the clusters the card can hold at once for a wide launch, asked of
+// cudaOccupancyMaxActiveClusters at the first launch of each (device,
+// kernel: bf16, fp16, fp32 at 80 or 64 query rows; cluster size; Q
+// buffers) and kept (stored + 1: 0 = not asked yet)
+constexpr int kDevices = 16;
+std::atomic<int> g_active[kDevices][4][kWideCluster + 1][2];
+// the last wide launch's cluster size, groups and active clusters, read by
+// flash_attention_last_wide_launch
+std::atomic<int> g_last_wide[3];
+
+// grid (b*h, query tiles, n * groups) in clusters of (1, 1, n): the wide
+// kernels, on the plan wide_plan makes (ops/flash_attention.py). A plan
+// whose slabs do not cover dim in whole units of at most kWideWidth columns
+// is refused, and so is a cluster the card cannot schedule (no fallback).
+template <typename T, typename Kernel>
+cudaError_t launch_wide(Kernel kernel, int kind, size_t smem, int threads, int block_q,
+                        const Args& a) {
+  const int n = a.cluster;
+  const long long slabs = (long long)n * a.groups;
+  const long long units = (a.dim + 7) / 8;
+  const long long bh = (long long)a.batch * a.heads;
+  const int q_tiles = (a.seq + block_q - 1) / block_q;
+  // (n >= 3: every plan past D = 256 has three slabs or more a group, and an
+  // owner's rows, ceil(block_q / n), must fit its threads)
+  if (n < 3 || n > kWideCluster || a.groups < 1 || slabs > units ||
+      units > slabs * (kWideWidth / 8) || slabs > 65535 || bh > INT_MAX || q_tiles > 65535) {
+    return cudaErrorInvalidValue;
+  }
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = (unsigned)n;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)bh, (unsigned)q_tiles, (unsigned)slabs);
+  cfg.blockDim = dim3((unsigned)threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = a.stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int device = 0;
+  err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  const int restaged = a.groups > 1 ? 1 : 0;
+  int active = device < kDevices ? g_active[device][kind][n][restaged].load() - 1 : -1;
+  if (active < 0) {
+    err = cudaOccupancyMaxActiveClusters(&active, (const void*)kernel, &cfg);
+    if (err != cudaSuccess) return err;
+    if (device < kDevices) g_active[device][kind][n][restaged].store(active + 1);
+  }
+  if (active < 1) return cudaErrorInvalidConfiguration;  // no cluster of n fits an SM group
+  err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+                           static_cast<const T*>(a.v), static_cast<T*>(a.out), a.seq, a.heads,
+                           a.dim, a.stride_b, a.stride_s, a.stride_h, a.scale, a.causal, a.vec,
+                           a.pairs, n, a.groups);
+  if (err != cudaSuccess) return err;
+  g_last_wide[0].store(n);
+  g_last_wide[1].store(a.groups);
+  g_last_wide[2].store(active);
   return cudaGetLastError();
 }
 
@@ -1345,8 +1771,14 @@ cudaError_t launch_f32(const Args& a) {
                                           F32Smem<DP>::kBytes, kThreads, kBlockQ, a);
 }
 
-// slabs of kSlab output columns a wide kernel's grid holds
+// slabs of kSlab output columns a tiled kernel's grid holds
 int slabs(int dim) { return (dim + kSlab - 1) / kSlab; }
+
+// the cluster groups of the default plan: ceil(dim / (kWideCluster *
+// kWideWidth)), as wide_plan gives them
+int wide_groups(int dim) {
+  return (dim + kWideCluster * kWideWidth - 1) / (kWideCluster * kWideWidth);
+}
 
 // the padded width a head dim runs at: the smallest instantiated one that
 // holds it (0 past 256, where the wide kernels run)
@@ -1367,8 +1799,9 @@ cudaError_t dispatch_mma(const Args& a) {
     case 128: return launch_mma<T, 128>(a);
     case 256: return launch_mma<T, 256>(a);
     default:
-      return launch<T>(flash_attention_mma_wide_kernel<T>, MmaWideSmem::kBytes, kMmaThreads,
-                       kMmaBlockQ, a, slabs(a.dim));
+      return launch_wide<T>(flash_attention_mma_wide_kernel<T>,
+                            std::is_same<T, half>::value ? 1 : 0,
+                            MmaWideSmem::bytes<T>(a.groups), kWideThreads, kMmaBlockQ, a);
   }
 }
 
@@ -1381,8 +1814,13 @@ cudaError_t dispatch_f32(const Args& a) {
     case 128: return launch_f32<128>(a);
     case 256: return launch_f32<256>(a);
     default:
-      return launch<float>(flash_attention_f32_wide_kernel, F32WideSmem::kBytes, kThreads,
-                           kBlockQ, a, slabs(a.dim));
+      return a.groups == 1
+                 ? launch_wide<float>(flash_attention_f32_wide_kernel<kF32WideBlockQ>, 2,
+                                      F32WideSmem<kF32WideBlockQ>::bytes(1), kF32WideThreads,
+                                      kF32WideBlockQ, a)
+                 : launch_wide<float>(flash_attention_f32_wide_kernel<kBlockQ>, 3,
+                                      F32WideSmem<kBlockQ>::bytes(a.groups), kF32WideThreads,
+                                      kBlockQ, a);
   }
 }
 
@@ -1414,7 +1852,7 @@ extern "C" int flash_attention_smem_bytes(int dtype, int dim) {
       case 96: return (int)MmaSmem<96>::kBytes;
       case 128: return (int)MmaSmem<128>::kBytes;
       case 256: return (int)MmaSmem<256>::kBytes;
-      default: return (int)MmaWideSmem::kBytes;
+      default: return (int)MmaWideSmem::bytes<bf16>(wide_groups(dim));
     }
   } else if (dtype == 0) {
     switch (dp) {
@@ -1424,7 +1862,9 @@ extern "C" int flash_attention_smem_bytes(int dtype, int dim) {
       case 96: return (int)F32Smem<96>::kBytes;
       case 128: return (int)F32Smem<128>::kBytes;
       case 256: return (int)F32Smem<256>::kBytes;
-      default: return (int)F32WideSmem::kBytes;
+      default:
+        return wide_groups(dim) == 1 ? (int)F32WideSmem<kF32WideBlockQ>::bytes(1)
+                                     : (int)F32WideSmem<kBlockQ>::bytes(wide_groups(dim));
     }
   }
   return 0;
@@ -1432,18 +1872,20 @@ extern "C" int flash_attention_smem_bytes(int dtype, int dim) {
 
 // q, k, v and out share the [B,S,H,D] shape and the element strides
 // (stride_b, stride_s, stride_h; the last dimension is contiguous), any D
-// >= 1. dtype: 0 = float32, 1 = bfloat16, 2 = float16. Returns a
+// >= 1. dtype: 0 = float32, 1 = bfloat16, 2 = float16. cluster and groups
+// are the wide kernels' plan (wide_plan in ops/flash_attention.py: blocks a
+// cluster, cluster groups) for D > 256; below they are not read. Returns a
 // cudaError_t (0 = launched).
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* out,
                                       int batch, int seq, int heads, int dim,
                                       long long stride_b, long long stride_s,
                                       long long stride_h, int dtype, float scale, int causal,
-                                      void* stream) {
+                                      int cluster, int groups, void* stream) {
   if (batch <= 0 || seq <= 0 || heads <= 0 || dim <= 0) {
     return (int)cudaErrorInvalidValue;
   }
   Args a{q, k, v, out, batch, seq, heads, dim, stride_b, stride_s, stride_h, scale, causal,
-         0, 0, static_cast<cudaStream_t>(stream)};
+         0, 0, cluster, groups, static_cast<cudaStream_t>(stream)};
   const int itemsize = dtype == 0 ? 4 : 2;
   a.vec = row_copy_bytes(a, itemsize);
   a.pairs = (reinterpret_cast<uintptr_t>(out) % 4 == 0 && dim % 2 == 0 && stride_b % 2 == 0 &&
@@ -1454,6 +1896,16 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
     case 2: return (int)dispatch_mma<half>(a);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// The last wide launch of this process (any thread): its cluster size,
+// cluster groups and the clusters the card holds at once for it
+// (cudaOccupancyMaxActiveClusters). Returns 0, or 1 before any wide launch.
+extern "C" int flash_attention_last_wide_launch(int* cluster, int* groups, int* active) {
+  *cluster = g_last_wide[0].load();
+  *groups = g_last_wide[1].load();
+  *active = g_last_wide[2].load();
+  return *cluster > 0 ? 0 : 1;
 }
 
 // The tiled kernel, for integer and bool inputs: code is the element code

@@ -10,10 +10,15 @@ q, k, v: [batch, seq, heads, dim], one dtype, any seq >= 1; softmax scale
 every dtype of ``ops.PLAIN_DTYPES`` and any dim, as the JAX function does.
 float32, bfloat16 and float16 run the float kernels, built for padded
 widths (16, 32, 64, 96, 128, 256; the real dim read at run time) and, past
-256, in wide forms where a block owns 256 columns of the output and
-recomputes QK^T over the whole dim for each such slab; q, k or v that are
-not 16-byte aligned (views into larger tensors) are copied into fresh
-tensors, which the allocator aligns, and the same kernel runs on the copies
+256, in wide forms on thread-block clusters (:func:`wide_plan`): a cluster
+of up to 8 blocks covers one (batch x head, query tile), each block owns an
+even slab of at most 128 columns of the dim, which is both its share of
+QK^T's depth and its slab of the output; each query row's partial scores
+are summed in rank order by one block of the cluster, which runs its
+softmax and shares P back over distributed shared memory, so QK^T is
+computed once for every dim up to 1024 (``groups`` times past that); q, k
+or v that are not 16-byte aligned (views into larger tensors) are copied
+into fresh tensors, which the allocator aligns, and the same kernel runs on the copies
 (served callers pass fresh tensors, so the served path never copies).
 Integer and bool inputs run the tiled kernel, which walks JAX's key tiles
 of ``min(block_k, seq)`` keys in order (``block_k`` is handed to it),
@@ -51,15 +56,18 @@ refuse, on any device, the block sizes JAX's function refuses
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple, Tuple
 
 import torch
 
 from . import LaunchCounter, _kernels, check_plain_dtype
 
 # flash_attention_launch(q, k, v, out, batch, seq, heads, dim, stride_b,
-#                        stride_s, stride_h, dtype, scale, causal, stream)
+#                        stride_s, stride_h, dtype, scale, causal, cluster,
+#                        groups, stream)
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 3
-             + [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+             + [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_void_p])
 # flash_attention_tiled_launch(q, k, v, out, batch, seq, heads, dim,
 #                              stride_b, stride_s, stride_h, code, scale,
 #                              causal, tile, stream)
@@ -71,6 +79,67 @@ BLOCK_K = 64
 
 # kernel launches made by flash_attention (CPU calls do not count)
 LAUNCHES = LaunchCounter()
+
+# the widest head dim of the dense float kernels; past it the wide kernels run
+DENSE_MAX_DIM = 256
+# the wide kernels' slab width at most, and the blocks of a cluster at most
+# (the portable cluster size; csrc/flash_attention.cu's kWideWidth and
+# kWideCluster)
+WIDE_WIDTH = 128
+WIDE_CLUSTER = 8
+
+
+class WidePlan(NamedTuple):
+    """How a wide kernel cuts a head dim past 256: ``cluster`` blocks a
+    thread-block cluster, ``groups`` cluster groups in grid.z (each computes
+    QK^T over the whole dim), slabs ``bounds`` = [(start, end), ...] of the
+    dim, ``cluster * groups`` of them, each at most ``width`` columns; block
+    r of group g owns output slab ``g * cluster + r`` and sums the partial
+    scores of slabs ``j * cluster + r`` (j < groups); ``block_q`` query rows
+    a cluster; ``smem_bytes`` is a block's dynamic shared memory."""
+    cluster: int
+    width: int
+    bounds: Tuple[Tuple[int, int], ...]
+    groups: int
+    block_q: int
+    smem_bytes: int
+
+
+def wide_plan(dim: int, dtype) -> WidePlan:
+    """The plan of the wide kernel for ``dim`` > 256 in ``dtype`` (float32,
+    or bfloat16 / float16): ceil(dim / 128) slabs at most 128 wide, in
+    ``groups = ceil(dim / (8 * 128))`` cluster groups of ``cluster`` blocks
+    (at most 8), the dim cut evenly in whole 8-column units (the first
+    ``units % slabs`` slabs one unit wider), the last slab ending at dim.
+    D = 257 gives three slabs of 88, 88 and 81 columns in one cluster of 3."""
+    if not isinstance(dim, int) or dim <= DENSE_MAX_DIM:
+        raise ValueError(f"wide_plan takes a head dim past {DENSE_MAX_DIM}, got {dim!r}")
+    if dtype not in (torch.float32, torch.bfloat16, torch.float16):
+        raise ValueError(f"the wide kernels take float32, bfloat16 or float16, not {dtype}")
+    needed = -(-dim // WIDE_WIDTH)
+    groups = -(-needed // WIDE_CLUSTER)
+    cluster = -(-needed // groups)
+    slabs = cluster * groups
+    base, rem = divmod(-(-dim // 8), slabs)
+    cuts = [min(dim, 8 * (s * base + min(s, rem))) for s in range(slabs + 1)]
+    # fp32 takes 80 query rows a cluster where Q stays resident (one group):
+    # the served (1, 1024, 4, 512) then makes 52 clusters of 4, two waves of
+    # the 30 an H100 holds at one block an SM, where 64 rows make three
+    block_q = 80 if dtype == torch.float32 and groups == 1 else 64
+    # the exchange: the partial score rows a block receives (n * ceil(block_q
+    # / n) at most over the cluster sizes, in whole 8-row groups; 64 keys,
+    # fp32, padded), two tiles of P (block_q x 64 in the input type, padded)
+    # and three rows of block_q floats (two of corrections, the final l)
+    recv_rows = -(-max(n * -(-block_q // n) for n in range(2, WIDE_CLUSTER + 1)) // 8) * 8
+    itemsize = 4 if dtype == torch.float32 else 2
+    exchange = recv_rows * 72 * 4 + 2 * block_q * 72 * itemsize + 3 * block_q * 4
+    # K x 2 and V (64 rows), Q x 1 (resident) or 2 (restaged a key tile,
+    # past one group) (block_q rows): rows of 128 + 4 floats or 128 + 8
+    # 2-byte values
+    q_buffers = 1 if groups == 1 else 2
+    row_bytes = (WIDE_WIDTH + 4) * 4 if dtype == torch.float32 else (WIDE_WIDTH + 8) * 2
+    smem = (3 * 64 + q_buffers * block_q) * row_bytes + exchange
+    return WidePlan(cluster, WIDE_WIDTH, tuple(zip(cuts, cuts[1:])), groups, block_q, smem)
 
 
 def flash_attention_reference(q, k, v, causal: bool = False):
@@ -182,10 +251,12 @@ def _launch(q, k, v, causal: bool, block_k: int) -> torch.Tensor:
     q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
     out = torch.empty_like(q)
     stride_b, stride_s, stride_h, _ = q.stride()
+    plan = wide_plan(dim, q.dtype) if dim > DENSE_MAX_DIM else None
     _kernels.launch(
         _kernels.function("flash_attention", "flash_attention_launch", _ARGTYPES), LAUNCHES,
         q, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), batch, seq, heads, dim,
-        stride_b, stride_s, stride_h, _kernels.FLOAT_CODES[q.dtype], dim ** -0.5, int(causal))
+        stride_b, stride_s, stride_h, _kernels.FLOAT_CODES[q.dtype], dim ** -0.5, int(causal),
+        plan.cluster if plan else 1, plan.groups if plan else 1)
     return out
 
 
@@ -198,11 +269,13 @@ def flash_attention(q, k, v, causal: bool = False, block_q: int = 128, block_k: 
     blocks are checked as JAX checks them (:func:`check_blocks`). For float
     inputs the result does not depend on them: the float kernels tile keys
     by 64 and queries by 64 (fp32 at D <= 32: keys by 128, queries by 64 /
-    32); the TPU's block sizes follow its VMEM and its 128-wide MXU. The
-    plain version is dense. For integer or bool inputs, the tiled kernel and
-    the tiled plain version walk ``min(block_k, seq)`` keys a tile, as
-    JAX's kernel does. ``interpret`` changes nothing: the tensors' device
-    decides what runs. CUDA tensors run a Hopper kernel (every dtype of
+    32; fp32 past 256 in one cluster group: queries by 80); the TPU's block
+    sizes follow its VMEM and its 128-wide MXU. The plain version is dense.
+    Past a head dim of 256 a cluster of blocks shares each query tile
+    (:func:`wide_plan`). For integer or bool inputs, the tiled kernel and
+    the tiled plain version walk ``min(block_k, seq)`` keys a tile, as JAX's
+    kernel does. ``interpret`` changes nothing: the tensors' device decides
+    what runs. CUDA tensors run a Hopper kernel (every dtype of
     ``ops.PLAIN_DTYPES``, any D); CPU tensors the plain version."""
     _check(q, k, v, block_q, block_k)
     device = q.device.type

@@ -658,8 +658,10 @@ SMALL_MESH = chip_smoke.MeshSize(
     moe_tokens=64, pipe=(4, 4, 8, 16), vision=(16, 8), vision_requests=1)
 
 
-def test_mesh_phase_on_cpu(monkeypatch):
-    """``chip_smoke.serve_mesh``: every row of phase 12 on CPU shards. The
+def test_mesh_phase_on_cpu(monkeypatch, one_intra_op_thread):
+    """``chip_smoke.serve_mesh``: every row of phase 12 on CPU shards, on
+    one intra-op thread here and in its ``serve`` child (the phase took
+    over 100 s beside six busy torch processes against its 60 s limit). The
     plain decode_attention calls of the tp decoder counted here are the
     launches the card must show: tokens x layers x shards of each run."""
     import client_tpu_torch.models.decoder_tp as decoder_tp
@@ -908,6 +910,48 @@ def test_tiled_mismatches_explain_only_l_order():
     assert chip_smoke.tiled_mismatches(~flags, flags, flags.float()) == (3, 3)
 
 
+def test_build_fails_on_a_spill_in_the_held_kernels():
+    """``chip_smoke.ptxas_spills``, the build's gate: a spill in the softmax,
+    normalize or int8 kernels or in either wide flash kernel fails the
+    build; a spill elsewhere (a dense flash instantiation) and a line with
+    0 bytes spilled do not."""
+    wide = ("flash_attention: <unnamed>::flash_attention_mma_wide_kernel<__half>: "
+            "8 bytes stack frame, 8 bytes spill stores, 16 bytes spill loads")
+    f32 = ("flash_attention: <unnamed>::flash_attention_f32_wide_kernel: "
+           "0 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads")
+    clean = ("flash_attention: <unnamed>::flash_attention_f32_wide_kernel: "
+             "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads")
+    dense = ("flash_attention: <unnamed>::flash_attention_mma_kernel<__half, (int)256, "
+             "(bool)0>: 8 bytes stack frame, 8 bytes spill stores, 16 bytes spill loads")
+    softmax = "softmax: softmax_rows_kernel: 0 bytes stack frame, 12 bytes spill stores"
+    registers = ("flash_attention: <unnamed>::flash_attention_f32_wide_kernel: ptxas info    "
+                 ": Used 168 registers, used 1 barriers")
+    lines = [wide, f32, clean, dense, softmax, registers]
+    assert chip_smoke.ptxas_spills(lines) == [wide, f32, softmax]
+    assert chip_smoke.ptxas_spills([clean, dense, registers]) == []
+
+
+def test_wide_rows_log_their_plan(capsys):
+    """``chip_smoke.log_new_attention``'s line for a wide flash case names
+    the cluster size and groups the launch ran beside the plan's, the slab
+    width, the clusters the card held at once and whether two calls gave
+    the same bits; a decode row keeps its splits."""
+    flash = {"op": "flash", "shape": [2, 40, 3, 2304], "dtype": "bfloat16", "causal": True,
+             "kernels": 1, "launches": 1, "max_abs_err": 0.0039, "tol": [0.02, 0.02],
+             "bits_equal_twice": True, "plan": {"cluster": 6, "width": 128, "groups": 3},
+             "launched": {"cluster": 6, "groups": 3, "active_clusters": 17},
+             "max_abs_err_vs_tiled_plain": 0.002}
+    decode = {"op": "decode", "shape": [2, 2, 300, 512], "pos": [150, 299], "dtype": "float32",
+              "splits": 1, "kernels": 1, "launches": 1, "max_abs_err": 2e-7, "tol": 1e-5}
+    chip_smoke.log_new_attention([], [flash, decode], [])
+    lines = capsys.readouterr().out.splitlines()
+    assert len(lines) == 2
+    assert ("cluster 6 (plan 6) x groups 3 (plan 3), slabs of <= 128 columns, 17 clusters at "
+            "once; the same bits twice: True") in lines[0]
+    assert "vs the tiled plain version 0.002" in lines[0]
+    assert "splits 1 (1 kernels)" in lines[1]
+
+
 def test_new_cases_record_every_held_case():
     """The kernels line's ``new_cases``: each integer case with its
     mismatches and each wide case with its error (4 significant digits),
@@ -930,3 +974,5 @@ def test_new_cases_record_every_held_case():
     assert set(chip_smoke.INTEGER_ATTENTION) == {"bool", "int8", "uint8", "int16", "int32"}
     assert chip_smoke.INTEGER_BLOCKS == (128, 16, 48)
     assert chip_smoke.WIDE_HEAD_DIMS == (257, 300, 512, 576, 1024)
+    # flash past one cluster group of the wide kernels: two groups, three
+    assert chip_smoke.WIDEST_FLASH_DIMS == (2048, 2304)

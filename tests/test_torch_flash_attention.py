@@ -484,10 +484,10 @@ def test_new_head_dims_match_pallas(dim, dtype, causal):
 @pytest.mark.parametrize("dim", [1, 8, 96, 256, 264])
 def test_head_dims_up_to_the_kernel_limit(dim):
     """The kernels have no head-dim limit any more (past 256 the wide
-    kernels own 256 output columns a block): every dim passes the wrapper's
-    checks and, on the CPU, computes the plain version, as the JAX function
-    does (D = 264 runs on the card too: chip_smoke.py checks D = 257 to
-    1024)."""
+    kernels run on thread-block clusters, a block a slab of at most 128
+    columns: ``wide_plan``): every dim passes the wrapper's checks and, on
+    the CPU, computes the plain version, as the JAX function does (D = 264
+    runs on the card too: chip_smoke.py checks D = 257 to 2304)."""
     q, k, v = _good((1, 8, 2, dim))
     out = flash_attention(q, k, v)
     assert out.shape == (1, 8, 2, dim)
@@ -559,7 +559,7 @@ def test_block_refusal_comes_before_any_device(seq, block_q, block_k, dtype):
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
 @pytest.mark.parametrize("dim", [300, 512])
 def test_plain_matches_pallas_at_wide_head_dims(dim, causal):
-    """D = 300 and 512 (the wide kernels' slabs) at S = 40 in 16 x 16
+    """D = 300 and 512 (the wide kernels' clusters of 3 and 4) at S = 40 in 16 x 16
     blocks (three tiles, the last padded): the dense plain version and the
     tiled one against the Pallas kernel in interpret mode within the JAX
     tests' 2e-5."""
@@ -604,8 +604,10 @@ def test_cuda_path_reaches_the_kernel_for_every_dtype_and_dim(monkeypatch, dtype
     """The CUDA path (``_launch``, what a CUDA tensor runs) up to the launch:
     integer and bool inputs reach the tiled kernel with the dtype's element
     code, the tile min(block_k, S) and the dim; fp32, bf16 and fp16 reach
-    the float kernels with the dim (the wide ones past 256). One launch is
-    counted, no plain version runs."""
+    the float kernels with the dim and, after the arguments of the first
+    float kernels, at their positions, the wide plan's cluster size and
+    groups (``wide_plan``: 3 and 1 at D = 300; 1 and 1, not read, at D =
+    16). One launch is counted, no plain version runs."""
     module = sys.modules["client_tpu_torch.ops.flash_attention"]
     fake = _FakeKernels(monkeypatch, module)
     torch_dtype = getattr(torch, dtype)
@@ -619,12 +621,104 @@ def test_cuda_path_reaches_the_kernel_for_every_dtype_and_dim(monkeypatch, dtype
     # q, k, v, out, batch, seq, heads, dim, stride_b, stride_s, stride_h, ...
     assert args[4:11] == (2, 40, 3, dim, 40 * 3 * dim, 3 * dim, dim)
     if torch_dtype.is_floating_point:
+        # ... dtype, scale, causal, cluster, groups (the stream is the launch's)
         assert (symbol, nargs) == ("flash_attention_launch", len(module._ARGTYPES))
-        # ... dtype, scale, causal
+        assert len(args) + 1 == nargs == 17
         assert args[11] == _kernels.FLOAT_CODES[torch_dtype] and args[13] == int(causal)
+        plan = module.wide_plan(dim, torch_dtype) if dim > 256 else None
+        assert args[14:] == ((plan.cluster, plan.groups) if plan else (1, 1))
+        if plan:
+            assert args[14:] == (3, 1)
     else:
         assert (symbol, nargs) == ("flash_attention_tiled_launch", len(module._TILED_ARGTYPES))
         # ... code, scale, causal, tile
         assert args[11] == _kernels.ELEMENT_CODES[torch_dtype]
         assert args[13:] == (int(causal), 40)
     assert args[12] == pytest.approx(dim ** -0.5)
+
+
+# ---------------------------------------------------------------------------
+# the wide kernels' plan: clusters of blocks over slabs of the head dim
+# ---------------------------------------------------------------------------
+
+WIDE_PLAN_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                    "float16": torch.float16}
+
+
+@pytest.mark.parametrize("dtype", list(WIDE_PLAN_DTYPES))
+@pytest.mark.parametrize("first", list(range(257, 4097, 960)),
+                         ids=lambda d: f"from{d}")
+def test_wide_plan_covers_every_dim(first, dtype):
+    """``wide_plan`` for every D from 257 to 4096 (in four runs of 960): the
+    slabs cover [0, D) once, in order, each starting on a multiple of 8,
+    every one but the last a whole number of 8-column units, none wider
+    than the plan's width (128) nor empty, and no two holding unit counts
+    (the last one's partial unit counted whole) more than one apart;
+    cluster * groups slabs, a cluster of 3 to 8 blocks (the kernels take
+    no fewer); groups = ceil(D / (8 * 128)); a block's shared memory within
+    the H100's 232,448 bytes, the same for every D of one group count, and
+    two blocks an SM in bf16 and fp16 while Q stays resident."""
+    module = sys.modules["client_tpu_torch.ops.flash_attention"]
+    torch_dtype = WIDE_PLAN_DTYPES[dtype]
+    smem_by_groups = {}
+    for dim in range(first, min(first + 960, 4097)):
+        plan = module.wide_plan(dim, torch_dtype)
+        assert plan.width == module.WIDE_WIDTH == 128
+        assert 3 <= plan.cluster <= module.WIDE_CLUSTER == 8
+        assert plan.groups == -(-dim // (8 * 128))
+        assert len(plan.bounds) == plan.cluster * plan.groups
+        assert plan.bounds[0][0] == 0 and plan.bounds[-1][1] == dim
+        widths = []
+        for (start, end), (nxt, _) in zip(plan.bounds, plan.bounds[1:] + ((dim, None),)):
+            assert end == nxt and start % 8 == 0 and 0 < end - start <= plan.width
+            widths.append(end - start)
+        assert all(w % 8 == 0 for w in widths[:-1])
+        units = [-(-w // 8) for w in widths]
+        assert max(units) - min(units) <= 1
+        assert plan.smem_bytes <= 232448  # the H100's shared memory a block
+        assert smem_by_groups.setdefault(plan.groups > 1, plan.smem_bytes) == plan.smem_bytes
+        if dtype != "float32" and plan.groups == 1:
+            # two blocks an SM while Q stays resident (228 KB an SM, 1 KB a
+            # block reserved)
+            assert 2 * (plan.smem_bytes + 1024) <= 233472
+
+
+@pytest.mark.parametrize("dim,cluster,groups,widths", [
+    (257, 3, 1, (88, 88, 81)),
+    (300, 3, 1, (104, 104, 92)),
+    (512, 4, 1, (128,) * 4),
+    (576, 5, 1, (120, 120, 112, 112, 112)),
+    (1024, 8, 1, (128,) * 8),
+    (1025, 5, 2, (104,) * 9 + (89,)),
+    (2048, 8, 2, (128,) * 16),
+    (2304, 6, 3, (128,) * 18),
+], ids=lambda x: str(x) if isinstance(x, int) else None)
+def test_wide_plan_at_the_checked_dims(dim, cluster, groups, widths):
+    """The plans of the head dims chip_smoke.py holds the wide kernels at:
+    D = 257 splits evenly (three slabs of 88, 88 and 81 columns, not 256 +
+    1); one cluster group up to 8 * 128 = 1024, two from 1025 (each group
+    recomputes QK^T), three at 2304; the same plan in every float dtype,
+    with a Q buffer more past one group (Q restaged a key tile): fp32 takes
+    80 query rows a cluster in one group (211 KB of shared memory) and 64
+    past it (222 KB), bf16 and fp16 64 rows (107 / 124 KB)."""
+    module = sys.modules["client_tpu_torch.ops.flash_attention"]
+    plans = {name: module.wide_plan(dim, t) for name, t in WIDE_PLAN_DTYPES.items()}
+    for plan in plans.values():
+        assert (plan.cluster, plan.groups) == (cluster, groups)
+        assert tuple(end - start for start, end in plan.bounds) == widths
+    assert plans["float32"].block_q == (80 if groups == 1 else 64)
+    assert plans["bfloat16"].block_q == plans["float16"].block_q == 64
+    assert plans["float32"].smem_bytes == (216000 if groups == 1 else 227328)
+    assert plans["bfloat16"].smem_bytes == plans["float16"].smem_bytes == (
+        109568 if groups == 1 else 126976)
+
+
+@pytest.mark.parametrize("dim,dtype", [(256, torch.float32), (8, torch.bfloat16),
+                                       (512, torch.float64), (512, torch.int8),
+                                       (300.0, torch.float32)])
+def test_wide_plan_refuses_what_no_wide_kernel_runs(dim, dtype):
+    """Head dims up to 256 run the dense kernels, and only float32, bfloat16
+    and float16 have wide kernels: ``wide_plan`` raises for the rest."""
+    module = sys.modules["client_tpu_torch.ops.flash_attention"]
+    with pytest.raises(ValueError):
+        module.wide_plan(dim, dtype)
