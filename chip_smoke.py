@@ -37,10 +37,14 @@ Phases (each raises on failure, so the script exits non-zero):
      float dtype and both causal settings (the bf16 / fp16 tensor-core
      kernel and the fp32 kernels), at S = 1, 65, 130 for every head dim of
      ``NEW_HEAD_DIMS`` (rows of 3 and 10 elements are no whole 16-byte
-     vector) and in fp16 at (4, 2048, 8, 128); in bf16 and fp16 also
-     against the tiled plain version (p rounded before PV), at one ulp;
-     timed at the wide encoder's (1, 8192, 32, 96) and (1, 8192, 8, 256) in
-     fp32 and at S = 4096 in bf16 and fp16, beside SDPA;
+     vector), fp32 at D = 33 and 42 (the 3xTF32 kernel's 4- and 8-byte row
+     copies) and in fp16 at (4, 2048, 8, 128); in bf16 and fp16 also
+     against the tiled plain version (p rounded before PV), at one ulp; in
+     fp32 at head dims 33-256 also against the 3xTF32 emulation
+     (``TF32_EMULATION_TOLERANCE``); timed at the wide encoder's (1, 8192,
+     32, 96) and (1, 8192, 8, 256) and at (1, 4096, 8, 128) and (1, 4096, 8,
+     64) in fp32 (bound: 3xTF32 at the TF32 peak, the FMA bound beside) and
+     at S = 4096 in bf16 and fp16, beside SDPA;
    - the dtypes and head dims the attention kernels took last: integer and
      bool attention (bool, int8, uint8, int16, int32; the tiled kernels,
      JAX's key tiles in order) at block_k 128, 16 and 48, decode at (2, 2,
@@ -431,7 +435,8 @@ Phases (each raises on failure, so the script exits non-zero):
 It then prints one ``{"kernels": [...]}`` line and, last, one line
 ``{"ok": true, "device": {...}}``. Details go to ``build/chip_smoke.json``.
 Without a CUDA device it fails. The build fails if ptxas reports a spill in
-the softmax, normalize or int8 kernels or in the two wide flash kernels
+the softmax, normalize or int8 kernels, in the two wide flash kernels or in
+the fp32 flash kernel for head dims 33-256
 (``--kernel-times`` prints the lines and goes on: it times earlier trees too).
 
 ``python3 chip_smoke.py --kernel-times`` builds the kernels and times the
@@ -561,8 +566,11 @@ from client_tpu_torch.utils import shared_memory as shm  # noqa: E402
 from client_tpu_torch.watch import Watchtower, blackbox_report, read_blackbox  # noqa: E402
 
 # H100 SXM (NVIDIA data sheet): HBM bandwidth and dense peaks, per dtype
-# (float32 outside the tensor cores: the port's fp32 kernels use no TF32)
+# (float32 at the CUDA cores' FMA rate: the port's fp32 kernels use no
+# one-pass TF32), and the TF32 tensor-core peak: fp32 flash attention at
+# head dims 33-256 runs in 3xTF32, three TF32 products for each product
 PEAK_BYTES_PER_S = 3.35e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "float16": 989e12,
               # integer attention: 1-byte inputs at the int8 tensor-core peak
               # (exact products, int32 sums); int16 and int32 at the fp32
@@ -605,6 +613,14 @@ TOLERANCE = {
 # few p or outputs by one ulp
 TILED_TOLERANCE = {"bfloat16": {"atol": 2.0 ** -9, "rtol": 2.0 ** -7},
                    "float16": {"atol": 2.0 ** -9, "rtol": 2.0 ** -10}}
+# fp32 flash_attention at head dims 33-256 against its 3xTF32 emulation
+# (flash_attention_3xtf32_reference: the same exact TF32 products),
+# elementwise |out - emulation| <= atol + rtol * |emulation|, atol = rtol =
+# half the dense gate: the two differ only in the order of their fp32 sums
+# (the emulation normalises p before PV, the kernel after it) and in exp2
+# against exp, while one-pass TF32 misses even the dense gate
+# (tests/test_torch_flash_attention.py)
+TF32_EMULATION_TOLERANCE = 1e-5
 # the head dims the attention kernels took last (every D up to 256): JAX's
 # test width 8, Pythia's 80, Phi-3-mini's 96, Gemma-2B's 256, 24, and rows
 # that are no whole 16-byte vector (D = 3 and 10: 2-byte copies and 4-byte
@@ -628,7 +644,8 @@ ATTENTION_DTYPES = {**FLOATS, **INTEGER_ATTENTION}
 # the kernels redesigned since their port, and how (their earlier times
 # are in PERF.md)
 REDESIGNED = {"decode_attention": "split-K over the cache",
-              "flash_attention": "bf16 on the tensor cores; past D = 256 thread-block clusters, "
+              "flash_attention": "bf16 on the tensor cores; fp32 at head dims 33-256 on the "
+                                 "tensor cores in 3xTF32; past D = 256 thread-block clusters, "
                                  "one QK^T pass",
               "normalize_image": "a lane per 16-byte output word",
               "softmax_probabilities": "rows held in registers",
@@ -699,11 +716,11 @@ def ptxas_lines(name: str, log: str):
 
 def ptxas_spills(ptxas):
     """The ptxas lines that report a spill in a kernel the build holds to
-    none: the softmax, normalize and int8 kernels and the two wide flash
-    kernels."""
+    none: the softmax, normalize and int8 kernels, the two wide flash
+    kernels and the fp32 flash kernel for head dims 33-256 (3xTF32)."""
     return [line for line in ptxas
             if (line.startswith(("softmax:", "normalize_image:", "quantize_int8:"))
-                or re.match(r"flash_attention: .*_wide_kernel\b", line))
+                or re.match(r"flash_attention: .*(_wide_kernel|_f32_tc_kernel)\b", line))
             and re.search(r"[1-9]\d* bytes spill", line)]
 
 
@@ -718,8 +735,8 @@ def build_kernels(check_spills: bool = True):
     ptxas = [line for name, text in logs.items() for line in ptxas_lines(name, text)]
     spills = ptxas_spills(ptxas)
     if spills and check_spills:
-        raise AssertionError(f"ptxas spills in the softmax, normalize, int8 or wide flash "
-                             f"kernels: {spills}")
+        raise AssertionError(f"ptxas spills in the softmax, normalize, int8, wide flash or "
+                             f"fp32 3xTF32 flash kernels: {spills}")
     return seconds, ptxas
 
 
@@ -924,17 +941,45 @@ def flash_tolerance(name, v):
     return tol, tol
 
 
+def runs_3xtf32(dim, dtype_name) -> bool:
+    """Whether this tree's flash_attention runs ``dtype_name`` at head dim
+    ``dim`` in 3xTF32 (``runs_3xtf32`` of its module); a tree without that
+    function (``--kernel-times`` in an earlier tree) runs fp32 on the CUDA
+    cores."""
+    runs = getattr(sys.modules["client_tpu_torch.ops.flash_attention"], "runs_3xtf32", None)
+    return runs is not None and runs(dim, ATTENTION_DTYPES[dtype_name])
+
+
+def flash_flops(shape, causal):
+    """4*B*H*D flops per live (query, key) pair (S(S+1)/2 pairs when causal)."""
+    b, s, h, d = shape
+    return 4 * b * h * (s * (s + 1) // 2 if causal else s * s) * d
+
+
 def flash_bound(shape, causal, dtype_name):
     """Least time and what sets it: q, k, v read once and the output written
-    once over the HBM rate, or 4*B*H*D flops per live (query, key) pair over
-    the dtype's peak (S(S+1)/2 pairs when causal), whichever is larger."""
+    once over the HBM rate, or the flops (``flash_flops``) over the rate of
+    the kernel's arithmetic, whichever is larger: the dtype's peak, and for
+    fp32 at head dims 33-256 three TF32 products per product over the TF32
+    tensor-core peak (``flash_bound_basis``)."""
     b, s, h, d = shape
-    pairs = s * (s + 1) // 2 if causal else s * s
-    flops = 4 * b * h * pairs * d
     nbytes = 4 * b * s * h * d * ATTENTION_DTYPES[dtype_name].itemsize
     by_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    by_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    if runs_3xtf32(d, dtype_name):
+        by_ops = 3 * flash_flops(shape, causal) / PEAK_TF32_FLOPS * 1e3
+    else:
+        by_ops = flash_flops(shape, causal) / PEAK_FLOPS[dtype_name] * 1e3
     return max(by_bytes, by_ops), ("operations" if by_ops >= by_bytes else "bytes")
+
+
+def flash_bound_basis(shape, causal, dtype_name):
+    """What ``flash_bound``'s operations are counted at, and for the 3xTF32
+    kernel the fp32 FMA bound beside it (the CUDA cores' rate)."""
+    if runs_3xtf32(shape[3], dtype_name):
+        return {"bound_basis": "3xTF32: 3 x flops over the 495 TFLOP/s TF32 peak",
+                "fma_bound_ms": flash_flops(shape, causal) / PEAK_FLOPS["float32"] * 1e3}
+    return {"bound_basis": f"flops over the {dtype_name} peak "
+                           f"({PEAK_FLOPS[dtype_name] / 1e12:g} TFLOP/s)"}
 
 
 def check_flash_attention():
@@ -954,11 +999,18 @@ def check_flash_attention():
               for s in (1, 63, 65, 130) for causal in (False, True)]
     cases += [("chip_bench", (4, 2048, 8, 128), "float16", causal, (128, 128))
               for causal in (False, True)]
+    # the fp32 tensor-core kernel's row copies of 4 and 8 bytes (D = 33 and
+    # 42; D = 40, 80 and the full widths copy 16)
+    cases += [("tf32_copy_width", (2, s, 3, d), "float32", causal, (128, 128))
+              for d in (33, 42) for s in (1, 65, 130) for causal in (False, True)]
     # the head dims the kernels took last, in every float dtype, at ragged
     # lengths (one row, a partial second tile, three tiles)
     cases += [("new_head_dim", (2, s, 3, d), name, causal, (128, 128))
               for name in FLOATS for d in NEW_HEAD_DIMS for s in (1, 65, 130)
               for causal in (False, True)]
+    # here, not at the top: --kernel-times runs this file in trees without it
+    from client_tpu_torch.ops.flash_attention import flash_attention_3xtf32_reference
+
     rows = []
     first = {}
     for kind, shape, name, causal, (bq, bk) in cases:
@@ -981,6 +1033,15 @@ def check_flash_attention():
             if not tiled_ok:
                 raise AssertionError(
                     f"flash_attention disagrees with its tiled plain version: {rows[-1]}")
+        if runs_3xtf32(shape[3], name):
+            # the 3xTF32 kernel against its emulation: a gate of its own,
+            # half the dense one
+            emulated = flash_attention_3xtf32_reference(q, k, v, causal=causal)
+            emu_err, emu_ok = flash_agrees(out, emulated, TF32_EMULATION_TOLERANCE)
+            rows[-1]["max_abs_err_vs_3xtf32"] = emu_err
+            if not emu_ok:
+                raise AssertionError(
+                    f"flash_attention disagrees with its 3xTF32 emulation: {rows[-1]}")
         if not ok or out.dtype != q.dtype or not torch.isfinite(out).all():
             raise AssertionError(f"flash_attention disagrees with its plain version: {rows[-1]}")
         key = (shape, name, causal)
@@ -1003,6 +1064,7 @@ def time_flash_attention(shape, name, causal, iters):
     bound_ms, bound_by = flash_bound(shape, causal, name)
     return {
         "shape": list(shape), "dtype": name, "causal": causal, "max_abs_err": err,
+        **flash_bound_basis(shape, causal, name),
         "ms": cuda_ms(lambda: flash_attention(q, k, v, causal=causal), iters),
         # the kernel's device time per call (profiler)
         "device_ms": device_ms_per_call(lambda: flash_attention(q, k, v, causal=causal),
@@ -7651,13 +7713,16 @@ def encoder_plain(model, x):
 
 def wide_bounds(seq, dim, heads):
     """The least time of one request's device work over the fp32 peak (the
-    port's fp32 kernels and matmuls use no TF32), reckoned as the kernel
-    table does: the attention's 4*H*S^2*D flops and the four projections'
-    8*S*dim^2 flops."""
+    matmuls use no TF32), reckoned as the kernel table does: the
+    attention's 4*H*S^2*D flops and the four projections' 8*S*dim^2 flops;
+    where the flash kernel runs 3xTF32 (head dims 33-256), its bound at the
+    TF32 peak beside (``flash_bound``)."""
     attention = 4 * heads * seq * seq * (dim // heads)
     projections = 8 * seq * dim * dim
+    tf32 = ({"attention_3xtf32_bound_ms": 3 * attention / PEAK_TF32_FLOPS * 1e3}
+            if runs_3xtf32(dim // heads, "float32") else {})
     return {"attention_gflop": attention / 1e9,
-            "attention_bound_ms": attention / PEAK_FLOPS["float32"] * 1e3,
+            "attention_bound_ms": attention / PEAK_FLOPS["float32"] * 1e3, **tf32,
             "projections_gflop": projections / 1e9,
             "projections_bound_ms": projections / PEAK_FLOPS["float32"] * 1e3}
 
@@ -7885,7 +7950,10 @@ def log_wide(result, card):
             f"request {prof.get('wall_ms', float('nan')):.3f} ms wall, {device}; bounds: "
             f"attention {row['attention_gflop']:.1f} GFLOP -> {row['attention_bound_ms']:.2f} ms, "
             f"projections {row['projections_gflop']:.1f} GFLOP -> "
-            f"{row['projections_bound_ms']:.2f} ms (fp32 peak); max |err| vs the plain version "
+            f"{row['projections_bound_ms']:.2f} ms (fp32 peak)"
+            + ("" if "attention_3xtf32_bound_ms" not in row else
+               f", attention in 3xTF32 at the TF32 peak {row['attention_3xtf32_bound_ms']:.2f} ms")
+            + "; max |err| vs the plain version "
             f"on the same device {row['cuda_shm_vs_plain_max_abs_err']:.3g}"
             + ("" if row.get("flash_ms") is None else
                f"; flash_attention alone at (1, {row['seq']}, {row['heads']}, "
@@ -8087,11 +8155,14 @@ def log_attention_times(decode_rows, flash_rows):
             f"sdpa {row['library_ms']:.4f} ms, bound {row['bound_ms']:.5f} ms "
             f"({row['bound_ms'] / row['ms']:.1%} of bound)")
     for row in flash_rows:
+        fma = ("" if "fma_bound_ms" not in row else
+               f"; the fp32 FMA bound {row['fma_bound_ms']:.5f} ms")
         log(f"time flash_attention {row['shape']} {row['dtype']} causal={row['causal']}: "
             f"kernel {row['ms']:.4f} ms ({ms_text(row.get('device_ms'))} on the device), "
             f"plain {row['plain_ms']:.4f} ms, "
             f"sdpa {row['library_ms']:.4f} ms, bound {row['bound_ms']:.5f} ms "
-            f"({row['bound_by']}; {row['bound_ms'] / row['ms']:.1%} of bound)")
+            f"({row['bound_by']}, {row['bound_basis']}; "
+            f"{row['bound_ms'] / row['ms']:.1%} of bound{fma})")
 
 
 def attention_kernel_times():
@@ -8112,6 +8183,10 @@ def attention_kernel_times():
     flash += [time_flash_attention((4, 2048, 8, 128), "bfloat16", causal, 10)
               for causal in (False, True)]
     flash += [time_flash_attention((1, 4096, 8, d), "float32", False, 10) for d in (64, 128)]
+    # the wide encoder's shapes (phase 15) in fp32: the 3xTF32 kernel's
+    # served rows
+    flash += [time_flash_attention((1, 8192, h, d), "float32", False, 3)
+              for h, d in ((32, 96), (8, 256))]
     log_attention_times(decode, flash)
     return {"decode": decode, "flash": flash}
 
@@ -8316,7 +8391,10 @@ def main(argv) -> int:
             + ("" if row["dtype"] not in TILED_TOLERANCE else
                f"; vs the tiled plain version {row['max_abs_err_vs_tiled_plain']:.3g} (atol "
                f"{TILED_TOLERANCE[row['dtype']]['atol']:g}, rtol "
-               f"{TILED_TOLERANCE[row['dtype']]['rtol']:g})"))
+               f"{TILED_TOLERANCE[row['dtype']]['rtol']:g})")
+            + ("" if "max_abs_err_vs_3xtf32" not in row else
+               f"; vs the 3xTF32 emulation {row['max_abs_err_vs_3xtf32']:.3g} (atol = rtol "
+               f"{TF32_EMULATION_TOLERANCE:g})"))
     # the served shape at its largest length first: the row of the kernels line
     flash_timed = [time_flash_attention((1, s, 4, 16), "float32", False, iters)
                    for s, iters in ((8192, 20), (4096, 50), (100, 200))]
@@ -8326,6 +8404,10 @@ def main(argv) -> int:
     # in fp32, and the same heads at S = 4096 on the tensor cores
     flash_timed += [time_flash_attention((1, 8192, h, d), "float32", False, 3)
                     for h, d in ((32, 96), (8, 256))]
+    # and the 3xTF32 kernel's two other widths at S = 4096 (padded widths 128
+    # and 64)
+    flash_timed += [time_flash_attention((1, 4096, 8, d), "float32", False, 10)
+                    for d in (128, 64)]
     flash_timed += [time_flash_attention((1, 4096, h, d), name, False, 10)
                     for h, d in ((32, 96), (8, 256)) for name in ("bfloat16", "float16")]
     log_attention_times([], flash_timed)
@@ -8897,6 +8979,18 @@ def main(argv) -> int:
         "shape": flash_row["shape"],
         "dtype": flash_row["dtype"],
         "at_shapes": flash_timed[1:],
+        # the fp32 kernel for head dims 33-256 (3xTF32 on the tensor cores):
+        # its rows at the shapes phase 3 times it at, with the fp32 FMA bound
+        # beside the 3xTF32 one, and its launches on phase 15's published
+        # widths (head dims 96 and 256), both planes
+        "tf32_kernel": {
+            "redesigned": "3xTF32 on the tensor cores (mma.sync m16n8k8), K and V by cp.async",
+            "launches": sum(row[plane]["launches"]["flash_attention"] for row in wide["rows"]
+                            if row["width"] in ("phi3_mini", "gemma_2b")
+                            for plane in ("cuda_shm", "wire")),
+            "rows": [row for row in flash_timed
+                     if runs_3xtf32(row["shape"][3], row["dtype"])],
+        },
         "new_cases": new_cases("flash", integer_rows, wide_rows),
     })
     wire_row = quant_timed[0]

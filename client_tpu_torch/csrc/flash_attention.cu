@@ -8,12 +8,16 @@
 //   accumulate in fp32. As the Pallas kernel does, QK^T takes the operands
 //   in their own dtype (a bf16 x bf16 or fp16 x fp16 product is exact in
 //   fp32) and the probabilities are rounded to v's dtype before the PV
-//   product; fp32 runs in full fp32 FMA, no TF32.
+//   product. fp32 keeps fp32 precision: FMAs on the CUDA cores at D <= 32
+//   and past 256, 3xTF32 on the tensor cores at D 33-256 (below); never
+//   one-pass TF32, which keeps about three decimal digits.
 //
 // Bound on the H100: operations. The work is 4*B*H*S^2*D flops (about half
 // with causal masking) over 4*B*S*H*D elements moved, so at the served and
 // benchmark shapes the flops over the card's peak are the least time: the
-// tensor-core peak for bf16 and fp16, the fp32 CUDA-core peak for fp32.
+// tensor-core peak for bf16 and fp16; for fp32 the CUDA cores' FMA peak (67
+// TFLOP/s), and at head dims 33-256, which run in 3xTF32, three TF32
+// products a product over the TF32 tensor-core peak (495 TFLOP/s).
 //
 // Every kernel here gives a block a (b*h, query tile) and walks the key
 // tiles in order with the running (max, sum, acc) state in registers, as
@@ -23,9 +27,9 @@
 // keys >= S are masked and their K/V rows zero-filled, so a ragged S is never
 // padded in memory; query rows >= S are not stored. A row with no live key
 // yet keeps p = 0 and a correction of 0 (never exp(-inf - -inf)); the final
-// divide is by max(l, 1e-30), as in Pallas. The two newer kernels take the
+// divide is by max(l, 1e-30), as in Pallas. The float kernels take the
 // softmax in log2 units (exp2, with scale * log2(e) folded into the score
-// scaling, or into Q for fp32).
+// scaling, or into Q in the fp32 kernel for D <= 32).
 //
 // Head dims up to 256: each kernel is instantiated for a padded width DP (16,
 // 32, 64, 96, 128 or 256; the smallest that holds D) and takes the real D at run
@@ -63,10 +67,48 @@
 //   by corr is uniform along a row, so this is exact); the 16 lanes of a row
 //   are reduced once, at the end. So P never goes through shared memory.
 //   K/V tiles are double-buffered with cp.async as above.
-// - fp32, D > 32 (flash_attention_f32_kernel): the first design, kept. Thread
-//   (ty, tx) owns 4 query rows; scores at keys tx + 16j go through a shared
-//   P tile into the PV product at columns tx + 16e. At DP = 256 its tiles
-//   take 209 KB of shared memory.
+// - fp32, D 33-256 (flash_attention_f32_tc_kernel): 3xTF32 on the tensor
+//   cores. It took the place of the first fp32 design (CUDA-core FMAs, a
+//   thread 4 query rows, P through a shared tile, plain loads between two
+//   barriers), whose limits the parts below answer one by one. Bound:
+//   operations, three TF32 products for each product, 3 * 4*B*H*S^2*D
+//   flops over the 495 TFLOP/s TF32 peak (the fp32 FMA bound, 4*B*H*S^2*D
+//   over 67 TFLOP/s, is 2.5x that). Each fp32 operand x of QK^T and PV is
+//   split into big = rna(x) and small = rna(x - big), TF32 values (rna: to
+//   nearest, ties away, as cvt.rna.tf32.f32 rounds, done in integer ops:
+//   cvt compiles to a compare and a select more a value), and a product is
+//   small.big + big.small + big.big, each term exact in fp32, summed in the
+//   fp32 accumulators of mma.sync m16n8k8 tf32: the error of fp32, where
+//   one-pass TF32 misses the 2e-5 gate (flash_attention_3xtf32_reference in
+//   ops/flash_attention.py is the plain form). The FlashAttention-2 layout
+//   of the bf16 kernel: 4 warps own 16 query rows each of a 64-row tile, and
+//   the online softmax runs on the accumulator fragments.
+//   (1) CUDA-core FMAs: the products run on the tensor cores.
+//   (2) Loops bound by shared-memory reads: a thread's A fragment takes
+//   columns 2t and 2t + 1 of a row as the step's k-indices t and t + 4
+//   (QK^T's depth is walked in that order), so a fragment of Q or K is one
+//   float2 read a row, rows padded by 8 floats (no bank conflict); a K
+//   fragment feeds 3 mma of 16 x 8 x 8.
+//   (3) No overlap: K and V are copied by cp.async into one tile each, rows
+//   >= S zero-filled, K(t + 1) during the softmax and PV of tile t, V(t + 1)
+//   during QK^T of tile t + 1 (three barriers a tile; two buffers of each
+//   would halve the blocks an SM).
+//   (4) P through shared memory: the S accumulator gives a thread keys 2t
+//   and 2t + 1 of each 8-key n-tile, which PV's A operand takes as its
+//   k-indices t and t + 4, V's rows 2t and 2t + 1 read to match (V's rows
+//   padded by 4 floats: no bank conflict), so P stays in registers and no
+//   value moves between lanes. PV sums each tile in fresh accumulators and
+//   adds them to O in fp32: the tensor core's own fp32 sums over a whole
+//   sequence drifted by up to 1.6e-5 at S = 8192 on the H100, 1e-6 this way.
+//   (5) Shared memory and registers: Q, K and V take 64 rows each of DP +
+//   8, DP + 8 and DP + 4 floats, 54, 79 and 103 KB a block at DP = 64, 96
+//   and 128 (168, 213 and 237 registers a thread): three, two and two
+//   blocks, 12, 8 and 8 warps an SM. At DP = 256 they take 202 KB (one
+//   block an SM) and O 128 registers a thread, so 8 warps share the work:
+//   the two warps of each 16 rows own half of O's columns each and half of
+//   QK^T's depth each, their partial S summed through a 4 KB shared slot a
+//   pair (two named barriers a tile; both warps get the same bits), 218 KB,
+//   239 registers, no spill.
 // - D > 256 (flash_attention_mma_wide_kernel for bf16 and fp16,
 //   flash_attention_f32_wide_kernel for fp32): a thread-block cluster of n
 //   blocks (at most 8, the portable size; grid.z = n * groups, clusters of
@@ -526,7 +568,7 @@ flash_attention_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // fp32, D <= 32: Q and the PV partial sums in registers
 // ---------------------------------------------------------------------------
 
-constexpr int kThreads = 256;  // a 16 x 16 grid (both fp32 kernels)
+constexpr int kThreads = 256;  // a 16 x 16 grid
 
 template <int DP>
 struct SmallF32 {
@@ -720,164 +762,332 @@ flash_attention_f32_small_kernel(const float* __restrict__ q, const float* __res
 }
 
 // ---------------------------------------------------------------------------
-// fp32, D > 32: P through shared memory
+// fp32, D 33-256: 3xTF32 on the tensor cores
 // ---------------------------------------------------------------------------
 
-constexpr int kBlockQ = 64;          // query rows per block
-constexpr int kRows = kBlockQ / 16;  // query rows per thread
-constexpr int kKeys = kBlockK / 16;  // keys per thread in a score tile
-constexpr int kLdP = kBlockK + 1;    // padded row of the probability tile
+constexpr int kBlockQ = 64;  // query rows a block (this kernel; the fp32 wide kernel past one group)
+constexpr int kTf32RowWarps = kBlockQ / 16;  // warps of distinct rows: 16 query rows each
+static_assert(kBlockQ == kBlockK, "the diagonal tile is the block's own");
 
-// rows [row0, row0 + rows) of one (b, h) slice into a shared tile with row
-// stride LD, DP columns of which the first dim are read; rows >= seq and
-// columns >= dim are zero-filled
-template <int DP, int LD>
-__device__ __forceinline__ void load_tile(float* tile, const float* __restrict__ src, int row0,
-                                          int rows, int seq, long long stride_s, int dim,
-                                          int vec) {
-  constexpr int kPerRow = DP / 4;
-  for (int i = threadIdx.x; i < rows * kPerRow; i += kThreads) {
-    const int r = i / kPerRow;
-    const int c = (i % kPerRow) * 4;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < seq) x = load4<DP>(src + (long long)(row0 + r) * stride_s, c, dim, vec);
-    float* dst = tile + r * LD + c;
-    dst[0] = x.x;
-    dst[1] = x.y;
-    dst[2] = x.z;
-    dst[3] = x.w;
-  }
+// fp32 to TF32 as cvt.rna.tf32.f32 rounds a finite value (to nearest, ties
+// away from zero: half a TF32 ulp added to the magnitude bits, the 13 low
+// bits cleared; tf32_round in ops/flash_attention.py). cvt.rna itself
+// compiles to a compare and a select more a value (its inf and NaN cases):
+// the kernel ran 17-24% slower with it on the H100 (PERF.md).
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+// x = big + small, each a TF32 value; x - big is exact in fp32
+__device__ __forceinline__ void tf32_split(float x, uint32_t& big, uint32_t& small) {
+  big = tf32_rna(x);
+  small = tf32_rna(x - __uint_as_float(big));
+}
+
+// c[16x8] += a[16x8] . b[8x8], TF32 operands, fp32 accumulators
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a . b in 3xTF32: small.big + big.small + big.big, each product
+// exact in fp32, summed in the fp32 accumulators; b0 and b1 (the step's
+// k-indices t and t + 4 of column g) are split here
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const uint32_t (&a_big)[4],
+                                           const uint32_t (&a_small)[4], float b0, float b1) {
+  uint32_t b_big[2], b_small[2];
+  tf32_split(b0, b_big[0], b_small[0]);
+  tf32_split(b1, b_big[1], b_small[1]);
+  mma_tf32(c, a_small, b_big);
+  mma_tf32(c, a_big, b_small);
+  mma_tf32(c, a_big, b_big);
+}
+
+// the A fragment of one m16n8k8 step, split: lo (row g) and hi (row g + 8)
+// hold the step's k-indices t and t + 4 in .x and .y
+__device__ __forceinline__ void split_a(float2 lo, float2 hi, uint32_t (&big)[4],
+                                        uint32_t (&small)[4]) {
+  tf32_split(lo.x, big[0], small[0]);
+  tf32_split(hi.x, big[1], small[1]);
+  tf32_split(lo.y, big[2], small[2]);
+  tf32_split(hi.y, big[3], small[3]);
 }
 
 template <int DP>
-struct F32Smem {
-  static constexpr int kLd = DP + 1;  // odd word count per row
-  static constexpr size_t kQ = (size_t)kBlockQ * kLd * sizeof(float);
-  static constexpr size_t kK = (size_t)kBlockK * kLd * sizeof(float);
-  static constexpr size_t kV = (size_t)kBlockK * DP * sizeof(float);
-  static constexpr size_t kP = (size_t)kBlockQ * kLdP * sizeof(float);
-  static constexpr size_t kBytes = kQ + kK + kV + kP;
+struct Tf32Plan {
+  // O's columns split over kColSplit warps of the same 16 rows (at DP =
+  // 256: 64 accumulators a thread, not 128, and 8 warps an SM where the
+  // tiles leave room for one block)
+  static constexpr int kColSplit = DP == 256 ? 2 : 1;
+  // and QK^T's depth split between them, each half's partial S summed
+  // through shared memory (a 4 KB slot a pair)
+  static constexpr bool kDepthSplit = kColSplit == 2;
+  static constexpr int kWarps = kTf32RowWarps * kColSplit;
+  static constexpr int kThreads = kWarps * 32;
+  static constexpr int kMinBlocks = DP == 64 ? 3 : DP == 256 ? 1 : 2;  // blocks an SM
+  static constexpr int kQkUnroll = 2;  // QK^T k-steps unrolled
+  static constexpr int kPvGroup = 4;   // O's n-tiles summed together in PV (fresh accumulators)
+  static constexpr int kLdK = DP + 8;  // row of Q and K: float2 fragment reads conflict-free
+  static constexpr int kLdV = DP + 4;  // row of V: the reads of rows 2t and 2t + 1 conflict-free
+  static constexpr int kTileQ = kBlockQ * kLdK;
+  static constexpr int kTileK = kBlockK * kLdK;
+  static constexpr int kTileV = kBlockK * kLdV;
+  static constexpr int kTileX = kDepthSplit ? kTf32RowWarps * (kBlockK / 8) * 4 * 32 : 0;
+  static constexpr size_t kBytes = (size_t)(kTileQ + kTileK + kTileV + kTileX) * sizeof(float);
 };
 
+// the two warps of rows r (named barrier 1 + r, 64 threads)
+__device__ __forceinline__ void pair_sync(int r) {
+  asm volatile("bar.sync %0, 64;\n" ::"r"(1 + r) : "memory");
+}
+
 template <int DP, bool FULL>
-__global__ void __launch_bounds__(kThreads)
-flash_attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                           const float* __restrict__ v, float* __restrict__ out, int seq, int heads,
-                           int dim, long long stride_b, long long stride_s, long long stride_h,
-                           float scale, int causal, int vec, int) {
+__global__ void __launch_bounds__(Tf32Plan<DP>::kThreads, Tf32Plan<DP>::kMinBlocks)
+flash_attention_f32_tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                              const float* __restrict__ v, float* __restrict__ out, int seq,
+                              int heads, int dim, long long stride_b, long long stride_s,
+                              long long stride_h, float scale, int causal, int vec, int) {
   if constexpr (FULL) {
     dim = DP;
     vec = 16;
   }
-  using S = F32Smem<DP>;
-  constexpr int LD = S::kLd;
-  constexpr int E = DP / 16;  // output columns per thread
+  using P = Tf32Plan<DP>;
+  constexpr int LDK = P::kLdK;
+  constexpr int LDV = P::kLdV;
+  constexpr int THREADS = P::kThreads;
+  constexpr int KSTEPS = DP / 8;                  // k-steps of QK^T
+  constexpr int NT = kBlockK / 8;                 // 8-key n-tiles of S (and k-steps of PV)
+  constexpr int DT = DP / 8 / P::kColSplit;       // 8-column n-tiles of O a warp
+  constexpr int KS = P::kDepthSplit ? KSTEPS / 2 : KSTEPS;  // QK^T k-steps a warp
   extern __shared__ __align__(16) unsigned char smem[];
   float* sq = reinterpret_cast<float*>(smem);
-  float* sk = reinterpret_cast<float*>(smem + S::kQ);
-  float* sv = reinterpret_cast<float*>(smem + S::kQ + S::kK);
-  float* sp = reinterpret_cast<float*>(smem + S::kQ + S::kK + S::kV);
+  float* sk = sq + P::kTileQ;
+  float* sv = sk + P::kTileK;
+  float* sx = sv + P::kTileV;  // the partial S slots (depth split)
 
   const int bh = blockIdx.x;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kBlockQ;  // longest causal blocks first
   const long long base = (long long)(bh / heads) * stride_b + (long long)(bh % heads) * stride_h;
-  const int ty = threadIdx.x >> 4;
-  const int tx = threadIdx.x & 15;
+  const int warp = threadIdx.x >> 5;
+  const int rows = warp % kTf32RowWarps;  // this warp's 16 query rows
+  const int half = warp / kTf32RowWarps;   // its share of O's columns (and QK^T's depth)
+  const int col0 = half * DT * 8;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;  // fragment row (and row + 8)
+  const int t = lane & 3;   // fragment column pair
+  const int row0 = q0 + rows * 16 + g;
+  const int row1 = row0 + 8;
+  const float scale_log2 = scale * kLog2e;  // scores in log2 units, for exp2
 
-  load_tile<DP, LD>(sq, q + base, q0, kBlockQ, seq, stride_s, dim, vec);
-
-  float m[kRows], l[kRows], acc[kRows][E];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int e = 0; e < E; ++e) acc[i][e] = 0.f;
-  }
-
-  // causal: key tiles past the diagonal contribute nothing
   const int k_end = causal ? min(seq, q0 + kBlockQ) : seq;
-  for (int k0 = 0; k0 < k_end; k0 += kBlockK) {
-    __syncthreads();  // the previous tile's K, V and P are no longer read
-    load_tile<DP, LD>(sk, k + base, k0, kBlockK, seq, stride_s, dim, vec);
-    load_tile<DP, DP>(sv, v + base, k0, kBlockK, seq, stride_s, dim, vec);
-    __syncthreads();
+  const int n_tiles = (k_end + kBlockK - 1) / kBlockK;
 
-    float s[kRows][kKeys];
+  load_tile_async<float, DP, LDK, kBlockQ, THREADS>(sq, q + base, q0, seq, stride_s, dim, vec);
+  load_tile_async<float, DP, LDK, kBlockK, THREADS>(sk, k + base, 0, seq, stride_s, dim, vec);
+  cp_async_commit();
+  load_tile_async<float, DP, LDV, kBlockK, THREADS>(sv, v + base, 0, seq, stride_s, dim, vec);
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();
+  // this thread's A fragments of Q: rows g and g + 8 at columns 8kk + 2t and
+  // 8kk + 2t + 1, taken as step kk's k-indices t and t + 4 (QK^T's depth is
+  // walked in that order, so one float2 a row reads both)
+  const int d0 = P::kDepthSplit ? half * KS * 8 : 0;
+  const float* q_lo = sq + (rows * 16 + g) * LDK + d0 + 2 * t;
+  const float* q_hi = q_lo + 8 * LDK;
+  const float* k_frag = sk + g * LDK + d0 + 2 * t;
+
+  float o[DT][4];
 #pragma unroll
-    for (int i = 0; i < kRows; ++i)
+  for (int j = 0; j < DT; ++j)
 #pragma unroll
-      for (int j = 0; j < kKeys; ++j) s[i][j] = 0.f;
-    // the columns past dim are zero: the product stops at dim
-#pragma unroll 8
-    for (int d = 0; d < dim; ++d) {
-      float qv[kRows], kv[kKeys];
+    for (int c = 0; c < 4; ++c) o[j][c] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};  // this thread's columns only, until the end
+
+  // one K and one V tile: K(it + 1) is copied during the softmax and PV of
+  // tile it, V(it + 1) during QK^T of tile it + 1
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = it * kBlockK;
+    const bool next = it + 1 < n_tiles;
+
+    // S = Q K^T: 16 rows x 64 keys a warp, fp32 (K(it) is in place)
+    float s[NT][4];
 #pragma unroll
-      for (int i = 0; i < kRows; ++i) qv[i] = sq[(ty * kRows + i) * LD + d];
+    for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int j = 0; j < kKeys; ++j) kv[j] = sk[(tx + 16 * j) * LD + d];
+      for (int c = 0; c < 4; ++c) s[j][c] = 0.f;
+#pragma unroll P::kQkUnroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t a_big[4], a_small[4];
+      split_a(*reinterpret_cast<const float2*>(q_lo + kk * 8),
+              *reinterpret_cast<const float2*>(q_hi + kk * 8), a_big, a_small);
 #pragma unroll
-      for (int i = 0; i < kRows; ++i)
+      for (int j = 0; j < NT; ++j) {
+        const float2 b = *reinterpret_cast<const float2*>(k_frag + j * 8 * LDK + kk * 8);
+        mma_3xtf32(s[j], a_big, a_small, b.x, b.y);
+      }
+    }
+    if constexpr (P::kDepthSplit) {
+      // S = the two halves' sum, the same bits in both warps: half 0 stores
+      // its partial; half 1 takes it, stores its own in its place (each lane
+      // its own words) and adds; half 0 takes that and adds
+      float* slot = sx + rows * NT * 4 * 32 + lane;
+      if (half == 0) {
 #pragma unroll
-        for (int j = 0; j < kKeys; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) slot[(j * 4 + c) * 32] = s[j][c];
+        pair_sync(rows);
+        pair_sync(rows);
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) s[j][c] += slot[(j * 4 + c) * 32];
+      } else {
+        pair_sync(rows);
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const float other = slot[(j * 4 + c) * 32];
+            slot[(j * 4 + c) * 32] = s[j][c];
+            s[j][c] = other + s[j][c];
+          }
+        }
+        pair_sync(rows);
+      }
+    }
+    __syncthreads();  // every warp is done with K(it)
+    if (next) {
+      load_tile_async<float, DP, LDK, kBlockK, THREADS>(sk, k + base, k0 + kBlockK, seq,
+                                                        stride_s, dim, vec);
+      cp_async_commit();
     }
 
+    if (tile_needs_mask<kBlockK>(k0, q0, seq, causal)) {
 #pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int row = q0 + ty * kRows + i;
-      float mx = -INFINITY;
+      for (int j = 0; j < NT; ++j) {
 #pragma unroll
-      for (int j = 0; j < kKeys; ++j) {
-        const int col = k0 + tx + 16 * j;
-        const bool live = col < seq && (!causal || col <= row);
-        s[i][j] = live ? s[i][j] * scale : -INFINITY;
-        mx = fmaxf(mx, s[i][j]);
+        for (int c = 0; c < 4; ++c) {
+          const int key = k0 + j * 8 + 2 * t + (c & 1);
+          const int row = c < 2 ? row0 : row1;
+          const bool live = key < seq && (!causal || key <= row);
+          s[j][c] = live ? s[j][c] * scale_log2 : -INFINITY;
+        }
       }
+    } else {
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) s[j][c] *= scale_log2;
+    }
+
+    // online softmax on the fragments: c = 0, 1 are row g; c = 2, 3 row g + 8
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = m[r];
+#pragma unroll
+      for (int j = 0; j < NT; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
       // no live key for this row yet: p = 0 and the correction is 0
-      const float m_use = m_new == -INFINITY ? 0.f : m_new;
-      const float corr = expf(m[i] - m_use);
+      const float m_use = mx == -INFINITY ? 0.f : mx;
       float sum = 0.f;
 #pragma unroll
-      for (int j = 0; j < kKeys; ++j) {
-        const float p = expf(s[i][j] - m_use);
-        sum += p;
-        sp[(ty * kRows + i) * kLdP + tx + 16 * j] = p;
+      for (int j = 0; j < NT; ++j) {
+        s[j][2 * r] = exp2f(s[j][2 * r] - m_use);
+        s[j][2 * r + 1] = exp2f(s[j][2 * r + 1] - m_use);
+        sum += s[j][2 * r] + s[j][2 * r + 1];
       }
+      if (mx != m[r]) {  // else the correction is exactly 1
+        const float corr = exp2f(m[r] - m_use);
+        l[r] *= corr;
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      l[i] = l[i] * corr + sum;
-#pragma unroll
-      for (int e = 0; e < E; ++e) acc[i][e] *= corr;
-      m[i] = m_new;
+        for (int j = 0; j < DT; ++j) {
+          o[j][2 * r] *= corr;
+          o[j][2 * r + 1] *= corr;
+        }
+      }
+      l[r] += sum;
+      m[r] = mx;
     }
-    __syncthreads();  // the whole P tile is written
+    // P as A fragments, split: the accumulator gives this thread keys 2t and
+    // 2t + 1 of n-tile kk, which PV's step kk takes as its k-indices t and t
+    // + 4 (V's rows 2t and 2t + 1 are read to match), so no value moves
+    // between lanes
+    uint32_t p_big[NT][4], p_small[NT][4];
+#pragma unroll
+    for (int kk = 0; kk < NT; ++kk)
+      split_a(make_float2(s[kk][0], s[kk][1]), make_float2(s[kk][2], s[kk][3]), p_big[kk],
+              p_small[kk]);
 
-#pragma unroll 4
-    for (int j = 0; j < kBlockK; ++j) {
-      float vv[E];
+    if (next) {
+      cp_async_wait<1>();  // V(it); K(it + 1) may still be in flight
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // V(it) is in place
+
+    // O += P V, a tile's product summed in fresh accumulators and added to O
+    // in fp32 (round to nearest): the tensor core's own fp32 sums then run
+    // over 64 keys, not the whole sequence
+    const float* v_frag = sv + 2 * t * LDV + col0 + g;
+    constexpr int JG = P::kPvGroup;
 #pragma unroll
-      for (int e = 0; e < E; ++e) vv[e] = sv[j * DP + tx + 16 * e];
+    for (int j0 = 0; j0 < DT; j0 += JG) {
+      float acc[JG][4];
 #pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        const float p = sp[(ty * kRows + i) * kLdP + j];
+      for (int jj = 0; jj < JG; ++jj)
 #pragma unroll
-        for (int e = 0; e < E; ++e) acc[i][e] = fmaf(p, vv[e], acc[i][e]);
+        for (int c = 0; c < 4; ++c) acc[jj][c] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < NT; ++kk) {
+#pragma unroll
+        for (int jj = 0; jj < JG; ++jj) {
+          const float* v0 = v_frag + kk * 8 * LDV + (j0 + jj) * 8;
+          mma_3xtf32(acc[jj], p_big[kk], p_small[kk], v0[0], v0[LDV]);
+        }
       }
+#pragma unroll
+      for (int jj = 0; jj < JG; ++jj)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) o[j0 + jj][c] += acc[jj][c];
+    }
+    if (next) {
+      cp_async_wait<0>();  // K(it + 1)
+      __syncthreads();     // every warp is done with V(it); K(it + 1) is in place
+      load_tile_async<float, DP, LDV, kBlockK, THREADS>(sv, v + base, k0 + kBlockK, seq,
+                                                        stride_s, dim, vec);
+      cp_async_commit();
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int row = q0 + ty * kRows + i;
-    if (row < seq) {
-      const float denom = fmaxf(l[i], 1e-30f);
-      float* dst = out + base + (long long)row * stride_s;
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  const float den0 = fmaxf(l[0], 1e-30f);
+  const float den1 = fmaxf(l[1], 1e-30f);
+  // this warp's columns below dim only
 #pragma unroll
-      for (int e = 0; e < E; ++e)
-        if (tx + 16 * e < dim) dst[tx + 16 * e] = acc[i][e] / denom;
+  for (int j = 0; j < DT; ++j) {
+    const int col = col0 + j * 8 + 2 * t;
+    if (col >= dim) continue;
+    const bool second = col + 1 < dim;
+    if (row0 < seq) {
+      float* dst = out + base + (long long)row0 * stride_s + col;
+      dst[0] = o[j][0] / den0;
+      if (second) dst[1] = o[j][1] / den0;
+    }
+    if (row1 < seq) {
+      float* dst = out + base + (long long)row1 * stride_s + col;
+      dst[0] = o[j][2] / den1;
+      if (second) dst[1] = o[j][3] / den1;
     }
   }
 }
@@ -1765,10 +1975,10 @@ cudaError_t launch_f32_small(const Args& a) {
 
 template <int DP>
 cudaError_t launch_f32(const Args& a) {
-  return full_rows<DP>(a) ? launch<float>(flash_attention_f32_kernel<DP, true>,
-                                          F32Smem<DP>::kBytes, kThreads, kBlockQ, a)
-                          : launch<float>(flash_attention_f32_kernel<DP, false>,
-                                          F32Smem<DP>::kBytes, kThreads, kBlockQ, a);
+  return full_rows<DP>(a) ? launch<float>(flash_attention_f32_tc_kernel<DP, true>,
+                                          Tf32Plan<DP>::kBytes, Tf32Plan<DP>::kThreads, kBlockQ, a)
+                          : launch<float>(flash_attention_f32_tc_kernel<DP, false>,
+                                          Tf32Plan<DP>::kBytes, Tf32Plan<DP>::kThreads, kBlockQ, a);
 }
 
 // slabs of kSlab output columns a tiled kernel's grid holds
@@ -1858,10 +2068,10 @@ extern "C" int flash_attention_smem_bytes(int dtype, int dim) {
     switch (dp) {
       case 16: return (int)SmallF32<16>::kBytes;
       case 32: return (int)SmallF32<32>::kBytes;
-      case 64: return (int)F32Smem<64>::kBytes;
-      case 96: return (int)F32Smem<96>::kBytes;
-      case 128: return (int)F32Smem<128>::kBytes;
-      case 256: return (int)F32Smem<256>::kBytes;
+      case 64: return (int)Tf32Plan<64>::kBytes;
+      case 96: return (int)Tf32Plan<96>::kBytes;
+      case 128: return (int)Tf32Plan<128>::kBytes;
+      case 256: return (int)Tf32Plan<256>::kBytes;
       default:
         return wide_groups(dim) == 1 ? (int)F32WideSmem<kF32WideBlockQ>::bytes(1)
                                      : (int)F32WideSmem<kBlockQ>::bytes(wide_groups(dim));

@@ -40,10 +40,12 @@ class PrefillDecoderModel(Model):
 
     _TP_EXEC_LOCK = threading.Lock()
 
-    def __init__(self, tp: bool = False, seed: int = 0, decoder: TinyDecoderModel = None,
-                 device="cuda", mesh=None, axis: str = "model",
-                 tp_degree: Optional[int] = None):
-        """``decoder``: share the zoo's ``decoder_lm`` (its weights); a new
+    def __init__(self, tp: bool = False, seed: int = 0, mesh=None, axis: str = "model",
+                 tp_degree: Optional[int] = None, *, decoder: TinyDecoderModel = None,
+                 device="cuda"):
+        """JAX's positional order, ``(tp, seed, mesh, axis, tp_degree)``;
+        the port's own ``decoder`` and ``device`` are keywords.
+        ``decoder``: share the zoo's ``decoder_lm`` (its weights); a new
         one from ``seed`` on ``device`` when None. ``tp=True``: a new
         :class:`TPDecoderModel` from ``seed``, over ``mesh``'s ``axis`` or
         ``tp_degree`` of the local devices of ``device``."""

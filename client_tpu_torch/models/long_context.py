@@ -95,12 +95,13 @@ class LongContextEncoderModel(Model):
 
     name = "long_context_encoder"
 
-    def __init__(self, dim: int = 64, heads: int = 4, seed: int = 0,
-                 attention: str = "flash", device="cuda", n_devices: int = 0,
-                 mesh: Optional[Mesh] = None):
-        """``attention``: "flash" (one device, any length), or "ring",
-        "ulysses" or "auto" over ``mesh`` (its ``data`` axis), else over a
-        flat (n, 1) mesh of the first ``n_devices`` of
+    def __init__(self, dim: int = 64, heads: int = 4, seed: int = 0, n_devices: int = 0,
+                 attention: str = "flash", *, device="cuda", mesh: Optional[Mesh] = None):
+        """JAX's positional order, ``(dim, heads, seed, n_devices,
+        attention)``; the port's own ``device`` and ``mesh`` are keywords.
+        ``attention``: "flash" (the port's default, one device, any
+        length), or "ring", "ulysses" or "auto" over ``mesh`` (its ``data``
+        axis), else over a flat (n, 1) mesh of the first ``n_devices`` of
         ``local_devices(device)`` (0: all of them). Weights come from
         :func:`draw_params` with ``seed`` until :func:`load_jax_params`
         replaces them."""

@@ -34,8 +34,11 @@ against 4*B*S*H*D elements moved). The kernel keeps the S x S scores out of
 device memory, as the Pallas kernel keeps them out of HBM. bf16 and fp16
 run on the tensor cores (``mma.sync``, FlashAttention-2 layout: Q fragments
 and the probabilities stay in registers, K/V tiles double-buffered with
-``cp.async``); fp32 runs in full fp32 on the CUDA cores (no TF32, which the
-2e-5 tolerance rules out).
+``cp.async``); fp32 keeps fp32 precision: FMAs on the CUDA cores at head
+dims up to 32 and past 256, and at 33-256 3xTF32 on the tensor cores (each
+operand split into TF32 big and small parts, three products summed in fp32:
+:func:`flash_attention_3xtf32_reference` is its plain form). One-pass TF32
+misses the 2e-5 tolerance.
 
 ``flash_attention_tiled_reference`` is the plain form of the kernel's loop
 (64-key tiles, online softmax, p rounded to v's dtype before PV, as the
@@ -82,6 +85,10 @@ LAUNCHES = LaunchCounter()
 
 # the widest head dim of the dense float kernels; past it the wide kernels run
 DENSE_MAX_DIM = 256
+# the fp32 head dims of the 3xTF32 kernel (padded widths 64-256 in
+# csrc/flash_attention.cu's dispatch_f32; padded widths 16 and 32 run fp32
+# FMAs, and past DENSE_MAX_DIM the wide kernels run)
+TF32_DIMS = range(33, DENSE_MAX_DIM + 1)
 # the wide kernels' slab width at most, and the blocks of a cluster at most
 # (the portable cluster size; csrc/flash_attention.cu's kWideWidth and
 # kWideCluster)
@@ -142,6 +149,12 @@ def wide_plan(dim: int, dtype) -> WidePlan:
     return WidePlan(cluster, WIDE_WIDTH, tuple(zip(cuts, cuts[1:])), groups, block_q, smem)
 
 
+def runs_3xtf32(dim: int, dtype) -> bool:
+    """Whether a CUDA launch at head dim ``dim`` in ``dtype`` runs the
+    3xTF32 kernel (float32 at :data:`TF32_DIMS`)."""
+    return dtype == torch.float32 and dim in TF32_DIMS
+
+
 def flash_attention_reference(q, k, v, causal: bool = False):
     """Dense fp32 attention over [B,S,H,D] (the counterpart of
     ``client_tpu.parallel.ring.full_attention``), in q's dtype. Any S: the
@@ -155,6 +168,52 @@ def flash_attention_reference(q, k, v, causal: bool = False):
         s = s.masked_fill(~keep, float("-inf"))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", p, vf).to(q.dtype)
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``x`` rounded to TF32 as ``cvt.rna.tf32.f32`` rounds it: the
+    13 low mantissa bits dropped, to nearest with ties away from zero, by
+    integer arithmetic on the int32 view (add half a TF32 ulp to the
+    magnitude bits, clear the 13). A carry runs into the exponent, so the
+    largest finite floats round to inf; subnormals round on the same grid;
+    zeros and infinities are kept, and so are NaNs."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"tf32_round takes float32, not {x.dtype}")
+    bits = x.contiguous().view(torch.int32)
+    rounded = ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+    return torch.where(torch.isnan(x), x, rounded)
+
+
+def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(big, small) with big = tf32_round(x) and small = tf32_round(x -
+    big): the 3xTF32 operands of x (x - big is exact in fp32)."""
+    big = tf32_round(x)
+    return big, tf32_round(x - big)
+
+
+def flash_attention_3xtf32_reference(q, k, v, causal: bool = False):
+    """The dense plain version in the arithmetic of the fp32 kernel for
+    head dims 33-256: each fp32 operand of QK^T and of PV split into TF32
+    big and small parts (:func:`tf32_split`) and the product taken as
+    small.big + big.small + big.big in fp32, as the kernel's three
+    tensor-core products accumulate it (each product of two TF32 values is
+    exact in fp32; only the sums round). The softmax between is the dense
+    version's. float32 only; for tests and ``chip_smoke.py``, never a path
+    of the wrapper."""
+    if not all(t.dtype == torch.float32 for t in (q, k, v)):
+        raise TypeError("flash_attention_3xtf32_reference takes float32 q, k and v")
+
+    def product(spec, a, b):
+        (a_big, a_small), (b_big, b_small) = tf32_split(a), tf32_split(b)
+        return (torch.einsum(spec, a_small, b_big) + torch.einsum(spec, a_big, b_small)
+                + torch.einsum(spec, a_big, b_big))
+
+    s = product("bqhd,bkhd->bhqk", q, k) * q.shape[-1] ** -0.5
+    if causal:
+        seq = q.shape[1]
+        keep = torch.ones((seq, seq), dtype=torch.bool, device=q.device).tril()
+        s = s.masked_fill(~keep, float("-inf"))
+    return product("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1), v)
 
 
 def flash_attention_tiled_reference(q, k, v, causal: bool = False, block_k: int = BLOCK_K,

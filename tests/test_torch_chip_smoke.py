@@ -17,6 +17,7 @@ against two port servers in this process.
 """
 
 import collections
+import importlib
 import threading
 import time
 
@@ -929,6 +930,58 @@ def test_build_fails_on_a_spill_in_the_held_kernels():
     lines = [wide, f32, clean, dense, softmax, registers]
     assert chip_smoke.ptxas_spills(lines) == [wide, f32, softmax]
     assert chip_smoke.ptxas_spills([clean, dense, registers]) == []
+
+
+def test_build_fails_on_a_spill_in_the_3xtf32_kernel():
+    """The spill gate holds the fp32 flash kernel for head dims 33-256
+    (3xTF32 on the tensor cores) too, every instantiation; the fp32 kernel
+    for head dims up to 32 stays outside it."""
+    spilled = ("flash_attention: <unnamed>::flash_attention_f32_tc_kernel<(int)64, (bool)0>: "
+               "24 bytes stack frame, 52 bytes spill stores, 40 bytes spill loads")
+    clean = ("flash_attention: <unnamed>::flash_attention_f32_tc_kernel<(int)256, (bool)1>: "
+             "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads")
+    small = ("flash_attention: <unnamed>::flash_attention_f32_small_kernel<(int)32, (bool)1>: "
+             "8 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads")
+    assert chip_smoke.ptxas_spills([spilled, clean, small]) == [spilled]
+
+
+def test_flash_bound_counts_3xtf32_at_the_tf32_peak():
+    """fp32 flash at head dims 33-256 is bounded by three TF32 products a
+    product at the 495 TFLOP/s TF32 peak, the fp32 FMA bound kept beside;
+    fp32 at D <= 32 and past 256 stays at the FMA rate, bf16 at its own."""
+    shape = (1, 8192, 32, 96)
+    flops = 4 * 32 * 8192 * 8192 * 96
+    bound, by = chip_smoke.flash_bound(shape, False, "float32")
+    assert by == "operations" and bound == pytest.approx(3 * flops / 495e12 * 1e3)
+    basis = chip_smoke.flash_bound_basis(shape, False, "float32")
+    assert basis["bound_basis"].startswith("3xTF32")
+    assert basis["fma_bound_ms"] == pytest.approx(flops / 67e12 * 1e3)
+    for d in (32, 257):
+        narrow = (1, 4096, 4, d)
+        assert chip_smoke.flash_bound(narrow, True, "float32")[0] == pytest.approx(
+            4 * 4 * (4096 * 4097 // 2) * d / 67e12 * 1e3)
+        assert "fma_bound_ms" not in chip_smoke.flash_bound_basis(narrow, True, "float32")
+    assert chip_smoke.flash_bound(shape, False, "bfloat16")[0] == pytest.approx(
+        flops / 989e12 * 1e3)
+
+
+def test_flash_bound_reads_the_3xtf32_dims_from_the_module(monkeypatch):
+    """``chip_smoke`` takes the head dims the 3xTF32 kernel runs at from
+    the flash module (``TF32_DIMS``), and bounds a tree whose module has no
+    ``runs_3xtf32`` (an earlier tree under ``--kernel-times``) at the fp32
+    FMA rate."""
+    module = importlib.import_module("client_tpu_torch.ops.flash_attention")
+    shape = (1, 4096, 8, 128)
+    flops = 4 * 8 * 4096 * 4096 * 128
+    assert chip_smoke.flash_bound(shape, False, "float32")[0] == pytest.approx(
+        3 * flops / 495e12 * 1e3)
+    monkeypatch.setattr(module, "TF32_DIMS", range(33, 65))
+    assert chip_smoke.flash_bound(shape, False, "float32")[0] == pytest.approx(
+        flops / 67e12 * 1e3)
+    assert chip_smoke.flash_bound_basis((1, 4096, 8, 64), False, "float32")[
+        "bound_basis"].startswith("3xTF32")
+    monkeypatch.delattr(module, "runs_3xtf32")
+    assert "fma_bound_ms" not in chip_smoke.flash_bound_basis((1, 4096, 8, 64), False, "float32")
 
 
 def test_wide_rows_log_their_plan(capsys):

@@ -40,8 +40,12 @@ from client_tpu_torch.ops.flash_attention import (
     LAUNCHES,
     check_blocks,
     flash_attention,
+    flash_attention_3xtf32_reference,
     flash_attention_reference,
     flash_attention_tiled_reference,
+    runs_3xtf32,
+    tf32_round,
+    tf32_split,
 )
 from client_tpu_torch.utils import numpy_to_tensor
 from test_torch_decode_attention import _FakeKernels, _integer_array
@@ -722,3 +726,117 @@ def test_wide_plan_refuses_what_no_wide_kernel_runs(dim, dtype):
     module = sys.modules["client_tpu_torch.ops.flash_attention"]
     with pytest.raises(ValueError):
         module.wide_plan(dim, dtype)
+
+
+# ---------------------------------------------------------------------------
+# the 3xTF32 arithmetic of the fp32 kernel for head dims 33-256
+# ---------------------------------------------------------------------------
+
+# (value, its cvt.rna.tf32 rounding), as float32 bit patterns reckoned by
+# hand: TF32 keeps 10 mantissa bits, so its ulp at 1.0 is 2^-10 and half of
+# it is the bit 0x1000
+TF32_TABLE = [
+    (0x3F800000, 0x3F800000),  # 1.0 is a TF32 value
+    (0x3F801000, 0x3F802000),  # 1 + 2^-11, a tie: away from zero (even would keep 1.0)
+    (0x3F800FFF, 0x3F800000),  # just under the tie: down
+    (0x3F803000, 0x3F804000),  # 1 + 3 * 2^-11, a tie: away, to 1 + 2^-9
+    (0xBF801000, 0xBF802000),  # -(1 + 2^-11): away from zero on the negative side
+    (0x3FFFFFFF, 0x40000000),  # 2 - 2^-23: the carry runs into the exponent
+    (0x7F7FFFFF, 0x7F800000),  # the largest finite float rounds to inf
+    (0x00000001, 0x00000000),  # the smallest subnormal rounds to +0
+    (0x00001000, 0x00002000),  # a subnormal tie: away
+    (0x00000FFF, 0x00000000),  # a subnormal under the tie: to +0
+    (0x007FF000, 0x00800000),  # the largest subnormals' tie: to the smallest normal
+    (0x80000000, 0x80000000),  # -0 stays -0
+    (0x7F800000, 0x7F800000),  # +inf
+    (0xFF800000, 0xFF800000),  # -inf
+]
+
+
+def _bits_to_f32(bits):
+    return torch.tensor(np.array(bits, dtype=np.uint32).view(np.float32))
+
+
+def test_tf32_rounding_matches_the_hand_table():
+    """``tf32_round`` rounds as ``cvt.rna.tf32.f32``: to nearest, ties away
+    from zero, on the int32 view (ties, subnormals, the carry into the
+    exponent, +-0 and +-inf); a NaN stays a NaN."""
+    values = _bits_to_f32([b for b, _ in TF32_TABLE])
+    got = tf32_round(values).numpy().view(np.uint32)
+    assert [hex(b) for b in got] == [hex(want) for _, want in TF32_TABLE]
+    assert torch.isnan(tf32_round(torch.tensor([float("nan")]))).all()
+    big, small = tf32_split(_bits_to_f32([0x3F801234]))
+    assert big.view(torch.int32).item() == 0x3F802000
+    # x - big = -0xDCC * 2^-23 has 11 significant bits: small holds it whole
+    assert small.item() == -0xDCC * 2.0 ** -23
+    assert (big + small).item() == _bits_to_f32([0x3F801234]).item()
+    with pytest.raises(TypeError):
+        tf32_round(torch.ones(2, dtype=torch.float64))
+
+
+# the fp32 kernel's head dims for 3xTF32 (33-256; 40 and 80 run the padded
+# widths 64 and 96 with columns zero-filled) at ragged lengths: one row, a
+# partial second tile, three tiles
+TF32_DIMS = (40, 64, 80, 96, 128, 256)
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("seq", [1, 65, 130])
+@pytest.mark.parametrize("dim", TF32_DIMS)
+def test_3xtf32_reference_matches_pallas(dim, seq, causal):
+    """The 3xTF32 emulation of the fp32 kernel against the Pallas kernel in
+    interpret mode within the fp32 gate, 2e-5, on the same inputs."""
+    arrays = _inputs((2, seq, 2, dim), "float32", seed=dim + seq + causal)
+    out = flash_attention_3xtf32_reference(
+        *(numpy_to_tensor(a, "cpu") for a in arrays), causal=causal)
+    assert out.dtype == torch.float32 and out.shape == (2, seq, 2, dim)
+    pallas = jax_flash_attention(*(jnp.asarray(a) for a in arrays), causal=causal,
+                                 block_q=64, block_k=64)
+    np.testing.assert_allclose(_f32(out), _f32(pallas), atol=TOL["float32"],
+                               rtol=TOL["float32"])
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("heads,dim", [(32, 96), (8, 256)], ids=["phi3_mini", "gemma_2b"])
+def test_3xtf32_reference_at_the_published_widths(heads, dim, causal):
+    """Phi-3-mini's heads (32 of 96) and Gemma-2B's (8 of 256) at S = 256:
+    the 3xTF32 emulation against the Pallas kernel within 2e-5."""
+    arrays = _inputs((1, 256, heads, dim), "float32", seed=heads + dim + causal)
+    out = flash_attention_3xtf32_reference(
+        *(numpy_to_tensor(a, "cpu") for a in arrays), causal=causal)
+    pallas = jax_flash_attention(*(jnp.asarray(a) for a in arrays), causal=causal)
+    np.testing.assert_allclose(_f32(out), _f32(pallas), atol=TOL["float32"],
+                               rtol=TOL["float32"])
+
+
+def test_one_pass_tf32_misses_the_fp32_gate():
+    """Why three products: one TF32 product a matmul (each operand rounded
+    once) is off the Pallas kernel by more than the 2e-5 gate at Gemma-2B's
+    head dim, where the 3xTF32 emulation is within it."""
+    arrays = _inputs((1, 130, 2, 256), "float32", seed=5)
+    q, k, v = (numpy_to_tensor(a, "cpu") for a in arrays)
+    r = tf32_round
+    s = torch.einsum("bqhd,bkhd->bhqk", r(q), r(k)) * 256 ** -0.5
+    one_pass = torch.einsum("bhqk,bkhd->bqhd", r(torch.softmax(s, dim=-1)), r(v))
+    pallas = _f32(jax_flash_attention(*(jnp.asarray(a) for a in arrays)))
+    three = _f32(flash_attention_3xtf32_reference(q, k, v))
+    gate = TOL["float32"] * (1 + np.abs(pallas))
+    assert (np.abs(three - pallas) <= gate).all()
+    assert (np.abs(_f32(one_pass) - pallas) > gate).any()
+
+
+@pytest.mark.parametrize("dim,dtype,runs", [
+    (32, torch.float32, False), (33, torch.float32, True), (96, torch.float32, True),
+    (256, torch.float32, True), (257, torch.float32, False), (96, torch.bfloat16, False),
+    (96, torch.float16, False)])
+def test_runs_3xtf32_names_the_kernel_dims(dim, dtype, runs):
+    """fp32 at head dims 33-256 (padded widths 64-256) runs the 3xTF32
+    kernel; fp32 at 32 and below or past 256, and bf16 / fp16, do not."""
+    assert runs_3xtf32(dim, dtype) is runs
+
+
+def test_3xtf32_reference_takes_float32_only():
+    q, k, v = _good((1, 8, 2, 64))
+    with pytest.raises(TypeError):
+        flash_attention_3xtf32_reference(q.bfloat16(), k.bfloat16(), v.bfloat16())
+

@@ -13,7 +13,8 @@ TLS on the sync HTTP client (the same keywords, behind an HTTPS front with
 an ``openssl`` self-signed certificate), ``GrpcInferenceServer``'s
 ``compression`` (a gzip'd response both packages' gRPC clients decode) and
 JAX's constructor order, ``ServerCore(name=...)``,
-``sharded_forward(module_apply=...)`` and ``infer(decoupled_ok=True)``.
+``sharded_forward(module_apply=...)``, ``infer(decoupled_ok=True)`` and JAX's
+positional order in ``LongContextEncoderModel`` and ``PrefillDecoderModel``.
 """
 
 import importlib
@@ -434,3 +435,72 @@ def test_decoupled_ok_runs_the_stream_to_a_list():
     assert outputs(got) == outputs(want)
     assert ours.statistics("repeat_int32")["model_stats"][0]["inference_count"] == \
         theirs.statistics("repeat_int32")["model_stats"][0]["inference_count"] == 1
+
+
+# -- JAX's positional order in two model constructors (ROADMAP C11-C12) --------
+
+
+def _positional(cls):
+    """The names a caller may pass by position, in order."""
+    import inspect
+
+    return [name for name, p in inspect.signature(cls.__init__).parameters.items()
+            if name != "self" and p.kind is inspect.Parameter.POSITIONAL_OR_KEYWORD]
+
+
+@pytest.mark.parametrize("module,cls", [("long_context", "LongContextEncoderModel"),
+                                        ("decoder_prefill", "PrefillDecoderModel")])
+def test_model_positional_parameters_are_jax_ones(module, cls):
+    """C11, C12: the positional parameters of both constructors are JAX's,
+    in JAX's order; the port's own (``device``, ``mesh``, ``decoder``) are
+    keyword-only."""
+    port = getattr(importlib.import_module(f"client_tpu_torch.models.{module}"), cls)
+    jax_cls = getattr(importlib.import_module(f"client_tpu.models.{module}"), cls)
+    assert _positional(port) == _positional(jax_cls)
+
+
+def test_long_context_encoder_takes_n_devices_fourth():
+    """C11: ``LongContextEncoderModel(64, 4, 0, 1)`` builds the same encoder in
+    both packages: JAX's takes ``n_devices`` = 1 in fourth place (its default
+    mode, ring, over one device), the port's too (its default mode, flash, on
+    one device; ``attention`` is JAX's fifth parameter and a keyword here). On
+    the JAX model's weights both give the same encoding within the JAX flash
+    tests' 2e-5."""
+    import jax
+    import jax.numpy as jnp
+
+    from client_tpu.models.long_context import LongContextEncoderModel as JaxEncoder
+    from client_tpu_torch.models.long_context import LongContextEncoderModel, load_jax_params
+
+    port = LongContextEncoderModel(64, 4, 0, 1, device="cpu")
+    jax_model = JaxEncoder(64, 4, 0, 1)
+    assert (port.encoder.dim, port.encoder.heads, port.encoder.attention) == (64, 4, "flash")
+    assert [(t.name, t.datatype, t.shape) for t in port.inputs() + port.outputs()] == \
+        [(t.name, t.datatype, t.shape) for t in jax_model.inputs() + jax_model.outputs()]
+    keys = jax.random.split(jax.random.PRNGKey(0), 4)
+    load_jax_params(port, {name: np.asarray(jax.random.normal(key, (64, 64), jnp.float32)
+                                            * 64 ** -0.5)
+                           for name, key in zip(("wq", "wk", "wv", "wo"), keys)})
+    x = np.random.default_rng(11).standard_normal((96, 64)).astype(np.float32)
+    got = port.execute({"sequence": x}, {})["encoded"]
+    want = np.asarray(jax_model.execute({"sequence": x}, {})["encoded"])
+    np.testing.assert_allclose(np.asarray(torch.as_tensor(got)), want, atol=2e-5, rtol=2e-5)
+
+
+def test_prefill_decoder_takes_a_positional_mesh():
+    """C12: ``PrefillDecoderModel(True, 0, mesh)`` builds its TP model over
+    that mesh in both packages (a 2-way ``model`` axis of CPU devices)."""
+    import jax
+
+    from client_tpu.models.decoder_prefill import PrefillDecoderModel as JaxPrefill
+    from client_tpu_torch.models.decoder_prefill import PrefillDecoderModel
+    from client_tpu_torch.parallel import Mesh, take_devices
+
+    jax_mesh = jax.sharding.Mesh(np.array(jax.devices("cpu")[:2]), ("model",))
+    mesh = Mesh(take_devices(2, "cpu"), ("model",))
+    theirs = JaxPrefill(True, 0, jax_mesh)
+    ours = PrefillDecoderModel(True, 0, mesh)
+    assert theirs._inner._mesh is jax_mesh
+    assert ours._decoder._mesh is mesh
+    assert ours.name == theirs.name == "decoder_lm_tp_prefill"
+    assert ours.tp_degree == 2 and ours.mesh_degrees == {"model": 2}
